@@ -1,0 +1,328 @@
+"""Smoke run of the PyTorch port (cudaneuralrender_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases; any failure exits non-zero and nothing is caught:
+  1. require a CUDA device; print the card's name and power limit;
+  2. build the march kernel (csrc/march.cu, nvcc for sm_90a) and print the
+     build time and ptxas's register / shared-memory report;
+  3. hold the kernel against its plain PyTorch version on the same CUDA
+     tensors: csg_demo rays at 256x256 from Camera(rotation_y=30,
+     rotation_x=-20), for the staged renderer's three kinds of call
+     (coarse, refine rung 0, terminal rung);
+  4. drive the main path — ``Renderer(...).render`` with the staged
+     mixed-precision config — at 1920x1080 with the csg_demo weights,
+     counting kernel launches, then the 256x256 golden render against
+     examples/assets/csg_demo.png;
+  5. time 5 warm 1080p frames; record the inputs of every march call of
+     one more frame and hold the kernel against its plain version on each
+     (the coarse pass over 2M rays and the retuned refine rungs); time the
+     coarse pass both ways; profile one more frame (device time per
+     kernel, each march launch, the device's idle share).
+The line before the last is a JSON object of the kernels' launches, errors
+and times; the last line is {"ok": true, "device": {...}}.
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# The staged path's coarse call, refine rung 0 and terminal rung:
+# (name, march_eps, num_steps, relax_omega).
+VARIANTS = (
+    ("coarse", 0.05, None, 1.6),
+    ("refine_rung0", 1e-6, 16, 0.0),
+    ("terminal_rung", 1e-6, None, 1.6),
+)
+# Kernel vs plain: FP32 in two summation orders (sequential FMA in the
+# kernel, cuBLAS in the plain version), so a ray sitting at the epsilon may
+# converge one step apart.
+MIN_CONV_AGREE = 0.999
+MAX_T_ERR = 1e-4
+MIN_RESOLVE_EQUAL = 0.99
+CAMERA = dict(rotation_y=30.0, rotation_x=-20.0)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+ASSET = os.path.join(ROOT, "examples", "assets", "csg_demo.npz")
+GOLDEN = os.path.join(ROOT, "examples", "assets", "csg_demo.png")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def refine_entry(state, origin, dirs, config):
+    """The refine phase's entry: near set (converged or active) re-marked
+    active, converged cleared, budget rebuilt as tfar - (t - tnear)."""
+    from cudaneuralrender_torch.ops import march
+
+    near = state.converged | state.active
+    tnear, tfar, bhit = march.intersect_sphere(
+        origin, dirs, config.bound_center, config.bound_radius)
+    budget = torch.where(bhit, tfar - (state.t - torch.clamp(tnear, min=0.0)), 0.0)
+    return march.MarchState(t=state.t, budget=budget, active=near,
+                            converged=torch.zeros_like(near), steps=state.steps)
+
+
+def agreement(kernel_out, plain_out) -> dict:
+    (k, k_steps), (p, p_steps) = kernel_out, plain_out
+    both = k.converged & p.converged
+    err = (k.t - p.t).abs()[both]
+    return dict(
+        conv_agree=(k.converged == p.converged).float().mean().item(),
+        max_abs_err=err.max().item() if err.numel() else 0.0,
+        resolve_equal=(k_steps == p_steps).float().mean().item(),
+        new_steps=(int(k.steps), int(p.steps)),
+        n_converged=int(both.sum()),
+    )
+
+
+def compare_kernel_with_plain(params, config, origin, dirs):
+    """Run each variant through the kernel and the plain version on the
+    same inputs (each variant starts from the plain output of the one
+    before). Returns {variant: agreement dict}."""
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import march
+
+    state = march.init_state(origin, dirs, config.bound_center, config.bound_radius)
+    result = {}
+    for name, eps, num_steps, omega in VARIANTS:
+        if name == "refine_rung0":
+            state = refine_entry(state, origin, dirs, config)
+        kw = dict(march_eps=eps, num_steps=num_steps, relax_omega=omega, return_resolve=True)
+        k = megakernel.march_state(params, origin, dirs, state, config, **kw)
+        p = megakernel.march_state_plain(params, origin, dirs, state, config, **kw)
+        result[name] = agreement(k, p)
+        state = p[0]
+    return result
+
+
+def check_agreement(result: dict) -> None:
+    for name, a in result.items():
+        bad = []
+        if a["conv_agree"] < MIN_CONV_AGREE:
+            bad.append(f"converged flags agree on {a['conv_agree']:.5f} < {MIN_CONV_AGREE}")
+        if a["max_abs_err"] > MAX_T_ERR:
+            bad.append(f"max |dt| {a['max_abs_err']:.3g} > {MAX_T_ERR}")
+        if a["resolve_equal"] < MIN_RESOLVE_EQUAL:
+            bad.append(f"resolve steps equal on {a['resolve_equal']:.5f} < {MIN_RESOLVE_EQUAL}")
+        if a["new_steps"][0] != a["new_steps"][1]:
+            bad.append(f"new_steps kernel {a['new_steps'][0]} != plain {a['new_steps'][1]}")
+        if a["n_converged"] == 0:
+            bad.append("no ray converged in both")
+        if bad:
+            raise RuntimeError(f"kernel disagrees with its plain version ({name}): "
+                               + "; ".join(bad))
+
+
+def golden_check(img: np.ndarray, golden: np.ndarray) -> tuple:
+    """IoU of the hit masks and the share of common-hit pixels within 2
+    u8 levels (the bar of tests/test_artifact.py)."""
+    hit_g, hit_o = golden[..., 3] > 0, img[..., 3] > 0
+    iou = (hit_g & hit_o).sum() / max((hit_g | hit_o).sum(), 1)
+    fg = hit_g & hit_o
+    diff = np.abs(img[..., :3].astype(int) - golden[..., :3].astype(int))
+    return float(iou), float((diff.max(axis=-1)[fg] <= 2).mean())
+
+
+def record_march_calls(renderer, cam) -> list:
+    """Render one frame, recording (origin, dirs, state, config, frame,
+    kwargs) of every march_state call it makes, inputs cloned."""
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import march
+
+    calls = []
+    real = megakernel.march_state
+
+    def recording(params, origin, dirs, state, config, frame=0.0, **kw):
+        calls.append((origin.clone(), dirs.clone(),
+                      march.MarchState(*(x.clone() for x in state)), config, frame, kw))
+        return real(params, origin, dirs, state, config, frame, **kw)
+
+    megakernel.march_state = recording
+    try:
+        renderer.render(cam)
+    finally:
+        megakernel.march_state = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def compare_recorded_calls(params, calls) -> dict:
+    """Kernel vs plain version on the inputs of each recorded call."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    result = {}
+    for i, (origin, dirs, state, config, frame, kw) in enumerate(calls):
+        kw = dict(kw, return_resolve=True)
+        k = megakernel.march_state(params, origin, dirs, state, config, frame, **kw)
+        p = megakernel.march_state_plain(params, origin, dirs, state, config, frame, **kw)
+        result[f"call{i}_{dirs.shape[0]}lanes_steps{kw.get('num_steps')}"] = agreement(k, p)
+    return result
+
+
+def device_breakdown(renderer, cam) -> dict:
+    """torch.profiler over one warm frame: device time per kernel name,
+    each march kernel launch, and the device's idle share of the same
+    profiled frame (the profiler's host overhead is inside that frame, so
+    the idle share is an upper bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        renderer.render(cam)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    busy_us, reach = 0.0, spans[0][0]
+    per_name = {}
+    for start, end, name in spans:
+        busy_us += max(end, reach) - max(start, reach)
+        reach = max(reach, end)
+        per_name[name[:80]] = per_name.get(name[:80], 0.0) + (end - start) / 1e3
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:12]
+    return dict(
+        wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+        idle_share=1.0 - busy_us / 1e3 / wall_ms, n_device_ops=len(spans),
+        march_kernel_ms=[(e - s) / 1e3 for s, e, n in spans if "march_kernel" in n],
+        top_kernels_ms=top,
+    )
+
+
+def time_cuda(fn, reps: int) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("error: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    os.environ.setdefault("CNR_SCHEDULE_MEMO", "")  # no learned schedules from disk
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import build, megakernel
+    from cudaneuralrender_torch.ops import camera as camera_lib
+    from cudaneuralrender_torch.utils import image_io
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = card_line()
+    print(card, flush=True)  # name, power limit
+
+    # 2. build
+    t0 = time.perf_counter()
+    build.load_library()
+    print(f"build: {time.perf_counter() - t0:.2f} s ({build.library_path()})")
+    print(build.BUILD_LOG.strip() or "(library already built)", flush=True)
+
+    params = cnr.load(ASSET, device=dev)
+
+    # 3. kernel vs plain at 256x256
+    cfg256 = cnr.RenderConfig(width=256, height=256)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**CAMERA), dev)
+    origin, dirs = camera_lib.generate_rays(c2w, 256, 256, cfg256.focal)
+    result = compare_kernel_with_plain(params, cfg256, origin, dirs)
+    torch.cuda.synchronize()
+    for name, a in result.items():
+        print(f"compare {name}: {json.dumps(a)}")
+    check_agreement(result)
+    max_abs_err = max(a["max_abs_err"] for a in result.values())
+
+    # 4. the main path at 1080p, counting launches
+    cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged")
+    renderer = cnr.Renderer(params, cfg)
+    cam = cnr.Camera(**CAMERA)
+    megakernel.KERNEL_LAUNCHES = 0
+    img = renderer.render(cam)
+    torch.cuda.synchronize()
+    launches = megakernel.KERNEL_LAUNCHES
+    print(f"main path 1080p: {launches} kernel launches, stats {json.dumps(renderer.last_stats)}")
+    if launches == 0:
+        raise RuntimeError("the 1080p staged render never launched the march kernel")
+    if tuple(img.shape) != (1080, 1920, 4) or not bool(torch.isfinite(img).all()):
+        raise RuntimeError(f"bad 1080p image: shape {tuple(img.shape)}")
+    fg = (img[..., 3] > 0).float().mean().item()
+    print(f"main path 1080p: foreground fraction {fg:.4f}")
+    if not 0.01 < fg < 0.9:
+        raise RuntimeError(f"1080p foreground fraction {fg} outside (0.01, 0.9)")
+
+    gold_cfg = cnr.RenderConfig(width=256, height=256, scene="neural_raw", max_steps=500,
+                                march_impl="staged")
+    ours = cnr.Renderer(params, gold_cfg).render_frame(cam)
+    iou, frac2 = golden_check(ours, image_io.load_png(GOLDEN))
+    print(f"golden 256x256: IoU {iou:.5f}, {frac2:.5f} of foreground within 2 levels")
+    if iou < 0.99 or frac2 < 0.95:
+        raise RuntimeError(f"golden render off: IoU {iou}, within-2 {frac2}")
+
+    # 5. timing
+    frame_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renderer.render(cam)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"1080p staged frame: median {statistics.median(frame_ms):.3f} ms over 5 warm "
+          f"frames {[round(x, 3) for x in frame_ms]} [{card}]")
+
+    # 5b. kernel vs plain at the main path's own sizes: the inputs of every
+    # march call of one warm 1080p frame (the coarse pass first, then the
+    # retuned rungs), and the coarse pass timed both ways.
+    calls = record_march_calls(renderer, cam)
+    full = compare_recorded_calls(params, calls)
+    for name, a in full.items():
+        print(f"compare 1080p {name}: {json.dumps(a)}")
+    check_agreement(full)
+    max_abs_err = max([max_abs_err] + [a["max_abs_err"] for a in full.values()])
+
+    origin, dirs, state, ccfg, frame, kw = calls[0]
+    if dirs.shape[0] != cfg.num_rays or kw.get("march_eps") != cfg.coarse_eps:
+        raise RuntimeError(f"the frame's first march call is not the coarse pass: {kw}")
+    ms = time_cuda(
+        lambda: megakernel.march_state(params, origin, dirs, state, ccfg, frame, **kw), 5)
+    plain_ms = time_cuda(
+        lambda: megakernel.march_state_plain(params, origin, dirs, state, ccfg, frame, **kw), 3)
+    print(f"coarse march 1080p ({dirs.shape[0]} rays): kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms [{card}]")
+
+    print(f"breakdown 1080p frame: {json.dumps(device_breakdown(renderer, cam))} [{card}]")
+
+    kernels = [{
+        "name": "march_kernel",
+        "route": "cuda",
+        "source": "cudaneuralrender_torch/csrc/march.cu",
+        "replaces": "cudaneuralrender_tpu/pallas/megakernel.py:45",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

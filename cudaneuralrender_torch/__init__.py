@@ -1,0 +1,57 @@
+"""cudaneuralrender_torch — the PyTorch/CUDA port of cudaneuralrender_tpu.
+
+A neural-SDF sphere-trace renderer for NVIDIA Hopper: load Keras-HDF5 SDF
+networks, march them with a hand-written CUDA kernel (csrc/march.cu), and
+shade with facing-ratio or matcap. The JAX package beside it is the
+reference this package is tested against; this package never imports JAX.
+
+Quick start::
+
+    import cudaneuralrender_torch as cnr
+
+    params = cnr.load("examples/assets/csg_demo.h5", device="cuda")
+    cfg = cnr.RenderConfig(width=512, height=512, march_impl="staged")
+    img = cnr.Renderer(params, cfg).render_frame(cnr.Camera.from_cli(ry=45.0))
+"""
+
+__version__ = "0.1.0"
+
+from .models import mlp
+from .models.checkpoint import load, load_keras_h5, load_pytree, save_pytree
+from .models.mlp import MLP, DenseParams, from_numpy_params, init_mlp
+from .ops import camera, compaction, march, sdf, shading
+from .ops.camera import Camera
+from .render.renderer import (
+    Renderer,
+    render_image,
+    render_staged,
+    reset_schedule_memo,
+    tune_caps,
+)
+from .utils import image_io
+from .utils.config import RenderConfig
+
+__all__ = [
+    "Camera",
+    "DenseParams",
+    "MLP",
+    "RenderConfig",
+    "Renderer",
+    "camera",
+    "compaction",
+    "from_numpy_params",
+    "image_io",
+    "init_mlp",
+    "load",
+    "load_keras_h5",
+    "load_pytree",
+    "march",
+    "mlp",
+    "render_image",
+    "render_staged",
+    "reset_schedule_memo",
+    "save_pytree",
+    "sdf",
+    "shading",
+    "tune_caps",
+]

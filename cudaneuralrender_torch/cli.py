@@ -1,0 +1,148 @@
+"""Command-line interface: render one frame of a neural SDF.
+
+The reference binary's flag surface (src/main.cpp:536-631), as the JAX
+package's CLI has it, for the ``--single`` path:
+  -i input geometry (.h5/.npz)  REQUIRED
+  -o output path                 (default: {input basename}.png)
+  -H/-W height/width             (default 512)
+  -M matcap path                 (enables matcap shading)
+  -rx/-ry rotation degrees, -z zoom (default 2 -> eye at distance 2)
+  --single   render one frame and exit (prints the MTexels/s line)
+  --animation  4-input (x,y,z,frame) mode
+plus --scene, --steps, --march, --normal-mode, --stats, --parity-flip and
+-d/--device (default cuda). With ``cuda`` and no card the CLI fails; the
+CPU is used only when asked for with ``-d cpu``.
+
+``--spin``, ``--serve``, ``--profile``, ``--fault-inject`` and ``--pallas``
+are not ported yet: they print so and exit with code 2.
+
+Run: python -m cudaneuralrender_torch.cli -i examples/assets/csg_demo.h5 --single
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+NOT_PORTED = ("spin", "serve", "profile", "fault_inject", "pallas")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="cnr-render-torch",
+        description="neural-SDF sphere-trace renderer (PyTorch/CUDA)",
+    )
+    p.add_argument("-i", dest="input", required=True, help="neural geometry (.h5/.npz)")
+    p.add_argument("-o", dest="output", default=None, help="output path")
+    p.add_argument("-H", dest="height", type=int, default=512)
+    p.add_argument("-W", dest="width", type=int, default=512)
+    p.add_argument("-M", dest="matcap", default=None, help="matcap PNG (enables matcap shading)")
+    p.add_argument("-rx", dest="rx", type=float, default=0.0)
+    p.add_argument("-ry", dest="ry", type=float, default=0.0)
+    p.add_argument("-rz", dest="rz", type=float, default=0.0,
+                   help="accepted for reference parity; orbit camera ignores it")
+    p.add_argument("-z", dest="zoom", type=float, default=2.0)
+    p.add_argument("-d", "--device", default="cuda",
+                   help="torch device to render on (default cuda; cpu only when asked)")
+    p.add_argument("--single", action="store_true", help="render one frame and exit")
+    p.add_argument("--animation", action="store_true", help="4-input (x,y,z,frame) mode")
+    p.add_argument("--scene", default=None, help="scene composition (default: neural_raw)")
+    p.add_argument("--steps", type=int, default=6000, help="max march steps")
+    p.add_argument("--march", choices=("while", "fori", "staged", "megakernel"),
+                   default="staged")
+    p.add_argument("--normal-mode", choices=("autodiff", "tetrahedron"), default="autodiff")
+    p.add_argument("--parity-flip", action="store_true",
+                   help="reproduce the reference's 180° savePNG orientation")
+    p.add_argument("--stats", action="store_true",
+                   help="print a JSON line of per-frame render stats")
+    p.add_argument("--spin", action="store_true", help="360-frame turntable (not ported)")
+    p.add_argument("--serve", action="store_true", help="browser viewer (not ported)")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--profile", default=None, metavar="DIR", help="(not ported)")
+    p.add_argument("--fault-inject", type=int, default=0, metavar="N", help="(not ported)")
+    p.add_argument("--pallas", action="store_true", help="(not ported)")
+    return p
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    for flag in NOT_PORTED:
+        if getattr(args, flag):
+            print(f"error: --{flag.replace('_', '-')} is not yet ported to the "
+                  "PyTorch package (see ROADMAP.md)", file=sys.stderr)
+            return 2
+
+    import torch
+
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.utils import image_io
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda but no CUDA device is available "
+              "(pass -d cpu to render on the CPU)", file=sys.stderr)
+        return 1
+
+    params = cnr.load(args.input, device=device)
+    print(f"Model initialized... ({cnr.mlp.num_params(params)} params, "
+          f"layers {cnr.mlp.layer_sizes(params)})")
+
+    num_inputs = 4 if args.animation else 3
+    model_in = cnr.mlp.layer_sizes(params)[0]
+    if model_in != num_inputs:
+        detail = ("--animation needs a 4-input (x,y,z,frame) model" if num_inputs == 4
+                  else "this model is 4-input — pass --animation")
+        print(f"error: model {args.input!r} expects {model_in} inputs; {detail}",
+              file=sys.stderr)
+        return 2
+
+    matcap = None
+    shading = "facing"
+    if args.matcap:
+        matcap = image_io.load_matcap(args.matcap)
+        shading = "matcap"
+
+    cfg = cnr.RenderConfig(
+        width=args.width, height=args.height, max_steps=args.steps,
+        scene=args.scene or "neural_raw", shading=shading,
+        normal_mode=args.normal_mode, num_inputs=num_inputs, march_impl=args.march,
+    ).validate()
+    renderer = cnr.Renderer(params, cfg, matcap)
+    camera = cnr.Camera.from_cli(rx=args.rx, ry=args.ry, zoom=args.zoom)
+
+    base = os.path.basename(args.input)
+    path = args.output or f"{base}.png"
+    t0 = time.perf_counter()
+    rgba = renderer.render(camera, 0.0)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    if args.stats:
+        print(json.dumps({"frame": 0.0, "ms": round(dt * 1e3, 2), "device": str(device),
+                          **renderer.last_stats}), flush=True)
+    img = image_io.to_uint8_image(rgba.detach().cpu().numpy(), parity_flip=args.parity_flip)
+    if path.lower().endswith(".ppm"):
+        image_io.save_ppm(path, img)
+    else:
+        image_io.save_png(path, img)
+    print(f"saving frame: {path}")
+    n_tex = args.width * args.height
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    print(
+        "volumeRender, Throughput = %.4f MTexels/s, Time = %.5f s, Size = %u Texels, "
+        "NumDevsUsed = %u, Workgroup = %u"
+        % (1.0e-6 * n_tex / dt, dt, n_tex, n_dev, 0)
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,107 @@
+"""Build and load the package's CUDA kernels.
+
+The sources under ``cudaneuralrender_torch/csrc/`` compile with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds). The build runs at
+first CUDA use, never at import, into ``cudaneuralrender_torch/build/``
+(listed in .gitignore) under a name keyed by a hash of the sources and
+flags, so a second run reuses it. A missing ``nvcc`` or a failed build
+raises: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+#: What the last build printed (ptxas registers / shared memory / spills);
+#: empty when the library came from an earlier build.
+BUILD_LOG = ""
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def library_path() -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            digest.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libcnr_kernels_{digest.hexdigest()[:16]}.so")
+
+
+def _build(out: str) -> None:
+    global BUILD_LOG
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
+            capture_output=True, text=True, timeout=900,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    BUILD_LOG = proc.stdout + proc.stderr
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built from ``csrc/`` on first use."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = library_path()
+        if not os.path.exists(path):
+            _build(path)
+        lib = ctypes.CDLL(path)
+        lib.cnr_march.argtypes = [
+            _I,                      # device
+            _P, _P, _P, _P, _P, _P,  # dirs, origin, t0, budget0, active0, steps0
+            _P, _P,                  # weights, biases
+            _I, _I, _I, _F,          # n_layers, hidden, n_inputs, frame
+            _I, _I, _I, _F, _F,      # n, max_steps, num_steps, eps, omega
+            _P, _P, _P, _P, _P,      # t, budget, active, conv, steps (outputs)
+            _P,                      # stream
+        ]
+        lib.cnr_march.restype = _I
+        lib.cnr_error_string.argtypes = [_I]
+        lib.cnr_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return _lib

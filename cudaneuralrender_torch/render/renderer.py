@@ -1,0 +1,863 @@
+"""High-level renderer: camera + neural SDF -> image.
+
+The PyTorch counterpart of the JAX package's ``render/renderer.py`` for the
+main path: ``render_staged`` with the default mixed-precision config.
+
+A staged frame runs, in order:
+  1. camera -> rays, in block-major lane order, and the bounding-sphere init;
+  2. one run-to-dry march-kernel pass down to ``coarse_eps`` with
+     over-relaxation, recording each ray's resolve step;
+  3. the refine ladder: a difficulty-keyed entry sort of the near-surface
+     set, then rungs that each sort the actives into a prefix bucket and
+     march it in the kernel down to ``march_eps``;
+  4. in-place shading of the first refine bucket (autodiff normals), a u32
+     pack and a sort that restores image order;
+  5. ONE fetch of a small stats vector, which drives the fast-path check,
+     the overflow retry, the schedule memo and the rare host-driven
+     continuation.
+Bucket capacities are static per config, so nothing between 1 and 5 reads
+the device from the host.
+
+PyTorch runs eagerly; the JAX package's jit boundaries become plain
+function calls. JAX arrays are immutable and the staged code relies on
+that, so this module never writes into a tensor it did not just allocate:
+bundle updates (``_pr_merge``) build new tensors.
+
+Configs that select phases not ported yet raise ``NotImplementedError``
+naming their ROADMAP item (``_check_supported``).
+"""
+from __future__ import annotations
+
+import functools
+import hashlib
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..kernels import megakernel
+from ..kernels import scenes as kscenes
+from ..models import mlp
+from ..models.mlp import MLP
+from ..ops import camera as camera_lib
+from ..ops import compaction, march, sdf, shading
+from ..ops.camera import Camera
+from ..utils import image_io
+from ..utils import memo as _memo_store
+from ..utils.config import RenderConfig
+
+
+def _require_fp32_matmul() -> None:
+    """Every float32 matmul of the march and of the shading must run in
+    full FP32 on the card: TF32 keeps ~10 mantissa bits, far coarser than
+    the 1e-6 march epsilon. PyTorch's default is TF32 off; refuse to render
+    if a caller turned it on."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is True; the renderer needs "
+            "full-FP32 matmuls (set it to False)")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, {item})")
+
+
+def _check_supported(config: RenderConfig) -> None:
+    """Raise for config options whose phases this package has not ported."""
+    mixed = config.march_precision == "mixed"
+    if config.use_pallas:
+        raise _not_ported("use_pallas (the fused MLP kernel K3)", "item 7: opt-in march options")
+    if mixed and config.prepass_factor > 1:
+        raise _not_ported("prepass_factor > 1", "item 5: prepass")
+    if mixed and config.grid_res:
+        raise _not_ported("grid_res > 0", "item 6: grid")
+    if mixed and config.mid_eps > config.march_eps:
+        raise _not_ported("mid_eps > 0 (the HIGH ladder phase, K2h)", "item 7: opt-in march options")
+    if mixed and config.coarse_precision == "high":
+        raise _not_ported("coarse_precision='high' (K2h)", "item 7: opt-in march options")
+    if config.tail_pallas:
+        raise _not_ported("tail_pallas", "item 7: opt-in march options")
+    if config.relax_newton:
+        raise _not_ported("relax_newton", "item 7: opt-in march options")
+
+
+def neural_sdf_fn(params: MLP, frame, num_inputs: int = 3):
+    """Wrap MLP params as an SdfFn over (..., 3) points; num_inputs=4
+    appends the frame number as a 4th input (animation mode)."""
+
+    def fn(p: torch.Tensor) -> torch.Tensor:
+        x = p
+        if num_inputs == 4:
+            f = torch.full(p.shape[:-1] + (1,), float(frame), dtype=p.dtype, device=p.device)
+            x = torch.cat([p, f], dim=-1)
+        return mlp.apply_scalar(params, x)
+
+    return fn
+
+
+def scene_fn(params: Optional[MLP], config: RenderConfig, frame):
+    """The scene SDF for a config (plain PyTorch, differentiable)."""
+    if config.use_pallas:
+        raise _not_ported("use_pallas (the fused MLP kernel K3)", "item 7: opt-in march options")
+    neural = None if params is None else neural_sdf_fn(params, frame, config.num_inputs)
+    return sdf.make_scene(config.scene, neural)
+
+
+def shade_fn(params: Optional[MLP], config: RenderConfig, frame):
+    """Scene SDF for shading normals. Every precision runs in FP32 here, so
+    config.shade_precision selects nothing."""
+    return scene_fn(params, config, frame)
+
+
+def _device_of(params: Optional[MLP], device=None) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    return params.device if params is not None else torch.device("cpu")
+
+
+def render_image(
+    params: Optional[MLP], camera: Camera, config: RenderConfig,
+    matcap: Optional[torch.Tensor] = None, frame: float = 0.0, *, device=None,
+) -> torch.Tensor:
+    """Dense render of one frame. Returns [H, W, 4] float32 rgba in [0,1],
+    row 0 = image bottom (flip at save via image_io.to_uint8_image)."""
+    _require_fp32_matmul()
+    dev = _device_of(params, device)
+    cam_to_world, world_to_cam = camera_lib.view_matrices(camera, dev)
+    origin, dirs = camera_lib.generate_rays(
+        cam_to_world, config.height, config.width, config.focal)
+    f = scene_fn(params, config, frame)
+    if config.march_impl == "fori":
+        result = march.sphere_trace_unrolled(
+            f, origin, dirs, num_steps=config.max_steps, march_eps=config.march_eps,
+            bound_center=config.bound_center, bound_radius=config.bound_radius)
+    else:
+        result = march.sphere_trace(
+            f, origin, dirs, max_steps=config.max_steps, march_eps=config.march_eps,
+            bound_center=config.bound_center, bound_radius=config.bound_radius)
+    points = origin + dirs * result.t[:, None]
+    colors = shading.shade(
+        shade_fn(params, config, frame), points, dirs,
+        mode=config.shading, normal_mode=config.normal_mode,
+        normal_eps=config.normal_eps, world_to_cam=world_to_cam, matcap=matcap,
+    )
+    rgba = torch.where(result.hit[:, None], colors, 0.0)
+    return rgba.reshape(config.height, config.width, 4)
+
+
+def _rung_kernel_fn(params, config: RenderConfig, frame):
+    """The march kernel for the refine ladder's rungs, or None (refine
+    kernel turned off, or a scene the kernel does not compose)."""
+    if not config.refine_pallas or not kscenes.kernel_supported(config.scene):
+        return None
+
+    def run(sub: march.MarchState, sub_dirs, origin, eps, num_steps, relax_omega=0.0):
+        return megakernel.march_state(
+            params, origin, sub_dirs, sub, config, frame,
+            march_eps=eps, num_steps=num_steps, relax_omega=relax_omega)
+
+    return run
+
+
+class PackedRays(NamedTuple):
+    """Whole-image per-ray state in *packed lane order*: one reorderable
+    bundle whose buckets are prefix slices. ``pos`` carries each lane's
+    original ray index, so one final sort restores image order.
+
+    The march budget is not carried: for every ray that can still march,
+    budget == tfar(pos) - (t - tnear(pos)); buckets recompute it from
+    (pos, t) like the ray directions (``_pr_bucket``)."""
+
+    pos: torch.Tensor        # [N] int32 original ray index of this lane
+    t: torch.Tensor          # [N] distance along the ray
+    active: torch.Tensor     # [N] bool still marching
+    converged: torch.Tensor  # [N] bool hit surface
+
+
+def _pack_init(state: march.MarchState, dirs) -> PackedRays:
+    n = dirs.shape[0]
+    return PackedRays(
+        pos=torch.arange(n, dtype=torch.int32, device=dirs.device),
+        t=state.t, active=state.active, converged=state.converged,
+    )
+
+
+def _pr_sort(pr: PackedRays, mask, within=None, order=None) -> PackedRays:
+    return PackedRays(*compaction.sort_pack_leaves(mask, tuple(pr), within=within, order=order))
+
+
+def _pr_bucket(pr: PackedRays, cap: int, steps, cam_to_world, origin,
+               config: RenderConfig):
+    """Prefix bucket as (MarchState, dirs [cap,3]); directions and the
+    budget are recomputed from the carried ray indices."""
+    dirs = camera_lib.ray_dirs_from_index(
+        cam_to_world, pr.pos[:cap], config.height, config.width, config.focal)
+    tnear, tfar, bhit = march.intersect_sphere(
+        origin, dirs, config.bound_center, config.bound_radius)
+    t = pr.t[:cap]
+    budget = torch.where(bhit, tfar - (t - torch.clamp(tnear, min=0.0)), 0.0)
+    state = march.MarchState(
+        t=t, budget=budget, active=pr.active[:cap],
+        converged=pr.converged[:cap], steps=steps,
+    )
+    return state, dirs
+
+
+def _pr_merge(pr: PackedRays, sub: march.MarchState) -> PackedRays:
+    """A new bundle with a marched prefix bucket written over its head."""
+    cap = sub.t.shape[0]
+
+    def put(full, part):
+        return torch.cat([part, full[cap:]])
+
+    return pr._replace(
+        t=put(pr.t, sub.t), active=put(pr.active, sub.active),
+        converged=put(pr.converged, sub.converged),
+    )
+
+
+def _cap_for(n: int, div: int, cap_abs: int, config: RenderConfig) -> int:
+    """Lane cap of one refine rung: the tuned cap when the config carries
+    one (scaled to this bundle's ``n``), else n//div; floored at
+    compact_min."""
+    if cap_abs:
+        cap = cap_abs if n == config.num_rays else -(-cap_abs * n // config.num_rays)
+        return max(min(cap, n), config.compact_min)
+    return max(n // div, config.compact_min)
+
+
+def _zero_i32(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def _run_schedule(
+    f, origin, cam_to_world, pr: PackedRays, steps, schedule,
+    config: RenderConfig, eps, *, relax: float = 0.0, within=None,
+    rung_kernel=None, caps=None, stats_collect=None, count_stranding=False,
+):
+    """Sort -> march-prefix compaction rungs over the packed bundle.
+
+    Each (div, steps) rung sorts the actives into a dense prefix and
+    marches the first cap lanes ``steps`` more (0 = until the bucket runs
+    dry). Actives beyond the bucket stay active for the caller's
+    continuation. ``within`` bounds where actives can live; ``caps`` are
+    tuned per-rung caps; ``stats_collect`` receives each rung's entry-active
+    count; ``count_stranding`` folds actives stranded beyond a rung's cap
+    into the returned overflow. Returns (pr, steps, within, overflow).
+    """
+    n = pr.pos.shape[0]
+    stranded = _zero_i32(pr.t.device)
+    for rung_i, (div, rung_steps) in enumerate(schedule):
+        cap = _cap_for(n, div, caps[rung_i] if caps else 0, config)
+        entry_active = None
+        if stats_collect is not None or count_stranding:
+            entry_active = pr.active.sum(dtype=torch.int32)
+        if stats_collect is not None:
+            stats_collect.append(entry_active)
+        if count_stranding and cap < n:
+            stranded = torch.maximum(stranded, entry_active - cap)
+        if cap >= n:
+            # A bucket spanning the image marches densely; a terminal rung
+            # must still run to completion.
+            if rung_steps == 0:
+                state, dirs_b = _pr_bucket(pr, n, steps, cam_to_world, origin, config)
+                state = march.march_stage(
+                    f, origin, dirs_b, state, num_steps=config.max_steps,
+                    max_steps=config.max_steps, march_eps=eps, relax_omega=relax)
+                pr, steps = _pr_merge(pr, state), state.steps
+            continue
+        pr = _pr_sort(pr, pr.active, within=within)
+        sub, dirs_b = _pr_bucket(pr, cap, steps, cam_to_world, origin, config)
+        if rung_kernel is not None:
+            sub = rung_kernel(sub, dirs_b, origin, eps,
+                              None if rung_steps == 0 else rung_steps, relax_omega=relax)
+        else:
+            sub = march.march_stage(
+                f, origin, dirs_b, sub,
+                num_steps=(config.max_steps if rung_steps == 0 else rung_steps),
+                max_steps=config.max_steps, march_eps=eps, relax_omega=relax)
+        pr, steps = _pr_merge(pr, sub), sub.steps
+        within = cap
+    return pr, steps, within, stranded
+
+
+@functools.lru_cache(maxsize=8)
+def _block_order(h: int, w: int, bh: int, bw: int, device: torch.device) -> torch.Tensor:
+    """Pixel-index permutation grouping lanes into bh x bw image blocks
+    (block-major, row-major inside a block). Per-ray results do not depend
+    on lane order; the order keeps neighbouring pixels in neighbouring
+    lanes, so a warp's rays tend to need similar step counts."""
+    ys, xs = np.mgrid[0:h, 0:w]
+    key = (ys // bh) * ((w + bw - 1) // bw) + (xs // bw)
+    order = np.argsort(key.ravel(), kind="stable").astype(np.int32)
+    return torch.as_tensor(order, device=device)
+
+
+def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
+                     frame, t_init=None):
+    """The staged march: the coarse phase, then the refine ladder.
+
+    Returns (pr, steps, refine_overflow, rung_actives)."""
+    if t_init is not None:
+        raise _not_ported("warm start (t_init)", "item 2: render_sequence and warm start")
+    fine = scene_fn(params, config, frame)
+    mixed = config.march_precision == "mixed"
+    if mixed:
+        eps_a, schedule_a = config.coarse_eps, config.coarse_schedule
+    else:
+        eps_a, schedule_a = config.march_eps, config.fine_schedule
+    state = march.init_state(origin, dirs, config.bound_center, config.bound_radius)
+    relax = config.relax_omega if mixed else 0.0
+
+    if mixed and config.coarse_pallas and kscenes.kernel_supported(config.scene):
+        # The whole coarse phase as ONE run-to-dry kernel pass over the image.
+        pos0 = None
+        if config.coarse_block:
+            bh, bw = config.coarse_block
+            pos0 = _block_order(config.height, config.width, bh, bw, dirs.device)
+            dirs = camera_lib.ray_dirs_from_index(
+                cam_to_world, pos0, config.height, config.width, config.focal)
+            state = march.init_state(origin, dirs, config.bound_center, config.bound_radius)
+        state, resolve = megakernel.march_state(
+            params, origin, dirs, state, config, frame,
+            march_eps=eps_a, relax_omega=relax, return_resolve=True)
+        # The coarse resolve step is the refine phase's difficulty key;
+        # valid while pr stays in the coarse lane order.
+        pr = _pack_init(state, dirs)
+        if pos0 is not None:
+            pr = pr._replace(pos=pos0)
+        difficulty = resolve if config.ordered_packing else None
+        steps = state.steps
+    else:
+        state = march.march_stage(
+            fine, origin, dirs, state, num_steps=config.stage_steps,
+            max_steps=config.max_steps, march_eps=eps_a, relax_omega=relax)
+        pr, steps = _pack_init(state, dirs), state.steps
+        difficulty = None
+        pr, steps, _, _ = _run_schedule(
+            fine, origin, cam_to_world, pr, steps, schedule_a, config, eps_a,
+            relax=relax, within=None)
+
+    dev = dirs.device
+    refine_overflow = _zero_i32(dev)
+    rung_actives = torch.zeros((len(config.refine_schedule),), dtype=torch.int32, device=dev)
+    if mixed:
+        collect = []
+        pr, steps, _, ovf = _refine_phase(
+            fine, origin, cam_to_world, pr, steps, config, config.march_eps,
+            relax=config.relax_omega_refine,
+            rung_kernel=_rung_kernel_fn(params, config, frame),
+            schedule=config.refine_schedule, order=difficulty,
+            caps=config.refine_caps, stats_collect=collect,
+        )
+        rung_actives = torch.stack(collect)
+        refine_overflow = torch.maximum(refine_overflow, ovf)
+    return pr, steps, refine_overflow, rung_actives
+
+
+def _refine_phase(
+    f, origin, cam_to_world, pr: PackedRays, steps, config: RenderConfig,
+    eps, *, relax: float = 0.0, rung_kernel=None, schedule=None, order=None,
+    caps=None, stats_collect=None,
+):
+    """One ladder phase: re-mark the near-surface set (converged or active)
+    active, sort it into the first rung's bucket, march, then drain the
+    straggler tail through the remaining rungs. Near rays beyond the first
+    bucket (or stranded past a later rung's cap) are reported as overflow
+    so the caller retries with wider buckets."""
+    n = pr.pos.shape[0]
+    if schedule is None:
+        schedule = config.refine_schedule
+    near = pr.converged | pr.active
+    refine_count = near.sum(dtype=torch.int32)
+    if stats_collect is not None:
+        stats_collect.append(refine_count)
+    overflow = _zero_i32(near.device)
+    div0, steps0 = schedule[0]
+    cap = _cap_for(n, div0, caps[0] if caps else 0, config)
+    if cap < n:
+        # Slim entry sort: only (pos, t) ride it; the packed active prefix
+        # is a lane comparison and converged is cleared phase-wide.
+        pos, t = compaction.sort_pack_leaves(near, (pr.pos, pr.t), order=order)
+        lane = torch.arange(n, dtype=torch.int32, device=near.device)
+        pr = PackedRays(pos=pos, t=t, active=lane < refine_count,
+                        converged=torch.zeros_like(near))
+        sub, dirs_b = _pr_bucket(pr, cap, steps, cam_to_world, origin, config)
+        # Constant over-relaxation is off in the phase's first rung: its
+        # bulk sits ~coarse_eps from the surface head-on, where a fixed
+        # omega > 1 overshoots and backtracks every other step.
+        if rung_kernel is not None:
+            sub = rung_kernel(sub, dirs_b, origin, eps, None if steps0 == 0 else steps0)
+        else:
+            sub = march.march_stage(
+                f, origin, dirs_b, sub,
+                num_steps=(config.max_steps if steps0 == 0 else steps0),
+                max_steps=config.max_steps, march_eps=eps)
+        pr, steps = _pr_merge(pr, sub), sub.steps
+        within = cap
+        overflow = torch.clamp(refine_count - cap, min=0)
+    else:
+        state, dirs_b = _pr_bucket(
+            pr._replace(active=near, converged=torch.zeros_like(near)), n, steps,
+            cam_to_world, origin, config)
+        state = march.march_stage(
+            f, origin, dirs_b, state, num_steps=config.max_steps,
+            max_steps=config.max_steps, march_eps=eps, relax_omega=relax)
+        pr, steps = _pr_merge(pr, state), state.steps
+        within = n
+    pr, steps, within, stranded = _run_schedule(
+        f, origin, cam_to_world, pr, steps, schedule[1:], config, eps,
+        relax=relax, within=within, rung_kernel=rung_kernel,
+        caps=(caps[1:] if caps else None), stats_collect=stats_collect,
+        count_stranding=True,
+    )
+    return pr, steps, within, torch.maximum(overflow, stranded)
+
+
+def _stage_step(params, origin, dirs, state, config: RenderConfig, frame, num_steps):
+    """One continuation stage: march up to num_steps dense steps."""
+    f = scene_fn(params, config, frame)
+    return march.march_stage(
+        f, origin, dirs, state, num_steps=num_steps,
+        max_steps=config.max_steps, march_eps=config.march_eps)
+
+
+def _shade_final(params, origin, dirs, t, hit, world_to_cam, config: RenderConfig,
+                 matcap, frame):
+    """Dense shading of image-order (t, hit) — the slow path's last step."""
+    points = origin + dirs * t[:, None]
+    colors = shading.shade(
+        shade_fn(params, config, frame), points, dirs,
+        mode=config.shading, normal_mode=config.normal_mode,
+        normal_eps=config.normal_eps, world_to_cam=world_to_cam, matcap=matcap,
+    )
+    rgba = torch.where(hit[:, None], colors, 0.0)
+    if config.rgba_packed:
+        # Same u8 quantization as the fast path's packed restore.
+        rgba = shading.unpack_rgba_u32(shading.pack_rgba_u32(rgba))
+    return rgba.reshape(config.height, config.width, 4)
+
+
+def _conv_within(config: RenderConfig, n: int | None = None):
+    """Bound on where converged lanes can live after _scheduled_march: in
+    the mixed path every hit lives in the first refine rung's bucket."""
+    if config.march_precision != "mixed":
+        return None
+    if n is None:
+        n = config.num_rays
+    cap0 = _cap_for(
+        n, config.refine_schedule[0][0],
+        config.refine_caps[0] if config.refine_caps else 0, config,
+    )
+    return cap0 if cap0 < n else None
+
+
+def _shade_capacity(config: RenderConfig, n: int, within) -> int:
+    """Lane count _shade_packed shades (and that can hold hits)."""
+    if within is not None and within < n:
+        return n  # in-place prefix shade: every hit is inside `within`
+    return max(n // config.shade_div, config.compact_min)
+
+
+def _shade_packed(params, origin, cam_to_world, pr: PackedRays, world_to_cam,
+                  config: RenderConfig, matcap, frame, within=None):
+    """Shade hit pixels in packed lane order, then restore image order.
+
+      * ``within`` bound (mixed march): shade that prefix in place, masked
+        by the converged flags — no hit-pack sort;
+      * no bound, bucket smaller than the image (full-precision march):
+        hits sort into an N/shade_div bucket (the caller re-shades densely
+        if hit_count exceeds it);
+      * bucket >= image: shade densely.
+
+    Returns (rgba [H,W,4], pr unchanged, hit_count)."""
+    n = pr.pos.shape[0]
+    cap = _shade_capacity(config, n, within)
+    hit_count = pr.converged.sum(dtype=torch.int32)
+    f = shade_fn(params, config, frame)
+
+    def shade_region(pos, t, conv):
+        sub_dirs = camera_lib.ray_dirs_from_index(
+            cam_to_world, pos, config.height, config.width, config.focal)
+        points = origin + sub_dirs * t[:, None]
+        colors = shading.shade(
+            f, points, sub_dirs, mode=config.shading,
+            normal_mode=config.normal_mode, normal_eps=config.normal_eps,
+            world_to_cam=world_to_cam, matcap=matcap)
+        return torch.where(conv[:, None], colors, 0.0)
+
+    if within is not None and within < n:
+        region, pos_sh = within, pr.pos
+        region_colors = shade_region(pr.pos[:region], pr.t[:region], pr.converged[:region])
+    elif cap >= n:
+        region, pos_sh = n, pr.pos
+        region_colors = shade_region(pr.pos, pr.t, pr.converged)
+    else:
+        # Slim hit-pack: only (pos, t, conv) ride the sort; the caller
+        # keeps the unsorted bundle for the slow-path restore.
+        region = cap
+        pos_sh, t_sh, conv_sh = compaction.sort_pack_leaves(
+            pr.converged, (pr.pos, pr.t, pr.converged), within=within)
+        region_colors = shade_region(pos_sh[:cap], t_sh[:cap], conv_sh[:cap])
+
+    if config.rgba_packed:
+        packed = shading.pack_rgba_u32(region_colors)
+        if region < n:
+            packed = torch.cat([packed, packed.new_zeros(n - region)])
+        (restored,) = compaction.sort_restore_leaves(pos_sh, (packed,))
+        rgba = shading.unpack_rgba_u32(restored)
+    else:
+        colors = region_colors
+        if region < n:
+            colors = torch.cat([colors, colors.new_zeros((n - region, 4))])
+        (rgba,) = compaction.sort_restore_leaves(pos_sh, (colors,))
+    return rgba.reshape(config.height, config.width, 4), pr, hit_count
+
+
+def _restore_state(pr: PackedRays, steps, origin, dirs,
+                   config: RenderConfig) -> march.MarchState:
+    """Restore a packed bundle's march state to image order (slow path);
+    the budget is rebuilt from budget == tfar - (t - tnear)."""
+    t, active, converged = compaction.sort_restore_leaves(
+        pr.pos, (pr.t, pr.active, pr.converged))
+    tnear, tfar, bhit = march.intersect_sphere(
+        origin, dirs, config.bound_center, config.bound_radius)
+    budget = torch.where(bhit, tfar - (t - torch.clamp(tnear, min=0.0)), 0.0)
+    return march.MarchState(
+        t=t, budget=budget, active=active, converged=converged,
+        steps=torch.tensor(int(steps), dtype=torch.int32, device=dirs.device),
+    )
+
+
+def _render_scheduled(params, camera: Camera, config: RenderConfig, matcap, frame):
+    """March + compacted shading of one frame, with no host sync.
+
+    Returns (rgba, packed pr, stats) with stats = [active_count,
+    steps_done, hit_count, refine_overflow, per-rung entry actives...] as
+    one int32 tensor, so the caller fetches once."""
+    _check_supported(config)
+    dev = _device_of(params)
+    cam_to_world, world_to_cam = camera_lib.view_matrices(camera, dev)
+    origin, dirs = camera_lib.generate_rays(
+        cam_to_world, config.height, config.width, config.focal)
+    pr, steps, refine_overflow, rung_actives = _scheduled_march(
+        params, cam_to_world, origin, dirs, config, frame)
+    rgba, pr, hit_count = _shade_packed(
+        params, origin, cam_to_world, pr, world_to_cam, config, matcap, frame,
+        within=_conv_within(config))
+    head = torch.stack([pr.active.sum(dtype=torch.int32), steps.to(torch.int32),
+                        hit_count, refine_overflow.to(torch.int32)])
+    return rgba, pr, torch.cat([head, rung_actives.to(torch.int32)])
+
+
+# Adaptive-schedule memo: (geometry tag, config) -> the schedule a previous
+# overflow retry (or a successful frame's per-rung stats) proved right.
+# Purely a performance hint; a stale entry is corrected by the same retry.
+_SCHEDULE_MEMO: dict = {}
+
+
+def reset_schedule_memo(clear_persisted: bool = False) -> None:
+    """Clear the in-process adaptive-schedule memo (and, with
+    ``clear_persisted=True``, the cross-process store file)."""
+    _SCHEDULE_MEMO.clear()
+    _memo_store.reset_store(clear_file=clear_persisted)
+
+
+def _config_fp(config: RenderConfig) -> str:
+    return hashlib.sha1(repr(config).encode()).hexdigest()[:16]
+
+
+def _sched_entry(config: RenderConfig) -> dict:
+    return {
+        "refine_schedule": [list(r) for r in config.refine_schedule],
+        "mid_schedule": [list(r) for r in config.mid_schedule],
+        "refine_caps": list(config.refine_caps),
+    }
+
+
+def memo_lookup(params, config: RenderConfig) -> RenderConfig:
+    """The schedule a previous frame taught for (geometry, config), or
+    ``config`` unchanged. Checks the persistent store for tagged geometries."""
+    tag = _memo_store.geom_tag(params)
+    hit = _SCHEDULE_MEMO.get((tag, config))
+    if hit is not None:
+        return hit
+    if tag is not None:
+        entry = _memo_store.store_get(f"{tag}|{_config_fp(config)}")
+        if entry:
+            try:
+                widened = config.replace(
+                    refine_schedule=tuple((int(d), int(s)) for d, s in entry["refine_schedule"]),
+                    mid_schedule=tuple((int(d), int(s)) for d, s in entry["mid_schedule"]),
+                    refine_caps=tuple(int(c) for c in entry.get("refine_caps", ())),
+                )
+                widened.validate()
+            except (KeyError, TypeError, ValueError):
+                return config  # malformed store entry: ignore it
+            _SCHEDULE_MEMO[(tag, config)] = widened
+            return widened
+    return config
+
+
+def memo_teach(params, orig_config: RenderConfig, widened: RenderConfig) -> None:
+    """Record that ``orig_config`` needs ``widened``'s schedules for this
+    geometry (following any deeper widening already learned for it)."""
+    tag = _memo_store.geom_tag(params)
+    final = _SCHEDULE_MEMO.get((tag, widened), widened)
+    _SCHEDULE_MEMO[(tag, orig_config)] = final
+    if tag is not None:
+        _memo_store.store_put(f"{tag}|{_config_fp(orig_config)}", _sched_entry(final))
+
+
+def _widen(config: RenderConfig) -> RenderConfig:
+    return config.replace(
+        refine_schedule=tuple((max(d // 2, 1), s) for d, s in config.refine_schedule),
+        mid_schedule=tuple((max(d // 2, 1), s) for d, s in config.mid_schedule),
+        # Caps double alongside, clamped at the image (a cap >= n marches
+        # densely and cannot overflow, so widening terminates).
+        refine_caps=tuple(min(c * 2, config.num_rays) for c in config.refine_caps),
+    )
+
+
+def tune_caps(config: RenderConfig, rung_actives, *, margin: float = 1.25,
+              granule: Optional[int] = None,
+              allow_grow: bool = False) -> Optional[RenderConfig]:
+    """Shrink the refine ladder's rungs to the measured near-set decay.
+
+    ``rung_actives`` are the entry-active counts of each refine rung
+    (stats[4:]). Caps are actives*margin rounded up to ``granule``, never
+    larger than the divisor default (unless ``allow_grow``, the overflow
+    recovery mode), floored at compact_min and non-increasing down the
+    ladder. Returns the tuned config, or None when nothing would shrink or
+    the config is ineligible.
+    """
+    if (
+        not config.adaptive_rungs
+        or (config.refine_caps and not allow_grow)
+        or config.march_precision != "mixed"
+        or len(rung_actives) != len(config.refine_schedule)
+    ):
+        return None
+    n = config.num_rays
+    if granule is None:
+        granule = 8192 if n >= 8192 * 32 else max(64, n // 32)
+    caps, prev, changed = [], n, False
+    for (div, _s), a in zip(config.refine_schedule, rung_actives):
+        base = max(n // div, config.compact_min)
+        want = -(-int(int(a) * margin) // granule) * granule
+        cap = max(min(want, prev) if allow_grow else min(want, base, prev),
+                  config.compact_min)
+        if cap < base:
+            changed = True
+        caps.append(cap)
+        prev = cap
+    if not (changed or allow_grow):
+        return None
+    return config.replace(refine_caps=tuple(caps))
+
+
+def _widen_or_retune(config: RenderConfig, stats) -> RenderConfig:
+    """Recovery config after a refine-bucket overflow: resize the caps from
+    the overflowing frame's own per-rung counts when that raises them,
+    else double every bucket (which guarantees termination)."""
+    stats = np.asarray(stats)
+    if len(stats) >= 4 + len(config.refine_schedule):
+        tuned = tune_caps(config.replace(refine_caps=()), stats[4:], margin=1.35,
+                          allow_grow=True)
+        if tuned is not None and tuned != config:
+            old, new = config.refine_caps, tuned.refine_caps
+            if not old or (
+                all(b >= a for a, b in zip(new, old))
+                and any(b > a for a, b in zip(new, old))
+            ):
+                return tuned
+    return _widen(config)
+
+
+def _maybe_tune(params, orig_config: RenderConfig, config: RenderConfig,
+                rung_actives, *, margin: float) -> None:
+    """Teach the memo a cap-tuned schedule from a successful frame's
+    per-rung stats (no-op when the config is ineligible)."""
+    tuned = tune_caps(config, rung_actives, margin=margin)
+    if tuned is not None:
+        memo_teach(params, orig_config, tuned)
+
+
+def schedule_ok(active_count: int, steps_done: int, refine_overflow: int,
+                config: RenderConfig) -> bool:
+    """True iff the staged program's march result is final (no overflow
+    retry, no continuation, no dense fallback needed)."""
+    if refine_overflow > 0:
+        return False
+    if active_count == 0:
+        return True
+    # Active rays with steps exhausted are acceptable in mixed mode
+    # (silhouette tolerance); "full" must re-render densely.
+    return steps_done >= config.max_steps and config.march_precision == "mixed"
+
+
+def check_fast(stats, config: RenderConfig) -> bool:
+    """True iff a staged frame's stats [active, steps, hits,
+    refine_overflow, ...] certify it as final (march final AND the shading
+    bucket held every hit)."""
+    stats = np.asarray(stats)
+    active_count, steps_done, hit_count, refine_overflow = (int(v) for v in stats[:4])
+    if not schedule_ok(active_count, steps_done, refine_overflow, config):
+        return False
+    n = config.num_rays
+    cap = _shade_capacity(config, n, _conv_within(config))
+    return cap >= n or hit_count <= cap
+
+
+def _dense_fallback(params, camera, config, matcap, frame, stats_out):
+    rgba = render_image(params, camera, config, matcap, frame)
+    if config.rgba_packed:
+        rgba = shading.unpack_rgba_u32(shading.pack_rgba_u32(rgba))
+    if stats_out is not None:
+        stats_out.update(fast_path=False, dense_fallback=True)
+    return rgba
+
+
+def render_staged(
+    params: MLP, camera: Camera, config: RenderConfig,
+    matcap: Optional[torch.Tensor] = None, frame: float = 0.0, *,
+    stats_out: Optional[dict] = None,
+) -> torch.Tensor:
+    """Staged-compaction render — the main path. Returns [H, W, 4] float
+    rgba on the parameters' device.
+
+    The whole frame is dispatched without a host sync; one fetch of the
+    stats vector then decides whether the frame is final. Leftovers
+    (bucket overflow, rays needing more than the schedule gave) are handled
+    by an overflow retry with wider buckets or a host-driven continuation.
+    """
+    _require_fp32_matmul()
+    frame = float(frame)
+    orig_config = config
+    config = memo_lookup(params, config)
+
+    rgba, pr, stats = _render_scheduled(params, camera, config, matcap, frame)
+    stats = stats.cpu().numpy()  # the one host fetch of the fast path
+    active_count, steps_done, hit_count, refine_overflow = (int(v) for v in stats[:4])
+    if stats_out is not None:
+        stats_out.update(
+            rays=config.num_rays, steps=steps_done, hits=hit_count,
+            unresolved=active_count, refine_overflow=refine_overflow,
+            fast_path=True,
+        )
+
+    if refine_overflow > 0:
+        # Refinement bucket under-provisioned: retry with buckets resized
+        # from this frame's own stats (or doubled). A bucket spanning the
+        # image cannot overflow, so this terminates.
+        widened = _widen_or_retune(config, stats)
+        if widened == config:
+            return _dense_fallback(params, camera, config, matcap, frame, stats_out)
+        result = render_staged(params, camera, widened, matcap, frame, stats_out=stats_out)
+        memo_teach(params, orig_config, widened)
+        if stats_out is not None:
+            stats_out.update(fast_path=False)
+        return result
+
+    if (
+        config.march_precision != "mixed"
+        and active_count > 0
+        and steps_done >= config.max_steps
+    ):
+        # Step-starved truncation in "full" mode: re-render densely for
+        # exact truncation semantics.
+        return _dense_fallback(params, camera, config, matcap, frame, stats_out)
+
+    n_rays = config.num_rays
+    if check_fast(stats, config):
+        _maybe_tune(params, orig_config, config, stats[4:], margin=1.35)
+        return rgba
+
+    # Slow path (rare): restore the packed state to image order and
+    # continue with host-driven stages + dense shading.
+    dev = _device_of(params)
+    cam_to_world, world_to_cam = camera_lib.view_matrices(camera, dev)
+    origin, dirs = camera_lib.generate_rays(
+        cam_to_world, config.height, config.width, config.focal)
+    full = _restore_state(pr, steps_done, origin, dirs, config)
+
+    while True:
+        active_count = int(full.active.sum())
+        steps_done = int(full.steps)
+        if active_count == 0 or steps_done >= config.max_steps:
+            break
+        stage_len = config.max_steps - steps_done
+        cap = compaction.capacity_bucket_of(active_count, n_rays, minimum=config.compact_min)
+        if cap >= n_rays:
+            full = _stage_step(params, origin, dirs, full, config, frame, stage_len)
+            continue
+        idx, valid = compaction.compact_indices(full.active, cap)
+        sub = march.MarchState(
+            t=full.t[idx], budget=full.budget[idx],
+            active=full.active[idx] & valid, converged=full.converged[idx] & valid,
+            steps=full.steps,
+        )
+        sub = _stage_step(params, origin, dirs[idx], sub, config, frame, stage_len)
+        t, budget, active, converged = compaction.scatter_state(
+            (full.t, full.budget, full.active, full.converged),
+            (sub.t, sub.budget, sub.active, sub.converged), idx, valid)
+        full = march.MarchState(t, budget, active, converged, steps=sub.steps)
+
+    if config.march_precision != "mixed" and int(full.active.sum()) > 0:
+        return _dense_fallback(params, camera, config, matcap, frame, stats_out)
+
+    if stats_out is not None:
+        stats_out.update(
+            fast_path=False, steps=int(full.steps),
+            hits=int(full.converged.sum()), unresolved=int(full.active.sum()),
+        )
+    return _shade_final(params, origin, dirs, full.t, full.converged, world_to_cam,
+                        config, matcap, frame)
+
+
+class Renderer:
+    """Stateful convenience wrapper (config + assets on the model's device)."""
+
+    def __init__(self, params: Optional[MLP], config: RenderConfig,
+                 matcap: Optional[np.ndarray] = None, *, device=None):
+        config.validate()
+        _require_fp32_matmul()
+        if config.march_impl == "staged":
+            _check_supported(config)
+        self.params = params
+        self.config = config
+        self.device = _device_of(params, device)
+        self.matcap = (
+            torch.as_tensor(np.asarray(matcap), dtype=torch.float32, device=self.device)
+            if matcap is not None else None
+        )
+        if config.shading == "matcap" and self.matcap is None:
+            raise ValueError("matcap shading requires a matcap texture")
+        #: per-frame render statistics of the most recent staged ``render``.
+        self.last_stats: dict = {}
+
+    def render(self, camera: Camera, frame: float = 0.0) -> torch.Tensor:
+        """Render to [H, W, 4] float rgba (a tensor on the model's device)."""
+        if self.config.march_impl == "megakernel":
+            return megakernel.render_image_kernel(
+                self.params, camera, self.config, self.matcap, frame)
+        if self.config.march_impl == "staged":
+            self.last_stats = {}
+            return render_staged(
+                self.params, camera, self.config, self.matcap, frame,
+                stats_out=self.last_stats)
+        return render_image(self.params, camera, self.config, self.matcap, frame,
+                            device=self.device)
+
+    def render_frame(self, camera: Camera, frame: float = 0.0, *,
+                     parity_flip: bool = False) -> np.ndarray:
+        """Render to a host uint8 [H, W, 4] image (top-down rows)."""
+        rgba = self.render(camera, frame)
+        return image_io.to_uint8_image(rgba.detach().cpu().numpy(), parity_flip=parity_flip)
+
+    def save_frame(self, path: str, camera: Camera, frame: float = 0.0) -> None:
+        img = self.render_frame(camera, frame)
+        if path.lower().endswith(".ppm"):
+            image_io.save_ppm(path, img)
+        else:
+            image_io.save_png(path, img)
