@@ -18,7 +18,17 @@ Phases; any failure exits non-zero and nothing is caught:
      one more frame and hold the kernel against its plain version on each
      (the coarse pass over 2M rays and the retuned refine rungs); time the
      coarse pass both ways; profile one more frame (device time per
-     kernel, each march launch, the device's idle share).
+     kernel, each march launch, the device's idle share);
+  6. the CSG scenes at 1080p, each composed inside the kernel: csg_demo
+     under neural_tanh, many_sphere (frame 90), many_sphere_cut (frame 90),
+     many_cylinder_cut and displacement, and the 4-input anim_demo under
+     many_sphere (frame 37). Per scene: a cold and a warm staged frame with
+     the scene's kernel launches counted, the foreground checked, the
+     median of 3 warm frames, kernel = plain version on every march call
+     of one more frame, and the coarse pass timed both ways;
+  7. the turntable: ``render_sequence`` over 24 frames of many_sphere
+     (yaw and frame number i), twice; the second call must stay on the
+     fast path and is timed; frames 0 and 23 against ``render_staged``.
 The line before the last is a JSON object of the kernels' launches, errors
 and times; the last line is {"ok": true, "device": {...}}.
 """
@@ -48,7 +58,19 @@ MIN_RESOLVE_EQUAL = 0.99
 CAMERA = dict(rotation_y=30.0, rotation_x=-20.0)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ASSET = os.path.join(ROOT, "examples", "assets", "csg_demo.npz")
+ANIM_ASSET = os.path.join(ROOT, "examples", "assets", "anim_demo.npz")
 GOLDEN = os.path.join(ROOT, "examples", "assets", "csg_demo.png")
+# Phase 6: (kernel entry, scene, frame, asset, num_inputs, the TPU compose
+# it replaces in cudaneuralrender_tpu/pallas/scenes.py).
+SCENES = (
+    ("compose_neural_tanh", "neural_tanh", 0.0, ASSET, 3, 133),
+    ("compose_many_sphere", "many_sphere", 90.0, ASSET, 3, 57),
+    ("compose_many_sphere_cut", "many_sphere_cut", 90.0, ASSET, 3, 57),
+    ("compose_many_cylinder_cut", "many_cylinder_cut", 0.0, ASSET, 3, 71),
+    ("compose_displacement", "displacement", 0.0, ASSET, 3, 120),
+    ("compose_many_sphere_anim_demo", "many_sphere", 37.0, ANIM_ASSET, 4, 57),
+)
+TURNTABLE_FRAMES = 24
 
 
 def card_line() -> str:
@@ -84,10 +106,11 @@ def agreement(kernel_out, plain_out) -> dict:
     )
 
 
-def compare_kernel_with_plain(params, config, origin, dirs):
+def compare_kernel_with_plain(params, config, origin, dirs, frame=0.0):
     """Run each variant through the kernel and the plain version on the
     same inputs (each variant starts from the plain output of the one
-    before). Returns {variant: agreement dict}."""
+    before; the coarse call composes with ``config.cyl_window_coarse``, as
+    the staged renderer's does). Returns {variant: agreement dict}."""
     from cudaneuralrender_torch.kernels import megakernel
     from cudaneuralrender_torch.ops import march
 
@@ -96,9 +119,10 @@ def compare_kernel_with_plain(params, config, origin, dirs):
     for name, eps, num_steps, omega in VARIANTS:
         if name == "refine_rung0":
             state = refine_entry(state, origin, dirs, config)
-        kw = dict(march_eps=eps, num_steps=num_steps, relax_omega=omega, return_resolve=True)
-        k = megakernel.march_state(params, origin, dirs, state, config, **kw)
-        p = megakernel.march_state_plain(params, origin, dirs, state, config, **kw)
+        kw = dict(march_eps=eps, num_steps=num_steps, relax_omega=omega, return_resolve=True,
+                  cyl_window=config.cyl_window_coarse if name == "coarse" else None)
+        k = megakernel.march_state(params, origin, dirs, state, config, frame, **kw)
+        p = megakernel.march_state_plain(params, origin, dirs, state, config, frame, **kw)
         result[name] = agreement(k, p)
         state = p[0]
     return result
@@ -132,7 +156,7 @@ def golden_check(img: np.ndarray, golden: np.ndarray) -> tuple:
     return float(iou), float((diff.max(axis=-1)[fg] <= 2).mean())
 
 
-def record_march_calls(renderer, cam) -> list:
+def record_march_calls(renderer, cam, frame=0.0) -> list:
     """Render one frame, recording (origin, dirs, state, config, frame,
     kwargs) of every march_state call it makes, inputs cloned."""
     from cudaneuralrender_torch.kernels import megakernel
@@ -148,7 +172,7 @@ def record_march_calls(renderer, cam) -> list:
 
     megakernel.march_state = recording
     try:
-        renderer.render(cam)
+        renderer.render(cam, frame)
     finally:
         megakernel.march_state = real
     torch.cuda.synchronize()
@@ -164,11 +188,14 @@ def compare_recorded_calls(params, calls) -> dict:
         kw = dict(kw, return_resolve=True)
         k = megakernel.march_state(params, origin, dirs, state, config, frame, **kw)
         p = megakernel.march_state_plain(params, origin, dirs, state, config, frame, **kw)
-        result[f"call{i}_{dirs.shape[0]}lanes_steps{kw.get('num_steps')}"] = agreement(k, p)
+        name = f"call{i}_{dirs.shape[0]}lanes_steps{kw.get('num_steps')}"
+        if kw.get("cyl_window") is not None:
+            name += f"_window{kw['cyl_window']}"
+        result[name] = agreement(k, p)
     return result
 
 
-def device_breakdown(renderer, cam) -> dict:
+def device_breakdown(renderer, cam, frame=0.0) -> dict:
     """torch.profiler over one warm frame: device time per kernel name,
     each march kernel launch, and the device's idle share of the same
     profiled frame (the profiler's host overhead is inside that frame, so
@@ -178,7 +205,7 @@ def device_breakdown(renderer, cam) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        renderer.render(cam)
+        renderer.render(cam, frame)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -211,6 +238,130 @@ def time_cuda(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_frames(renderer, cam, frame, reps: int) -> list:
+    """Wall milliseconds of ``reps`` warm frames, each synchronised."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renderer.render(cam, frame)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def check_image(img, what: str) -> float:
+    """Shape, finiteness and a foreground fraction in (0.01, 0.9)."""
+    if tuple(img.shape) != (1080, 1920, 4) or not bool(torch.isfinite(img).all()):
+        raise RuntimeError(f"bad 1080p image ({what}): shape {tuple(img.shape)}")
+    fg = (img[..., 3] > 0).float().mean().item()
+    if not 0.01 < fg < 0.9:
+        raise RuntimeError(f"{what}: 1080p foreground fraction {fg} outside (0.01, 0.9)")
+    return fg
+
+
+def time_coarse(params, calls) -> tuple:
+    """The frame's first march call (the coarse pass), timed through the
+    kernel and through the plain version: (kernel ms, plain ms)."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    origin, dirs, state, ccfg, frame, kw = calls[0]
+    if dirs.shape[0] != ccfg.num_rays or kw.get("march_eps") != ccfg.coarse_eps:
+        raise RuntimeError(f"the frame's first march call is not the coarse pass: {kw}")
+    ms = time_cuda(
+        lambda: megakernel.march_state(params, origin, dirs, state, ccfg, frame, **kw), 5)
+    plain_ms = time_cuda(
+        lambda: megakernel.march_state_plain(params, origin, dirs, state, ccfg, frame, **kw), 3)
+    return ms, plain_ms
+
+
+def drive_scene(cnr, params, scene, frame, num_inputs, card) -> dict:
+    """Phase 6 for one scene: the staged main path at 1080p with the
+    scene's kernel launches counted, then kernel = plain version on every
+    march call of a warm frame, and the coarse pass timed both ways."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged", scene=scene,
+                           num_inputs=num_inputs)
+    renderer = cnr.Renderer(params, cfg)
+    cam = cnr.Camera(**CAMERA)
+    megakernel.reset_launch_counts()
+    renderer.render(cam, frame)  # cold: may overflow and teach the memo
+    img = renderer.render(cam, frame)
+    torch.cuda.synchronize()
+    launches = megakernel.SCENE_LAUNCHES[scene]
+    tag = f"{scene} frame {frame:g} ({num_inputs}-input)"
+    print(f"scene {tag}: {launches} kernel launches in a cold and a warm 1080p frame, "
+          f"stats {json.dumps(renderer.last_stats)}")
+    if launches == 0:
+        raise RuntimeError(f"{tag}: the staged render never launched the march kernel")
+    fg = check_image(img, tag)
+    frame_ms = time_frames(renderer, cam, frame, 3)
+    print(f"scene {tag}: foreground {fg:.4f}; 1080p staged frame median "
+          f"{statistics.median(frame_ms):.3f} ms over 3 warm frames "
+          f"{[round(x, 3) for x in frame_ms]} [{card}]")
+    calls = record_march_calls(renderer, cam, frame)
+    result = compare_recorded_calls(params, calls)
+    for name, a in result.items():
+        print(f"compare {scene} 1080p {name}: {json.dumps(a)}")
+    check_agreement(result)
+    ms, plain_ms = time_coarse(params, calls)
+    print(f"scene {tag}: coarse march 1080p kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+          f"[{card}]")
+    print(f"scene {tag}: breakdown {json.dumps(device_breakdown(renderer, cam, frame))} "
+          f"[{card}]", flush=True)
+    return dict(launches=launches, max_abs_err=max(a["max_abs_err"] for a in result.values()),
+                ms=ms, plain_ms=plain_ms)
+
+
+def drive_turntable(cnr, params, card) -> int:
+    """Phase 7: render_sequence over 24 turntable frames of many_sphere
+    (yaw i, frame number i), twice. Returns the launches of the second
+    call."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged", scene="many_sphere")
+    idx = range(TURNTABLE_FRAMES)
+    cams = [cnr.Camera(rotation_x=CAMERA["rotation_x"], rotation_y=float(i)) for i in idx]
+    frames = [float(i) for i in idx]
+    first = []
+    cnr.render_sequence(params, cams, cfg, frames=frames, stats_out=first)
+    torch.cuda.synchronize()
+    print(f"turntable first call: fast path on {sum(s['fast_path'] for s in first)} of "
+          f"{len(first)} frames")
+    stats = []
+    megakernel.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cnr.render_sequence(params, cams, cfg, frames=frames, stats_out=stats)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(cams)
+    launches = megakernel.SCENE_LAUNCHES["many_sphere"]
+    print(f"turntable 1080p many_sphere, {len(cams)} frames: {ms:.3f} ms/frame (pipelined), "
+          f"{launches} kernel launches [{card}]")
+    slow = [i for i, s in enumerate(stats) if not s["fast_path"]]
+    if slow or launches == 0:
+        raise RuntimeError(f"turntable second call: frames {slow} left the fast path, "
+                           f"{launches} launches")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for cam, fr in zip(cams, frames):  # the same frames, one host fetch each
+        cnr.render_staged(params, cam, cfg, frame=fr)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3 / len(cams)
+    print(f"turntable frames one by one through render_staged: {one_ms:.3f} ms/frame; "
+          f"steps {[s['steps'] for s in stats]}, hits "
+          f"{min(s['hits'] for s in stats)}-{max(s['hits'] for s in stats)} [{card}]")
+    for i in (0, len(cams) - 1):
+        check_image(out[i], f"turntable frame {i}")
+        ref = cnr.render_staged(params, cams[i], cfg, frame=frames[i])
+        agree = ((out[i][..., 3] > 0) == (ref[..., 3] > 0)).float().mean().item()
+        print(f"turntable frame {i}: hit masks agree with render_staged on {agree:.6f}")
+        if agree < 0.999:
+            raise RuntimeError(f"turntable frame {i}: hit masks agree on {agree} < 0.999")
+    return launches
 
 
 def main() -> int:
@@ -252,19 +403,15 @@ def main() -> int:
     cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged")
     renderer = cnr.Renderer(params, cfg)
     cam = cnr.Camera(**CAMERA)
-    megakernel.KERNEL_LAUNCHES = 0
+    megakernel.reset_launch_counts()
     img = renderer.render(cam)
     torch.cuda.synchronize()
     launches = megakernel.KERNEL_LAUNCHES
     print(f"main path 1080p: {launches} kernel launches, stats {json.dumps(renderer.last_stats)}")
     if launches == 0:
         raise RuntimeError("the 1080p staged render never launched the march kernel")
-    if tuple(img.shape) != (1080, 1920, 4) or not bool(torch.isfinite(img).all()):
-        raise RuntimeError(f"bad 1080p image: shape {tuple(img.shape)}")
-    fg = (img[..., 3] > 0).float().mean().item()
+    fg = check_image(img, "neural_raw")
     print(f"main path 1080p: foreground fraction {fg:.4f}")
-    if not 0.01 < fg < 0.9:
-        raise RuntimeError(f"1080p foreground fraction {fg} outside (0.01, 0.9)")
 
     gold_cfg = cnr.RenderConfig(width=256, height=256, scene="neural_raw", max_steps=500,
                                 march_impl="staged")
@@ -275,13 +422,7 @@ def main() -> int:
         raise RuntimeError(f"golden render off: IoU {iou}, within-2 {frac2}")
 
     # 5. timing
-    frame_ms = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        renderer.render(cam)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    frame_ms = time_frames(renderer, cam, 0.0, 5)
     print(f"1080p staged frame: median {statistics.median(frame_ms):.3f} ms over 5 warm "
           f"frames {[round(x, 3) for x in frame_ms]} [{card}]")
 
@@ -295,14 +436,8 @@ def main() -> int:
     check_agreement(full)
     max_abs_err = max([max_abs_err] + [a["max_abs_err"] for a in full.values()])
 
-    origin, dirs, state, ccfg, frame, kw = calls[0]
-    if dirs.shape[0] != cfg.num_rays or kw.get("march_eps") != cfg.coarse_eps:
-        raise RuntimeError(f"the frame's first march call is not the coarse pass: {kw}")
-    ms = time_cuda(
-        lambda: megakernel.march_state(params, origin, dirs, state, ccfg, frame, **kw), 5)
-    plain_ms = time_cuda(
-        lambda: megakernel.march_state_plain(params, origin, dirs, state, ccfg, frame, **kw), 3)
-    print(f"coarse march 1080p ({dirs.shape[0]} rays): kernel {ms:.3f} ms, "
+    ms, plain_ms = time_coarse(params, calls)
+    print(f"coarse march 1080p ({cfg.num_rays} rays): kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms [{card}]")
 
     print(f"breakdown 1080p frame: {json.dumps(device_breakdown(renderer, cam))} [{card}]")
@@ -317,6 +452,23 @@ def main() -> int:
         "ms": ms,
         "plain_ms": plain_ms,
     }]
+
+    # 6. the CSG scenes, composed inside the kernel
+    t6 = time.perf_counter()
+    anim = cnr.load(ANIM_ASSET, device=dev)
+    for entry, scene, frame, asset, num_inputs, line in SCENES:
+        r = drive_scene(cnr, anim if asset == ANIM_ASSET else params, scene, frame,
+                        num_inputs, card)
+        kernels.append(dict(name=entry, route="cuda",
+                            source="cudaneuralrender_torch/csrc/march.cu",
+                            replaces=f"cudaneuralrender_tpu/pallas/scenes.py:{line}", **r))
+    print(f"phase 6 (scenes): {time.perf_counter() - t6:.1f} s wall")
+
+    # 7. the turntable
+    t7 = time.perf_counter()
+    drive_turntable(cnr, params, card)
+    print(f"phase 7 (turntable): {time.perf_counter() - t7:.1f} s wall", flush=True)
+
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

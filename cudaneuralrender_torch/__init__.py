@@ -19,13 +19,16 @@ __version__ = "0.1.0"
 from .models import mlp
 from .models.checkpoint import load, load_keras_h5, load_pytree, save_pytree
 from .models.mlp import MLP, DenseParams, from_numpy_params, init_mlp
-from .ops import camera, compaction, march, sdf, shading
+from .ops import bounds, camera, compaction, march, sdf, shading
+from .ops.bounds import fit_bound_sphere
 from .ops.camera import Camera
 from .render.renderer import (
     Renderer,
     render_image,
+    render_sequence,
     render_staged,
     reset_schedule_memo,
+    scene_fn,
     tune_caps,
 )
 from .utils import image_io
@@ -37,8 +40,10 @@ __all__ = [
     "MLP",
     "RenderConfig",
     "Renderer",
+    "bounds",
     "camera",
     "compaction",
+    "fit_bound_sphere",
     "from_numpy_params",
     "image_io",
     "init_mlp",
@@ -48,9 +53,11 @@ __all__ = [
     "march",
     "mlp",
     "render_image",
+    "render_sequence",
     "render_staged",
     "reset_schedule_memo",
     "save_pytree",
+    "scene_fn",
     "sdf",
     "shading",
     "tune_caps",

@@ -1,22 +1,24 @@
-"""Command-line interface: render one frame of a neural SDF.
+"""Command-line interface: render a frame or a turntable of a neural SDF.
 
 The reference binary's flag surface (src/main.cpp:536-631), as the JAX
-package's CLI has it, for the ``--single`` path:
+package's CLI has it:
   -i input geometry (.h5/.npz)  REQUIRED
-  -o output path                 (default: {input basename}.png)
+  -o output path / prefix        (default: {input basename}.png; the
+                                  turntable's prefix defaults to {input})
   -H/-W height/width             (default 512)
   -M matcap path                 (enables matcap shading)
   -rx/-ry rotation degrees, -z zoom (default 2 -> eye at distance 2)
   --single   render one frame and exit (prints the MTexels/s line)
+  --spin     360-frame turntable, {prefix}_{i:03d}.png (main.cpp:445-478)
   --animation  4-input (x,y,z,frame) mode
 plus --scene, --steps, --march, --normal-mode, --stats, --parity-flip and
 -d/--device (default cuda). With ``cuda`` and no card the CLI fails; the
 CPU is used only when asked for with ``-d cpu``.
 
-``--spin``, ``--serve``, ``--profile``, ``--fault-inject`` and ``--pallas``
-are not ported yet: they print so and exit with code 2.
+``--warm-start``, ``--serve``, ``--profile``, ``--fault-inject`` and
+``--pallas`` are not ported yet: they print so and exit with code 2.
 
-Run: python -m cudaneuralrender_torch.cli -i examples/assets/csg_demo.h5 --single
+Run: python -m cudaneuralrender_torch.cli -i examples/assets/csg_demo.npz --single
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import os
 import sys
 import time
 
-NOT_PORTED = ("spin", "serve", "profile", "fault_inject", "pallas")
+NOT_PORTED = ("warm_start", "serve", "profile", "fault_inject", "pallas")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,7 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="neural-SDF sphere-trace renderer (PyTorch/CUDA)",
     )
     p.add_argument("-i", dest="input", required=True, help="neural geometry (.h5/.npz)")
-    p.add_argument("-o", dest="output", default=None, help="output path")
+    p.add_argument("-o", dest="output", default=None, help="output path prefix")
     p.add_argument("-H", dest="height", type=int, default=512)
     p.add_argument("-W", dest="width", type=int, default=512)
     p.add_argument("-M", dest="matcap", default=None, help="matcap PNG (enables matcap shading)")
@@ -57,7 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reproduce the reference's 180° savePNG orientation")
     p.add_argument("--stats", action="store_true",
                    help="print a JSON line of per-frame render stats")
-    p.add_argument("--spin", action="store_true", help="360-frame turntable (not ported)")
+    p.add_argument("--spin", action="store_true", help="360-frame turntable")
+    p.add_argument("--warm-start", action="store_true",
+                   help="turntable: warm-start each frame's march (not ported)")
     p.add_argument("--serve", action="store_true", help="browser viewer (not ported)")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--profile", default=None, metavar="DIR", help="(not ported)")
@@ -98,6 +102,10 @@ def main(argv=None) -> int:
 
     num_inputs = 4 if args.animation else 3
     model_in = cnr.mlp.layer_sizes(params)[0]
+    if model_in not in (3, 4):
+        print(f"error: model {args.input!r} expects {model_in} inputs; the renderer "
+              "takes 3-input (x,y,z) or 4-input (x,y,z,frame) models", file=sys.stderr)
+        return 2
     if model_in != num_inputs:
         detail = ("--animation needs a 4-input (x,y,z,frame) model" if num_inputs == 4
                   else "this model is 4-input — pass --animation")
@@ -119,21 +127,62 @@ def main(argv=None) -> int:
     renderer = cnr.Renderer(params, cfg, matcap)
     camera = cnr.Camera.from_cli(rx=args.rx, ry=args.ry, zoom=args.zoom)
 
+    def save(rgba, path):
+        img = image_io.to_uint8_image(rgba.detach().cpu().numpy(), parity_flip=args.parity_flip)
+        if path.lower().endswith(".ppm"):
+            image_io.save_ppm(path, img)
+        else:
+            image_io.save_png(path, img)
+
+    def render_one(cam, frame, path):
+        t0 = time.perf_counter()
+        rgba = renderer.render(cam, frame)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        if args.stats:
+            print(json.dumps({"frame": frame, "ms": round(dt * 1e3, 2), "device": str(device),
+                              **renderer.last_stats}), flush=True)
+        save(rgba, path)
+        print(f"saving frame: {path}")
+        return dt
+
+    if args.spin:
+        # Turntable (doABarrelRoll, main.cpp:470-478): 360 frames stepping
+        # the camera yaw and the animation frame number together. The
+        # staged config renders through render_sequence in chunks of 24
+        # (one host sync per chunk) and resumes: frames already on disk are
+        # skipped, so an interrupted turntable continues where it stopped.
+        prefix = args.output or args.input
+        times = []
+        if cfg.march_impl == "staged":
+            todo = [i for i in range(360) if not os.path.exists(f"{prefix}_{i:03d}.png")]
+            if len(todo) < 360:
+                print(f"turntable resume: {360 - len(todo)} frames already on disk")
+            chunk = 24
+            for start in range(0, len(todo), chunk):
+                idxs = todo[start:start + chunk]
+                cams = [cnr.Camera.from_cli(rx=args.rx, ry=float(i), zoom=args.zoom)
+                        for i in idxs]
+                t0 = time.perf_counter()
+                rgbas = cnr.render_sequence(params, cams, cfg, renderer.matcap,
+                                            frames=[float(i) for i in idxs])
+                _sync(device)
+                times.append((time.perf_counter() - t0) / len(idxs))
+                for i, rgba in zip(idxs, rgbas):
+                    save(rgba, f"{prefix}_{i:03d}.png")
+            # the first chunk carries the first-use set-up and the memo's lesson
+            mean_s = sum(times[1:]) / (len(times) - 1) if len(times) > 1 else sum(times)
+            print(f"turntable done: 360 frames, mean {mean_s:.3f} s/frame (pipelined)")
+            return 0
+        for i in range(360):
+            cam = cnr.Camera.from_cli(rx=args.rx, ry=float(i), zoom=args.zoom)
+            times.append(render_one(cam, float(i), f"{prefix}_{i:03d}.png"))
+        print(f"turntable done: 360 frames, mean {sum(times[1:]) / 359:.3f} s/frame")
+        return 0
+
     base = os.path.basename(args.input)
     path = args.output or f"{base}.png"
-    t0 = time.perf_counter()
-    rgba = renderer.render(camera, 0.0)
-    _sync(device)
-    dt = time.perf_counter() - t0
-    if args.stats:
-        print(json.dumps({"frame": 0.0, "ms": round(dt * 1e3, 2), "device": str(device),
-                          **renderer.last_stats}), flush=True)
-    img = image_io.to_uint8_image(rgba.detach().cpu().numpy(), parity_flip=args.parity_flip)
-    if path.lower().endswith(".ppm"):
-        image_io.save_ppm(path, img)
-    else:
-        image_io.save_png(path, img)
-    print(f"saving frame: {path}")
+    dt = render_one(camera, 0.0, path)
     n_tex = args.width * args.height
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
     print(

@@ -3,8 +3,10 @@
 // Replaces the JAX package's Pallas TPU kernel
 // cudaneuralrender_tpu/pallas/megakernel.py::_march_megakernel (launched by
 // march_pallas_state), together with the layer chain it inlines
-// (pallas/fused_mlp.py::_mlp_chain) and the neural_raw branch of the scene
-// compose (pallas/scenes.py::compose_fn).
+// (pallas/fused_mlp.py::_mlp_chain) and the scene compose
+// (pallas/scenes.py::compose_fn: neural_raw, neural_tanh, many_sphere,
+// many_sphere_cut, many_cylinder_cut through a 1/3/5 grid window, and
+// displacement).
 //
 // What bounds it on this card: arithmetic. A step of a 9-layer, 32-wide
 // net is about 9.2k fused multiply-adds per ray (7.3k with the true 3-input
@@ -21,10 +23,23 @@
 //   * activations live in registers, with H a template parameter (32);
 //   * the first layer contracts over the true 3 or 4 inputs (the frame is
 //     the 4th), and the head computes only output column 0;
+//   * the scene compose runs right after the chain, each step, where the
+//     reference's sceneSDF runs inside its march kernel. The scene and the
+//     cylinder window are template parameters, one instantiation per
+//     (scene, window): the compose is straight-line code with no branch on
+//     the scene, and the neural_raw instantiation is the bare chain;
 //   * each ray loops until it resolves (per-ray exit; the TPU kernel exits
 //     per 8192-lane tile, with identical per-ray results);
 //   * all arithmetic is FP32 FFMA, for both of the JAX package's
 //     precisions (DEFAULT and HIGHEST).
+//
+// The compose's cost: it is FP32 elementwise work on the ray's own
+// registers, about 100 (many_sphere: 9 sphere distances and smooth
+// unions) to 400 (many_cylinder_cut, window 5: 25 cylinders and smooth
+// subtractions) operations per step plus a few sqrtf / sinf / tanhf, next
+// to the ~7.3k FMAs of the layer chain. It should change the cost of a
+// step by a few percent; frame times per scene differ mostly through their
+// step counts.
 //
 // Per-lane semantics follow the TPU kernel exactly: singleMarch's update
 // order (budget charge, miss, move, converge), the constant over-relaxation
@@ -32,8 +47,14 @@
 // resolve step: lanes that resolve report step + 1, lanes still active at
 // exit report the exit step, lanes inactive at entry report the entry step.
 // The point o + d*t is one fused multiply-add (XLA contracts it the same
-// way); the rest of the bookkeeping uses explicit round-to-nearest
-// intrinsics so that nothing else is contracted.
+// way); the rest of the bookkeeping and the whole compose use explicit
+// round-to-nearest intrinsics so that nothing else is contracted: the
+// compose's plain version (kernels/scenes.py) runs each product and sum as
+// its own PyTorch operator, which never fuses a multiply-add. A division
+// by a constant is a multiplication by the constant's float32 reciprocal
+// in both versions (XLA folds it so, and PyTorch's CUDA division by a
+// scalar does too). sqrtf, sinf and tanhf are CUDA's own (no fast-math
+// flags), the functions PyTorch's CUDA operators call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,7 +123,117 @@ __device__ __forceinline__ float mlp_sdf(const float* __restrict__ sw,
   return __fadd_rn(d, sb[(n_layers - 1) * H]);
 }
 
-template <int H>
+// Scene ids: kernels/scenes.py SCENE_IDS.
+enum Scene : int {
+  kNeuralRaw = 0,
+  kNeuralTanh = 1,
+  kManySphere = 2,
+  kManySphereCut = 3,
+  kManyCylinderCut = 4,
+  kDisplacement = 5,
+};
+
+// Smooth-operator blend width k and its float32 reciprocal (1 / 0.01f).
+constexpr float kSmoothK = 0.01f;
+constexpr float kInvSmoothK = 100.0f;
+// Drill-hole grid spacing's float32 reciprocal (1 / 0.1f).
+constexpr float kInvCell = 10.0f;
+// many_sphere's z step per frame, 2*0.7/360 rounded to float32.
+constexpr float kSphereZStep = static_cast<float>(2.0 * 0.7 / 360.0);
+
+__device__ __forceinline__ float clamp01(float h) {
+  // clamp to [0, 1] keeping NaN, as torch.clamp and jnp.clip do
+  h = h < 0.f ? 0.f : h;
+  return h > 1.f ? 1.f : h;
+}
+
+// d2*(1-h) + d1*h - k*h*(1-h), h = clip(0.5 + 0.5*(d2-d1)/k, 0, 1)
+__device__ __forceinline__ float smooth_union(float d1, float d2) {
+  const float h = clamp01(__fadd_rn(
+      0.5f, __fmul_rn(__fmul_rn(0.5f, __fsub_rn(d2, d1)), kInvSmoothK)));
+  const float g = __fsub_rn(1.f, h);
+  return __fsub_rn(__fadd_rn(__fmul_rn(d2, g), __fmul_rn(d1, h)),
+                   __fmul_rn(__fmul_rn(kSmoothK, h), g));
+}
+
+// d1*(1-h) - d2*h + k*h*(1-h), h = clip(0.5 - 0.5*(d1+d2)/k, 0, 1)
+__device__ __forceinline__ float smooth_subtract(float d1, float d2) {
+  const float h = clamp01(__fsub_rn(
+      0.5f, __fmul_rn(__fmul_rn(0.5f, __fadd_rn(d1, d2)), kInvSmoothK)));
+  const float g = __fsub_rn(1.f, h);
+  return __fadd_rn(__fsub_rn(__fmul_rn(d1, g), __fmul_rn(d2, h)),
+                   __fmul_rn(__fmul_rn(kSmoothK, h), g));
+}
+
+// pallas/scenes.py::_many_sphere: nine radius-0.1 spheres on a 3 x 3 grid
+// (world centers ops/sdf.py::_MANY_SPHERE_CENTERS), animated in z by the
+// frame, smooth-unioned (or subtracted) in the reference's order.
+template <bool kUnion>
+__device__ __forceinline__ float many_sphere(float px, float py, float pz,
+                                             float d, float frame) {
+  const float cx[3] = {-0.5f, -0.1f, 0.3f};
+  const float cy[3] = {0.2f, -0.2f, -0.6f};
+  const float dz = __fadd_rn(pz, __fadd_rn(-0.7f, __fmul_rn(frame, kSphereZStep)));
+  const float dz2 = __fmul_rn(dz, dz);
+#pragma unroll
+  for (int row = 0; row < 3; ++row) {
+    const float dy = __fsub_rn(py, cy[row]);
+    const float dy2 = __fmul_rn(dy, dy);
+#pragma unroll
+    for (int col = 0; col < 3; ++col) {
+      const float dx = __fsub_rn(px, cx[col]);
+      const float sd = __fsub_rn(
+          __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx), dy2), dz2)), 0.1f);
+      d = kUnion ? smooth_union(d, sd) : smooth_subtract(d, sd);
+    }
+  }
+  return d;
+}
+
+// pallas/scenes.py::_many_cylinder_cut: the W x W cells of the 20 x 15
+// drill-hole grid around the point's nearest cell, in (row, col) order.
+template <int W>
+__device__ __forceinline__ float many_cylinder_cut(float px, float py, float d) {
+  const float c0 = floorf(__fadd_rn(__fmul_rn(__fadd_rn(px, 0.88f), kInvCell), 0.5f));
+  const float r0 = floorf(__fadd_rn(__fmul_rn(__fsub_rn(0.42f, py), kInvCell), 0.5f));
+#pragma unroll
+  for (int dr = -W / 2; dr <= W / 2; ++dr) {
+    const float r = __fadd_rn(r0, static_cast<float>(dr));
+    const float dy = __fsub_rn(__fadd_rn(py, __fadd_rn(-0.4f, __fmul_rn(0.1f, r))), 0.02f);
+    const float dy2 = __fmul_rn(dy, dy);
+    const bool row_ok = r >= 0.f && r <= 14.f;
+#pragma unroll
+    for (int dc = -W / 2; dc <= W / 2; ++dc) {
+      const float c = __fadd_rn(c0, static_cast<float>(dc));
+      const float dx = __fsub_rn(__fadd_rn(px, __fsub_rn(0.9f, __fmul_rn(0.1f, c))), 0.02f);
+      const float cyl = __fsub_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx), dy2)), 0.02f);
+      const bool valid = row_ok && c >= 0.f && c <= 19.f;
+      d = smooth_subtract(d, valid ? cyl : 1e9f);
+    }
+  }
+  return d;
+}
+
+// The scene's distance from the chain's raw logit d at point p.
+template <int S, int W>
+__device__ __forceinline__ float compose(float px, float py, float pz, float d,
+                                         float frame) {
+  if constexpr (S == kNeuralRaw) {
+    return d;
+  } else if constexpr (S == kNeuralTanh) {
+    return tanhf(d);
+  } else if constexpr (S == kManySphere || S == kManySphereCut) {
+    return many_sphere<S == kManySphere>(px, py, pz, d, frame);
+  } else if constexpr (S == kManyCylinderCut) {
+    return many_cylinder_cut<W>(px, py, d);
+  } else {  // kDisplacement: sin(5x) sin(5y) sin(5z) * 0.05 over tanh(d)
+    const float s = __fmul_rn(__fmul_rn(sinf(__fmul_rn(5.f, px)), sinf(__fmul_rn(5.f, py))),
+                              sinf(__fmul_rn(5.f, pz)));
+    return __fadd_rn(tanhf(d), __fmul_rn(s, 0.05f));
+  }
+}
+
+template <int H, int S, int W>
 __global__ void __launch_bounds__(kBlock)
 march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
              const float* __restrict__ t0, const float* __restrict__ budget0,
@@ -143,7 +274,8 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
     const float px = __fmaf_rn(dx, t, ox);
     const float py = __fmaf_rn(dy, t, oy);
     const float pz = __fmaf_rn(dz, t, oz);
-    const float d = mlp_sdf<H>(sw, sb, n_layers, n_inputs, px, py, pz, frame);
+    const float d = compose<S, W>(
+        px, py, pz, mlp_sdf<H>(sw, sb, n_layers, n_inputs, px, py, pz, frame), frame);
 
     bool sor_fail = false;
     bool near;
@@ -179,6 +311,28 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
   steps_out[r] = act ? step : res;
 }
 
+using MarchKernel = void (*)(const float*, const float*, const float*, const float*,
+                             const uint8_t*, const int32_t*, const float*, const float*,
+                             int, int, float, int, int, int, float, float, float*, float*,
+                             uint8_t*, uint8_t*, int32_t*);
+
+// The instantiation for a scene id and cylinder window, or nullptr.
+MarchKernel pick_kernel(int scene, int window) {
+  if (window != 1 && window != 3 && window != 5) return nullptr;
+  switch (scene) {
+    case kNeuralRaw: return march_kernel<kHidden, kNeuralRaw, 0>;
+    case kNeuralTanh: return march_kernel<kHidden, kNeuralTanh, 0>;
+    case kManySphere: return march_kernel<kHidden, kManySphere, 0>;
+    case kManySphereCut: return march_kernel<kHidden, kManySphereCut, 0>;
+    case kManyCylinderCut:
+      if (window == 1) return march_kernel<kHidden, kManyCylinderCut, 1>;
+      if (window == 3) return march_kernel<kHidden, kManyCylinderCut, 3>;
+      return march_kernel<kHidden, kManyCylinderCut, 5>;
+    case kDisplacement: return march_kernel<kHidden, kDisplacement, 0>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 extern "C" int cnr_march(int device, const float* dirs, const float* origin,
@@ -186,11 +340,14 @@ extern "C" int cnr_march(int device, const float* dirs, const float* origin,
                          const uint8_t* active0, const int32_t* steps0,
                          const float* weights, const float* biases,
                          int n_layers, int hidden, int n_inputs, float frame,
+                         int scene, int window,
                          int n, int max_steps, int num_steps, float eps,
                          float omega, float* t_out, float* budget_out,
                          uint8_t* active_out, uint8_t* conv_out,
                          int32_t* steps_out, void* stream) {
-  if (hidden != kHidden || n_layers < 1 || n_inputs < 1 || n_inputs > 4)
+  const MarchKernel kernel = pick_kernel(scene, window);
+  if (kernel == nullptr || hidden != kHidden || n_layers < 1 || n_inputs < 1 ||
+      n_inputs > 4)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -198,13 +355,12 @@ extern "C" int cnr_march(int device, const float* dirs, const float* origin,
   const size_t smem = sizeof(float) * static_cast<size_t>(n_layers) * kHidden *
                       (kHidden + 1);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(march_kernel<kHidden>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int grid = (n + kBlock - 1) / kBlock;
-  march_kernel<kHidden><<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       dirs, origin, t0, budget0, active0, steps0, weights, biases, n_layers,
       n_inputs, frame, n, max_steps, num_steps, eps, omega, t_out, budget_out,
       active_out, conv_out, steps_out);

@@ -7,6 +7,12 @@ kernel in ``csrc/march.cu``; on CPU tensors it runs ``march_state_plain``,
 the same per-ray semantics in plain PyTorch. There is no fallback between
 the two: a CUDA tensor either goes through the kernel or raises.
 
+The kernel composes every scene of ``scenes.KERNEL_SCENES`` after the
+layer chain; the plain version composes with ``scenes.compose_fn``.
+many_cylinder_cut's grid window is ``config.cyl_window`` unless a call
+overrides it (``cyl_window``; the staged renderer's coarse pass passes
+``config.cyl_window_coarse``).
+
 Per-ray semantics (both versions): each ray marches while it is active,
 ``step < max_steps`` and, for a bounded call, ``step - start < num_steps``;
 singleMarch update order; optional constant over-relaxation; the resolve
@@ -15,7 +21,9 @@ step per ray (see csrc/march.cu). Both precisions of the JAX package
 here, so the call takes no precision argument.
 
 ``KERNEL_LAUNCHES`` counts kernel launches (plain-version calls do not
-count), so a run can show that its main path went through the kernel.
+count), and ``SCENE_LAUNCHES`` the same launches per scene, so a run can
+show that its main path, and each scene's compose, went through the
+kernel.
 """
 from __future__ import annotations
 
@@ -35,6 +43,9 @@ from .fused_mlp import mlp_chain_plain, packed_params
 #: Launches of the CUDA march kernel in this process.
 KERNEL_LAUNCHES = 0
 
+#: The same launches by scene name.
+SCENE_LAUNCHES = {name: 0 for name in sorted(scenes.KERNEL_SCENES)}
+
 #: The hidden width the kernel is instantiated for.
 KERNEL_HIDDEN = 32
 
@@ -51,13 +62,34 @@ def _new_steps(state: march_lib.MarchState, lane_steps: torch.Tensor,
     return torch.clamp(state.steps + num_steps, max=max_steps).to(torch.int32)
 
 
-def _compose(config: RenderConfig):
-    compose = scenes.compose_fn(config.scene)
-    if compose is None:
+def reset_launch_counts() -> None:
+    """Set ``KERNEL_LAUNCHES`` and every ``SCENE_LAUNCHES`` entry to 0."""
+    global KERNEL_LAUNCHES
+    KERNEL_LAUNCHES = 0
+    for name in SCENE_LAUNCHES:
+        SCENE_LAUNCHES[name] = 0
+
+
+def _window(config: RenderConfig, cyl_window: Optional[int]) -> int:
+    return config.cyl_window if cyl_window is None else int(cyl_window)
+
+
+def kernel_scene(config: RenderConfig, cyl_window: Optional[int] = None):
+    """The kernel's (scene id, cylinder window) for a call; raises for a
+    scene or window the kernel has no instantiation of."""
+    window = _window(config, cyl_window)
+    if config.scene not in scenes.SCENE_IDS:
         raise ValueError(
             f"the march kernel does not support scene {config.scene!r}; "
             "the plain march path handles it")
-    return compose
+    if window not in scenes.CYL_WINDOWS:
+        raise ValueError(f"cyl_window must be one of {scenes.CYL_WINDOWS}, not {window}")
+    return scenes.SCENE_IDS[config.scene], window
+
+
+def _compose(config: RenderConfig, cyl_window: Optional[int]):
+    _, window = kernel_scene(config, cyl_window)
+    return scenes.compose_fn(config.scene, window)
 
 
 def march_state_plain(
@@ -65,6 +97,7 @@ def march_state_plain(
     state: march_lib.MarchState, config: RenderConfig, frame: float = 0.0, *,
     march_eps: Optional[float] = None, num_steps: Optional[int] = None,
     relax_omega: float = 0.0, return_resolve: bool = False,
+    cyl_window: Optional[int] = None,
 ):
     """Plain PyTorch version of the march kernel, on any device.
 
@@ -72,7 +105,7 @@ def march_state_plain(
     depend on which rays march together) and reads the active count on the
     host, so it suits the CPU and comparisons, not the hot path.
     """
-    compose = _compose(config)
+    compose = _compose(config, cyl_window)
     weights, biases, n_in, hidden = packed_params(params)
     if n_in != config.num_inputs:
         raise ValueError(f"model has {n_in} inputs but config.num_inputs={config.num_inputs}")
@@ -156,10 +189,10 @@ def _march_state_cuda(
     params: MLP, origin: torch.Tensor, dirs: torch.Tensor,
     state: march_lib.MarchState, config: RenderConfig, frame: float,
     march_eps: Optional[float], num_steps: Optional[int], relax_omega: float,
-    return_resolve: bool,
+    return_resolve: bool, cyl_window: Optional[int],
 ):
     global KERNEL_LAUNCHES
-    _compose(config)
+    scene_id, window = kernel_scene(config, cyl_window)
     weights, biases, n_in, hidden = packed_params(params)
     if hidden != KERNEL_HIDDEN:
         raise ValueError(
@@ -194,7 +227,7 @@ def _march_state_cuda(
         dirs.data_ptr(), origin.data_ptr(), state.t.data_ptr(),
         state.budget.data_ptr(), state.active.data_ptr(), state.steps.data_ptr(),
         weights.data_ptr(), biases.data_ptr(),
-        n_layers, hidden, config.num_inputs, float(frame),
+        n_layers, hidden, config.num_inputs, float(frame), scene_id, window,
         n, config.max_steps, -1 if num_steps is None else int(num_steps),
         float(eps), omega,
         t.data_ptr(), budget.data_ptr(), active.data_ptr(), conv.data_ptr(),
@@ -204,6 +237,7 @@ def _march_state_cuda(
         raise RuntimeError(
             f"march kernel launch failed: {lib.cnr_error_string(err).decode()} ({err})")
     KERNEL_LAUNCHES += 1
+    SCENE_LAUNCHES[config.scene] += 1
     out = march_lib.MarchState(
         t=t, budget=budget, active=active & state.active,
         converged=conv | state.converged,
@@ -217,6 +251,7 @@ def march_state(
     state: march_lib.MarchState, config: RenderConfig, frame: float = 0.0, *,
     march_eps: Optional[float] = None, num_steps: Optional[int] = None,
     relax_omega: float = 0.0, return_resolve: bool = False,
+    cyl_window: Optional[int] = None,
 ):
     """Continue an existing march state inside the march kernel.
 
@@ -224,7 +259,8 @@ def march_state(
     an int bounds the call to that many steps past ``state.steps``.
     ``relax_omega`` > 1 turns on constant over-relaxation.
     ``return_resolve=True`` also returns each ray's resolve step [n] int32
-    (the staged renderer's difficulty key).
+    (the staged renderer's difficulty key). ``cyl_window`` overrides
+    ``config.cyl_window`` for this call.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
@@ -232,12 +268,12 @@ def march_state(
         return march_state_plain(
             params, origin, dirs, state, config, frame, march_eps=march_eps,
             num_steps=num_steps, relax_omega=relax_omega,
-            return_resolve=return_resolve)
+            return_resolve=return_resolve, cyl_window=cyl_window)
     if dirs.device.type != "cuda":
         raise ValueError(f"march_state runs on cpu or cuda tensors, not {dirs.device}")
     return _march_state_cuda(
         params, origin, dirs, state, config, frame, march_eps, num_steps,
-        relax_omega, return_resolve)
+        relax_omega, return_resolve, cyl_window)
 
 
 def march(params: MLP, origin: torch.Tensor, dirs: torch.Tensor,
@@ -252,11 +288,14 @@ def render_image_kernel(params: MLP, camera: Camera, config: RenderConfig,
                         matcap: Optional[torch.Tensor] = None,
                         frame: float = 0.0) -> torch.Tensor:
     """Full render with the kernel march and plain dense shading
-    (march_impl="megakernel"). Returns [H, W, 4] float rgba, row 0 = bottom."""
+    (march_impl="megakernel"), the counterpart of ``render_image_pallas``:
+    the march composes with ``config.cyl_window``, the shading normals
+    differentiate the dense scene. Returns [H, W, 4] float rgba, row 0 =
+    bottom."""
     if not scenes.kernel_supported(config.scene):
         raise ValueError(
             f"the march kernel does not support scene {config.scene!r}; use render_image")
-    from ..render.renderer import shade_fn
+    from ..render.renderer import scene_fn
 
     dev = params.device
     cam_to_world, world_to_cam = camera_lib.view_matrices(camera, dev)
@@ -265,7 +304,7 @@ def render_image_kernel(params: MLP, camera: Camera, config: RenderConfig,
     t, hit = march(params, origin, dirs, config, frame)
     points = origin + dirs * t[:, None]
     colors = shading.shade(
-        shade_fn(params, config, frame), points, dirs,
+        scene_fn(params, config, frame), points, dirs,
         mode=config.shading, normal_mode=config.normal_mode,
         normal_eps=config.normal_eps, world_to_cam=world_to_cam, matcap=matcap,
     )

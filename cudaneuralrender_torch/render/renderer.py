@@ -1,7 +1,9 @@
 """High-level renderer: camera + neural SDF -> image.
 
-The PyTorch counterpart of the JAX package's ``render/renderer.py`` for the
-main path: ``render_staged`` with the default mixed-precision config.
+The PyTorch counterpart of the JAX package's ``render/renderer.py``:
+``render_staged`` with the default mixed-precision config (the main path),
+the dense ``render_image``, and ``render_sequence``, the pipelined
+turntable, for every scene of ops/sdf.py.
 
 A staged frame runs, in order:
   1. camera -> rays, in block-major lane order, and the bounding-sphere init;
@@ -22,6 +24,12 @@ PyTorch runs eagerly; the JAX package's jit boundaries become plain
 function calls. JAX arrays are immutable and the staged code relies on
 that, so this module never writes into a tensor it did not just allocate:
 bundle updates (``_pr_merge``) build new tensors.
+
+Which many_cylinder_cut compose each phase uses, as in the JAX package:
+the coarse kernel pass ``cyl_window_coarse``, the refine rungs
+``cyl_window``, shading normals the windowed dense chain (``shade_fn``),
+and every dense march (``render_image``, ``march_precision="full"``, the
+continuation) the complete 300-term chain.
 
 Configs that select phases not ported yet raise ``NotImplementedError``
 naming their ROADMAP item (``_check_supported``).
@@ -95,18 +103,27 @@ def neural_sdf_fn(params: MLP, frame, num_inputs: int = 3):
     return fn
 
 
-def scene_fn(params: Optional[MLP], config: RenderConfig, frame):
-    """The scene SDF for a config (plain PyTorch, differentiable)."""
+def scene_fn(params: Optional[MLP], config: RenderConfig, frame, *,
+             surface_local: bool = False):
+    """The scene SDF for a config (plain PyTorch, differentiable).
+
+    ``surface_local=True`` declares that every evaluation point sits on
+    (or within the window band of) the surface, as shading normals do:
+    many_cylinder_cut then composes through ``config.cyl_window``'s grid
+    window (exact there) instead of the 300-term chain."""
     if config.use_pallas:
         raise _not_ported("use_pallas (the fused MLP kernel K3)", "item 7: opt-in march options")
     neural = None if params is None else neural_sdf_fn(params, frame, config.num_inputs)
-    return sdf.make_scene(config.scene, neural)
+    return sdf.make_scene(
+        config.scene, neural, frame,
+        cyl_window=(config.cyl_window if surface_local else None))
 
 
 def shade_fn(params: Optional[MLP], config: RenderConfig, frame):
-    """Scene SDF for shading normals. Every precision runs in FP32 here, so
-    config.shade_precision selects nothing."""
-    return scene_fn(params, config, frame)
+    """Scene SDF for shading normals, with surface-local composes. Every
+    precision runs in FP32 here, so config.shade_precision selects
+    nothing."""
+    return scene_fn(params, config, frame, surface_local=True)
 
 
 def _device_of(params: Optional[MLP], device=None) -> torch.device:
@@ -299,7 +316,7 @@ def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
 
     Returns (pr, steps, refine_overflow, rung_actives)."""
     if t_init is not None:
-        raise _not_ported("warm start (t_init)", "item 2: render_sequence and warm start")
+        raise _not_ported("warm start (t_init)", "item 2: warm start")
     fine = scene_fn(params, config, frame)
     mixed = config.march_precision == "mixed"
     if mixed:
@@ -320,7 +337,8 @@ def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
             state = march.init_state(origin, dirs, config.bound_center, config.bound_radius)
         state, resolve = megakernel.march_state(
             params, origin, dirs, state, config, frame,
-            march_eps=eps_a, relax_omega=relax, return_resolve=True)
+            march_eps=eps_a, relax_omega=relax, return_resolve=True,
+            cyl_window=config.cyl_window_coarse)
         # The coarse resolve step is the refine phase's difficulty key;
         # valid while pr stays in the coarse lane order.
         pr = _pack_init(state, dirs)
@@ -813,6 +831,88 @@ def render_staged(
         )
     return _shade_final(params, origin, dirs, full.t, full.converged, world_to_cam,
                         config, matcap, frame)
+
+
+def render_sequence(
+    params: MLP, cameras, config: RenderConfig,
+    matcap: Optional[torch.Tensor] = None, frames=None, *,
+    stats_out: Optional[list] = None, warm_start: bool = False,
+    chunk: Optional[int] = None,
+) -> list:
+    """Pipelined multi-frame rendering with one host sync for the batch.
+
+    Every frame is dispatched without a host sync (the card queues the
+    frames' work back to back), the per-frame stats vectors are stacked on
+    the device, and one fetch drains them. Frames whose stats flag a slow
+    path (bucket overflow, leftover budget) are re-rendered individually
+    through ``render_staged``. This is the turntable mode: the reference's
+    doABarrelRoll (src/main.cpp:470-478) renders 360 such frames back to
+    back.
+
+    ``stats_out`` receives one dict per frame. Returns a list of [H, W, 4]
+    rgba tensors on the parameters' device.
+    """
+    if warm_start:
+        raise _not_ported("render_sequence(warm_start=True)",
+                          "item 2: warm start")
+    if chunk is not None and chunk > 1:
+        # The JAX package fuses k frames into one lax.scan program; the
+        # counterpart here would be a CUDA graph over k frames.
+        raise _not_ported("render_sequence(chunk > 1)", "item 2: fused chunks")
+    _require_fp32_matmul()
+    if frames is None:
+        frames = [0.0] * len(cameras)
+    frames = [float(f) for f in frames]
+    if not cameras:
+        return []
+    orig_config = config
+    config = memo_lookup(params, config)
+    queued = []
+    for cam, fr in zip(cameras, frames):
+        rgba, _, stats = _render_scheduled(params, cam, config, matcap, fr)
+        queued.append((rgba, stats))
+    all_stats = torch.stack([st for _, st in queued]).cpu().numpy()  # the one sync
+    return _sequence_finish(params, cameras, frames, queued, all_stats, config,
+                            orig_config, matcap, stats_out)
+
+
+def _sequence_finish(params, cameras, frames, queued, all_stats,
+                     config: RenderConfig, orig_config: RenderConfig,
+                     matcap, stats_out) -> list:
+    """render_sequence after the drain: per-frame fast-path checks,
+    slow-path re-renders, stats_out, and batch-max adaptive tuning."""
+    n_rays = config.num_rays
+    out = []
+    all_fast = True
+    for (rgba, _), st, cam, fr in zip(queued, all_stats, cameras, frames):
+        active_count, steps_done, hit_count, refine_overflow = (int(v) for v in st[:4])
+        fast = check_fast(st, config)
+        all_fast = all_fast and fast
+        if stats_out is not None:
+            stats_out.append(dict(
+                rays=n_rays, steps=steps_done, hits=hit_count,
+                unresolved=active_count, refine_overflow=refine_overflow,
+                fast_path=fast))
+        if fast:
+            out.append(rgba)
+        elif refine_overflow > 0:
+            # The pipelined attempt already proved this frame's near set
+            # exceeds the first refine bucket: go straight to the widened
+            # schedule and teach the memo, so the next call (and the
+            # turntable's remaining chunks) dispatch it directly.
+            widened = _widen_or_retune(config, st)
+            out.append(render_staged(params, cam, widened, matcap, fr))
+            memo_teach(params, orig_config, widened)
+        else:
+            out.append(render_staged(params, cam, config, matcap, fr))
+    if all_fast and len(all_stats) and all_stats.shape[1] > 4:
+        # Size the rungs to the per-rung maximum over the whole batch, with
+        # a 1.1 margin: the taught poses are covered by construction, and a
+        # new pose that outgrows the caps re-fits through the overflow
+        # retune at the cost of one doubled frame.
+        _maybe_tune(params, orig_config, config, np.max(all_stats[:, 4:], axis=0),
+                    margin=1.1)
+    return out
 
 
 class Renderer:

@@ -138,15 +138,16 @@ def test_march_state_rejects_wrong_device_type():
 
 
 def test_kernel_scene_support():
+    """Every scene but the analytic test sphere marches in the kernel."""
     from cudaneuralrender_torch.kernels import scenes
+    from cudaneuralrender_torch.utils.config import SCENE_NAMES
 
-    assert scenes.kernel_supported("neural_raw")
-    assert not scenes.kernel_supported("neural_tanh")
+    assert {s for s in SCENE_NAMES if scenes.kernel_supported(s)} == SCENE_NAMES - {"sphere"}
     with pytest.raises(ValueError, match="does not support"):
         mk_t.march_state_plain(ct.load(H5), torch.zeros(3), torch.zeros((1, 3)),
                                march_t.init_state(torch.zeros(3), torch.ones((1, 3)),
                                                   (0, 0, 0), 1.2),
-                               CFG_T.replace(scene="neural_tanh"))
+                               CFG_T.replace(scene="sphere"))
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -197,7 +197,15 @@ def test_matcap_and_facing_colors_match():
 
 
 def test_unported_scenes_raise():
-    for name in ("many_sphere", "many_cylinder_cut", "displacement"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ct.sdf.make_scene(name, lambda p: p[..., 0])
+    """Every scene of the registry composes now; an unknown name, or a
+    neural scene without a neural field, raises."""
+    p = torch.zeros((5, 3))
+    from cudaneuralrender_torch.utils.config import SCENE_NAMES
+
+    for name in sorted(SCENE_NAMES):
+        assert ct.sdf.make_scene(name, lambda q: q[..., 0])(p).shape == (5,)
+    with pytest.raises(ValueError, match="unknown scene"):
+        ct.sdf.make_scene("many_cubes", lambda q: q[..., 0])
+    with pytest.raises(ValueError, match="requires a neural SDF"):
+        ct.sdf.make_scene("many_sphere")
 

@@ -12,7 +12,12 @@ rotation_x=-20), on the CPU:
     agree on >=99%, >=97% of common hits within 1e-3), with matching stats;
   * the 256x256 golden render examples/assets/csg_demo.png at the bar of
     tests/test_artifact.py:51-64;
-  * the CLI.
+  * the CSG scenes: dense ``render_image`` per scene at 24x24 (full bar,
+    ``max_steps`` 200 so the 300-term many_cylinder_cut chain stays cheap
+    here), ``render_staged`` at 64x64 (mixed bar), and ``render_sequence``
+    over three turntable frames of many_sphere at 32x32 (mixed bar, per-frame
+    stats);
+  * the CLI, its turntable (``--spin``) included.
 """
 import os
 import subprocess
@@ -132,7 +137,7 @@ def test_cli_rejects_animation_on_3_input_model_and_unported_modes(tmp_path):
               "-o", str(tmp_path / "x.png")], tmp_path)
     assert r.returncode == 2
     assert "expects 3 inputs" in r.stderr
-    r = _cli(["-d", "cpu", "-i", H5, "--spin"], tmp_path)
+    r = _cli(["-d", "cpu", "-i", H5, "--serve"], tmp_path)
     assert r.returncode == 2 and "not yet ported" in r.stderr
 
 
@@ -144,3 +149,103 @@ def test_cli_cuda_without_card_is_an_error(tmp_path):
     assert r.returncode != 0
     assert "no CUDA device" in r.stderr
     assert not (tmp_path / "x.png").exists()
+
+
+def test_cli_rejects_unsupported_input_count(tmp_path):
+    """A model that is neither 3- nor 4-input gets a plain error (exit 2),
+    not the hint to pass --animation."""
+    path = str(tmp_path / "five_in.npz")
+    ct.save_pytree(path, ct.init_mlp(torch.Generator().manual_seed(0), sizes=(5, 8, 1)))
+    for extra in ([], ["--animation"]):
+        r = _cli(["-d", "cpu", "-i", path, "--single", "-W", "8", "-H", "8",
+                  "-o", str(tmp_path / "x.png"), *extra], tmp_path)
+        assert r.returncode == 2, r.stderr[-2000:]
+        assert "expects 5 inputs" in r.stderr
+        assert "3-input (x,y,z) or 4-input" in r.stderr
+        assert "pass --animation" not in r.stderr
+    assert not (tmp_path / "x.png").exists()
+
+
+def _mixed_bar(a, b):
+    hit_a, hit_b = a[..., 3] > 0, b[..., 3] > 0
+    assert (hit_a == hit_b).mean() >= 0.99
+    both = hit_a & hit_b
+    assert both.sum() > 50
+    close = np.all(np.abs(b[both] - a[both]) < 1e-3, axis=-1).mean()
+    assert close >= 0.97, close
+
+
+CSG_SCENES = [("neural_tanh", 0.0), ("many_sphere", 90.0), ("many_sphere_cut", 90.0),
+              ("many_cylinder_cut", 0.0), ("displacement", 0.0)]
+
+
+@pytest.mark.parametrize("scene,frame", CSG_SCENES, ids=[s for s, _ in CSG_SCENES])
+def test_dense_render_image_csg_scene_matches_jax(params, scene, frame):
+    a, b, _ = _both(params, "render_image",
+                    dict(width=24, height=24, scene=scene, max_steps=200), frame=frame)
+    assert b.shape == (24, 24, 4) and np.isfinite(b).all()
+    hit_a, hit_b = a[..., 3] > 0, b[..., 3] > 0
+    assert (hit_a == hit_b).mean() >= 0.999
+    both = hit_a & hit_b
+    assert both.sum() > 50
+    np.testing.assert_allclose(b[both], a[both], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("scene,frame", [("many_sphere", 90.0), ("many_cylinder_cut", 0.0),
+                                         ("displacement", 0.0)],
+                         ids=["many_sphere", "many_cylinder_cut", "displacement"])
+def test_staged_render_csg_scene_matches_jax(params, scene, frame):
+    stats_j = {}
+    kw = dict(width=64, height=64, scene=scene, march_impl="staged", rgba_packed=False)
+    a, b, stats_t = _both(params, "render_staged", kw, frame=frame, stats_out=stats_j)
+    _mixed_bar(a, b)
+    # many_sphere overflows the first refine bucket and retries, in both
+    assert stats_t["fast_path"] == stats_j["fast_path"]
+    assert stats_t["refine_overflow"] == stats_j["refine_overflow"]
+    assert abs(stats_t["hits"] - stats_j["hits"]) <= 0.01 * stats_j["hits"]
+    assert stats_t["unresolved"] == 0
+    assert mk_t.KERNEL_LAUNCHES == 0  # CPU tensors never reach the kernel
+
+
+def test_render_sequence_matches_jax(params):
+    """Three turntable frames of many_sphere (yaw and frame number step
+    together), pipelined, against the JAX package's render_sequence."""
+    pj, pt = params
+    kw = dict(width=32, height=32, scene="many_sphere", march_impl="staged",
+              rgba_packed=False)
+    frames = [0.0, 1.0, 2.0]
+    cj.reset_schedule_memo()
+    ct.reset_schedule_memo()
+    stats_j, stats_t = [], []
+    out_j = cj.render_sequence(pj, [cj.Camera(rotation_x=-20.0, rotation_y=f) for f in frames],
+                               cj.RenderConfig(**kw), frames=frames, stats_out=stats_j)
+    out_t = ct.render_sequence(pt, [ct.Camera(rotation_x=-20.0, rotation_y=f) for f in frames],
+                               ct.RenderConfig(**kw), frames=frames, stats_out=stats_t)
+    assert len(out_t) == len(stats_t) == 3
+    for a, b, sj, st in zip(out_j, out_t, stats_j, stats_t):
+        _mixed_bar(np.asarray(a), b.numpy())
+        assert st["fast_path"] == sj["fast_path"]
+        assert abs(st["hits"] - sj["hits"]) <= 0.01 * sj["hits"]
+        assert st["unresolved"] == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ct.render_sequence(pt, [ct.Camera()], ct.RenderConfig(**kw), warm_start=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ct.render_sequence(pt, [ct.Camera()], ct.RenderConfig(**kw), chunk=4)
+
+
+def test_cli_spin_resumes_on_cpu(tmp_path):
+    """--spin writes {prefix}_{i:03d}.png for i < 360 and skips frames on
+    disk: with 0-356 present, it renders only 357-359."""
+    prefix = str(tmp_path / "spin")
+    for i in range(357):
+        open(f"{prefix}_{i:03d}.png", "wb").close()
+    r = _cli(["-d", "cpu", "-i", H5, "--scene", "many_sphere", "--spin", "-W", "16",
+              "-H", "16", "-rx", "-20", "-o", prefix], tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "turntable resume: 357 frames already on disk" in r.stdout
+    assert "turntable done: 360 frames" in r.stdout
+    for i in (357, 358, 359):
+        img = image_io.load_png(f"{prefix}_{i:03d}.png")
+        assert img.shape == (16, 16, 4) and (img[..., 3] > 0).any()
+    r = _cli(["-d", "cpu", "-i", H5, "--spin", "--warm-start", "-o", prefix], tmp_path)
+    assert r.returncode == 2 and "ROADMAP" in r.stderr
