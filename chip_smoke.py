@@ -4,8 +4,10 @@
 
 Phases; any failure exits non-zero and nothing is caught:
   1. require a CUDA device; print the card's name and power limit;
-  2. build the march kernel (csrc/march.cu, nvcc for sm_90a) and print the
-     build time and ptxas's register / shared-memory report;
+  2. build the kernels (csrc/*.cu, one nvcc per hidden width, in parallel,
+     for sm_90a) and print the build time, ptxas's report and one line per
+     kernel instantiation (registers, stack, spills, and the dynamic shared
+     memory its launch asks for at 9 layers);
   3. hold the kernel against its plain PyTorch version on the same CUDA
      tensors: csg_demo rays at 256x256 from Camera(rotation_y=30,
      rotation_x=-20), for the staged renderer's three kinds of call
@@ -28,9 +30,20 @@ Phases; any failure exits non-zero and nothing is caught:
      of one more frame, and the coarse pass timed both ways;
   7. the turntable: ``render_sequence`` over 24 frames of many_sphere
      (yaw and frame number i), twice; the second call must stay on the
-     fast path and is timed; frames 0 and 23 against ``render_staged``.
-The line before the last is a JSON object of the kernels' launches, errors
-and times; the last line is {"ok": true, "device": {...}}.
+     fast path and is timed; frames 0 and 23 against ``render_staged``;
+  8. wide nets: csg_demo widened to 64, 128 and 256 (``widen``), each
+     driven through the staged path (1080p; 512x512 at 256) with its
+     width's launches counted, the 256x256 golden, the median of 3 warm
+     frames, kernel = plain version on every march call of one more frame,
+     the coarse pass timed both ways, a profiled frame; many_sphere at 128
+     wide through phase 6's steps at 512x512;
+  9. the fused forward (K3) at widths 32-256: kernel vs plain version on
+     2^20 seeded points (max |d|, times), the plain chain's summation
+     order against the kernel's at batch paddings of 256-65536 rows, then
+     a 256x256 dense ``render_image`` with ``use_pallas=True``, its K3
+     launches counted, against ``use_pallas=False``.
+The line before the last is a JSON object of the kernels' launches, errors,
+times and bounds; the last line is {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -71,6 +84,56 @@ SCENES = (
     ("compose_many_sphere_anim_demo", "many_sphere", 37.0, ANIM_ASSET, 4, 57),
 )
 TURNTABLE_FRAMES = 24
+# Phase 8: (copies per hidden unit k, padded width 32k, image width, height);
+# 512x512 at 256, whose staged 1080p frame takes seconds on the H100.
+WIDE = ((2, 64, 1920, 1080), (4, 128, 1920, 1080), (8, 256, 512, 512))
+# Phase 9: points per forward comparison, and the bar: FP32 sums in two
+# orders (sequential FMA in the kernel, cuBLAS in the plain version), the
+# JAX package's own bar for its fused forward (tests/test_pallas.py:308).
+K3_POINTS = 1 << 20
+K3_ATOL = 1e-5
+K3_RENDER = 256  # side of the use_pallas render
+# The card's peaks for a kernel's bound (H100 SXM datasheet, 700 W):
+# FP32 outside the tensor cores, and HBM.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+K1_SOURCE = "cudaneuralrender_torch/csrc/march.cuh"
+K3_SOURCE = "cudaneuralrender_torch/csrc/chain.cuh"
+
+
+def widen(layers, k: int, seed: int) -> list:
+    """A net k times as wide that computes the same function: (w [in, out],
+    b [out]) float32 arrays in, the same out.
+
+    Each hidden unit j becomes k copies. Copy c takes the incoming column
+    a*W[:, j] and bias a*b[j] (a in [0.5, 2], seeded), so it outputs
+    a*ReLU(z_j) = ReLU(a*z_j); its outgoing row is (s_c/a)*W_next[j, :], with
+    seeded shares s_c > 0 summing to 1 over the copies. A seeded permutation
+    then reorders each hidden layer's units. The result equals the original
+    net up to float32 rounding, while no two copies share a weight or a
+    position, so a kernel that mixes up rows, columns or chunks shows."""
+    rng = np.random.default_rng(seed)
+    ws = [np.asarray(w, np.float64) for w, _ in layers]
+    bs = [np.asarray(b, np.float64) for _, b in layers]
+    out_scale = None  # per input row of the current layer: s / a of the layer before
+    perm_in = None
+    result = []
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        if out_scale is not None:  # expand and scale the rows, then permute them
+            w = np.repeat(w, k, axis=0) * out_scale[:, None]
+            w = w[perm_in]
+        if i + 1 < len(ws):  # a hidden layer: expand, scale and permute its units
+            n = w.shape[1]
+            a = rng.uniform(0.5, 2.0, (n, k))
+            s = rng.uniform(0.5, 1.5, (n, k))
+            s /= s.sum(axis=1, keepdims=True)
+            w = np.repeat(w, k, axis=1) * a.reshape(-1)[None, :]
+            b = np.repeat(b, k) * a.reshape(-1)
+            perm = rng.permutation(n * k)
+            w, b = w[:, perm], b[perm]
+            out_scale, perm_in = (s / a).reshape(-1), perm
+        result.append((w.astype(np.float32), b.astype(np.float32)))
+    return result
 
 
 def card_line() -> str:
@@ -78,6 +141,84 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The card's SM clock now, in MHz (read right after a timed run)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def ptxas_table(log: str) -> list:
+    """One (kernel, registers, stack bytes, spill stores, spill loads) row
+    per entry function in ptxas's -v report; march_kernel<H, scene,
+    window> and mlp_forward_kernel<H> named by their template arguments."""
+    import re
+
+    rows, names, cur = {}, [], None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            cur = m.group(1)
+            if cur not in rows:
+                rows[cur] = [None, None, None, None]
+                names.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur in rows:
+            rows[cur][1:] = [int(v) for v in m.groups()]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur in rows:
+            rows[cur][0] = int(m.group(1))
+    out = []
+    for name in names:
+        k1 = re.search(r"march_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        k3 = re.search(r"mlp_forward_kernelILi(\d+)E", name)
+        if k1:
+            label = "march_kernel<H={}, scene={}, window={}>".format(*k1.groups())
+        elif k3:
+            label = f"mlp_forward_kernel<H={k3.group(1)}>"
+        else:
+            continue
+        out.append((label, *rows[name]))
+    return out
+
+
+def chain_fmas(hidden: int, n_layers: int, n_in: int) -> int:
+    """Fused multiply-adds of one chain evaluation at padded width H: the
+    true n_in-input first layer, n_layers - 2 hidden layers, the 1-column
+    head (3H + 7H^2 + H for the 9-layer nets)."""
+    return n_in * hidden + (n_layers - 2) * hidden * hidden + hidden
+
+
+def bound(fmas: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the FP32 work at
+    the card's peak and the bytes at its memory rate."""
+    ops_ms = 2.0 * fmas / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bnd) -> dict:
+    """One entry of the kernels line; no single PyTorch call computes a
+    march or a fused chain, so ``library_ms`` is null."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, **bnd, library_ms=None)
+
+
+def wide_params(cnr, k: int, dev):
+    """csg_demo widened k times (``widen``) on ``dev``, tagged for the
+    schedule memo as a geometry of its own."""
+    from cudaneuralrender_torch.utils import memo
+
+    layers = cnr.mlp.to_numpy_params(cnr.load(ASSET, device="cpu"))
+    params = cnr.from_numpy_params(widen(layers, k, seed=k) if k > 1 else layers, device=dev)
+    memo.tag_geometry(params, f"{ASSET} widened x{k}")
+    return params
 
 
 def refine_entry(state, origin, dirs, config):
@@ -252,38 +393,56 @@ def time_frames(renderer, cam, frame, reps: int) -> list:
     return out
 
 
-def check_image(img, what: str) -> float:
+def check_image(img, what: str, height: int = 1080, width: int = 1920) -> float:
     """Shape, finiteness and a foreground fraction in (0.01, 0.9)."""
-    if tuple(img.shape) != (1080, 1920, 4) or not bool(torch.isfinite(img).all()):
-        raise RuntimeError(f"bad 1080p image ({what}): shape {tuple(img.shape)}")
+    if tuple(img.shape) != (height, width, 4) or not bool(torch.isfinite(img).all()):
+        raise RuntimeError(f"bad {width}x{height} image ({what}): shape {tuple(img.shape)}")
     fg = (img[..., 3] > 0).float().mean().item()
     if not 0.01 < fg < 0.9:
-        raise RuntimeError(f"{what}: 1080p foreground fraction {fg} outside (0.01, 0.9)")
+        raise RuntimeError(f"{what}: foreground fraction {fg} outside (0.01, 0.9)")
     return fg
 
 
 def time_coarse(params, calls) -> tuple:
     """The frame's first march call (the coarse pass), timed through the
-    kernel and through the plain version: (kernel ms, plain ms)."""
-    from cudaneuralrender_torch.kernels import megakernel
+    kernel and through the plain version: (kernel ms, plain ms, bound).
+    The bound counts this call's ray-steps (each ray's resolve step) times
+    the chain's fused multiply-adds, the compose's few hundred operations
+    per step left out, and its bytes: per ray the direction, t, budget and
+    flag in and five results out, and the weight stack once."""
+    from cudaneuralrender_torch.kernels import fused_mlp, megakernel
 
     origin, dirs, state, ccfg, frame, kw = calls[0]
     if dirs.shape[0] != ccfg.num_rays or kw.get("march_eps") != ccfg.coarse_eps:
         raise RuntimeError(f"the frame's first march call is not the coarse pass: {kw}")
     ms = time_cuda(
         lambda: megakernel.march_state(params, origin, dirs, state, ccfg, frame, **kw), 5)
+    sm_mhz = sm_clock_mhz()
     plain_ms = time_cuda(
         lambda: megakernel.march_state_plain(params, origin, dirs, state, ccfg, frame, **kw), 3)
-    return ms, plain_ms
+    _, lane_steps = megakernel.march_state(params, origin, dirs, state, ccfg, frame,
+                                           **dict(kw, return_resolve=True))
+    ray_steps = int((lane_steps.long() - int(state.steps)).sum())
+    weights, biases, n_in, hidden = fused_mlp.packed_params(params)
+    fmas = ray_steps * chain_fmas(hidden, weights.shape[0], n_in)
+    n = dirs.shape[0]
+    bnd = bound(fmas, n * (12 + 4 + 4 + 1) + n * (4 + 4 + 1 + 1 + 4)
+                + 4 * (weights.numel() + biases.numel()))
+    clock_ms = fmas / (132 * 128 * sm_mhz * 1e6) * 1e3
+    print(f"coarse bound: {ray_steps} ray-steps x {chain_fmas(hidden, weights.shape[0], n_in)} "
+          f"FMAs at width {hidden}: {bnd['bound_ms']:.3f} ms at 67 TFLOP/s, {clock_ms:.3f} ms "
+          f"at the SM clock read after the timing ({sm_mhz:.0f} MHz; 132 SMs x 128 lanes)")
+    return ms, plain_ms, bnd
 
 
-def drive_scene(cnr, params, scene, frame, num_inputs, card) -> dict:
-    """Phase 6 for one scene: the staged main path at 1080p with the
-    scene's kernel launches counted, then kernel = plain version on every
-    march call of a warm frame, and the coarse pass timed both ways."""
+def drive_scene(cnr, params, scene, frame, num_inputs, card, width=1920, height=1080) -> dict:
+    """Phase 6 for one scene: the staged main path (1080p unless asked
+    otherwise) with the scene's kernel launches counted, then kernel = plain
+    version on every march call of a warm frame, and the coarse pass timed
+    both ways."""
     from cudaneuralrender_torch.kernels import megakernel
 
-    cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged", scene=scene,
+    cfg = cnr.RenderConfig(width=width, height=height, march_impl="staged", scene=scene,
                            num_inputs=num_inputs)
     renderer = cnr.Renderer(params, cfg)
     cam = cnr.Camera(**CAMERA)
@@ -293,27 +452,142 @@ def drive_scene(cnr, params, scene, frame, num_inputs, card) -> dict:
     torch.cuda.synchronize()
     launches = megakernel.SCENE_LAUNCHES[scene]
     tag = f"{scene} frame {frame:g} ({num_inputs}-input)"
-    print(f"scene {tag}: {launches} kernel launches in a cold and a warm 1080p frame, "
+    res = "1080p" if (width, height) == (1920, 1080) else f"{width}x{height}"
+    print(f"scene {tag}: {launches} kernel launches in a cold and a warm {res} frame, "
           f"stats {json.dumps(renderer.last_stats)}")
     if launches == 0:
         raise RuntimeError(f"{tag}: the staged render never launched the march kernel")
-    fg = check_image(img, tag)
+    fg = check_image(img, tag, height, width)
     frame_ms = time_frames(renderer, cam, frame, 3)
-    print(f"scene {tag}: foreground {fg:.4f}; 1080p staged frame median "
+    print(f"scene {tag}: foreground {fg:.4f}; {res} staged frame median "
           f"{statistics.median(frame_ms):.3f} ms over 3 warm frames "
           f"{[round(x, 3) for x in frame_ms]} [{card}]")
     calls = record_march_calls(renderer, cam, frame)
     result = compare_recorded_calls(params, calls)
     for name, a in result.items():
-        print(f"compare {scene} 1080p {name}: {json.dumps(a)}")
+        print(f"compare {scene} {res} {name}: {json.dumps(a)}")
     check_agreement(result)
-    ms, plain_ms = time_coarse(params, calls)
-    print(f"scene {tag}: coarse march 1080p kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"[{card}]")
+    ms, plain_ms, bnd = time_coarse(params, calls)
+    print(f"scene {tag}: coarse march {res} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bnd['bound_ms']:.3f} ms [{card}]")
     print(f"scene {tag}: breakdown {json.dumps(device_breakdown(renderer, cam, frame))} "
           f"[{card}]", flush=True)
     return dict(launches=launches, max_abs_err=max(a["max_abs_err"] for a in result.values()),
-                ms=ms, plain_ms=plain_ms)
+                ms=ms, plain_ms=plain_ms, bnd=bnd)
+
+
+def golden_render(cnr, params, cam):
+    """The 256x256 golden render of a csg_demo-shaped net, held to the bar."""
+    from cudaneuralrender_torch.utils import image_io
+
+    gold_cfg = cnr.RenderConfig(width=256, height=256, scene="neural_raw", max_steps=500,
+                                march_impl="staged")
+    ours = cnr.Renderer(params, gold_cfg).render_frame(cam)
+    iou, frac2 = golden_check(ours, image_io.load_png(GOLDEN))
+    if iou < 0.99 or frac2 < 0.95:
+        raise RuntimeError(f"golden render off: IoU {iou}, within-2 {frac2}")
+    return iou, frac2
+
+
+def drive_width(cnr, params, hidden, width, height, card) -> dict:
+    """Phase 8 for one width: the staged main path with this width's
+    launches counted (a cold and a warm frame), the golden, the median of 3
+    warm frames, kernel = plain version on every march call of one more
+    frame, the coarse pass timed both ways, and a profiled frame."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    cfg = cnr.RenderConfig(width=width, height=height, march_impl="staged")
+    renderer = cnr.Renderer(params, cfg)
+    cam = cnr.Camera(**CAMERA)
+    tag = f"width {hidden} {width}x{height}"
+    megakernel.reset_launch_counts()
+    renderer.render(cam)  # cold: may overflow and teach the memo
+    img = renderer.render(cam)
+    torch.cuda.synchronize()
+    launches = megakernel.WIDTH_LAUNCHES[hidden]
+    print(f"{tag}: {launches} kernel launches in a cold and a warm frame, "
+          f"stats {json.dumps(renderer.last_stats)}")
+    if launches == 0:
+        raise RuntimeError(f"{tag}: the staged render never launched the march kernel")
+    fg = check_image(img, tag, height, width)
+    iou, frac2 = golden_render(cnr, params, cam)
+    print(f"{tag}: foreground {fg:.4f}; golden 256x256 IoU {iou:.5f}, {frac2:.5f} of "
+          "foreground within 2 levels")
+    frame_ms = time_frames(renderer, cam, 0.0, 3)
+    print(f"{tag}: staged frame median {statistics.median(frame_ms):.3f} ms over 3 warm "
+          f"frames {[round(x, 3) for x in frame_ms]} [{card}]")
+    calls = record_march_calls(renderer, cam)
+    result = compare_recorded_calls(params, calls)
+    for name, a in result.items():
+        print(f"compare {tag} {name}: {json.dumps(a)}")
+    check_agreement(result)
+    ms, plain_ms, bnd = time_coarse(params, calls)
+    print(f"{tag}: coarse march kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bnd['bound_ms']:.3f} ms [{card}]")
+    print(f"{tag}: breakdown {json.dumps(device_breakdown(renderer, cam))} [{card}]",
+          flush=True)
+    return kernel_entry(f"march_kernel_h{hidden}", K1_SOURCE,
+                        "cudaneuralrender_tpu/pallas/megakernel.py:45", launches,
+                        max(a["max_abs_err"] for a in result.values()), ms, plain_ms, bnd)
+
+
+def drive_forward(cnr, params, hidden, card) -> dict:
+    """Phase 9 for one width: K3 against its plain version on K3_POINTS
+    seeded points, timed both ways; then the path that runs it, a 256x256
+    dense render_image with use_pallas, with K3's launches counted, against
+    the same render with use_pallas off (the full-precision bar)."""
+    from cudaneuralrender_torch.kernels import fused_mlp
+
+    dev = params.device
+    weights, biases, n_in, h = fused_mlp.packed_params(params)
+    pts = torch.as_tensor(np.random.default_rng(hidden).uniform(-1.2, 1.2, (K3_POINTS, n_in))
+                          .astype(np.float32), device=dev)
+    got = fused_mlp.mlp_forward(weights, biases, pts)
+    want = fused_mlp.mlp_forward_plain(weights, biases, pts)
+    err = (got - want).abs().max().item()
+    ms = time_cuda(lambda: fused_mlp.mlp_forward(weights, biases, pts), 10)
+    plain_ms = time_cuda(lambda: fused_mlp.mlp_forward_plain(weights, biases, pts), 5)
+    bnd = bound(K3_POINTS * chain_fmas(h, weights.shape[0], n_in),
+                K3_POINTS * (4 * n_in + 4) + 4 * (weights.numel() + biases.numel()))
+    print(f"forward width {h}: {K3_POINTS} points, max |kernel - plain| {err:.3g}; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms [{card}]")
+    if not err <= K3_ATOL:
+        raise RuntimeError(f"forward kernel disagrees with its plain version at width {h}: "
+                           f"max |d| {err} > {K3_ATOL}")
+    # Does the plain chain's summation order depend on the batch? Its first
+    # 256 points padded to m rows, against the kernel bit for bit.
+    head = got[:256]
+    same = {}
+    for m in (256, 512, 1024, 4096, 65536):
+        xp = torch.zeros((m, h), dtype=torch.float32, device=dev)
+        xp[:256, :n_in] = pts[:256]
+        chain = fused_mlp.mlp_chain_plain(weights, biases, xp, weights.shape[0])[:256, 0]
+        same[m] = (chain == head).float().mean().item()
+    print(f"forward width {h}: plain chain on 256 points padded to m rows, share equal to the "
+          f"kernel bit for bit: {json.dumps(same)} (the plain versions pad to "
+          f"{fused_mlp.min_rows(dev)} rows on the card)")
+
+    cfg = cnr.RenderConfig(width=K3_RENDER, height=K3_RENDER, max_steps=500, use_pallas=True)
+    cam = cnr.Camera(**CAMERA)
+    fused_mlp.reset_launch_counts()
+    img = cnr.render_image(params, cam, cfg)
+    torch.cuda.synchronize()
+    launches = fused_mlp.MLP_LAUNCHES
+    ref = cnr.render_image(params, cam, cfg.replace(use_pallas=False))
+    hit, hit_ref = img[..., 3] > 0, ref[..., 3] > 0
+    agree = (hit == hit_ref).float().mean().item()
+    both = hit & hit_ref
+    rgba_err = (img - ref).abs()[both].max().item() if bool(both.any()) else 0.0
+    print(f"forward width {h}: use_pallas {K3_RENDER}x{K3_RENDER} render, {launches} K3 "
+          "launches; hit masks "
+          f"agree on {agree:.6f}, {int(both.sum())} common hits, max |rgba diff| "
+          f"{rgba_err:.3g}", flush=True)
+    if launches == 0 or agree < 0.999 or rgba_err > 1e-4 or int(both.sum()) == 0:
+        raise RuntimeError(f"use_pallas render at width {h}: {launches} launches, masks "
+                           f"agree {agree}, rgba diff {rgba_err}")
+    return kernel_entry(f"mlp_forward_kernel_h{h}", K3_SOURCE,
+                        "cudaneuralrender_tpu/pallas/fused_mlp.py:187", launches, err, ms,
+                        plain_ms, bnd)
 
 
 def drive_turntable(cnr, params, card) -> int:
@@ -373,7 +647,6 @@ def main() -> int:
     import cudaneuralrender_torch as cnr
     from cudaneuralrender_torch.kernels import build, megakernel
     from cudaneuralrender_torch.ops import camera as camera_lib
-    from cudaneuralrender_torch.utils import image_io
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -385,6 +658,11 @@ def main() -> int:
     build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s ({build.library_path()})")
     print(build.BUILD_LOG.strip() or "(library already built)", flush=True)
+    for label, regs, stack, spill_st, spill_ld in ptxas_table(build.BUILD_LOG):
+        h = int(label.split("H=")[1].split(",")[0].rstrip(">"))
+        smem = 4 * 9 * h * (h + 1) if h <= 64 else 0  # csrc/chain.cuh smem_bytes
+        print(f"ptxas {label}: {regs} registers, {stack} bytes stack, {spill_st} bytes spill "
+              f"stores, {spill_ld} bytes spill loads; {smem} bytes dynamic shared memory")
 
     params = cnr.load(ASSET, device=dev)
 
@@ -413,13 +691,8 @@ def main() -> int:
     fg = check_image(img, "neural_raw")
     print(f"main path 1080p: foreground fraction {fg:.4f}")
 
-    gold_cfg = cnr.RenderConfig(width=256, height=256, scene="neural_raw", max_steps=500,
-                                march_impl="staged")
-    ours = cnr.Renderer(params, gold_cfg).render_frame(cam)
-    iou, frac2 = golden_check(ours, image_io.load_png(GOLDEN))
+    iou, frac2 = golden_render(cnr, params, cam)
     print(f"golden 256x256: IoU {iou:.5f}, {frac2:.5f} of foreground within 2 levels")
-    if iou < 0.99 or frac2 < 0.95:
-        raise RuntimeError(f"golden render off: IoU {iou}, within-2 {frac2}")
 
     # 5. timing
     frame_ms = time_frames(renderer, cam, 0.0, 5)
@@ -436,22 +709,15 @@ def main() -> int:
     check_agreement(full)
     max_abs_err = max([max_abs_err] + [a["max_abs_err"] for a in full.values()])
 
-    ms, plain_ms = time_coarse(params, calls)
+    ms, plain_ms, bnd = time_coarse(params, calls)
     print(f"coarse march 1080p ({cfg.num_rays} rays): kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms [{card}]")
+          f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms [{card}]")
 
     print(f"breakdown 1080p frame: {json.dumps(device_breakdown(renderer, cam))} [{card}]")
 
-    kernels = [{
-        "name": "march_kernel",
-        "route": "cuda",
-        "source": "cudaneuralrender_torch/csrc/march.cu",
-        "replaces": "cudaneuralrender_tpu/pallas/megakernel.py:45",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]
+    kernels = [kernel_entry("march_kernel", K1_SOURCE,
+                            "cudaneuralrender_tpu/pallas/megakernel.py:45", launches,
+                            max_abs_err, ms, plain_ms, bnd)]
 
     # 6. the CSG scenes, composed inside the kernel
     t6 = time.perf_counter()
@@ -459,15 +725,31 @@ def main() -> int:
     for entry, scene, frame, asset, num_inputs, line in SCENES:
         r = drive_scene(cnr, anim if asset == ANIM_ASSET else params, scene, frame,
                         num_inputs, card)
-        kernels.append(dict(name=entry, route="cuda",
-                            source="cudaneuralrender_torch/csrc/march.cu",
-                            replaces=f"cudaneuralrender_tpu/pallas/scenes.py:{line}", **r))
+        kernels.append(kernel_entry(entry, K1_SOURCE,
+                                    f"cudaneuralrender_tpu/pallas/scenes.py:{line}", **r))
     print(f"phase 6 (scenes): {time.perf_counter() - t6:.1f} s wall")
 
     # 7. the turntable
     t7 = time.perf_counter()
     drive_turntable(cnr, params, card)
     print(f"phase 7 (turntable): {time.perf_counter() - t7:.1f} s wall", flush=True)
+
+    # 8. wide nets through the staged path
+    t8 = time.perf_counter()
+    wide = {}
+    for k, hidden, width, height in WIDE:
+        wide[hidden] = wide_params(cnr, k, dev)
+        kernels.append(drive_width(cnr, wide[hidden], hidden, width, height, card))
+    r = drive_scene(cnr, wide[128], "many_sphere", 90.0, 3, card, 512, 512)
+    kernels.append(kernel_entry("compose_many_sphere_h128", K1_SOURCE,
+                                "cudaneuralrender_tpu/pallas/scenes.py:57", **r))
+    print(f"phase 8 (wide nets): {time.perf_counter() - t8:.1f} s wall", flush=True)
+
+    # 9. the fused forward at every width, and use_pallas
+    t9 = time.perf_counter()
+    for hidden, net in [(32, params)] + sorted(wide.items()):
+        kernels.append(drive_forward(cnr, net, hidden, card))
+    print(f"phase 9 (forward kernel): {time.perf_counter() - t9:.1f} s wall", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

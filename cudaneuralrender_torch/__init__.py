@@ -1,8 +1,9 @@
 """cudaneuralrender_torch — the PyTorch/CUDA port of cudaneuralrender_tpu.
 
 A neural-SDF sphere-trace renderer for NVIDIA Hopper: load Keras-HDF5 SDF
-networks, march them with a hand-written CUDA kernel (csrc/march.cu), and
-shade with facing-ratio or matcap. The JAX package beside it is the
+networks (3 or 4 inputs, hidden layers up to 256 wide), march them with a
+hand-written CUDA kernel (csrc/march.cuh), and shade with facing-ratio or
+matcap. Models load onto the card unless the CPU is asked for. The JAX package beside it is the
 reference this package is tested against; this package never imports JAX.
 
 Quick start::

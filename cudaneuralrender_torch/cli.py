@@ -11,12 +11,14 @@ package's CLI has it:
   --single   render one frame and exit (prints the MTexels/s line)
   --spin     360-frame turntable, {prefix}_{i:03d}.png (main.cpp:445-478)
   --animation  4-input (x,y,z,frame) mode
-plus --scene, --steps, --march, --normal-mode, --stats, --parity-flip and
--d/--device (default cuda). With ``cuda`` and no card the CLI fails; the
-CPU is used only when asked for with ``-d cpu``.
+plus --scene, --steps, --march, --normal-mode, --stats, --parity-flip,
+--pallas (config.use_pallas: the fused forward kernel for every SDF
+evaluation outside the march kernel) and -d/--device (default cuda). With
+``cuda`` and no card the CLI fails; the CPU is used only when asked for with
+``-d cpu``.
 
-``--warm-start``, ``--serve``, ``--profile``, ``--fault-inject`` and
-``--pallas`` are not ported yet: they print so and exit with code 2.
+``--warm-start``, ``--serve``, ``--profile`` and ``--fault-inject`` are not
+ported yet: they print so and exit with code 2.
 
 Run: python -m cudaneuralrender_torch.cli -i examples/assets/csg_demo.npz --single
 """
@@ -28,7 +30,7 @@ import os
 import sys
 import time
 
-NOT_PORTED = ("warm_start", "serve", "profile", "fault_inject", "pallas")
+NOT_PORTED = ("warm_start", "serve", "profile", "fault_inject")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--profile", default=None, metavar="DIR", help="(not ported)")
     p.add_argument("--fault-inject", type=int, default=0, metavar="N", help="(not ported)")
-    p.add_argument("--pallas", action="store_true", help="(not ported)")
+    p.add_argument("--pallas", action="store_true",
+                   help="evaluate the SDF through the fused forward kernel (use_pallas)")
     return p
 
 
@@ -123,6 +126,7 @@ def main(argv=None) -> int:
         width=args.width, height=args.height, max_steps=args.steps,
         scene=args.scene or "neural_raw", shading=shading,
         normal_mode=args.normal_mode, num_inputs=num_inputs, march_impl=args.march,
+        use_pallas=args.pallas,
     ).validate()
     renderer = cnr.Renderer(params, cfg, matcap)
     camera = cnr.Camera.from_cli(rx=args.rx, ry=args.ry, zoom=args.zoom)

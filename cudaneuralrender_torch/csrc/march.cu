@@ -1,336 +1,37 @@
-// Sphere-trace march kernel: the whole march of each ray in one launch.
+// The library's C interface, bound with ctypes by kernels/build.py.
 //
-// Replaces the JAX package's Pallas TPU kernel
-// cudaneuralrender_tpu/pallas/megakernel.py::_march_megakernel (launched by
-// march_pallas_state), together with the layer chain it inlines
-// (pallas/fused_mlp.py::_mlp_chain) and the scene compose
-// (pallas/scenes.py::compose_fn: neural_raw, neural_tanh, many_sphere,
-// many_sphere_cut, many_cylinder_cut through a 1/3/5 grid window, and
-// displacement).
+//   cnr_march        the march kernel (K1, csrc/march.cuh)
+//   cnr_mlp_forward  the fused forward (K3, csrc/chain.cuh)
 //
-// What bounds it on this card: arithmetic. A step of a 9-layer, 32-wide
-// net is about 9.2k fused multiply-adds per ray (7.3k with the true 3-input
-// first layer and the 1-column head this kernel computes), while it reads
-// nothing from device memory per step: the weights come from shared memory
-// and the ray state lives in registers. Device memory is touched once per
-// ray on entry (direction, t, budget, flags) and once on exit.
-//
-// Design:
-//   * one thread per ray, 128 threads per block;
-//   * the padded weight stack [L, H, H] and biases [L, H] are staged into
-//     shared memory once per block (36 KB + 1.1 KB at L=9, H=32); every
-//     thread of a warp reads the same weight at the same time, a broadcast;
-//   * activations live in registers, with H a template parameter (32);
-//   * the first layer contracts over the true 3 or 4 inputs (the frame is
-//     the 4th), and the head computes only output column 0;
-//   * the scene compose runs right after the chain, each step, where the
-//     reference's sceneSDF runs inside its march kernel. The scene and the
-//     cylinder window are template parameters, one instantiation per
-//     (scene, window): the compose is straight-line code with no branch on
-//     the scene, and the neural_raw instantiation is the bare chain;
-//   * each ray loops until it resolves (per-ray exit; the TPU kernel exits
-//     per 8192-lane tile, with identical per-ray results);
-//   * all arithmetic is FP32 FFMA, for both of the JAX package's
-//     precisions (DEFAULT and HIGHEST).
-//
-// The compose's cost: it is FP32 elementwise work on the ray's own
-// registers, about 100 (many_sphere: 9 sphere distances and smooth
-// unions) to 400 (many_cylinder_cut, window 5: 25 cylinders and smooth
-// subtractions) operations per step plus a few sqrtf / sinf / tanhf, next
-// to the ~7.3k FMAs of the layer chain. It should change the cost of a
-// step by a few percent; frame times per scene differ mostly through their
-// step counts.
-//
-// Per-lane semantics follow the TPU kernel exactly: singleMarch's update
-// order (budget charge, miss, move, converge), the constant over-relaxation
-// with backtrack (prev_r / step_len, plain step while step_len < 0), and the
-// resolve step: lanes that resolve report step + 1, lanes still active at
-// exit report the exit step, lanes inactive at entry report the entry step.
-// The point o + d*t is one fused multiply-add (XLA contracts it the same
-// way); the rest of the bookkeeping and the whole compose use explicit
-// round-to-nearest intrinsics so that nothing else is contracted: the
-// compose's plain version (kernels/scenes.py) runs each product and sum as
-// its own PyTorch operator, which never fuses a multiply-add. A division
-// by a constant is a multiplication by the constant's float32 reciprocal
-// in both versions (XLA folds it so, and PyTorch's CUDA division by a
-// scalar does too). sqrtf, sinf and tanhf are CUDA's own (no fast-math
-// flags), the functions PyTorch's CUDA operators call.
-
+// Each dispatches on the padded hidden width to the instantiation in
+// csrc/hidden{32,64,128,256}.cu and returns a cudaError_t: a width, scene,
+// window or input count with no instantiation gives cudaErrorInvalidValue,
+// and a refused launch its own error. Nothing is launched in either case.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.h"
+
 namespace {
 
-constexpr int kBlock = 128;
-constexpr int kHidden = 32;
+template <typename Args>
+using Launcher = int (*)(const Args&, cudaStream_t);
 
-// Each layer sums its products in input order, starting from zero, and adds
-// the bias last: the order of a plain GEMM followed by a bias add, so the
-// kernel's SDF values match its plain version's on both CPU and cuBLAS.
-template <int H>
-__device__ __forceinline__ float mlp_sdf(const float* __restrict__ sw,
-                                         const float* __restrict__ sb,
-                                         int n_layers, int n_inputs,
-                                         float px, float py, float pz,
-                                         float frame) {
-  const float in[4] = {px, py, pz, frame};
-  if (n_layers == 1) {  // the head is the first layer
-    float d = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (i < n_inputs) d = fmaf(in[i], sw[i * H], d);
-    return __fadd_rn(d, sb[0]);
+template <typename Args>
+int dispatch(int device, int hidden, const Args& a, void* stream,
+             Launcher<Args> h32, Launcher<Args> h64, Launcher<Args> h128,
+             Launcher<Args> h256) {
+  Launcher<Args> launch = nullptr;
+  switch (hidden) {
+    case 32: launch = h32; break;
+    case 64: launch = h64; break;
+    case 128: launch = h128; break;
+    case 256: launch = h256; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  float x[H];
-#pragma unroll
-  for (int o = 0; o < H; ++o) x[o] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (i < n_inputs) {
-#pragma unroll
-      for (int o = 0; o < H; ++o) x[o] = fmaf(in[i], sw[i * H + o], x[o]);
-    }
-  }
-#pragma unroll
-  for (int o = 0; o < H; ++o) x[o] = fmaxf(__fadd_rn(x[o], sb[o]), 0.f);
-
-  for (int l = 1; l < n_layers - 1; ++l) {
-    const float* w = sw + l * H * H;
-    const float* b = sb + l * H;
-    float y[H];
-#pragma unroll
-    for (int o = 0; o < H; ++o) y[o] = 0.f;
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const float xi = x[i];
-#pragma unroll
-      for (int o = 0; o < H; o += 4) {
-        const float4 wv = *reinterpret_cast<const float4*>(w + i * H + o);
-        y[o] = fmaf(xi, wv.x, y[o]);
-        y[o + 1] = fmaf(xi, wv.y, y[o + 1]);
-        y[o + 2] = fmaf(xi, wv.z, y[o + 2]);
-        y[o + 3] = fmaf(xi, wv.w, y[o + 3]);
-      }
-    }
-#pragma unroll
-    for (int o = 0; o < H; ++o) x[o] = fmaxf(__fadd_rn(y[o], b[o]), 0.f);
-  }
-
-  const float* w = sw + (n_layers - 1) * H * H;
-  float d = 0.f;
-#pragma unroll
-  for (int i = 0; i < H; ++i) d = fmaf(x[i], w[i * H], d);
-  return __fadd_rn(d, sb[(n_layers - 1) * H]);
-}
-
-// Scene ids: kernels/scenes.py SCENE_IDS.
-enum Scene : int {
-  kNeuralRaw = 0,
-  kNeuralTanh = 1,
-  kManySphere = 2,
-  kManySphereCut = 3,
-  kManyCylinderCut = 4,
-  kDisplacement = 5,
-};
-
-// Smooth-operator blend width k and its float32 reciprocal (1 / 0.01f).
-constexpr float kSmoothK = 0.01f;
-constexpr float kInvSmoothK = 100.0f;
-// Drill-hole grid spacing's float32 reciprocal (1 / 0.1f).
-constexpr float kInvCell = 10.0f;
-// many_sphere's z step per frame, 2*0.7/360 rounded to float32.
-constexpr float kSphereZStep = static_cast<float>(2.0 * 0.7 / 360.0);
-
-__device__ __forceinline__ float clamp01(float h) {
-  // clamp to [0, 1] keeping NaN, as torch.clamp and jnp.clip do
-  h = h < 0.f ? 0.f : h;
-  return h > 1.f ? 1.f : h;
-}
-
-// d2*(1-h) + d1*h - k*h*(1-h), h = clip(0.5 + 0.5*(d2-d1)/k, 0, 1)
-__device__ __forceinline__ float smooth_union(float d1, float d2) {
-  const float h = clamp01(__fadd_rn(
-      0.5f, __fmul_rn(__fmul_rn(0.5f, __fsub_rn(d2, d1)), kInvSmoothK)));
-  const float g = __fsub_rn(1.f, h);
-  return __fsub_rn(__fadd_rn(__fmul_rn(d2, g), __fmul_rn(d1, h)),
-                   __fmul_rn(__fmul_rn(kSmoothK, h), g));
-}
-
-// d1*(1-h) - d2*h + k*h*(1-h), h = clip(0.5 - 0.5*(d1+d2)/k, 0, 1)
-__device__ __forceinline__ float smooth_subtract(float d1, float d2) {
-  const float h = clamp01(__fsub_rn(
-      0.5f, __fmul_rn(__fmul_rn(0.5f, __fadd_rn(d1, d2)), kInvSmoothK)));
-  const float g = __fsub_rn(1.f, h);
-  return __fadd_rn(__fsub_rn(__fmul_rn(d1, g), __fmul_rn(d2, h)),
-                   __fmul_rn(__fmul_rn(kSmoothK, h), g));
-}
-
-// pallas/scenes.py::_many_sphere: nine radius-0.1 spheres on a 3 x 3 grid
-// (world centers ops/sdf.py::_MANY_SPHERE_CENTERS), animated in z by the
-// frame, smooth-unioned (or subtracted) in the reference's order.
-template <bool kUnion>
-__device__ __forceinline__ float many_sphere(float px, float py, float pz,
-                                             float d, float frame) {
-  const float cx[3] = {-0.5f, -0.1f, 0.3f};
-  const float cy[3] = {0.2f, -0.2f, -0.6f};
-  const float dz = __fadd_rn(pz, __fadd_rn(-0.7f, __fmul_rn(frame, kSphereZStep)));
-  const float dz2 = __fmul_rn(dz, dz);
-#pragma unroll
-  for (int row = 0; row < 3; ++row) {
-    const float dy = __fsub_rn(py, cy[row]);
-    const float dy2 = __fmul_rn(dy, dy);
-#pragma unroll
-    for (int col = 0; col < 3; ++col) {
-      const float dx = __fsub_rn(px, cx[col]);
-      const float sd = __fsub_rn(
-          __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx), dy2), dz2)), 0.1f);
-      d = kUnion ? smooth_union(d, sd) : smooth_subtract(d, sd);
-    }
-  }
-  return d;
-}
-
-// pallas/scenes.py::_many_cylinder_cut: the W x W cells of the 20 x 15
-// drill-hole grid around the point's nearest cell, in (row, col) order.
-template <int W>
-__device__ __forceinline__ float many_cylinder_cut(float px, float py, float d) {
-  const float c0 = floorf(__fadd_rn(__fmul_rn(__fadd_rn(px, 0.88f), kInvCell), 0.5f));
-  const float r0 = floorf(__fadd_rn(__fmul_rn(__fsub_rn(0.42f, py), kInvCell), 0.5f));
-#pragma unroll
-  for (int dr = -W / 2; dr <= W / 2; ++dr) {
-    const float r = __fadd_rn(r0, static_cast<float>(dr));
-    const float dy = __fsub_rn(__fadd_rn(py, __fadd_rn(-0.4f, __fmul_rn(0.1f, r))), 0.02f);
-    const float dy2 = __fmul_rn(dy, dy);
-    const bool row_ok = r >= 0.f && r <= 14.f;
-#pragma unroll
-    for (int dc = -W / 2; dc <= W / 2; ++dc) {
-      const float c = __fadd_rn(c0, static_cast<float>(dc));
-      const float dx = __fsub_rn(__fadd_rn(px, __fsub_rn(0.9f, __fmul_rn(0.1f, c))), 0.02f);
-      const float cyl = __fsub_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx), dy2)), 0.02f);
-      const bool valid = row_ok && c >= 0.f && c <= 19.f;
-      d = smooth_subtract(d, valid ? cyl : 1e9f);
-    }
-  }
-  return d;
-}
-
-// The scene's distance from the chain's raw logit d at point p.
-template <int S, int W>
-__device__ __forceinline__ float compose(float px, float py, float pz, float d,
-                                         float frame) {
-  if constexpr (S == kNeuralRaw) {
-    return d;
-  } else if constexpr (S == kNeuralTanh) {
-    return tanhf(d);
-  } else if constexpr (S == kManySphere || S == kManySphereCut) {
-    return many_sphere<S == kManySphere>(px, py, pz, d, frame);
-  } else if constexpr (S == kManyCylinderCut) {
-    return many_cylinder_cut<W>(px, py, d);
-  } else {  // kDisplacement: sin(5x) sin(5y) sin(5z) * 0.05 over tanh(d)
-    const float s = __fmul_rn(__fmul_rn(sinf(__fmul_rn(5.f, px)), sinf(__fmul_rn(5.f, py))),
-                              sinf(__fmul_rn(5.f, pz)));
-    return __fadd_rn(tanhf(d), __fmul_rn(s, 0.05f));
-  }
-}
-
-template <int H, int S, int W>
-__global__ void __launch_bounds__(kBlock)
-march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
-             const float* __restrict__ t0, const float* __restrict__ budget0,
-             const uint8_t* __restrict__ active0,
-             const int32_t* __restrict__ steps0,
-             const float* __restrict__ weights,
-             const float* __restrict__ biases, int n_layers, int n_inputs,
-             float frame, int n, int max_steps, int num_steps, float eps,
-             float omega, float* __restrict__ t_out,
-             float* __restrict__ budget_out, uint8_t* __restrict__ active_out,
-             uint8_t* __restrict__ conv_out, int32_t* __restrict__ steps_out) {
-  extern __shared__ float4 smem4[];
-  float* sw = reinterpret_cast<float*>(smem4);
-  float* sb = sw + n_layers * H * H;
-  const int n_w4 = n_layers * H * H / 4;
-  for (int k = threadIdx.x; k < n_w4; k += blockDim.x)
-    smem4[k] = reinterpret_cast<const float4*>(weights)[k];
-  for (int k = threadIdx.x; k < n_layers * H; k += blockDim.x)
-    sb[k] = biases[k];
-  __syncthreads();
-
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-
-  const float ox = origin[0], oy = origin[1], oz = origin[2];
-  const float dx = dirs[3 * r], dy = dirs[3 * r + 1], dz = dirs[3 * r + 2];
-  float t = t0[r];
-  float budget = budget0[r];
-  bool act = active0[r] != 0;
-  bool conv = false;
-  const int start = *steps0;
-  int step = start;
-  int res = start;
-  const bool relax = omega > 1.f;
-  float prev_r = 0.f, step_len = 0.f;
-
-  while (act && step < max_steps && (num_steps < 0 || step - start < num_steps)) {
-    const float px = __fmaf_rn(dx, t, ox);
-    const float py = __fmaf_rn(dy, t, oy);
-    const float pz = __fmaf_rn(dz, t, oz);
-    const float d = compose<S, W>(
-        px, py, pz, mlp_sdf<H>(sw, sb, n_layers, n_inputs, px, py, pz, frame), frame);
-
-    bool sor_fail = false;
-    bool near;
-    float stepv;
-    if (relax) {
-      sor_fail = (step_len > prev_r) && (__fadd_rn(d, prev_r) < step_len);
-      near = !sor_fail && (d < eps);
-      const float om = step_len < 0.f ? 1.f : omega;
-      stepv = sor_fail ? __fsub_rn(prev_r, step_len)
-                       : (near ? d : __fmul_rn(om, d));
-    } else {
-      near = d < eps;
-      stepv = d;
-    }
-    budget = __fsub_rn(budget, stepv);
-    const bool moved = sor_fail || !(budget <= 0.f);  // miss: budget <= 0
-    if (moved) t = __fadd_rn(t, stepv);
-    const bool conv_now = moved && near;
-    conv = conv || conv_now;
-    if (relax) {
-      if (moved && !sor_fail) prev_r = d;
-      if (moved) step_len = stepv;
-    }
-    ++step;
-    act = moved && !conv_now;
-    if (!act) res = step;
-  }
-
-  t_out[r] = t;
-  budget_out[r] = budget;
-  active_out[r] = act ? 1 : 0;
-  conv_out[r] = conv ? 1 : 0;
-  steps_out[r] = act ? step : res;
-}
-
-using MarchKernel = void (*)(const float*, const float*, const float*, const float*,
-                             const uint8_t*, const int32_t*, const float*, const float*,
-                             int, int, float, int, int, int, float, float, float*, float*,
-                             uint8_t*, uint8_t*, int32_t*);
-
-// The instantiation for a scene id and cylinder window, or nullptr.
-MarchKernel pick_kernel(int scene, int window) {
-  if (window != 1 && window != 3 && window != 5) return nullptr;
-  switch (scene) {
-    case kNeuralRaw: return march_kernel<kHidden, kNeuralRaw, 0>;
-    case kNeuralTanh: return march_kernel<kHidden, kNeuralTanh, 0>;
-    case kManySphere: return march_kernel<kHidden, kManySphere, 0>;
-    case kManySphereCut: return march_kernel<kHidden, kManySphereCut, 0>;
-    case kManyCylinderCut:
-      if (window == 1) return march_kernel<kHidden, kManyCylinderCut, 1>;
-      if (window == 3) return march_kernel<kHidden, kManyCylinderCut, 3>;
-      return march_kernel<kHidden, kManyCylinderCut, 5>;
-    case kDisplacement: return march_kernel<kHidden, kDisplacement, 0>;
-    default: return nullptr;
-  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -345,26 +46,21 @@ extern "C" int cnr_march(int device, const float* dirs, const float* origin,
                          float omega, float* t_out, float* budget_out,
                          uint8_t* active_out, uint8_t* conv_out,
                          int32_t* steps_out, void* stream) {
-  const MarchKernel kernel = pick_kernel(scene, window);
-  if (kernel == nullptr || hidden != kHidden || n_layers < 1 || n_inputs < 1 ||
-      n_inputs > 4)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= 0) return 0;
-  const size_t smem = sizeof(float) * static_cast<size_t>(n_layers) * kHidden *
-                      (kHidden + 1);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int grid = (n + kBlock - 1) / kBlock;
-  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-      dirs, origin, t0, budget0, active0, steps0, weights, biases, n_layers,
-      n_inputs, frame, n, max_steps, num_steps, eps, omega, t_out, budget_out,
-      active_out, conv_out, steps_out);
-  return static_cast<int>(cudaGetLastError());
+  const cnr::MarchArgs a{dirs, origin, t0, budget0, active0, steps0, weights, biases,
+                         n_layers, n_inputs, frame, scene, window, n, max_steps,
+                         num_steps, eps, omega, t_out, budget_out, active_out,
+                         conv_out, steps_out};
+  return dispatch(device, hidden, a, stream, cnr::launch_march<32>,
+                  cnr::launch_march<64>, cnr::launch_march<128>, cnr::launch_march<256>);
+}
+
+extern "C" int cnr_mlp_forward(int device, const float* x, const float* weights,
+                               const float* biases, int n_layers, int hidden,
+                               int n_inputs, int n, float* out, void* stream) {
+  const cnr::MlpArgs a{x, weights, biases, n_layers, n_inputs, n, out};
+  return dispatch(device, hidden, a, stream, cnr::launch_mlp_forward<32>,
+                  cnr::launch_mlp_forward<64>, cnr::launch_mlp_forward<128>,
+                  cnr::launch_mlp_forward<256>);
 }
 
 extern "C" const char* cnr_error_string(int err) {

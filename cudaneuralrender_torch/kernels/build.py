@@ -2,10 +2,12 @@
 
 The sources under ``cudaneuralrender_torch/csrc/`` compile with ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds). The build runs at
+``ctypes`` (no PyTorch headers). Each ``.cu`` file is one translation unit
+(one per hidden width, plus the C entry points); they compile in parallel
+processes, one ``nvcc`` each, and link into the library. The build runs at
 first CUDA use, never at import, into ``cudaneuralrender_torch/build/``
-(listed in .gitignore) under a name keyed by a hash of the sources and
-flags, so a second run reuses it. A missing ``nvcc`` or a failed build
+(listed in .gitignore) under a name keyed by a hash of the sources, headers
+and flags, so a second run reuses it. A missing ``nvcc`` or a failed build
 raises: there is no fallback.
 """
 from __future__ import annotations
@@ -24,13 +26,13 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
 _lib = None
-#: What the last build printed (ptxas registers / shared memory / spills);
-#: empty when the library came from an earlier build.
+#: What the last build printed (ptxas registers / shared memory / spills
+#: of every kernel); empty when the library came from an earlier build.
 BUILD_LOG = ""
 
 _P = ctypes.c_void_p
@@ -55,30 +57,54 @@ def _sources():
 
 def library_path() -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))
+                      + glob.glob(os.path.join(CSRC_DIR, "*.h"))):
         with open(src, "rb") as f:
             digest.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libcnr_kernels_{digest.hexdigest()[:16]}.so")
 
 
+def _nvcc_all(jobs, log_dir: str) -> str:
+    """Run every (name, nvcc arguments) job at once, one process each, and
+    return their output in job order. Raises, once all have ended, if any
+    failed; kills the ones still running if waiting fails."""
+    nvcc = _nvcc()
+    procs = []
+    try:
+        for name, args in jobs:
+            log = open(os.path.join(log_dir, name + ".log"), "w+")
+            procs.append((name, log, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *args], stdout=log, stderr=subprocess.STDOUT)))
+        for _, _, proc in procs:
+            proc.wait(timeout=900)
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    outs, failed = [], []
+    for name, log, proc in procs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+        if proc.returncode != 0:
+            failed.append(f"nvcc {name} failed (exit {proc.returncode}):\n{outs[-1]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
+
+
 def _build(out: str) -> None:
     global BUILD_LOG
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-            capture_output=True, text=True, timeout=900,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    BUILD_LOG = proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs = [os.path.join(tmp_dir, os.path.basename(src) + ".o") for src in _sources()]
+        log = _nvcc_all([(os.path.basename(src), ["-c", "-o", obj, src])
+                         for src, obj in zip(_sources(), objs)], tmp_dir)
+        lib = os.path.join(tmp_dir, "lib.so")
+        log += _nvcc_all([("link", ["-shared", "-o", lib, *objs])], tmp_dir)
+        os.replace(lib, out)  # atomic: a concurrent build never sees a partial file
+    BUILD_LOG = log
 
 
 def load_library() -> ctypes.CDLL:
@@ -102,6 +128,13 @@ def load_library() -> ctypes.CDLL:
             _P,                      # stream
         ]
         lib.cnr_march.restype = _I
+        lib.cnr_mlp_forward.argtypes = [
+            _I,                      # device
+            _P, _P, _P,              # x, weights, biases
+            _I, _I, _I, _I,          # n_layers, hidden, n_inputs, n
+            _P, _P,                  # out, stream
+        ]
+        lib.cnr_mlp_forward.restype = _I
         lib.cnr_error_string.argtypes = [_I]
         lib.cnr_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -3,7 +3,7 @@
 The counterpart of the JAX package's ``pallas/megakernel.py``.
 ``march_state`` continues an existing march state (the counterpart of
 ``march_pallas_state``): on CUDA tensors it launches the hand-written
-kernel in ``csrc/march.cu``; on CPU tensors it runs ``march_state_plain``,
+kernel in ``csrc/march.cuh``; on CPU tensors it runs ``march_state_plain``,
 the same per-ray semantics in plain PyTorch. There is no fallback between
 the two: a CUDA tensor either goes through the kernel or raises.
 
@@ -16,14 +16,18 @@ overrides it (``cyl_window``; the staged renderer's coarse pass passes
 Per-ray semantics (both versions): each ray marches while it is active,
 ``step < max_steps`` and, for a bounded call, ``step - start < num_steps``;
 singleMarch update order; optional constant over-relaxation; the resolve
-step per ray (see csrc/march.cu). Both precisions of the JAX package
+step per ray (see csrc/march.cuh). Both precisions of the JAX package
 (DEFAULT for the coarse phase, HIGHEST for the refine rungs) run in FP32
 here, so the call takes no precision argument.
 
+The kernel marches nets of every width of ``fused_mlp.KERNEL_WIDTHS``
+(32, 64, 128, 256), the net padded to the smallest that holds it; the plain
+version marches any width ``pack_params`` accepts.
+
 ``KERNEL_LAUNCHES`` counts kernel launches (plain-version calls do not
-count), and ``SCENE_LAUNCHES`` the same launches per scene, so a run can
-show that its main path, and each scene's compose, went through the
-kernel.
+count), ``SCENE_LAUNCHES`` the same launches per scene and
+``WIDTH_LAUNCHES`` per padded width, so a run can show that its main path,
+each scene's compose and each width's chain went through the kernel.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from ..ops import shading
 from ..ops.camera import Camera
 from ..utils.config import RenderConfig
 from . import build, scenes
-from .fused_mlp import mlp_chain_plain, packed_params
+from .fused_mlp import KERNEL_WIDTHS, check_tensor, min_rows, mlp_chain_plain, packed_params
 
 #: Launches of the CUDA march kernel in this process.
 KERNEL_LAUNCHES = 0
@@ -46,11 +50,8 @@ KERNEL_LAUNCHES = 0
 #: The same launches by scene name.
 SCENE_LAUNCHES = {name: 0 for name in sorted(scenes.KERNEL_SCENES)}
 
-#: The hidden width the kernel is instantiated for.
-KERNEL_HIDDEN = 32
-
-# Least batch the plain version hands the layer chain (see its loop).
-_MIN_ROWS = 256
+#: The same launches by padded hidden width.
+WIDTH_LAUNCHES = {h: 0 for h in KERNEL_WIDTHS}
 
 
 def _new_steps(state: march_lib.MarchState, lane_steps: torch.Tensor,
@@ -63,11 +64,13 @@ def _new_steps(state: march_lib.MarchState, lane_steps: torch.Tensor,
 
 
 def reset_launch_counts() -> None:
-    """Set ``KERNEL_LAUNCHES`` and every ``SCENE_LAUNCHES`` entry to 0."""
+    """Set ``KERNEL_LAUNCHES`` and every ``SCENE_LAUNCHES`` and
+    ``WIDTH_LAUNCHES`` entry to 0."""
     global KERNEL_LAUNCHES
     KERNEL_LAUNCHES = 0
-    for name in SCENE_LAUNCHES:
-        SCENE_LAUNCHES[name] = 0
+    for counts in (SCENE_LAUNCHES, WIDTH_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def _window(config: RenderConfig, cyl_window: Optional[int]) -> int:
@@ -131,11 +134,9 @@ def march_state_plain(
         # origin + dir * t with ONE rounding, like the kernel's fmaf (exact
         # f32 product in f64, then a single rounding back to f32).
         pts = (origin.double() + dirs[idx].double() * ti.double()[:, None]).float()
-        # Pad small batches: BLAS libraries switch to other kernels, which
-        # sum in another order, for a few rows (the CPU's matrix-vector
-        # path at one row, cuBLAS's small-M kernels), and a ray's SDF would
-        # then depend on how many rays march beside it.
-        x = torch.zeros((max(idx.numel(), _MIN_ROWS), hidden), dtype=torch.float32,
+        # Pad small batches, so a ray's SDF does not depend on how many rays
+        # march beside it (fused_mlp.min_rows).
+        x = torch.zeros((max(idx.numel(), min_rows(t.device)), hidden), dtype=torch.float32,
                         device=t.device)
         x[:idx.numel(), :3] = pts
         if n_in == 4:
@@ -174,17 +175,6 @@ def march_state_plain(
     return (out, lane_steps) if return_resolve else out
 
 
-def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _march_state_cuda(
     params: MLP, origin: torch.Tensor, dirs: torch.Tensor,
     state: march_lib.MarchState, config: RenderConfig, frame: float,
@@ -194,23 +184,22 @@ def _march_state_cuda(
     global KERNEL_LAUNCHES
     scene_id, window = kernel_scene(config, cyl_window)
     weights, biases, n_in, hidden = packed_params(params)
-    if hidden != KERNEL_HIDDEN:
-        raise ValueError(
-            f"the march kernel is built for hidden width {KERNEL_HIDDEN}, "
-            f"not {hidden} (ROADMAP section 2: K1 at other widths)")
+    if hidden not in KERNEL_WIDTHS:
+        raise ValueError(f"the march kernel is built for widths {KERNEL_WIDTHS}, "
+                         f"not {hidden}")
     if n_in != config.num_inputs:
         raise ValueError(f"model has {n_in} inputs but config.num_inputs={config.num_inputs}")
     dev = dirs.device
     n = dirs.shape[0]
-    _check("dirs", dirs, torch.float32, (n, 3), dev)
-    _check("origin", origin, torch.float32, (3,), dev)
-    _check("state.t", state.t, torch.float32, (n,), dev)
-    _check("state.budget", state.budget, torch.float32, (n,), dev)
-    _check("state.active", state.active, torch.bool, (n,), dev)
-    _check("state.steps", state.steps, torch.int32, (), dev)
+    check_tensor("dirs", dirs, torch.float32, (n, 3), dev)
+    check_tensor("origin", origin, torch.float32, (3,), dev)
+    check_tensor("state.t", state.t, torch.float32, (n,), dev)
+    check_tensor("state.budget", state.budget, torch.float32, (n,), dev)
+    check_tensor("state.active", state.active, torch.bool, (n,), dev)
+    check_tensor("state.steps", state.steps, torch.int32, (), dev)
     n_layers = len(params)
-    _check("weights", weights, torch.float32, (n_layers, hidden, hidden), dev)
-    _check("biases", biases, torch.float32, (n_layers, hidden), dev)
+    check_tensor("weights", weights, torch.float32, (n_layers, hidden, hidden), dev)
+    check_tensor("biases", biases, torch.float32, (n_layers, hidden), dev)
     eps = config.march_eps if march_eps is None else march_eps
     omega = float(relax_omega) if relax_omega and relax_omega > 1.0 else 0.0
 
@@ -238,6 +227,7 @@ def _march_state_cuda(
             f"march kernel launch failed: {lib.cnr_error_string(err).decode()} ({err})")
     KERNEL_LAUNCHES += 1
     SCENE_LAUNCHES[config.scene] += 1
+    WIDTH_LAUNCHES[hidden] += 1
     out = march_lib.MarchState(
         t=t, budget=budget, active=active & state.active,
         converged=conv | state.converged,
@@ -290,8 +280,8 @@ def render_image_kernel(params: MLP, camera: Camera, config: RenderConfig,
     """Full render with the kernel march and plain dense shading
     (march_impl="megakernel"), the counterpart of ``render_image_pallas``:
     the march composes with ``config.cyl_window``, the shading normals
-    differentiate the dense scene. Returns [H, W, 4] float rgba, row 0 =
-    bottom."""
+    differentiate the dense scene through the plain chain. Returns
+    [H, W, 4] float rgba, row 0 = bottom."""
     if not scenes.kernel_supported(config.scene):
         raise ValueError(
             f"the march kernel does not support scene {config.scene!r}; use render_image")
@@ -304,7 +294,7 @@ def render_image_kernel(params: MLP, camera: Camera, config: RenderConfig,
     t, hit = march(params, origin, dirs, config, frame)
     points = origin + dirs * t[:, None]
     colors = shading.shade(
-        scene_fn(params, config, frame), points, dirs,
+        scene_fn(params, config, frame, for_grad=True), points, dirs,
         mode=config.shading, normal_mode=config.normal_mode,
         normal_eps=config.normal_eps, world_to_cam=world_to_cam, matcap=matcap,
     )

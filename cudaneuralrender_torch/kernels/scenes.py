@@ -1,7 +1,7 @@
 """Scene composition inside the march kernel.
 
 The counterpart of the JAX package's ``pallas/scenes.py``. The march
-kernel (csrc/march.cu) composes the scene right after the layer chain,
+kernel (csrc/march.cuh) composes the scene right after the layer chain,
 each march step, where the reference's sceneSDF runs inside its march
 kernel. ``compose_fn`` is that compose's plain version, in this package's
 layout:
@@ -27,7 +27,7 @@ import torch
 from ..ops import sdf as sdf_ops
 from ..ops.sdf import _recip
 
-#: Scene name -> the kernel's scene id (csrc/march.cu, ``Scene``).
+#: Scene name -> the kernel's scene id (csrc/march.cuh, ``Scene``).
 SCENE_IDS = {
     "neural_raw": 0,
     "neural_tanh": 1,

@@ -75,8 +75,9 @@ def read_keras_h5(path: str):
     return layers
 
 
-def load_keras_h5(path: str, *, device="cpu") -> MLP:
-    """Load a Keras-exported dense-stack HDF5 file into an ``MLP``."""
+def load_keras_h5(path: str, *, device="cuda") -> MLP:
+    """Load a Keras-exported dense-stack HDF5 file into an ``MLP`` on
+    ``device`` (default the card)."""
     return mlp.from_numpy_params(read_keras_h5(path), device=device)
 
 
@@ -89,16 +90,19 @@ def save_pytree(path: str, params: MLP) -> None:
     np.savez(path, **arrays)
 
 
-def load_pytree(path: str, *, device="cpu") -> MLP:
-    """Load an MLP saved by save_pytree (either package's)."""
+def load_pytree(path: str, *, device="cuda") -> MLP:
+    """Load an MLP saved by save_pytree (either package's) onto ``device``
+    (default the card)."""
     with np.load(path) as data:
         n = len(data.files) // 2
         layers = [(data[f"w{i}"], data[f"b{i}"]) for i in range(n)]
     return mlp.from_numpy_params(layers, device=device)
 
 
-def load(path: str, *, device="cpu") -> MLP:
-    """Load a model by extension: .h5/.hdf5 -> Keras, .npz -> native.
+def load(path: str, *, device="cuda") -> MLP:
+    """Load a model by extension: .h5/.hdf5 -> Keras, .npz -> native, onto
+    ``device`` (default the card; raises when there is none and the CPU was
+    not asked for).
 
     Tags the loaded model with its absolute path (utils/memo.py) so the
     staged renderer's adaptive-schedule memo keys on geometry identity."""

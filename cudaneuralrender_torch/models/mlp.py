@@ -65,10 +65,23 @@ class MLP(nn.Module):
         return self.weights[0].device
 
 
-def from_numpy_params(layers, device="cpu", dtype=torch.float32) -> MLP:
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises for a CUDA device when no
+    card is available. The package's entry points default to the card and
+    never fall back to the CPU: the CPU is used only when asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} (the default) needs a CUDA device, but "
+            "torch.cuda.is_available() is false; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def from_numpy_params(layers, device="cuda", dtype=torch.float32) -> MLP:
     """Build an ``MLP`` from a list of (w [in, out], b [out]) arrays — the
     layout of the JAX package's parameter pytree (anything ``np.asarray``
-    accepts, JAX arrays included)."""
+    accepts, JAX arrays included) — on ``device`` (default the card)."""
+    device = resolve_device(device)
     return MLP([
         (torch.tensor(np.asarray(w), dtype=dtype, device=device),
          torch.tensor(np.asarray(b), dtype=dtype, device=device))
@@ -84,11 +97,13 @@ def to_numpy_params(params: MLP):
 def init_mlp(
     generator: torch.Generator,
     sizes: Sequence[int] = (3, 32, 32, 32, 32, 32, 32, 32, 32, 1),
-    device="cpu",
+    device="cuda",
 ) -> MLP:
     """Random init (He for ReLU hidden layers, Glorot for the head), drawn
-    from ``generator``. Default architecture matches the shipped geometry
-    files: 9 dense layers 3->32, 32->32 x7, 32->1."""
+    from ``generator`` (a CPU generator) and moved to ``device`` (default
+    the card). Default architecture matches the shipped geometry files: 9
+    dense layers 3->32, 32->32 x7, 32->1."""
+    device = resolve_device(device)
     layers = []
     for i, (n_in, n_out) in enumerate(zip(sizes[:-1], sizes[1:])):
         last = i == len(sizes) - 2

@@ -31,6 +31,10 @@ the coarse kernel pass ``cyl_window_coarse``, the refine rungs
 and every dense march (``render_image``, ``march_precision="full"``, the
 continuation) the complete 300-term chain.
 
+``config.use_pallas`` sends every SDF evaluation that takes no gradient
+outside the march kernel (the dense marches, the continuation) through the
+fused forward kernel (K3); shading normals stay on the plain chain.
+
 Configs that select phases not ported yet raise ``NotImplementedError``
 naming their ROADMAP item (``_check_supported``).
 """
@@ -43,7 +47,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..kernels import megakernel
+from ..kernels import fused_mlp, megakernel
 from ..kernels import scenes as kscenes
 from ..models import mlp
 from ..models.mlp import MLP
@@ -73,8 +77,6 @@ def _not_ported(what: str, item: str):
 def _check_supported(config: RenderConfig) -> None:
     """Raise for config options whose phases this package has not ported."""
     mixed = config.march_precision == "mixed"
-    if config.use_pallas:
-        raise _not_ported("use_pallas (the fused MLP kernel K3)", "item 7: opt-in march options")
     if mixed and config.prepass_factor > 1:
         raise _not_ported("prepass_factor > 1", "item 5: prepass")
     if mixed and config.grid_res:
@@ -104,32 +106,43 @@ def neural_sdf_fn(params: MLP, frame, num_inputs: int = 3):
 
 
 def scene_fn(params: Optional[MLP], config: RenderConfig, frame, *,
-             surface_local: bool = False):
-    """The scene SDF for a config (plain PyTorch, differentiable).
+             for_grad: bool = False, surface_local: bool = False):
+    """The scene SDF for a config.
+
+    With ``config.use_pallas`` the neural field evaluates through the fused
+    forward kernel (K3, ``fused_mlp.neural_sdf_fn_kernel``; its plain
+    version on the CPU). The kernel has no gradient: gradient consumers
+    (autodiff normals) pass ``for_grad=True`` for the plain, differentiable
+    chain, which gives the same values.
 
     ``surface_local=True`` declares that every evaluation point sits on
     (or within the window band of) the surface, as shading normals do:
     many_cylinder_cut then composes through ``config.cyl_window``'s grid
     window (exact there) instead of the 300-term chain."""
-    if config.use_pallas:
-        raise _not_ported("use_pallas (the fused MLP kernel K3)", "item 7: opt-in march options")
-    neural = None if params is None else neural_sdf_fn(params, frame, config.num_inputs)
+    if params is None:
+        neural = None
+    elif config.use_pallas and not for_grad:
+        neural = fused_mlp.neural_sdf_fn_kernel(params, frame, config.num_inputs)
+    else:
+        neural = neural_sdf_fn(params, frame, config.num_inputs)
     return sdf.make_scene(
         config.scene, neural, frame,
         cyl_window=(config.cyl_window if surface_local else None))
 
 
 def shade_fn(params: Optional[MLP], config: RenderConfig, frame):
-    """Scene SDF for shading normals, with surface-local composes. Every
-    precision runs in FP32 here, so config.shade_precision selects
-    nothing."""
-    return scene_fn(params, config, frame, surface_local=True)
+    """Scene SDF for shading normals: differentiable (the plain chain), with
+    surface-local composes. Every precision runs in FP32 here, so
+    config.shade_precision selects nothing."""
+    return scene_fn(params, config, frame, for_grad=True, surface_local=True)
 
 
 def _device_of(params: Optional[MLP], device=None) -> torch.device:
+    """Where a render runs: ``device`` when given, else the model's device,
+    else the card (a model-free scene never falls back to the CPU)."""
     if device is not None:
-        return torch.device(device)
-    return params.device if params is not None else torch.device("cpu")
+        return mlp.resolve_device(device)
+    return params.device if params is not None else mlp.resolve_device("cuda")
 
 
 def render_image(

@@ -48,7 +48,7 @@ def test_package_never_imports_jax():
         "import torch\n"
         "torch.set_num_threads(2)\n"
         "import cudaneuralrender_torch as cnr\n"
-        "p = cnr.load('examples/assets/csg_demo.h5')\n"
+        "p = cnr.load('examples/assets/csg_demo.h5', device='cpu')\n"
         "cfg = cnr.RenderConfig(width=16, height=16, march_impl='staged', max_steps=300)\n"
         "img = cnr.Renderer(p, cfg).render(cnr.Camera(rotation_y=30.0))\n"
         "assert img.shape == (16, 16, 4)\n"

@@ -91,7 +91,7 @@ def _run_torch(params, origin, dirs, s, variant):
 def chain():
     """Inputs and both packages' outputs for the three variants, each
     variant starting from the JAX package's output of the one before."""
-    pj, pt = cj.load(H5), ct.load(H5)
+    pj, pt = cj.load(H5), ct.load(H5, device="cpu")
     c2w, _ = cam_j.view_matrices(cj.Camera(rotation_y=30.0, rotation_x=-20.0))
     origin, dirs = (np.array(a) for a in cam_j.generate_rays(c2w, RES, RES, CFG_J.focal))
     s = _state_np(march_j.init_state(jnp.asarray(origin), jnp.asarray(dirs),
@@ -129,7 +129,7 @@ def test_no_kernel_launch_on_cpu(chain):
 
 
 def test_march_state_rejects_wrong_device_type():
-    pt = ct.load(H5)
+    pt = ct.load(H5, device="cpu")
     dirs = torch.zeros((4, 3), device="meta")
     state = march_t.MarchState(*(torch.zeros(4, device="meta") for _ in range(4)),
                                steps=torch.zeros((), dtype=torch.int32))
@@ -144,7 +144,7 @@ def test_kernel_scene_support():
 
     assert {s for s in SCENE_NAMES if scenes.kernel_supported(s)} == SCENE_NAMES - {"sphere"}
     with pytest.raises(ValueError, match="does not support"):
-        mk_t.march_state_plain(ct.load(H5), torch.zeros(3), torch.zeros((1, 3)),
+        mk_t.march_state_plain(ct.load(H5, device="cpu"), torch.zeros(3), torch.zeros((1, 3)),
                                march_t.init_state(torch.zeros(3), torch.ones((1, 3)),
                                                   (0, 0, 0), 1.2),
                                CFG_T.replace(scene="sphere"))

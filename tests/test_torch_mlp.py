@@ -4,6 +4,7 @@ Weights: the shipped csg_demo net (9 dense layers, 3->32x8->1) and random
 3-layer 32-wide nets from the JAX package's init_mlp with fixed keys;
 points are drawn with numpy from a fixed seed and fed to both packages.
 """
+import inspect
 import os
 
 import jax
@@ -27,17 +28,17 @@ def _nets():
     """(name, jax params, torch params) for each net under test: csg_demo
     and two random 3-layer 32-wide nets from the JAX package's init_mlp,
     carried across as numpy arrays."""
-    out = [("csg_demo", cj.load(H5), ct.load(H5))]
+    out = [("csg_demo", cj.load(H5), ct.load(H5, device="cpu"))]
     for seed in (0, 1):
         pj = cj.init_mlp(jax.random.PRNGKey(seed), sizes=(3, 32, 32, 1))
-        pt = ct.from_numpy_params([(np.asarray(l.w), np.asarray(l.b)) for l in pj])
+        pt = ct.from_numpy_params([(np.asarray(l.w), np.asarray(l.b)) for l in pj], device="cpu")
         out.append((f"random3_{seed}", pj, pt))
     return out
 
 
 @pytest.mark.parametrize("path", [H5, NPZ], ids=["h5", "npz"])
 def test_loaders_read_identical_arrays(path):
-    pj, pt = cj.load(path), ct.load(path)
+    pj, pt = cj.load(path), ct.load(path, device="cpu")
     assert len(pj) == len(pt) == 9
     for lj, lt in zip(pj, pt):
         np.testing.assert_array_equal(np.asarray(lj.w), lt.w.detach().numpy())
@@ -48,7 +49,7 @@ def test_loaders_read_identical_arrays(path):
 
 def test_from_numpy_params_roundtrip(tmp_path):
     pj = cj.load(H5)
-    pt = ct.from_numpy_params([(l.w, l.b) for l in pj])
+    pt = ct.from_numpy_params([(l.w, l.b) for l in pj], device="cpu")
     back = ct.mlp.to_numpy_params(pt)
     for lj, (w, b) in zip(pj, back):
         np.testing.assert_array_equal(np.asarray(lj.w), w)
@@ -88,7 +89,7 @@ def test_mlp_chain_plain_on_packed_params_equals_apply_scalar(net):
 
 
 def test_packed_params_reuses_stack_until_a_parameter_changes():
-    pt = ct.load(NPZ)
+    pt = ct.load(NPZ, device="cpu")
     first = fused_t.packed_params(pt)
     assert all(a is b for a, b in zip(first, fused_t.packed_params(pt)))
     with torch.no_grad():
@@ -100,9 +101,33 @@ def test_packed_params_reuses_stack_until_a_parameter_changes():
 
 
 def test_init_mlp_uses_generator():
-    a = ct.init_mlp(torch.Generator().manual_seed(3), sizes=(3, 32, 32, 1))
-    b = ct.init_mlp(torch.Generator().manual_seed(3), sizes=(3, 32, 32, 1))
+    a = ct.init_mlp(torch.Generator().manual_seed(3), sizes=(3, 32, 32, 1), device="cpu")
+    b = ct.init_mlp(torch.Generator().manual_seed(3), sizes=(3, 32, 32, 1), device="cpu")
     assert ct.mlp.layer_sizes(a) == (3, 32, 32, 1)
     for la, lb in zip(a, b):
         assert torch.equal(la.w, lb.w)
     assert not any(p.requires_grad for p in a.parameters())
+
+
+@pytest.mark.parametrize("fn", [ct.load, ct.load_keras_h5, ct.load_pytree, ct.init_mlp,
+                                ct.from_numpy_params],
+                         ids=["load", "load_keras_h5", "load_pytree", "init_mlp",
+                              "from_numpy_params"])
+def test_entry_points_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_default_device_without_a_card_raises():
+    """With no card, a call that does not name the CPU raises: it never
+    quietly returns a CPU model or renders on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ct.load(NPZ)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ct.init_mlp(torch.Generator().manual_seed(0), sizes=(3, 8, 1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):  # a model-free scene
+        ct.render_image(None, ct.Camera(), ct.RenderConfig(width=8, height=8, scene="sphere"))
+    img = ct.render_image(None, ct.Camera(), ct.RenderConfig(width=8, height=8, scene="sphere"),
+                          device="cpu")
+    assert img.shape == (8, 8, 4)

@@ -156,7 +156,7 @@ def test_compact_indices_and_scatter_state_match():
 
 @pytest.mark.parametrize("mode", ["autodiff", "tetrahedron"])
 def test_normals_match(mode):
-    pj, pt = cj.load(H5), ct.load(H5)
+    pj, pt = cj.load(H5), ct.load(H5, device="cpu")
     cfg = cj.RenderConfig()
     pts = np.random.default_rng(2).uniform(-0.8, 0.8, (2048, 3)).astype(np.float32)
     fj = rend_j.shade_fn(pj, cfg, 0.0)

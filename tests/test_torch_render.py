@@ -43,7 +43,7 @@ CAM = dict(rotation_y=30.0, rotation_x=-20.0)
 
 @pytest.fixture(scope="module")
 def params():
-    return cj.load(H5), ct.load(H5)
+    return cj.load(H5), ct.load(H5, device="cpu")
 
 
 def _both(params, fn_name, cfg_kw, **kw):
@@ -108,7 +108,7 @@ def test_unported_options_raise(params):
     base = ct.RenderConfig(width=16, height=16, march_impl="staged")
     for kw in (dict(prepass_factor=2), dict(grid_res=32), dict(mid_eps=1e-3),
                dict(coarse_precision="high"), dict(tail_pallas=True),
-               dict(relax_newton=True), dict(use_pallas=True)):
+               dict(relax_newton=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ct.render_staged(pt, ct.Camera(), base.replace(**kw))
 
@@ -141,6 +141,20 @@ def test_cli_rejects_animation_on_3_input_model_and_unported_modes(tmp_path):
     assert r.returncode == 2 and "not yet ported" in r.stderr
 
 
+def test_cli_pallas_matches_plain_chain_on_cpu(tmp_path):
+    """--pallas (use_pallas: the forward kernel's plain version on the CPU)
+    renders the same PNG as the plain chain, within 1 u8 level."""
+    imgs = []
+    for extra in ([], ["--pallas"]):
+        out = tmp_path / f"demo{len(imgs)}.png"
+        r = _cli(["-d", "cpu", "-i", H5, "--single", "--march", "while", "-W", "32", "-H", "32",
+                  "-ry", "30", "-rx", "-20", "-o", str(out), *extra], tmp_path)
+        assert r.returncode == 0, r.stderr[-2000:]
+        imgs.append(image_io.load_png(str(out)).astype(int))
+    assert (imgs[0][..., 3] > 0).mean() > 0.05
+    assert np.abs(imgs[1] - imgs[0]).max() <= 1
+
+
 def test_cli_cuda_without_card_is_an_error(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -155,7 +169,8 @@ def test_cli_rejects_unsupported_input_count(tmp_path):
     """A model that is neither 3- nor 4-input gets a plain error (exit 2),
     not the hint to pass --animation."""
     path = str(tmp_path / "five_in.npz")
-    ct.save_pytree(path, ct.init_mlp(torch.Generator().manual_seed(0), sizes=(5, 8, 1)))
+    ct.save_pytree(path, ct.init_mlp(torch.Generator().manual_seed(0), sizes=(5, 8, 1),
+                                     device="cpu"))
     for extra in ([], ["--animation"]):
         r = _cli(["-d", "cpu", "-i", path, "--single", "-W", "8", "-H", "8",
                   "-o", str(tmp_path / "x.png"), *extra], tmp_path)

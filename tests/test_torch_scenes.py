@@ -54,7 +54,7 @@ RES = 32
 
 @pytest.fixture(scope="module")
 def csg():
-    return cj.load(CSG), ct.load(CSG)
+    return cj.load(CSG), ct.load(CSG, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -190,7 +190,7 @@ def scene_chain(request):
     """Both packages' outputs for the three calls of one scene, each call
     starting from the JAX package's output of the one before."""
     scene, frame, asset, n_in = MARCH_CASES[request.param]
-    pj, pt = cj.load(asset), ct.load(asset)
+    pj, pt = cj.load(asset), ct.load(asset, device="cpu")
     cfg_j = CFG_J.replace(scene=scene, num_inputs=n_in)
     cfg_t = ct.RenderConfig(width=RES, height=RES, scene=scene, num_inputs=n_in)
     c2w, _ = cam_j.view_matrices(cj.Camera(rotation_y=30.0, rotation_x=-20.0))
@@ -260,7 +260,7 @@ def test_unknown_scene_id_rejected_before_launch(monkeypatch):
         raise AssertionError("the kernel library was loaded")
 
     monkeypatch.setattr(build_t, "load_library", no_library)
-    pt = ct.load(CSG)
+    pt = ct.load(CSG, device="cpu")
     n = 4
     state = march_t.MarchState(
         t=torch.zeros(n), budget=torch.ones(n), active=torch.ones(n, dtype=torch.bool),
@@ -282,7 +282,7 @@ def test_kernel_source_constants_match_tables():
     """The CUDA compose's constants (it cannot run here) against the
     tables and float32 arithmetic of the plain version: the sphere centers,
     the reciprocals of the constant divisors, and the z step per frame."""
-    src = open(os.path.join(REPO, "cudaneuralrender_torch", "csrc", "march.cu")).read()
+    src = open(os.path.join(REPO, "cudaneuralrender_torch", "csrc", "march.cuh")).read()
 
     def floats(name):
         body = re.search(r"const float %s\[3\] = \{([^}]*)\}" % name, src).group(1)
