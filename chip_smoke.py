@@ -4,10 +4,10 @@
 
 Phases; any failure exits non-zero and nothing is caught:
   1. require a CUDA device; print the card's name and power limit;
-  2. build the kernels (csrc/*.cu, one nvcc per hidden width, in parallel,
-     for sm_90a) and print the build time, ptxas's report and one line per
-     kernel instantiation (registers, stack, spills, and the dynamic shared
-     memory its launch asks for at 9 layers);
+  2. build the kernels (csrc/*.cu, one nvcc per hidden width and chain, in
+     parallel, for sm_90a) and print the build time, ptxas's report and one
+     line per kernel instantiation (registers, stack, spills, and the
+     dynamic shared memory its launch asks for at 9 layers);
   3. hold the kernel against its plain PyTorch version on the same CUDA
      tensors: csg_demo rays at 256x256 from Camera(rotation_y=30,
      rotation_x=-20), for the staged renderer's three kinds of call
@@ -39,9 +39,27 @@ Phases; any failure exits non-zero and nothing is caught:
      wide through phase 6's steps at 512x512;
   9. the fused forward (K3) at widths 32-256: kernel vs plain version on
      2^20 seeded points (max |d|, times), the plain chain's summation
-     order against the kernel's at batch paddings of 256-65536 rows, then
+     order against the kernel's at batch paddings of 256-65536 rows
+     (PADDINGS), then
      a 256x256 dense ``render_image`` with ``use_pallas=True``, its K3
-     launches counted, against ``use_pallas=False``.
+     launches counted, against ``use_pallas=False``;
+ 10. the precision ladder and the cold start: the three-pass chain (K2h)
+     kernel vs plain version at widths 32-256 on 256x256 rays for the HIGH
+     phase's three kinds of call; its SDF, read off the kernel, against the
+     plain chain at batch paddings and against float64 on 2^20 points,
+     beside the FP32 chain's; both plain chains against the kernel at the
+     row counts ROW_SWEEP and at powers of two; the HIGH configs (``mid_eps=1e-3``, and
+     ``coarse_precision="high"`` with ``coarse_eps=1e-3``) through the
+     staged path at 1080p with their three-pass launches counted, against
+     the default image, the golden, 3 timed warm frames, kernel = plain on
+     every march call of one more frame, and the coarse call timed FP32 vs
+     three-pass; ``mid_eps`` at 256x256 at widths 64-256 with each width's
+     three-pass launches counted; the cold-start kernel (K5,
+     ``march_raygen``) on the 1080p coarse call at "default" and "high",
+     its launches counted, against its plain version and against the ray
+     build + init + ``march_state``, timed both ways; ``relax_newton`` and
+     ``tail_pallas`` (with ``refine_pallas`` off) at 512x512 against the
+     default image, the tail kernel's launches counted.
 The line before the last is a JSON object of the kernels' launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
 """
@@ -93,9 +111,36 @@ WIDE = ((2, 64, 1920, 1080), (4, 128, 1920, 1080), (8, 256, 512, 512))
 K3_POINTS = 1 << 20
 K3_ATOL = 1e-5
 K3_RENDER = 256  # side of the use_pallas render
+# Row counts of the plain chains' padding sweeps: cuBLAS sums a 256-wide
+# layer in another order below 1024 rows and at 2625 rows and some above.
+PADDINGS = (256, 512, 1024, 2048, 2640, 4096, 65536)
+# Phase 10: the HIGH phase's three kinds of call, at eps HIGH_EPS:
+# (name, num_steps, relax_omega). The coarse call (coarse_precision="high")
+# starts cold; rung 0 and the terminal rung start from the refine entry of a
+# three-pass coarse pass to 0.05.
+HIGH_EPS = 1e-3
+HIGH_VARIANTS = (("coarse", None, 1.6), ("rung0", 16, 0.0), ("terminal", None, 1.6))
+# The opt-in configs of the ladder, rendered at 1080p with csg_demo.
+HIGH_CONFIGS = (("mid_eps", dict(mid_eps=1e-3)),
+                ("coarse_high", dict(coarse_precision="high", coarse_eps=1e-3)))
+HIGH_WIDE_SIDE = 256  # the mid_eps render of the widened nets
+# K5 against the ray build + init + kernel: the two builds of a ray differ
+# by float32 ulps, which may move its convergence a step. The JAX package's
+# bar (tests/test_pallas.py:324-361, a 32x32 image): converged flags agree
+# on >= 99.5%, t within 1e-3 where both converged. Over the 2M rays of a
+# 1080p frame a ray converging one relaxed step apart lands up to
+# relax_omega * coarse_eps away, so there: t within 1e-3 on >= 99.9% of
+# the common hits, and within relax_omega * coarse_eps on all.
+RAYGEN_MIN_CONV_AGREE = 0.995
+RAYGEN_MAX_T_ERR = 1e-3
+RAYGEN_MIN_T_CLOSE = 0.999
+SDF_POINTS = 1 << 20
+ROW_SWEEP = range(1000, 4201, 16)  # the plain chains' row counts, against the kernel
+OPTION_SIDE = 512  # relax_newton and tail_pallas frames
 # The card's peaks for a kernel's bound (H100 SXM datasheet, 700 W):
-# FP32 outside the tensor cores, and HBM.
+# FP32 outside the tensor cores, bfloat16 in them (dense), and HBM.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 K1_SOURCE = "cudaneuralrender_torch/csrc/march.cuh"
 K3_SOURCE = "cudaneuralrender_torch/csrc/chain.cuh"
@@ -154,7 +199,8 @@ def sm_clock_mhz() -> float:
 def ptxas_table(log: str) -> list:
     """One (kernel, registers, stack bytes, spill stores, spill loads) row
     per entry function in ptxas's -v report; march_kernel<H, scene,
-    window> and mlp_forward_kernel<H> named by their template arguments."""
+    window, three_pass> and mlp_forward_kernel<H> named by their template
+    arguments."""
     import re
 
     rows, names, cur = {}, [], None
@@ -175,10 +221,10 @@ def ptxas_table(log: str) -> list:
             rows[cur][0] = int(m.group(1))
     out = []
     for name in names:
-        k1 = re.search(r"march_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        k1 = re.search(r"march_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", name)
         k3 = re.search(r"mlp_forward_kernelILi(\d+)E", name)
         if k1:
-            label = "march_kernel<H={}, scene={}, window={}>".format(*k1.groups())
+            label = "march_kernel<H={}, scene={}, window={}, three_pass={}>".format(*k1.groups())
         elif k3:
             label = f"mlp_forward_kernel<H={k3.group(1)}>"
         else:
@@ -194,10 +240,11 @@ def chain_fmas(hidden: int, n_layers: int, n_in: int) -> int:
     return n_in * hidden + (n_layers - 2) * hidden * hidden + hidden
 
 
-def bound(fmas: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of the FP32 work at
-    the card's peak and the bytes at its memory rate."""
-    ops_ms = 2.0 * fmas / PEAK_FP32_FLOPS * 1e3
+def bound(fmas: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS) -> dict:
+    """The least time the card could take: the larger of the work at the
+    card's peak for its type (FP32 unless ``peak_flops`` says otherwise)
+    and the bytes at its memory rate."""
+    ops_ms = 2.0 * fmas / peak_flops * 1e3
     bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
@@ -476,12 +523,13 @@ def drive_scene(cnr, params, scene, frame, num_inputs, card, width=1920, height=
                 ms=ms, plain_ms=plain_ms, bnd=bnd)
 
 
-def golden_render(cnr, params, cam):
-    """The 256x256 golden render of a csg_demo-shaped net, held to the bar."""
+def golden_render(cnr, params, cam, **fields):
+    """The 256x256 golden render of a csg_demo-shaped net, held to the bar;
+    ``fields`` change the staged config."""
     from cudaneuralrender_torch.utils import image_io
 
     gold_cfg = cnr.RenderConfig(width=256, height=256, scene="neural_raw", max_steps=500,
-                                march_impl="staged")
+                                march_impl="staged", **fields)
     ours = cnr.Renderer(params, gold_cfg).render_frame(cam)
     iou, frac2 = golden_check(ours, image_io.load_png(GOLDEN))
     if iou < 0.99 or frac2 < 0.95:
@@ -558,14 +606,14 @@ def drive_forward(cnr, params, hidden, card) -> dict:
     # 256 points padded to m rows, against the kernel bit for bit.
     head = got[:256]
     same = {}
-    for m in (256, 512, 1024, 4096, 65536):
+    for m in PADDINGS:
         xp = torch.zeros((m, h), dtype=torch.float32, device=dev)
         xp[:256, :n_in] = pts[:256]
         chain = fused_mlp.mlp_chain_plain(weights, biases, xp, weights.shape[0])[:256, 0]
         same[m] = (chain == head).float().mean().item()
     print(f"forward width {h}: plain chain on 256 points padded to m rows, share equal to the "
-          f"kernel bit for bit: {json.dumps(same)} (the plain versions pad to "
-          f"{fused_mlp.min_rows(dev)} rows on the card)")
+          f"kernel bit for bit: {json.dumps(same)} (the plain versions pad to the next power "
+          "of two of at least 1024 rows on the card)")
 
     cfg = cnr.RenderConfig(width=K3_RENDER, height=K3_RENDER, max_steps=500, use_pallas=True)
     cam = cnr.Camera(**CAMERA)
@@ -636,6 +684,359 @@ def drive_turntable(cnr, params, card) -> int:
         if agree < 0.999:
             raise RuntimeError(f"turntable frame {i}: hit masks agree on {agree} < 0.999")
     return launches
+
+
+def compare_high_with_plain(params, config, origin, dirs) -> dict:
+    """The three-pass chain's march (precision "high") through the kernel
+    and the plain version on the same inputs, for each of HIGH_VARIANTS.
+    Returns {variant: agreement dict}."""
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import march
+
+    cold = march.init_state(origin, dirs, config.bound_center, config.bound_radius)
+    coarse = megakernel.march_state_plain(params, origin, dirs, cold, config, march_eps=0.05,
+                                          precision="high", relax_omega=1.6)
+    entry = refine_entry(coarse, origin, dirs, config)
+    result = {}
+    for name, num_steps, omega in HIGH_VARIANTS:
+        kw = dict(march_eps=HIGH_EPS, num_steps=num_steps, precision="high", relax_omega=omega,
+                  return_resolve=True)
+        state = cold if name == "coarse" else entry
+        k = megakernel.march_state(params, origin, dirs, state, config, **kw)
+        p = megakernel.march_state_plain(params, origin, dirs, state, config, **kw)
+        result[name] = agreement(k, p)
+    return result
+
+
+def kernel_sdf(params, pts, precision: str):
+    """The march kernel's SDF at points [n, 3], read off one step: rays from
+    the origin along dirs = pts at t = 1 sit exactly on the points (the
+    kernel's fma(p, 1, 0)); with budget 0, the step writes budget = 0 - d,
+    exact, and eps = -inf converges no ray."""
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import fused_mlp, megakernel
+    from cudaneuralrender_torch.ops import march
+
+    n, dev = pts.shape[0], pts.device
+    cfg = cnr.RenderConfig(num_inputs=fused_mlp.packed_params(params)[2])
+    state = march.MarchState(
+        t=torch.ones(n, device=dev), budget=torch.zeros(n, device=dev),
+        active=torch.ones(n, dtype=torch.bool, device=dev),
+        converged=torch.zeros(n, dtype=torch.bool, device=dev),
+        steps=torch.zeros((), dtype=torch.int32, device=dev))
+    out = megakernel.march_state(params, torch.zeros(3, device=dev), pts.contiguous(), state, cfg,
+                                 march_eps=float("-inf"), num_steps=1, precision=precision)
+    return -out.budget
+
+
+def sdf_float64(params, pts) -> torch.Tensor:
+    """The net's SDF at points [n, 3] in float64."""
+    x = pts.double()
+    for i, layer in enumerate(params):
+        x = x @ layer.w.double() + layer.b.double()
+        if i + 1 < len(params):
+            x = torch.relu(x)
+    return x[:, 0]
+
+
+def sdf_errors(params, hidden, card, n_points=SDF_POINTS) -> dict:
+    """Phase 10: the FP32 chain's and the three-pass chain's SDF, read off
+    the kernel, against float64 on SDF_POINTS seeded points inside the
+    bounding sphere; then the plain three-pass chain on the first 256
+    points padded to m rows, against the kernel bit for bit."""
+    from cudaneuralrender_torch.kernels import fused_mlp
+
+    dev = params.device
+    rng = np.random.default_rng(hidden)
+    v = rng.normal(size=(n_points, 3))
+    v *= (1.2 * rng.uniform(size=(n_points, 1)) ** (1 / 3)) / np.linalg.norm(v, axis=1,
+                                                                              keepdims=True)
+    pts = torch.as_tensor(v.astype(np.float32), device=dev)
+    want = sdf_float64(params, pts)
+    err = {prec: (kernel_sdf(params, pts, prec).double() - want).abs().max().item()
+           for prec in ("highest", "high")}
+    weights, biases, n_in, h = fused_mlp.packed_params(params)
+    w_hi, w_lo = fused_mlp.packed_hi_lo(params)
+    head = kernel_sdf(params, pts[:256], "high")
+    same = {}
+    for m in PADDINGS:
+        xp = torch.zeros((m, h), dtype=torch.float32, device=dev)
+        xp[:256, :n_in] = pts[:256]
+        chain = fused_mlp.mlp_chain_3pass_plain(w_hi, w_lo, biases, xp, weights.shape[0])
+        same[m] = (chain[:256, 0] == head).float().mean().item()
+    print(f"sdf width {h}: max |SDF - float64| over {n_points} points in the bounding sphere: "
+          f"FP32 chain {err['highest']:.3g}, three-pass chain {err['high']:.3g} (the kernel's); "
+          f"plain three-pass chain on 256 points padded to m rows, share equal to the kernel bit "
+          f"for bit: {json.dumps(same)} [{card}]", flush=True)
+    if not err["high"] < 1e-3:
+        raise RuntimeError(f"three-pass SDF error {err['high']} at width {h}")
+    return err
+
+
+def row_sweep(params, card) -> dict:
+    """Phase 10: the plain chains, FP32 and three-pass, with every row a
+    seeded point, against the kernel's SDF bit for bit: in one product at
+    the row counts ROW_SWEEP and at the powers of two 2^10-2^20, and as the
+    plain versions run them (``fused_mlp.plain_rows`` and
+    ``chain_in_blocks``) on 2^20 points. Raises unless the row counts the
+    plain versions use (powers of two to ``ROW_BLOCK``, then blocks) agree.
+    Returns the row counts at which some row differs, per chain."""
+    from cudaneuralrender_torch.kernels import fused_mlp
+
+    dev = params.device
+    weights, biases, n_in, h = fused_mlp.packed_params(params)
+    w_hi, w_lo = fused_mlp.packed_hi_lo(params)
+    chains = {"fp32": ("highest", lambda x: fused_mlp.mlp_chain_plain(
+        weights, biases, x, weights.shape[0])),
+              "three_pass": ("high", lambda x: fused_mlp.mlp_chain_3pass_plain(
+                  w_hi, w_lo, biases, x, weights.shape[0]))}
+    pows = [1 << e for e in range(10, 21)]
+    pts = torch.as_tensor(np.random.default_rng(h).uniform(-1.2, 1.2, (pows[-1], 3))
+                          .astype(np.float32), device=dev)
+    want = {p: kernel_sdf(params, pts, p) for p in ("highest", "high")}
+    off = {name: [] for name in chains}
+    for m in list(ROW_SWEEP) + pows:
+        xp = torch.zeros((m, h), dtype=torch.float32, device=dev)
+        xp[:, :n_in] = pts[:m]
+        for name, (prec, chain) in chains.items():
+            if not torch.equal(chain(xp)[:, 0], want[prec][:m]):
+                off[name].append(m)
+    xp = torch.zeros((fused_mlp.plain_rows(pows[-1], dev), h), dtype=torch.float32, device=dev)
+    xp[:, :n_in] = pts
+    blocked = {name: int((fused_mlp.chain_in_blocks(chain, xp)[:, 0] != want[prec]).sum())
+               for name, (prec, chain) in chains.items()}
+    print(f"row sweep width {h}: plain chain on m seeded points in one product against the "
+          f"kernel bit for bit, m in range({ROW_SWEEP.start}, {ROW_SWEEP.stop}, "
+          f"{ROW_SWEEP.step}) ({len(ROW_SWEEP)} counts) and 2^10-2^20: row counts with a row "
+          f"off the kernel, FP32 {off['fp32']}, three-pass {off['three_pass']}; 2^20 points in "
+          f"blocks of {fused_mlp.ROW_BLOCK} rows: rows off the kernel {json.dumps(blocked)} "
+          f"[{card}]", flush=True)
+    used = [m for m in pows if m <= fused_mlp.ROW_BLOCK]
+    if any(blocked.values()) or any(m in used for rows in off.values() for m in rows):
+        raise RuntimeError(f"width {h}: a row count the plain versions use sums in another order")
+    return off
+
+
+def mixed_bar(img, ref, what: str) -> tuple:
+    """The mixed path's bar (tests/test_render.py:85-101): hit masks agree
+    on >= 99% of pixels and >= 97% of common hits within 1e-3 in rgba."""
+    hit, hit_ref = img[..., 3] > 0, ref[..., 3] > 0
+    agree = (hit == hit_ref).float().mean().item()
+    both = hit & hit_ref
+    close = (img - ref).abs().amax(dim=-1)[both].lt(1e-3).float().mean().item()
+    print(f"{what}: hit masks agree with the default config on {agree:.6f}, "
+          f"{int(both.sum())} common hits, {close:.6f} of them within 1e-3")
+    if agree < 0.99 or close < 0.97 or int(both.sum()) == 0:
+        raise RuntimeError(f"{what}: masks agree {agree}, common hits within 1e-3 {close}")
+    return agree, close
+
+
+def time_precisions(params, call, card) -> dict:
+    """A recorded three-pass coarse call timed through the kernel, FP32 vs
+    three-pass, and through the plain version, with its bound: the
+    three-pass chain's fused multiply-adds (three products per weight) at
+    the bfloat16 tensor-core peak, or its bytes."""
+    from cudaneuralrender_torch.kernels import fused_mlp, megakernel
+
+    origin, dirs, state, ccfg, frame, kw = call
+    fp32_kw = dict(kw, precision="default")
+    ms = time_cuda(lambda: megakernel.march_state(params, origin, dirs, state, ccfg, frame, **kw), 5)
+    fp32_ms = time_cuda(
+        lambda: megakernel.march_state(params, origin, dirs, state, ccfg, frame, **fp32_kw), 5)
+    plain_ms = time_cuda(
+        lambda: megakernel.march_state_plain(params, origin, dirs, state, ccfg, frame, **kw), 1)
+    steps = {}
+    for name, kwp in (("high", kw), ("fp32", fp32_kw)):
+        _, lane_steps = megakernel.march_state(params, origin, dirs, state, ccfg, frame,
+                                               **dict(kwp, return_resolve=True))
+        steps[name] = int((lane_steps.long() - int(state.steps)).sum())
+    weights, biases, n_in, hidden = fused_mlp.packed_params(params)
+    fmas = 3 * steps["high"] * chain_fmas(hidden, weights.shape[0], n_in)
+    n = dirs.shape[0]
+    bnd = bound(fmas, n * (12 + 4 + 4 + 1) + n * (4 + 4 + 1 + 1 + 4)
+                + 2 * weights.numel() + 4 * biases.numel(), PEAK_BF16_FLOPS)
+    print(f"coarse call width {hidden}, {n} rays, eps {kw['march_eps']}: three-pass kernel "
+          f"{ms:.3f} ms ({steps['high']} ray-steps), FP32 kernel {fp32_ms:.3f} ms "
+          f"({steps['fp32']} ray-steps), plain three-pass {plain_ms:.3f} ms; bound "
+          f"{bnd['bound_ms']:.4f} ms (3 x {chain_fmas(hidden, weights.shape[0], n_in)} FMAs per "
+          f"ray-step at 989 TFLOP/s bf16) [{card}]", flush=True)
+    return dict(ms=ms, fp32_ms=fp32_ms, plain_ms=plain_ms, bnd=bnd)
+
+
+def drive_high_config(cnr, params, name, fields, ref_img, card, width=1920,
+                      height=1080) -> dict:
+    """Phase 10 for one HIGH config at 1080p: the staged main path with the
+    three-pass launches counted (a cold and a warm frame), against the
+    default image at the mixed bar, the 256x256 golden under the same
+    config, the median of 3 warm frames, and kernel = plain on every march
+    call of one more frame. Returns the launches, the largest |dt| and the
+    recorded calls."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    cfg = cnr.RenderConfig(width=width, height=height, march_impl="staged", **fields)
+    renderer = cnr.Renderer(params, cfg)
+    cam = cnr.Camera(**CAMERA)
+    megakernel.reset_launch_counts()
+    renderer.render(cam)  # cold: may overflow and teach the memo
+    img = renderer.render(cam)
+    torch.cuda.synchronize()
+    launches = megakernel.THREE_PASS_LAUNCHES[32]
+    print(f"{name} 1080p: {launches} three-pass launches of {megakernel.KERNEL_LAUNCHES} in a "
+          f"cold and a warm frame {json.dumps(megakernel.PRECISION_LAUNCHES)}, stats "
+          f"{json.dumps(renderer.last_stats)}")
+    if launches == 0:
+        raise RuntimeError(f"{name}: the staged render never launched the three-pass kernel")
+    check_image(img, name, height, width)
+    mixed_bar(img, ref_img, f"{name} 1080p")
+    iou, frac2 = golden_render(cnr, params, cam, **fields)
+    frame_ms = time_frames(renderer, cam, 0.0, 3)
+    print(f"{name}: golden 256x256 IoU {iou:.5f}, {frac2:.5f} of foreground within 2 levels; "
+          f"1080p staged frame median {statistics.median(frame_ms):.3f} ms over 3 warm frames "
+          f"{[round(x, 3) for x in frame_ms]} [{card}]")
+    calls = record_march_calls(renderer, cam)
+    result = compare_recorded_calls(params, calls)
+    for call_name, a in result.items():
+        print(f"compare {name} 1080p {call_name}: {json.dumps(a)}")
+    check_agreement(result)
+    return dict(launches=launches, max_abs_err=max(a["max_abs_err"] for a in result.values()),
+                calls=calls)
+
+
+def drive_high_width(cnr, params, hidden, card, side=HIGH_WIDE_SIDE) -> dict:
+    """Phase 10 for a widened net: ``mid_eps`` through the staged path at
+    HIGH_WIDE_SIDE^2 with this width's three-pass launches counted (a cold
+    and a warm frame), then the three-pass kernel vs plain on the same
+    rays for HIGH_VARIANTS, and the coarse call timed."""
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import camera as camera_lib
+
+    cfg = cnr.RenderConfig(width=side, height=side, march_impl="staged", mid_eps=1e-3)
+    renderer = cnr.Renderer(params, cfg)
+    cam = cnr.Camera(**CAMERA)
+    megakernel.reset_launch_counts()
+    renderer.render(cam)
+    img = renderer.render(cam)
+    torch.cuda.synchronize()
+    launches = megakernel.THREE_PASS_LAUNCHES[hidden]
+    print(f"mid_eps width {hidden} {side}x{side}: {launches} three-pass launches in a cold and a "
+          f"warm frame, stats {json.dumps(renderer.last_stats)}")
+    if launches == 0:
+        raise RuntimeError(f"width {hidden}: the mid_eps render never launched the three-pass "
+                           "kernel")
+    check_image(img, f"mid_eps width {hidden}", side, side)
+    c2w, _ = camera_lib.view_matrices(cam, params.device)
+    origin, dirs = camera_lib.generate_rays(c2w, side, side, cfg.focal)
+    return dict(launches=launches, **high_agreement(params, cfg, origin, dirs, hidden, card))
+
+
+def high_agreement(params, cfg, origin, dirs, hidden, card) -> dict:
+    """K2h kernel vs plain on the rays of one image, and its cold coarse
+    call at HIGH_EPS timed."""
+    from cudaneuralrender_torch.ops import march
+
+    result = compare_high_with_plain(params, cfg, origin, dirs)
+    for name, a in result.items():
+        print(f"compare three-pass width {hidden} {cfg.width}x{cfg.height} {name}: "
+              f"{json.dumps(a)}")
+    check_agreement(result)
+    cold = march.init_state(origin, dirs, cfg.bound_center, cfg.bound_radius)
+    call = (origin, dirs, cold, cfg, 0.0,
+            dict(march_eps=HIGH_EPS, precision="high", relax_omega=1.6))
+    t = time_precisions(params, call, card)
+    return dict(max_abs_err=max(a["max_abs_err"] for a in result.values()), ms=t["ms"],
+                plain_ms=t["plain_ms"], bnd=t["bnd"])
+
+
+def drive_raygen(cnr, params, card, width=1920, height=1080) -> dict:
+    """Phase 10, K5: ``march_raygen`` on the 1080p coarse call (block
+    order, coarse_eps, relax_omega, cyl_window_coarse) at "default" (its
+    launches counted, the main path of K5) and "high": against its plain
+    version at the kernel bar, against the ray build + init_state +
+    march_state at the JAX package's bar, and timed both ways."""
+    from cudaneuralrender_torch.kernels import fused_mlp, megakernel
+    from cudaneuralrender_torch.ops import camera as camera_lib
+    from cudaneuralrender_torch.ops import march
+    from cudaneuralrender_torch.render import renderer as renderer_lib
+
+    dev = params.device
+    cfg = cnr.RenderConfig(width=width, height=height)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**CAMERA), dev)
+    pos = renderer_lib._block_order(cfg.height, cfg.width, *cfg.coarse_block, dev)
+    out = {}
+    for prec in ("default", "high"):
+        kw = dict(march_eps=cfg.coarse_eps, precision=prec, relax_omega=cfg.relax_omega,
+                  return_resolve=True, cyl_window=cfg.cyl_window_coarse)
+        megakernel.reset_launch_counts()
+        k = megakernel.march_raygen(params, c2w, pos, cfg, **kw)
+        torch.cuda.synchronize()
+        launches = megakernel.RAYGEN_LAUNCHES
+        if launches == 0:
+            raise RuntimeError(f"march_raygen ({prec}) never launched the kernel")
+        p = megakernel.march_raygen_plain(params, c2w, pos, cfg, **kw)
+        a = agreement(k, p)
+        print(f"compare raygen {prec} 1080p: {json.dumps(a)}")
+        check_agreement({f"raygen_{prec}": a})
+
+        def build_and_march():
+            origin = c2w[:, 3].contiguous()
+            dirs = camera_lib.ray_dirs_from_index(c2w, pos, cfg.height, cfg.width, cfg.focal)
+            state = march.init_state(origin, dirs, cfg.bound_center, cfg.bound_radius)
+            return megakernel.march_state(params, origin, dirs, state, cfg, **kw)
+
+        o = build_and_march()
+        conv_agree = (o[0].converged == k[0].converged).float().mean().item()
+        both = o[0].converged & k[0].converged
+        dt = (o[0].t - k[0].t).abs()[both]
+        t_err, close = dt.max().item(), dt.le(RAYGEN_MAX_T_ERR).float().mean().item()
+        one_step = cfg.relax_omega * cfg.coarse_eps
+        print(f"raygen {prec} 1080p vs ray build + init + march_state: converged flags agree on "
+              f"{conv_agree:.6f}; over {int(both.sum())} common hits, {close:.7f} within "
+              f"{RAYGEN_MAX_T_ERR} in t, max |dt| {t_err:.3g}, "
+              f"{int(dt.gt(RAYGEN_MAX_T_ERR).sum())} rays beyond")
+        if conv_agree < RAYGEN_MIN_CONV_AGREE or close < RAYGEN_MIN_T_CLOSE or t_err > one_step:
+            raise RuntimeError(f"raygen ({prec}) vs the ray build: converged agree {conv_agree}, "
+                               f"t within {RAYGEN_MAX_T_ERR} on {close}, max |dt| {t_err}")
+        ms = time_cuda(lambda: megakernel.march_raygen(params, c2w, pos, cfg, **kw), 5)
+        build_ms = time_cuda(build_and_march, 5)
+        plain_ms = time_cuda(lambda: megakernel.march_raygen_plain(params, c2w, pos, cfg, **kw), 1)
+        ray_steps = int(k[1].long().sum())
+        weights, biases, n_in, hidden = fused_mlp.packed_params(params)
+        fmas = ray_steps * chain_fmas(hidden, weights.shape[0], n_in)
+        n = pos.shape[0]
+        nbytes = n * (4 + 4 + 4 + 1 + 1 + 4) + 4 * (weights.numel() + biases.numel())
+        bnd = (bound(3 * fmas, nbytes, PEAK_BF16_FLOPS) if prec == "high"
+               else bound(fmas, nbytes))
+        print(f"raygen {prec} 1080p ({n} rays, {ray_steps} ray-steps): kernel {ms:.3f} ms, ray "
+              f"build + init + march_state {build_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms, {launches} launch [{card}]", flush=True)
+        out[prec] = dict(launches=launches, max_abs_err=a["max_abs_err"], ms=ms,
+                         plain_ms=plain_ms, bnd=bnd)
+    return out
+
+
+def drive_option(cnr, params, name, fields, card, side=OPTION_SIDE) -> None:
+    """Phase 10: one OPTION_SIDE^2 staged frame under an opt-in option
+    against the default config's, at the mixed bar, with the kernel's
+    launches by precision (tail_pallas: the terminal rungs' "highest"
+    launches, which must be > 0)."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    cam = cnr.Camera(**CAMERA)
+    base = cnr.RenderConfig(width=side, height=side, march_impl="staged")
+    ref = cnr.render_staged(params, cam, base)
+    megakernel.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = cnr.Renderer(params, base.replace(**fields)).render(cam)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(megakernel.PRECISION_LAUNCHES)
+    print(f"{name} {side}x{side}: one cold staged frame {ms:.3f} ms, kernel launches by "
+          f"precision {json.dumps(counts)} [{card}]")
+    check_image(img, name, side, side)
+    mixed_bar(img, ref, f"{name} {side}x{side}")
+    if fields.get("tail_pallas") and counts["highest"] == 0:
+        raise RuntimeError(f"{name}: the terminal rungs never reached the kernel")
 
 
 def main() -> int:
@@ -750,6 +1151,38 @@ def main() -> int:
     for hidden, net in [(32, params)] + sorted(wide.items()):
         kernels.append(drive_forward(cnr, net, hidden, card))
     print(f"phase 9 (forward kernel): {time.perf_counter() - t9:.1f} s wall", flush=True)
+
+    # 10. the precision ladder and the cold start
+    t10 = time.perf_counter()
+    k2h = {}
+    for hidden, net in [(32, params)] + sorted(wide.items()):
+        sdf_errors(net, hidden, card)
+        row_sweep(net, card)
+    for name, fields in HIGH_CONFIGS:
+        k2h[name] = drive_high_config(cnr, params, name, fields, img, card)
+    t = time_precisions(params, k2h["coarse_high"]["calls"][0], card)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**CAMERA), dev)
+    side = HIGH_WIDE_SIDE
+    origin, dirs = camera_lib.generate_rays(c2w, side, side, cfg.focal)
+    narrow = high_agreement(params, cnr.RenderConfig(width=side, height=side), origin, dirs, 32,
+                            card)
+    kernels.append(kernel_entry(
+        "march_kernel_3pass_h32", K3_SOURCE, "cudaneuralrender_tpu/pallas/fused_mlp.py:130",
+        sum(r["launches"] for r in k2h.values()),
+        max([narrow["max_abs_err"]] + [r["max_abs_err"] for r in k2h.values()]),
+        t["ms"], t["plain_ms"], t["bnd"]))
+    for hidden, net in sorted(wide.items()):
+        kernels.append(kernel_entry(f"march_kernel_3pass_h{hidden}", K3_SOURCE,
+                                    "cudaneuralrender_tpu/pallas/fused_mlp.py:130",
+                                    **drive_high_width(cnr, net, hidden, card)))
+    raygen = drive_raygen(cnr, params, card)
+    kernels.append(kernel_entry("march_kernel_raygen", K1_SOURCE,
+                                "cudaneuralrender_tpu/pallas/megakernel.py:377",
+                                **raygen["default"]))
+    drive_option(cnr, params, "relax_newton", dict(relax_newton=True), card)
+    drive_option(cnr, params, "tail_pallas", dict(tail_pallas=True, refine_pallas=False), card)
+    print(f"phase 10 (precision ladder, cold start): {time.perf_counter() - t10:.1f} s wall",
+          flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

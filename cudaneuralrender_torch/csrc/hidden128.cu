@@ -1,9 +1,10 @@
-// Every kernel of the package at hidden width 128: the march kernel for each
-// (scene, window) and the fused forward. One translation unit per width, so
-// the widths compile in parallel (kernels/build.py).
+// The kernels of the package at hidden width 128 with the FP32 chain: the
+// march kernel for each (scene, window) and the fused forward. One
+// translation unit per width and chain, so they compile in parallel
+// (kernels/build.py).
 #include "march.cuh"
 
 namespace cnr {
-template int launch_march<128>(const MarchArgs&, cudaStream_t);
+template int launch_march<128, false>(const MarchArgs&, cudaStream_t);
 template int launch_mlp_forward<128>(const MlpArgs&, cudaStream_t);
 }  // namespace cnr

@@ -1,6 +1,8 @@
 // The launchers of the package's kernels, one explicit instantiation per
-// hidden width (csrc/hidden{32,64,128,256}.cu), called by the C entry
-// points in csrc/march.cu. Each returns a cudaError_t as an int.
+// hidden width and chain (csrc/hidden{32,64,128,256}.cu for the FP32 chain
+// and the forward kernel, csrc/hidden{32,64,128,256}_3pass.cu for the
+// three-pass chain), called by the C entry points in csrc/march.cu. Each
+// returns a cudaError_t as an int.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,21 +11,35 @@
 namespace cnr {
 
 // One march call (K1): per-ray inputs and outputs, the padded weight stack
-// [n_layers, H, H] and biases [n_layers, H], the scene and the step rule.
+// and its biases [n_layers, H], the scene and the step rule. With pos set it
+// is a cold start (K5): each ray is built in the kernel from its pixel index
+// and the camera, and dirs, origin, t0, budget0, active0 and steps0 are not
+// read.
 struct MarchArgs {
-  const float* dirs;
-  const float* origin;
-  const float* t0;
-  const float* budget0;
-  const uint8_t* active0;
-  const int32_t* steps0;
-  const float* weights;
+  const float* dirs;       // [n, 3]
+  const float* origin;     // [3]
+  const float* t0;         // [n]
+  const float* budget0;    // [n]
+  const uint8_t* active0;  // [n]
+  const int32_t* steps0;   // [1], the step counter the call starts from
+  const int32_t* pos;      // K5: [n] pixel index y * width + x, -1 = pad lane
+  const float* c2w;        // K5: [3, 4] camera to world, row-major
+  int width;               // K5: image size and focal length
+  int height;
+  float focal;
+  float bound_cx;          // K5: bounding sphere center and radius squared
+  float bound_cy;
+  float bound_cz;
+  float bound_r2;
+  const void* weights;     // FP32 [n_layers, H, H]; three-pass: bf16 hi half
+  const void* weights_lo;  // three-pass: bf16 lo half [n_layers, H, H]
   const float* biases;
   int n_layers;
   int n_inputs;
   float frame;
   int scene;
   int window;
+  int three_pass;
   int n;
   int max_steps;
   int num_steps;
@@ -47,7 +63,7 @@ struct MlpArgs {
   float* out;
 };
 
-template <int H>
+template <int H, bool kThreePass>
 int launch_march(const MarchArgs& a, cudaStream_t stream);
 
 template <int H>

@@ -1,12 +1,18 @@
 // The library's C interface, bound with ctypes by kernels/build.py.
 //
-//   cnr_march        the march kernel (K1, csrc/march.cuh)
-//   cnr_mlp_forward  the fused forward (K3, csrc/chain.cuh)
+//   cnr_march         the march kernel (K1, csrc/march.cuh), continuing a
+//                     march state
+//   cnr_march_raygen  the same kernel from a cold start, each ray built in
+//                     the kernel from its pixel index (K5)
+//   cnr_mlp_forward   the fused forward (K3, csrc/chain.cuh)
 //
-// Each dispatches on the padded hidden width to the instantiation in
-// csrc/hidden{32,64,128,256}.cu and returns a cudaError_t: a width, scene,
-// window or input count with no instantiation gives cudaErrorInvalidValue,
-// and a refused launch its own error. Nothing is launched in either case.
+// Each dispatches on the padded hidden width, and the march entries on the
+// chain (three_pass: 0 for FP32, 1 for the three-pass chain K2h), to the
+// instantiation in csrc/hidden{32,64,128,256}.cu or
+// csrc/hidden{32,64,128,256}_3pass.cu, and returns a cudaError_t: a width,
+// scene, window or input count with no instantiation gives
+// cudaErrorInvalidValue, and a refused launch its own error. Nothing is
+// launched in either case.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,24 +40,99 @@ int dispatch(int device, int hidden, const Args& a, void* stream,
   return launch(a, static_cast<cudaStream_t>(stream));
 }
 
+int dispatch_march(int device, int hidden, const cnr::MarchArgs& a, void* stream) {
+  if (a.three_pass)
+    return dispatch(device, hidden, a, stream, cnr::launch_march<32, true>,
+                    cnr::launch_march<64, true>, cnr::launch_march<128, true>,
+                    cnr::launch_march<256, true>);
+  return dispatch(device, hidden, a, stream, cnr::launch_march<32, false>,
+                  cnr::launch_march<64, false>, cnr::launch_march<128, false>,
+                  cnr::launch_march<256, false>);
+}
+
 }  // namespace
 
 extern "C" int cnr_march(int device, const float* dirs, const float* origin,
                          const float* t0, const float* budget0,
                          const uint8_t* active0, const int32_t* steps0,
-                         const float* weights, const float* biases,
-                         int n_layers, int hidden, int n_inputs, float frame,
-                         int scene, int window,
+                         const void* weights, const void* weights_lo,
+                         const float* biases, int n_layers, int hidden, int n_inputs,
+                         float frame, int scene, int window, int three_pass,
                          int n, int max_steps, int num_steps, float eps,
                          float omega, float* t_out, float* budget_out,
                          uint8_t* active_out, uint8_t* conv_out,
                          int32_t* steps_out, void* stream) {
-  const cnr::MarchArgs a{dirs, origin, t0, budget0, active0, steps0, weights, biases,
-                         n_layers, n_inputs, frame, scene, window, n, max_steps,
-                         num_steps, eps, omega, t_out, budget_out, active_out,
-                         conv_out, steps_out};
-  return dispatch(device, hidden, a, stream, cnr::launch_march<32>,
-                  cnr::launch_march<64>, cnr::launch_march<128>, cnr::launch_march<256>);
+  cnr::MarchArgs a{};
+  a.dirs = dirs;
+  a.origin = origin;
+  a.t0 = t0;
+  a.budget0 = budget0;
+  a.active0 = active0;
+  a.steps0 = steps0;
+  a.weights = weights;
+  a.weights_lo = weights_lo;
+  a.biases = biases;
+  a.n_layers = n_layers;
+  a.n_inputs = n_inputs;
+  a.frame = frame;
+  a.scene = scene;
+  a.window = window;
+  a.three_pass = three_pass;
+  a.n = n;
+  a.max_steps = max_steps;
+  a.num_steps = num_steps;
+  a.eps = eps;
+  a.omega = omega;
+  a.t_out = t_out;
+  a.budget_out = budget_out;
+  a.active_out = active_out;
+  a.conv_out = conv_out;
+  a.steps_out = steps_out;
+  return dispatch_march(device, hidden, a, stream);
+}
+
+extern "C" int cnr_march_raygen(int device, const int32_t* pos, const float* c2w,
+                                int width, int height, float focal, float bound_cx,
+                                float bound_cy, float bound_cz, float bound_r2,
+                                const void* weights, const void* weights_lo,
+                                const float* biases, int n_layers, int hidden,
+                                int n_inputs, float frame, int scene, int window,
+                                int three_pass, int n, int max_steps, float eps,
+                                float omega, float* t_out, float* budget_out,
+                                uint8_t* active_out, uint8_t* conv_out,
+                                int32_t* steps_out, void* stream) {
+  if (pos == nullptr || c2w == nullptr || width <= 0 || height <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cnr::MarchArgs a{};
+  a.pos = pos;
+  a.c2w = c2w;
+  a.width = width;
+  a.height = height;
+  a.focal = focal;
+  a.bound_cx = bound_cx;
+  a.bound_cy = bound_cy;
+  a.bound_cz = bound_cz;
+  a.bound_r2 = bound_r2;
+  a.weights = weights;
+  a.weights_lo = weights_lo;
+  a.biases = biases;
+  a.n_layers = n_layers;
+  a.n_inputs = n_inputs;
+  a.frame = frame;
+  a.scene = scene;
+  a.window = window;
+  a.three_pass = three_pass;
+  a.n = n;
+  a.max_steps = max_steps;
+  a.num_steps = -1;  // run to dry
+  a.eps = eps;
+  a.omega = omega;
+  a.t_out = t_out;
+  a.budget_out = budget_out;
+  a.active_out = active_out;
+  a.conv_out = conv_out;
+  a.steps_out = steps_out;
+  return dispatch_march(device, hidden, a, stream);
 }
 
 extern "C" int cnr_mlp_forward(int device, const float* x, const float* weights,

@@ -2,11 +2,13 @@
 //
 // Replaces the JAX package's Pallas TPU kernel
 // cudaneuralrender_tpu/pallas/megakernel.py::_march_megakernel (launched by
-// march_pallas_state), together with the layer chain it inlines
-// (pallas/fused_mlp.py::_mlp_chain, here csrc/chain.cuh) and the scene
-// compose (pallas/scenes.py::compose_fn: neural_raw, neural_tanh,
-// many_sphere, many_sphere_cut, many_cylinder_cut through a 1/3/5 grid
-// window, and displacement).
+// march_pallas_state, and by march_pallas_raygen for a cold start with the
+// rays built in the kernel, K5), together with the layer chains it inlines
+// (pallas/fused_mlp.py::_mlp_chain and, at precision HIGH, the three-pass
+// _mlp_chain_3pass: csrc/chain.cuh) and the scene compose
+// (pallas/scenes.py::compose_fn: neural_raw, neural_tanh, many_sphere,
+// many_sphere_cut, many_cylinder_cut through a 1/3/5 grid window, and
+// displacement).
 //
 // What bounds it on this card: arithmetic. A step of a 9-layer net is
 // 3H + 7H^2 + H fused multiply-adds per ray (7.3k at H=32: the true 3-input
@@ -21,6 +23,17 @@
 //     256; one instantiation of every scene per width, in
 //     csrc/hidden{H}.cu); see chain.cuh for where weights and activations
 //     live at each width;
+//   * the chain's arithmetic, a template parameter: FP32 FFMA, for both of
+//     the JAX package's precisions DEFAULT and HIGHEST, or the three-pass
+//     bfloat16 chain for HIGH (kThreePass; its instantiations in
+//     csrc/hidden{H}_3pass.cu, compiled in parallel with the others);
+//   * the cold start (K5) is a prologue chosen at run time, the same for the
+//     whole launch (pos set or not), so it adds no instantiation: each ray
+//     is built from its pixel index and the camera by the TPU kernel's own
+//     formula (megakernel.py:105-135) and intersected with the bounding
+//     sphere, where the continue mode reads the state from device memory.
+//     It saves the [n, 3] directions and the state in device memory, and
+//     costs an integer division, a square root and two divisions per ray;
 //   * the scene compose runs right after the chain, each step, where the
 //     reference's sceneSDF runs inside its march kernel. The scene and the
 //     cylinder window are template parameters, one instantiation per
@@ -38,6 +51,10 @@
 // to the ~7.3k FMAs of the layer chain. It should change the cost of a
 // step by a few percent; frame times per scene differ mostly through their
 // step counts.
+//
+// The prologue's arithmetic is the plain version's
+// (kernels/megakernel.py raygen_state), one rounding per operation, the
+// division by the width a product with its float32 reciprocal.
 //
 // Per-lane semantics follow the TPU kernel exactly: singleMarch's update
 // order (budget charge, miss, move, converge), the constant over-relaxation
@@ -174,32 +191,98 @@ __device__ __forceinline__ float compose(float px, float py, float pz, float d,
   }
 }
 
-template <int H, int S, int W>
+// K5's prologue: the ray of pixel index p and its bounding-sphere init. The
+// index is split by floor division, as JAX's // and %, so a pad lane (p < 0)
+// stays defined; it starts inactive.
+__device__ __forceinline__ void ray_from_index(
+    int p, const float* __restrict__ c2w, int width, int height, float focal, float cx,
+    float cy, float cz, float r2, float& ox, float& oy, float& oz, float& dx, float& dy,
+    float& dz, float& t, float& budget, bool& act) {
+  int py = p / width;
+  int px = p - py * width;
+  if (px < 0) {
+    px += width;
+    --py;
+  }
+  const float u = __fsub_rn(
+      __fmul_rn(__fmul_rn(static_cast<float>(px), __frcp_rn(static_cast<float>(width))), 2.f),
+      1.f);
+  const float v = __fsub_rn(
+      __fmul_rn(__fmul_rn(static_cast<float>(py), __frcp_rn(static_cast<float>(height))), 2.f),
+      1.f);
+  const float fw = -focal;
+  const float inv = __fdiv_rn(
+      1.f, __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(u, u), __fmul_rn(v, v)), __fmul_rn(fw, fw))));
+  const float du = __fmul_rn(u, inv), dv = __fmul_rn(v, inv), dw = __fmul_rn(fw, inv);
+  dx = __fadd_rn(__fadd_rn(__fmul_rn(c2w[0], du), __fmul_rn(c2w[1], dv)), __fmul_rn(c2w[2], dw));
+  dy = __fadd_rn(__fadd_rn(__fmul_rn(c2w[4], du), __fmul_rn(c2w[5], dv)), __fmul_rn(c2w[6], dw));
+  dz = __fadd_rn(__fadd_rn(__fmul_rn(c2w[8], du), __fmul_rn(c2w[9], dv)),
+                 __fmul_rn(c2w[10], dw));
+  ox = c2w[3];
+  oy = c2w[7];
+  oz = c2w[11];
+  const float qx = __fsub_rn(ox, cx), qy = __fsub_rn(oy, cy), qz = __fsub_rn(oz, cz);
+  const float a = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+  const float b = __fmul_rn(
+      2.f, __fadd_rn(__fadd_rn(__fmul_rn(qx, dx), __fmul_rn(qy, dy)), __fmul_rn(qz, dz)));
+  const float c = __fsub_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)), __fmul_rn(qz, qz)), r2);
+  const float disc = __fsub_rn(__fmul_rn(b, b), __fmul_rn(__fmul_rn(4.f, a), c));
+  const bool hit = disc > 0.f;
+  const float sq = __fsqrt_rn(fmaxf(disc, 0.f));
+  const float a2 = __fmul_rn(2.f, a);
+  t = hit ? fmaxf(__fdiv_rn(__fsub_rn(-b, sq), a2), 0.f) : 0.f;
+  budget = hit ? __fdiv_rn(__fadd_rn(-b, sq), a2) : 0.f;
+  act = hit && p >= 0;
+}
+
+template <int H, int S, int W, bool kThreePass>
 __global__ void __launch_bounds__(block_for(H))
 march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
              const float* __restrict__ t0, const float* __restrict__ budget0,
-             const uint8_t* __restrict__ active0,
-             const int32_t* __restrict__ steps0,
-             const float* __restrict__ weights,
-             const float* __restrict__ biases, int n_layers, int n_inputs,
-             float frame, int n, int max_steps, int num_steps, float eps,
-             float omega, float* __restrict__ t_out,
+             const uint8_t* __restrict__ active0, const int32_t* __restrict__ steps0,
+             const int32_t* __restrict__ pos, const float* __restrict__ c2w, int width,
+             int height, float focal, float bound_cx, float bound_cy, float bound_cz,
+             float bound_r2, const void* __restrict__ weights,
+             const void* __restrict__ weights_lo, const float* __restrict__ biases,
+             int n_layers, int n_inputs, float frame, int n, int max_steps, int num_steps,
+             float eps, float omega, float* __restrict__ t_out,
              float* __restrict__ budget_out, uint8_t* __restrict__ active_out,
              uint8_t* __restrict__ conv_out, int32_t* __restrict__ steps_out) {
-  const float* sw;
+  const float* sw = nullptr;      // the FP32 stack
+  const uint16_t* shi = nullptr;  // the three-pass stack's two halves
+  const uint16_t* slo = nullptr;
   const float* sb;
-  stage_weights<H>(weights, biases, n_layers, sw, sb);
+  if constexpr (kThreePass)
+    stage_weights_3pass<H>(static_cast<const uint16_t*>(weights),
+                           static_cast<const uint16_t*>(weights_lo), biases, n_layers,
+                           shi, slo, sb);
+  else
+    stage_weights<H>(static_cast<const float*>(weights), biases, n_layers, sw, sb);
 
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
 
-  const float ox = origin[0], oy = origin[1], oz = origin[2];
-  const float dx = dirs[3 * r], dy = dirs[3 * r + 1], dz = dirs[3 * r + 2];
-  float t = t0[r];
-  float budget = budget0[r];
-  bool act = active0[r] != 0;
+  float ox, oy, oz, dx, dy, dz, t, budget;
+  bool act;
+  int start;
+  if (pos != nullptr) {  // K5: a cold start from the pixel index
+    ray_from_index(pos[r], c2w, width, height, focal, bound_cx, bound_cy, bound_cz, bound_r2,
+                   ox, oy, oz, dx, dy, dz, t, budget, act);
+    start = 0;
+  } else {
+    ox = origin[0];
+    oy = origin[1];
+    oz = origin[2];
+    dx = dirs[3 * r];
+    dy = dirs[3 * r + 1];
+    dz = dirs[3 * r + 2];
+    t = t0[r];
+    budget = budget0[r];
+    act = active0[r] != 0;
+    start = *steps0;
+  }
   bool conv = false;
-  const int start = *steps0;
   int step = start;
   int res = start;
   const bool relax = omega > 1.f;
@@ -209,8 +292,12 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
     const float px = __fmaf_rn(dx, t, ox);
     const float py = __fmaf_rn(dy, t, oy);
     const float pz = __fmaf_rn(dz, t, oz);
-    const float d = compose<S, W>(
-        px, py, pz, chain_sdf<H>(sw, sb, n_layers, n_inputs, px, py, pz, frame), frame);
+    float raw;
+    if constexpr (kThreePass)
+      raw = chain_sdf_3pass<H>(shi, slo, sb, n_layers, n_inputs, px, py, pz, frame);
+    else
+      raw = chain_sdf<H>(sw, sb, n_layers, n_inputs, px, py, pz, frame);
+    const float d = compose<S, W>(px, py, pz, raw, frame);
 
     bool sor_fail = false;
     bool near;
@@ -246,33 +333,40 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
   steps_out[r] = act ? step : res;
 }
 
+// The kernel takes its arguments one by one: passed as one MarchArgs by
+// value, ptxas allots the FP32 instantiations more registers (100-103 at
+// width 32 instead of 96) and spills at 128 and 256.
 using MarchKernel = void (*)(const float*, const float*, const float*, const float*,
-                             const uint8_t*, const int32_t*, const float*, const float*,
-                             int, int, float, int, int, int, float, float, float*, float*,
-                             uint8_t*, uint8_t*, int32_t*);
+                             const uint8_t*, const int32_t*, const int32_t*, const float*, int,
+                             int, float, float, float, float, float, const void*, const void*,
+                             const float*, int, int, float, int, int, int, float, float, float*,
+                             float*, uint8_t*, uint8_t*, int32_t*);
 
-// The instantiation for a width, scene id and cylinder window, or nullptr.
-template <int H>
+// The instantiation for a width, chain, scene id and cylinder window, or
+// nullptr.
+template <int H, bool kThreePass>
 MarchKernel pick_kernel(int scene, int window) {
   if (window != 1 && window != 3 && window != 5) return nullptr;
   switch (scene) {
-    case kNeuralRaw: return march_kernel<H, kNeuralRaw, 0>;
-    case kNeuralTanh: return march_kernel<H, kNeuralTanh, 0>;
-    case kManySphere: return march_kernel<H, kManySphere, 0>;
-    case kManySphereCut: return march_kernel<H, kManySphereCut, 0>;
+    case kNeuralRaw: return march_kernel<H, kNeuralRaw, 0, kThreePass>;
+    case kNeuralTanh: return march_kernel<H, kNeuralTanh, 0, kThreePass>;
+    case kManySphere: return march_kernel<H, kManySphere, 0, kThreePass>;
+    case kManySphereCut: return march_kernel<H, kManySphereCut, 0, kThreePass>;
     case kManyCylinderCut:
-      if (window == 1) return march_kernel<H, kManyCylinderCut, 1>;
-      if (window == 3) return march_kernel<H, kManyCylinderCut, 3>;
-      return march_kernel<H, kManyCylinderCut, 5>;
-    case kDisplacement: return march_kernel<H, kDisplacement, 0>;
+      if (window == 1) return march_kernel<H, kManyCylinderCut, 1, kThreePass>;
+      if (window == 3) return march_kernel<H, kManyCylinderCut, 3, kThreePass>;
+      return march_kernel<H, kManyCylinderCut, 5, kThreePass>;
+    case kDisplacement: return march_kernel<H, kDisplacement, 0, kThreePass>;
     default: return nullptr;
   }
 }
 
-template <int H>
+template <int H, bool kThreePass>
 int launch_march(const MarchArgs& a, cudaStream_t stream) {
-  const MarchKernel kernel = pick_kernel<H>(a.scene, a.window);
-  if (kernel == nullptr || a.n_layers < 1 || a.n_inputs < 1 || a.n_inputs > 4)
+  const MarchKernel kernel = pick_kernel<H, kThreePass>(a.scene, a.window);
+  const bool state_given = a.pos != nullptr || a.steps0 != nullptr;
+  if (kernel == nullptr || !state_given || a.n_layers < 1 || a.n_inputs < 1 || a.n_inputs > 4 ||
+      (kThreePass && a.weights_lo == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n <= 0) return 0;
   const size_t smem = smem_bytes(H, a.n_layers);
@@ -280,9 +374,10 @@ int launch_march(const MarchArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (a.n + block_for(H) - 1) / block_for(H);
   kernel<<<grid, block_for(H), smem, stream>>>(
-      a.dirs, a.origin, a.t0, a.budget0, a.active0, a.steps0, a.weights, a.biases,
-      a.n_layers, a.n_inputs, a.frame, a.n, a.max_steps, a.num_steps, a.eps, a.omega,
-      a.t_out, a.budget_out, a.active_out, a.conv_out, a.steps_out);
+      a.dirs, a.origin, a.t0, a.budget0, a.active0, a.steps0, a.pos, a.c2w, a.width, a.height,
+      a.focal, a.bound_cx, a.bound_cy, a.bound_cz, a.bound_r2, a.weights, a.weights_lo,
+      a.biases, a.n_layers, a.n_inputs, a.frame, a.n, a.max_steps, a.num_steps, a.eps,
+      a.omega, a.t_out, a.budget_out, a.active_out, a.conv_out, a.steps_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,8 +3,9 @@
 The sources under ``cudaneuralrender_torch/csrc/`` compile with ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers). Each ``.cu`` file is one translation unit
-(one per hidden width, plus the C entry points); they compile in parallel
-processes, one ``nvcc`` each, and link into the library. The build runs at
+(one per hidden width and chain, FP32 and three-pass, plus the C entry
+points); they compile in parallel processes, one ``nvcc`` each, and link
+into the library. The build runs at
 first CUDA use, never at import, into ``cudaneuralrender_torch/build/``
 (listed in .gitignore) under a name keyed by a hash of the sources, headers
 and flags, so a second run reuses it. A missing ``nvcc`` or a failed build
@@ -120,14 +121,27 @@ def load_library() -> ctypes.CDLL:
         lib.cnr_march.argtypes = [
             _I,                      # device
             _P, _P, _P, _P, _P, _P,  # dirs, origin, t0, budget0, active0, steps0
-            _P, _P,                  # weights, biases
+            _P, _P, _P,              # weights (FP32 or bf16 hi), bf16 lo or NULL, biases
             _I, _I, _I, _F,          # n_layers, hidden, n_inputs, frame
-            _I, _I,                  # scene id, cylinder window
+            _I, _I, _I,              # scene id, cylinder window, three_pass
             _I, _I, _I, _F, _F,      # n, max_steps, num_steps, eps, omega
             _P, _P, _P, _P, _P,      # t, budget, active, conv, steps (outputs)
             _P,                      # stream
         ]
         lib.cnr_march.restype = _I
+        lib.cnr_march_raygen.argtypes = [
+            _I,                      # device
+            _P, _P,                  # pos, cam_to_world
+            _I, _I, _F,              # width, height, focal
+            _F, _F, _F, _F,          # bounding sphere center x, y, z, radius squared
+            _P, _P, _P,              # weights (FP32 or bf16 hi), bf16 lo or NULL, biases
+            _I, _I, _I, _F,          # n_layers, hidden, n_inputs, frame
+            _I, _I, _I,              # scene id, cylinder window, three_pass
+            _I, _I, _F, _F,          # n, max_steps, eps, omega
+            _P, _P, _P, _P, _P,      # t, budget, active, conv, steps (outputs)
+            _P,                      # stream
+        ]
+        lib.cnr_march_raygen.restype = _I
         lib.cnr_mlp_forward.argtypes = [
             _I,                      # device
             _P, _P, _P,              # x, weights, biases

@@ -8,6 +8,10 @@ The PyTorch counterpart of the JAX package's ``pallas/fused_mlp.py``:
   * ``mlp_chain_plain`` is the plain PyTorch version of ``_mlp_chain``
     (``fused_mlp.py:162``) on [T, H] activations (rays on rows, features on
     columns — PyTorch's habit; the TPU kernel keeps them transposed);
+  * ``split_hi_lo`` and ``mlp_chain_3pass_plain`` are the plain versions of
+    ``split_hi_lo`` (``fused_mlp.py:59``) and of the emulated
+    ``Precision.HIGH`` chain ``_mlp_chain_3pass`` (``fused_mlp.py:130``),
+    K2h, which the march kernel runs at ``precision="high"``;
   * ``mlp_forward`` is the counterpart of ``mlp_forward_pallas``
     (``fused_mlp.py:194``): on CUDA tensors it launches the hand-written
     kernel in ``csrc/chain.cuh``, on CPU tensors it runs
@@ -37,16 +41,38 @@ KERNEL_WIDTHS = (32, 64, 128, 256)
 MLP_LAUNCHES = 0
 
 
-def min_rows(device: torch.device) -> int:
-    """Least batch the plain versions hand the layer chain on ``device``.
+#: The largest batch the plain chains hand cuBLAS in one product.
+ROW_BLOCK = 1 << 16
+
+
+def plain_rows(n: int, device: torch.device) -> int:
+    """Rows the plain versions hand the layer chain for a batch of n points
+    on ``device`` (the points first, zero rows after).
 
     BLAS libraries switch to other kernels, which sum in another order, for
-    a few rows (the CPU's matrix-vector path at one row, cuBLAS's small-M
-    kernels), and a point's SDF would then depend on how many points are
-    evaluated beside it. On the H100, cuBLAS sums a 256-wide layer in
-    another order below 1024 rows, and in the kernels' order from 1024 rows
-    up at every width (bit for bit; chip_smoke.py phase 9 prints the sweep)."""
-    return 1024 if device.type == "cuda" else 256
+    some row counts (the CPU's matrix-vector path at one row, cuBLAS's
+    small-M kernels), and a point's SDF would then depend on how many
+    points are evaluated beside it. On the H100, cuBLAS sums in the
+    kernels' order at every power of two from 1024 to 65536 rows at every
+    width, but not below 1024 rows, nor at some row counts between (at
+    width 256), nor at some rows of a 2^20-row product (at widths 64 and
+    128); chip_smoke.py phases 9 and 10 print the sweeps. So on the card a
+    batch is padded to the next power of two of at least 1024 rows, and
+    beyond ``ROW_BLOCK`` rows to whole blocks, which ``chain_in_blocks``
+    multiplies one by one; on the CPU to 256 rows."""
+    if device.type != "cuda":
+        return max(n, 256)
+    if n > ROW_BLOCK:
+        return -(-n // ROW_BLOCK) * ROW_BLOCK
+    return max(1024, 1 << (n - 1).bit_length())
+
+
+def chain_in_blocks(chain, x: torch.Tensor) -> torch.Tensor:
+    """``chain(x)`` on x [T, H] padded by ``plain_rows``: on the card, one
+    ``ROW_BLOCK`` of rows at a time when T is larger."""
+    if x.device.type != "cuda" or x.shape[0] <= ROW_BLOCK:
+        return chain(x)
+    return torch.cat([chain(x[i:i + ROW_BLOCK]) for i in range(0, x.shape[0], ROW_BLOCK)])
 
 
 def reset_launch_counts() -> None:
@@ -83,17 +109,37 @@ def pack_params(params: MLP) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
     return weights, biases, sizes[0], h
 
 
-def packed_params(params: MLP) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
-    """``pack_params`` once per parameter state. The stack is kept on the
-    module and rebuilt only when a parameter is replaced, moved or written
-    in place (its storage or version counter changes), so a frame's kernel
-    calls share one stack instead of packing at every launch."""
+def split_hi_lo(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-term bfloat16 decomposition of a float32 tensor, w ~ hi + lo:
+    hi = bf16(w), lo = bf16(w - hi), each rounded to nearest even, the same
+    bits as the JAX package's ``split_hi_lo``."""
+    hi = w.to(torch.bfloat16)
+    lo = (w - hi.float()).to(torch.bfloat16)
+    return hi, lo
+
+
+def _cached(params: MLP, attr: str, make):
+    """``make(params)`` once per parameter state, kept on the module as
+    ``attr`` and rebuilt only when a parameter is replaced, moved or written
+    in place (its storage or version counter changes)."""
     key = tuple((p.data_ptr(), p._version) for p in params.parameters())
-    cached = getattr(params, "_packed_stack", None)
+    cached = getattr(params, attr, None)
     if cached is None or cached[0] != key:
-        cached = (key, pack_params(params))
-        params._packed_stack = cached
+        cached = (key, make(params))
+        setattr(params, attr, cached)
     return cached[1]
+
+
+def packed_params(params: MLP) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+    """``pack_params`` once per parameter state, so a frame's kernel calls
+    share one stack instead of packing at every launch."""
+    return _cached(params, "_packed_stack", pack_params)
+
+
+def packed_hi_lo(params: MLP) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``split_hi_lo`` of the packed weight stack, once per parameter state:
+    the bfloat16 halves (w_hi, w_lo) [L, H, H] the three-pass chain reads."""
+    return _cached(params, "_packed_hi_lo", lambda p: split_hi_lo(packed_params(p)[0]))
 
 
 def mlp_chain_plain(weights: torch.Tensor, biases: torch.Tensor,
@@ -102,6 +148,31 @@ def mlp_chain_plain(weights: torch.Tensor, biases: torch.Tensor,
     layer but the last. Returns [T, H]; the SDF head is column 0."""
     for l in range(n_layers):
         y = x @ weights[l] + biases[l]
+        if l + 1 < n_layers:
+            y = torch.relu(y)
+        x = y
+    return x
+
+
+def mlp_chain_3pass_plain(w_hi: torch.Tensor, w_lo: torch.Tensor, biases: torch.Tensor,
+                          x: torch.Tensor, n_layers: int) -> torch.Tensor:
+    """Plain version of the three-pass chain K2h on activations x [T, H];
+    ReLU on every layer but the last. Returns [T, H]; the head is column 0.
+
+    Per layer the activations are split like the weights (x_hi = bf16(x),
+    x_lo = bf16(x - x_hi)), and y = ((x_hi @ w_hi + x_lo @ w_hi) + x_hi @ w_lo)
+    + b: three float32 products of bfloat16-valued operands (each product of
+    two bfloat16 values is exact in float32), added in that order, the bias
+    last. The lo @ lo term is dropped, as XLA's Precision.HIGH drops it."""
+    wh, wl = w_hi.float(), w_lo.float()
+    for l in range(n_layers):
+        xh = x.to(torch.bfloat16)
+        xl = (x - xh.float()).to(torch.bfloat16).float()
+        xh = xh.float()
+        y = xh @ wh[l]
+        y = y + xl @ wh[l]
+        y = y + xh @ wl[l]
+        y = y + biases[l]
         if l + 1 < n_layers:
             y = torch.relu(y)
         x = y
@@ -127,9 +198,10 @@ def mlp_forward_plain(weights: torch.Tensor, biases: torch.Tensor,
     [B, n_in] points through the padded chain. Returns the head [B]."""
     n, n_in = x.shape
     h = weights.shape[1]
-    xp = torch.zeros((max(n, min_rows(x.device)), h), dtype=torch.float32, device=x.device)
+    xp = torch.zeros((plain_rows(n, x.device), h), dtype=torch.float32, device=x.device)
     xp[:n, :n_in] = x
-    return mlp_chain_plain(weights, biases, xp, weights.shape[0])[:n, 0]
+    return chain_in_blocks(lambda b: mlp_chain_plain(weights, biases, b, weights.shape[0]),
+                           xp)[:n, 0]
 
 
 def _mlp_forward_cuda(weights: torch.Tensor, biases: torch.Tensor,

@@ -2,10 +2,13 @@
 
 The counterpart of the JAX package's ``pallas/megakernel.py``.
 ``march_state`` continues an existing march state (the counterpart of
-``march_pallas_state``): on CUDA tensors it launches the hand-written
-kernel in ``csrc/march.cuh``; on CPU tensors it runs ``march_state_plain``,
-the same per-ray semantics in plain PyTorch. There is no fallback between
-the two: a CUDA tensor either goes through the kernel or raises.
+``march_pallas_state``); ``march_raygen`` marches from a cold start, each
+ray built inside the kernel from its pixel index (the counterpart of
+``march_pallas_raygen``, K5). On CUDA tensors each launches the
+hand-written kernel in ``csrc/march.cuh``; on CPU tensors each runs its
+plain version (``march_state_plain``, ``march_raygen_plain``), the same
+per-ray semantics in plain PyTorch. There is no fallback between the two: a
+CUDA tensor either goes through the kernel or raises.
 
 The kernel composes every scene of ``scenes.KERNEL_SCENES`` after the
 layer chain; the plain version composes with ``scenes.compose_fn``.
@@ -16,23 +19,32 @@ overrides it (``cyl_window``; the staged renderer's coarse pass passes
 Per-ray semantics (both versions): each ray marches while it is active,
 ``step < max_steps`` and, for a bounded call, ``step - start < num_steps``;
 singleMarch update order; optional constant over-relaxation; the resolve
-step per ray (see csrc/march.cuh). Both precisions of the JAX package
-(DEFAULT for the coarse phase, HIGHEST for the refine rungs) run in FP32
-here, so the call takes no precision argument.
+step per ray (see csrc/march.cuh).
+
+``precision`` names the JAX package's matmul precision of the call:
+"default" and "highest" run the chain in FP32 (DEFAULT is the coarse
+phase's, HIGHEST the refine rungs'); "high" runs the emulated
+Precision.HIGH three-pass chain K2h (``fused_mlp.mlp_chain_3pass_plain``)
+on the bfloat16 halves of the weights (the HIGH ladder phase of
+``mid_eps``, and ``coarse_precision="high"``). Any other name raises.
 
 The kernel marches nets of every width of ``fused_mlp.KERNEL_WIDTHS``
 (32, 64, 128, 256), the net padded to the smallest that holds it; the plain
 version marches any width ``pack_params`` accepts.
 
-``KERNEL_LAUNCHES`` counts kernel launches (plain-version calls do not
-count), ``SCENE_LAUNCHES`` the same launches per scene and
-``WIDTH_LAUNCHES`` per padded width, so a run can show that its main path,
-each scene's compose and each width's chain went through the kernel.
+Launch counts (plain-version calls do not count): ``KERNEL_LAUNCHES``
+counts ``march_state``'s launches, ``SCENE_LAUNCHES`` the same launches per
+scene, ``WIDTH_LAUNCHES`` per padded width, ``PRECISION_LAUNCHES`` per
+precision and ``THREE_PASS_LAUNCHES`` the "high" ones per width;
+``RAYGEN_LAUNCHES`` counts ``march_raygen``'s. A run can so show that its
+main path, each scene's compose, each width's chain and the three-pass
+chain went through the kernel.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..models.mlp import MLP
@@ -42,9 +54,15 @@ from ..ops import shading
 from ..ops.camera import Camera
 from ..utils.config import RenderConfig
 from . import build, scenes
-from .fused_mlp import KERNEL_WIDTHS, check_tensor, min_rows, mlp_chain_plain, packed_params
+from .fused_mlp import (
+    KERNEL_WIDTHS, chain_in_blocks, check_tensor, mlp_chain_3pass_plain, mlp_chain_plain,
+    packed_hi_lo, packed_params, plain_rows,
+)
 
-#: Launches of the CUDA march kernel in this process.
+#: The precisions a march call takes (the JAX package's Precision names).
+PRECISIONS = ("default", "high", "highest")
+
+#: Launches of the CUDA march kernel by ``march_state`` in this process.
 KERNEL_LAUNCHES = 0
 
 #: The same launches by scene name.
@@ -52,6 +70,15 @@ SCENE_LAUNCHES = {name: 0 for name in sorted(scenes.KERNEL_SCENES)}
 
 #: The same launches by padded hidden width.
 WIDTH_LAUNCHES = {h: 0 for h in KERNEL_WIDTHS}
+
+#: The same launches by precision.
+PRECISION_LAUNCHES = {p: 0 for p in PRECISIONS}
+
+#: The same launches at precision "high" (the three-pass chain) by width.
+THREE_PASS_LAUNCHES = {h: 0 for h in KERNEL_WIDTHS}
+
+#: Launches of the kernel by ``march_raygen`` (K5) in this process.
+RAYGEN_LAUNCHES = 0
 
 
 def _new_steps(state: march_lib.MarchState, lane_steps: torch.Tensor,
@@ -64,13 +91,28 @@ def _new_steps(state: march_lib.MarchState, lane_steps: torch.Tensor,
 
 
 def reset_launch_counts() -> None:
-    """Set ``KERNEL_LAUNCHES`` and every ``SCENE_LAUNCHES`` and
-    ``WIDTH_LAUNCHES`` entry to 0."""
-    global KERNEL_LAUNCHES
-    KERNEL_LAUNCHES = 0
-    for counts in (SCENE_LAUNCHES, WIDTH_LAUNCHES):
+    """Set ``KERNEL_LAUNCHES``, ``RAYGEN_LAUNCHES`` and every entry of the
+    per-scene, per-width and per-precision counts to 0."""
+    global KERNEL_LAUNCHES, RAYGEN_LAUNCHES
+    KERNEL_LAUNCHES = RAYGEN_LAUNCHES = 0
+    for counts in (SCENE_LAUNCHES, WIDTH_LAUNCHES, PRECISION_LAUNCHES, THREE_PASS_LAUNCHES):
         for key in counts:
             counts[key] = 0
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, not {precision!r}")
+
+
+def _chain_plain(params: MLP, precision: str):
+    """The plain chain of a precision: x [T, H] -> [T, H]."""
+    weights, biases, _, _ = packed_params(params)
+    n_layers = weights.shape[0]
+    if precision == "high":
+        w_hi, w_lo = packed_hi_lo(params)
+        return lambda x: mlp_chain_3pass_plain(w_hi, w_lo, biases, x, n_layers)
+    return lambda x: mlp_chain_plain(weights, biases, x, n_layers)
 
 
 def _window(config: RenderConfig, cyl_window: Optional[int]) -> int:
@@ -99,8 +141,8 @@ def march_state_plain(
     params: MLP, origin: torch.Tensor, dirs: torch.Tensor,
     state: march_lib.MarchState, config: RenderConfig, frame: float = 0.0, *,
     march_eps: Optional[float] = None, num_steps: Optional[int] = None,
-    relax_omega: float = 0.0, return_resolve: bool = False,
-    cyl_window: Optional[int] = None,
+    precision: str = "highest", relax_omega: float = 0.0,
+    return_resolve: bool = False, cyl_window: Optional[int] = None,
 ):
     """Plain PyTorch version of the march kernel, on any device.
 
@@ -108,11 +150,12 @@ def march_state_plain(
     depend on which rays march together) and reads the active count on the
     host, so it suits the CPU and comparisons, not the hot path.
     """
+    _check_precision(precision)
     compose = _compose(config, cyl_window)
-    weights, biases, n_in, hidden = packed_params(params)
+    _, _, n_in, hidden = packed_params(params)
     if n_in != config.num_inputs:
         raise ValueError(f"model has {n_in} inputs but config.num_inputs={config.num_inputs}")
-    n_layers = weights.shape[0]
+    chain = _chain_plain(params, precision)
     eps = config.march_eps if march_eps is None else march_eps
     relax = bool(relax_omega and relax_omega > 1.0)
     start = int(state.steps)
@@ -135,13 +178,13 @@ def march_state_plain(
         # f32 product in f64, then a single rounding back to f32).
         pts = (origin.double() + dirs[idx].double() * ti.double()[:, None]).float()
         # Pad small batches, so a ray's SDF does not depend on how many rays
-        # march beside it (fused_mlp.min_rows).
-        x = torch.zeros((max(idx.numel(), min_rows(t.device)), hidden), dtype=torch.float32,
+        # march beside it (fused_mlp.plain_rows).
+        x = torch.zeros((plain_rows(idx.numel(), t.device), hidden), dtype=torch.float32,
                         device=t.device)
         x[:idx.numel(), :3] = pts
         if n_in == 4:
             x[:, 3] = frame
-        d = mlp_chain_plain(weights, biases, x, n_layers)[:idx.numel(), 0]
+        d = chain_in_blocks(chain, x)[:idx.numel(), 0]
         d = compose(pts, d, frame)
         if relax:
             pr, sl = prev_r[idx], step_len[idx]
@@ -175,21 +218,56 @@ def march_state_plain(
     return (out, lane_steps) if return_resolve else out
 
 
-def _march_state_cuda(
-    params: MLP, origin: torch.Tensor, dirs: torch.Tensor,
-    state: march_lib.MarchState, config: RenderConfig, frame: float,
-    march_eps: Optional[float], num_steps: Optional[int], relax_omega: float,
-    return_resolve: bool, cyl_window: Optional[int],
-):
-    global KERNEL_LAUNCHES
-    scene_id, window = kernel_scene(config, cyl_window)
+def _kernel_weights(params: MLP, config: RenderConfig, precision: str, dev):
+    """The stack a launch reads, checked: (weights, weights_lo, biases,
+    n_layers, hidden). FP32 [L, H, H] and None, or at "high" the bfloat16
+    halves [L, H, H] each; biases [L, H] float32."""
     weights, biases, n_in, hidden = packed_params(params)
     if hidden not in KERNEL_WIDTHS:
         raise ValueError(f"the march kernel is built for widths {KERNEL_WIDTHS}, "
                          f"not {hidden}")
     if n_in != config.num_inputs:
         raise ValueError(f"model has {n_in} inputs but config.num_inputs={config.num_inputs}")
+    n_layers = len(params)
+    shape = (n_layers, hidden, hidden)
+    weights_lo = None
+    if precision == "high":
+        weights, weights_lo = packed_hi_lo(params)
+        check_tensor("weights_lo", weights_lo, torch.bfloat16, shape, dev)
+    check_tensor("weights", weights, torch.float32 if weights_lo is None else torch.bfloat16,
+                 shape, dev)
+    check_tensor("biases", biases, torch.float32, (n_layers, hidden), dev)
+    return weights, weights_lo, biases, n_layers, hidden
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _outputs(n: int, dev):
+    """t, budget, active, converged, lane steps: what a launch writes."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    flag = dict(dtype=torch.bool, device=dev)
+    return (torch.empty((n,), **f32), torch.empty((n,), **f32), torch.empty((n,), **flag),
+            torch.empty((n,), **flag), torch.empty((n,), dtype=torch.int32, device=dev))
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.cnr_error_string(err).decode()} ({err})")
+
+
+def _march_state_cuda(
+    params: MLP, origin: torch.Tensor, dirs: torch.Tensor,
+    state: march_lib.MarchState, config: RenderConfig, frame: float,
+    march_eps: Optional[float], num_steps: Optional[int], relax_omega: float,
+    return_resolve: bool, cyl_window: Optional[int], precision: str = "highest",
+):
+    global KERNEL_LAUNCHES
+    scene_id, window = kernel_scene(config, cyl_window)
     dev = dirs.device
+    weights, weights_lo, biases, n_layers, hidden = _kernel_weights(
+        params, config, precision, dev)
     n = dirs.shape[0]
     check_tensor("dirs", dirs, torch.float32, (n, 3), dev)
     check_tensor("origin", origin, torch.float32, (3,), dev)
@@ -197,37 +275,30 @@ def _march_state_cuda(
     check_tensor("state.budget", state.budget, torch.float32, (n,), dev)
     check_tensor("state.active", state.active, torch.bool, (n,), dev)
     check_tensor("state.steps", state.steps, torch.int32, (), dev)
-    n_layers = len(params)
-    check_tensor("weights", weights, torch.float32, (n_layers, hidden, hidden), dev)
-    check_tensor("biases", biases, torch.float32, (n_layers, hidden), dev)
     eps = config.march_eps if march_eps is None else march_eps
     omega = float(relax_omega) if relax_omega and relax_omega > 1.0 else 0.0
 
-    t = torch.empty_like(state.t)
-    budget = torch.empty_like(state.budget)
-    active = torch.empty_like(state.active)
-    conv = torch.empty_like(state.active)
-    lane_steps = torch.empty((n,), dtype=torch.int32, device=dev)
-
+    t, budget, active, conv, lane_steps = _outputs(n, dev)
     lib = build.load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.cnr_march(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        _device_index(dev),
         dirs.data_ptr(), origin.data_ptr(), state.t.data_ptr(),
         state.budget.data_ptr(), state.active.data_ptr(), state.steps.data_ptr(),
-        weights.data_ptr(), biases.data_ptr(),
-        n_layers, hidden, config.num_inputs, float(frame), scene_id, window,
+        weights.data_ptr(), None if weights_lo is None else weights_lo.data_ptr(),
+        biases.data_ptr(), n_layers, hidden, config.num_inputs, float(frame), scene_id,
+        window, int(weights_lo is not None),
         n, config.max_steps, -1 if num_steps is None else int(num_steps),
         float(eps), omega,
         t.data_ptr(), budget.data_ptr(), active.data_ptr(), conv.data_ptr(),
-        lane_steps.data_ptr(), stream,
+        lane_steps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(
-            f"march kernel launch failed: {lib.cnr_error_string(err).decode()} ({err})")
+    _raise_on(err, lib, "march kernel")
     KERNEL_LAUNCHES += 1
     SCENE_LAUNCHES[config.scene] += 1
     WIDTH_LAUNCHES[hidden] += 1
+    PRECISION_LAUNCHES[precision] += 1
+    if precision == "high":
+        THREE_PASS_LAUNCHES[hidden] += 1
     out = march_lib.MarchState(
         t=t, budget=budget, active=active & state.active,
         converged=conv | state.converged,
@@ -240,30 +311,155 @@ def march_state(
     params: MLP, origin: torch.Tensor, dirs: torch.Tensor,
     state: march_lib.MarchState, config: RenderConfig, frame: float = 0.0, *,
     march_eps: Optional[float] = None, num_steps: Optional[int] = None,
-    relax_omega: float = 0.0, return_resolve: bool = False,
-    cyl_window: Optional[int] = None,
+    precision: str = "highest", relax_omega: float = 0.0,
+    return_resolve: bool = False, cyl_window: Optional[int] = None,
 ):
     """Continue an existing march state inside the march kernel.
 
     ``num_steps=None`` marches every ray to dry (or ``config.max_steps``);
     an int bounds the call to that many steps past ``state.steps``.
-    ``relax_omega`` > 1 turns on constant over-relaxation.
-    ``return_resolve=True`` also returns each ray's resolve step [n] int32
-    (the staged renderer's difficulty key). ``cyl_window`` overrides
-    ``config.cyl_window`` for this call.
+    ``precision`` is "default" or "highest" (FP32 chain) or "high" (the
+    three-pass chain K2h). ``relax_omega`` > 1 turns on constant
+    over-relaxation. ``return_resolve=True`` also returns each ray's
+    resolve step [n] int32 (the staged renderer's difficulty key).
+    ``cyl_window`` overrides ``config.cyl_window`` for this call.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
+    _check_precision(precision)
     if dirs.device.type == "cpu":
         return march_state_plain(
             params, origin, dirs, state, config, frame, march_eps=march_eps,
-            num_steps=num_steps, relax_omega=relax_omega,
+            num_steps=num_steps, precision=precision, relax_omega=relax_omega,
             return_resolve=return_resolve, cyl_window=cyl_window)
     if dirs.device.type != "cuda":
         raise ValueError(f"march_state runs on cpu or cuda tensors, not {dirs.device}")
     return _march_state_cuda(
-        params, origin, dirs, state, config, frame, march_eps, num_steps,
-        relax_omega, return_resolve, cyl_window)
+        params, origin, dirs, state, config, frame, march_eps, num_steps, relax_omega,
+        return_resolve, cyl_window, precision)
+
+
+def raygen_state(cam_to_world: torch.Tensor, pos: torch.Tensor, config: RenderConfig):
+    """The rays and the cold-start state of pixel indices pos [n] int32, by
+    the formula K5 uses inside the kernel (pallas/megakernel.py:105-135;
+    not ``camera.ray_dirs_from_index``, which normalises another way):
+    u = x/W*2-1 (the division as a product with the float32 reciprocal),
+    dirs = R @ ([u, v, -f] / sqrt(u^2 + v^2 + f^2)) as explicit three-term
+    sums, then the bounding-sphere init of ``march.init_state``. Lanes with
+    pos < 0 are pad lanes and start inactive. Returns (origin [3], dirs
+    [n, 3], state)."""
+    c2w = cam_to_world.float()
+    origin = c2w[:, 3].contiguous()
+    x = torch.remainder(pos, config.width).float()  # floor division, as JAX's % and //
+    y = torch.div(pos, config.width, rounding_mode="floor").float()
+    inv_w = float(np.float32(1.0) / np.float32(config.width))
+    inv_h = float(np.float32(1.0) / np.float32(config.height))
+    u = (x * inv_w) * 2.0 - 1.0
+    v = (y * inv_h) * 2.0 - 1.0
+    fw = -float(config.focal)
+    inv = 1.0 / torch.sqrt(u * u + v * v + fw * fw)
+    du, dv, dw = u * inv, v * inv, fw * inv
+    r = c2w[:, :3]
+    dirs = torch.stack([r[i, 0] * du + r[i, 1] * dv + r[i, 2] * dw for i in range(3)], dim=1)
+    qx, qy, qz = (origin[i] - float(config.bound_center[i]) for i in range(3))
+    dx, dy, dz = dirs[:, 0], dirs[:, 1], dirs[:, 2]
+    a = dx * dx + dy * dy + dz * dz
+    b = 2.0 * (qx * dx + qy * dy + qz * dz)
+    c = qx * qx + qy * qy + qz * qz - float(config.bound_radius) * float(config.bound_radius)
+    disc = b * b - 4.0 * a * c
+    hit = disc > 0.0
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    tnear = torch.clamp((-b - sq) / (2.0 * a), min=0.0)
+    tfar = (-b + sq) / (2.0 * a)
+    zero = torch.zeros_like(tnear)
+    state = march_lib.MarchState(
+        t=torch.where(hit, tnear, zero), budget=torch.where(hit, tfar, zero),
+        active=hit & (pos >= 0), converged=torch.zeros_like(hit),
+        steps=torch.zeros((), dtype=torch.int32, device=pos.device))
+    return origin, dirs.contiguous(), state
+
+
+def march_raygen_plain(
+    params: MLP, cam_to_world: torch.Tensor, pos: torch.Tensor, config: RenderConfig,
+    frame: float = 0.0, *, march_eps: Optional[float] = None, precision: str = "highest",
+    relax_omega: float = 0.0, return_resolve: bool = False,
+    cyl_window: Optional[int] = None,
+):
+    """Plain version of K5, on any device: ``raygen_state``, then
+    ``march_state_plain`` run to dry from step 0."""
+    origin, dirs, state = raygen_state(cam_to_world, pos, config)
+    return march_state_plain(
+        params, origin, dirs, state, config, frame, march_eps=march_eps,
+        precision=precision, relax_omega=relax_omega, return_resolve=return_resolve,
+        cyl_window=cyl_window)
+
+
+def _march_raygen_cuda(
+    params: MLP, cam_to_world: torch.Tensor, pos: torch.Tensor, config: RenderConfig,
+    frame: float, march_eps: Optional[float], precision: str, relax_omega: float,
+    return_resolve: bool, cyl_window: Optional[int],
+):
+    global RAYGEN_LAUNCHES
+    scene_id, window = kernel_scene(config, cyl_window)
+    dev = pos.device
+    weights, weights_lo, biases, n_layers, hidden = _kernel_weights(
+        params, config, precision, dev)
+    n = pos.shape[0]
+    check_tensor("pos", pos, torch.int32, (n,), dev)
+    check_tensor("cam_to_world", cam_to_world, torch.float32, (3, 4), dev)
+    eps = config.march_eps if march_eps is None else march_eps
+    omega = float(relax_omega) if relax_omega and relax_omega > 1.0 else 0.0
+    cx, cy, cz = (float(c) for c in config.bound_center)
+
+    t, budget, active, conv, lane_steps = _outputs(n, dev)
+    lib = build.load_library()
+    err = lib.cnr_march_raygen(
+        _device_index(dev), pos.data_ptr(), cam_to_world.data_ptr(),
+        config.width, config.height, float(config.focal), cx, cy, cz,
+        float(config.bound_radius) * float(config.bound_radius),
+        weights.data_ptr(), None if weights_lo is None else weights_lo.data_ptr(),
+        biases.data_ptr(), n_layers, hidden, config.num_inputs, float(frame), scene_id,
+        window, int(weights_lo is not None), n, config.max_steps, float(eps), omega,
+        t.data_ptr(), budget.data_ptr(), active.data_ptr(), conv.data_ptr(),
+        lane_steps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, lib, "raygen march kernel")
+    RAYGEN_LAUNCHES += 1
+    out = march_lib.MarchState(
+        t=t, budget=budget, active=active, converged=conv,
+        steps=lane_steps.max().to(torch.int32))
+    return (out, lane_steps) if return_resolve else out
+
+
+def march_raygen(
+    params: MLP, cam_to_world: torch.Tensor, pos: torch.Tensor, config: RenderConfig,
+    frame: float = 0.0, *, march_eps: Optional[float] = None, precision: str = "highest",
+    relax_omega: float = 0.0, return_resolve: bool = False,
+    cyl_window: Optional[int] = None,
+):
+    """Cold-start march with the rays built inside the kernel (K5).
+
+    ``pos`` [n] int32 pixel indices (y*W + x) in any order, -1 for a pad
+    lane; ``cam_to_world`` [3, 4]. Each ray is built from its index by
+    ``raygen_state``'s formula and marched to dry, as ``march_state`` would
+    march ``raygen_state``'s rays, with no [n, 3] direction or state
+    tensors in device memory. Returns a fresh MarchState (steps from 0),
+    and the resolve step per ray with ``return_resolve=True``. The staged
+    renderer builds its rays outside the kernel, as the JAX package's does;
+    this is for callers that cannot afford those buffers.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    _check_precision(precision)
+    if pos.device.type == "cpu":
+        return march_raygen_plain(
+            params, cam_to_world, pos, config, frame, march_eps=march_eps,
+            precision=precision, relax_omega=relax_omega, return_resolve=return_resolve,
+            cyl_window=cyl_window)
+    if pos.device.type != "cuda":
+        raise ValueError(f"march_raygen runs on cpu or cuda tensors, not {pos.device}")
+    return _march_raygen_cuda(params, cam_to_world, pos, config, frame, march_eps, precision,
+                              relax_omega, return_resolve, cyl_window)
 
 
 def march(params: MLP, origin: torch.Tensor, dirs: torch.Tensor,

@@ -165,10 +165,13 @@ def march_stage_relaxed(
     (``step_len < 0`` marks the backtrack), then re-arms. The budget is
     charged the distance actually travelled (backtracks refund it); the
     convergence test still compares the raw SDF value with eps.
+
+    ``newton=True`` makes the factor adaptive per ray from the secant slope
+    of the SDF along the ray, g = (prev_r - d) / step_len: the ray steps
+    clip(1/g, 1, omega_max) * d while g > 0, ``omega`` * d where g <= 0
+    (receding), and plainly before its first move. Oversteps are still
+    checked and backtracked as above.
     """
-    if newton:
-        raise NotImplementedError(
-            "relax_newton is not ported yet (ROADMAP queue 1 item 7: opt-in march options)")
     step = start = int(state.steps)
     limit = min(max_steps, start + int(num_steps))
     s = state
@@ -181,7 +184,17 @@ def march_stage_relaxed(
         overstepped = step_len > prev_r
         sor_fail = s.active & overstepped & (d + prev_r < step_len)
         near = s.active & ~sor_fail & (d < march_eps)
-        om = torch.where(step_len < 0.0, torch.ones_like(d), torch.full_like(d, float(omega)))
+        if newton:
+            valid = step_len > 0.0
+            g = (prev_r - d) / torch.clamp(step_len, min=1e-20)
+            adaptive = torch.clamp(1.0 / torch.clamp(g, min=1.0 / omega_max), 1.0,
+                                   float(omega_max))
+            om = torch.where(valid & (g > 0.0), adaptive,
+                             torch.where(valid, torch.full_like(d, float(omega)),
+                                         torch.ones_like(d)))
+        else:
+            om = torch.where(step_len < 0.0, torch.ones_like(d),
+                             torch.full_like(d, float(omega)))
         stepv = torch.where(sor_fail, prev_r - step_len, torch.where(near, d, om * d))
         budget = s.budget - torch.where(s.active, stepv, zero)
         miss = s.active & ~sor_fail & (budget <= 0.0)

@@ -11,7 +11,9 @@ A staged frame runs, in order:
      over-relaxation, recording each ray's resolve step;
   3. the refine ladder: a difficulty-keyed entry sort of the near-surface
      set, then rungs that each sort the actives into a prefix bucket and
-     march it in the kernel down to ``march_eps``;
+     march it in the kernel down to ``march_eps``; with ``mid_eps`` a HIGH
+     phase (the three-pass chain K2h) first marches the set down to
+     ``mid_eps``;
   4. in-place shading of the first refine bucket (autodiff normals), a u32
      pack and a sort that restores image order;
   5. ONE fetch of a small stats vector, which drives the fast-path check,
@@ -35,8 +37,17 @@ continuation) the complete 300-term chain.
 outside the march kernel (the dense marches, the continuation) through the
 fused forward kernel (K3); shading normals stay on the plain chain.
 
-Configs that select phases not ported yet raise ``NotImplementedError``
-naming their ROADMAP item (``_check_supported``).
+The precision ladder runs as in the JAX package: the coarse kernel pass at
+``coarse_precision`` ("default": FP32 here; "high": K2h), the optional
+HIGH phase (``mid_eps``, ``mid_schedule``) and the HIGHEST phase in the
+kernel. ``tail_pallas`` sends terminal rungs that would march outside the
+kernel to it, and ``relax_newton`` (secant-adaptive relaxation) keeps the
+relaxed rungs off the kernel, which has no Newton step. Dense marches run
+the FP32 chain at every precision.
+
+Configs that select phases not ported yet (``prepass_factor``,
+``grid_res``) raise ``NotImplementedError`` naming their ROADMAP item
+(``_check_supported``).
 """
 from __future__ import annotations
 
@@ -81,14 +92,6 @@ def _check_supported(config: RenderConfig) -> None:
         raise _not_ported("prepass_factor > 1", "item 5: prepass")
     if mixed and config.grid_res:
         raise _not_ported("grid_res > 0", "item 6: grid")
-    if mixed and config.mid_eps > config.march_eps:
-        raise _not_ported("mid_eps > 0 (the HIGH ladder phase, K2h)", "item 7: opt-in march options")
-    if mixed and config.coarse_precision == "high":
-        raise _not_ported("coarse_precision='high' (K2h)", "item 7: opt-in march options")
-    if config.tail_pallas:
-        raise _not_ported("tail_pallas", "item 7: opt-in march options")
-    if config.relax_newton:
-        raise _not_ported("relax_newton", "item 7: opt-in march options")
 
 
 def neural_sdf_fn(params: MLP, frame, num_inputs: int = 3):
@@ -114,6 +117,11 @@ def scene_fn(params: Optional[MLP], config: RenderConfig, frame, *,
     version on the CPU). The kernel has no gradient: gradient consumers
     (autodiff normals) pass ``for_grad=True`` for the plain, differentiable
     chain, which gives the same values.
+
+    The chain is FP32 whatever the phase's precision: the three-pass chain
+    (K2h) runs only inside the march kernel. The JAX package's dense chain
+    is FP32 at every precision on the CPU too, so the parity tests compare
+    like with like.
 
     ``surface_local=True`` declares that every evaluation point sits on
     (or within the window band of) the surface, as shading normals do:
@@ -175,16 +183,36 @@ def render_image(
     return rgba.reshape(config.height, config.width, 4)
 
 
-def _rung_kernel_fn(params, config: RenderConfig, frame):
-    """The march kernel for the refine ladder's rungs, or None (refine
-    kernel turned off, or a scene the kernel does not compose)."""
-    if not config.refine_pallas or not kscenes.kernel_supported(config.scene):
+def _tail_kernel_fn(params, config: RenderConfig, frame):
+    """The march kernel for terminal rungs that would march outside it
+    (``tail_pallas``), or None. Kernel scenes only; in "full" precision
+    only the pure neural scenes, whose kernel compose is the dense one
+    (the windowed many_cylinder_cut is a mixed-path approximation)."""
+    if not config.tail_pallas or not kscenes.kernel_supported(config.scene):
+        return None
+    if config.march_precision != "mixed" and config.scene not in ("neural_raw", "neural_tanh"):
         return None
 
-    def run(sub: march.MarchState, sub_dirs, origin, eps, num_steps, relax_omega=0.0):
+    def run(sub: march.MarchState, sub_dirs, origin, eps, precision):
+        return megakernel.march_state(params, origin, sub_dirs, sub, config, frame,
+                                      march_eps=eps, precision=precision)
+
+    return run
+
+
+def _rung_kernel_fn(params, config: RenderConfig, frame, relax: float):
+    """The march kernel for the refine ladder's rungs, or None (refine
+    kernel turned off, a scene the kernel does not compose, or relaxed
+    rungs under ``relax_newton``, which the kernel does not implement)."""
+    if (not config.refine_pallas or not kscenes.kernel_supported(config.scene)
+            or (relax and config.relax_newton)):
+        return None
+
+    def run(sub: march.MarchState, sub_dirs, origin, eps, precision, num_steps,
+            relax_omega=0.0):
         return megakernel.march_state(
-            params, origin, sub_dirs, sub, config, frame,
-            march_eps=eps, num_steps=num_steps, relax_omega=relax_omega)
+            params, origin, sub_dirs, sub, config, frame, march_eps=eps,
+            num_steps=num_steps, precision=precision, relax_omega=relax_omega)
 
     return run
 
@@ -262,8 +290,9 @@ def _zero_i32(device) -> torch.Tensor:
 
 def _run_schedule(
     f, origin, cam_to_world, pr: PackedRays, steps, schedule,
-    config: RenderConfig, eps, *, relax: float = 0.0, within=None,
-    rung_kernel=None, caps=None, stats_collect=None, count_stranding=False,
+    config: RenderConfig, eps, *, precision=None, tail_kernel=None,
+    relax: float = 0.0, within=None, rung_kernel=None, caps=None,
+    stats_collect=None, count_stranding=False,
 ):
     """Sort -> march-prefix compaction rungs over the packed bundle.
 
@@ -273,7 +302,10 @@ def _run_schedule(
     continuation. ``within`` bounds where actives can live; ``caps`` are
     tuned per-rung caps; ``stats_collect`` receives each rung's entry-active
     count; ``count_stranding`` folds actives stranded beyond a rung's cap
-    into the returned overflow. Returns (pr, steps, within, overflow).
+    into the returned overflow. ``rung_kernel`` marches the rungs at
+    ``precision`` unless that is "default"; otherwise ``tail_kernel``
+    takes terminal rungs of at most ``config.tail_pallas_max`` lanes.
+    Returns (pr, steps, within, overflow).
     """
     n = pr.pos.shape[0]
     stranded = _zero_i32(pr.t.device)
@@ -293,19 +325,25 @@ def _run_schedule(
                 state, dirs_b = _pr_bucket(pr, n, steps, cam_to_world, origin, config)
                 state = march.march_stage(
                     f, origin, dirs_b, state, num_steps=config.max_steps,
-                    max_steps=config.max_steps, march_eps=eps, relax_omega=relax)
+                    max_steps=config.max_steps, march_eps=eps, relax_omega=relax,
+                    newton=config.relax_newton, omega_max=config.relax_omega_max)
                 pr, steps = _pr_merge(pr, state), state.steps
             continue
         pr = _pr_sort(pr, pr.active, within=within)
         sub, dirs_b = _pr_bucket(pr, cap, steps, cam_to_world, origin, config)
-        if rung_kernel is not None:
-            sub = rung_kernel(sub, dirs_b, origin, eps,
+        use_tail = (tail_kernel is not None and rung_steps == 0
+                    and cap <= config.tail_pallas_max)
+        if rung_kernel is not None and precision != "default":
+            sub = rung_kernel(sub, dirs_b, origin, eps, precision,
                               None if rung_steps == 0 else rung_steps, relax_omega=relax)
+        elif use_tail:
+            sub = tail_kernel(sub, dirs_b, origin, eps, precision)
         else:
             sub = march.march_stage(
                 f, origin, dirs_b, sub,
                 num_steps=(config.max_steps if rung_steps == 0 else rung_steps),
-                max_steps=config.max_steps, march_eps=eps, relax_omega=relax)
+                max_steps=config.max_steps, march_eps=eps, relax_omega=relax,
+                newton=config.relax_newton, omega_max=config.relax_omega_max)
         pr, steps = _pr_merge(pr, sub), sub.steps
         within = cap
     return pr, steps, within, stranded
@@ -325,16 +363,19 @@ def _block_order(h: int, w: int, bh: int, bw: int, device: torch.device) -> torc
 
 def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
                      frame, t_init=None):
-    """The staged march: the coarse phase, then the refine ladder.
+    """The staged march: the coarse phase, then the precision ladder.
 
     Returns (pr, steps, refine_overflow, rung_actives)."""
     if t_init is not None:
         raise _not_ported("warm start (t_init)", "item 2: warm start")
     fine = scene_fn(params, config, frame)
     mixed = config.march_precision == "mixed"
+    tail_kernel = _tail_kernel_fn(params, config, frame)
     if mixed:
+        prec_a = config.coarse_precision  # "default" or "high"
         eps_a, schedule_a = config.coarse_eps, config.coarse_schedule
     else:
+        prec_a = "highest"
         eps_a, schedule_a = config.march_eps, config.fine_schedule
     state = march.init_state(origin, dirs, config.bound_center, config.bound_radius)
     relax = config.relax_omega if mixed else 0.0
@@ -349,9 +390,9 @@ def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
                 cam_to_world, pos0, config.height, config.width, config.focal)
             state = march.init_state(origin, dirs, config.bound_center, config.bound_radius)
         state, resolve = megakernel.march_state(
-            params, origin, dirs, state, config, frame,
-            march_eps=eps_a, relax_omega=relax, return_resolve=True,
-            cyl_window=config.cyl_window_coarse)
+            params, origin, dirs, state, config, frame, march_eps=eps_a,
+            precision=prec_a, relax_omega=(0.0 if config.relax_newton else relax),
+            return_resolve=True, cyl_window=config.cyl_window_coarse)
         # The coarse resolve step is the refine phase's difficulty key;
         # valid while pr stays in the coarse lane order.
         pr = _pack_init(state, dirs)
@@ -362,34 +403,49 @@ def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
     else:
         state = march.march_stage(
             fine, origin, dirs, state, num_steps=config.stage_steps,
-            max_steps=config.max_steps, march_eps=eps_a, relax_omega=relax)
+            max_steps=config.max_steps, march_eps=eps_a, relax_omega=relax,
+            newton=config.relax_newton, omega_max=config.relax_omega_max)
         pr, steps = _pack_init(state, dirs), state.steps
         difficulty = None
         pr, steps, _, _ = _run_schedule(
             fine, origin, cam_to_world, pr, steps, schedule_a, config, eps_a,
-            relax=relax, within=None)
+            precision=prec_a, tail_kernel=tail_kernel, relax=relax, within=None)
 
     dev = dirs.device
     refine_overflow = _zero_i32(dev)
     rung_actives = torch.zeros((len(config.refine_schedule),), dtype=torch.int32, device=dev)
     if mixed:
-        collect = []
-        pr, steps, _, ovf = _refine_phase(
-            fine, origin, cam_to_world, pr, steps, config, config.march_eps,
-            relax=config.relax_omega_refine,
-            rung_kernel=_rung_kernel_fn(params, config, frame),
-            schedule=config.refine_schedule, order=difficulty,
-            caps=config.refine_caps, stats_collect=collect,
-        )
-        rung_actives = torch.stack(collect)
-        refine_overflow = torch.maximum(refine_overflow, ovf)
+        # The precision ladder: the near-surface set re-marches at each finer
+        # precision down to the epsilon that precision's SDF error allows.
+        ladder = [("high", config.mid_eps)] if config.mid_eps > config.march_eps else []
+        ladder.append(("highest", config.march_eps))
+        rung_kernel = _rung_kernel_fn(params, config, frame, relax)
+        for prec, eps in ladder:
+            # Adaptive caps and per-rung stats belong to the HIGHEST phase on
+            # refine_schedule; the HIGH phase keeps its divisor schedule.
+            highest = prec == "highest"
+            collect = [] if highest else None
+            pr, steps, _, ovf = _refine_phase(
+                fine, origin, cam_to_world, pr, steps, config, eps,
+                precision=prec, tail_kernel=tail_kernel, relax=config.relax_omega_refine,
+                rung_kernel=rung_kernel,
+                schedule=(config.refine_schedule if highest
+                          else config.mid_schedule or config.refine_schedule),
+                order=difficulty, caps=(config.refine_caps if highest else None),
+                stats_collect=collect,
+            )
+            if collect is not None:
+                rung_actives = torch.stack(collect)
+            refine_overflow = torch.maximum(refine_overflow, ovf)
+            # later phases see a re-sorted bundle: the image-order key is stale
+            difficulty = None
     return pr, steps, refine_overflow, rung_actives
 
 
 def _refine_phase(
     f, origin, cam_to_world, pr: PackedRays, steps, config: RenderConfig,
-    eps, *, relax: float = 0.0, rung_kernel=None, schedule=None, order=None,
-    caps=None, stats_collect=None,
+    eps, *, precision, tail_kernel=None, relax: float = 0.0, rung_kernel=None,
+    schedule=None, order=None, caps=None, stats_collect=None,
 ):
     """One ladder phase: re-mark the near-surface set (converged or active)
     active, sort it into the first rung's bucket, march, then drain the
@@ -416,14 +472,18 @@ def _refine_phase(
         sub, dirs_b = _pr_bucket(pr, cap, steps, cam_to_world, origin, config)
         # Constant over-relaxation is off in the phase's first rung: its
         # bulk sits ~coarse_eps from the surface head-on, where a fixed
-        # omega > 1 overshoots and backtracks every other step.
-        if rung_kernel is not None:
-            sub = rung_kernel(sub, dirs_b, origin, eps, None if steps0 == 0 else steps0)
+        # omega > 1 overshoots and backtracks every other step. The
+        # secant-adaptive one steps plainly there, so it stays on.
+        if rung_kernel is not None and precision != "default":
+            sub = rung_kernel(sub, dirs_b, origin, eps, precision,
+                              None if steps0 == 0 else steps0)
         else:
             sub = march.march_stage(
                 f, origin, dirs_b, sub,
                 num_steps=(config.max_steps if steps0 == 0 else steps0),
-                max_steps=config.max_steps, march_eps=eps)
+                max_steps=config.max_steps, march_eps=eps,
+                relax_omega=(relax if config.relax_newton else 0.0),
+                newton=config.relax_newton, omega_max=config.relax_omega_max)
         pr, steps = _pr_merge(pr, sub), sub.steps
         within = cap
         overflow = torch.clamp(refine_count - cap, min=0)
@@ -433,14 +493,15 @@ def _refine_phase(
             cam_to_world, origin, config)
         state = march.march_stage(
             f, origin, dirs_b, state, num_steps=config.max_steps,
-            max_steps=config.max_steps, march_eps=eps, relax_omega=relax)
+            max_steps=config.max_steps, march_eps=eps, relax_omega=relax,
+            newton=config.relax_newton, omega_max=config.relax_omega_max)
         pr, steps = _pr_merge(pr, state), state.steps
         within = n
     pr, steps, within, stranded = _run_schedule(
         f, origin, cam_to_world, pr, steps, schedule[1:], config, eps,
-        relax=relax, within=within, rung_kernel=rung_kernel,
-        caps=(caps[1:] if caps else None), stats_collect=stats_collect,
-        count_stranding=True,
+        precision=precision, tail_kernel=tail_kernel, relax=relax, within=within,
+        rung_kernel=rung_kernel, caps=(caps[1:] if caps else None),
+        stats_collect=stats_collect, count_stranding=True,
     )
     return pr, steps, within, torch.maximum(overflow, stranded)
 

@@ -6,8 +6,9 @@ together), so one config describes a render in either package. PyTorch runs
 eagerly, so the config is a plain value the render functions branch on; it
 stays frozen and hashable because the adaptive-schedule memo keys on it.
 
-Some fields select phases this package has not ported yet; the renderer
-raises ``NotImplementedError`` naming the ROADMAP item for those
+Two fields select phases this package has not ported yet
+(``prepass_factor``, ``grid_res``); the renderer raises
+``NotImplementedError`` naming the ROADMAP item for those
 (render/renderer.py ``_check_supported``).
 """
 from __future__ import annotations
@@ -90,13 +91,17 @@ class RenderConfig:
     rgba_packed: bool = True
 
     # Matmul precision names kept for config parity with the JAX package;
-    # this package runs every MLP in float32 (TF32 off).
+    # shading runs its MLP in float32 (TF32 off) at every setting.
     shade_precision: str = "highest"
     grad_shade_precision: str = "high"
 
     # Mixed-precision march: "mixed" runs a coarse phase down to coarse_eps,
     # then re-marches the near-surface set at full precision down to
-    # march_eps. "full" marches at full precision throughout.
+    # march_eps. "full" marches at full precision throughout. In the march
+    # kernel "default" and "highest" run the chain in FP32 and "high" runs
+    # the three-pass bfloat16 chain (K2h): coarse_precision="high" for the
+    # coarse pass, and mid_eps > march_eps for a HIGH phase down to mid_eps
+    # before the HIGHEST one (on mid_schedule, or refine_schedule if empty).
     march_precision: str = "mixed"
     coarse_precision: str = "default"
     coarse_eps: float = 0.05
@@ -107,9 +112,14 @@ class RenderConfig:
     # backtrack on safety-sphere non-overlap (ops/march.py).
     relax_omega: float = 1.6
     relax_omega_refine: float = 1.6
+    # Secant-adaptive relaxation, clip(1/g, 1, relax_omega_max) with g the
+    # SDF's slope along the ray; the relaxed rungs then march outside the
+    # kernel.
     relax_newton: bool = False
     relax_omega_max: float = 8.0
 
+    # Terminal rungs of at most tail_pallas_max lanes that would march
+    # outside the kernel (refine_pallas off, relax_newton) run in it.
     tail_pallas: bool = False
     tail_pallas_max: int = 16384
 

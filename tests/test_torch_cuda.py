@@ -12,7 +12,10 @@ csg_demo under neural_raw and under every scene the kernel composes
 each scene's launches counted under its name; csg_demo widened to 64, 128
 and 256 (chip_smoke.widen) under neural_raw, each width's launches counted.
 The fused forward (K3) against its plain version at every width, on 65536
-seeded points, at chip_smoke.K3_ATOL.
+seeded points, at chip_smoke.K3_ATOL. The three-pass chain (K2h) inside the
+march kernel at every width against its plain version, for the HIGH
+phase's calls (chip_smoke.HIGH_VARIANTS), and its SDF bit for bit; the
+cold-start kernel (K5) against its plain version at "default" and "high".
 """
 import os
 
@@ -119,3 +122,86 @@ def test_forward_kernel_matches_plain(hidden):
     assert fused_mlp.MLP_LAUNCHES == before + 1
     want = fused_mlp.mlp_forward_plain(weights, biases, pts)
     assert (got - want).abs().max().item() <= chip_smoke.K3_ATOL
+
+
+HIGH_VARIANTS = [v[0] for v in chip_smoke.HIGH_VARIANTS]
+
+
+@pytest.fixture(scope="module", params=[32] + sorted(WIDE))
+def high_agreement(request):
+    """The three-pass chain (K2h) inside the march kernel against its plain
+    version, csg_demo (widened) rays at 64x64, the HIGH phase's calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import camera as camera_lib
+
+    hidden = request.param
+    dev = torch.device("cuda", 0)
+    params = chip_smoke.wide_params(cnr, WIDE.get(hidden, 1), dev)
+    cfg = cnr.RenderConfig(width=64, height=64)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
+    origin, dirs = camera_lib.generate_rays(c2w, 64, 64, cfg.focal)
+    before = megakernel.THREE_PASS_LAUNCHES[hidden]
+    result = chip_smoke.compare_high_with_plain(params, cfg, origin, dirs)
+    torch.cuda.synchronize()
+    return params, result, megakernel.THREE_PASS_LAUNCHES[hidden] - before
+
+
+@pytest.mark.parametrize("variant", HIGH_VARIANTS)
+def test_three_pass_kernel_matches_plain(high_agreement, variant):
+    _, result, _ = high_agreement
+    chip_smoke.check_agreement({variant: result[variant]})
+
+
+def test_three_pass_kernel_launch_counted(high_agreement):
+    _, _, launches = high_agreement
+    assert launches == len(HIGH_VARIANTS)
+
+
+def test_three_pass_sdf_matches_plain_chain(high_agreement):
+    """The kernel's three-pass SDF, read off one step, equals the plain
+    chain's bit for bit on 4096 seeded points."""
+    from cudaneuralrender_torch.kernels import fused_mlp
+
+    params, _, _ = high_agreement
+    dev = params.device
+    pts = torch.as_tensor(np.random.default_rng(1).uniform(-1.2, 1.2, (4096, 3))
+                          .astype(np.float32), device=dev)
+    weights, biases, n_in, h = fused_mlp.packed_params(params)
+    w_hi, w_lo = fused_mlp.packed_hi_lo(params)
+    x = torch.zeros((4096, h), dtype=torch.float32, device=dev)
+    x[:, :n_in] = pts
+    want = fused_mlp.mlp_chain_3pass_plain(w_hi, w_lo, biases, x, weights.shape[0])[:, 0]
+    got = chip_smoke.kernel_sdf(params, pts, "high")
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_raygen_kernel_matches_plain(precision):
+    """K5 against its plain version: csg_demo at 64x64 in 16x16 block order
+    plus 8 pad lanes, the coarse call's eps and relaxation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import camera as camera_lib
+    from cudaneuralrender_torch.render import renderer
+
+    dev = torch.device("cuda", 0)
+    params = cnr.load(NPZ, device=dev)
+    cfg = cnr.RenderConfig(width=64, height=64)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
+    pos = torch.cat([renderer._block_order(64, 64, 16, 16, dev),
+                     torch.full((8,), -1, dtype=torch.int32, device=dev)])
+    kw = dict(march_eps=cfg.coarse_eps, precision=precision, relax_omega=cfg.relax_omega,
+              return_resolve=True, cyl_window=cfg.cyl_window_coarse)
+    before = megakernel.RAYGEN_LAUNCHES
+    k = megakernel.march_raygen(params, c2w, pos, cfg, **kw)
+    torch.cuda.synchronize()
+    assert megakernel.RAYGEN_LAUNCHES == before + 1
+    p = megakernel.march_raygen_plain(params, c2w, pos, cfg, **kw)
+    chip_smoke.check_agreement({"raygen": chip_smoke.agreement(k, p)})
+    pad = pos < 0
+    assert not k[0].active[pad].any() and not k[0].converged[pad].any()

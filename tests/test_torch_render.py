@@ -106,9 +106,7 @@ def test_staged_render_matches_golden(params):
 def test_unported_options_raise(params):
     _, pt = params
     base = ct.RenderConfig(width=16, height=16, march_impl="staged")
-    for kw in (dict(prepass_factor=2), dict(grid_res=32), dict(mid_eps=1e-3),
-               dict(coarse_precision="high"), dict(tail_pallas=True),
-               dict(relax_newton=True)):
+    for kw in (dict(prepass_factor=2), dict(grid_res=32)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ct.render_staged(pt, ct.Camera(), base.replace(**kw))
 
