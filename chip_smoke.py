@@ -31,38 +31,53 @@ Phases; any failure exits non-zero and nothing is caught:
   7. the turntable: ``render_sequence`` over 24 frames of many_sphere
      (yaw and frame number i), twice; the second call must stay on the
      fast path and is timed; frames 0 and 23 against ``render_staged``;
-  8. wide nets: csg_demo widened to 64, 128 and 256 (``widen``), each
-     driven through the staged path (1080p; 512x512 at 256) with its
-     width's launches counted, the 256x256 golden, the median of 3 warm
-     frames, kernel = plain version on every march call of one more frame,
-     the coarse pass timed both ways, a profiled frame; many_sphere at 128
-     wide through phase 6's steps at 512x512;
-  9. the fused forward (K3) at widths 32-256: kernel vs plain version on
-     2^20 seeded points (max |d|, times), the plain chain's summation
-     order against the kernel's at batch paddings of 256-65536 rows
-     (PADDINGS), then
-     a 256x256 dense ``render_image`` with ``use_pallas=True``, its K3
+  8. wide nets, each width at its SIZES: csg_demo widened to 64, 128, 256
+     and 512 (``widen``), each driven through the staged path (1080p;
+     512x512 at 256, 256x256 at 512) with its width's launches counted, the
+     256x256 golden, the median of 3 warm frames (1 from 128 up), kernel =
+     plain version on every march call of one more frame, the coarse pass
+     timed both ways, a profiled frame; csg_demo widened to 1024 on bounded
+     calls only (the coarse call and refine rung 0 at 128x128, launches
+     counted, kernel = plain, the coarse call timed both ways): a staged
+     frame's straggler tail would take tens of seconds at that width;
+     many_sphere at 128 wide through phase 6's steps at 512x512;
+  9. the fused forward (K3) at widths 32-1024: kernel vs plain version on
+     2^20 seeded points (2^18 at 1024; max |d|, times), the plain chain's
+     summation order against the kernel's at batch paddings of 256-65536
+     rows (PADDINGS), then a dense ``render_image`` with
+     ``use_pallas=True`` (256x256; 64x64 at 512, 32x32 at 1024), its K3
      launches counted, against ``use_pallas=False``;
  10. the precision ladder and the cold start: the three-pass chain (K2h)
-     kernel vs plain version at widths 32-256 on 256x256 rays for the HIGH
-     phase's three kinds of call; its SDF, read off the kernel, against the
-     plain chain at batch paddings and against float64 on 2^20 points,
-     beside the FP32 chain's; both plain chains against the kernel at the
-     row counts ROW_SWEEP and at powers of two; the HIGH configs (``mid_eps=1e-3``, and
-     ``coarse_precision="high"`` with ``coarse_eps=1e-3``) through the
-     staged path at 1080p with their three-pass launches counted, against
-     the default image, the golden, 3 timed warm frames, kernel = plain on
-     every march call of one more frame, and the coarse call timed FP32 vs
-     three-pass; ``mid_eps`` at 256x256 at widths 64-256 with each width's
+     kernel vs plain version at widths 32-512 on 256x256 rays for the HIGH
+     phase's three kinds of call, at 1024 on the cold coarse call at 64x64
+     (its launches counted); its SDF, read off the kernel, against the
+     plain chain at batch paddings and against float64 on 2^20 points
+     (2^18 at 1024), beside the FP32 chain's; both plain chains against
+     the kernel at the row counts ROW_SWEEP and at powers of two; the HIGH
+     configs (``mid_eps=1e-3``, and ``coarse_precision="high"`` with
+     ``coarse_eps=1e-3``) through the staged path at 1080p with their
+     three-pass launches counted, against the default image, the golden,
+     timed warm frames (1 for ``mid_eps``, 3), kernel = plain on every
+     march call of one more frame, and the coarse call timed FP32 vs
+     three-pass; ``mid_eps`` at 256x256 at widths 64-512 with each width's
      three-pass launches counted; the cold-start kernel (K5,
      ``march_raygen``) on the 1080p coarse call at "default" and "high",
      its launches counted, against its plain version and against the ray
      build + init + ``march_state``, timed both ways; ``relax_newton`` and
      ``tail_pallas`` (with ``refine_pallas`` off) at 512x512 against the
-     default image, the tail kernel's launches counted.
+     default image, the tail kernel's launches counted;
+ 11. the step-cost experiments X1-X3: each module's ``main()`` at the JAX
+     scripts' sizes (cudaneuralrender_torch/benchmarks/exp_blockdiag.py,
+     exp_stepcost.py, exp_stepcost2.py: ms and ns per lane-step), their
+     kernels' launches counted; then each kernel held against its plain
+     version where the outputs are finite and carry the SDF (X1 at 9 reps,
+     X2 at the JAX sizes, X3's v0 at 1 step and the others at 8, v3-v5p
+     from t0 = 0), each output within X_RTOL of its own magnitude, and each
+     plain version timed once at the JAX sizes.
 The line before the last is a JSON object of the kernels' launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
 """
+import collections
 import json
 import os
 import statistics
@@ -72,6 +87,8 @@ import time
 
 import numpy as np
 import torch
+
+from cudaneuralrender_torch.utils.timing import card_line, time_cuda
 
 # The staged path's coarse call, refine rung 0 and terminal rung:
 # (name, march_eps, num_steps, relax_omega).
@@ -102,15 +119,34 @@ SCENES = (
     ("compose_many_sphere_anim_demo", "many_sphere", 37.0, ANIM_ASSET, 4, 57),
 )
 TURNTABLE_FRAMES = 24
-# Phase 8: (copies per hidden unit k, padded width 32k, image width, height);
-# 512x512 at 256, whose staged 1080p frame takes seconds on the H100.
-WIDE = ((2, 64, 1920, 1080), (4, 128, 1920, 1080), (8, 256, 512, 512))
-# Phase 9: points per forward comparison, and the bar: FP32 sums in two
-# orders (sequential FMA in the kernel, cuBLAS in the plain version), the
-# JAX package's own bar for its fused forward (tests/test_pallas.py:308).
-K3_POINTS = 1 << 20
+# Each padded hidden width's sizes. Width 32 is csg_demo itself (phases 3-5,
+# 9, 10); the others are csg_demo widened H/32 times (``widen``, phases 8-10).
+#   side: the K1 calls' image (phase 8's staged frame);
+#   frames: its timed warm frames; reps: the timed runs of its coarse call
+#     and of its K2h coarse call (the plain versions min(3, reps));
+#   points: K3's points and the SDF checks' (phases 9, 10); render: the side
+#     of the use_pallas render (phase 9); high_side: the K2h calls' side;
+#   bounded: no staged frame, K1 on BOUNDED_VARIANTS and K2h on its cold
+#     coarse call only.
+# 512x512 at 256 and 256x256 at 512, whose staged frames take seconds; one
+# timed frame from 128 up (frames vary by under 1%). At 1024 a staged
+# frame's straggler tail would take tens of seconds and the chain is 7.3M
+# fused multiply-adds a point: bounded calls, fewer points, smaller sides.
+Sizes = collections.namedtuple("Sizes", "side frames reps points render high_side bounded")
+SIZES = {
+    32: Sizes((1920, 1080), 5, 5, 1 << 20, 256, 256, False),
+    64: Sizes((1920, 1080), 3, 5, 1 << 20, 256, 256, False),
+    128: Sizes((1920, 1080), 1, 5, 1 << 20, 256, 256, False),
+    256: Sizes((512, 512), 1, 5, 1 << 20, 256, 256, False),
+    512: Sizes((256, 256), 1, 2, 1 << 20, 64, 256, False),
+    1024: Sizes((128, 128), 0, 1, 1 << 18, 32, 64, True),
+}
+WIDE = tuple(h for h in SIZES if h > 32)  # the widened nets
+BOUNDED_VARIANTS = ("coarse", "refine_rung0")
+# Phase 9's bar: FP32 sums in two orders (sequential FMA in the kernel,
+# cuBLAS in the plain version), the JAX package's own bar for its fused
+# forward (tests/test_pallas.py:308).
 K3_ATOL = 1e-5
-K3_RENDER = 256  # side of the use_pallas render
 # Row counts of the plain chains' padding sweeps: cuBLAS sums a 256-wide
 # layer in another order below 1024 rows and at 2625 rows and some above.
 PADDINGS = (256, 512, 1024, 2048, 2640, 4096, 65536)
@@ -120,10 +156,10 @@ PADDINGS = (256, 512, 1024, 2048, 2640, 4096, 65536)
 # three-pass coarse pass to 0.05.
 HIGH_EPS = 1e-3
 HIGH_VARIANTS = (("coarse", None, 1.6), ("rung0", 16, 0.0), ("terminal", None, 1.6))
-# The opt-in configs of the ladder, rendered at 1080p with csg_demo.
-HIGH_CONFIGS = (("mid_eps", dict(mid_eps=1e-3)),
-                ("coarse_high", dict(coarse_precision="high", coarse_eps=1e-3)))
-HIGH_WIDE_SIDE = 256  # the mid_eps render of the widened nets
+# The opt-in configs of the ladder, rendered at 1080p with csg_demo, and
+# their timed warm frames (mid_eps leaves the fast path: ~10 s frames).
+HIGH_CONFIGS = (("mid_eps", dict(mid_eps=1e-3), 1),
+                ("coarse_high", dict(coarse_precision="high", coarse_eps=1e-3), 3))
 # K5 against the ray build + init + kernel: the two builds of a ray differ
 # by float32 ulps, which may move its convergence a step. The JAX package's
 # bar (tests/test_pallas.py:324-361, a 32x32 image): converged flags agree
@@ -134,7 +170,6 @@ HIGH_WIDE_SIDE = 256  # the mid_eps render of the widened nets
 RAYGEN_MIN_CONV_AGREE = 0.995
 RAYGEN_MAX_T_ERR = 1e-3
 RAYGEN_MIN_T_CLOSE = 0.999
-SDF_POINTS = 1 << 20
 ROW_SWEEP = range(1000, 4201, 16)  # the plain chains' row counts, against the kernel
 OPTION_SIDE = 512  # relax_newton and tail_pallas frames
 # The card's peaks for a kernel's bound (H100 SXM datasheet, 700 W):
@@ -144,6 +179,23 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 K1_SOURCE = "cudaneuralrender_torch/csrc/march.cuh"
 K3_SOURCE = "cudaneuralrender_torch/csrc/chain.cuh"
+X_SOURCE = "cudaneuralrender_torch/csrc/experiments.cu"
+# Phase 11: an experiment kernel against its plain version. Both sum each
+# output from zero in input order. Each output is held to its own
+# magnitude: |kernel - plain| <= X_RTOL * (|plain| + scale), the scale being
+# what an output of unit size becomes in that experiment (``x_scale``); and
+# at most a share X_MAX_UNEQUAL of the outputs may differ at all (on the
+# H100, X2's FP32 chain differs on 2 of 2^21 lanes, where t passed 1e15).
+X_RTOL = 1e-5
+X_MAX_UNEQUAL = 1e-5
+X1_CHECK_REPS = 9  # one march step's layers: at 288 reps the outputs decay to 0
+# X1's outputs at 9 reps: 1e-4 lies below their median magnitude at either
+# width (6.7e-4 at H=32, 0.076 at H=128 on the H100).
+X1_SCALE = 1e-4
+# X3's steps against the plain version: v0 overflows within 64 steps; the
+# others' plain versions take seconds at 64 (the emulations 7-9 s).
+X3_CHECK_STEPS = {"v0": 1}
+X3_CHECK_STEPS_DEFAULT = 8
 
 
 def widen(layers, k: int, seed: int) -> list:
@@ -181,13 +233,6 @@ def widen(layers, k: int, seed: int) -> list:
     return result
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def sm_clock_mhz() -> float:
     """The card's SM clock now, in MHz (read right after a timed run)."""
     out = subprocess.run(
@@ -199,8 +244,8 @@ def sm_clock_mhz() -> float:
 def ptxas_table(log: str) -> list:
     """One (kernel, registers, stack bytes, spill stores, spill loads) row
     per entry function in ptxas's -v report; march_kernel<H, scene,
-    window, three_pass> and mlp_forward_kernel<H> named by their template
-    arguments."""
+    window, three_pass>, mlp_forward_kernel<H> and the experiment kernels
+    X1-X3 named by their template arguments."""
     import re
 
     rows, names, cur = {}, [], None
@@ -219,17 +264,22 @@ def ptxas_table(log: str) -> list:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur in rows:
             rows[cur][0] = int(m.group(1))
+    labels = (
+        (r"march_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E",
+         "march_kernel<H={}, scene={}, window={}, three_pass={}>"),
+        (r"mlp_forward_kernelILi(\d+)E", "mlp_forward_kernel<H={}>"),
+        (r"x1_loop_kernelILi(\d+)E", "x1_loop_kernel<H={}>"),
+        (r"x2_stepcost_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+         "x2_stepcost_kernel<H={}, chain={}, variant={}>"),
+        (r"x3_ablation_kernelILi(\d+)ELi(\d+)E", "x3_ablation_kernel<H={}, variant={}>"),
+    )
     out = []
     for name in names:
-        k1 = re.search(r"march_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", name)
-        k3 = re.search(r"mlp_forward_kernelILi(\d+)E", name)
-        if k1:
-            label = "march_kernel<H={}, scene={}, window={}, three_pass={}>".format(*k1.groups())
-        elif k3:
-            label = f"mlp_forward_kernel<H={k3.group(1)}>"
-        else:
-            continue
-        out.append((label, *rows[name]))
+        for pattern, fmt in labels:
+            m = re.search(pattern, name)
+            if m:
+                out.append((fmt.format(*m.groups()), *rows[name]))
+                break
     return out
 
 
@@ -294,17 +344,20 @@ def agreement(kernel_out, plain_out) -> dict:
     )
 
 
-def compare_kernel_with_plain(params, config, origin, dirs, frame=0.0):
-    """Run each variant through the kernel and the plain version on the
-    same inputs (each variant starts from the plain output of the one
-    before; the coarse call composes with ``config.cyl_window_coarse``, as
-    the staged renderer's does). Returns {variant: agreement dict}."""
+def compare_kernel_with_plain(params, config, origin, dirs, frame=0.0, variants=None):
+    """Run each variant (of ``variants``, all by default) through the kernel
+    and the plain version on the same inputs (each variant starts from the
+    plain output of the one before; the coarse call composes with
+    ``config.cyl_window_coarse``, as the staged renderer's does). Returns
+    {variant: agreement dict}."""
     from cudaneuralrender_torch.kernels import megakernel
     from cudaneuralrender_torch.ops import march
 
     state = march.init_state(origin, dirs, config.bound_center, config.bound_radius)
     result = {}
     for name, eps, num_steps, omega in VARIANTS:
+        if variants is not None and name not in variants:
+            continue
         if name == "refine_rung0":
             state = refine_entry(state, origin, dirs, config)
         kw = dict(march_eps=eps, num_steps=num_steps, relax_omega=omega, return_resolve=True,
@@ -415,19 +468,6 @@ def device_breakdown(renderer, cam, frame=0.0) -> dict:
     )
 
 
-def time_cuda(fn, reps: int) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def time_frames(renderer, cam, frame, reps: int) -> list:
     """Wall milliseconds of ``reps`` warm frames, each synchronised."""
     out = []
@@ -450,7 +490,7 @@ def check_image(img, what: str, height: int = 1080, width: int = 1920) -> float:
     return fg
 
 
-def time_coarse(params, calls) -> tuple:
+def time_coarse(params, calls, reps: int = 5, plain_reps: int = 3) -> tuple:
     """The frame's first march call (the coarse pass), timed through the
     kernel and through the plain version: (kernel ms, plain ms, bound).
     The bound counts this call's ray-steps (each ray's resolve step) times
@@ -463,10 +503,11 @@ def time_coarse(params, calls) -> tuple:
     if dirs.shape[0] != ccfg.num_rays or kw.get("march_eps") != ccfg.coarse_eps:
         raise RuntimeError(f"the frame's first march call is not the coarse pass: {kw}")
     ms = time_cuda(
-        lambda: megakernel.march_state(params, origin, dirs, state, ccfg, frame, **kw), 5)
+        lambda: megakernel.march_state(params, origin, dirs, state, ccfg, frame, **kw), reps)
     sm_mhz = sm_clock_mhz()
     plain_ms = time_cuda(
-        lambda: megakernel.march_state_plain(params, origin, dirs, state, ccfg, frame, **kw), 3)
+        lambda: megakernel.march_state_plain(params, origin, dirs, state, ccfg, frame, **kw),
+        plain_reps)
     _, lane_steps = megakernel.march_state(params, origin, dirs, state, ccfg, frame,
                                            **dict(kw, return_resolve=True))
     ray_steps = int((lane_steps.long() - int(state.steps)).sum())
@@ -537,67 +578,93 @@ def golden_render(cnr, params, cam, **fields):
     return iou, frac2
 
 
-def drive_width(cnr, params, hidden, width, height, card) -> dict:
-    """Phase 8 for one width: the staged main path with this width's
-    launches counted (a cold and a warm frame), the golden, the median of 3
-    warm frames, kernel = plain version on every march call of one more
-    frame, the coarse pass timed both ways, and a profiled frame."""
+def drive_width(cnr, params, hidden, card, size: Sizes) -> dict:
+    """Phase 8 for one width at ``size``: the staged main path with this
+    width's launches counted (a cold and a warm frame), the golden, the
+    median of ``size.frames`` warm frames, kernel = plain version on every
+    march call of one more frame, the coarse pass timed both ways, and a
+    profiled frame. A bounded width drives BOUNDED_VARIANTS instead of the
+    frame: the calls through the kernel with its launches counted, against
+    the plain version on the same inputs, and the coarse call timed both
+    ways."""
     from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import camera as camera_lib
+    from cudaneuralrender_torch.ops import march
 
+    width, height = size.side
     cfg = cnr.RenderConfig(width=width, height=height, march_impl="staged")
-    renderer = cnr.Renderer(params, cfg)
     cam = cnr.Camera(**CAMERA)
     tag = f"width {hidden} {width}x{height}"
     megakernel.reset_launch_counts()
-    renderer.render(cam)  # cold: may overflow and teach the memo
-    img = renderer.render(cam)
-    torch.cuda.synchronize()
-    launches = megakernel.WIDTH_LAUNCHES[hidden]
-    print(f"{tag}: {launches} kernel launches in a cold and a warm frame, "
-          f"stats {json.dumps(renderer.last_stats)}")
-    if launches == 0:
-        raise RuntimeError(f"{tag}: the staged render never launched the march kernel")
-    fg = check_image(img, tag, height, width)
-    iou, frac2 = golden_render(cnr, params, cam)
-    print(f"{tag}: foreground {fg:.4f}; golden 256x256 IoU {iou:.5f}, {frac2:.5f} of "
-          "foreground within 2 levels")
-    frame_ms = time_frames(renderer, cam, 0.0, 3)
-    print(f"{tag}: staged frame median {statistics.median(frame_ms):.3f} ms over 3 warm "
-          f"frames {[round(x, 3) for x in frame_ms]} [{card}]")
-    calls = record_march_calls(renderer, cam)
-    result = compare_recorded_calls(params, calls)
+    if size.bounded:
+        c2w, _ = camera_lib.view_matrices(cam, params.device)
+        origin, dirs = camera_lib.generate_rays(c2w, width, height, cfg.focal)
+        t0 = time.perf_counter()
+        result = compare_kernel_with_plain(params, cfg, origin, dirs, variants=BOUNDED_VARIANTS)
+        torch.cuda.synchronize()
+        launches = megakernel.WIDTH_LAUNCHES[hidden]
+        print(f"{tag}: {launches} kernel launches on the bounded calls {BOUNDED_VARIANTS}, "
+              f"kernel and plain {time.perf_counter() - t0:.1f} s wall")
+        if launches != len(BOUNDED_VARIANTS):
+            raise RuntimeError(f"{tag}: {launches} launches on the bounded calls")
+        cold = march.init_state(origin, dirs, cfg.bound_center, cfg.bound_radius)
+        calls = [(origin, dirs, cold, cfg, 0.0, dict(march_eps=cfg.coarse_eps,
+                                                     relax_omega=cfg.relax_omega,
+                                                     cyl_window=cfg.cyl_window_coarse))]
+    else:
+        renderer = cnr.Renderer(params, cfg)
+        renderer.render(cam)  # cold: may overflow and teach the memo
+        img = renderer.render(cam)
+        torch.cuda.synchronize()
+        launches = megakernel.WIDTH_LAUNCHES[hidden]
+        print(f"{tag}: {launches} kernel launches in a cold and a warm frame, "
+              f"stats {json.dumps(renderer.last_stats)}")
+        if launches == 0:
+            raise RuntimeError(f"{tag}: the staged render never launched the march kernel")
+        fg = check_image(img, tag, height, width)
+        iou, frac2 = golden_render(cnr, params, cam)
+        print(f"{tag}: foreground {fg:.4f}; golden 256x256 IoU {iou:.5f}, {frac2:.5f} of "
+              "foreground within 2 levels")
+        frame_ms = time_frames(renderer, cam, 0.0, size.frames)
+        print(f"{tag}: staged frame median {statistics.median(frame_ms):.3f} ms over "
+              f"{size.frames} warm frames {[round(x, 3) for x in frame_ms]} [{card}]")
+        calls = record_march_calls(renderer, cam)
+        result = compare_recorded_calls(params, calls)
     for name, a in result.items():
         print(f"compare {tag} {name}: {json.dumps(a)}")
     check_agreement(result)
-    ms, plain_ms, bnd = time_coarse(params, calls)
+    ms, plain_ms, bnd = time_coarse(params, calls, size.reps, min(3, size.reps))
     print(f"{tag}: coarse march kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bnd['bound_ms']:.3f} ms [{card}]")
-    print(f"{tag}: breakdown {json.dumps(device_breakdown(renderer, cam))} [{card}]",
-          flush=True)
+          f"{bnd['bound_ms']:.3f} ms [{card}]", flush=True)
+    if not size.bounded:
+        print(f"{tag}: breakdown {json.dumps(device_breakdown(renderer, cam))} [{card}]",
+              flush=True)
     return kernel_entry(f"march_kernel_h{hidden}", K1_SOURCE,
                         "cudaneuralrender_tpu/pallas/megakernel.py:45", launches,
                         max(a["max_abs_err"] for a in result.values()), ms, plain_ms, bnd)
 
 
-def drive_forward(cnr, params, hidden, card) -> dict:
-    """Phase 9 for one width: K3 against its plain version on K3_POINTS
-    seeded points, timed both ways; then the path that runs it, a 256x256
-    dense render_image with use_pallas, with K3's launches counted, against
-    the same render with use_pallas off (the full-precision bar)."""
+def drive_forward(cnr, params, hidden, card, size: Sizes) -> dict:
+    """Phase 9 for one width: K3 against its plain version on
+    ``size.points`` seeded points, timed both ways; then the path that runs
+    it, a dense render_image with use_pallas (``size.render`` a side), with
+    K3's launches counted, against the same render with use_pallas off (the
+    full-precision bar)."""
     from cudaneuralrender_torch.kernels import fused_mlp
 
     dev = params.device
     weights, biases, n_in, h = fused_mlp.packed_params(params)
-    pts = torch.as_tensor(np.random.default_rng(hidden).uniform(-1.2, 1.2, (K3_POINTS, n_in))
+    n_points, side = size.points, size.render
+    pts = torch.as_tensor(np.random.default_rng(hidden).uniform(-1.2, 1.2, (n_points, n_in))
                           .astype(np.float32), device=dev)
     got = fused_mlp.mlp_forward(weights, biases, pts)
     want = fused_mlp.mlp_forward_plain(weights, biases, pts)
     err = (got - want).abs().max().item()
     ms = time_cuda(lambda: fused_mlp.mlp_forward(weights, biases, pts), 10)
     plain_ms = time_cuda(lambda: fused_mlp.mlp_forward_plain(weights, biases, pts), 5)
-    bnd = bound(K3_POINTS * chain_fmas(h, weights.shape[0], n_in),
-                K3_POINTS * (4 * n_in + 4) + 4 * (weights.numel() + biases.numel()))
-    print(f"forward width {h}: {K3_POINTS} points, max |kernel - plain| {err:.3g}; kernel "
+    bnd = bound(n_points * chain_fmas(h, weights.shape[0], n_in),
+                n_points * (4 * n_in + 4) + 4 * (weights.numel() + biases.numel()))
+    print(f"forward width {h}: {n_points} points, max |kernel - plain| {err:.3g}; kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms [{card}]")
     if not err <= K3_ATOL:
         raise RuntimeError(f"forward kernel disagrees with its plain version at width {h}: "
@@ -615,7 +682,7 @@ def drive_forward(cnr, params, hidden, card) -> dict:
           f"kernel bit for bit: {json.dumps(same)} (the plain versions pad to the next power "
           "of two of at least 1024 rows on the card)")
 
-    cfg = cnr.RenderConfig(width=K3_RENDER, height=K3_RENDER, max_steps=500, use_pallas=True)
+    cfg = cnr.RenderConfig(width=side, height=side, max_steps=500, use_pallas=True)
     cam = cnr.Camera(**CAMERA)
     fused_mlp.reset_launch_counts()
     img = cnr.render_image(params, cam, cfg)
@@ -626,7 +693,7 @@ def drive_forward(cnr, params, hidden, card) -> dict:
     agree = (hit == hit_ref).float().mean().item()
     both = hit & hit_ref
     rgba_err = (img - ref).abs()[both].max().item() if bool(both.any()) else 0.0
-    print(f"forward width {h}: use_pallas {K3_RENDER}x{K3_RENDER} render, {launches} K3 "
+    print(f"forward width {h}: use_pallas {side}x{side} render, {launches} K3 "
           "launches; hit masks "
           f"agree on {agree:.6f}, {int(both.sum())} common hits, max |rgba diff| "
           f"{rgba_err:.3g}", flush=True)
@@ -686,19 +753,24 @@ def drive_turntable(cnr, params, card) -> int:
     return launches
 
 
-def compare_high_with_plain(params, config, origin, dirs) -> dict:
+def compare_high_with_plain(params, config, origin, dirs, variants=None) -> dict:
     """The three-pass chain's march (precision "high") through the kernel
-    and the plain version on the same inputs, for each of HIGH_VARIANTS.
-    Returns {variant: agreement dict}."""
+    and the plain version on the same inputs, for each of HIGH_VARIANTS
+    (of ``variants``, all by default). Returns {variant: agreement dict}."""
     from cudaneuralrender_torch.kernels import megakernel
     from cudaneuralrender_torch.ops import march
 
+    names = [v[0] for v in HIGH_VARIANTS if variants is None or v[0] in variants]
     cold = march.init_state(origin, dirs, config.bound_center, config.bound_radius)
-    coarse = megakernel.march_state_plain(params, origin, dirs, cold, config, march_eps=0.05,
-                                          precision="high", relax_omega=1.6)
-    entry = refine_entry(coarse, origin, dirs, config)
+    if names != ["coarse"]:  # rung 0 and the terminal rung start from a coarse pass
+        coarse = megakernel.march_state_plain(params, origin, dirs, cold, config,
+                                              march_eps=0.05, precision="high",
+                                              relax_omega=1.6)
+        entry = refine_entry(coarse, origin, dirs, config)
     result = {}
     for name, num_steps, omega in HIGH_VARIANTS:
+        if name not in names:
+            continue
         kw = dict(march_eps=HIGH_EPS, num_steps=num_steps, precision="high", relax_omega=omega,
                   return_resolve=True)
         state = cold if name == "coarse" else entry
@@ -739,9 +811,9 @@ def sdf_float64(params, pts) -> torch.Tensor:
     return x[:, 0]
 
 
-def sdf_errors(params, hidden, card, n_points=SDF_POINTS) -> dict:
+def sdf_errors(params, hidden, card, n_points) -> dict:
     """Phase 10: the FP32 chain's and the three-pass chain's SDF, read off
-    the kernel, against float64 on SDF_POINTS seeded points inside the
+    the kernel, against float64 on ``n_points`` seeded points inside the
     bounding sphere; then the plain three-pass chain on the first 256
     points padded to m rows, against the kernel bit for bit."""
     from cudaneuralrender_torch.kernels import fused_mlp
@@ -773,12 +845,12 @@ def sdf_errors(params, hidden, card, n_points=SDF_POINTS) -> dict:
     return err
 
 
-def row_sweep(params, card) -> dict:
+def row_sweep(params, card, n_points) -> dict:
     """Phase 10: the plain chains, FP32 and three-pass, with every row a
     seeded point, against the kernel's SDF bit for bit: in one product at
-    the row counts ROW_SWEEP and at the powers of two 2^10-2^20, and as the
-    plain versions run them (``fused_mlp.plain_rows`` and
-    ``chain_in_blocks``) on 2^20 points. Raises unless the row counts the
+    the row counts ROW_SWEEP and at the powers of two from 2^10 to
+    ``n_points``, and as the plain versions run them
+    (``fused_mlp.plain_rows`` and ``chain_in_blocks``) on ``n_points``. Raises unless the row counts the
     plain versions use (powers of two to ``ROW_BLOCK``, then blocks) agree.
     Returns the row counts at which some row differs, per chain."""
     from cudaneuralrender_torch.kernels import fused_mlp
@@ -790,7 +862,7 @@ def row_sweep(params, card) -> dict:
         weights, biases, x, weights.shape[0])),
               "three_pass": ("high", lambda x: fused_mlp.mlp_chain_3pass_plain(
                   w_hi, w_lo, biases, x, weights.shape[0]))}
-    pows = [1 << e for e in range(10, 21)]
+    pows = [1 << e for e in range(10, n_points.bit_length())]
     pts = torch.as_tensor(np.random.default_rng(h).uniform(-1.2, 1.2, (pows[-1], 3))
                           .astype(np.float32), device=dev)
     want = {p: kernel_sdf(params, pts, p) for p in ("highest", "high")}
@@ -801,17 +873,19 @@ def row_sweep(params, card) -> dict:
         for name, (prec, chain) in chains.items():
             if not torch.equal(chain(xp)[:, 0], want[prec][:m]):
                 off[name].append(m)
-    xp = torch.zeros((fused_mlp.plain_rows(pows[-1], dev), h), dtype=torch.float32, device=dev)
+    xp = torch.zeros((fused_mlp.plain_rows(pows[-1], h, dev), h), dtype=torch.float32,
+                     device=dev)
     xp[:, :n_in] = pts
     blocked = {name: int((fused_mlp.chain_in_blocks(chain, xp)[:, 0] != want[prec]).sum())
                for name, (prec, chain) in chains.items()}
     print(f"row sweep width {h}: plain chain on m seeded points in one product against the "
           f"kernel bit for bit, m in range({ROW_SWEEP.start}, {ROW_SWEEP.stop}, "
-          f"{ROW_SWEEP.step}) ({len(ROW_SWEEP)} counts) and 2^10-2^20: row counts with a row "
-          f"off the kernel, FP32 {off['fp32']}, three-pass {off['three_pass']}; 2^20 points in "
+          f"{ROW_SWEEP.step}) ({len(ROW_SWEEP)} counts) and 2^10-{pows[-1]}: row counts with a "
+          f"row off the kernel, FP32 {off['fp32']}, three-pass {off['three_pass']}; {pows[-1]} "
+          f"points in "
           f"blocks of {fused_mlp.ROW_BLOCK} rows: rows off the kernel {json.dumps(blocked)} "
           f"[{card}]", flush=True)
-    used = [m for m in pows if m <= fused_mlp.ROW_BLOCK]
+    used = [m for m in pows if fused_mlp.card_min_rows(h) <= m <= fused_mlp.ROW_BLOCK]
     if any(blocked.values()) or any(m in used for rows in off.values() for m in rows):
         raise RuntimeError(f"width {h}: a row count the plain versions use sums in another order")
     return off
@@ -831,7 +905,7 @@ def mixed_bar(img, ref, what: str) -> tuple:
     return agree, close
 
 
-def time_precisions(params, call, card) -> dict:
+def time_precisions(params, call, card, reps: int = 5) -> dict:
     """A recorded three-pass coarse call timed through the kernel, FP32 vs
     three-pass, and through the plain version, with its bound: the
     three-pass chain's fused multiply-adds (three products per weight) at
@@ -840,9 +914,10 @@ def time_precisions(params, call, card) -> dict:
 
     origin, dirs, state, ccfg, frame, kw = call
     fp32_kw = dict(kw, precision="default")
-    ms = time_cuda(lambda: megakernel.march_state(params, origin, dirs, state, ccfg, frame, **kw), 5)
+    ms = time_cuda(lambda: megakernel.march_state(params, origin, dirs, state, ccfg, frame, **kw),
+                   reps)
     fp32_ms = time_cuda(
-        lambda: megakernel.march_state(params, origin, dirs, state, ccfg, frame, **fp32_kw), 5)
+        lambda: megakernel.march_state(params, origin, dirs, state, ccfg, frame, **fp32_kw), reps)
     plain_ms = time_cuda(
         lambda: megakernel.march_state_plain(params, origin, dirs, state, ccfg, frame, **kw), 1)
     steps = {}
@@ -863,14 +938,14 @@ def time_precisions(params, call, card) -> dict:
     return dict(ms=ms, fp32_ms=fp32_ms, plain_ms=plain_ms, bnd=bnd)
 
 
-def drive_high_config(cnr, params, name, fields, ref_img, card, width=1920,
+def drive_high_config(cnr, params, name, fields, ref_img, card, frames=3, width=1920,
                       height=1080) -> dict:
     """Phase 10 for one HIGH config at 1080p: the staged main path with the
     three-pass launches counted (a cold and a warm frame), against the
     default image at the mixed bar, the 256x256 golden under the same
-    config, the median of 3 warm frames, and kernel = plain on every march
-    call of one more frame. Returns the launches, the largest |dt| and the
-    recorded calls."""
+    config, the median of ``frames`` warm frames, and kernel = plain on
+    every march call of one more frame. Returns the launches, the largest
+    |dt| and the recorded calls."""
     from cudaneuralrender_torch.kernels import megakernel
 
     cfg = cnr.RenderConfig(width=width, height=height, march_impl="staged", **fields)
@@ -889,10 +964,10 @@ def drive_high_config(cnr, params, name, fields, ref_img, card, width=1920,
     check_image(img, name, height, width)
     mixed_bar(img, ref_img, f"{name} 1080p")
     iou, frac2 = golden_render(cnr, params, cam, **fields)
-    frame_ms = time_frames(renderer, cam, 0.0, 3)
+    frame_ms = time_frames(renderer, cam, 0.0, frames)
     print(f"{name}: golden 256x256 IoU {iou:.5f}, {frac2:.5f} of foreground within 2 levels; "
-          f"1080p staged frame median {statistics.median(frame_ms):.3f} ms over 3 warm frames "
-          f"{[round(x, 3) for x in frame_ms]} [{card}]")
+          f"1080p staged frame median {statistics.median(frame_ms):.3f} ms over {frames} warm "
+          f"frames {[round(x, 3) for x in frame_ms]} [{card}]")
     calls = record_march_calls(renderer, cam)
     result = compare_recorded_calls(params, calls)
     for call_name, a in result.items():
@@ -902,39 +977,52 @@ def drive_high_config(cnr, params, name, fields, ref_img, card, width=1920,
                 calls=calls)
 
 
-def drive_high_width(cnr, params, hidden, card, side=HIGH_WIDE_SIDE) -> dict:
-    """Phase 10 for a widened net: ``mid_eps`` through the staged path at
-    HIGH_WIDE_SIDE^2 with this width's three-pass launches counted (a cold
-    and a warm frame), then the three-pass kernel vs plain on the same
-    rays for HIGH_VARIANTS, and the coarse call timed."""
+def drive_high_width(cnr, params, hidden, card, size: Sizes) -> dict:
+    """Phase 10 for a widened net at ``size``: ``mid_eps`` through the
+    staged path at ``size.high_side``^2 with this width's three-pass
+    launches counted (a cold and a warm frame), then the three-pass kernel
+    vs plain on the same rays for HIGH_VARIANTS, and the coarse call timed
+    (the median of ``size.reps``). A bounded width drives its cold coarse
+    call alone, with its launches counted."""
     from cudaneuralrender_torch.kernels import megakernel
     from cudaneuralrender_torch.ops import camera as camera_lib
 
+    side = size.high_side
     cfg = cnr.RenderConfig(width=side, height=side, march_impl="staged", mid_eps=1e-3)
-    renderer = cnr.Renderer(params, cfg)
     cam = cnr.Camera(**CAMERA)
-    megakernel.reset_launch_counts()
-    renderer.render(cam)
-    img = renderer.render(cam)
-    torch.cuda.synchronize()
-    launches = megakernel.THREE_PASS_LAUNCHES[hidden]
-    print(f"mid_eps width {hidden} {side}x{side}: {launches} three-pass launches in a cold and a "
-          f"warm frame, stats {json.dumps(renderer.last_stats)}")
-    if launches == 0:
-        raise RuntimeError(f"width {hidden}: the mid_eps render never launched the three-pass "
-                           "kernel")
-    check_image(img, f"mid_eps width {hidden}", side, side)
+    if not size.bounded:
+        renderer = cnr.Renderer(params, cfg)
+        megakernel.reset_launch_counts()
+        renderer.render(cam)
+        img = renderer.render(cam)
+        torch.cuda.synchronize()
+        launches = megakernel.THREE_PASS_LAUNCHES[hidden]
+        print(f"mid_eps width {hidden} {side}x{side}: {launches} three-pass launches in a cold "
+              f"and a warm frame, stats {json.dumps(renderer.last_stats)}")
+        check_image(img, f"mid_eps width {hidden}", side, side)
     c2w, _ = camera_lib.view_matrices(cam, params.device)
     origin, dirs = camera_lib.generate_rays(c2w, side, side, cfg.focal)
-    return dict(launches=launches, **high_agreement(params, cfg, origin, dirs, hidden, card))
+    r = high_agreement(params, cfg, origin, dirs, hidden, card, size.reps,
+                       ("coarse",) if size.bounded else None)
+    if size.bounded:
+        launches = r["launches"]
+    if launches == 0:
+        raise RuntimeError(f"width {hidden}: the three-pass calls never launched the kernel")
+    return dict(r, launches=launches)
 
 
-def high_agreement(params, cfg, origin, dirs, hidden, card) -> dict:
-    """K2h kernel vs plain on the rays of one image, and its cold coarse
-    call at HIGH_EPS timed."""
+def high_agreement(params, cfg, origin, dirs, hidden, card, reps=5, variants=None) -> dict:
+    """K2h kernel vs plain on the rays of one image for HIGH_VARIANTS (of
+    ``variants``, all by default), with this width's three-pass launches
+    counted from 0 over those calls, and its cold coarse call at HIGH_EPS
+    timed (the median of ``reps``)."""
+    from cudaneuralrender_torch.kernels import megakernel
     from cudaneuralrender_torch.ops import march
 
-    result = compare_high_with_plain(params, cfg, origin, dirs)
+    megakernel.reset_launch_counts()
+    result = compare_high_with_plain(params, cfg, origin, dirs, variants)
+    torch.cuda.synchronize()
+    launches = megakernel.THREE_PASS_LAUNCHES[hidden]
     for name, a in result.items():
         print(f"compare three-pass width {hidden} {cfg.width}x{cfg.height} {name}: "
               f"{json.dumps(a)}")
@@ -942,9 +1030,9 @@ def high_agreement(params, cfg, origin, dirs, hidden, card) -> dict:
     cold = march.init_state(origin, dirs, cfg.bound_center, cfg.bound_radius)
     call = (origin, dirs, cold, cfg, 0.0,
             dict(march_eps=HIGH_EPS, precision="high", relax_omega=1.6))
-    t = time_precisions(params, call, card)
-    return dict(max_abs_err=max(a["max_abs_err"] for a in result.values()), ms=t["ms"],
-                plain_ms=t["plain_ms"], bnd=t["bnd"])
+    t = time_precisions(params, call, card, reps)
+    return dict(launches=launches, max_abs_err=max(a["max_abs_err"] for a in result.values()),
+                ms=t["ms"], plain_ms=t["plain_ms"], bnd=t["bnd"])
 
 
 def drive_raygen(cnr, params, card, width=1920, height=1080) -> dict:
@@ -1039,6 +1127,135 @@ def drive_option(cnr, params, name, fields, card, side=OPTION_SIDE) -> None:
         raise RuntimeError(f"{name}: the terminal rungs never reached the kernel")
 
 
+def x_scale(experiment: str, steps: int = 1) -> float:
+    """What an output of unit size becomes in an experiment run ``steps``
+    steps: X2's outputs are t itself (2-4 on the rays that hit); X3's v0
+    carries x unscaled, v1 and v2 scale x by its SCALE (1e-8) each step,
+    and v3-v5p add sdf * SCALE to t from 0 each step; X1's: X1_SCALE."""
+    from cudaneuralrender_torch.benchmarks import exp_stepcost2 as x3
+
+    if experiment == "x1":
+        return X1_SCALE
+    if experiment in ("x2", "v0"):
+        return 1.0
+    if experiment in ("v1", "v2"):
+        return x3.SCALE ** steps
+    return x3.SCALE * steps
+
+
+def compare_outputs(got, want, scale: float) -> dict:
+    """An experiment kernel's outputs against its plain version's: whether
+    the same outputs are finite, and over the finite ones the largest
+    |difference| and the largest |difference| / (|plain| + ``scale``);
+    and the share of all outputs that is bit-equal."""
+    fin = torch.isfinite(want)
+    diff = (got - want).abs()[fin].double()
+    rel = diff / (want.abs()[fin].double() + scale)
+    return dict(finite_equal=bool(torch.equal(fin, torch.isfinite(got))),
+                n_finite=int(fin.sum()), scale=scale,
+                max_abs_err=diff.max().item() if diff.numel() else 0.0,
+                max_rel_err=rel.max().item() if rel.numel() else 0.0,
+                bit_equal=(got == want).float().mean().item())
+
+
+def check_outputs(name: str, r: dict) -> None:
+    """Raise unless the same outputs are finite, each agrees within
+    X_RTOL * (|plain| + scale), and at most X_MAX_UNEQUAL differ at all."""
+    if (not r["finite_equal"] or r["n_finite"] == 0 or not r["max_rel_err"] <= X_RTOL
+            or not 1.0 - r["bit_equal"] <= X_MAX_UNEQUAL):
+        raise RuntimeError(f"{name}: the kernel disagrees with its plain version: {r}")
+
+
+def _x_entry(name, jax_file, line, launches, check, ms, plain_ms, fmas, nbytes, peak):
+    return kernel_entry(name, X_SOURCE, f"benchmarks/{jax_file}:{line}", launches,
+                        check["max_abs_err"], ms, plain_ms, bound(fmas, nbytes, peak))
+
+
+def drive_experiments(card) -> list:
+    """Phase 11: X1-X3's ``main()`` at the JAX scripts' sizes with the
+    kernels' launches counted, then each kernel that ``main()`` ran against
+    its plain version (the module docstring gives the sizes) and the plain
+    version timed once at the JAX sizes. Returns their entries."""
+    from cudaneuralrender_torch.benchmarks import exp_blockdiag as x1
+    from cudaneuralrender_torch.benchmarks import exp_stepcost as x2
+    from cudaneuralrender_torch.benchmarks import exp_stepcost2 as x3
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for mod in (x1, x2, x3):
+        mod.reset_launch_counts()
+    rows = {"x1": x1.main(), "x2": x2.main(), "x3": x3.main()}
+    torch.cuda.synchronize()
+    launches = {"x1": dict(x1.LAUNCHES), "x2": dict(x2.LAUNCHES), "x3": dict(x3.LAUNCHES)}
+    print(f"phase 11 launches {json.dumps(launches)}", flush=True)
+    entries = []
+
+    for h in x1.WIDTHS:  # X1: exp_blockdiag.py:32 _loop_kernel, pallas_call :49
+        x, w, b = x1.setup(h, dev)
+        check = compare_outputs(x1.chain(x, w, b, reps=X1_CHECK_REPS),
+                                x1.chain_plain(x, w, b, X1_CHECK_REPS), x_scale("x1"))
+        print(f"compare x1_loop_h{h} at {X1_CHECK_REPS} reps: {json.dumps(check)}")
+        check_outputs(f"x1_loop_h{h}", check)
+        plain_ms = time_cuda(lambda: x1.chain_plain(x, w, b, x1.REPS), 1)
+        ms = next(r["ms"] for r in rows["x1"] if r["hidden"] == h)
+        lanes = x.shape[1]
+        entries.append(_x_entry(f"x1_loop_h{h}", "exp_blockdiag.py", 32, launches["x1"][h], check,
+                                ms, plain_ms, x1.REPS * lanes * h * h,
+                                8 * h * lanes + 4 * (h * h + h), PEAK_FP32_FLOPS))
+
+    weights, biases, dirs, t0, origin = x2.setup(dev)
+    n, n_layers = dirs.shape[1], weights.shape[0]
+    step_fmas = x2.STEPS * n * chain_fmas(weights.shape[1], n_layers, 3)
+    nbytes = n * (12 + 4 + 4) + 4 * (weights.numel() + biases.numel())
+    for variant, three_pass in sorted({(r["variant"], r["three_pass"]) for r in rows["x2"]}):
+        key = variant + ("_3pass" if three_pass else "")  # X2: exp_stepcost.py:33 make_kernel
+        want = []
+
+        def run_plain():
+            want.append(x2.step_cost_plain(variant, weights, biases, dirs, t0, origin,
+                                           three_pass=three_pass))
+
+        plain_ms = time_cuda(run_plain, 1)
+        check = compare_outputs(x2.step_cost(variant, weights, biases, dirs, t0, origin,
+                                             three_pass=three_pass), want[0], x_scale("x2"))
+        print(f"compare x2_{key} at the JAX sizes: {json.dumps(check)}")
+        check_outputs(f"x2_{key}", check)
+        ms = next(r["ms"] for r in rows["x2"]
+                  if (r["variant"], r["three_pass"]) == (variant, three_pass))
+        entries.append(_x_entry(f"x2_{key}", "exp_stepcost.py", 33, launches["x2"][key], check,
+                                ms, plain_ms, step_fmas * (3 if three_pass else 1), nbytes,
+                                PEAK_BF16_FLOPS if three_pass else PEAK_FP32_FLOPS))
+
+    weights, biases, dirs, t0, origin = x3.setup(dev)
+    zero = torch.zeros_like(t0)
+    for variant in sorted({x3.KERNEL_OF[r["variant"]][0] for r in rows["x3"]}):
+        # X3: exp_stepcost2.py:54 make_kernel; x-carried variants from t0,
+        # t-carried ones from 0 so that t carries the SDF at full precision
+        steps = X3_CHECK_STEPS.get(variant, X3_CHECK_STEPS_DEFAULT)
+        start = t0 if variant in ("v0", "v1", "v2") else zero
+        check = compare_outputs(
+            x3.ablation(variant, weights, biases, dirs, start, origin, steps=steps),
+            x3.ablation_plain(variant, weights, biases, dirs, start, origin, steps=steps),
+            x_scale(variant, steps))
+        print(f"compare x3_{variant} at {steps} steps: {json.dumps(check)}")
+        check_outputs(f"x3_{variant}", check)
+        plain_ms = time_cuda(
+            lambda: x3.ablation_plain(variant, weights, biases, dirs, t0, origin), 1)
+        ms = next(r["ms"] for r in rows["x3"] if x3.KERNEL_OF[r["variant"]][0] == variant)
+        h = weights.shape[1]
+        if variant in ("v0", "v1", "v2"):
+            fmas, peak = x3.STEPS * n_layers * n * h * h, PEAK_FP32_FLOPS
+        else:
+            passes = {"v3": 1, "v5": 6, "v5p": 5}[variant]
+            fmas = passes * x3.STEPS * n * chain_fmas(h, n_layers, 3)
+            peak = PEAK_FP32_FLOPS if passes == 1 else PEAK_BF16_FLOPS
+        entries.append(_x_entry(f"x3_{variant}", "exp_stepcost2.py", 54,
+                                launches["x3"][variant], check, ms, plain_ms, fmas, nbytes, peak))
+    for e in entries:
+        if e["launches"] == 0:
+            raise RuntimeError(f"{e['name']}: main() never launched the kernel")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
@@ -1060,10 +1277,12 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s ({build.library_path()})")
     print(build.BUILD_LOG.strip() or "(library already built)", flush=True)
     for label, regs, stack, spill_st, spill_ld in ptxas_table(build.BUILD_LOG):
-        h = int(label.split("H=")[1].split(",")[0].rstrip(">"))
-        smem = 4 * 9 * h * (h + 1) if h <= 64 else 0  # csrc/chain.cuh smem_bytes
-        print(f"ptxas {label}: {regs} registers, {stack} bytes stack, {spill_st} bytes spill "
-              f"stores, {spill_ld} bytes spill loads; {smem} bytes dynamic shared memory")
+        line = (f"ptxas {label}: {regs} registers, {stack} bytes stack frame, {spill_st} bytes "
+                f"spill stores, {spill_ld} bytes spill loads")
+        if not label.startswith("x"):  # csrc/chain.cuh smem_bytes at 9 layers
+            h = int(label.split("H=")[1].split(",")[0].rstrip(">"))
+            line += f"; {4 * 9 * h * (h + 1) if h <= 64 else 0} bytes dynamic shared memory"
+        print(line)
 
     params = cnr.load(ASSET, device=dev)
 
@@ -1079,7 +1298,8 @@ def main() -> int:
     max_abs_err = max(a["max_abs_err"] for a in result.values())
 
     # 4. the main path at 1080p, counting launches
-    cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged")
+    narrow = SIZES[32]
+    cfg = cnr.RenderConfig(width=narrow.side[0], height=narrow.side[1], march_impl="staged")
     renderer = cnr.Renderer(params, cfg)
     cam = cnr.Camera(**CAMERA)
     megakernel.reset_launch_counts()
@@ -1096,9 +1316,9 @@ def main() -> int:
     print(f"golden 256x256: IoU {iou:.5f}, {frac2:.5f} of foreground within 2 levels")
 
     # 5. timing
-    frame_ms = time_frames(renderer, cam, 0.0, 5)
-    print(f"1080p staged frame: median {statistics.median(frame_ms):.3f} ms over 5 warm "
-          f"frames {[round(x, 3) for x in frame_ms]} [{card}]")
+    frame_ms = time_frames(renderer, cam, 0.0, narrow.frames)
+    print(f"1080p staged frame: median {statistics.median(frame_ms):.3f} ms over "
+          f"{narrow.frames} warm frames {[round(x, 3) for x in frame_ms]} [{card}]")
 
     # 5b. kernel vs plain at the main path's own sizes: the inputs of every
     # march call of one warm 1080p frame (the coarse pass first, then the
@@ -1137,44 +1357,45 @@ def main() -> int:
 
     # 8. wide nets through the staged path
     t8 = time.perf_counter()
-    wide = {}
-    for k, hidden, width, height in WIDE:
-        wide[hidden] = wide_params(cnr, k, dev)
-        kernels.append(drive_width(cnr, wide[hidden], hidden, width, height, card))
-    r = drive_scene(cnr, wide[128], "many_sphere", 90.0, 3, card, 512, 512)
+    nets = {32: params}
+    for hidden in WIDE:
+        nets[hidden] = wide_params(cnr, hidden // 32, dev)
+        kernels.append(drive_width(cnr, nets[hidden], hidden, card, SIZES[hidden]))
+    r = drive_scene(cnr, nets[128], "many_sphere", 90.0, 3, card, 512, 512)
     kernels.append(kernel_entry("compose_many_sphere_h128", K1_SOURCE,
                                 "cudaneuralrender_tpu/pallas/scenes.py:57", **r))
     print(f"phase 8 (wide nets): {time.perf_counter() - t8:.1f} s wall", flush=True)
 
     # 9. the fused forward at every width, and use_pallas
     t9 = time.perf_counter()
-    for hidden, net in [(32, params)] + sorted(wide.items()):
-        kernels.append(drive_forward(cnr, net, hidden, card))
+    for hidden, net in nets.items():
+        kernels.append(drive_forward(cnr, net, hidden, card, SIZES[hidden]))
     print(f"phase 9 (forward kernel): {time.perf_counter() - t9:.1f} s wall", flush=True)
 
     # 10. the precision ladder and the cold start
     t10 = time.perf_counter()
     k2h = {}
-    for hidden, net in [(32, params)] + sorted(wide.items()):
-        sdf_errors(net, hidden, card)
-        row_sweep(net, card)
-    for name, fields in HIGH_CONFIGS:
-        k2h[name] = drive_high_config(cnr, params, name, fields, img, card)
+    for hidden, net in nets.items():
+        sdf_errors(net, hidden, card, SIZES[hidden].points)
+        row_sweep(net, card, SIZES[hidden].points)
+    for name, fields, frames in HIGH_CONFIGS:
+        k2h[name] = drive_high_config(cnr, params, name, fields, img, card, frames)
     t = time_precisions(params, k2h["coarse_high"]["calls"][0], card)
     c2w, _ = camera_lib.view_matrices(cnr.Camera(**CAMERA), dev)
-    side = HIGH_WIDE_SIDE
+    side = narrow.high_side
     origin, dirs = camera_lib.generate_rays(c2w, side, side, cfg.focal)
-    narrow = high_agreement(params, cnr.RenderConfig(width=side, height=side), origin, dirs, 32,
-                            card)
+    rays = high_agreement(params, cnr.RenderConfig(width=side, height=side), origin, dirs, 32,
+                          card, narrow.reps)
     kernels.append(kernel_entry(
         "march_kernel_3pass_h32", K3_SOURCE, "cudaneuralrender_tpu/pallas/fused_mlp.py:130",
         sum(r["launches"] for r in k2h.values()),
-        max([narrow["max_abs_err"]] + [r["max_abs_err"] for r in k2h.values()]),
+        max([rays["max_abs_err"]] + [r["max_abs_err"] for r in k2h.values()]),
         t["ms"], t["plain_ms"], t["bnd"]))
-    for hidden, net in sorted(wide.items()):
+    for hidden in WIDE:
         kernels.append(kernel_entry(f"march_kernel_3pass_h{hidden}", K3_SOURCE,
                                     "cudaneuralrender_tpu/pallas/fused_mlp.py:130",
-                                    **drive_high_width(cnr, net, hidden, card)))
+                                    **drive_high_width(cnr, nets[hidden], hidden, card,
+                                                       SIZES[hidden])))
     raygen = drive_raygen(cnr, params, card)
     kernels.append(kernel_entry("march_kernel_raygen", K1_SOURCE,
                                 "cudaneuralrender_tpu/pallas/megakernel.py:377",
@@ -1182,6 +1403,12 @@ def main() -> int:
     drive_option(cnr, params, "relax_newton", dict(relax_newton=True), card)
     drive_option(cnr, params, "tail_pallas", dict(tail_pallas=True, refine_pallas=False), card)
     print(f"phase 10 (precision ladder, cold start): {time.perf_counter() - t10:.1f} s wall",
+          flush=True)
+
+    # 11. the step-cost experiment kernels X1-X3
+    t11 = time.perf_counter()
+    kernels.extend(drive_experiments(card))
+    print(f"phase 11 (step-cost experiments): {time.perf_counter() - t11:.1f} s wall",
           flush=True)
 
     print(json.dumps({"kernels": kernels}))

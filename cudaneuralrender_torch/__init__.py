@@ -1,7 +1,7 @@
 """cudaneuralrender_torch — the PyTorch/CUDA port of cudaneuralrender_tpu.
 
 A neural-SDF sphere-trace renderer for NVIDIA Hopper: load Keras-HDF5 SDF
-networks (3 or 4 inputs, hidden layers up to 256 wide), march them with a
+networks (3 or 4 inputs, hidden layers up to 1024 wide), march them with a
 hand-written CUDA kernel (csrc/march.cuh), and shade with facing-ratio or
 matcap. Models load onto the card unless the CPU is asked for. The JAX package beside it is the
 reference this package is tested against; this package never imports JAX.

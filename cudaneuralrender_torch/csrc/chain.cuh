@@ -12,7 +12,8 @@
 //
 // What bounds the chain on this card: arithmetic. A 9-layer net costs
 // 3H + 7H^2 + H fused multiply-adds per point (the true 3-input first layer,
-// the 1-column head): 7.3k at H=32, 28.9k at 64, 115k at 128, 460k at 256.
+// the 1-column head): 7.3k at H=32, 28.9k at 64, 115k at 128, 460k at 256,
+// 1.84M at 512, 7.34M at 1024.
 // One thread evaluates one point, so every thread of a warp needs the same
 // weight at the same time: weights are read at warp-uniform addresses, one
 // broadcast per 4 fused multiply-adds.
@@ -22,12 +23,16 @@
 //     shared memory once per block (37 KB at L=9, H=32; 150 KB at 64: one
 //     block per SM, so 256 threads per block at 64); activations x[H] and
 //     y[H] live in registers (mlp_sdf).
-//   * H = 128, 256: the stack (590 KB / 2.36 MB at L=9) does not fit in
-//     shared memory; it is read through the read-only path (__ldg) and lives
-//     in L2. Each layer is computed in chunks of 32 outputs, accumulated in
-//     registers; the two activation buffers [2, H] live in the thread's
-//     local memory (mlp_sdf_wide). Nothing synchronises the block after the
-//     weights are staged, so each ray still exits on its own.
+//   * H = 128 to 1024: the stack (590 KB / 2.36 MB / 9.4 MB / 37.7 MB at
+//     L=9) does not fit in shared memory; it is read through the read-only
+//     path (__ldg) and lives in the 50 MB L2. Each layer is computed in
+//     chunks of 32 outputs, accumulated in registers; the two activation
+//     buffers [2, H] live in the thread's local memory (mlp_sdf_wide: a
+//     1 / 2 / 4 / 8 KB frame per thread, which CUDA reserves for every
+//     resident thread, 2.2 GB at 1024). Nothing synchronises the block after
+//     the weights are staged, so each ray still exits on its own. 1024 is
+//     the widest: the JAX package's kernels hold the whole stack in VMEM,
+//     and a wider 9-layer stack exceeds this card's L2 too.
 // Each output sums its products in input order from zero and adds the bias
 // last, at every width: output chunks keep that order, and the input
 // dimension is never split. The first layer contracts only the true 3 or 4
@@ -148,7 +153,7 @@ __device__ __forceinline__ void fma_chunk(float (&acc)[kChunk], float xi,
   }
 }
 
-// Activations in local memory, weights from L2 (H = 128, 256); the same
+// Activations in local memory, weights from L2 (H = 128 to 1024); the same
 // arithmetic, in the same order, as mlp_sdf.
 template <int H>
 __device__ __forceinline__ float mlp_sdf_wide(const float* __restrict__ w,
@@ -314,7 +319,8 @@ int launch_mlp_forward(const MlpArgs& a, cudaStream_t stream) {
 //     halves, as many bytes as the FP32 stack) in shared memory;
 //   * H = 64: the stack in shared memory, the activations [2, H] in local
 //     memory, each layer in chunks of 32 outputs (y and t in registers);
-//   * H = 128, 256: the same chunks, the stack read from L2 with __ldg.
+//   * H = 128 to 1024: the same chunks, the stack read from L2 with __ldg
+//     (the two bfloat16 halves take the FP32 stack's 37.7 MB at 1024).
 // The first layer contracts the true 3 or 4 inputs (the frame is split too);
 // the head computes column 0 only.
 

@@ -1,0 +1,10 @@
+// The kernels of the package at hidden width 1024 with the FP32 chain: the
+// march kernel for each (scene, window) and the fused forward. One
+// translation unit per width and chain, so they compile in parallel
+// (kernels/build.py).
+#include "march.cuh"
+
+namespace cnr {
+template int launch_march<1024, false>(const MarchArgs&, cudaStream_t);
+template int launch_mlp_forward<1024>(const MlpArgs&, cudaStream_t);
+}  // namespace cnr

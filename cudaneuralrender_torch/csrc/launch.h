@@ -1,8 +1,8 @@
 // The launchers of the package's kernels, one explicit instantiation per
-// hidden width and chain (csrc/hidden{32,64,128,256}.cu for the FP32 chain
-// and the forward kernel, csrc/hidden{32,64,128,256}_3pass.cu for the
-// three-pass chain), called by the C entry points in csrc/march.cu. Each
-// returns a cudaError_t as an int.
+// hidden width and chain (csrc/hidden{H}.cu for the FP32 chain and the
+// forward kernel, csrc/hidden{H}_3pass.cu for the three-pass chain, H = 32,
+// 64, 128, 256, 512 and 1024), called by the C entry points in
+// csrc/march.cu. Each returns a cudaError_t as an int.
 #pragma once
 
 #include <cuda_runtime.h>

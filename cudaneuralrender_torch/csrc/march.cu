@@ -6,13 +6,13 @@
 //                     the kernel from its pixel index (K5)
 //   cnr_mlp_forward   the fused forward (K3, csrc/chain.cuh)
 //
-// Each dispatches on the padded hidden width, and the march entries on the
-// chain (three_pass: 0 for FP32, 1 for the three-pass chain K2h), to the
-// instantiation in csrc/hidden{32,64,128,256}.cu or
-// csrc/hidden{32,64,128,256}_3pass.cu, and returns a cudaError_t: a width,
-// scene, window or input count with no instantiation gives
-// cudaErrorInvalidValue, and a refused launch its own error. Nothing is
-// launched in either case.
+// Each dispatches on the padded hidden width (32, 64, 128, 256, 512 or
+// 1024), and the march entries on the chain (three_pass: 0 for FP32, 1 for
+// the three-pass chain K2h), to the instantiation in csrc/hidden{H}.cu or
+// csrc/hidden{H}_3pass.cu, and returns a cudaError_t: a width, scene, window
+// or input count with no instantiation gives cudaErrorInvalidValue, and a
+// refused launch its own error. Nothing is launched in either case. The
+// experiment kernels X1-X3 have their own entries (csrc/experiments.cu).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -23,31 +23,36 @@ namespace {
 template <typename Args>
 using Launcher = int (*)(const Args&, cudaStream_t);
 
+// The hidden widths with an instantiation (kernels/fused_mlp.py KERNEL_WIDTHS).
+constexpr int kWidths[] = {32, 64, 128, 256, 512, 1024};
+constexpr int kNumWidths = sizeof(kWidths) / sizeof(kWidths[0]);
+
+// by_width[k] launches at width kWidths[k].
 template <typename Args>
 int dispatch(int device, int hidden, const Args& a, void* stream,
-             Launcher<Args> h32, Launcher<Args> h64, Launcher<Args> h128,
-             Launcher<Args> h256) {
-  Launcher<Args> launch = nullptr;
-  switch (hidden) {
-    case 32: launch = h32; break;
-    case 64: launch = h64; break;
-    case 128: launch = h128; break;
-    case 256: launch = h256; break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+             const Launcher<Args> (&by_width)[kNumWidths]) {
+  for (int k = 0; k < kNumWidths; ++k) {
+    if (kWidths[k] != hidden) continue;
+    const cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return by_width[k](a, static_cast<cudaStream_t>(stream));
   }
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch(a, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <bool kThreePass>
+constexpr Launcher<cnr::MarchArgs> kMarch[kNumWidths] = {
+    cnr::launch_march<32, kThreePass>,  cnr::launch_march<64, kThreePass>,
+    cnr::launch_march<128, kThreePass>, cnr::launch_march<256, kThreePass>,
+    cnr::launch_march<512, kThreePass>, cnr::launch_march<1024, kThreePass>};
+
+constexpr Launcher<cnr::MlpArgs> kForward[kNumWidths] = {
+    cnr::launch_mlp_forward<32>,  cnr::launch_mlp_forward<64>,  cnr::launch_mlp_forward<128>,
+    cnr::launch_mlp_forward<256>, cnr::launch_mlp_forward<512>, cnr::launch_mlp_forward<1024>};
+
 int dispatch_march(int device, int hidden, const cnr::MarchArgs& a, void* stream) {
-  if (a.three_pass)
-    return dispatch(device, hidden, a, stream, cnr::launch_march<32, true>,
-                    cnr::launch_march<64, true>, cnr::launch_march<128, true>,
-                    cnr::launch_march<256, true>);
-  return dispatch(device, hidden, a, stream, cnr::launch_march<32, false>,
-                  cnr::launch_march<64, false>, cnr::launch_march<128, false>,
-                  cnr::launch_march<256, false>);
+  if (a.three_pass) return dispatch(device, hidden, a, stream, kMarch<true>);
+  return dispatch(device, hidden, a, stream, kMarch<false>);
 }
 
 }  // namespace
@@ -139,9 +144,7 @@ extern "C" int cnr_mlp_forward(int device, const float* x, const float* weights,
                                const float* biases, int n_layers, int hidden,
                                int n_inputs, int n, float* out, void* stream) {
   const cnr::MlpArgs a{x, weights, biases, n_layers, n_inputs, n, out};
-  return dispatch(device, hidden, a, stream, cnr::launch_mlp_forward<32>,
-                  cnr::launch_mlp_forward<64>, cnr::launch_mlp_forward<128>,
-                  cnr::launch_mlp_forward<256>);
+  return dispatch(device, hidden, a, stream, kForward);
 }
 
 extern "C" const char* cnr_error_string(int err) {

@@ -14,13 +14,13 @@
 // 3H + 7H^2 + H fused multiply-adds per ray (7.3k at H=32: the true 3-input
 // first layer and the 1-column head), while the ray state lives in
 // registers; at H = 32 and 64 the weights come from shared memory, at 128
-// and 256 from L2 (chain.cuh). Device memory is touched once per ray on
+// to 1024 from L2 (chain.cuh). Device memory is touched once per ray on
 // entry (direction, t, budget, flags) and once on exit.
 //
 // Design:
 //   * one thread per ray, block_for(H) threads per block (chain.cuh);
-//   * the chain at the padded width H, a template parameter (32, 64, 128 or
-//     256; one instantiation of every scene per width, in
+//   * the chain at the padded width H, a template parameter (32, 64, 128,
+//     256, 512 or 1024; one instantiation of every scene per width, in
 //     csrc/hidden{H}.cu); see chain.cuh for where weights and activations
 //     live at each width;
 //   * the chain's arithmetic, a template parameter: FP32 FFMA, for both of

@@ -3,8 +3,9 @@
 The sources under ``cudaneuralrender_torch/csrc/`` compile with ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers). Each ``.cu`` file is one translation unit
-(one per hidden width and chain, FP32 and three-pass, plus the C entry
-points); they compile in parallel processes, one ``nvcc`` each, and link
+(one per hidden width and chain, FP32 and three-pass, the C entry points of
+the render kernels, and the step-cost experiment kernels X1-X3 with their
+entries); they compile in parallel processes, one ``nvcc`` each, and link
 into the library. The build runs at
 first CUDA use, never at import, into ``cudaneuralrender_torch/build/``
 (listed in .gitignore) under a name keyed by a hash of the sources, headers
@@ -149,6 +150,30 @@ def load_library() -> ctypes.CDLL:
             _P, _P,                  # out, stream
         ]
         lib.cnr_mlp_forward.restype = _I
+        lib.cnr_x1_loop.argtypes = [
+            _I,                      # device
+            _P, _P, _P,              # x, w, b
+            _I, _I, _I,              # hidden, lanes, reps
+            _P, _P,                  # out, stream
+        ]
+        lib.cnr_x1_loop.restype = _I
+        lib.cnr_x2_stepcost.argtypes = [
+            _I,                      # device
+            _P, _P, _P,              # dirs, t0, origin
+            _P, _P, _P,              # weights (FP32 or bf16 hi), bf16 lo or NULL, biases
+            _I, _I, _I, _I, _I,      # n_layers, hidden, variant, three_pass, bf16_input
+            _I, _I,                  # n, steps
+            _P, _P,                  # t_out, stream
+        ]
+        lib.cnr_x2_stepcost.restype = _I
+        lib.cnr_x3_ablation.argtypes = [
+            _I,                      # device
+            _P, _P, _P,              # dirs, t0, origin
+            _P, _P, _P, _P, _P,      # weights (FP32 or NULL), bf16 hi, mid, lo or NULL, biases
+            _I, _I, _I, _I, _I,      # n_layers, hidden, variant, n, steps
+            _P, _P,                  # out, stream
+        ]
+        lib.cnr_x3_ablation.restype = _I
         lib.cnr_error_string.argtypes = [_I]
         lib.cnr_error_string.restype = ctypes.c_char_p
         _lib = lib

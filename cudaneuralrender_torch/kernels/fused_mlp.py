@@ -34,8 +34,11 @@ import torch
 from ..models.mlp import MLP
 from . import build
 
-#: The hidden widths the CUDA kernels are instantiated for.
-KERNEL_WIDTHS = (32, 64, 128, 256)
+#: The hidden widths the CUDA kernels are instantiated for. 1024 is the
+#: widest: the JAX package's kernels hold the whole [L, H, H] stack in VMEM,
+#: 37.7 MB at 9 layers and 1024 wide, and here the stack lives in the
+#: card's 50 MB L2 (csrc/chain.cuh).
+KERNEL_WIDTHS = (32, 64, 128, 256, 512, 1024)
 
 #: Launches of the CUDA forward kernel in this process.
 MLP_LAUNCHES = 0
@@ -44,27 +47,39 @@ MLP_LAUNCHES = 0
 #: The largest batch the plain chains hand cuBLAS in one product.
 ROW_BLOCK = 1 << 16
 
+#: The fewest rows the plain chains hand cuBLAS on the card, by padded
+#: width where it is not 1024: at width 512 cuBLAS sums in another order at
+#: 1024 rows (and at 1000-1528 and 2120-2808), in the kernels' order at
+#: every power of two from 2048 to 65536 (chip_smoke.py phase 10's sweep).
+CARD_MIN_ROWS = {512: 2048}
 
-def plain_rows(n: int, device: torch.device) -> int:
-    """Rows the plain versions hand the layer chain for a batch of n points
-    on ``device`` (the points first, zero rows after).
+
+def card_min_rows(hidden: int) -> int:
+    """The fewest rows the plain chains use on the card at a padded width."""
+    return CARD_MIN_ROWS.get(hidden, 1024)
+
+
+def plain_rows(n: int, hidden: int, device: torch.device) -> int:
+    """Rows the plain versions hand a layer chain ``hidden`` wide for a
+    batch of n points on ``device`` (the points first, zero rows after).
 
     BLAS libraries switch to other kernels, which sum in another order, for
     some row counts (the CPU's matrix-vector path at one row, cuBLAS's
     small-M kernels), and a point's SDF would then depend on how many
     points are evaluated beside it. On the H100, cuBLAS sums in the
-    kernels' order at every power of two from 1024 to 65536 rows at every
-    width, but not below 1024 rows, nor at some row counts between (at
-    width 256), nor at some rows of a 2^20-row product (at widths 64 and
-    128); chip_smoke.py phases 9 and 10 print the sweeps. So on the card a
-    batch is padded to the next power of two of at least 1024 rows, and
-    beyond ``ROW_BLOCK`` rows to whole blocks, which ``chain_in_blocks``
-    multiplies one by one; on the CPU to 256 rows."""
+    kernels' order at every power of two from 1024 (2048 at width 512) to
+    65536 rows at every width, but not below, nor at some row counts
+    between (at widths 256 and 512), nor at some rows of a 2^20-row product
+    (at widths 64 and 128); chip_smoke.py phases 9 and 10 print the sweeps.
+    So on the card a batch is padded to the next power of two of at least
+    ``card_min_rows`` rows, and beyond ``ROW_BLOCK`` rows to whole blocks,
+    which ``chain_in_blocks`` multiplies one by one; on the CPU to 256
+    rows."""
     if device.type != "cuda":
         return max(n, 256)
     if n > ROW_BLOCK:
         return -(-n // ROW_BLOCK) * ROW_BLOCK
-    return max(1024, 1 << (n - 1).bit_length())
+    return max(card_min_rows(hidden), 1 << (n - 1).bit_length())
 
 
 def chain_in_blocks(chain, x: torch.Tensor) -> torch.Tensor:
@@ -88,7 +103,7 @@ def padded_width(widest: int) -> int:
             return h
     raise ValueError(
         f"a {widest}-wide layer is wider than the kernels' {KERNEL_WIDTHS[-1]} "
-        "(ROADMAP section 2: K1 beyond width 256)")
+        "(ROADMAP section 2: the widest stack the kernels hold)")
 
 
 def pack_params(params: MLP) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
@@ -198,7 +213,7 @@ def mlp_forward_plain(weights: torch.Tensor, biases: torch.Tensor,
     [B, n_in] points through the padded chain. Returns the head [B]."""
     n, n_in = x.shape
     h = weights.shape[1]
-    xp = torch.zeros((plain_rows(n, x.device), h), dtype=torch.float32, device=x.device)
+    xp = torch.zeros((plain_rows(n, h, x.device), h), dtype=torch.float32, device=x.device)
     xp[:n, :n_in] = x
     return chain_in_blocks(lambda b: mlp_chain_plain(weights, biases, b, weights.shape[0]),
                            xp)[:n, 0]

@@ -29,8 +29,8 @@ on the bfloat16 halves of the weights (the HIGH ladder phase of
 ``mid_eps``, and ``coarse_precision="high"``). Any other name raises.
 
 The kernel marches nets of every width of ``fused_mlp.KERNEL_WIDTHS``
-(32, 64, 128, 256), the net padded to the smallest that holds it; the plain
-version marches any width ``pack_params`` accepts.
+(32, 64, 128, 256, 512, 1024), the net padded to the smallest that holds
+it; the plain version marches any width ``pack_params`` accepts.
 
 Launch counts (plain-version calls do not count): ``KERNEL_LAUNCHES``
 counts ``march_state``'s launches, ``SCENE_LAUNCHES`` the same launches per
@@ -179,7 +179,7 @@ def march_state_plain(
         pts = (origin.double() + dirs[idx].double() * ti.double()[:, None]).float()
         # Pad small batches, so a ray's SDF does not depend on how many rays
         # march beside it (fused_mlp.plain_rows).
-        x = torch.zeros((plain_rows(idx.numel(), t.device), hidden), dtype=torch.float32,
+        x = torch.zeros((plain_rows(idx.numel(), hidden, t.device), hidden), dtype=torch.float32,
                         device=t.device)
         x[:idx.numel(), :3] = pts
         if n_in == 4:

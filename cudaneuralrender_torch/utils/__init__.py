@@ -1,1 +1,1 @@
-"""Config, image I/O and the schedule memo store."""
+"""Config, image I/O, the schedule memo store and timing on the card."""

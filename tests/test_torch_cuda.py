@@ -9,13 +9,18 @@ Rays at 64x64 from chip_smoke.CAMERA for the staged renderer's three kinds
 of call, at the bar chip_smoke.py holds the kernel to (its constants):
 csg_demo under neural_raw and under every scene the kernel composes
 (chip_smoke.SCENES, the 4-input anim_demo under many_sphere included),
-each scene's launches counted under its name; csg_demo widened to 64, 128
-and 256 (chip_smoke.widen) under neural_raw, each width's launches counted.
+each scene's launches counted under its name; csg_demo widened to 64, 128,
+256 and 512 (chip_smoke.widen) under neural_raw, each width's launches
+counted, and to 1024 on the bounded calls (chip_smoke.BOUNDED_VARIANTS).
 The fused forward (K3) against its plain version at every width, on 65536
 seeded points, at chip_smoke.K3_ATOL. The three-pass chain (K2h) inside the
-march kernel at every width against its plain version, for the HIGH
-phase's calls (chip_smoke.HIGH_VARIANTS), and its SDF bit for bit; the
-cold-start kernel (K5) against its plain version at "default" and "high".
+march kernel at widths 32-512 against its plain version, for the HIGH
+phase's calls (chip_smoke.HIGH_VARIANTS), at 1024 on the cold coarse call,
+and its SDF bit for bit; the plain chains' summation order against the
+kernel's at 512 and 1024 (chip_smoke.row_sweep); the cold-start kernel (K5)
+against its plain version at "default" and "high". The step-cost
+experiment kernels X1-X3 against their plain versions at chip_smoke.X_RTOL
+of each output's own magnitude (chip_smoke.x_scale), every instantiation.
 """
 import os
 
@@ -69,7 +74,8 @@ def test_kernel_launch_counted(agreement):
     assert launches == (len(VARIANTS), len(VARIANTS))
 
 
-WIDE = {hidden: k for k, hidden, _, _ in chip_smoke.WIDE}
+WIDE = [h for h in chip_smoke.WIDE if not chip_smoke.SIZES[h].bounded]
+WIDEST = max(chip_smoke.SIZES)
 
 
 @pytest.fixture(scope="module", params=sorted(WIDE))
@@ -82,7 +88,7 @@ def wide_agreement(request):
 
     hidden = request.param
     dev = torch.device("cuda", 0)
-    params = chip_smoke.wide_params(cnr, WIDE[hidden], dev)
+    params = chip_smoke.wide_params(cnr, _copies(hidden), dev)
     cfg = cnr.RenderConfig(width=64, height=64)
     c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
     origin, dirs = camera_lib.generate_rays(c2w, 64, 64, cfg.focal)
@@ -103,7 +109,33 @@ def test_wide_kernel_launch_counted(wide_agreement):
     assert launches == len(VARIANTS)
 
 
-@pytest.mark.parametrize("hidden", [32] + sorted(WIDE))
+def _copies(hidden):
+    """How many times chip_smoke.widen widens csg_demo for a width."""
+    return hidden // 32
+
+
+def test_widest_kernel_matches_plain():
+    """Width 1024 on the bounded calls, 64x64 rays, launches counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import camera as camera_lib
+
+    dev = torch.device("cuda", 0)
+    params = chip_smoke.wide_params(cnr, _copies(WIDEST), dev)
+    cfg = cnr.RenderConfig(width=64, height=64)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
+    origin, dirs = camera_lib.generate_rays(c2w, 64, 64, cfg.focal)
+    before = megakernel.WIDTH_LAUNCHES[WIDEST]
+    result = chip_smoke.compare_kernel_with_plain(params, cfg, origin, dirs,
+                                                  variants=chip_smoke.BOUNDED_VARIANTS)
+    torch.cuda.synchronize()
+    assert megakernel.WIDTH_LAUNCHES[WIDEST] - before == len(chip_smoke.BOUNDED_VARIANTS)
+    chip_smoke.check_agreement(result)
+
+
+@pytest.mark.parametrize("hidden", [32] + sorted(WIDE) + [WIDEST])
 def test_forward_kernel_matches_plain(hidden):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -111,7 +143,7 @@ def test_forward_kernel_matches_plain(hidden):
     from cudaneuralrender_torch.kernels import fused_mlp
 
     dev = torch.device("cuda", 0)
-    params = chip_smoke.wide_params(cnr, WIDE.get(hidden, 1), dev)
+    params = chip_smoke.wide_params(cnr, _copies(hidden), dev)
     weights, biases, _, h = fused_mlp.packed_params(params)
     assert h == hidden
     pts = torch.as_tensor(np.random.default_rng(0).uniform(-1.2, 1.2, (65536, 3))
@@ -139,7 +171,7 @@ def high_agreement(request):
 
     hidden = request.param
     dev = torch.device("cuda", 0)
-    params = chip_smoke.wide_params(cnr, WIDE.get(hidden, 1), dev)
+    params = chip_smoke.wide_params(cnr, _copies(hidden), dev)
     cfg = cnr.RenderConfig(width=64, height=64)
     c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
     origin, dirs = camera_lib.generate_rays(c2w, 64, 64, cfg.focal)
@@ -176,6 +208,125 @@ def test_three_pass_sdf_matches_plain_chain(high_agreement):
     want = fused_mlp.mlp_chain_3pass_plain(w_hi, w_lo, biases, x, weights.shape[0])[:, 0]
     got = chip_smoke.kernel_sdf(params, pts, "high")
     assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+def test_widest_three_pass_kernel_matches_plain():
+    """K2h at width 1024: the cold coarse call at the HIGH phase's eps,
+    32x32 rays, and the kernel's SDF equal to the plain chain's on 1024
+    seeded points."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import fused_mlp, megakernel
+    from cudaneuralrender_torch.ops import camera as camera_lib
+    from cudaneuralrender_torch.ops import march
+
+    dev = torch.device("cuda", 0)
+    params = chip_smoke.wide_params(cnr, _copies(WIDEST), dev)
+    cfg = cnr.RenderConfig(width=32, height=32)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
+    origin, dirs = camera_lib.generate_rays(c2w, 32, 32, cfg.focal)
+    cold = march.init_state(origin, dirs, cfg.bound_center, cfg.bound_radius)
+    kw = dict(march_eps=chip_smoke.HIGH_EPS, precision="high", relax_omega=1.6,
+              return_resolve=True)
+    before = megakernel.THREE_PASS_LAUNCHES[WIDEST]
+    k = megakernel.march_state(params, origin, dirs, cold, cfg, **kw)
+    torch.cuda.synchronize()
+    assert megakernel.THREE_PASS_LAUNCHES[WIDEST] == before + 1
+    p = megakernel.march_state_plain(params, origin, dirs, cold, cfg, **kw)
+    chip_smoke.check_agreement({"coarse": chip_smoke.agreement(k, p)})
+    pts = torch.as_tensor(np.random.default_rng(1).uniform(-1.2, 1.2, (1024, 3))
+                          .astype(np.float32), device=dev)
+    weights, biases, n_in, h = fused_mlp.packed_params(params)
+    w_hi, w_lo = fused_mlp.packed_hi_lo(params)
+    x = torch.zeros((1024, h), dtype=torch.float32, device=dev)
+    x[:, :n_in] = pts
+    want = fused_mlp.mlp_chain_3pass_plain(w_hi, w_lo, biases, x, weights.shape[0])[:, 0]
+    assert torch.equal(chip_smoke.kernel_sdf(params, pts, "high"), want)
+
+
+@pytest.mark.parametrize("hidden", [512, WIDEST])
+def test_plain_chains_sum_in_kernel_order(hidden):
+    """The row counts the plain versions use sum in the kernel's order
+    (chip_smoke.row_sweep raises otherwise), at the new widths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+
+    params = chip_smoke.wide_params(cnr, _copies(hidden), torch.device("cuda", 0))
+    chip_smoke.row_sweep(params, "", n_points=1 << 16)
+
+
+def _x_rays(n=4096):
+    """n rays of chip_smoke.CAMERA through a 64x64 image in the JAX layout:
+    dirs [3, n], t0 [1, n] = 0.8, origin [3, 1]."""
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.ops import camera as camera_lib
+
+    dev = torch.device("cuda", 0)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
+    origin, dirs = camera_lib.generate_rays(c2w, 64, 64, 1.0)
+    return (dirs[:n].t().contiguous(), torch.full((1, n), 0.8, device=dev),
+            origin.reshape(3, 1).contiguous())
+
+
+@pytest.mark.parametrize("hidden", [32, 128])
+def test_x1_kernel_matches_plain(hidden):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cudaneuralrender_torch.benchmarks import exp_blockdiag as x1
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(hidden)
+    x = torch.as_tensor(rng.normal(size=(hidden, 4096)).astype(np.float32), device=dev)
+    w = torch.as_tensor((rng.normal(size=(hidden, hidden)) * (1.2 / hidden ** 0.5))
+                        .astype(np.float32), device=dev)
+    b = torch.as_tensor((rng.normal(size=hidden) * 0.1).astype(np.float32), device=dev)
+    before = x1.LAUNCHES[hidden]
+    got = x1.chain(x, w, b, reps=18)
+    torch.cuda.synchronize()
+    assert x1.LAUNCHES[hidden] == before + 1
+    chip_smoke.check_outputs("x1", chip_smoke.compare_outputs(got, x1.chain_plain(x, w, b, 18),
+                                                              chip_smoke.x_scale("x1")))
+
+
+@pytest.mark.parametrize("chain", ["fp32", "three_pass", "bf16_input"])
+@pytest.mark.parametrize("variant", ["chain_only", "march_state", "march_relax"])
+def test_x2_kernel_matches_plain(variant, chain):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cudaneuralrender_torch.benchmarks import demo_stack
+    from cudaneuralrender_torch.benchmarks import exp_stepcost as x2
+
+    weights, biases = demo_stack(torch.device("cuda", 0))
+    kw = dict(steps=16, three_pass=chain == "three_pass",
+              act_dtype=torch.bfloat16 if chain == "bf16_input" else torch.float32)
+    key = variant + ("_3pass" if kw["three_pass"] else "")
+    before = x2.LAUNCHES[key]
+    got = x2.step_cost(variant, weights, biases, *_x_rays(), **kw)
+    torch.cuda.synchronize()
+    assert x2.LAUNCHES[key] == before + 1
+    want = x2.step_cost_plain(variant, weights, biases, *_x_rays(), **kw)
+    chip_smoke.check_outputs("x2", chip_smoke.compare_outputs(got, want, chip_smoke.x_scale("x2")))
+
+
+@pytest.mark.parametrize("variant", ["v0", "v1", "v2", "v3", "v5", "v5p"])
+def test_x3_kernel_matches_plain(variant):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cudaneuralrender_torch.benchmarks import exp_stepcost2 as x3
+
+    dev = torch.device("cuda", 0)
+    weights, biases, dirs, t0, origin = x3.setup(dev, n=4096)
+    if variant in ("v3", "v5", "v5p"):
+        t0 = torch.zeros_like(t0)  # t then carries the SDF at full precision
+    before = x3.LAUNCHES[variant]
+    got = x3.ablation(variant, weights, biases, dirs, t0, origin, steps=2)
+    torch.cuda.synchronize()
+    assert x3.LAUNCHES[variant] == before + 1
+    want = x3.ablation_plain(variant, weights, biases, dirs, t0, origin, steps=2)
+    chip_smoke.check_outputs("x3", chip_smoke.compare_outputs(got, want,
+                                                              chip_smoke.x_scale(variant, 2)))
 
 
 @pytest.mark.parametrize("precision", ["default", "high"])

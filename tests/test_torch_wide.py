@@ -1,17 +1,19 @@
-"""SDF networks 64-256 wide: the port against the JAX package on the CPU.
+"""SDF networks 64-1024 wide: the port against the JAX package on the CPU.
 
-Nets: csg_demo widened k = 2, 4, 8 times by ``chip_smoke.widen`` (the same
-function, 3->32k x8->1, copies with distinct weights in permuted
+Nets: csg_demo widened k = 2, 4, 8 and 16 times by ``chip_smoke.widen``
+(the same function, 3->32k x8->1, copies with distinct weights in permuted
 positions), anim_demo widened (the 4-input net), and random nets from the
-JAX package's ``init_mlp`` at the sizes of tests/test_pallas.py:290-321.
+JAX package's ``init_mlp`` at the sizes of tests/test_pallas.py:290-321 and
+at 512 and 1024 wide.
 Weights are carried across as numpy arrays; points and rays are made from
 fixed seeds. The JAX side runs its Pallas kernels in interpret mode, as its
 own tests do; this package runs the kernels' plain versions (CPU tensors).
 Tolerances, each the JAX package's own bar:
   * the fused forward (K3): atol 1e-5 (test_pallas.py:295-308);
-  * the march (K1): converged flags agree on >99%, t within 1e-4 where both
-    converged, resolve steps equal on >=99%, equal step counters
-    (test_pallas.py:49-72);
+  * the march (K1, and K2h at precision HIGH): converged flags agree on
+    >99%, t within 1e-4 where both converged, resolve steps equal on >=99%,
+    equal step counters (test_pallas.py:49-72); at 1024 the refine calls
+    bounded at 8 steps, and whole against a float64 witness (MARCH_NETS);
   * dense ``render_image`` with use_pallas: atol 1e-5 (test_pallas.py:311-321);
   * ``render_staged``: hits agree on >=99%, >=97% of common hits within
     1e-3 (test_render.py:85-101).
@@ -78,16 +80,22 @@ def test_widen_is_exact(k):
 
 
 def test_padded_width():
-    assert [fused_t.padded_width(h) for h in (1, 32, 33, 64, 100, 128, 129, 256)] == [
-        32, 32, 64, 64, 128, 128, 256, 256]
+    assert [fused_t.padded_width(h) for h in (1, 32, 33, 64, 100, 128, 129, 256, 257, 512,
+                                              513, 1024)] == [
+        32, 32, 64, 64, 128, 128, 256, 256, 512, 512, 1024, 1024]
     with pytest.raises(ValueError, match="ROADMAP section 2"):
-        fused_t.padded_width(257)
+        fused_t.padded_width(1025)
 
 
-@pytest.mark.parametrize("sizes", [(3, 64, 64, 64, 1), (3, 128, 128, 1), (3, 256, 256, 1)],
-                         ids=["64", "128", "256"])
+@pytest.mark.parametrize("sizes", [(3, 64, 64, 64, 1), (3, 128, 128, 1), (3, 256, 256, 1),
+                                   (3, 512, 512, 1), (3, 1024, 1024, 1), "csg_demo_x16"],
+                         ids=["64", "128", "256", "512", "1024", "csg_demo_x16"])
 def test_mlp_forward_plain_matches_jax(sizes):
-    pj, pt = _init_jax(0, sizes)
+    if sizes == "csg_demo_x16":  # the widened shipped net, 512 wide
+        pj, pt = _both(chip_smoke.widen(_layers(CSG), 16, seed=16))
+        sizes = (3, 512)
+    else:
+        pj, pt = _init_jax(0, sizes)
     wj, bj, n_in_j, h_j = fused_j.pack_params(pj)
     w, b, n_in, h = fused_t.pack_params(pt)
     assert (n_in, h) == (n_in_j, h_j) == (3, max(sizes))
@@ -117,12 +125,28 @@ def test_neural_sdf_fn_kernel_matches_jax(asset, k, frame):
 
 # name -> (march_eps, num_steps, relax_omega)
 VARIANTS = {"coarse": (0.05, None, 1.6), "rung0": (1e-6, 16, 0.0), "terminal": (1e-6, None, 1.6)}
-MARCH_NETS = {"random_128": 16, "csg_demo_x2": 32}  # name -> image side
+# name -> (image side, the refine calls' step bound or None). At 1024 wide
+# XLA:CPU and torch's CPU products sum the 1024 terms in different orders:
+# the SDF of random_1024 is bit-equal on 5% of 4096 seeded points, each
+# side's error against float64 up to ~1e-6 (test_march_1024_refine_float64_
+# witness), as large as the refine rungs' eps 1e-6. Over the whole refine
+# calls rays then resolve a step or more apart on over 1% of the lanes, in
+# both packages alike against a float64 march. So the 1024-wide net's
+# refine calls are held to the bar bounded at 8 steps (rung 0 from its 16,
+# the terminal rung from running to dry), where both sides agree; the whole
+# calls are held against the float64 witness below. On the card the kernel
+# is held to its plain version on every call.
+MARCH_NETS = {"random_128": (16, None), "csg_demo_x2": (32, None), "random_512": (16, None),
+              "random_1024": (16, 8)}
+MARCH_CASES = [(net, v) for net in MARCH_NETS for v in VARIANTS]
+# The whole refine calls at 1024, for the float64 witness.
+WITNESS_NET = "random_1024_whole"
 
 
 def _net(name):
-    if name == "random_128":
-        return _init_jax(2, (3, 128, 128, 1))
+    if name.startswith("random_"):  # seed 4 crosses the bounding sphere at 512 and 1024
+        h = int(name.split("_")[1])
+        return _init_jax(2 if h == 128 else 4, (3, h, h, 1))
     return _both(chip_smoke.widen(_layers(CSG), 2, seed=3))
 
 
@@ -130,12 +154,13 @@ def _state_np(s):
     return {k: np.array(getattr(s, k)) for k in ("t", "budget", "active", "converged", "steps")}
 
 
-@pytest.fixture(scope="module", params=list(MARCH_NETS))
+@pytest.fixture(scope="module")
 def wide_chain(request):
-    """Both packages' outputs for the staged renderer's three kinds of
-    march call, each starting from the JAX package's output of the one
-    before (the refine entry re-marks the near set active)."""
-    res = MARCH_NETS[request.param]
+    """Both packages' outputs for the staged renderer's kinds of march call
+    (MARCH_NETS, and WITNESS_NET: random_1024 with whole refine calls),
+    each starting from the JAX package's output of the one before (the
+    refine entry re-marks the near set active); and the rays."""
+    res, bound = MARCH_NETS.get(request.param, (16, None))
     pj, pt = _net(request.param)
     cfg_j = cj.RenderConfig(width=res, height=res)
     cfg_t = ct.RenderConfig(width=res, height=res)
@@ -143,8 +168,11 @@ def wide_chain(request):
     origin, dirs = (np.array(a) for a in cam_j.generate_rays(c2w, res, res, cfg_j.focal))
     s = _state_np(march_j.init_state(jnp.asarray(origin), jnp.asarray(dirs),
                                      cfg_j.bound_center, cfg_j.bound_radius))
-    out = {}
-    for variant, (eps, num_steps, omega) in VARIANTS.items():
+    out = {"rays": (origin, dirs, pj, pt)}
+    for variant in VARIANTS:
+        eps, num_steps, omega = VARIANTS[variant]
+        if bound is not None and variant != "coarse":
+            num_steps = bound if num_steps is None else min(num_steps, bound)
         if variant == "rung0":
             near = s["converged"] | s["active"]
             tnear, tfar, bhit = (np.asarray(a) for a in march_j.intersect_sphere(
@@ -171,9 +199,14 @@ def wide_chain(request):
     return out
 
 
-@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("wide_chain,variant", MARCH_CASES, indirect=["wide_chain"])
 def test_march_state_plain_matches_jax_wide(wide_chain, variant):
-    entry, (sj, rj), (st, rt) = wide_chain[variant]
+    _check_march_bar(wide_chain[variant])
+
+
+def _check_march_bar(call):
+    """test_pallas.py:49-72's bar on (entry, JAX output, port output)."""
+    entry, (sj, rj), (st, rt) = call
     assert entry["active"].sum() > 20  # the call has work to do
     assert (sj["converged"] == st["converged"]).mean() > 0.99
     both = sj["converged"] & st["converged"]
@@ -182,6 +215,116 @@ def test_march_state_plain_matches_jax_wide(wide_chain, variant):
     assert int(st["steps"]) == int(sj["steps"])
     assert (st["active"] == sj["active"]).mean() > 0.99
     assert (rt == rj).mean() >= 0.99, (rt != rj).sum()
+
+
+def _sdf64(pj, pts):
+    """The JAX net's SDF at points [n, 3] in float64."""
+    x = np.asarray(pts, np.float64)
+    for i, layer in enumerate(pj):
+        x = x @ np.asarray(layer.w, np.float64) + np.asarray(layer.b, np.float64)
+        if i + 1 < len(pj):
+            x = np.maximum(x, 0.0)
+    return x[:, 0]
+
+
+def _march64(pj, origin, dirs, s, eps, num_steps, omega, max_steps):
+    """``march_state_plain``'s march in float64 (t, budget, points, SDF),
+    from the float32 entry state ``s``: (converged, t, lane steps)."""
+    t, budget = s["t"].astype(np.float64), s["budget"].astype(np.float64)
+    act, conv = s["active"].copy(), s["converged"].copy()
+    start = step = int(s["steps"])
+    res = np.full(act.shape, start)
+    prev_r, step_len = np.zeros_like(t), np.zeros_like(t)
+    relax = omega > 1.0
+    limit = max_steps if num_steps is None else min(max_steps, start + num_steps)
+    while step < limit and act.any():
+        idx = np.nonzero(act)[0]
+        ti, pr, sl = t[idx], prev_r[idx], step_len[idx]
+        d = _sdf64(pj, origin.astype(np.float64) + dirs[idx].astype(np.float64) * ti[:, None])
+        sor_fail = (sl > pr) & (d + pr < sl) if relax else np.zeros(idx.size, bool)
+        near = ~sor_fail & (d < eps)
+        om = np.where(sl < 0.0, 1.0, omega) if relax else 1.0
+        stepv = np.where(sor_fail, pr - sl, np.where(near, d, om * d))
+        bi = budget[idx] - stepv
+        moved = sor_fail | ~(bi <= 0.0)
+        conv_now = moved & near
+        still = moved & ~conv_now
+        budget[idx] = bi
+        t[idx] = np.where(moved, ti + stepv, ti)
+        conv[idx] |= conv_now
+        act[idx] = still
+        res[idx] = np.where(still, res[idx], step + 1)
+        if relax:
+            prev_r[idx] = np.where(moved & ~sor_fail, d, pr)
+            step_len[idx] = np.where(moved, stepv, sl)
+        step += 1
+    return conv, t, np.where(act, step, res)
+
+
+@pytest.mark.parametrize("wide_chain", [WITNESS_NET], indirect=True)
+@pytest.mark.parametrize("variant", ["rung0", "terminal"])
+def test_march_1024_refine_float64_witness(wide_chain, variant):
+    """The whole refine calls at 1024 wide (rung 0's 16 steps, the terminal
+    rung run to dry), against a float64 witness. At the points the call
+    starts from, the port's SDF is as close to float64 as the JAX
+    package's (mean |error| within 1.25x, max within 2x). The two float32
+    marches agree with each other and each with the float64 march on the
+    converged flags (>99%) and on t where both converged (1e-4). Their
+    resolve steps, which float32 cannot decide at eps 1e-6, are printed:
+    the port against JAX, and each against float64."""
+    origin, dirs, pj, pt = wide_chain["rays"]
+    entry, (sj, rj), (st, rt) = wide_chain[variant]
+    eps, num_steps, omega = VARIANTS[variant]
+    act = entry["active"]
+    assert act.sum() > 20
+    pts = (origin.astype(np.float64) + dirs[act].astype(np.float64)
+           * entry["t"][act, None].astype(np.float64)).astype(np.float32)
+    want = _sdf64(pj, pts)
+    wj, bj, _, _ = fused_j.pack_params(pj)
+    w, b, _, _ = fused_t.pack_params(pt)
+    err_j = np.abs(np.asarray(fused_j.mlp_forward_pallas(wj, bj, jnp.asarray(pts),
+                                                         interpret=True)) - want)
+    err_t = np.abs(fused_t.mlp_forward(w, b, torch.from_numpy(pts)).numpy() - want)
+    print(f"{variant}: |SDF - float64| at {act.sum()} points: port mean {err_t.mean():.3g} "
+          f"max {err_t.max():.3g}, JAX mean {err_j.mean():.3g} max {err_j.max():.3g}")
+    assert err_t.mean() <= 1.25 * err_j.mean() and err_t.max() <= 2.0 * err_j.max()
+    conv64, t64, r64 = _march64(pj, origin, dirs, entry, eps, num_steps, omega,
+                                ct.RenderConfig().max_steps)
+    s64 = dict(converged=conv64, t=t64)
+    for a, c in ((st, sj), (st, s64), (sj, s64)):
+        assert (a["converged"] == c["converged"]).mean() > 0.99
+        both = a["converged"] & c["converged"]
+        assert both.sum() > 0
+        np.testing.assert_allclose(a["t"][both], c["t"][both], rtol=0, atol=1e-4)
+    print(f"{variant}: resolve steps equal, port vs JAX {(rt == rj).mean():.4f}, port vs "
+          f"float64 {(rt == r64).mean():.4f}, JAX vs float64 {(rj == r64).mean():.4f}; step "
+          f"counters port {int(st['steps'])}, JAX {int(sj['steps'])}")
+
+
+def test_march_state_high_plain_matches_jax_512():
+    """The three-pass chain (K2h) at width 512: a cold coarse call at the
+    HIGH phase's eps 1e-3 on csg_demo widened 16 times, 16x16 rays, against
+    the JAX megakernel at Precision.HIGH in interpret mode."""
+    pj, pt = _both(chip_smoke.widen(_layers(CSG), 16, seed=5))
+    res = 16
+    cfg_j = cj.RenderConfig(width=res, height=res)
+    c2w, _ = cam_j.view_matrices(cj.Camera(**CAM))
+    origin, dirs = (np.array(a) for a in cam_j.generate_rays(c2w, res, res, cfg_j.focal))
+    s = _state_np(march_j.init_state(jnp.asarray(origin), jnp.asarray(dirs),
+                                     cfg_j.bound_center, cfg_j.bound_radius))
+    kw = dict(march_eps=1e-3, relax_omega=1.6, return_resolve=True)
+    jo, jr = mk_j.march_pallas_state(
+        pj, jnp.asarray(origin), jnp.asarray(dirs),
+        march_j.MarchState(**{k: jnp.asarray(v) for k, v in s.items()}), cfg_j,
+        tile=dirs.shape[0], interpret=True, precision=jax.lax.Precision.HIGH, **kw)
+    state_t = march_t.MarchState(
+        t=torch.tensor(s["t"]), budget=torch.tensor(s["budget"]),
+        active=torch.tensor(s["active"]), converged=torch.tensor(s["converged"]),
+        steps=torch.tensor(int(s["steps"]), dtype=torch.int32))
+    to, tr = mk_t.march_state(pt, torch.tensor(origin), torch.tensor(dirs), state_t,
+                              ct.RenderConfig(width=res, height=res), precision="high", **kw)
+    _check_march_bar((s, (_state_np(jo), np.asarray(jr).astype(np.int64)),
+                      (_state_np(to), tr.numpy().astype(np.int64))))
 
 
 def test_render_image_use_pallas_matches_jax():
@@ -215,8 +358,8 @@ def test_width_above_256_raises_before_any_library_load(monkeypatch):
 
     monkeypatch.setattr(build, "load_library", no_load)
     pt = ct.from_numpy_params(
-        [(np.ones((3, 300), np.float32), np.zeros(300, np.float32)),
-         (np.ones((300, 1), np.float32), np.zeros(1, np.float32))], device="cpu")
+        [(np.ones((3, 1100), np.float32), np.zeros(1100, np.float32)),
+         (np.ones((1100, 1), np.float32), np.zeros(1, np.float32))], device="cpu")
     cfg = ct.RenderConfig(width=4, height=4)
     dirs = torch.ones((4, 3))
     state = march_t.init_state(torch.zeros(3), dirs, cfg.bound_center, cfg.bound_radius)
