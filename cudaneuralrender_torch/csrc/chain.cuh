@@ -5,38 +5,46 @@
 // the Pallas kernels inline on zero-padded [H, T] activations; the forward
 // kernel replaces pallas/fused_mlp.py::_fused_mlp_kernel (launched by
 // mlp_forward_pallas, used by neural_sdf_fn_pallas for config.use_pallas).
-// The three-pass chain (K2h, at the end of this file) replaces
-// pallas/fused_mlp.py::_mlp_chain_3pass, the emulated Precision.HIGH chain on
-// the bfloat16 halves of the weights (split_hi_lo), which the march kernel
-// runs at precision "high".
+// The three-pass chain (K2h) replaces pallas/fused_mlp.py::_mlp_chain_3pass,
+// the emulated Precision.HIGH chain on the bfloat16 halves of the weights
+// (split_hi_lo), which the march kernel runs at precision "high".
 //
 // What bounds the chain on this card: arithmetic. A 9-layer net costs
 // 3H + 7H^2 + H fused multiply-adds per point (the true 3-input first layer,
 // the 1-column head): 7.3k at H=32, 28.9k at 64, 115k at 128, 460k at 256,
 // 1.84M at 512, 7.34M at 1024.
-// One thread evaluates one point, so every thread of a warp needs the same
-// weight at the same time: weights are read at warp-uniform addresses, one
-// broadcast per 4 fused multiply-adds.
 //
-// Design, by width:
-//   * H = 32, 64: the whole padded stack [L, H, H] + [L, H] is staged into
-//     shared memory once per block (37 KB at L=9, H=32; 150 KB at 64: one
-//     block per SM, so 256 threads per block at 64); activations x[H] and
-//     y[H] live in registers (mlp_sdf).
-//   * H = 128 to 1024: the stack (590 KB / 2.36 MB / 9.4 MB / 37.7 MB at
-//     L=9) does not fit in shared memory; it is read through the read-only
-//     path (__ldg) and lives in the 50 MB L2. Each layer is computed in
-//     chunks of 32 outputs, accumulated in registers; the two activation
-//     buffers [2, H] live in the thread's local memory (mlp_sdf_wide: a
-//     1 / 2 / 4 / 8 KB frame per thread, which CUDA reserves for every
-//     resident thread, 2.2 GB at 1024). Nothing synchronises the block after
-//     the weights are staged, so each ray still exits on its own. 1024 is
-//     the widest: the JAX package's kernels hold the whole stack in VMEM,
-//     and a wider 9-layer stack exceeds this card's L2 too.
-// Each output sums its products in input order from zero and adds the bias
-// last, at every width: output chunks keep that order, and the input
-// dimension is never split. The first layer contracts only the true 3 or 4
-// inputs (the frame is the 4th), and the head computes only column 0.
+// Design, by width and arithmetic:
+//   * the FP32 chain inside the march kernel (K1, mlp_sdf / mlp_sdf_wide):
+//     one thread per point on FFMA, so every thread of a warp needs the same
+//     weight at the same time: weights are read at warp-uniform addresses,
+//     one broadcast per 4 fused multiply-adds.
+//     - H = 32, 64: the whole padded stack [L, H, H] + [L, H] is staged into
+//       shared memory once per block (37 KB at L=9, H=32; 150 KB at 64: one
+//       block per SM, so 256 threads per block at 64); activations x[H] and
+//       y[H] live in registers (mlp_sdf).
+//     - H = 128 to 1024: the stack (590 KB / 2.36 MB / 9.4 MB / 37.7 MB at
+//       L=9) does not fit in shared memory; it is read through the read-only
+//       path (__ldg) and lives in the 50 MB L2. Each layer is computed in
+//       chunks of 32 outputs, accumulated in registers; the two activation
+//       buffers [2, H] live in the thread's local memory (mlp_sdf_wide: a
+//       1 / 2 / 4 / 8 KB frame per thread, which CUDA reserves for every
+//       resident thread, 2.2 GB at 1024). Nothing synchronises the block
+//       after the weights are staged, so each ray still exits on its own.
+//     Each output sums its products in input order from zero and adds the
+//     bias last: output chunks keep that order, and the input dimension is
+//     never split.
+//   * the fused forward K3: 3xTF32 on the tensor cores over a tile of points
+//     per block, activations in shared memory (see "K3" below).
+//   * the three-pass chain K2h inside the march kernel: bf16 MMA over the 32
+//     rays of a warp, activations in registers (32, 64) or in the warp's
+//     shared memory (128-1024) (see "K2h on the tensor cores" below). The
+//     per-thread FFMA three-pass chain (chain_sdf_3pass) stays for the
+//     step-cost experiments X2 and X3 (csrc/experiments.cu).
+// 1024 is the widest: the JAX package's kernels hold the whole stack in
+// VMEM, and a wider 9-layer stack exceeds this card's L2 too. The first
+// layer contracts only the true 3 or 4 inputs (the frame is the 4th), and
+// the head computes only column 0.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,6 +52,7 @@
 #include <stdint.h>
 
 #include "launch.h"
+#include "mma.cuh"
 
 namespace cnr {
 
@@ -54,7 +63,6 @@ __host__ __device__ constexpr int block_for(int h) { return h == 64 ? 256 : 128;
 __host__ __device__ constexpr bool smem_weights(int h) { return h <= 64; }
 
 // Dynamic shared memory of one block: the stack and its biases, or nothing.
-// The three-pass chain's two bfloat16 halves take what the FP32 stack takes.
 inline size_t smem_bytes(int h, int n_layers) {
   return smem_weights(h) ? sizeof(float) * static_cast<size_t>(n_layers) * h * (h + 1) : 0;
 }
@@ -62,18 +70,24 @@ inline size_t smem_bytes(int h, int n_layers) {
 // Output chunk of the wide chain (accumulators held in registers).
 constexpr int kChunk = 32;
 
-// Make a kernel's shared-memory needs explicit before its launch: above
-// 48 KB the kernel must opt in, and a stack too large for the card fails
-// here, with the error the launch would have given.
+// Allow a launch above 48 KB of dynamic shared memory (a size too large for
+// the card fails here, with the error the launch would have given).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Make the FP32 chain's shared-memory needs explicit before its launch: with
+// the stack in L2, all on-chip memory to L1, which caches it; else
+// allow_smem.
 template <typename Kernel>
 cudaError_t prepare_launch(Kernel kernel, int h, size_t smem) {
-  if (!smem_weights(h))  // all on-chip memory to L1, which caches the stack
+  if (!smem_weights(h))
     return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                 cudaSharedmemCarveoutMaxL1);
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem));
-  return cudaSuccess;
+  return allow_smem(kernel, smem);
 }
 
 // Activations in registers, weights from shared memory (H = 32, 64). Each
@@ -265,40 +279,202 @@ __device__ __forceinline__ void stage_weights(const float* __restrict__ weights,
   }
 }
 
-// K3: the chain's head value at each of n points x [n, n_inputs].
+// ---------------------------------------------------------------------------
+// K3: the fused forward, 3xTF32 on the tensor cores.
+//
+// Replaces pallas/fused_mlp.py::_fused_mlp_kernel (mlp_forward_pallas, whose
+// default precision is HIGHEST), so its result is FP32-grade: each product
+// is a_big * b_big + a_big * b_small + a_small * b_big (mma.cuh mma_3xtf32),
+// big = tf32(v), small = tf32(v - big), summed in FP32. That runs at the
+// tf32 rate, 495 TFLOP/s / 3, where FP32 FFMA gives 67: the bound of an
+// FP32-accurate chain on this card is 0.406x the FFMA bound. The TPU's
+// six-pass bf16 HIGHEST would cost six bf16 products at 989 TFLOP/s, the
+// same rate, with more splitting.
+//
+// Design. A block owns a tile of kPoints points and runs every layer on it:
+//   * the tile's activations [kPoints, H] FP32 live in shared memory (row
+//     stride H + 8 floats: a lane's a0/a2 pair is one conflict-free 64-bit
+//     load); the first layer (3 or 4 true inputs) runs on FFMA straight
+//     into it, each output summed in input order from zero, bias last;
+//   * each hidden layer's output columns are split between the warps: a
+//     warp owns kTilesN n-tiles of 8 columns for all kPoints rows and keeps
+//     them in accumulator registers while every warp reads the input; after
+//     a block barrier the warps write bias + ReLU back over the input;
+//   * weights are fragment-ordered FP32 (fused_mlp.packed_mma(params,
+//     "tf32")): a lane's two B values for an n-tile and k-chunk are one
+//     64-bit load from L2, coalesced across the warp, prefetched one
+//     k-chunk ahead, split into big/small in registers. The stack is not
+//     stored pre-split: at 1024 two copies of 37.7 MB would exceed the
+//     50 MB L2. As each warp reads only its own columns, a block reads
+//     each weight byte once per layer; a shared-memory ring would copy them
+//     without reuse, so there is none, and the stack is not staged at 32/64;
+//   * the head computes column 0 only, on FFMA: a warp per row, lanes
+//     strided over the input, a shuffle reduction, bias last.
+// A weight byte read from L2 serves kPoints points: L2 bytes per point are
+// 4 * (L - 2) * H^2 / kPoints + the head and first layer (chip_smoke.py
+// prints them). Budget by width (227 KB of shared memory and 64K registers
+// an SM; accumulators = kPoints / 16 * kTilesN * 4 per lane; registers and
+// spills as ptxas reports them for sm_90a, chip_smoke.py phase 2):
+//     H     kPoints  warps  n-tiles/warp  accumulators  shared memory  registers  spill st/ld
+//     32    128      4      1             32            20.0 KB        113        0 / 0 B
+//     64    128      8      1             32            36.0 KB        107        0 / 0 B
+//     128   64       8      2             32            34.0 KB        92         0 / 0 B
+//     256   64       8      4             64            66.0 KB        168        0 / 0 B
+//     512   64       16     4             64            130.0 KB       128        88 / 64 B
+//     1024  32       16     8             64            129.0 KB       128        208 / 156 B
+// At 512 and 1024, 512 threads a block leave 128 registers a thread; at
+// 1024 two 64-point tiles would need 264 KB, so the tile is 32 points and
+// each weight serves 32 (128 KB of L2 reads per point per layer). There the
+// 128-register cap spills: the accumulators, the prefetched B pair and the
+// big/small splits do not fit, and ptxas stores 88 B (512) and 208 B (1024)
+// a thread to local memory. Their cost is not measured apart (no profiler
+// reads it on the card); K3 runs at 0.74x (512) and 0.60x (1024) of its
+// FP32 bound's speed and 1.7x / 1.16x the cuBLAS plain version's, and
+// fewer warps a block (more registers a thread) or clusters sharing the
+// weight tiles (TMA multicast) are the next step (ROADMAP section 2b).
 template <int H>
-__global__ void __launch_bounds__(block_for(H))
+struct ForwardTile {
+  static constexpr int kPoints = H <= 64 ? 128 : (H <= 512 ? 64 : 32);
+  static constexpr int kWarps = H == 32 ? 4 : (H <= 256 ? 8 : 16);
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kTilesN = H / 8 / kWarps;
+  static constexpr int kTilesM = kPoints / 16;
+  static constexpr int kStride = H + 8;
+  static_assert(kTilesN >= 1 && kTilesN * kWarps * 8 == H, "warps must split the n-tiles");
+};
+
+__host__ __device__ constexpr size_t forward_smem_bytes(int h) {
+  return h == 32     ? sizeof(float) * ForwardTile<32>::kPoints * ForwardTile<32>::kStride
+         : h == 64   ? sizeof(float) * ForwardTile<64>::kPoints * ForwardTile<64>::kStride
+         : h == 128  ? sizeof(float) * ForwardTile<128>::kPoints * ForwardTile<128>::kStride
+         : h == 256  ? sizeof(float) * ForwardTile<256>::kPoints * ForwardTile<256>::kStride
+         : h == 512  ? sizeof(float) * ForwardTile<512>::kPoints * ForwardTile<512>::kStride
+                     : sizeof(float) * ForwardTile<1024>::kPoints * ForwardTile<1024>::kStride;
+}
+
+// K3: the chain's head value at each of n points x [n, n_inputs]. weights
+// [L, H, H] (the first layer and the head are read from it), packed the
+// same stack in tf32 fragment order [L, H/8, H/8, 32] float2.
+template <int H>
+__global__ void __launch_bounds__(ForwardTile<H>::kThreads)
 mlp_forward_kernel(const float* __restrict__ x, const float* __restrict__ weights,
-                   const float* __restrict__ biases, int n_layers, int n_inputs, int n,
-                   float* __restrict__ out) {
-  const float* w;
-  const float* b;
-  stage_weights<H>(weights, biases, n_layers, w, b);
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  float in[4] = {0.f, 0.f, 0.f, 0.f};
+                   const float2* __restrict__ packed, const float* __restrict__ biases,
+                   int n_layers, int n_inputs, int n, float* __restrict__ out) {
+  using T = ForwardTile<H>;
+  constexpr int KT = H / 8, NT = T::kTilesN, MT = T::kTilesM, S = T::kStride;
+  extern __shared__ float4 smem4[];
+  float* act = reinterpret_cast<float*>(smem4);
+  const int row0 = blockIdx.x * T::kPoints;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+
+  if (n_layers == 1) {  // the head is the first layer
+    for (int m = threadIdx.x; m < T::kPoints && row0 + m < n; m += T::kThreads) {
+      float d = 0.f;
+      for (int i = 0; i < n_inputs; ++i)
+        d = fmaf(x[static_cast<int64_t>(row0 + m) * n_inputs + i], __ldg(weights + i * H), d);
+      out[row0 + m] = __fadd_rn(d, __ldg(biases));
+    }
+    return;
+  }
+
+  for (int e = threadIdx.x; e < T::kPoints * H; e += T::kThreads) {
+    const int m = e / H, o = e % H;
+    float d = 0.f;
+    if (row0 + m < n)
+      for (int i = 0; i < n_inputs; ++i)
+        d = fmaf(x[static_cast<int64_t>(row0 + m) * n_inputs + i], __ldg(weights + i * H + o), d);
+    act[m * S + o] = fmaxf(__fadd_rn(d, __ldg(biases + o)), 0.f);
+  }
+  __syncthreads();
+
+  const int n0 = warp * NT;  // this warp's first n-tile
+#pragma unroll 1
+  for (int l = 1; l < n_layers - 1; ++l) {
+    const float2* wl = packed + static_cast<size_t>(l) * KT * KT * 32 + n0 * 32 + lane;
+    float acc[NT][MT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (i < n_inputs) in[i] = x[static_cast<int64_t>(r) * n_inputs + i];
-  out[r] = chain_sdf<H>(w, b, n_layers, n_inputs, in[0], in[1], in[2], in[3]);
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][mt][c] = 0.f;
+    float2 bnext[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) bnext[j] = __ldg(wl + j * 32);
+#pragma unroll 1
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t abig[MT][4], asmall[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        // physical columns 8kk + 2t and 8kk + 2t + 1 are the MMA's k = t and t + 4
+        const float2 r0 =
+            *reinterpret_cast<const float2*>(act + (16 * mt + g) * S + 8 * kk + 2 * t);
+        const float2 r1 =
+            *reinterpret_cast<const float2*>(act + (16 * mt + g + 8) * S + 8 * kk + 2 * t);
+        split_tf32(r0.x, abig[mt][0], asmall[mt][0]);
+        split_tf32(r1.x, abig[mt][1], asmall[mt][1]);
+        split_tf32(r0.y, abig[mt][2], asmall[mt][2]);
+        split_tf32(r1.y, abig[mt][3], asmall[mt][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t b0big, b0small, b1big, b1small;
+        split_tf32(bnext[j].x, b0big, b0small);
+        split_tf32(bnext[j].y, b1big, b1small);
+        if (kk + 1 < KT) bnext[j] = __ldg(wl + ((kk + 1) * KT + j) * 32);
+        mma_3xtf32(acc[j], abig, asmall, b0big, b1big, b0small, b1small);
+      }
+    }
+    __syncthreads();  // every warp has read the layer's input
+    const float* bl = biases + l * H;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = 8 * (n0 + j) + 2 * t;
+      const float b0 = __ldg(bl + col), b1 = __ldg(bl + col + 1);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        *reinterpret_cast<float2*>(act + (16 * mt + g) * S + col) =
+            make_float2(fmaxf(__fadd_rn(acc[j][mt][0], b0), 0.f),
+                        fmaxf(__fadd_rn(acc[j][mt][1], b1), 0.f));
+        *reinterpret_cast<float2*>(act + (16 * mt + g + 8) * S + col) =
+            make_float2(fmaxf(__fadd_rn(acc[j][mt][2], b0), 0.f),
+                        fmaxf(__fadd_rn(acc[j][mt][3], b1), 0.f));
+      }
+    }
+    __syncthreads();
+  }
+
+  const float* wh = weights + static_cast<size_t>(n_layers - 1) * H * H;  // column 0
+  const float bh = __ldg(biases + (n_layers - 1) * H);
+  for (int m = warp; m < T::kPoints; m += T::kWarps) {
+    float d = 0.f;
+#pragma unroll 4
+    for (int k = lane; k < H; k += 32) d = fmaf(act[m * S + k], __ldg(wh + k * H), d);
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) d = __fadd_rn(d, __shfl_xor_sync(0xffffffffu, d, off));
+    if (lane == 0 && row0 + m < n) out[row0 + m] = __fadd_rn(d, bh);
+  }
 }
 
 template <int H>
 int launch_mlp_forward(const MlpArgs& a, cudaStream_t stream) {
-  if (a.n_layers < 1 || a.n_inputs < 1 || a.n_inputs > 4)
+  if (a.n_layers < 1 || a.n_inputs < 1 || a.n_inputs > 4 || a.packed == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n <= 0) return 0;
-  const size_t smem = smem_bytes(H, a.n_layers);
-  cudaError_t err = prepare_launch(mlp_forward_kernel<H>, H, smem);
+  const size_t smem = forward_smem_bytes(H);
+  cudaError_t err = allow_smem(mlp_forward_kernel<H>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (a.n + block_for(H) - 1) / block_for(H);
-  mlp_forward_kernel<H><<<grid, block_for(H), smem, stream>>>(
-      a.x, a.weights, a.biases, a.n_layers, a.n_inputs, a.n, a.out);
+  const int grid = (a.n + ForwardTile<H>::kPoints - 1) / ForwardTile<H>::kPoints;
+  mlp_forward_kernel<H><<<grid, ForwardTile<H>::kThreads, smem, stream>>>(
+      a.x, a.weights, static_cast<const float2*>(a.packed), a.biases, a.n_layers, a.n_inputs,
+      a.n, a.out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// K2h: the three-pass chain.
+// The three-pass chain on FFMA, one thread per point (K2h before its
+// tensor-core redesign below; the step-cost experiments X2 and X3 run it, at
+// H = 32, the only width they are built at).
 //
 // Per layer, with the activations split like the weights (x_hi = bf16(x),
 // x_lo = bf16(x - x_hi), round to nearest even), each output is
@@ -313,16 +489,10 @@ int launch_mlp_forward(const MlpArgs& a, cudaStream_t stream) {
 //
 // What bounds it: arithmetic, 3x the FP32 chain's fused multiply-adds (the
 // weights are widened from bfloat16 by a shift, the activations split per
-// layer). Design, by width:
-//   * H = 32: x, the sum y and one temporary t, 32 each, in registers;
-//     three passes over the inputs per layer; the stack (the two bfloat16
-//     halves, as many bytes as the FP32 stack) in shared memory;
-//   * H = 64: the stack in shared memory, the activations [2, H] in local
-//     memory, each layer in chunks of 32 outputs (y and t in registers);
-//   * H = 128 to 1024: the same chunks, the stack read from L2 with __ldg
-//     (the two bfloat16 halves take the FP32 stack's 37.7 MB at 1024).
-// The first layer contracts the true 3 or 4 inputs (the frame is split too);
-// the head computes column 0 only.
+// layer). x, the sum y and one temporary t, 32 each, live in registers; the
+// stack (the two bfloat16 halves, as many bytes as the FP32 stack) in shared
+// memory. The first layer contracts the true 3 or 4 inputs (the frame is
+// split too); the head computes column 0 only.
 
 // A bfloat16 value is the top half of the float32 with the same bits.
 __device__ __forceinline__ float bf16_low(uint32_t u) { return __uint_as_float(u << 16); }
@@ -336,37 +506,14 @@ __device__ __forceinline__ float split_lo(float x) {
   return __bfloat162float(__float2bfloat16_rn(__fsub_rn(x, split_hi(x))));
 }
 
-// Loads from the stack: shared memory, or device memory through the
-// read-only path.
-template <bool kShared>
-__device__ __forceinline__ uint4 load_bf16x8(const uint16_t* p) {
-  if constexpr (kShared)
-    return *reinterpret_cast<const uint4*>(p);
-  else
-    return __ldg(reinterpret_cast<const uint4*>(p));
-}
-template <bool kShared>
-__device__ __forceinline__ float load_bf16(const uint16_t* p) {
-  if constexpr (kShared)
-    return bf16_low(*p);
-  else
-    return bf16_low(__ldg(p));
-}
-template <bool kShared>
-__device__ __forceinline__ float load_f32(const float* p) {
-  if constexpr (kShared)
-    return *p;
-  else
-    return __ldg(p);
-}
-
-// acc[o] += xi * w[o] for N consecutive bfloat16 weights, in order.
-template <int N, bool kShared>
+// acc[o] += xi * w[o] for N consecutive bfloat16 weights in shared memory,
+// in order.
+template <int N>
 __device__ __forceinline__ void fma_row_bf16(float (&acc)[N], float xi,
                                              const uint16_t* __restrict__ w) {
 #pragma unroll
   for (int o = 0; o < N; o += 8) {
-    const uint4 v = load_bf16x8<kShared>(w + o);
+    const uint4 v = *reinterpret_cast<const uint4*>(w + o);
     acc[o] = fmaf(xi, bf16_low(v.x), acc[o]);
     acc[o + 1] = fmaf(xi, bf16_high(v.x), acc[o + 1]);
     acc[o + 2] = fmaf(xi, bf16_low(v.y), acc[o + 2]);
@@ -378,8 +525,8 @@ __device__ __forceinline__ void fma_row_bf16(float (&acc)[N], float xi,
   }
 }
 
-// One three-pass layer at H = 32 with everything in registers: out = the
-// layer's pre-activation sums of x[0..n) (without the bias). x may be out.
+// One three-pass layer with everything in registers: out = the layer's
+// pre-activation sums of x[0..n) (without the bias). x may be out.
 template <int H, int NX>
 __device__ __forceinline__ void layer_3pass_regs(const float (&x)[NX], int n,
                                                  const uint16_t* __restrict__ whi,
@@ -390,10 +537,10 @@ __device__ __forceinline__ void layer_3pass_regs(const float (&x)[NX], int n,
   for (int o = 0; o < H; ++o) y[o] = t[o] = 0.f;
 #pragma unroll
   for (int i = 0; i < NX; ++i)
-    if (i < n) fma_row_bf16<H, true>(y, split_hi(x[i]), whi + i * H);
+    if (i < n) fma_row_bf16<H>(y, split_hi(x[i]), whi + i * H);
 #pragma unroll
   for (int i = 0; i < NX; ++i)
-    if (i < n) fma_row_bf16<H, true>(t, split_lo(x[i]), whi + i * H);
+    if (i < n) fma_row_bf16<H>(t, split_lo(x[i]), whi + i * H);
 #pragma unroll
   for (int o = 0; o < H; ++o) {
     y[o] = __fadd_rn(y[o], t[o]);
@@ -401,13 +548,13 @@ __device__ __forceinline__ void layer_3pass_regs(const float (&x)[NX], int n,
   }
 #pragma unroll
   for (int i = 0; i < NX; ++i)
-    if (i < n) fma_row_bf16<H, true>(t, split_hi(x[i]), wlo + i * H);
+    if (i < n) fma_row_bf16<H>(t, split_hi(x[i]), wlo + i * H);
 #pragma unroll
   for (int o = 0; o < H; ++o) out[o] = __fadd_rn(y[o], t[o]);
 }
 
 // The head of the three-pass chain: column 0 of the last layer over x[0..n).
-template <int NX, bool kShared>
+template <int NX>
 __device__ __forceinline__ float head_3pass(const float (&x)[NX], int n,
                                             const uint16_t* __restrict__ whi,
                                             const uint16_t* __restrict__ wlo, int stride,
@@ -417,24 +564,27 @@ __device__ __forceinline__ float head_3pass(const float (&x)[NX], int n,
   for (int i = 0; i < NX; ++i) {
     if (i < n) {
       const float hi = split_hi(x[i]);
-      d1 = fmaf(hi, load_bf16<kShared>(whi + i * stride), d1);
-      d2 = fmaf(split_lo(x[i]), load_bf16<kShared>(whi + i * stride), d2);
-      d3 = fmaf(hi, load_bf16<kShared>(wlo + i * stride), d3);
+      d1 = fmaf(hi, bf16_low(whi[i * stride]), d1);
+      d2 = fmaf(split_lo(x[i]), bf16_low(whi[i * stride]), d2);
+      d3 = fmaf(hi, bf16_low(wlo[i * stride]), d3);
     }
   }
   return __fadd_rn(__fadd_rn(__fadd_rn(d1, d2), d3), bias);
 }
 
-// The three-pass chain at H = 32: activations in registers, the stack in
-// shared memory.
+// The three-pass chain on the stack staged at the start of shared memory, as
+// a function of its own: called rather than inlined, each translation unit
+// compiles it once instead of once per variant. It reads the stack through
+// the shared-memory array itself, so its loads stay LDS.
 template <int H>
-__device__ __forceinline__ float mlp_sdf_3pass_regs(const uint16_t* __restrict__ whi,
-                                                    const uint16_t* __restrict__ wlo,
-                                                    const float* __restrict__ b,
-                                                    int n_layers, int n_inputs, float px,
-                                                    float py, float pz, float frame) {
+__device__ __noinline__ float mlp_sdf_3pass_called(int n_layers, int n_inputs, float px,
+                                                   float py, float pz, float frame) {
+  extern __shared__ float4 smem4[];
+  const uint16_t* whi = reinterpret_cast<const uint16_t*>(smem4);
+  const uint16_t* wlo = whi + n_layers * H * H;
+  const float* b = reinterpret_cast<const float*>(wlo + n_layers * H * H);
   const float in[4] = {px, py, pz, frame};
-  if (n_layers == 1) return head_3pass<4, true>(in, n_inputs, whi, wlo, H, b[0]);
+  if (n_layers == 1) return head_3pass<4>(in, n_inputs, whi, wlo, H, b[0]);
   float x[H];
   layer_3pass_regs<H, 4>(in, n_inputs, whi, wlo, x);
 #pragma unroll
@@ -445,130 +595,349 @@ __device__ __forceinline__ float mlp_sdf_3pass_regs(const uint16_t* __restrict__
     for (int o = 0; o < H; ++o) x[o] = fmaxf(__fadd_rn(x[o], b[l * H + o]), 0.f);
   }
   const int l = n_layers - 1;
-  return head_3pass<H, true>(x, H, whi + l * H * H, wlo + l * H * H, H, b[l * H]);
+  return head_3pass<H>(x, H, whi + l * H * H, wlo + l * H * H, H, b[l * H]);
 }
 
-// The three-pass chain at H >= 64: activations [2, H] in local memory (the
-// inputs in the first 4 entries), each layer in chunks of kChunk outputs.
-template <int H, bool kShared>
-__device__ __forceinline__ float mlp_sdf_3pass_chunked(const uint16_t* __restrict__ whi,
-                                                       const uint16_t* __restrict__ wlo,
-                                                       const float* __restrict__ b,
-                                                       int n_layers, int n_inputs, float px,
-                                                       float py, float pz, float frame) {
-  static_assert(H % kChunk == 0 && H >= 4, "the width must be a multiple of the chunk");
-  float act[2 * H];  // layer input at [cur, cur + n), output at the other half
-  act[0] = px;
-  act[1] = py;
-  act[2] = pz;
-  act[3] = frame;
-  int cur = 0, n = n_inputs;
-#pragma unroll 1
-  for (int l = 0; l < n_layers - 1; ++l) {
-    const uint16_t* wh = whi + l * H * H;
-    const uint16_t* wl = wlo + l * H * H;
-    const float* bl = b + l * H;
-    const int nxt = H - cur;
-#pragma unroll 1
-    for (int c = 0; c < H; c += kChunk) {
-      float y[kChunk], t[kChunk];
-#pragma unroll
-      for (int o = 0; o < kChunk; ++o) y[o] = t[o] = 0.f;
-#pragma unroll 4
-      for (int i = 0; i < n; ++i)
-        fma_row_bf16<kChunk, kShared>(y, split_hi(act[cur + i]), wh + i * H + c);
-#pragma unroll 4
-      for (int i = 0; i < n; ++i)
-        fma_row_bf16<kChunk, kShared>(t, split_lo(act[cur + i]), wh + i * H + c);
-#pragma unroll
-      for (int o = 0; o < kChunk; ++o) {
-        y[o] = __fadd_rn(y[o], t[o]);
-        t[o] = 0.f;
-      }
-#pragma unroll 4
-      for (int i = 0; i < n; ++i)
-        fma_row_bf16<kChunk, kShared>(t, split_hi(act[cur + i]), wl + i * H + c);
-#pragma unroll
-      for (int o = 0; o < kChunk; ++o)
-        act[nxt + c + o] =
-            fmaxf(__fadd_rn(__fadd_rn(y[o], t[o]), load_f32<kShared>(bl + c + o)), 0.f);
-    }
-    cur = nxt;
-    n = H;
-  }
-  const int l = n_layers - 1;
-  const uint16_t* wh = whi + l * H * H;
-  const uint16_t* wl = wlo + l * H * H;
-  float d1 = 0.f, d2 = 0.f, d3 = 0.f;
-#pragma unroll 4
-  for (int i = 0; i < n; ++i) {
-    const float x = act[cur + i];
-    const float hi = split_hi(x);
-    d1 = fmaf(hi, load_bf16<kShared>(wh + i * H), d1);
-    d2 = fmaf(split_lo(x), load_bf16<kShared>(wh + i * H), d2);
-    d3 = fmaf(hi, load_bf16<kShared>(wl + i * H), d3);
-  }
-  return __fadd_rn(__fadd_rn(__fadd_rn(d1, d2), d3), load_f32<kShared>(b + l * H));
-}
-
-// The three-pass chain on the stack staged in shared memory (H = 32, 64), as
-// a function of its own: called rather than inlined, each translation unit
-// compiles it once instead of once per scene. It reads the stack through the
-// shared-memory array itself, so its loads stay LDS.
+// The three-pass chain's raw head value at one point, on the stack that
+// stage_weights_3pass<H> put in shared memory.
 template <int H>
-__device__ __noinline__ float mlp_sdf_3pass_called(int n_layers, int n_inputs, float px,
-                                                   float py, float pz, float frame) {
-  extern __shared__ float4 smem4[];
-  const uint16_t* whi = reinterpret_cast<const uint16_t*>(smem4);
-  const uint16_t* wlo = whi + n_layers * H * H;
-  const float* b = reinterpret_cast<const float*>(wlo + n_layers * H * H);
-  if constexpr (H == 32)
-    return mlp_sdf_3pass_regs<H>(whi, wlo, b, n_layers, n_inputs, px, py, pz, frame);
-  else
-    return mlp_sdf_3pass_chunked<H, true>(whi, wlo, b, n_layers, n_inputs, px, py, pz, frame);
+__device__ __forceinline__ float chain_sdf_3pass(int n_layers, int n_inputs, float px, float py,
+                                                 float pz, float frame) {
+  static_assert(H == 32, "the FFMA three-pass chain is built at width 32 only");
+  return mlp_sdf_3pass_called<H>(n_layers, n_inputs, px, py, pz, frame);
 }
 
-// The three-pass chain's raw head value at one point; whi, wlo and b are
-// where stage_weights_3pass<H> put the stack.
-template <int H>
-__device__ __forceinline__ float chain_sdf_3pass(const uint16_t* __restrict__ whi,
-                                                 const uint16_t* __restrict__ wlo,
-                                                 const float* __restrict__ b,
-                                                 int n_layers, int n_inputs, float px,
-                                                 float py, float pz, float frame) {
-  if constexpr (smem_weights(H))
-    return mlp_sdf_3pass_called<H>(n_layers, n_inputs, px, py, pz, frame);
-  else
-    return mlp_sdf_3pass_chunked<H, false>(whi, wlo, b, n_layers, n_inputs, px, py, pz, frame);
-}
-
-// stage_weights for the three-pass chain: the hi half, the lo half, then
-// the biases, in shared memory at H = 32, 64 (smem_bytes in all).
+// Stages the three-pass chain's stack in shared memory: the hi half, the lo
+// half, then the biases. Call before any thread leaves the kernel.
 template <int H>
 __device__ __forceinline__ void stage_weights_3pass(const uint16_t* __restrict__ w_hi,
                                                     const uint16_t* __restrict__ w_lo,
                                                     const float* __restrict__ biases,
-                                                    int n_layers, const uint16_t*& whi,
-                                                    const uint16_t*& wlo, const float*& b) {
-  if constexpr (smem_weights(H)) {
+                                                    int n_layers) {
+  static_assert(H == 32, "the FFMA three-pass chain is built at width 32 only");
+  extern __shared__ float4 smem4[];
+  uint4* s4 = reinterpret_cast<uint4*>(smem4);
+  const int n_w8 = n_layers * H * H / 8;  // eight bfloat16 values per uint4
+  for (int k = threadIdx.x; k < n_w8; k += blockDim.x) {
+    s4[k] = reinterpret_cast<const uint4*>(w_hi)[k];
+    s4[n_w8 + k] = reinterpret_cast<const uint4*>(w_lo)[k];
+  }
+  float* sb = reinterpret_cast<float*>(s4 + 2 * n_w8);
+  for (int k = threadIdx.x; k < n_layers * H; k += blockDim.x) sb[k] = biases[k];
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// K2h on the tensor cores: the three-pass chain as a warp-collective call.
+//
+// The march kernel's three-pass instantiations (march.cuh, kThreePass) run
+// the chain for the 32 rays of a warp together, as a product with M = 32
+// rows (ray = lane = row), two m16 tiles. Per layer, acc = x_lo * w_hi +
+// x_hi * w_lo + x_hi * w_hi on m16n8k16 bf16 MMA into one FP32 accumulator
+// (mma.cuh mma_3pass), then + bias and ReLU; the activations are split per
+// layer as the plain version splits them (x_hi = bf16(x), x_lo =
+// bf16(x - x_hi)). Each product of two bfloat16 values is exact in FP32, so
+// only the sums round, but in the tensor core's order and in one
+// accumulator: the result is no longer the plain version's bit for bit
+// (kernels/fused_mlp.py mlp_chain_3pass_plain sums three float32 products),
+// and chip_smoke.py holds it to a tolerance instead.
+//
+// What bounds it: the three bf16 products per weight at 989 TFLOP/s. The
+// first contraction takes the true 3 or 4 inputs as one k-chunk padded to
+// 16 (the inputs gathered from their lanes with shuffles, the padded
+// weight rows zero); the head is n-tile 0 of the last layer, column 0 read
+// from the accumulator lanes with t = 0 and shuffled back to the ray's lane.
+//
+// Where things live, by width (the stack in bf16 fragment order,
+// fused_mlp.packed_mma(params, "bf16"): a lane's hi and lo B fragments of
+// one n-tile and k-chunk are one 128-bit load):
+//   * H = 32, 64: the stack in shared memory (staged once per block, as many
+//     bytes as the FP32 stack: 37 KB / 150 KB at 9 layers); the activations
+//     stay in registers, each layer's accumulators handed to the next
+//     layer's A fragments in place (mma.cuh), both m-tiles at once;
+//   * H = 128 to 1024: the stack is read from L2 (fragment-ordered loads,
+//     each warp on its own: the warps of a block do not step together, so
+//     no ray waits on another warp's straggler). A warp's activations go
+//     to shared memory, already split, an (hi, lo) pair of bf16x2 per two
+//     columns in 8 bytes (a row stride of H/2 + 4 such pairs: the A loads
+//     and the epilogue stores are conflict-free). The two m-tiles run one
+//     after the other, each through two buffers [16, H] (input and output),
+//     each layer's output in chunks of 64 columns held in accumulators:
+//     2 * 16 * (H/2 + 4) * 8 bytes a warp, 17 KB at 128, 33 KB at 256,
+//     65 KB at 512, 129 KB at 1024. Warps a block: 4, 2, 1, 1. At 128 and
+//     256 ptxas caps the block's registers at 128 a thread and spills
+//     120-122 B a thread in four of the eight scene instantiations (scenes
+//     2, 3 and 4 at windows 3 and 5); the others spill nothing (chip_smoke.py
+//     phase 2 prints each).
+//   * H = 1024: the tightest budget. 32 rows would need 264 KB for the two
+//     buffers, more than an SM has, and keeping a layer's output in
+//     registers would need 1024 accumulators a lane; so the m-tiles take
+//     turns, a block is one warp with 129 KB, one block an SM: 132 warps
+//     march at once on the card, each reading the whole 37.7 MB stack once
+//     per m-tile and step.
+
+// Threads of a block of the three-pass march kernel at a hidden width.
+__host__ __device__ constexpr int block_for_3pass(int h) {
+  return h <= 64 ? block_for(h) : (h == 128 ? 128 : (h == 256 ? 64 : 32));
+}
+
+// An (hi, lo) bf16x2 pair per two activation columns: pairs per row.
+__host__ __device__ constexpr int act_pairs(int h) { return h / 2 + 4; }
+
+// Dynamic shared memory of a three-pass march block: the staged stack and
+// its biases (H = 32, 64), or each warp's two activation buffers.
+__host__ __device__ constexpr size_t smem_bytes_3pass(int h, int n_layers) {
+  return h <= 64 ? sizeof(float) * static_cast<size_t>(n_layers) * h * (h + 1)
+                 : static_cast<size_t>(block_for_3pass(h) / 32) * 2 * 16 * act_pairs(h) *
+                       sizeof(uint2);
+}
+
+// Output columns of a layer chunk at H >= 128 (8 n-tiles).
+constexpr int kMmaChunkTiles = 8;
+
+// The packed stack (and biases) where the three-pass march kernel reads
+// them: shared memory at H = 32, 64 after every thread of the block has
+// helped copy them in, device memory as it is above. Call before any
+// thread leaves the kernel.
+template <int H>
+__device__ __forceinline__ void stage_weights_mma(const uint4* __restrict__ packed,
+                                                  const float* __restrict__ biases,
+                                                  int n_layers, const uint4*& w,
+                                                  const float*& b) {
+  if constexpr (H <= 64) {
     extern __shared__ float4 smem4[];
     uint4* s4 = reinterpret_cast<uint4*>(smem4);
-    const int n_w8 = n_layers * H * H / 8;  // eight bfloat16 values per uint4
-    for (int k = threadIdx.x; k < n_w8; k += blockDim.x) {
-      s4[k] = reinterpret_cast<const uint4*>(w_hi)[k];
-      s4[n_w8 + k] = reinterpret_cast<const uint4*>(w_lo)[k];
-    }
-    float* sb = reinterpret_cast<float*>(s4 + 2 * n_w8);
+    const int n_w16 = n_layers * H * H / 4;  // 16 bytes each, hi and lo together
+    for (int k = threadIdx.x; k < n_w16; k += blockDim.x) s4[k] = packed[k];
+    float* sb = reinterpret_cast<float*>(s4 + n_w16);
     for (int k = threadIdx.x; k < n_layers * H; k += blockDim.x) sb[k] = biases[k];
     __syncthreads();
-    whi = reinterpret_cast<const uint16_t*>(s4);
-    wlo = whi + n_layers * H * H;
+    w = s4;
     b = sb;
   } else {
-    whi = w_hi;
-    wlo = w_lo;
+    w = packed;
     b = biases;
   }
+}
+
+// The A fragments (hi, lo) of m-tile mt for the first contraction: row r
+// holds ray r's inputs (x, y, z, frame or 0) in columns 0-3, zero beyond.
+__device__ __forceinline__ void inputs_a(int mt, float px, float py, float pz, float pf,
+                                         uint32_t (&ahi)[4], uint32_t (&alo)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int src = 16 * mt + 8 * half + g;
+    const float x = __shfl_sync(0xffffffffu, px, src);
+    const float y = __shfl_sync(0xffffffffu, py, src);
+    const float z = __shfl_sync(0xffffffffu, pz, src);
+    const float f = __shfl_sync(0xffffffffu, pf, src);
+    const float c0 = t == 0 ? x : (t == 1 ? z : 0.f);  // columns 2t, 2t + 1
+    const float c1 = t == 0 ? y : (t == 1 ? f : 0.f);
+    split_bf16x2(c0, c1, ahi[half], alo[half]);
+    ahi[2 + half] = alo[2 + half] = 0u;  // columns 8-15
+  }
+}
+
+// Each ray's head value, from the accumulators of n-tile 0 (column 0 sits in
+// the lanes with t = 0: row g in c0, row g + 8 in c2), back to its lane.
+__device__ __forceinline__ float head_to_ray(const float (&h)[2][1][4]) {
+  const int lane = threadIdx.x & 31, src = 4 * (lane & 7);
+  const float v00 = __shfl_sync(0xffffffffu, h[0][0][0], src);
+  const float v02 = __shfl_sync(0xffffffffu, h[0][0][2], src);
+  const float v10 = __shfl_sync(0xffffffffu, h[1][0][0], src);
+  const float v12 = __shfl_sync(0xffffffffu, h[1][0][2], src);
+  const bool upper = lane & 8;
+  return lane & 16 ? (upper ? v12 : v10) : (upper ? v02 : v00);
+}
+
+// H = 32, 64: activations in registers, the stack in shared memory.
+template <int H>
+__device__ __forceinline__ float chain_3pass_regs(const uint4* __restrict__ w,
+                                                  const float* __restrict__ b, int n_layers,
+                                                  float px, float py, float pz, float pf) {
+  constexpr int NT = H / 8, KT = H / 16;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  uint32_t ahi[2][KT][4], alo[2][KT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ahi[mt][kk][c] = alo[mt][kk][c] = 0u;
+    inputs_a(mt, px, py, pz, pf, ahi[mt][0], alo[mt][0]);
+  }
+  int kin = 1;  // k-chunks of the layer's input: the inputs are one
+#pragma unroll 1
+  for (int l = 0; l < n_layers - 1; ++l) {
+    const uint4* wl = w + l * KT * NT * 32 + lane;
+    float acc[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mt][j][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      if (kk < kin) {
+        uint4 wv[NT];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) wv[j] = wl[(kk * NT + j) * 32];
+        mma_3pass(acc[0], ahi[0][kk], alo[0][kk], wv);
+        mma_3pass(acc[1], ahi[1][kk], alo[1][kk], wv);
+      }
+    }
+    const float* bl = b + l * H;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float b0 = bl[8 * j + 2 * t], b1 = bl[8 * j + 2 * t + 1];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        // n-tile j's rows g and g + 8 are registers 0-1 (j even) or 2-3 (j
+        // odd) of k-chunk j / 2's A fragment
+        split_bf16x2(fmaxf(__fadd_rn(acc[mt][j][0], b0), 0.f),
+                     fmaxf(__fadd_rn(acc[mt][j][1], b1), 0.f), ahi[mt][j / 2][2 * (j % 2)],
+                     alo[mt][j / 2][2 * (j % 2)]);
+        split_bf16x2(fmaxf(__fadd_rn(acc[mt][j][2], b0), 0.f),
+                     fmaxf(__fadd_rn(acc[mt][j][3], b1), 0.f), ahi[mt][j / 2][2 * (j % 2) + 1],
+                     alo[mt][j / 2][2 * (j % 2) + 1]);
+      }
+    }
+    kin = KT;
+  }
+  const uint4* wl = w + (n_layers - 1) * KT * NT * 32 + lane;
+  float h[2][1][4] = {{{0.f, 0.f, 0.f, 0.f}}, {{0.f, 0.f, 0.f, 0.f}}};
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    if (kk < kin) {
+      const uint4 wv[1] = {wl[kk * NT * 32]};
+      mma_3pass(h[0], ahi[0][kk], alo[0][kk], wv);
+      mma_3pass(h[1], ahi[1][kk], alo[1][kk], wv);
+    }
+  }
+  return __fadd_rn(head_to_ray(h), b[(n_layers - 1) * H]);
+}
+
+// The A fragments (hi, lo) of k-chunk kk from a shared-memory buffer of 16
+// rows of (hi, lo) pairs.
+template <int H>
+__device__ __forceinline__ void load_a(const uint2* __restrict__ in, int kk, uint32_t (&ahi)[4],
+                                       uint32_t (&alo)[4]) {
+  constexpr int S = act_pairs(H);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint2 a0 = in[g * S + 8 * kk + t], a1 = in[(g + 8) * S + 8 * kk + t];
+  const uint2 a2 = in[g * S + 8 * kk + 4 + t], a3 = in[(g + 8) * S + 8 * kk + 4 + t];
+  ahi[0] = a0.x, ahi[1] = a1.x, ahi[2] = a2.x, ahi[3] = a3.x;
+  alo[0] = a0.y, alo[1] = a1.y, alo[2] = a2.y, alo[3] = a3.y;
+}
+
+// One layer (l < n_layers - 1) of one m-tile at H >= 128: out = split(ReLU(
+// in * W_l + b_l)), in the k-chunks of `in` (kin of them; 1 for the inputs,
+// given as fragments in phi / plo), in chunks of kMmaChunkTiles n-tiles.
+template <int H>
+__device__ __forceinline__ void layer_3pass_smem(const uint2* __restrict__ in, int kin,
+                                                 const uint32_t (&phi)[4],
+                                                 const uint32_t (&plo)[4],
+                                                 const uint4* __restrict__ wl,
+                                                 const float* __restrict__ bl,
+                                                 uint2* __restrict__ out) {
+  constexpr int NT = H / 8, CT = kMmaChunkTiles, S = act_pairs(H);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int c = 0; c < NT; c += CT) {
+    float acc[CT][4];
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 1
+    for (int kk = 0; kk < kin; ++kk) {
+      uint4 wv[CT];
+#pragma unroll
+      for (int j = 0; j < CT; ++j) wv[j] = __ldg(wl + (kk * NT + c + j) * 32 + lane);
+      uint32_t ahi[4], alo[4];
+      if (in == nullptr) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ahi[e] = phi[e], alo[e] = plo[e];
+      } else {
+        load_a<H>(in, kk, ahi, alo);
+      }
+      mma_3pass(acc, ahi, alo, wv);
+    }
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+      const int col = 8 * (c + j) + 2 * t;
+      const float b0 = __ldg(bl + col), b1 = __ldg(bl + col + 1);
+      uint2 r0, r1;
+      split_bf16x2(fmaxf(__fadd_rn(acc[j][0], b0), 0.f), fmaxf(__fadd_rn(acc[j][1], b1), 0.f),
+                   r0.x, r0.y);
+      split_bf16x2(fmaxf(__fadd_rn(acc[j][2], b0), 0.f), fmaxf(__fadd_rn(acc[j][3], b1), 0.f),
+                   r1.x, r1.y);
+      out[g * S + 4 * (c + j) + t] = r0;
+      out[(g + 8) * S + 4 * (c + j) + t] = r1;
+    }
+  }
+}
+
+// H = 128 to 1024: activations in this warp's two shared-memory buffers
+// `buf` [2][16][act_pairs(H)], the stack read from L2.
+template <int H>
+__device__ __forceinline__ float chain_3pass_smem(const uint4* __restrict__ w,
+                                                  const float* __restrict__ b, int n_layers,
+                                                  float px, float py, float pz, float pf,
+                                                  uint2* __restrict__ buf) {
+  constexpr int NT = H / 8, KT = H / 16, S = act_pairs(H);
+  const int lane = threadIdx.x & 31;
+  const uint4* wh = w + static_cast<size_t>(n_layers - 1) * KT * NT * 32 + lane;
+  float h[2][1][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    uint32_t phi[4], plo[4];
+    inputs_a(mt, px, py, pz, pf, phi, plo);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[mt][0][e] = 0.f;
+    if (n_layers == 1) {
+      const uint4 wv[1] = {__ldg(wh)};
+      mma_3pass(h[mt], phi, plo, wv);
+      continue;
+    }
+    layer_3pass_smem<H>(nullptr, 1, phi, plo, w, b, buf);
+    __syncwarp();
+#pragma unroll 1
+    for (int l = 1; l < n_layers - 1; ++l) {
+      layer_3pass_smem<H>(buf + ((l - 1) & 1) * 16 * S, KT, phi, plo,
+                          w + static_cast<size_t>(l) * KT * NT * 32, b + l * H,
+                          buf + (l & 1) * 16 * S);
+      __syncwarp();
+    }
+    const uint2* in = buf + ((n_layers - 2) & 1) * 16 * S;
+#pragma unroll 1
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t ahi[4], alo[4];
+      load_a<H>(in, kk, ahi, alo);
+      const uint4 wv[1] = {__ldg(wh + kk * NT * 32)};
+      mma_3pass(h[mt], ahi, alo, wv);
+    }
+    __syncwarp();  // the next m-tile overwrites the buffers
+  }
+  return __fadd_rn(head_to_ray(h), __ldg(b + (n_layers - 1) * H));
+}
+
+// The three-pass chain's raw head value for each ray of the warp, called
+// by all 32 lanes together (rays that do not march pass any finite point:
+// rows do not mix). w, b: where stage_weights_mma<H> put the stack; buf:
+// this warp's activation buffers at H >= 128.
+template <int H>
+__device__ __forceinline__ float chain_sdf_mma(const uint4* __restrict__ w,
+                                               const float* __restrict__ b, int n_layers,
+                                               int n_inputs, float px, float py, float pz,
+                                               float frame, uint2* __restrict__ buf) {
+  const float pf = n_inputs == 4 ? frame : 0.f;
+  if constexpr (H <= 64)
+    return chain_3pass_regs<H>(w, b, n_layers, px, py, pz, pf);
+  else
+    return chain_3pass_smem<H>(w, b, n_layers, px, py, pz, pf, buf);
 }
 
 }  // namespace cnr

@@ -181,7 +181,7 @@ __device__ __forceinline__ void split_pass(float (&acc)[H], const float (&x)[NX]
   for (int o = 0; o < H; ++o) acc[o] = 0.f;
 #pragma unroll
   for (int i = 0; i < NX; ++i)
-    if (i < n) fma_row_bf16<H, true>(acc, split3_part<kPart>(x[i]), w + i * H);
+    if (i < n) fma_row_bf16<H>(acc, split3_part<kPart>(x[i]), w + i * H);
 }
 
 // One layer of the five- / six-pass chain (X3 v5p / v5) without its bias:
@@ -281,13 +281,12 @@ template <int H, int kKind>
 __device__ __forceinline__ void stage_x(const void* __restrict__ w0, const void* __restrict__ w1,
                                         const void* __restrict__ w2,
                                         const float* __restrict__ biases, int n_layers,
-                                        const float*& w, const uint16_t*& whi,
-                                        const uint16_t*& wlo, const float*& b) {
+                                        const float*& w, const float*& b) {
   if constexpr (kKind == kFp32) {
     stage_weights<H>(static_cast<const float*>(w0), biases, n_layers, w, b);
   } else if constexpr (kKind == kThreePassChain) {
     stage_weights_3pass<H>(static_cast<const uint16_t*>(w0), static_cast<const uint16_t*>(w1),
-                           biases, n_layers, whi, wlo, b);
+                           biases, n_layers);
   } else {
     extern __shared__ float4 smem4[];
     uint4* s4 = reinterpret_cast<uint4*>(smem4);
@@ -310,8 +309,6 @@ __device__ __forceinline__ void stage_x(const void* __restrict__ w0, const void*
 template <int H, int kKind>
 __device__ __forceinline__ float x_sdf(const Ray& ray, float t, bool bf16_input,
                                        const float* __restrict__ w,
-                                       const uint16_t* __restrict__ whi,
-                                       const uint16_t* __restrict__ wlo,
                                        const float* __restrict__ b, int n_layers) {
   float px = __fmaf_rn(ray.dx, t, ray.ox);
   float py = __fmaf_rn(ray.dy, t, ray.oy);
@@ -324,7 +321,7 @@ __device__ __forceinline__ float x_sdf(const Ray& ray, float t, bool bf16_input,
   if constexpr (kKind == kFp32)
     return chain_sdf<H>(w, b, n_layers, 3, px, py, pz, 0.f);
   else if constexpr (kKind == kThreePassChain)
-    return chain_sdf_3pass<H>(whi, wlo, b, n_layers, 3, px, py, pz, 0.f);
+    return chain_sdf_3pass<H>(n_layers, 3, px, py, pz, 0.f);
   else
     return mlp_sdf_split3<H, kKind == kSixPass>(n_layers, px, py, pz);
 }
@@ -340,10 +337,8 @@ x2_stepcost_kernel(const float* __restrict__ dirs, const float* __restrict__ t0,
                    const void* __restrict__ w1, const float* __restrict__ biases,
                    int n_layers, int n, int steps, int bf16_input, float* __restrict__ t_out) {
   const float* w = nullptr;
-  const uint16_t* whi = nullptr;
-  const uint16_t* wlo = nullptr;
-  const float* b;
-  stage_x<H, kKind>(w0, w1, nullptr, biases, n_layers, w, whi, wlo, b);
+  const float* b = nullptr;
+  stage_x<H, kKind>(w0, w1, nullptr, biases, n_layers, w, b);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const Ray ray = load_ray(dirs, origin, n, r);
@@ -357,7 +352,7 @@ x2_stepcost_kernel(const float* __restrict__ dirs, const float* __restrict__ t0,
     bool active = true, conv = false;
 #pragma unroll 1
     for (int s = 0; s < steps; ++s) {
-      const float d = x_sdf<H, kKind>(ray, t, bf16, w, whi, wlo, b, n_layers);
+      const float d = x_sdf<H, kKind>(ray, t, bf16, w, b, n_layers);
       const bool act = active;
       const bool sor_fail = act && step_len > prev_r && __fadd_rn(d, prev_r) < step_len;
       const bool near = act && !sor_fail && d < 1e-6f;
@@ -378,7 +373,7 @@ x2_stepcost_kernel(const float* __restrict__ dirs, const float* __restrict__ t0,
   } else {
 #pragma unroll 1
     for (int s = 0; s < steps; ++s) {
-      const float d = x_sdf<H, kKind>(ray, t, bf16, w, whi, wlo, b, n_layers);
+      const float d = x_sdf<H, kKind>(ray, t, bf16, w, b, n_layers);
       if constexpr (V == kChainOnly) {
         t = __fadd_rn(t, d);
       } else {  // kMarchState: act = d > -1e30; move unless near
@@ -406,10 +401,8 @@ x3_ablation_kernel(const float* __restrict__ dirs, const float* __restrict__ t0,
                    float* __restrict__ out) {
   constexpr int kKind = V == kV5 ? kSixPass : (V == kV5p ? kFivePass : kFp32);
   const float* w = nullptr;
-  const uint16_t* whi = nullptr;
-  const uint16_t* wlo = nullptr;
-  const float* b;
-  stage_x<H, kKind>(w0, w1, w2, biases, n_layers, w, whi, wlo, b);
+  const float* b = nullptr;
+  stage_x<H, kKind>(w0, w1, w2, biases, n_layers, w, b);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const Ray ray = load_ray(dirs, origin, n, r);
@@ -455,7 +448,7 @@ x3_ablation_kernel(const float* __restrict__ dirs, const float* __restrict__ t0,
 #pragma unroll 1
     for (int s = 0; s < steps; ++s)
       t = __fadd_rn(t,
-                    __fmul_rn(x_sdf<H, kKind>(ray, t, false, w, whi, wlo, b, n_layers), kScale));
+                    __fmul_rn(x_sdf<H, kKind>(ray, t, false, w, b, n_layers), kScale));
     out[r] = t;
   }
 }

@@ -31,8 +31,8 @@ struct MarchArgs {
   float bound_cy;
   float bound_cz;
   float bound_r2;
-  const void* weights;     // FP32 [n_layers, H, H]; three-pass: bf16 hi half
-  const void* weights_lo;  // three-pass: bf16 lo half [n_layers, H, H]
+  const void* weights;     // FP32 [n_layers, H, H]; three-pass: the bf16 hi and lo
+                           // halves in fragment order (fused_mlp.packed_mma)
   const float* biases;
   int n_layers;
   int n_inputs;
@@ -52,10 +52,12 @@ struct MarchArgs {
   int32_t* steps_out;
 };
 
-// One fused forward (K3): points x [n, n_inputs] -> out [n].
+// One fused forward (K3): points x [n, n_inputs] -> out [n]; packed is the
+// stack in tf32 fragment order (kernels/fused_mlp.py packed_mma).
 struct MlpArgs {
   const float* x;
   const float* weights;
+  const void* packed;
   const float* biases;
   int n_layers;
   int n_inputs;

@@ -5,6 +5,7 @@
 //   cnr_march_raygen  the same kernel from a cold start, each ray built in
 //                     the kernel from its pixel index (K5)
 //   cnr_mlp_forward   the fused forward (K3, csrc/chain.cuh)
+//   cnr_smem_bytes    the dynamic shared memory a launch of a kernel asks for
 //
 // Each dispatches on the padded hidden width (32, 64, 128, 256, 512 or
 // 1024), and the march entries on the chain (three_pass: 0 for FP32, 1 for
@@ -16,6 +17,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chain.cuh"
 #include "launch.h"
 
 namespace {
@@ -60,10 +62,9 @@ int dispatch_march(int device, int hidden, const cnr::MarchArgs& a, void* stream
 extern "C" int cnr_march(int device, const float* dirs, const float* origin,
                          const float* t0, const float* budget0,
                          const uint8_t* active0, const int32_t* steps0,
-                         const void* weights, const void* weights_lo,
-                         const float* biases, int n_layers, int hidden, int n_inputs,
-                         float frame, int scene, int window, int three_pass,
-                         int n, int max_steps, int num_steps, float eps,
+                         const void* weights, const float* biases, int n_layers,
+                         int hidden, int n_inputs, float frame, int scene, int window,
+                         int three_pass, int n, int max_steps, int num_steps, float eps,
                          float omega, float* t_out, float* budget_out,
                          uint8_t* active_out, uint8_t* conv_out,
                          int32_t* steps_out, void* stream) {
@@ -75,7 +76,6 @@ extern "C" int cnr_march(int device, const float* dirs, const float* origin,
   a.active0 = active0;
   a.steps0 = steps0;
   a.weights = weights;
-  a.weights_lo = weights_lo;
   a.biases = biases;
   a.n_layers = n_layers;
   a.n_inputs = n_inputs;
@@ -99,8 +99,7 @@ extern "C" int cnr_march(int device, const float* dirs, const float* origin,
 extern "C" int cnr_march_raygen(int device, const int32_t* pos, const float* c2w,
                                 int width, int height, float focal, float bound_cx,
                                 float bound_cy, float bound_cz, float bound_r2,
-                                const void* weights, const void* weights_lo,
-                                const float* biases, int n_layers, int hidden,
+                                const void* weights, const float* biases, int n_layers, int hidden,
                                 int n_inputs, float frame, int scene, int window,
                                 int three_pass, int n, int max_steps, float eps,
                                 float omega, float* t_out, float* budget_out,
@@ -119,7 +118,6 @@ extern "C" int cnr_march_raygen(int device, const int32_t* pos, const float* c2w
   a.bound_cz = bound_cz;
   a.bound_r2 = bound_r2;
   a.weights = weights;
-  a.weights_lo = weights_lo;
   a.biases = biases;
   a.n_layers = n_layers;
   a.n_inputs = n_inputs;
@@ -141,10 +139,25 @@ extern "C" int cnr_march_raygen(int device, const int32_t* pos, const float* c2w
 }
 
 extern "C" int cnr_mlp_forward(int device, const float* x, const float* weights,
-                               const float* biases, int n_layers, int hidden,
-                               int n_inputs, int n, float* out, void* stream) {
-  const cnr::MlpArgs a{x, weights, biases, n_layers, n_inputs, n, out};
+                               const void* packed, const float* biases, int n_layers,
+                               int hidden, int n_inputs, int n, float* out, void* stream) {
+  const cnr::MlpArgs a{x, weights, packed, biases, n_layers, n_inputs, n, out};
   return dispatch(device, hidden, a, stream, kForward);
+}
+
+// Bytes of dynamic shared memory a launch asks for: kind 0 the march kernel
+// with the FP32 chain, 1 with the three-pass chain, 2 the fused forward;
+// -1 for an unknown kind or width.
+extern "C" long long cnr_smem_bytes(int kind, int hidden, int n_layers) {
+  bool known = false;
+  for (int k = 0; k < kNumWidths; ++k) known = known || kWidths[k] == hidden;
+  if (!known) return -1;
+  switch (kind) {
+    case 0: return static_cast<long long>(cnr::smem_bytes(hidden, n_layers));
+    case 1: return static_cast<long long>(cnr::smem_bytes_3pass(hidden, n_layers));
+    case 2: return static_cast<long long>(cnr::forward_smem_bytes(hidden));
+    default: return -1;
+  }
 }
 
 extern "C" const char* cnr_error_string(int err) {

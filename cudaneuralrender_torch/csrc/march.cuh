@@ -18,14 +18,16 @@
 // entry (direction, t, budget, flags) and once on exit.
 //
 // Design:
-//   * one thread per ray, block_for(H) threads per block (chain.cuh);
+//   * one thread per ray, block_for(H) threads per block (block_for_3pass(H)
+//     for the three-pass chain; chain.cuh);
 //   * the chain at the padded width H, a template parameter (32, 64, 128,
 //     256, 512 or 1024; one instantiation of every scene per width, in
 //     csrc/hidden{H}.cu); see chain.cuh for where weights and activations
 //     live at each width;
 //   * the chain's arithmetic, a template parameter: FP32 FFMA, for both of
 //     the JAX package's precisions DEFAULT and HIGHEST, or the three-pass
-//     bfloat16 chain for HIGH (kThreePass; its instantiations in
+//     bfloat16 chain for HIGH on the tensor cores, a warp's 32 rays as the
+//     rows of one product (kThreePass; its instantiations in
 //     csrc/hidden{H}_3pass.cu, compiled in parallel with the others);
 //   * the cold start (K5) is a prologue chosen at run time, the same for the
 //     whole launch (pos set or not), so it adds no instantiation: each ray
@@ -40,9 +42,10 @@
 //     (scene, window): the compose is straight-line code with no branch on
 //     the scene, and the neural_raw instantiation is the bare chain;
 //   * each ray loops until it resolves (per-ray exit; the TPU kernel exits
-//     per 8192-lane tile, with identical per-ray results);
-//   * all arithmetic is FP32 FFMA, for both of the JAX package's
-//     precisions (DEFAULT and HIGHEST).
+//     per 8192-lane tile, with identical per-ray results); with the
+//     three-pass chain a warp loops until its last ray resolves, each lane's
+//     state advancing only while its own ray marches;
+//   * outside the three-pass chain all arithmetic is FP32 FFMA.
 //
 // The compose's cost: it is FP32 elementwise work on the ray's own
 // registers, about 100 (many_sphere: 9 sphere distances and smooth
@@ -236,50 +239,95 @@ __device__ __forceinline__ void ray_from_index(
   act = hit && p >= 0;
 }
 
+// One step of a ray's march after its chain value raw at p (singleMarch's
+// update order, the over-relaxation, the resolve step).
+template <int S, int W>
+__device__ __forceinline__ void march_step(float px, float py, float pz, float raw, float frame,
+                                           bool relax, float eps, float omega, float& t,
+                                           float& budget, float& prev_r, float& step_len,
+                                           bool& conv, bool& act, int& step, int& res) {
+  const float d = compose<S, W>(px, py, pz, raw, frame);
+
+  bool sor_fail = false;
+  bool near;
+  float stepv;
+  if (relax) {
+    sor_fail = (step_len > prev_r) && (__fadd_rn(d, prev_r) < step_len);
+    near = !sor_fail && (d < eps);
+    const float om = step_len < 0.f ? 1.f : omega;
+    stepv = sor_fail ? __fsub_rn(prev_r, step_len)
+                     : (near ? d : __fmul_rn(om, d));
+  } else {
+    near = d < eps;
+    stepv = d;
+  }
+  budget = __fsub_rn(budget, stepv);
+  const bool moved = sor_fail || !(budget <= 0.f);  // miss: budget <= 0
+  if (moved) t = __fadd_rn(t, stepv);
+  const bool conv_now = moved && near;
+  conv = conv || conv_now;
+  if (relax) {
+    if (moved && !sor_fail) prev_r = d;
+    if (moved) step_len = stepv;
+  }
+  ++step;
+  act = moved && !conv_now;
+  if (!act) res = step;
+}
+
+// The FP32 instantiations run one ray per thread, each looping until its ray
+// resolves. The three-pass instantiations (kThreePass) evaluate the chain
+// for the 32 rays of a warp together (chain_sdf_mma), so their loop is
+// warp-uniform: it runs while any lane's ray marches, and a lane whose ray
+// is done, or that has no ray (r >= n), stays in it inactive, passing a
+// finite point. SIMT ran a warp until its slowest ray already, so this adds
+// no steps; a lane's own step count and state are those of the FP32 loop.
 template <int H, int S, int W, bool kThreePass>
-__global__ void __launch_bounds__(block_for(H))
+__global__ void __launch_bounds__(kThreePass ? block_for_3pass(H) : block_for(H))
 march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
              const float* __restrict__ t0, const float* __restrict__ budget0,
              const uint8_t* __restrict__ active0, const int32_t* __restrict__ steps0,
              const int32_t* __restrict__ pos, const float* __restrict__ c2w, int width,
              int height, float focal, float bound_cx, float bound_cy, float bound_cz,
              float bound_r2, const void* __restrict__ weights,
-             const void* __restrict__ weights_lo, const float* __restrict__ biases,
-             int n_layers, int n_inputs, float frame, int n, int max_steps, int num_steps,
-             float eps, float omega, float* __restrict__ t_out,
+             const float* __restrict__ biases, int n_layers, int n_inputs, float frame, int n,
+             int max_steps, int num_steps, float eps, float omega, float* __restrict__ t_out,
              float* __restrict__ budget_out, uint8_t* __restrict__ active_out,
              uint8_t* __restrict__ conv_out, int32_t* __restrict__ steps_out) {
-  const float* sw = nullptr;      // the FP32 stack
-  const uint16_t* shi = nullptr;  // the three-pass stack's two halves
-  const uint16_t* slo = nullptr;
+  const float* sw = nullptr;   // the FP32 stack
+  const uint4* sw3 = nullptr;  // the three-pass stack, fragment-ordered
   const float* sb;
   if constexpr (kThreePass)
-    stage_weights_3pass<H>(static_cast<const uint16_t*>(weights),
-                           static_cast<const uint16_t*>(weights_lo), biases, n_layers,
-                           shi, slo, sb);
+    stage_weights_mma<H>(static_cast<const uint4*>(weights), biases, n_layers, sw3, sb);
   else
     stage_weights<H>(static_cast<const float*>(weights), biases, n_layers, sw, sb);
 
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
+  if constexpr (!kThreePass) {
+    if (r >= n) return;
+  }
+  const bool in_range = r < n;
 
-  float ox, oy, oz, dx, dy, dz, t, budget;
-  bool act;
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f, t = 0.f, budget = 0.f;
+  bool act = false;
   int start;
   if (pos != nullptr) {  // K5: a cold start from the pixel index
-    ray_from_index(pos[r], c2w, width, height, focal, bound_cx, bound_cy, bound_cz, bound_r2,
-                   ox, oy, oz, dx, dy, dz, t, budget, act);
+    if (in_range)
+      ray_from_index(pos[r], c2w, width, height, focal, bound_cx, bound_cy, bound_cz, bound_r2,
+                     ox, oy, oz, dx, dy, dz, t, budget, act);
     start = 0;
   } else {
-    ox = origin[0];
-    oy = origin[1];
-    oz = origin[2];
-    dx = dirs[3 * r];
-    dy = dirs[3 * r + 1];
-    dz = dirs[3 * r + 2];
-    t = t0[r];
-    budget = budget0[r];
-    act = active0[r] != 0;
+    if (in_range) {
+      ox = origin[0];
+      oy = origin[1];
+      oz = origin[2];
+      dx = dirs[3 * r];
+      dy = dirs[3 * r + 1];
+      dz = dirs[3 * r + 2];
+      t = t0[r];
+      budget = budget0[r];
+      act = active0[r] != 0;
+    }
     start = *steps0;
   }
   bool conv = false;
@@ -288,42 +336,31 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
   const bool relax = omega > 1.f;
   float prev_r = 0.f, step_len = 0.f;
 
-  while (act && step < max_steps && (num_steps < 0 || step - start < num_steps)) {
-    const float px = __fmaf_rn(dx, t, ox);
-    const float py = __fmaf_rn(dy, t, oy);
-    const float pz = __fmaf_rn(dz, t, oz);
-    float raw;
-    if constexpr (kThreePass)
-      raw = chain_sdf_3pass<H>(shi, slo, sb, n_layers, n_inputs, px, py, pz, frame);
-    else
-      raw = chain_sdf<H>(sw, sb, n_layers, n_inputs, px, py, pz, frame);
-    const float d = compose<S, W>(px, py, pz, raw, frame);
-
-    bool sor_fail = false;
-    bool near;
-    float stepv;
-    if (relax) {
-      sor_fail = (step_len > prev_r) && (__fadd_rn(d, prev_r) < step_len);
-      near = !sor_fail && (d < eps);
-      const float om = step_len < 0.f ? 1.f : omega;
-      stepv = sor_fail ? __fsub_rn(prev_r, step_len)
-                       : (near ? d : __fmul_rn(om, d));
-    } else {
-      near = d < eps;
-      stepv = d;
+  if constexpr (kThreePass) {
+    extern __shared__ float4 smem4[];
+    uint2* buf = reinterpret_cast<uint2*>(smem4) +
+                 (threadIdx.x / 32) * 2 * 16 * act_pairs(H);  // H >= 128 only
+    while (__any_sync(0xffffffffu,
+                      act && step < max_steps && (num_steps < 0 || step - start < num_steps))) {
+      const bool go = act && step < max_steps && (num_steps < 0 || step - start < num_steps);
+      const float px = __fmaf_rn(dx, t, ox);
+      const float py = __fmaf_rn(dy, t, oy);
+      const float pz = __fmaf_rn(dz, t, oz);
+      const float raw = chain_sdf_mma<H>(sw3, sb, n_layers, n_inputs, px, py, pz, frame, buf);
+      if (go)
+        march_step<S, W>(px, py, pz, raw, frame, relax, eps, omega, t, budget, prev_r, step_len,
+                         conv, act, step, res);
     }
-    budget = __fsub_rn(budget, stepv);
-    const bool moved = sor_fail || !(budget <= 0.f);  // miss: budget <= 0
-    if (moved) t = __fadd_rn(t, stepv);
-    const bool conv_now = moved && near;
-    conv = conv || conv_now;
-    if (relax) {
-      if (moved && !sor_fail) prev_r = d;
-      if (moved) step_len = stepv;
+    if (!in_range) return;
+  } else {
+    while (act && step < max_steps && (num_steps < 0 || step - start < num_steps)) {
+      const float px = __fmaf_rn(dx, t, ox);
+      const float py = __fmaf_rn(dy, t, oy);
+      const float pz = __fmaf_rn(dz, t, oz);
+      const float raw = chain_sdf<H>(sw, sb, n_layers, n_inputs, px, py, pz, frame);
+      march_step<S, W>(px, py, pz, raw, frame, relax, eps, omega, t, budget, prev_r, step_len,
+                       conv, act, step, res);
     }
-    ++step;
-    act = moved && !conv_now;
-    if (!act) res = step;
   }
 
   t_out[r] = t;
@@ -338,8 +375,8 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
 // width 32 instead of 96) and spills at 128 and 256.
 using MarchKernel = void (*)(const float*, const float*, const float*, const float*,
                              const uint8_t*, const int32_t*, const int32_t*, const float*, int,
-                             int, float, float, float, float, float, const void*, const void*,
-                             const float*, int, int, float, int, int, int, float, float, float*,
+                             int, float, float, float, float, float, const void*, const float*,
+                             int, int, float, int, int, int, float, float, float*,
                              float*, uint8_t*, uint8_t*, int32_t*);
 
 // The instantiation for a width, chain, scene id and cylinder window, or
@@ -365,19 +402,19 @@ template <int H, bool kThreePass>
 int launch_march(const MarchArgs& a, cudaStream_t stream) {
   const MarchKernel kernel = pick_kernel<H, kThreePass>(a.scene, a.window);
   const bool state_given = a.pos != nullptr || a.steps0 != nullptr;
-  if (kernel == nullptr || !state_given || a.n_layers < 1 || a.n_inputs < 1 || a.n_inputs > 4 ||
-      (kThreePass && a.weights_lo == nullptr))
+  if (kernel == nullptr || !state_given || a.n_layers < 1 || a.n_inputs < 1 || a.n_inputs > 4)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n <= 0) return 0;
-  const size_t smem = smem_bytes(H, a.n_layers);
-  cudaError_t err = prepare_launch(kernel, H, smem);
+  const size_t smem = kThreePass ? smem_bytes_3pass(H, a.n_layers) : smem_bytes(H, a.n_layers);
+  cudaError_t err = kThreePass ? allow_smem(kernel, smem) : prepare_launch(kernel, H, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (a.n + block_for(H) - 1) / block_for(H);
-  kernel<<<grid, block_for(H), smem, stream>>>(
+  const int block = kThreePass ? block_for_3pass(H) : block_for(H);
+  const int grid = (a.n + block - 1) / block;
+  kernel<<<grid, block, smem, stream>>>(
       a.dirs, a.origin, a.t0, a.budget0, a.active0, a.steps0, a.pos, a.c2w, a.width, a.height,
-      a.focal, a.bound_cx, a.bound_cy, a.bound_cz, a.bound_r2, a.weights, a.weights_lo,
-      a.biases, a.n_layers, a.n_inputs, a.frame, a.n, a.max_steps, a.num_steps, a.eps,
-      a.omega, a.t_out, a.budget_out, a.active_out, a.conv_out, a.steps_out);
+      a.focal, a.bound_cx, a.bound_cy, a.bound_cz, a.bound_r2, a.weights, a.biases, a.n_layers,
+      a.n_inputs, a.frame, a.n, a.max_steps, a.num_steps, a.eps, a.omega, a.t_out,
+      a.budget_out, a.active_out, a.conv_out, a.steps_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -122,7 +122,7 @@ def load_library() -> ctypes.CDLL:
         lib.cnr_march.argtypes = [
             _I,                      # device
             _P, _P, _P, _P, _P, _P,  # dirs, origin, t0, budget0, active0, steps0
-            _P, _P, _P,              # weights (FP32 or bf16 hi), bf16 lo or NULL, biases
+            _P, _P,                  # weights (FP32, or bf16 fragment-ordered), biases
             _I, _I, _I, _F,          # n_layers, hidden, n_inputs, frame
             _I, _I, _I,              # scene id, cylinder window, three_pass
             _I, _I, _I, _F, _F,      # n, max_steps, num_steps, eps, omega
@@ -135,7 +135,7 @@ def load_library() -> ctypes.CDLL:
             _P, _P,                  # pos, cam_to_world
             _I, _I, _F,              # width, height, focal
             _F, _F, _F, _F,          # bounding sphere center x, y, z, radius squared
-            _P, _P, _P,              # weights (FP32 or bf16 hi), bf16 lo or NULL, biases
+            _P, _P,                  # weights (FP32, or bf16 fragment-ordered), biases
             _I, _I, _I, _F,          # n_layers, hidden, n_inputs, frame
             _I, _I, _I,              # scene id, cylinder window, three_pass
             _I, _I, _F, _F,          # n, max_steps, eps, omega
@@ -145,11 +145,13 @@ def load_library() -> ctypes.CDLL:
         lib.cnr_march_raygen.restype = _I
         lib.cnr_mlp_forward.argtypes = [
             _I,                      # device
-            _P, _P, _P,              # x, weights, biases
+            _P, _P, _P, _P,          # x, weights, tf32 fragment-ordered weights, biases
             _I, _I, _I, _I,          # n_layers, hidden, n_inputs, n
             _P, _P,                  # out, stream
         ]
         lib.cnr_mlp_forward.restype = _I
+        lib.cnr_smem_bytes.argtypes = [_I, _I, _I]  # kind, hidden, n_layers
+        lib.cnr_smem_bytes.restype = ctypes.c_longlong
         lib.cnr_x1_loop.argtypes = [
             _I,                      # device
             _P, _P, _P,              # x, w, b

@@ -12,11 +12,17 @@ The PyTorch counterpart of the JAX package's ``pallas/fused_mlp.py``:
     ``split_hi_lo`` (``fused_mlp.py:59``) and of the emulated
     ``Precision.HIGH`` chain ``_mlp_chain_3pass`` (``fused_mlp.py:130``),
     K2h, which the march kernel runs at ``precision="high"``;
+    ``mlp_chain_3pass_mma`` models the same chain summed in the tensor-core
+    kernel's order, for checks;
   * ``mlp_forward`` is the counterpart of ``mlp_forward_pallas``
     (``fused_mlp.py:194``): on CUDA tensors it launches the hand-written
     kernel in ``csrc/chain.cuh``, on CPU tensors it runs
     ``mlp_forward_plain``; ``neural_sdf_fn_kernel`` wraps it as an SDF, the
-    counterpart of ``neural_sdf_fn_pallas`` (``config.use_pallas``).
+    counterpart of ``neural_sdf_fn_pallas`` (``config.use_pallas``);
+  * ``pack_mma`` / ``packed_mma`` lay the stack out in the tensor cores'
+    fragment order, the form the tensor-core kernels read: "tf32" for the
+    forward kernel's 3xTF32 products, "bf16" (the two bfloat16 halves) for
+    the three-pass chain inside the march kernel.
 
 Zero padding is exact: padded input features are zero, so weight rows
 beyond a layer's true input width contribute nothing, and the head reads
@@ -27,7 +33,7 @@ do not count).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -157,6 +163,44 @@ def packed_hi_lo(params: MLP) -> Tuple[torch.Tensor, torch.Tensor]:
     return _cached(params, "_packed_hi_lo", lambda p: split_hi_lo(packed_params(p)[0]))
 
 
+#: The kinds of ``pack_mma``.
+MMA_KINDS = ("tf32", "bf16")
+
+
+def pack_mma(weights: torch.Tensor, kind: str) -> torch.Tensor:
+    """The padded stack [L, H, H] (rows the input k, columns the output n)
+    in the tensor cores' B-fragment order, lane = 4 * g + t (csrc/mma.cuh):
+
+      * "tf32", for m16n8k8: float32 [L, H/8, H/8, 32, 2]; entry
+        [l, kk, j, 4g + t, e] is W[l, 8kk + 2t + e, 8j + g]: the MMA's k = t
+        and k = t + 4 of k-chunk kk are rows 8kk + 2t and 8kk + 2t + 1, the
+        permutation that lets a lane read its A pair in one load. The values
+        are the FP32 weights, split into tf32 big / small in registers.
+      * "bf16", for m16n8k16: bfloat16 [L, H/16, H/8, 32, 8]; entry
+        [l, kk, j, 4g + t] holds b0 = W[16kk + 2t + (0, 1), 8j + g] and
+        b1 = W[16kk + 2t + 8 + (0, 1), 8j + g] of the hi half, then the same
+        of the lo half (``split_hi_lo``): one 16-byte load a lane.
+
+    A lane's fragments of one n-tile and k-chunk are contiguous, and a
+    warp's 32 lanes read 256 or 512 consecutive bytes."""
+    n_layers, h, _ = weights.shape
+    if kind == "tf32":
+        w = weights.float().reshape(n_layers, h // 8, 4, 2, h // 8, 8)  # l kk t e j g
+        return w.permute(0, 1, 4, 5, 2, 3).reshape(n_layers, h // 8, h // 8, 32, 2).contiguous()
+    if kind == "bf16":
+        halves = []
+        for half in split_hi_lo(weights.float()):
+            w = half.reshape(n_layers, h // 16, 2, 4, 2, h // 8, 8)  # l kk p t e j g
+            halves.append(w.permute(0, 1, 5, 6, 3, 2, 4).reshape(n_layers, h // 16, h // 8, 32, 4))
+        return torch.cat(halves, dim=-1).contiguous()
+    raise ValueError(f"kind must be one of {MMA_KINDS}, not {kind!r}")
+
+
+def packed_mma(params: MLP, kind: str) -> torch.Tensor:
+    """``pack_mma`` of the packed stack, once per parameter state and kind."""
+    return _cached(params, f"_packed_mma_{kind}", lambda p: pack_mma(packed_params(p)[0], kind))
+
+
 def mlp_chain_plain(weights: torch.Tensor, biases: torch.Tensor,
                     x: torch.Tensor, n_layers: int) -> torch.Tensor:
     """Run the padded layer chain on activations x [T, H]; ReLU on every
@@ -194,6 +238,65 @@ def mlp_chain_3pass_plain(w_hi: torch.Tensor, w_lo: torch.Tensor, biases: torch.
     return x
 
 
+#: Bits past float32's 24 that ``mlp_chain_3pass_mma``'s model of an MMA
+#: keeps when it aligns the products to the largest exponent.
+MMA_ALIGN_BITS = 3
+
+
+def _round_to_zero_f32(v: torch.Tensor) -> torch.Tensor:
+    """float64 values rounded toward zero to float32."""
+    f = v.float()
+    return torch.where(f.double().abs() > v.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _mma_model(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One bf16 MMA with FP32 accumulation as ``mlp_chain_3pass_mma`` models
+    it: c [T, N] float32 + a [T, K] @ b [K, N] (bfloat16 values in
+    float64). The K exact products and c are aligned to the largest
+    exponent among them, each truncated below MMA_ALIGN_BITS bits past
+    float32's, summed exactly, and the sum truncated to float32."""
+    terms = torch.cat([c.double()[:, None, :], a[:, :, None] * b[None, :, :]], dim=1)
+    top = terms.abs().amax(dim=1)
+    _, exp = torch.frexp(top)
+    quantum = torch.ldexp(torch.ones_like(top), exp - 24 - MMA_ALIGN_BITS)
+    quantum = torch.where(top > 0, quantum, torch.ones_like(quantum))
+    aligned = torch.trunc(terms / quantum[:, None, :]) * quantum[:, None, :]
+    return _round_to_zero_f32(aligned.sum(dim=1))
+
+
+def mlp_chain_3pass_mma(weights: torch.Tensor, biases: torch.Tensor,
+                        x: torch.Tensor) -> torch.Tensor:
+    """The three-pass chain summed in the tensor-core kernel's order (K2h,
+    csrc/mma.cuh ``mma_3pass``), a model for checks on any device: weights
+    [L, H, H] and biases [L, H] from ``pack_params``, x [T, H] zero-padded
+    inputs. Returns the head [T].
+
+    Per layer the activations are split as ``mlp_chain_3pass_plain`` splits
+    them. Per k-chunk of 16 rows, three MMAs run from zero: x_lo @ w_hi,
+    then x_hi @ w_lo, then x_hi @ w_hi (each as ``_mma_model``: the tensor
+    cores align and truncate); the chunk's sum is added to one float32
+    accumulator with a rounded add, then the bias, then ReLU on every layer
+    but the last. The inputs are one k-chunk. Memory: T x 17 x H float64
+    values a step."""
+    w_hi, w_lo = (half.double() for half in split_hi_lo(weights))
+    n_layers, h = weights.shape[0], weights.shape[2]
+    for l in range(n_layers):
+        x_hi = x.to(torch.bfloat16).float()
+        x_lo = (x - x_hi).to(torch.bfloat16).double()
+        x_hi = x_hi.double()
+        acc = torch.zeros((x.shape[0], h), dtype=torch.float32, device=x.device)
+        for k0 in range(0, 16 if l == 0 else h, 16):
+            rows = slice(k0, k0 + 16)
+            d = torch.zeros_like(acc)
+            for a, b in ((x_lo, w_hi), (x_hi, w_lo), (x_hi, w_hi)):
+                d = _mma_model(d, a[:, rows], b[l, rows])
+            acc = acc + d
+        x = acc + biases[l]
+        if l + 1 < n_layers:
+            x = torch.relu(x)
+    return x[:, 0]
+
+
 def check_tensor(name: str, x: torch.Tensor, dtype, shape, device) -> None:
     """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``: what a kernel's wrapper hands the kernel."""
@@ -220,7 +323,7 @@ def mlp_forward_plain(weights: torch.Tensor, biases: torch.Tensor,
 
 
 def _mlp_forward_cuda(weights: torch.Tensor, biases: torch.Tensor,
-                      x: torch.Tensor) -> torch.Tensor:
+                      x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     global MLP_LAUNCHES
     n_layers, hidden = weights.shape[0], weights.shape[1]
     if hidden not in KERNEL_WIDTHS:
@@ -233,12 +336,14 @@ def _mlp_forward_cuda(weights: torch.Tensor, biases: torch.Tensor,
     check_tensor("x", x, torch.float32, (n, n_in), dev)
     check_tensor("weights", weights, torch.float32, (n_layers, hidden, hidden), dev)
     check_tensor("biases", biases, torch.float32, (n_layers, hidden), dev)
+    check_tensor("packed", packed, torch.float32,
+                 (n_layers, hidden // 8, hidden // 8, 32, 2), dev)
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     lib = build.load_library()
     err = lib.cnr_mlp_forward(
         dev.index if dev.index is not None else torch.cuda.current_device(),
-        x.data_ptr(), weights.data_ptr(), biases.data_ptr(), n_layers, hidden, n_in, n,
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), weights.data_ptr(), packed.data_ptr(), biases.data_ptr(), n_layers,
+        hidden, n_in, n, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"forward kernel launch failed: {lib.cnr_error_string(err).decode()} ({err})")
@@ -246,10 +351,13 @@ def _mlp_forward_cuda(weights: torch.Tensor, biases: torch.Tensor,
     return out
 
 
-def mlp_forward(weights: torch.Tensor, biases: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def mlp_forward(weights: torch.Tensor, biases: torch.Tensor, x: torch.Tensor,
+                packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused forward pass: weights [L, H, H] and biases [L, H] from
     ``pack_params``, x [B, n_in] points. Returns [B] raw logits (the
-    single-output head).
+    single-output head). ``packed`` is ``pack_mma(weights, "tf32")`` (or
+    ``packed_mma(params, "tf32")``), which the kernel reads: CUDA tensors
+    need it, CPU tensors ignore it.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (or
     raise). The kernel has no gradient: differentiable callers use the
@@ -258,7 +366,9 @@ def mlp_forward(weights: torch.Tensor, biases: torch.Tensor, x: torch.Tensor) ->
         return mlp_forward_plain(weights, biases, x)
     if x.device.type != "cuda":
         raise ValueError(f"mlp_forward runs on cpu or cuda tensors, not {x.device}")
-    return _mlp_forward_cuda(weights, biases, x)
+    if packed is None:
+        raise ValueError("the forward kernel reads packed = packed_mma(params, 'tf32')")
+    return _mlp_forward_cuda(weights, biases, x, packed)
 
 
 def neural_sdf_fn_kernel(params: MLP, frame=0.0, num_inputs: int = 3):
@@ -267,6 +377,7 @@ def neural_sdf_fn_kernel(params: MLP, frame=0.0, num_inputs: int = 3):
     ``render.renderer.neural_sdf_fn`` where no gradient is taken.
     ``num_inputs=4`` appends the frame number as a 4th input."""
     weights, biases, _, _ = packed_params(params)
+    packed = packed_mma(params, "tf32") if weights.device.type == "cuda" else None
 
     def fn(p: torch.Tensor) -> torch.Tensor:
         flat = p.reshape(-1, p.shape[-1])
@@ -274,6 +385,6 @@ def neural_sdf_fn_kernel(params: MLP, frame=0.0, num_inputs: int = 3):
             f = torch.full((flat.shape[0], 1), float(frame), dtype=flat.dtype,
                            device=flat.device)
             flat = torch.cat([flat, f], dim=-1)
-        return mlp_forward(weights, biases, flat.contiguous()).reshape(p.shape[:-1])
+        return mlp_forward(weights, biases, flat.contiguous(), packed).reshape(p.shape[:-1])
 
     return fn

@@ -56,7 +56,7 @@ from ..utils.config import RenderConfig
 from . import build, scenes
 from .fused_mlp import (
     KERNEL_WIDTHS, chain_in_blocks, check_tensor, mlp_chain_3pass_plain, mlp_chain_plain,
-    packed_hi_lo, packed_params, plain_rows,
+    packed_hi_lo, packed_mma, packed_params, plain_rows,
 )
 
 #: The precisions a march call takes (the JAX package's Precision names).
@@ -143,19 +143,23 @@ def march_state_plain(
     march_eps: Optional[float] = None, num_steps: Optional[int] = None,
     precision: str = "highest", relax_omega: float = 0.0,
     return_resolve: bool = False, cyl_window: Optional[int] = None,
+    chain=None,
 ):
     """Plain PyTorch version of the march kernel, on any device.
 
     Each step evaluates only the rays still active (per-ray results do not
     depend on which rays march together) and reads the active count on the
-    host, so it suits the CPU and comparisons, not the hot path.
+    host, so it suits the CPU and comparisons, not the hot path. ``chain``
+    (x [T, H] -> [T, H], the head column 0) marches with another chain in
+    place of the precision's plain one: a check replays the kernel's own
+    chain through it.
     """
     _check_precision(precision)
     compose = _compose(config, cyl_window)
     _, _, n_in, hidden = packed_params(params)
     if n_in != config.num_inputs:
         raise ValueError(f"model has {n_in} inputs but config.num_inputs={config.num_inputs}")
-    chain = _chain_plain(params, precision)
+    chain = _chain_plain(params, precision) if chain is None else chain
     eps = config.march_eps if march_eps is None else march_eps
     relax = bool(relax_omega and relax_omega > 1.0)
     start = int(state.steps)
@@ -219,9 +223,9 @@ def march_state_plain(
 
 
 def _kernel_weights(params: MLP, config: RenderConfig, precision: str, dev):
-    """The stack a launch reads, checked: (weights, weights_lo, biases,
-    n_layers, hidden). FP32 [L, H, H] and None, or at "high" the bfloat16
-    halves [L, H, H] each; biases [L, H] float32."""
+    """The stack a launch reads, checked: (weights, biases, n_layers,
+    hidden). FP32 [L, H, H], or at "high" the bfloat16 halves in fragment
+    order (``packed_mma(params, "bf16")``); biases [L, H] float32."""
     weights, biases, n_in, hidden = packed_params(params)
     if hidden not in KERNEL_WIDTHS:
         raise ValueError(f"the march kernel is built for widths {KERNEL_WIDTHS}, "
@@ -229,15 +233,14 @@ def _kernel_weights(params: MLP, config: RenderConfig, precision: str, dev):
     if n_in != config.num_inputs:
         raise ValueError(f"model has {n_in} inputs but config.num_inputs={config.num_inputs}")
     n_layers = len(params)
-    shape = (n_layers, hidden, hidden)
-    weights_lo = None
     if precision == "high":
-        weights, weights_lo = packed_hi_lo(params)
-        check_tensor("weights_lo", weights_lo, torch.bfloat16, shape, dev)
-    check_tensor("weights", weights, torch.float32 if weights_lo is None else torch.bfloat16,
-                 shape, dev)
+        weights = packed_mma(params, "bf16")
+        check_tensor("weights", weights, torch.bfloat16,
+                     (n_layers, hidden // 16, hidden // 8, 32, 8), dev)
+    else:
+        check_tensor("weights", weights, torch.float32, (n_layers, hidden, hidden), dev)
     check_tensor("biases", biases, torch.float32, (n_layers, hidden), dev)
-    return weights, weights_lo, biases, n_layers, hidden
+    return weights, biases, n_layers, hidden
 
 
 def _device_index(dev: torch.device) -> int:
@@ -266,8 +269,7 @@ def _march_state_cuda(
     global KERNEL_LAUNCHES
     scene_id, window = kernel_scene(config, cyl_window)
     dev = dirs.device
-    weights, weights_lo, biases, n_layers, hidden = _kernel_weights(
-        params, config, precision, dev)
+    weights, biases, n_layers, hidden = _kernel_weights(params, config, precision, dev)
     n = dirs.shape[0]
     check_tensor("dirs", dirs, torch.float32, (n, 3), dev)
     check_tensor("origin", origin, torch.float32, (3,), dev)
@@ -284,9 +286,8 @@ def _march_state_cuda(
         _device_index(dev),
         dirs.data_ptr(), origin.data_ptr(), state.t.data_ptr(),
         state.budget.data_ptr(), state.active.data_ptr(), state.steps.data_ptr(),
-        weights.data_ptr(), None if weights_lo is None else weights_lo.data_ptr(),
-        biases.data_ptr(), n_layers, hidden, config.num_inputs, float(frame), scene_id,
-        window, int(weights_lo is not None),
+        weights.data_ptr(), biases.data_ptr(), n_layers, hidden, config.num_inputs,
+        float(frame), scene_id, window, int(precision == "high"),
         n, config.max_steps, -1 if num_steps is None else int(num_steps),
         float(eps), omega,
         t.data_ptr(), budget.data_ptr(), active.data_ptr(), conv.data_ptr(),
@@ -402,8 +403,7 @@ def _march_raygen_cuda(
     global RAYGEN_LAUNCHES
     scene_id, window = kernel_scene(config, cyl_window)
     dev = pos.device
-    weights, weights_lo, biases, n_layers, hidden = _kernel_weights(
-        params, config, precision, dev)
+    weights, biases, n_layers, hidden = _kernel_weights(params, config, precision, dev)
     n = pos.shape[0]
     check_tensor("pos", pos, torch.int32, (n,), dev)
     check_tensor("cam_to_world", cam_to_world, torch.float32, (3, 4), dev)
@@ -417,9 +417,9 @@ def _march_raygen_cuda(
         _device_index(dev), pos.data_ptr(), cam_to_world.data_ptr(),
         config.width, config.height, float(config.focal), cx, cy, cz,
         float(config.bound_radius) * float(config.bound_radius),
-        weights.data_ptr(), None if weights_lo is None else weights_lo.data_ptr(),
-        biases.data_ptr(), n_layers, hidden, config.num_inputs, float(frame), scene_id,
-        window, int(weights_lo is not None), n, config.max_steps, float(eps), omega,
+        weights.data_ptr(), biases.data_ptr(), n_layers, hidden, config.num_inputs,
+        float(frame), scene_id, window, int(precision == "high"), n, config.max_steps,
+        float(eps), omega,
         t.data_ptr(), budget.data_ptr(), active.data_ptr(), conv.data_ptr(),
         lane_steps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
