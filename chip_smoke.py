@@ -8,7 +8,9 @@ Phases; any failure exits non-zero and nothing is caught:
      parallel, for sm_90a) and print the build time, ptxas's report and one
      line per kernel instantiation (registers, stack, spills, the dynamic
      shared memory its launch asks for at 9 layers, and its HMMA count in
-     ``cuobjdump -sass``: every K3 and K2h instantiation must have some);
+     ``cuobjdump -sass``: every K3 and K2h instantiation and every FP32
+     march instantiation from width 128 must have some, the FP32 march
+     instantiations at 32 and 64 none);
   3. hold the kernel against its plain PyTorch version on the same CUDA
      tensors: csg_demo rays at 256x256 from Camera(rotation_y=30,
      rotation_x=-20), for the staged renderer's three kinds of call
@@ -36,12 +38,16 @@ Phases; any failure exits non-zero and nothing is caught:
      and 512 (``widen``), each driven through the staged path (1080p;
      512x512 at 256, 256x256 at 512) with its width's launches counted, the
      256x256 golden, the median of 3 warm frames (1 from 128 up), kernel =
-     plain version on every march call of one more frame, the coarse pass
-     timed both ways, a profiled frame; csg_demo widened to 1024 on bounded
-     calls only (the coarse call and refine rung 0 at 128x128, launches
-     counted, kernel = plain, the coarse call timed both ways): a staged
-     frame's straggler tail would take tens of seconds at that width;
-     many_sphere at 128 wide through phase 6's steps at 512x512;
+     plain version on every march call of one more frame (from 128 the
+     FP32 chain runs on the tensor cores, held to the TC_ bar), the coarse
+     pass timed both ways beside its FP32 and 3xTF32 bounds, a profiled
+     frame; from 128 the kernel's FP32 SDF against the model of its
+     summation order (fused_mlp.mlp_chain_3xtf32_mma), the plain chain and
+     float64 (``tc_sdf_errors``); csg_demo widened to 1024 on bounded calls
+     only (the coarse call and refine rung 0 at 128x128, launches counted,
+     kernel = plain, the coarse call timed both ways): a staged frame's
+     straggler tail would take tens of seconds at that width; many_sphere
+     at 128 wide through phase 6's steps at 512x512;
   9. the fused forward (K3, 3xTF32 on the tensor cores) at widths
      32-1024: kernel vs plain version on 2^20 seeded points (2^18 at 1024;
      max |d| within K3_ATOL, both against float64, times beside the FP32
@@ -54,7 +60,7 @@ Phases; any failure exits non-zero and nothing is caught:
      kernel vs plain version at widths 32-512 on 256x256 rays for the HIGH
      phase's three kinds of call, at 1024 on the cold coarse call at 64x64
      (its launches counted; bf16 MMA over a warp's rays, held to the
-     kernel bar as K2H_MIN_T_CLOSE and K2H_STRAGGLERS relax it); its SDF,
+     kernel bar as TC_MIN_T_CLOSE and TC_STRAGGLERS relax it); its SDF,
      read off the kernel, against the plain chain at batch paddings and
      against float64 on 2^20 points (2^18 at 1024), beside the FP32
      chain's; both plain chains against the kernel at the row counts
@@ -207,25 +213,31 @@ PEAK_HBM_BYTES = 3.35e12
 # fused multiply-add (3xTF32, the redesigned K3): ``tc_bound_ms`` of a K3 or
 # FP32-chain entry is its work at that rate, 0.406x its FFMA bound.
 TF32_PASSES = 3
-# The three-pass chain (K2h) sums on the tensor cores in their own order, in
-# one accumulator, where its plain version sums three float32 products: the
-# two are no longer equal bit for bit. The kernel's SDF agrees with a model
+# The chains on the tensor cores sum in their own order: the three-pass
+# chain (K2h) in one accumulator, where its plain version sums three float32
+# products, and from width 128 the FP32 chain (3xTF32, per k-chunk of 8)
+# where its plain version (cuBLAS) sums in input order. Neither equals its
+# plain version bit for bit. The three-pass kernel's SDF agrees with a model
 # of its own summation order (fused_mlp.mlp_chain_3pass_mma; phase 10 prints
 # the difference), and that model alone moves csg_demo's 9-layer SDF
 # 2.6e-5 off the plain chain's over 65536 points on the CPU
 # (tests/test_torch_mma.py); on the H100 the kernel's SDF is 3.5e-5 off over
 # 2^20 points at width 32, less on the widened nets. So the kernel's SDF is
 # held within K2H_SDF_ATOL of the plain chain's (phase 10's row sweep), and
-# below 1e-3 against float64.
+# below 1e-3 against float64. The FP32 chain on the tensor cores is held
+# within K1_MMA_SDF_ATOL of its plain chain at every point a replay visits,
+# the fused forward's bar (K3, the same 3xTF32 products: 1.79e-6 off cuBLAS
+# on the H100), and its march calls to the bar below.
 #
-# The march calls. At the HIGH phase's eps (1e-3), an SDF 3e-5 apart moves a
+# The march calls of a chain summed in the tensor cores' order (``tc_order``).
+# At the HIGH phase's eps (1e-3), an SDF 3e-5 apart moves a
 # ray sitting at the threshold to converge a step apart, or flips a relaxed
 # step's fail test, far more often than FP32's 1e-7 did; a grazing ray then
 # stops eps / cos(angle) further along, and the differences of each step add
 # up along a ray that grazes for many steps. check_agreement's FP32 bar
 # (every common hit within MAX_T_ERR in t, equal step counters) does not
 # hold, so a three-pass call is held to it with:
-#   * |dt| <= MAX_T_ERR on >= K2H_MIN_T_CLOSE of the common hits (the
+#   * |dt| <= MAX_T_ERR on >= TC_MIN_T_CLOSE of the common hits (the
 #     lowest readings on the H100, 700 W: 0.99592 over coarse_high's 1080p
 #     call, 0.99428 over the ~1400 common hits of the card tests' 64x64
 #     terminal call at width 64);
@@ -233,7 +245,7 @@ TF32_PASSES = 3
 #     step in both (largest reading 6.2e-4 at eps 1e-3; 0.0245 at the
 #     cold-start call's eps 0.05);
 #   * the lanes of either run that resolve past the other run's step counter
-#     <= K2H_STRAGGLERS of the lanes: on a run-to-dry call the counter is
+#     <= TC_STRAGGLERS of the lanes: on a run-to-dry call the counter is
 #     the deepest lane's resolve step, one grazing straggler, which such a
 #     difference moves by up to 9 steps (width 64, 70 against 79 on a
 #     256x256 coarse call; the largest share read is 1 lane in 65536). Both
@@ -242,13 +254,51 @@ TF32_PASSES = 3
 #     common hit more than MAX_T_ERR apart) replayed by the plain march with
 #     the kernel's own SDF, read off the card at each point it visits
 #     (``replay_beyond``): the replay must land on the kernel's results bit
-#     for bit, and the two chains agree within K2H_SDF_ATOL at every point
-#     visited. A fault of the march loop on any lane (the partial last warp,
-#     K5's pad lanes, a lane class) fails there even where the shares pass.
-# The shares sit just outside the readings.
+#     for bit, and the two chains agree within the chain's SDF bar
+#     (K2H_SDF_ATOL, K1_MMA_SDF_ATOL) at every point visited. A fault of the
+#     march loop on any lane (the partial last warp, K5's pad lanes, a lane
+#     class) fails there even where the shares pass.
+# The shares sit just outside the three-pass readings of PR 6; the FP32
+# chain on the tensor cores is held to the same bars, set before its first
+# run on the card. One exception: on a call whose eps is at most
+# UNDECIDED_EPS (the refine rungs' 1e-6) the two FP32 chains, ~1e-6 apart,
+# cannot decide every convergence test, as XLA and torch on the CPU cannot
+# (ROADMAP section 3). There, if resolve steps are equal on fewer than
+# MIN_RESOLVE_EQUAL of the lanes or converged flags on fewer than
+# MIN_CONV_AGREE, every lane whose resolve step or flag differs must part
+# where float32 cannot decide a test (``undecided_lanes``; at most
+# TC_STRAGGLERS of the call's lanes may part where the two states had
+# drifted apart instead), each replay landing on its side's results, and
+# the kernel's SDF on those lanes' paths as close to float64 as the plain
+# chain's: mean |error| within WITNESS_MEAN times, max within WITNESS_MAX
+# times (tests/test_torch_wide.py's float64 witness bar); and every common
+# hit lies within MAX_T_ERR in t, the FP32 kernel bar, in place of eps on
+# the rays resolving at the same step.
+# Changed after the first card run of the FP32 chain on the tensor cores
+# (NVIDIA H100, 700 W; PERF.md, PR 7), on the refine calls only:
+#   * rays resolving at the same step ended up to 2.03e-6 apart in t
+#     (width 128, 1080p, the first refine rung), past eps 1e-6: each step
+#     moves t by the SDF, whose two sums differ by up to delta (~3e-7), and
+#     along a grazing ray those differences add up. Hence MAX_T_ERR on
+#     every common hit (the most read: 2.03e-5);
+#   * converged flags agreed on 0.99810 (width 256, 512x512, the second
+#     refine rung): on a bounded rung a ray that converges a step later
+#     than in the other march is still active at the rung's end. Such lanes
+#     are undecided ones, so the flags' share falls to undecided_lanes as
+#     the resolve steps' does;
+#   * 3 of 491520 lanes (width 128, 1080p, the third refine rung) and 1 of
+#     65536 (width 256, 512x512, the same rung) parted where float32
+#     decides the test on both sides: their points had drifted 2.3e-3 to
+#     3.8e-5 apart over the 86-101 steps before, along rays leaving the
+#     surface, where each step's difference grows (each side's test agrees
+#     with float64 at its own point). Hence the TC_STRAGGLERS share.
 K2H_SDF_ATOL = 5e-5
-K2H_MIN_T_CLOSE = 0.993
-K2H_STRAGGLERS = 1e-4
+K1_MMA_SDF_ATOL = 1e-5
+TC_MIN_T_CLOSE = 0.993
+TC_STRAGGLERS = 1e-4
+UNDECIDED_EPS = 1e-6
+WITNESS_MEAN = 1.25
+WITNESS_MAX = 2.0
 K1_SOURCE = "cudaneuralrender_torch/csrc/march.cuh"
 K3_SOURCE = "cudaneuralrender_torch/csrc/chain.cuh"
 X_SOURCE = "cudaneuralrender_torch/csrc/experiments.cu"
@@ -466,19 +516,48 @@ def agreement(kernel_out, plain_out) -> dict:
         stragglers=max(int((k_steps > p.steps).sum()), int((p_steps > k.steps).sum()))
         / k_steps.numel(),
         n_converged=int(both.sum()),
-        three_pass=False,
+        tc_order=False,
     )
 
 
-def three_pass_agreement(params, call, kernel_out, plain_out) -> dict:
-    """``agreement`` of a call at precision "high" (the three-pass chain),
-    which ``check_agreement`` holds to its own bar: with the call's eps and
-    ``replay_beyond``'s witness. ``call`` is (origin, dirs, state, config,
+def tc_agreement(params, call, kernel_out, plain_out) -> dict:
+    """``agreement`` of a call whose chain sums in the tensor cores' order
+    (the three-pass chain; the FP32 chain from width 128), which
+    ``check_agreement`` holds to the TC_ bar: with the call's eps, the
+    chain's SDF bar and ``replay_beyond``'s witness; and, on a call at eps
+    <= UNDECIDED_EPS whose resolve steps are equal on fewer than
+    MIN_RESOLVE_EQUAL of the lanes or converged flags on fewer than
+    MIN_CONV_AGREE, ``undecided_lanes`` of the kernel's chain against the
+    plain one. ``call`` is (origin, dirs, state, config,
     frame, march_state's keywords)."""
-    config, kw = call[3], call[5]
+    from cudaneuralrender_torch.kernels import megakernel
+
+    _, _, _, config, frame, kw = call
+    precision = kw.get("precision", "highest")
     eps = config.march_eps if kw.get("march_eps") is None else kw["march_eps"]
-    return dict(agreement(kernel_out, plain_out), three_pass=True, eps=eps,
-                **replay_beyond(params, call, kernel_out, plain_out))
+    a = dict(agreement(kernel_out, plain_out), tc_order=True, eps=eps,
+             sdf_atol=K2H_SDF_ATOL if precision == "high" else K1_MMA_SDF_ATOL,
+             **replay_beyond(params, call, kernel_out, plain_out))
+    if eps <= UNDECIDED_EPS and (a["resolve_equal"] < MIN_RESOLVE_EQUAL
+                                 or a["conv_agree"] < MIN_CONV_AGREE):
+        compose = megakernel._compose(config, kw.get("cyl_window"))
+        a["undecided"] = undecided_lanes(
+            params, call, (kernel_chain(params, precision, frame), None),
+            (kernel_out, plain_out),
+            lambda pts: compose(pts.double(), sdf_float64(params, pts, frame), frame))
+    return a
+
+
+def call_agreement(params, call, kernel_out, plain_out) -> dict:
+    """How a march call's kernel and plain results agree, by the bar of the
+    call's chain: ``tc_agreement`` where the kernel sums it on the tensor
+    cores (``megakernel.tensor_core_chain``), else ``agreement``."""
+    from cudaneuralrender_torch.kernels import fused_mlp, megakernel
+
+    hidden = fused_mlp.packed_params(params)[3]
+    if megakernel.tensor_core_chain(hidden, call[5].get("precision", "highest")):
+        return tc_agreement(params, call, kernel_out, plain_out)
+    return agreement(kernel_out, plain_out)
 
 
 @contextlib.contextmanager
@@ -498,15 +577,31 @@ def uncounted():
             getattr(megakernel, name).update(counts)
 
 
+def kernel_chain(params, precision: str, frame: float = 0.0, on_call=None):
+    """The kernel's chain at a precision as ``march_state_plain`` takes a
+    chain (x [T, H] -> [T, H], the head in column 0): its SDF read off the
+    card (``kernel_sdf``) at the rows' points. ``on_call(x, d)``, if given,
+    sees each call's inputs and heads."""
+    def chain(x):
+        d = kernel_sdf(params, x[:, :3], precision, frame)
+        if on_call is not None:
+            on_call(x, d)
+        out = torch.zeros_like(x)
+        out[:, 0] = d
+        return out
+
+    return chain
+
+
 def replay_beyond(params, call, kernel_out, plain_out) -> dict:
-    """The lanes of a three-pass call outside ``check_agreement``'s bars
+    """The lanes of a tensor-core call outside ``check_agreement``'s bars
     (converged flags or resolve steps unequal, or a common hit more than
     MAX_T_ERR apart in t), marched again by the plain version with the
-    kernel's own chain in place of the plain one: the kernel's SDF read off
-    the card (``kernel_sdf``) at each point the march visits, the plain
-    chain's beside it. Returns the lanes replayed, whether the replay lands
-    on the kernel's t, flags and resolve steps bit for bit, and the largest
-    |difference| of the two chains over the points visited."""
+    kernel's own chain in place of the plain one (``kernel_chain``, at the
+    call's precision), the plain chain's beside it. Returns the lanes
+    replayed, whether the replay lands on the kernel's t, flags and resolve
+    steps bit for bit, and the largest |difference| of the two chains over
+    the points visited."""
     from cudaneuralrender_torch.kernels import megakernel
     from cudaneuralrender_torch.ops import march
 
@@ -518,25 +613,148 @@ def replay_beyond(params, call, kernel_out, plain_out) -> dict:
     idx = beyond.nonzero().squeeze(1)
     if idx.numel() == 0:
         return dict(replayed=0, replay_equal=True, chain_max_diff=0.0)
-    plain_chain = megakernel._chain_plain(params, "high")
+    precision = kw.get("precision", "highest")
+    plain_chain = megakernel._chain_plain(params, precision)
     worst = [0.0]
 
-    def kernel_chain(x):
-        d = kernel_sdf(params, x[:, :3], "high", frame)
+    def compare(x, d):
         worst[0] = max(worst[0], (plain_chain(x)[:, 0] - d).abs().max().item())
-        out = torch.zeros_like(x)
-        out[:, 0] = d
-        return out
 
     sub = march.MarchState(t=state.t[idx], budget=state.budget[idx], active=state.active[idx],
                            converged=state.converged[idx], steps=state.steps)
     with uncounted():
-        r, r_steps = megakernel.march_state_plain(params, origin, dirs[idx], sub, config, frame,
-                                                  chain=kernel_chain,
-                                                  **dict(kw, return_resolve=True))
+        r, r_steps = megakernel.march_state_plain(
+            params, origin, dirs[idx], sub, config, frame,
+            chain=kernel_chain(params, precision, frame, compare),
+            **dict(kw, return_resolve=True))
     equal = (torch.equal(r.t, k.t[idx]) and torch.equal(r.converged, k.converged[idx])
              and torch.equal(r_steps, k_steps[idx]))
     return dict(replayed=int(idx.numel()), replay_equal=equal, chain_max_diff=worst[0])
+
+
+def march_trace(params, call, chain, lanes) -> tuple:
+    """The plain march of ``call``'s ``lanes`` with ``chain`` in place of
+    the plain one: ((state, resolve steps), the per-step records of
+    ``march_state_plain``'s ``trace``, whose ``idx`` index ``lanes``)."""
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import march
+
+    origin, dirs, state, config, frame, kw = call
+    sub = march.MarchState(t=state.t[lanes], budget=state.budget[lanes],
+                           active=state.active[lanes], converged=state.converged[lanes],
+                           steps=state.steps)
+    steps = []
+    with uncounted():
+        out = megakernel.march_state_plain(params, origin, dirs[lanes], sub, config, frame,
+                                           chain=chain, trace=steps.append,
+                                           **dict(kw, return_resolve=True))
+    return out, steps
+
+
+# The tests of a march step, in the order undecided_lanes reads a parting.
+STEP_TESTS = ("fail", "miss", "conv")
+
+
+def _step_margins(s, rows, eps: float, omega: float) -> torch.Tensor:
+    """[3, n]: how far the float64 distance ``s["s64"]`` lies from each
+    test's threshold at the step record ``s``'s ``rows``, in distance
+    units: the relaxed step's fail test d + prev_r < step_len (infinite
+    where step_len <= prev_r, which no distance decides), the miss test
+    budget - step <= 0 (the step is d or omega * d), and d < eps."""
+    d64 = s["s64"][rows]
+    prev_r, step_len, budget = (s[k][rows].double() for k in ("prev_r", "step_len", "budget"))
+    fail = torch.where(step_len > prev_r, (d64 + prev_r - step_len).abs(),
+                       torch.full_like(d64, float("inf")))
+    scale = torch.ones_like(d64)
+    if omega > 1.0:
+        scale = torch.where(s["near"][rows] | (step_len < 0.0), scale, scale * omega)
+    return torch.stack([fail, (budget / scale - d64).abs(), (d64 - eps).abs()])
+
+
+def undecided_lanes(params, call, chains, outs, sdf64) -> dict:
+    """Where two marches of one call part, and whether float32 could decide
+    it: ``chains`` (a, b), each side's chain as ``march_state_plain`` takes
+    it; ``outs`` ((state, resolve steps) of a, then of b), what each side's
+    march gave; ``sdf64``, points [n, 3] -> the scene's distance in float64.
+
+    Each lane whose resolve step or converged flag differs is marched again
+    on both sides (``march_trace``), and each replay must land on its
+    side's results bit for bit. At the first step where the two take
+    another branch (STEP_TESTS: the relaxed step's fail test, the miss
+    test, convergence), float32 cannot decide the test if on either side
+    the float64 distance lies within delta of its threshold; delta is the
+    larger of the two chains' max |distance - float64| over the points the
+    replays visit (a subset of the call's points, so no larger than the
+    whole call's). A lane that parts where float32 decides both sides'
+    tests is ``decided``: its two states had drifted apart (each side's
+    test agrees with float64 at its own state), and ``decided_detail``
+    gives, for up to 20 such lanes, the step, the test, both margins and
+    how far apart the two sides' points and budgets were. A lane whose
+    replays never part is ``unparted``: a fault. Returns the counts, delta,
+    each chain's mean and max error there, and the parting tests."""
+    config, kw = call[3], call[5]
+    (a, ra), (b, rb) = outs
+    lanes = ((ra != rb) | (a.converged != b.converged)).nonzero().squeeze(1)
+    result = dict(lanes=int(lanes.numel()), n_call=int(ra.numel()), n_decided=0, decided=[],
+                  decided_detail=[], n_unparted=0, delta=0.0, replay_equal=True,
+                  err_mean=[0.0, 0.0], err_max=[0.0, 0.0],
+                  parted_by=dict.fromkeys(STEP_TESTS, 0))
+    if lanes.numel() == 0:
+        return result
+    eps = config.march_eps if kw.get("march_eps") is None else kw["march_eps"]
+    omega = float(kw.get("relax_omega") or 0.0)
+    runs = []
+    for side, (chain, (o, r)) in enumerate(zip(chains, outs)):
+        (ro, rr), steps = march_trace(params, call, chain, lanes)
+        result["replay_equal"] &= (torch.equal(ro.t, o.t[lanes])
+                                   and torch.equal(ro.converged, o.converged[lanes])
+                                   and torch.equal(rr, r[lanes]))
+        for s in steps:
+            s["s64"] = sdf64(s["pts"])
+        err = torch.cat([(s["d"].double() - s["s64"]).abs() for s in steps])
+        result["err_mean"][side], result["err_max"][side] = err.mean().item(), err.max().item()
+        runs.append({s["step"]: s for s in steps})
+    delta = result["delta"] = max(result["err_max"])
+    n, dev = lanes.numel(), lanes.device
+    parted = torch.zeros(n, dtype=torch.bool, device=dev)
+    undecided = torch.zeros(n, dtype=torch.bool, device=dev)
+    for step in sorted(set(runs[0]) & set(runs[1])):
+        recs, rows = (runs[0][step], runs[1][step]), []
+        for s in recs:  # each side's record row of every lane, -1 where it does not march
+            row = torch.full((n,), -1, dtype=torch.long, device=dev)
+            row[s["idx"]] = torch.arange(s["idx"].numel(), device=dev)
+            rows.append(row)
+        live = ((rows[0] >= 0) & (rows[1] >= 0) & ~parted).nonzero().squeeze(1)
+        if live.numel() == 0:
+            continue
+        ia, ib = rows[0][live], rows[1][live]
+        tests = [torch.stack([s["sor_fail"][i], s["moved"][i], s["moved"][i] & s["near"][i]])
+                 for s, i in zip(recs, (ia, ib))]
+        differ = tests[0] != tests[1]  # [3, live]
+        split = differ.any(dim=0)
+        if not split.any():
+            continue
+        which = differ.float().argmax(dim=0)[split]  # the first test that differs
+        margins = [_step_margins(s, i[split], eps, omega).gather(0, which[None])[0]
+                   for s, i in zip(recs, (ia, ib))]
+        margin = torch.minimum(*margins)
+        for k, name in enumerate(STEP_TESTS):
+            result["parted_by"][name] += int((which == k).sum())
+        parted[live[split]] = True
+        undecided[live[split]] = margin <= delta
+        for j in (margin > delta).nonzero().squeeze(1).tolist():
+            if len(result["decided_detail"]) < 20:
+                ja, jb = int(ia[split][j]), int(ib[split][j])
+                result["decided_detail"].append(dict(
+                    lane=int(lanes[live[split][j]]), step=step,
+                    test=STEP_TESTS[int(which[j])],
+                    margins=[float(m[j]) for m in margins],
+                    point_apart=float((recs[0]["pts"][ja] - recs[1]["pts"][jb]).norm()),
+                    budget_apart=float((recs[0]["budget"][ja] - recs[1]["budget"][jb]).abs())))
+    decided = lanes[parted & ~undecided]
+    result["n_decided"], result["decided"] = int(decided.numel()), decided[:20].tolist()
+    result["n_unparted"] = int((~parted).sum())
+    return result
 
 
 def compare_kernel_with_plain(params, config, origin, dirs, frame=0.0, variants=None):
@@ -559,41 +777,70 @@ def compare_kernel_with_plain(params, config, origin, dirs, frame=0.0, variants=
                   cyl_window=config.cyl_window_coarse if name == "coarse" else None)
         k = megakernel.march_state(params, origin, dirs, state, config, frame, **kw)
         p = megakernel.march_state_plain(params, origin, dirs, state, config, frame, **kw)
-        result[name] = agreement(k, p)
+        result[name] = call_agreement(params, (origin, dirs, state, config, frame, kw), k, p)
         state = p[0]
     return result
 
 
+def undecided_bar(u: dict) -> list:
+    """What breaks the bar of ``undecided_lanes`` on a kernel (side a)
+    against its plain version (side b): an unparted lane, more lanes
+    parting where float32 decides the test (their states drifted apart)
+    than TC_STRAGGLERS of the call's lanes, a replay off its side's
+    results, or a kernel chain further from float64 than WITNESS_MEAN /
+    WITNESS_MAX times the plain chain."""
+    bad = []
+    if u["n_unparted"]:
+        bad.append(f"{u['n_unparted']} of the {u['lanes']} differing lanes never part in the "
+                   "replays")
+    if u["n_decided"] > TC_STRAGGLERS * u["n_call"]:
+        bad.append(f"{u['n_decided']} of the {u['n_call']} lanes part where float32 decides "
+                   f"(delta {u['delta']:.3g}) > {TC_STRAGGLERS} of them: "
+                   f"{u['decided_detail'][:3]}")
+    if not u["replay_equal"]:
+        bad.append("a replay of the differing lanes does not land on its side's results")
+    (km, pm), (kx, px) = u["err_mean"], u["err_max"]
+    if km > WITNESS_MEAN * pm or kx > WITNESS_MAX * px:
+        bad.append(f"|SDF - float64| on the differing lanes' paths: kernel mean {km:.3g} max "
+                   f"{kx:.3g}, plain mean {pm:.3g} max {px:.3g}")
+    return bad
+
+
 def check_agreement(result: dict) -> None:
-    """Raise unless every call meets the kernel bar (a three-pass call's
-    as the K2H_ constants set it)."""
+    """Raise unless every call meets the kernel bar (a call summed in the
+    tensor cores' order as the TC_ constants and its SDF bar set it)."""
     for name, a in result.items():
-        three_pass = a["three_pass"]
+        tc_order = a["tc_order"]
+        refine = tc_order and a["eps"] <= UNDECIDED_EPS
         bad = []
-        if a["conv_agree"] < MIN_CONV_AGREE:
-            bad.append(f"converged flags agree on {a['conv_agree']:.5f} < {MIN_CONV_AGREE}")
-        if not three_pass and a["max_abs_err"] > MAX_T_ERR:
+        if "undecided" in a:  # the refine rungs' exception (UNDECIDED_EPS)
+            bad.extend(undecided_bar(a["undecided"]))
+        else:
+            if a["conv_agree"] < MIN_CONV_AGREE:
+                bad.append(f"converged flags agree on {a['conv_agree']:.5f} < {MIN_CONV_AGREE}")
+            if a["resolve_equal"] < MIN_RESOLVE_EQUAL:
+                bad.append(f"resolve steps equal on {a['resolve_equal']:.5f} "
+                           f"< {MIN_RESOLVE_EQUAL}")
+        if (not tc_order or refine) and a["max_abs_err"] > MAX_T_ERR:
             bad.append(f"max |dt| {a['max_abs_err']:.3g} > {MAX_T_ERR}")
-        if a["resolve_equal"] < MIN_RESOLVE_EQUAL:
-            bad.append(f"resolve steps equal on {a['resolve_equal']:.5f} < {MIN_RESOLVE_EQUAL}")
-        if not three_pass and a["new_steps"][0] != a["new_steps"][1]:
+        if not tc_order and a["new_steps"][0] != a["new_steps"][1]:
             bad.append(f"new_steps kernel {a['new_steps'][0]} != plain {a['new_steps'][1]}")
-        if three_pass:
-            if a["t_close"] < K2H_MIN_T_CLOSE:
+        if tc_order:
+            if a["t_close"] < TC_MIN_T_CLOSE:
                 bad.append(f"|dt| <= {MAX_T_ERR} on {a['t_close']:.5f} of the common hits "
-                           f"< {K2H_MIN_T_CLOSE}")
-            if a["max_abs_err_same_step"] > a["eps"]:
+                           f"< {TC_MIN_T_CLOSE}")
+            if not refine and a["max_abs_err_same_step"] > a["eps"]:
                 bad.append(f"max |dt| {a['max_abs_err_same_step']:.3g} among rays resolving at "
                            f"the same step > eps {a['eps']}")
-            if a["stragglers"] > K2H_STRAGGLERS:
+            if a["stragglers"] > TC_STRAGGLERS:
                 bad.append(f"new_steps kernel {a['new_steps'][0]} vs plain {a['new_steps'][1]}: "
                            f"{a['stragglers']:.3g} of the lanes resolve past the other counter "
-                           f"> {K2H_STRAGGLERS}")
+                           f"> {TC_STRAGGLERS}")
             if not a["replay_equal"]:
                 bad.append(f"the plain march with the kernel's chain, on the {a['replayed']} "
                            "lanes beyond the bar, does not land on the kernel's results")
-            if a["chain_max_diff"] > K2H_SDF_ATOL:
-                bad.append(f"the chains differ by {a['chain_max_diff']:.3g} > {K2H_SDF_ATOL} "
+            if a["chain_max_diff"] > a["sdf_atol"]:
+                bad.append(f"the chains differ by {a['chain_max_diff']:.3g} > {a['sdf_atol']} "
                            "on the replayed lanes' path")
         if a["n_converged"] == 0:
             bad.append("no ray converged in both")
@@ -647,8 +894,7 @@ def compare_recorded_calls(params, calls) -> dict:
         name = f"call{i}_{dirs.shape[0]}lanes_steps{kw.get('num_steps')}"
         if kw.get("cyl_window") is not None:
             name += f"_window{kw['cyl_window']}"
-        result[name] = (three_pass_agreement(params, (origin, dirs, state, config, frame, kw), k, p)
-                        if kw.get("precision") == "high" else agreement(k, p))
+        result[name] = call_agreement(params, (origin, dirs, state, config, frame, kw), k, p)
     return result
 
 
@@ -851,10 +1097,13 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> dict:
     check_agreement(result)
     ms, plain_ms, bnd = time_coarse(params, calls, size.reps, min(3, size.reps))
     print(f"{tag}: coarse march kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bnd['bound_ms']:.3f} ms [{card}]", flush=True)
+          f"{bnd['bound_ms']:.3f} ms (FP32), {bnd['tc_bound_ms']:.3f} ms (3xTF32) [{card}]",
+          flush=True)
     if not size.bounded:
         print(f"{tag}: breakdown {json.dumps(device_breakdown(renderer, cam))} [{card}]",
               flush=True)
+    if megakernel.tensor_core_chain(hidden, "highest"):
+        tc_sdf_errors(params, hidden, card, size.points)
     return kernel_entry(f"march_kernel_h{hidden}", K1_SOURCE,
                         "cudaneuralrender_tpu/pallas/megakernel.py:45", launches,
                         max(a["max_abs_err"] for a in result.values()), ms, plain_ms, bnd)
@@ -1006,7 +1255,7 @@ def compare_high_with_plain(params, config, origin, dirs, variants=None) -> dict
         state = cold if name == "coarse" else entry
         k = megakernel.march_state(params, origin, dirs, state, config, **kw)
         p = megakernel.march_state_plain(params, origin, dirs, state, config, **kw)
-        result[name] = three_pass_agreement(params, (origin, dirs, state, config, 0.0, kw), k, p)
+        result[name] = tc_agreement(params, (origin, dirs, state, config, 0.0, kw), k, p)
     return result
 
 
@@ -1032,9 +1281,12 @@ def kernel_sdf(params, pts, precision: str, frame: float = 0.0):
     return -out.budget
 
 
-def sdf_float64(params, pts) -> torch.Tensor:
-    """The net's SDF at points [n, 3] in float64."""
+def sdf_float64(params, pts, frame: float = 0.0) -> torch.Tensor:
+    """The net's SDF at points [n, 3] in float64 (a 4-input net reads
+    ``frame`` as its 4th input)."""
     x = pts.double()
+    if params[0].w.shape[0] == 4:
+        x = torch.cat([x, torch.full_like(x[:, :1], float(frame))], dim=1)
     for i, layer in enumerate(params):
         x = x @ layer.w.double() + layer.b.double()
         if i + 1 < len(params):
@@ -1057,11 +1309,7 @@ def sdf_errors(params, hidden, card, n_points) -> dict:
     from cudaneuralrender_torch.kernels import fused_mlp
 
     dev = params.device
-    rng = np.random.default_rng(hidden)
-    v = rng.normal(size=(n_points, 3))
-    v *= (1.2 * rng.uniform(size=(n_points, 1)) ** (1 / 3)) / np.linalg.norm(v, axis=1,
-                                                                              keepdims=True)
-    pts = torch.as_tensor(v.astype(np.float32), device=dev)
+    pts = ball_points(hidden, n_points, dev)
     want = sdf_float64(params, pts)
     err = {prec: (kernel_sdf(params, pts, prec).double() - want).abs().max().item()
            for prec in ("highest", "high")}
@@ -1105,6 +1353,56 @@ def sdf_errors(params, hidden, card, n_points) -> dict:
     return dict(err, **vs_model)
 
 
+def ball_points(seed: int, n: int, dev) -> torch.Tensor:
+    """n seeded points uniform in the ball of radius 1.2 (the bounding
+    sphere's reach)."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n, 3))
+    v *= (1.2 * rng.uniform(size=(n, 1)) ** (1 / 3)) / np.linalg.norm(v, axis=1, keepdims=True)
+    return torch.as_tensor(v.astype(np.float32), device=dev)
+
+
+def tc_sdf_errors(params, hidden, card, n_points) -> dict:
+    """Phase 8 from width 128: the kernel's FP32 SDF (3xTF32 on the tensor
+    cores), read off one step, on ``n_points`` seeded points in the
+    bounding sphere: against the model of its summation order
+    (``fused_mlp.mlp_chain_3xtf32_mma``, on the first points: it sums each
+    MMA's products one by one), the plain FP32 chain (cuBLAS) and float64,
+    beside the plain chain against float64; the largest |difference| and
+    the shares equal bit for bit, printed. Raises if the kernel is more
+    than K1_MMA_SDF_ATOL off the plain chain."""
+    from cudaneuralrender_torch.kernels import fused_mlp
+
+    pts = ball_points(hidden, n_points, params.device)
+    weights, biases, n_in, h = fused_mlp.packed_params(params)
+    k_sdf = kernel_sdf(params, pts, "highest")
+    plain = fused_mlp.mlp_forward_plain(weights, biases, pts)
+    exact = sdf_float64(params, pts)
+    n_model = min(n_points, (1 << 32) // (h * h))
+    x = torch.zeros((n_model, h), dtype=torch.float32, device=pts.device)
+    x[:, :n_in] = pts[:n_model]
+    model = fused_mlp.mlp_chain_3xtf32_mma(weights, biases, x)
+    err_k, err_p = (k_sdf.double() - exact).abs(), (plain.double() - exact).abs()
+    r = dict(kernel_model=(k_sdf[:n_model] - model).abs().max().item(),
+             model_equal=(k_sdf[:n_model] == model).float().mean().item(),
+             model_plain=(model - plain[:n_model]).abs().max().item(),
+             kernel_plain=(k_sdf - plain).abs().max().item(),
+             plain_equal=(k_sdf == plain).float().mean().item(),
+             kernel_f64=(err_k.mean().item(), err_k.max().item()),
+             plain_f64=(err_p.mean().item(), err_p.max().item()))
+    print(f"sdf width {h}: FP32 chain on the tensor cores (3xTF32): on {n_model} points max "
+          f"|d| kernel - model of its summation order (fused_mlp.mlp_chain_3xtf32_mma) "
+          f"{r['kernel_model']:.3g} ({r['model_equal']:.6f} equal bit for bit), model - plain "
+          f"chain {r['model_plain']:.3g}; on {n_points} points kernel - plain chain "
+          f"{r['kernel_plain']:.3g} ({r['plain_equal']:.6f} equal bit for bit), |SDF - "
+          f"float64| kernel mean {r['kernel_f64'][0]:.3g} max {r['kernel_f64'][1]:.3g}, plain "
+          f"chain mean {r['plain_f64'][0]:.3g} max {r['plain_f64'][1]:.3g} [{card}]", flush=True)
+    if not r["kernel_plain"] <= K1_MMA_SDF_ATOL:
+        raise RuntimeError(f"width {h}: the FP32 kernel's SDF is {r['kernel_plain']} off its "
+                           f"plain chain's, more than {K1_MMA_SDF_ATOL}")
+    return r
+
+
 def row_sweep(params, card, n_points) -> dict:
     """Phase 10: the plain chains, FP32 and three-pass, with every row a
     seeded point, against the kernel's SDF: in one product at the row
@@ -1112,11 +1410,15 @@ def row_sweep(params, card, n_points) -> dict:
     as the plain versions run them (``fused_mlp.plain_rows`` and
     ``chain_in_blocks``) on ``n_points``. The FP32 chain must agree bit for
     bit at the row counts the plain versions use (powers of two to
-    ``ROW_BLOCK``, then blocks); the three-pass chain, summed on the tensor
-    cores in another order, within K2H_SDF_ATOL at every row count. Returns
-    the FP32 row counts at which some row differs, and the three-pass
-    chain's largest |difference| per row count."""
-    from cudaneuralrender_torch.kernels import fused_mlp
+    ``ROW_BLOCK``, then blocks): with the kernel where it sums the FP32
+    chain per ray (widths 32 and 64), and from 128, where the kernel sums
+    it on the tensor cores, with itself as the plain versions run it (a
+    replay of a few lanes must sum as the whole call did), the kernel
+    within K1_MMA_SDF_ATOL of it; the three-pass chain, summed on the
+    tensor cores in another order, within K2H_SDF_ATOL at every row count.
+    Returns the FP32 row counts at which some row differs, and the
+    three-pass chain's largest |difference| per row count."""
+    from cudaneuralrender_torch.kernels import fused_mlp, megakernel
 
     dev = params.device
     weights, biases, n_in, h = fused_mlp.packed_params(params)
@@ -1129,6 +1431,14 @@ def row_sweep(params, card, n_points) -> dict:
     pts = torch.as_tensor(np.random.default_rng(h).uniform(-1.2, 1.2, (pows[-1], 3))
                           .astype(np.float32), device=dev)
     want = {p: kernel_sdf(params, pts, p) for p in ("highest", "high")}
+    xb = torch.zeros((fused_mlp.plain_rows(pows[-1], h, dev), h), dtype=torch.float32,
+                     device=dev)
+    xb[:, :n_in] = pts
+    fp32_mma = None  # the FP32 kernel's distance from its plain chain, from 128
+    if megakernel.tensor_core_chain(h, "highest"):
+        plain = fused_mlp.chain_in_blocks(chains["fp32"][1], xb)[:pows[-1], 0]
+        fp32_mma = (want["highest"] - plain).abs().max().item()
+        want["highest"] = plain
     off, dmax = [], {}
     for m in list(ROW_SWEEP) + pows:
         xp = torch.zeros((m, h), dtype=torch.float32, device=dev)
@@ -1136,22 +1446,24 @@ def row_sweep(params, card, n_points) -> dict:
         if not torch.equal(chains["fp32"][1](xp)[:, 0], want["highest"][:m]):
             off.append(m)
         dmax[m] = (chains["three_pass"][1](xp)[:, 0] - want["high"][:m]).abs().max().item()
-    xp = torch.zeros((fused_mlp.plain_rows(pows[-1], h, dev), h), dtype=torch.float32,
-                     device=dev)
-    xp[:, :n_in] = pts
-    blocked = {name: (fused_mlp.chain_in_blocks(chain, xp)[:pows[-1], 0] - want[prec])
+    blocked = {name: (fused_mlp.chain_in_blocks(chain, xb)[:pows[-1], 0] - want[prec])
                for name, (prec, chain) in chains.items()}
     fp32_rows = int((blocked["fp32"] != 0).sum())
     tp_max = blocked["three_pass"].abs().max().item()
     sweep_max = max(dmax[m] for m in ROW_SWEEP)
+    ref = ("the kernel" if fp32_mma is None else "the plain FP32 chain in blocks (the "
+           f"kernel's 3xTF32 SDF {fp32_mma:.3g} off it)")
     print(f"row sweep width {h}: plain chain on m seeded points in one product against the "
           f"kernel, m in range({ROW_SWEEP.start}, {ROW_SWEEP.stop}, {ROW_SWEEP.step}) "
-          f"({len(ROW_SWEEP)} counts) and 2^10-{pows[-1]}: FP32 row counts with a row off the "
-          f"kernel bit for bit {off}; three-pass max |d| {sweep_max:.3g} over the row counts, "
+          f"({len(ROW_SWEEP)} counts) and 2^10-{pows[-1]}: FP32 row counts with a row off "
+          f"{ref} bit for bit {off}; three-pass max |d| {sweep_max:.3g} over the row counts, "
           f"{json.dumps({m: float(f'{dmax[m]:.3g}') for m in pows})} at the powers of two; "
           f"{pows[-1]} points in "
-          f"blocks of {fused_mlp.ROW_BLOCK} rows: FP32 rows off the kernel {fp32_rows}, "
+          f"blocks of {fused_mlp.ROW_BLOCK} rows: FP32 rows off {fp32_rows}, "
           f"three-pass max |d| {tp_max:.3g} [{card}]", flush=True)
+    if fp32_mma is not None and not fp32_mma <= K1_MMA_SDF_ATOL:
+        raise RuntimeError(f"width {h}: the FP32 kernel's SDF is {fp32_mma} off its plain "
+                           f"chain's, more than {K1_MMA_SDF_ATOL}")
     used = [m for m in pows if fused_mlp.card_min_rows(h) <= m <= fused_mlp.ROW_BLOCK]
     if fp32_rows or any(m in used for m in off):
         raise RuntimeError(f"width {h}: a row count the plain versions use sums in another order")
@@ -1333,8 +1645,7 @@ def drive_raygen(cnr, params, card, width=1920, height=1080) -> dict:
         if launches == 0:
             raise RuntimeError(f"march_raygen ({prec}) never launched the kernel")
         p = megakernel.march_raygen_plain(params, c2w, pos, cfg, **kw)
-        a = (three_pass_agreement(params, (*megakernel.raygen_state(c2w, pos, cfg), cfg, 0.0, kw),
-                                  k, p) if prec == "high" else agreement(k, p))
+        a = call_agreement(params, (*megakernel.raygen_state(c2w, pos, cfg), cfg, 0.0, kw), k, p)
         print(f"compare raygen {prec} 1080p: {json.dumps(a)}")
         check_agreement({f"raygen_{prec}": a})
 
@@ -1568,13 +1879,20 @@ def main() -> int:
             line += (f"; {lib.cnr_smem_bytes(kind, h, 9)} bytes dynamic shared memory; "
                      f"{hmma.get(label, 'no')} HMMA in its SASS")
         print(line)
-    tensor_core = [k for k in hmma if k.startswith("mlp") or k.endswith("three_pass=1>")]
+    fp32_march = {k: int(k.split("H=")[1].split(",")[0]) for k in hmma
+                  if k.endswith("three_pass=0>")}
+    tensor_core = [k for k in hmma if k.startswith("mlp") or k.endswith("three_pass=1>")
+                   or fp32_march.get(k, 0) in megakernel.TENSOR_CORE_FP32_WIDTHS]
+    ffma = [k for k, h in fp32_march.items() if h not in megakernel.TENSOR_CORE_FP32_WIDTHS]
     idle = [k for k in tensor_core if hmma[k] == 0]
-    print(f"SASS (cuobjdump -sass): {len(tensor_core) - len(idle)} of {len(tensor_core)} K3 and "
-          f"K2h instantiations issue HMMA; FP32 march instantiations with HMMA: "
-          f"{sum(1 for k in hmma if k.endswith('three_pass=0>') and hmma[k])}", flush=True)
-    if idle or not tensor_core:
-        raise RuntimeError(f"kernels without tensor-core instructions: {idle}")
+    stray = [k for k in ffma if hmma[k]]
+    print(f"SASS (cuobjdump -sass): {len(tensor_core) - len(idle)} of {len(tensor_core)} K3, "
+          f"K2h and FP32 march (widths {megakernel.TENSOR_CORE_FP32_WIDTHS}) instantiations "
+          f"issue HMMA; FP32 march instantiations at the other widths with HMMA: {len(stray)} "
+          f"of {len(ffma)}", flush=True)
+    if idle or stray or not tensor_core or not ffma:
+        raise RuntimeError(f"tensor-core kernels without HMMA: {idle}; FFMA march kernels "
+                           f"with HMMA: {stray}")
 
     params = cnr.load(ASSET, device=dev)
 

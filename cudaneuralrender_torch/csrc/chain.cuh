@@ -15,25 +15,22 @@
 // 1.84M at 512, 7.34M at 1024.
 //
 // Design, by width and arithmetic:
-//   * the FP32 chain inside the march kernel (K1, mlp_sdf / mlp_sdf_wide):
-//     one thread per point on FFMA, so every thread of a warp needs the same
-//     weight at the same time: weights are read at warp-uniform addresses,
-//     one broadcast per 4 fused multiply-adds.
-//     - H = 32, 64: the whole padded stack [L, H, H] + [L, H] is staged into
-//       shared memory once per block (37 KB at L=9, H=32; 150 KB at 64: one
-//       block per SM, so 256 threads per block at 64); activations x[H] and
-//       y[H] live in registers (mlp_sdf).
-//     - H = 128 to 1024: the stack (590 KB / 2.36 MB / 9.4 MB / 37.7 MB at
-//       L=9) does not fit in shared memory; it is read through the read-only
-//       path (__ldg) and lives in the 50 MB L2. Each layer is computed in
-//       chunks of 32 outputs, accumulated in registers; the two activation
-//       buffers [2, H] live in the thread's local memory (mlp_sdf_wide: a
-//       1 / 2 / 4 / 8 KB frame per thread, which CUDA reserves for every
-//       resident thread, 2.2 GB at 1024). Nothing synchronises the block
-//       after the weights are staged, so each ray still exits on its own.
-//     Each output sums its products in input order from zero and adds the
-//     bias last: output chunks keep that order, and the input dimension is
-//     never split.
+//   * the FP32 chain inside the march kernel (K1):
+//     - H = 32, 64: one thread per point on FFMA (mlp_sdf), so every thread
+//       of a warp needs the same weight at the same time: the whole padded
+//       stack [L, H, H] + [L, H] is staged into shared memory once per block
+//       (37 KB at L=9, H=32; 150 KB at 64: one block per SM, so 256 threads
+//       per block at 64) and read at warp-uniform addresses, one broadcast
+//       per 4 fused multiply-adds; activations x[H] and y[H] live in
+//       registers. Each output sums its products in input order from zero
+//       and adds the bias last, the plain version's order bit for bit.
+//     - H = 128 to 1024: 3xTF32 on the tensor cores over the 32 rays of a
+//       warp, activations in the warp's shared memory, the stack (590 KB /
+//       2.36 MB / 9.4 MB / 37.7 MB at L=9) read from the 50 MB L2 (see
+//       "K1's FP32 chain on the tensor cores" below). Until PR 7 these
+//       widths ran one thread per point on FFMA with the activations in a
+//       1-8 KB local-memory frame (mlp_sdf_wide, at 1-12% of its bound and
+//       slower than its cuBLAS plain version at every one of them).
 //   * the fused forward K3: 3xTF32 on the tensor cores over a tile of points
 //     per block, activations in shared memory (see "K3" below).
 //   * the three-pass chain K2h inside the march kernel: bf16 MMA over the 32
@@ -59,15 +56,8 @@ namespace cnr {
 // Threads per block at a hidden width.
 __host__ __device__ constexpr int block_for(int h) { return h == 64 ? 256 : 128; }
 
-// Whether the weight stack is staged in shared memory at a hidden width.
-__host__ __device__ constexpr bool smem_weights(int h) { return h <= 64; }
-
-// Dynamic shared memory of one block: the stack and its biases, or nothing.
-inline size_t smem_bytes(int h, int n_layers) {
-  return smem_weights(h) ? sizeof(float) * static_cast<size_t>(n_layers) * h * (h + 1) : 0;
-}
-
-// Output chunk of the wide chain (accumulators held in registers).
+// Output chunk of the step-cost experiment X1's FFMA chain at width 128
+// (csrc/experiments.cu; accumulators held in registers).
 constexpr int kChunk = 32;
 
 // Allow a launch above 48 KB of dynamic shared memory (a size too large for
@@ -77,17 +67,6 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
-}
-
-// Make the FP32 chain's shared-memory needs explicit before its launch: with
-// the stack in L2, all on-chip memory to L1, which caches it; else
-// allow_smem.
-template <typename Kernel>
-cudaError_t prepare_launch(Kernel kernel, int h, size_t smem) {
-  if (!smem_weights(h))
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                cudaSharedmemCarveoutMaxL1);
-  return allow_smem(kernel, smem);
 }
 
 // Activations in registers, weights from shared memory (H = 32, 64). Each
@@ -154,7 +133,8 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// acc[o] += xi * w[o] for the chunk's 32 outputs, in that order.
+// acc[o] += xi * w[o] for the chunk's 32 outputs, in that order, the
+// weights read through the read-only path (X1 at width 128).
 __device__ __forceinline__ void fma_chunk(float (&acc)[kChunk], float xi,
                                           const float* __restrict__ w) {
 #pragma unroll
@@ -165,64 +145,6 @@ __device__ __forceinline__ void fma_chunk(float (&acc)[kChunk], float xi,
     acc[o + 2] = fmaf(xi, wv.z, acc[o + 2]);
     acc[o + 3] = fmaf(xi, wv.w, acc[o + 3]);
   }
-}
-
-// Activations in local memory, weights from L2 (H = 128 to 1024); the same
-// arithmetic, in the same order, as mlp_sdf.
-template <int H>
-__device__ __forceinline__ float mlp_sdf_wide(const float* __restrict__ w,
-                                              const float* __restrict__ b,
-                                              int n_layers, int n_inputs,
-                                              float px, float py, float pz,
-                                              float frame) {
-  static_assert(H % kChunk == 0, "the width must be a multiple of the chunk");
-  const float in[4] = {px, py, pz, frame};
-  if (n_layers == 1) {
-    float d = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (i < n_inputs) d = fmaf(in[i], __ldg(w + i * H), d);
-    return __fadd_rn(d, __ldg(b));
-  }
-  float act[2 * H];  // layer input at [cur, cur + H), output at the other half
-  int cur = 0;
-#pragma unroll 1
-  for (int c = 0; c < H; c += kChunk) {
-    float acc[kChunk];
-#pragma unroll
-    for (int o = 0; o < kChunk; ++o) acc[o] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (i < n_inputs) fma_chunk(acc, in[i], w + i * H + c);
-#pragma unroll
-    for (int o = 0; o < kChunk; ++o)
-      act[c + o] = fmaxf(__fadd_rn(acc[o], __ldg(b + c + o)), 0.f);
-  }
-
-#pragma unroll 1
-  for (int l = 1; l < n_layers - 1; ++l) {
-    const float* wl = w + l * H * H;
-    const float* bl = b + l * H;
-    const int nxt = H - cur;
-#pragma unroll 1
-    for (int c = 0; c < H; c += kChunk) {
-      float acc[kChunk];
-#pragma unroll
-      for (int o = 0; o < kChunk; ++o) acc[o] = 0.f;
-#pragma unroll 4
-      for (int i = 0; i < H; ++i) fma_chunk(acc, act[cur + i], wl + i * H + c);
-#pragma unroll
-      for (int o = 0; o < kChunk; ++o)
-        act[nxt + c + o] = fmaxf(__fadd_rn(acc[o], __ldg(bl + c + o)), 0.f);
-    }
-    cur = nxt;
-  }
-
-  const float* wl = w + (n_layers - 1) * H * H;
-  float d = 0.f;
-#pragma unroll 4
-  for (int i = 0; i < H; ++i) d = fmaf(act[cur + i], __ldg(wl + i * H), d);
-  return __fadd_rn(d, __ldg(b + (n_layers - 1) * H));
 }
 
 // mlp_sdf on the stack staged at the start of shared memory, as a function
@@ -238,45 +160,40 @@ __device__ __noinline__ float mlp_sdf_called(int n_layers, int n_inputs, float p
   return mlp_sdf<H>(sw, sw + n_layers * H * H, n_layers, n_inputs, px, py, pz, frame);
 }
 
-// The chain's raw head value at one point; w and b are where
-// stage_weights<H> put the stack.
+// The per-thread FP32 chain's raw head value at one point (H = 32, 64); w
+// and b are where stage_weights<H> put the stack.
 template <int H>
 __device__ __forceinline__ float chain_sdf(const float* __restrict__ w,
                                            const float* __restrict__ b,
                                            int n_layers, int n_inputs,
                                            float px, float py, float pz,
                                            float frame) {
+  static_assert(H <= 64, "from width 128 the FP32 chain is chain_sdf_tf32");
   if constexpr (H == 32)
     return mlp_sdf<H>(w, b, n_layers, n_inputs, px, py, pz, frame);
-  else if constexpr (smem_weights(H))
-    return mlp_sdf_called<H>(n_layers, n_inputs, px, py, pz, frame);
   else
-    return mlp_sdf_wide<H>(w, b, n_layers, n_inputs, px, py, pz, frame);
+    return mlp_sdf_called<H>(n_layers, n_inputs, px, py, pz, frame);
 }
 
-// Where a block reads the stack from: shared memory, after every thread of
-// the block has helped copy it in, or device memory as it is. Call before
-// any thread leaves the kernel.
+// Stages the FP32 stack (H = 32, 64) and its biases in shared memory, every
+// thread of the block helping copy them in; w and b point there after.
+// Call before any thread leaves the kernel.
 template <int H>
 __device__ __forceinline__ void stage_weights(const float* __restrict__ weights,
                                               const float* __restrict__ biases,
                                               int n_layers, const float*& w,
                                               const float*& b) {
-  if constexpr (smem_weights(H)) {
-    extern __shared__ float4 smem4[];
-    float* sw = reinterpret_cast<float*>(smem4);
-    float* sb = sw + n_layers * H * H;
-    const int n_w4 = n_layers * H * H / 4;
-    for (int k = threadIdx.x; k < n_w4; k += blockDim.x)
-      smem4[k] = reinterpret_cast<const float4*>(weights)[k];
-    for (int k = threadIdx.x; k < n_layers * H; k += blockDim.x) sb[k] = biases[k];
-    __syncthreads();
-    w = sw;
-    b = sb;
-  } else {
-    w = weights;
-    b = biases;
-  }
+  static_assert(H <= 64, "the FP32 stack is staged at widths 32 and 64 only");
+  extern __shared__ float4 smem4[];
+  float* sw = reinterpret_cast<float*>(smem4);
+  float* sb = sw + n_layers * H * H;
+  const int n_w4 = n_layers * H * H / 4;
+  for (int k = threadIdx.x; k < n_w4; k += blockDim.x)
+    smem4[k] = reinterpret_cast<const float4*>(weights)[k];
+  for (int k = threadIdx.x; k < n_layers * H; k += blockDim.x) sb[k] = biases[k];
+  __syncthreads();
+  w = sw;
+  b = sb;
 }
 
 // ---------------------------------------------------------------------------
@@ -676,20 +593,38 @@ __device__ __forceinline__ void stage_weights_3pass(const uint16_t* __restrict__
 //     march at once on the card, each reading the whole 37.7 MB stack once
 //     per m-tile and step.
 
-// Threads of a block of the three-pass march kernel at a hidden width.
-__host__ __device__ constexpr int block_for_3pass(int h) {
-  return h <= 64 ? block_for(h) : (h == 128 ? 128 : (h == 256 ? 64 : 32));
+// Whether a march instantiation runs its chain for the 32 rays of a warp
+// together on the tensor cores: the three-pass chain (K2h) at every width,
+// the FP32 chain from width 128 (chain_sdf_tf32 below; at 32 and 64 its
+// per-thread FFMA chain runs at 41% / 36% of its bound and stays).
+__host__ __device__ constexpr bool warp_chain(int h, bool three_pass) {
+  return three_pass || h >= 128;
 }
 
-// An (hi, lo) bf16x2 pair per two activation columns: pairs per row.
-__host__ __device__ constexpr int act_pairs(int h) { return h / 2 + 4; }
+// Threads of a block of the march kernel: block_for(H) for the per-thread
+// chain; for a warp chain the same at 32 / 64 (the stack staged), and at
+// 128-1024 as many warps as their activation buffers allow (4, 2, 1, 1).
+__host__ __device__ constexpr int march_block(int h, bool three_pass) {
+  return !warp_chain(h, three_pass) || h <= 64 ? block_for(h)
+                                               : (h == 128 ? 128 : (h == 256 ? 64 : 32));
+}
 
-// Dynamic shared memory of a three-pass march block: the staged stack and
-// its biases (H = 32, 64), or each warp's two activation buffers.
-__host__ __device__ constexpr size_t smem_bytes_3pass(int h, int n_layers) {
+// 4-byte words of a row of a warp's activation buffers at H >= 128: H FP32
+// values (K1), or H / 2 (hi, lo) bf16x2 pairs of 8 bytes (K2h), then 8
+// words of padding that make the A loads and epilogue stores
+// conflict-free.
+__host__ __device__ constexpr int act_words(int h) { return h + 8; }
+
+// An (hi, lo) bf16x2 pair per two activation columns: pairs per row.
+__host__ __device__ constexpr int act_pairs(int h) { return act_words(h) / 2; }
+
+// Dynamic shared memory of a march block: the staged stack and its biases
+// (H = 32, 64: FP32, or the bf16 hi and lo halves in as many bytes), or each
+// warp's two activation buffers [16, act_words(H)] (H >= 128).
+__host__ __device__ constexpr size_t march_smem_bytes(int h, int n_layers, bool three_pass) {
   return h <= 64 ? sizeof(float) * static_cast<size_t>(n_layers) * h * (h + 1)
-                 : static_cast<size_t>(block_for_3pass(h) / 32) * 2 * 16 * act_pairs(h) *
-                       sizeof(uint2);
+                 : static_cast<size_t>(march_block(h, three_pass) / 32) * 2 * 16 *
+                       act_words(h) * sizeof(float);
 }
 
 // Output columns of a layer chunk at H >= 128 (8 n-tiles).
@@ -938,6 +873,214 @@ __device__ __forceinline__ float chain_sdf_mma(const uint4* __restrict__ w,
     return chain_3pass_regs<H>(w, b, n_layers, px, py, pz, pf);
   else
     return chain_3pass_smem<H>(w, b, n_layers, px, py, pz, pf, buf);
+}
+
+// ---------------------------------------------------------------------------
+// K1's FP32 chain on the tensor cores (widths 128 to 1024).
+//
+// The march kernel's FP32 instantiations from width 128 (precisions DEFAULT
+// and HIGHEST; march.cuh, warp_chain) run the chain for the 32 rays of a
+// warp together, as K2h does: a product with M = 32 rows (ray = lane =
+// row), two m16 tiles, on m16n8k8 tf32 MMA at FP32-grade precision
+// (3xTF32, mma.cuh mma_3xtf32_rows): per k-chunk of 8, a_small * b_big,
+// a_big * b_small, a_big * b_big from zero, the chunk's sum rounded to even
+// (round_to_even: the tensor cores truncate it toward zero, and left so a
+// chain of ReLU layers drifts low) and added to an FP32 accumulator with a
+// round-to-nearest add; then bias and ReLU in FP32. The first layer is one
+// k-chunk (the 3 or 4 true inputs gathered from their lanes by shuffles,
+// the padded weight rows zero), the head n-tile 0 of the last layer, its
+// column 0 shuffled back to each ray's lane (head_to_ray): both are a few
+// MMAs next to a hidden layer's 3 * (H/8)^2, where an FFMA first layer and
+// head would need the FP32 stack beside the packed one. The result is no
+// longer the plain version's (cuBLAS FP32, each output summed in input
+// order) bit for bit: fused_mlp.mlp_chain_3xtf32_mma models this order, and
+// chip_smoke.py holds the kernel to its plain version at the bar of a chain
+// summed in the tensor cores' order (K1_MMA_SDF_ATOL and the shares), with
+// the lanes beyond it replayed.
+//
+// What bounds it: the three tf32 products per weight at 495 TFLOP/s, 0.406x
+// the FP32 FFMA bound (chip_smoke.py tc_bound_ms); each weight pair is
+// split where it is loaded and each activation where it is read, a few
+// FP32 and integer operations per MMA beside it.
+//
+// Where things live (K2h's budget; FP32 activations fill the bytes its
+// (hi, lo) pairs did):
+//   * the stack in tf32 fragment order (fused_mlp.packed_mma(params,
+//     "tf32"), K3's layout of the FP32 values): a lane's B pair of one
+//     n-tile and k-chunk is one 64-bit load from L2, prefetched a k-chunk
+//     ahead and split into big / small in registers. It is not stored
+//     pre-split: at 1024 two 37.7 MB copies would not fit the 50 MB L2;
+//   * a warp's activations in its own two shared-memory buffers
+//     [16, act_words(H) = H + 8] FP32, the layer's input and output (the
+//     padded stride makes a lane's a0 / a2 pair, under pack_mma's
+//     permutation of k, one conflict-free 64-bit load, and the epilogue's
+//     stores conflict-free), split into big / small as they are read. The
+//     two m-tiles take turns through them: 2 * 16 * (H + 8) * 4 bytes a
+//     warp, 17 / 33 / 65 / 129 KB at 128 / 256 / 512 / 1024, with 4 / 2 / 1
+//     / 1 warps a block (march_block), so each warp reads the stack once
+//     per m-tile and step;
+//   * each layer's output in chunks of kMmaChunkTiles n-tiles (64 columns)
+//     held in accumulators, 32 a lane.
+// Budget by width over the 8 scene instantiations (registers, stack and
+// spills as ptxas reports them for sm_90a, chip_smoke.py phase 2):
+//     H     warps  shared memory  blocks an SM  registers  stack    spill st/ld
+//     128   4      68.0 KB        3             153-158    0 (32)   0 / 0 B
+//     256   2      66.0 KB        3             153-158    0 (32)   0 / 0 B
+//     512   1      65.0 KB        3             127-158    0 (32)   0 / 0 B
+//     1024  1      129.0 KB       1             127-158    0 (32)   0 / 0 B
+// No instantiation spills; the displacement scene's 32-byte frame is
+// sinf's range reduction, as at 32 and 64. Shared memory sets the warps an
+// SM holds: 12, 6, 3 and 1 at 128-1024, so at 512 and 1024 one or three
+// warps' MMAs, loads and splits cannot hide each other's latency; that,
+// not the tensor cores' rate, bounds the wide widths (PERF.md, PR 7).
+
+// The tf32 A fragments (big, small) of m-tile mt for the first contraction:
+// row r holds ray 16 mt + r's inputs (x, y, z, frame or 0) in physical
+// columns 0-3, zero beyond (physical columns 2t and 2t + 1 are the MMA's
+// k = t and t + 4: a0 / a1 rows g / g + 8 of column 2t, a2 / a3 of 2t + 1).
+__device__ __forceinline__ void inputs_a_tf32(int mt, float px, float py, float pz, float pf,
+                                              uint32_t (&abig)[4], uint32_t (&asmall)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int src = 16 * mt + 8 * half + g;
+    const float x = __shfl_sync(0xffffffffu, px, src);
+    const float y = __shfl_sync(0xffffffffu, py, src);
+    const float z = __shfl_sync(0xffffffffu, pz, src);
+    const float f = __shfl_sync(0xffffffffu, pf, src);
+    split_tf32(t == 0 ? x : (t == 1 ? z : 0.f), abig[half], asmall[half]);
+    split_tf32(t == 0 ? y : (t == 1 ? f : 0.f), abig[2 + half], asmall[2 + half]);
+  }
+}
+
+// The tf32 A fragments (big, small) of k-chunk kk from a shared-memory
+// buffer of 16 FP32 rows: a lane's a0 / a2 (row g) and a1 / a3 (row g + 8)
+// pairs, physical columns 8 kk + 2t and 8 kk + 2t + 1, one 64-bit load each.
+template <int H>
+__device__ __forceinline__ void load_a_tf32(const float* __restrict__ in, int kk,
+                                            uint32_t (&abig)[4], uint32_t (&asmall)[4]) {
+  constexpr int S = act_words(H);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float2 r0 = *reinterpret_cast<const float2*>(in + g * S + 8 * kk + 2 * t);
+  const float2 r1 = *reinterpret_cast<const float2*>(in + (g + 8) * S + 8 * kk + 2 * t);
+  split_tf32(r0.x, abig[0], asmall[0]);
+  split_tf32(r1.x, abig[1], asmall[1]);
+  split_tf32(r0.y, abig[2], asmall[2]);
+  split_tf32(r1.y, abig[3], asmall[3]);
+}
+
+// One layer (l < n_layers - 1) of one m-tile at H >= 128: out = ReLU(in *
+// W_l + b_l) on 3xTF32, over the k-chunks of `in` (kin of them; for the
+// inputs, one, given as the fragments pbig / psmall with in == nullptr), in
+// chunks of kMmaChunkTiles n-tiles. wl: the layer's stack in tf32 fragment
+// order [H/8, H/8, 32] float2 pairs.
+template <int H>
+__device__ __forceinline__ void layer_tf32_smem(const float* __restrict__ in, int kin,
+                                                const uint32_t (&pbig)[4],
+                                                const uint32_t (&psmall)[4],
+                                                const float2* __restrict__ wl,
+                                                const float* __restrict__ bl,
+                                                float* __restrict__ out) {
+  constexpr int NT = H / 8, CT = kMmaChunkTiles, S = act_words(H);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int c = 0; c < NT; c += CT) {
+    float acc[CT][4];
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    float2 bnext[CT];
+#pragma unroll
+    for (int j = 0; j < CT; ++j) bnext[j] = __ldg(wl + (c + j) * 32 + lane);
+#pragma unroll 1
+    for (int kk = 0; kk < kin; ++kk) {
+      uint32_t abig[4], asmall[4];
+      if (in == nullptr) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) abig[e] = pbig[e], asmall[e] = psmall[e];
+      } else {
+        load_a_tf32<H>(in, kk, abig, asmall);
+      }
+      float2 bnow[CT];
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        bnow[j] = bnext[j];
+        if (kk + 1 < kin) bnext[j] = __ldg(wl + ((kk + 1) * NT + c + j) * 32 + lane);
+      }
+      mma_3xtf32_rows(acc, abig, asmall, bnow);
+    }
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+      const int col = 8 * (c + j) + 2 * t;
+      const float b0 = __ldg(bl + col), b1 = __ldg(bl + col + 1);
+      *reinterpret_cast<float2*>(out + g * S + col) =
+          make_float2(fmaxf(__fadd_rn(acc[j][0], b0), 0.f), fmaxf(__fadd_rn(acc[j][1], b1), 0.f));
+      *reinterpret_cast<float2*>(out + (g + 8) * S + col) =
+          make_float2(fmaxf(__fadd_rn(acc[j][2], b0), 0.f), fmaxf(__fadd_rn(acc[j][3], b1), 0.f));
+    }
+  }
+}
+
+// The chain at H >= 128 for the two m-tiles in turn, through this warp's
+// two shared-memory buffers `buf` [2][16][act_words(H)]; w: the stack in
+// tf32 fragment order, read from L2.
+template <int H>
+__device__ __forceinline__ float chain_tf32_smem(const float2* __restrict__ w,
+                                                 const float* __restrict__ b, int n_layers,
+                                                 float px, float py, float pz, float pf,
+                                                 float* __restrict__ buf) {
+  constexpr int NT = H / 8, KT = H / 8, S = act_words(H);
+  const int lane = threadIdx.x & 31;
+  const float2* wh = w + static_cast<size_t>(n_layers - 1) * KT * NT * 32 + lane;  // n-tile 0
+  float h[2][1][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    uint32_t pbig[4], psmall[4];
+    inputs_a_tf32(mt, px, py, pz, pf, pbig, psmall);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[mt][0][e] = 0.f;
+    if (n_layers == 1) {  // the head is the first layer
+      const float2 wv[1] = {__ldg(wh)};
+      mma_3xtf32_rows(h[mt], pbig, psmall, wv);
+      continue;
+    }
+    layer_tf32_smem<H>(nullptr, 1, pbig, psmall, w, b, buf);
+    __syncwarp();
+#pragma unroll 1
+    for (int l = 1; l < n_layers - 1; ++l) {
+      layer_tf32_smem<H>(buf + ((l - 1) & 1) * 16 * S, KT, pbig, psmall,
+                         w + static_cast<size_t>(l) * KT * NT * 32, b + l * H,
+                         buf + (l & 1) * 16 * S);
+      __syncwarp();
+    }
+    const float* in = buf + ((n_layers - 2) & 1) * 16 * S;
+    float2 wnext = __ldg(wh);
+#pragma unroll 1
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t abig[4], asmall[4];
+      load_a_tf32<H>(in, kk, abig, asmall);
+      const float2 wv[1] = {wnext};
+      if (kk + 1 < KT) wnext = __ldg(wh + (kk + 1) * NT * 32);
+      mma_3xtf32_rows(h[mt], abig, asmall, wv);
+    }
+    __syncwarp();  // the next m-tile overwrites the buffers
+  }
+  return __fadd_rn(head_to_ray(h), __ldg(b + (n_layers - 1) * H));
+}
+
+// The FP32 chain's raw head value for each ray of the warp at H >= 128,
+// called by all 32 lanes together (rays that do not march pass any finite
+// point: rows do not mix). w: the stack in tf32 fragment order
+// (fused_mlp.packed_mma(params, "tf32")); buf: this warp's activation
+// buffers.
+template <int H>
+__device__ __forceinline__ float chain_sdf_tf32(const float2* __restrict__ w,
+                                                const float* __restrict__ b, int n_layers,
+                                                int n_inputs, float px, float py, float pz,
+                                                float frame, float* __restrict__ buf) {
+  static_assert(H >= 128, "at widths 32 and 64 the FP32 chain runs per thread (chain_sdf)");
+  return chain_tf32_smem<H>(w, b, n_layers, px, py, pz, n_inputs == 4 ? frame : 0.f, buf);
 }
 
 }  // namespace cnr

@@ -31,7 +31,8 @@ struct MarchArgs {
   float bound_cy;
   float bound_cz;
   float bound_r2;
-  const void* weights;     // FP32 [n_layers, H, H]; three-pass: the bf16 hi and lo
+  const void* weights;     // FP32 [n_layers, H, H] at H = 32, 64, in tf32 fragment
+                           // order from 128; three-pass: the bf16 hi and lo
                            // halves in fragment order (fused_mlp.packed_mma)
   const float* biases;
   int n_layers;

@@ -8,8 +8,10 @@
 //   cnr_smem_bytes    the dynamic shared memory a launch of a kernel asks for
 //
 // Each dispatches on the padded hidden width (32, 64, 128, 256, 512 or
-// 1024), and the march entries on the chain (three_pass: 0 for FP32, 1 for
-// the three-pass chain K2h), to the instantiation in csrc/hidden{H}.cu or
+// 1024), and the march entries on the chain (three_pass: 0 for FP32, whose
+// weights are the [L, H, H] stack at widths 32 and 64 and the stack in tf32
+// fragment order from 128; 1 for the three-pass chain K2h), to the
+// instantiation in csrc/hidden{H}.cu or
 // csrc/hidden{H}_3pass.cu, and returns a cudaError_t: a width, scene, window
 // or input count with no instantiation gives cudaErrorInvalidValue, and a
 // refused launch its own error. Nothing is launched in either case. The
@@ -153,8 +155,8 @@ extern "C" long long cnr_smem_bytes(int kind, int hidden, int n_layers) {
   for (int k = 0; k < kNumWidths; ++k) known = known || kWidths[k] == hidden;
   if (!known) return -1;
   switch (kind) {
-    case 0: return static_cast<long long>(cnr::smem_bytes(hidden, n_layers));
-    case 1: return static_cast<long long>(cnr::smem_bytes_3pass(hidden, n_layers));
+    case 0:
+    case 1: return static_cast<long long>(cnr::march_smem_bytes(hidden, n_layers, kind == 1));
     case 2: return static_cast<long long>(cnr::forward_smem_bytes(hidden));
     default: return -1;
   }

@@ -12,23 +12,27 @@
 //
 // What bounds it on this card: arithmetic. A step of a 9-layer net is
 // 3H + 7H^2 + H fused multiply-adds per ray (7.3k at H=32: the true 3-input
-// first layer and the 1-column head), while the ray state lives in
-// registers; at H = 32 and 64 the weights come from shared memory, at 128
-// to 1024 from L2 (chain.cuh). Device memory is touched once per ray on
-// entry (direction, t, budget, flags) and once on exit.
+// first layer and the 1-column head), on FFMA at H = 32 and 64 and on the
+// tensor cores from 128 (3xTF32, three tf32 products per weight), while
+// the ray state lives in registers; at H = 32 and 64 the weights come from
+// shared memory, at 128 to 1024 from L2 (chain.cuh). Device memory is
+// touched once per ray on entry (direction, t, budget, flags) and once on
+// exit.
 //
 // Design:
-//   * one thread per ray, block_for(H) threads per block (block_for_3pass(H)
-//     for the three-pass chain; chain.cuh);
+//   * one thread per ray, march_block(H, three_pass) threads per block
+//     (chain.cuh);
 //   * the chain at the padded width H, a template parameter (32, 64, 128,
 //     256, 512 or 1024; one instantiation of every scene per width, in
 //     csrc/hidden{H}.cu); see chain.cuh for where weights and activations
 //     live at each width;
-//   * the chain's arithmetic, a template parameter: FP32 FFMA, for both of
-//     the JAX package's precisions DEFAULT and HIGHEST, or the three-pass
-//     bfloat16 chain for HIGH on the tensor cores, a warp's 32 rays as the
-//     rows of one product (kThreePass; its instantiations in
-//     csrc/hidden{H}_3pass.cu, compiled in parallel with the others);
+//   * the chain's arithmetic, a template parameter: FP32 for both of the
+//     JAX package's precisions DEFAULT and HIGHEST (FFMA at H = 32 and 64,
+//     3xTF32 on the tensor cores from 128), or the three-pass bfloat16
+//     chain for HIGH on the tensor cores (kThreePass; its instantiations in
+//     csrc/hidden{H}_3pass.cu, compiled in parallel with the others). On
+//     the tensor cores a warp's 32 rays are the rows of one product
+//     (chain.cuh warp_chain);
 //   * the cold start (K5) is a prologue chosen at run time, the same for the
 //     whole launch (pos set or not), so it adds no instantiation: each ray
 //     is built from its pixel index and the camera by the TPU kernel's own
@@ -42,10 +46,10 @@
 //     (scene, window): the compose is straight-line code with no branch on
 //     the scene, and the neural_raw instantiation is the bare chain;
 //   * each ray loops until it resolves (per-ray exit; the TPU kernel exits
-//     per 8192-lane tile, with identical per-ray results); with the
-//     three-pass chain a warp loops until its last ray resolves, each lane's
-//     state advancing only while its own ray marches;
-//   * outside the three-pass chain all arithmetic is FP32 FFMA.
+//     per 8192-lane tile, with identical per-ray results); with a warp chain
+//     a warp loops until its last ray resolves, each lane's state advancing
+//     only while its own ray marches;
+//   * outside the tensor-core chains all arithmetic is FP32 FFMA.
 //
 // The compose's cost: it is FP32 elementwise work on the ray's own
 // registers, about 100 (many_sphere: 9 sphere distances and smooth
@@ -275,15 +279,17 @@ __device__ __forceinline__ void march_step(float px, float py, float pz, float r
   if (!act) res = step;
 }
 
-// The FP32 instantiations run one ray per thread, each looping until its ray
-// resolves. The three-pass instantiations (kThreePass) evaluate the chain
-// for the 32 rays of a warp together (chain_sdf_mma), so their loop is
-// warp-uniform: it runs while any lane's ray marches, and a lane whose ray
-// is done, or that has no ray (r >= n), stays in it inactive, passing a
-// finite point. SIMT ran a warp until its slowest ray already, so this adds
-// no steps; a lane's own step count and state are those of the FP32 loop.
+// The FP32 instantiations at H = 32 and 64 run one ray per thread, each
+// looping until its ray resolves. The warp-chain instantiations (the
+// three-pass chain, and the FP32 chain from 128: chain.cuh warp_chain)
+// evaluate the chain for the 32 rays of a warp together (chain_sdf_mma,
+// chain_sdf_tf32), so their loop is warp-uniform: it runs while any lane's
+// ray marches, and a lane whose ray is done, or that has no ray (r >= n),
+// stays in it inactive, passing a finite point. SIMT ran a warp until its
+// slowest ray already, so this adds no steps; a lane's own step count and
+// state are those of the per-ray loop.
 template <int H, int S, int W, bool kThreePass>
-__global__ void __launch_bounds__(kThreePass ? block_for_3pass(H) : block_for(H))
+__global__ void __launch_bounds__(march_block(H, kThreePass))
 march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
              const float* __restrict__ t0, const float* __restrict__ budget0,
              const uint8_t* __restrict__ active0, const int32_t* __restrict__ steps0,
@@ -294,16 +300,20 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
              int max_steps, int num_steps, float eps, float omega, float* __restrict__ t_out,
              float* __restrict__ budget_out, uint8_t* __restrict__ active_out,
              uint8_t* __restrict__ conv_out, int32_t* __restrict__ steps_out) {
-  const float* sw = nullptr;   // the FP32 stack
-  const uint4* sw3 = nullptr;  // the three-pass stack, fragment-ordered
-  const float* sb;
+  constexpr bool kWarp = warp_chain(H, kThreePass);
+  const float* sw = nullptr;    // the FP32 stack (H = 32, 64)
+  const uint4* sw3 = nullptr;   // the three-pass stack, bf16 fragment order
+  const float2* swt = nullptr;  // the FP32 stack, tf32 fragment order (H >= 128)
+  const float* sb = biases;
   if constexpr (kThreePass)
     stage_weights_mma<H>(static_cast<const uint4*>(weights), biases, n_layers, sw3, sb);
+  else if constexpr (kWarp)
+    swt = static_cast<const float2*>(weights);
   else
     stage_weights<H>(static_cast<const float*>(weights), biases, n_layers, sw, sb);
 
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if constexpr (!kThreePass) {
+  if constexpr (!kWarp) {
     if (r >= n) return;
   }
   const bool in_range = r < n;
@@ -336,17 +346,22 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
   const bool relax = omega > 1.f;
   float prev_r = 0.f, step_len = 0.f;
 
-  if constexpr (kThreePass) {
+  if constexpr (kWarp) {
     extern __shared__ float4 smem4[];
-    uint2* buf = reinterpret_cast<uint2*>(smem4) +
-                 (threadIdx.x / 32) * 2 * 16 * act_pairs(H);  // H >= 128 only
+    float* buf = reinterpret_cast<float*>(smem4) +
+                 (threadIdx.x / 32) * 2 * 16 * act_words(H);  // H >= 128 only
     while (__any_sync(0xffffffffu,
                       act && step < max_steps && (num_steps < 0 || step - start < num_steps))) {
       const bool go = act && step < max_steps && (num_steps < 0 || step - start < num_steps);
       const float px = __fmaf_rn(dx, t, ox);
       const float py = __fmaf_rn(dy, t, oy);
       const float pz = __fmaf_rn(dz, t, oz);
-      const float raw = chain_sdf_mma<H>(sw3, sb, n_layers, n_inputs, px, py, pz, frame, buf);
+      float raw;
+      if constexpr (kThreePass)
+        raw = chain_sdf_mma<H>(sw3, sb, n_layers, n_inputs, px, py, pz, frame,
+                               reinterpret_cast<uint2*>(buf));
+      else
+        raw = chain_sdf_tf32<H>(swt, sb, n_layers, n_inputs, px, py, pz, frame, buf);
       if (go)
         march_step<S, W>(px, py, pz, raw, frame, relax, eps, omega, t, budget, prev_r, step_len,
                          conv, act, step, res);
@@ -405,10 +420,10 @@ int launch_march(const MarchArgs& a, cudaStream_t stream) {
   if (kernel == nullptr || !state_given || a.n_layers < 1 || a.n_inputs < 1 || a.n_inputs > 4)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n <= 0) return 0;
-  const size_t smem = kThreePass ? smem_bytes_3pass(H, a.n_layers) : smem_bytes(H, a.n_layers);
-  cudaError_t err = kThreePass ? allow_smem(kernel, smem) : prepare_launch(kernel, H, smem);
+  const size_t smem = march_smem_bytes(H, a.n_layers, kThreePass);
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int block = kThreePass ? block_for_3pass(H) : block_for(H);
+  const int block = march_block(H, kThreePass);
   const int grid = (a.n + block - 1) / block;
   kernel<<<grid, block, smem, stream>>>(
       a.dirs, a.origin, a.t0, a.budget0, a.active0, a.steps0, a.pos, a.c2w, a.width, a.height,

@@ -1,7 +1,8 @@
-// Warp-level tensor-core building blocks for the redesigned K3 and K2h
-// (csrc/chain.cuh, csrc/march.cuh): mma.sync in inline PTX, the splits of
-// an FP32 value into tensor-core operands, and the products at the two
-// precisions (the fragment loaders are in csrc/chain.cuh).
+// Warp-level tensor-core building blocks for the redesigned K3, K2h and
+// K1's FP32 chain from width 128 (csrc/chain.cuh, csrc/march.cuh): mma.sync
+// in inline PTX, the splits of an FP32 value into tensor-core operands, and
+// the products at the two precisions (the fragment loaders are in
+// csrc/chain.cuh).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k8" and
 // "mma.m16n8k16"), lane = 4 * g + t (g = lane / 4, the group; t = lane % 4):
@@ -88,7 +89,8 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, u
 // at the wide widths). Both products below therefore start each k-chunk's
 // MMAs from zero and add the chunk's sum to the FP32 accumulator with a
 // round-to-nearest add, as an FP32 GEMM would: the truncation then only
-// touches one chunk's sum (8 or 16 products), whose sign varies.
+// touches one chunk's sum (8 or 16 products), whose sign varies. K1's
+// 3xTF32 product also rounds that chunk sum to even (round_to_even below).
 
 // The products below issue pass by pass over N independent tiles (all the
 // first products, then all the second, ...), so that N MMAs are in flight
@@ -118,6 +120,52 @@ __device__ __forceinline__ void mma_3pass(float (&acc)[N][4], const uint32_t (&a
   for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = __fadd_rn(acc[j][i], d[j][i]);
+}
+
+// A tensor core's FP32 result rounded to even: each odd value moves one ulp
+// away from zero (an integer add on its bits, which carries into the
+// exponent where it must). The truncated t of an exact sum s has |s| in
+// [|t|, |t| + ulp), so t is low by half an ulp on average, always toward
+// zero, and across a chain's layers of ReLU units that adds up (3e-7 on
+// csg_demo widened's SDF, tests/test_torch_k1mma.py); t rounded to even is
+// low by nothing on average (fused_mlp.round_truncated_to_even).
+__device__ __forceinline__ float round_to_even(float t) {
+  const int bits = __float_as_int(t);
+  return __int_as_float(bits + (bits & 1));
+}
+
+// acc[j] += a * b_j at FP32-grade precision on the tf32 tensor cores
+// (3xTF32), for N n-tiles j sharing the A fragments of one m-tile (K1's FP32
+// chain from width 128): b[j] is one lane's FP32 B pair {b0, b1}, split
+// into big / small here; a_small * b_big, a_big * b_small, then
+// a_big * b_big over one k-chunk of 8 from zero, then the chunk's sum
+// rounded to even (round_to_even) and added to the FP32 accumulator with a
+// rounded add. The a_small * b_small term (2^-22 relative) is dropped.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32_rows(float (&acc)[N][4], const uint32_t (&abig)[4],
+                                                const uint32_t (&asmall)[4],
+                                                const float2 (&b)[N]) {
+  uint32_t bbig[N][2], bsmall[N][2];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    split_tf32(b[j].x, bbig[j][0], bsmall[j][0]);
+    split_tf32(b[j].y, bbig[j][1], bsmall[j][1]);
+  }
+  float d[N][4];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[j][i] = 0.f;
+    mma_tf32(d[j], asmall, bbig[j][0], bbig[j][1]);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(d[j], abig, bsmall[j][0], bsmall[j][1]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(d[j], abig, bbig[j][0], bbig[j][1]);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = __fadd_rn(acc[j][i], round_to_even(d[j][i]));
 }
 
 // acc[m] += a_m * b at FP32-grade precision on the tf32 tensor cores

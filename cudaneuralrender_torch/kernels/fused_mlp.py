@@ -13,7 +13,9 @@ The PyTorch counterpart of the JAX package's ``pallas/fused_mlp.py``:
     ``Precision.HIGH`` chain ``_mlp_chain_3pass`` (``fused_mlp.py:130``),
     K2h, which the march kernel runs at ``precision="high"``;
     ``mlp_chain_3pass_mma`` models the same chain summed in the tensor-core
-    kernel's order, for checks;
+    kernel's order, for checks; ``mlp_chain_3xtf32_mma`` models the FP32
+    chain as the march kernel sums it on the tensor cores from width 128
+    (3xTF32);
   * ``mlp_forward`` is the counterpart of ``mlp_forward_pallas``
     (``fused_mlp.py:194``): on CUDA tensors it launches the hand-written
     kernel in ``csrc/chain.cuh``, on CPU tensors it runs
@@ -21,8 +23,9 @@ The PyTorch counterpart of the JAX package's ``pallas/fused_mlp.py``:
     counterpart of ``neural_sdf_fn_pallas`` (``config.use_pallas``);
   * ``pack_mma`` / ``packed_mma`` lay the stack out in the tensor cores'
     fragment order, the form the tensor-core kernels read: "tf32" for the
-    forward kernel's 3xTF32 products, "bf16" (the two bfloat16 halves) for
-    the three-pass chain inside the march kernel.
+    3xTF32 products of the forward kernel and of the march kernel's FP32
+    chain from width 128, "bf16" (the two bfloat16 halves) for the
+    three-pass chain inside the march kernel.
 
 Zero padding is exact: padded input features are zero, so weight rows
 beyond a layer's true input width contribute nothing, and the head reads
@@ -250,18 +253,24 @@ def _round_to_zero_f32(v: torch.Tensor) -> torch.Tensor:
 
 
 def _mma_model(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One bf16 MMA with FP32 accumulation as ``mlp_chain_3pass_mma`` models
-    it: c [T, N] float32 + a [T, K] @ b [K, N] (bfloat16 values in
-    float64). The K exact products and c are aligned to the largest
+    """One MMA with FP32 accumulation as the models of the tensor-core
+    chains take it: c [..., N] float32 + a [..., K] @ b [..., K, N], the
+    leading dimensions broadcast (bfloat16 or tf32 values, whose products
+    are exact in float32). The K products and c are aligned to the largest
     exponent among them, each truncated below MMA_ALIGN_BITS bits past
     float32's, summed exactly, and the sum truncated to float32."""
-    terms = torch.cat([c.double()[:, None, :], a[:, :, None] * b[None, :, :]], dim=1)
-    top = terms.abs().amax(dim=1)
+    prods = a.float()[..., :, None] * b.float()
+    top = torch.maximum(prods.abs().amax(dim=-2), c.abs())
     _, exp = torch.frexp(top)
-    quantum = torch.ldexp(torch.ones_like(top), exp - 24 - MMA_ALIGN_BITS)
+    # a quantum of at least 2^-126 stays a normal float32 (tops below 2^-99
+    # do not occur in these nets)
+    quantum = torch.ldexp(torch.ones_like(top), torch.clamp(exp - 24 - MMA_ALIGN_BITS, min=-126))
     quantum = torch.where(top > 0, quantum, torch.ones_like(quantum))
-    aligned = torch.trunc(terms / quantum[:, None, :]) * quantum[:, None, :]
-    return _round_to_zero_f32(aligned.sum(dim=1))
+    # dividing by a power of two and truncating are exact in float32; the
+    # sum of the aligned terms is not, so it is taken in float64
+    units = torch.trunc(prods.div_(quantum[..., None, :])).sum(dim=-2, dtype=torch.float64)
+    units += torch.trunc(c / quantum).double()
+    return _round_to_zero_f32(units * quantum.double())
 
 
 def mlp_chain_3pass_mma(weights: torch.Tensor, biases: torch.Tensor,
@@ -294,6 +303,84 @@ def mlp_chain_3pass_mma(weights: torch.Tensor, biases: torch.Tensor,
         x = acc + biases[l]
         if l + 1 < n_layers:
             x = torch.relu(x)
+    return x[:, 0]
+
+
+def tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to tf32 (10 mantissa bits) to nearest, ties
+    away from zero, as cvt.rna.tf32.f32 rounds them: the low 13 bits of the
+    float32 zero."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+#: Products the 3xTF32 model holds at once (2^26 float32 values, 256 MB).
+MODEL_ELEMENTS = 1 << 26
+
+
+def round_truncated_to_even(d: torch.Tensor) -> torch.Tensor:
+    """A tensor core's float32 result, truncated toward zero, rounded to
+    even: each odd value moves one ulp away from zero (csrc/mma.cuh
+    ``round_to_even``). The truncated t of an exact sum s has |s| in
+    [|t|, |t| + ulp), so t alone is low by half an ulp on average, always
+    toward zero; t rounded to even is low by nothing on average."""
+    bits = d.float().contiguous().view(torch.int32)
+    return (bits + (bits & 1)).view(torch.float32)
+
+
+def _layer_3xtf32(x: torch.Tensor, w: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """x[:, :k] @ w[:k, :n] (float32) as the kernel sums it: per k-chunk of
+    8, the three tf32 MMAs a_small * b_big, a_big * b_small, a_big * b_big
+    from zero (``_mma_model``), the chunk's sum rounded to even
+    (``round_truncated_to_even``) and added to a float32 accumulator with
+    a rounded add, chunk by chunk. No bias."""
+    t, kt = x.shape[0], k // 8
+    a = x[:, :k].float()
+    a_big = tf32_rna(a)
+    a_small = tf32_rna(a - a_big)
+    b = w[:k, :n].float()
+    b_big = tf32_rna(b)
+    b_small = tf32_rna(b - b_big)
+    passes = [(p.reshape(t, kt, 8), q.reshape(kt, 8, n))
+              for p, q in ((a_small, b_big), (a_big, b_small), (a_big, b_big))]
+    acc = torch.zeros((t, n), dtype=torch.float32, device=x.device)
+    group = max(1, MODEL_ELEMENTS // (t * 9 * n))
+    for g0 in range(0, kt, group):
+        g = slice(g0, g0 + group)
+        d = torch.zeros((t, len(range(kt)[g]), n), dtype=torch.float32, device=x.device)
+        for p, q in passes:
+            d = _mma_model(d, p[:, g], q[g])
+        d = round_truncated_to_even(d)
+        for j in range(d.shape[1]):
+            acc = acc + d[:, j]
+    return acc
+
+
+def mlp_chain_3xtf32_mma(weights: torch.Tensor, biases: torch.Tensor,
+                         x: torch.Tensor) -> torch.Tensor:
+    """The FP32 chain summed as the march kernel's tensor-core chain sums it
+    (K1 from width 128, csrc/chain.cuh ``chain_tf32_smem``), a model for
+    checks on any device: weights [L, H, H] and biases [L, H] from
+    ``pack_params``, x [T, H] zero-padded inputs. Returns the head [T].
+
+    Every layer is 3xTF32 (``_layer_3xtf32``): each operand split into
+    big = tf32(v) and small = tf32(v - big) (``tf32_rna``), per k-chunk of 8
+    rows three MMAs from zero, each aligning and truncating its products as
+    ``_mma_model`` does, the chunk's sum rounded to even and added to a
+    float32 accumulator with a rounded add; then the bias, then ReLU on
+    every layer but the last. The first layer is one k-chunk (the true
+    inputs, zero-padded to 8), the head n-tile 0 (8 columns, the SDF
+    column 0)."""
+    n_layers, h = weights.shape[0], weights.shape[2]
+    rows = max(1, MODEL_ELEMENTS // (9 * h))
+    if x.shape[0] > rows:
+        return torch.cat([mlp_chain_3xtf32_mma(weights, biases, x[i:i + rows])
+                          for i in range(0, x.shape[0], rows)])
+    for l in range(n_layers):
+        last = l + 1 == n_layers
+        n = 8 if last else h
+        y = _layer_3xtf32(x, weights[l], 8 if l == 0 else h, n) + biases[l, :n]
+        x = y if last else torch.relu(y)
     return x[:, 0]
 
 

@@ -26,7 +26,11 @@ step per ray (see csrc/march.cuh).
 phase's, HIGHEST the refine rungs'); "high" runs the emulated
 Precision.HIGH three-pass chain K2h (``fused_mlp.mlp_chain_3pass_plain``)
 on the bfloat16 halves of the weights (the HIGH ladder phase of
-``mid_eps``, and ``coarse_precision="high"``). Any other name raises.
+``mid_eps``, and ``coarse_precision="high"``). Any other name raises. The
+kernel runs the FP32 chain per ray on FFMA at widths 32 and 64, in its
+plain version's order, and from width 128 as 3xTF32 on the tensor cores
+over a warp's rays (``tensor_core_chain``), in their own order
+(``fused_mlp.mlp_chain_3xtf32_mma`` models it).
 
 The kernel marches nets of every width of ``fused_mlp.KERNEL_WIDTHS``
 (32, 64, 128, 256, 512, 1024), the net padded to the smallest that holds
@@ -61,6 +65,10 @@ from .fused_mlp import (
 
 #: The precisions a march call takes (the JAX package's Precision names).
 PRECISIONS = ("default", "high", "highest")
+
+#: The padded widths at which the kernel runs the FP32 chain on the tensor
+#: cores (csrc/chain.cuh ``warp_chain``): from 128 up.
+TENSOR_CORE_FP32_WIDTHS = tuple(h for h in KERNEL_WIDTHS if h >= 128)
 
 #: Launches of the CUDA march kernel by ``march_state`` in this process.
 KERNEL_LAUNCHES = 0
@@ -98,6 +106,14 @@ def reset_launch_counts() -> None:
     for counts in (SCENE_LAUNCHES, WIDTH_LAUNCHES, PRECISION_LAUNCHES, THREE_PASS_LAUNCHES):
         for key in counts:
             counts[key] = 0
+
+
+def tensor_core_chain(hidden: int, precision: str) -> bool:
+    """Whether the kernel's chain at a padded width and precision sums on
+    the tensor cores, in their own order rather than its plain version's:
+    the three-pass chain at every width, the FP32 chain at
+    ``TENSOR_CORE_FP32_WIDTHS``."""
+    return precision == "high" or hidden in TENSOR_CORE_FP32_WIDTHS
 
 
 def _check_precision(precision: str) -> None:
@@ -143,7 +159,7 @@ def march_state_plain(
     march_eps: Optional[float] = None, num_steps: Optional[int] = None,
     precision: str = "highest", relax_omega: float = 0.0,
     return_resolve: bool = False, cyl_window: Optional[int] = None,
-    chain=None,
+    chain=None, trace=None,
 ):
     """Plain PyTorch version of the march kernel, on any device.
 
@@ -152,7 +168,10 @@ def march_state_plain(
     host, so it suits the CPU and comparisons, not the hot path. ``chain``
     (x [T, H] -> [T, H], the head column 0) marches with another chain in
     place of the precision's plain one: a check replays the kernel's own
-    chain through it.
+    chain through it. ``trace``, if given, is called once a step with a
+    dict of the marching lanes (``idx``), their points, distances, state
+    before the step (budget, prev_r, step_len) and decisions (sor_fail,
+    near, moved): where two marches part (``chip_smoke.undecided_lanes``).
     """
     _check_precision(precision)
     compose = _compose(config, cyl_window)
@@ -202,6 +221,10 @@ def march_state_plain(
             stepv = d
         bi = budget[idx] - stepv
         moved = sor_fail | ~(bi <= 0.0)
+        if trace is not None:
+            trace(dict(step=step, idx=idx, pts=pts, d=d, budget=budget[idx],
+                       prev_r=prev_r[idx], step_len=step_len[idx], sor_fail=sor_fail,
+                       near=near, moved=moved))
         conv_now = moved & near
         still = moved & ~conv_now
         budget[idx] = bi
@@ -224,8 +247,10 @@ def march_state_plain(
 
 def _kernel_weights(params: MLP, config: RenderConfig, precision: str, dev):
     """The stack a launch reads, checked: (weights, biases, n_layers,
-    hidden). FP32 [L, H, H], or at "high" the bfloat16 halves in fragment
-    order (``packed_mma(params, "bf16")``); biases [L, H] float32."""
+    hidden). At "high" the bfloat16 halves in fragment order
+    (``packed_mma(params, "bf16")``); else the FP32 stack [L, H, H] at
+    widths 32 and 64, and from 128 the same values in tf32 fragment order
+    (``packed_mma(params, "tf32")``); biases [L, H] float32."""
     weights, biases, n_in, hidden = packed_params(params)
     if hidden not in KERNEL_WIDTHS:
         raise ValueError(f"the march kernel is built for widths {KERNEL_WIDTHS}, "
@@ -237,6 +262,10 @@ def _kernel_weights(params: MLP, config: RenderConfig, precision: str, dev):
         weights = packed_mma(params, "bf16")
         check_tensor("weights", weights, torch.bfloat16,
                      (n_layers, hidden // 16, hidden // 8, 32, 8), dev)
+    elif tensor_core_chain(hidden, precision):
+        weights = packed_mma(params, "tf32")
+        check_tensor("weights", weights, torch.float32,
+                     (n_layers, hidden // 8, hidden // 8, 32, 2), dev)
     else:
         check_tensor("weights", weights, torch.float32, (n_layers, hidden, hidden), dev)
     check_tensor("biases", biases, torch.float32, (n_layers, hidden), dev)

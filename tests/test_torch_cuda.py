@@ -11,7 +11,12 @@ csg_demo under neural_raw and under every scene the kernel composes
 (chip_smoke.SCENES, the 4-input anim_demo under many_sphere included),
 each scene's launches counted under its name; csg_demo widened to 64, 128,
 256 and 512 (chip_smoke.widen) under neural_raw, each width's launches
-counted, and to 1024 on the bounded calls (chip_smoke.BOUNDED_VARIANTS).
+counted, and to 1024 on the bounded calls (chip_smoke.BOUNDED_VARIANTS);
+from 128 the FP32 chain runs as 3xTF32 on the tensor cores and is held to
+the bar of a chain summed in their order (chip_smoke.tc_agreement), its SDF
+within chip_smoke.K1_MMA_SDF_ATOL of the plain chain's, with the share equal
+to a model of its order (fused_mlp.mlp_chain_3xtf32_mma) printed, on the
+4-input anim_demo widened too, and from a cold start (K5).
 The fused forward (K3, 3xTF32 on the tensor cores) against its plain
 version at every width, on 65536 seeded points, at chip_smoke.K3_ATOL, and
 on ragged batches and shallow nets. The three-pass chain (K2h, bf16 MMA over
@@ -137,6 +142,45 @@ def test_widest_kernel_matches_plain():
                                                   variants=chip_smoke.BOUNDED_VARIANTS)
     torch.cuda.synchronize()
     assert megakernel.WIDTH_LAUNCHES[WIDEST] - before == len(chip_smoke.BOUNDED_VARIANTS)
+    assert all(a["tc_order"] for a in result.values())
+    chip_smoke.check_agreement(result)
+
+
+@pytest.mark.parametrize("hidden", sorted(WIDE)[1:] + [WIDEST])
+def test_fp32_tensor_core_sdf(hidden):
+    """The kernel's FP32 SDF from width 128 (3xTF32), read off one step, on
+    4096 seeded points: within K1_MMA_SDF_ATOL of the plain chain's
+    (chip_smoke.tc_sdf_errors raises otherwise) and of the model of its
+    summation order, the share equal to the model bit for bit printed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+
+    params = chip_smoke.wide_params(cnr, _copies(hidden), torch.device("cuda", 0))
+    r = chip_smoke.tc_sdf_errors(params, hidden, "", n_points=4096)
+    print(f"width {hidden}: kernel = model on {r['model_equal']:.4f} of the points, "
+          f"= plain chain on {r['plain_equal']:.4f}")
+    assert r["kernel_model"] <= chip_smoke.K1_MMA_SDF_ATOL
+
+
+def test_fp32_tensor_core_four_inputs_matches_plain():
+    """The FP32 chain on the tensor cores with the frame as a 4th input:
+    anim_demo widened to 128 (chip_smoke.widen) at frame 37 under
+    many_sphere, the staged renderer's three kinds of call at 64x64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.ops import camera as camera_lib
+
+    dev = torch.device("cuda", 0)
+    layers = cnr.mlp.to_numpy_params(cnr.load(os.path.join(ASSETS, "anim_demo.npz"),
+                                              device="cpu"))
+    params = cnr.from_numpy_params(chip_smoke.widen(layers, 4, seed=37), device=dev)
+    cfg = cnr.RenderConfig(width=64, height=64, scene="many_sphere", num_inputs=4)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
+    origin, dirs = camera_lib.generate_rays(c2w, 64, 64, cfg.focal)
+    result = chip_smoke.compare_kernel_with_plain(params, cfg, origin, dirs, 37.0)
+    assert all(a["tc_order"] for a in result.values())
     chip_smoke.check_agreement(result)
 
 
@@ -304,7 +348,7 @@ def test_widest_three_pass_kernel_matches_plain():
     torch.cuda.synchronize()
     assert megakernel.THREE_PASS_LAUNCHES[WIDEST] == before + 1
     p = megakernel.march_state_plain(params, origin, dirs, cold, cfg, **kw)
-    chip_smoke.check_agreement({"coarse": chip_smoke.three_pass_agreement(
+    chip_smoke.check_agreement({"coarse": chip_smoke.tc_agreement(
         params, (origin, dirs, cold, cfg, 0.0, kw), k, p)})
     pts = torch.as_tensor(np.random.default_rng(1).uniform(-1.2, 1.2, (1024, 3))
                           .astype(np.float32), device=dev)
@@ -423,7 +467,7 @@ def test_three_pass_four_inputs_matches_plain():
               return_resolve=True)
     k = megakernel.march_state(params, origin, dirs, cold, cfg, 37.0, **kw)
     p = megakernel.march_state_plain(params, origin, dirs, cold, cfg, 37.0, **kw)
-    chip_smoke.check_agreement({"coarse": chip_smoke.three_pass_agreement(
+    chip_smoke.check_agreement({"coarse": chip_smoke.tc_agreement(
         params, (origin, dirs, cold, cfg, 37.0, kw), k, p)})
 
 
@@ -452,7 +496,35 @@ def test_raygen_kernel_matches_plain(precision):
     assert megakernel.RAYGEN_LAUNCHES == before + 1
     p = megakernel.march_raygen_plain(params, c2w, pos, cfg, **kw)
     call = (*megakernel.raygen_state(c2w, pos, cfg), cfg, 0.0, kw)
-    chip_smoke.check_agreement({"raygen": chip_smoke.three_pass_agreement(params, call, k, p)
-                                if precision == "high" else chip_smoke.agreement(k, p)})
+    chip_smoke.check_agreement({"raygen": chip_smoke.call_agreement(params, call, k, p)})
+    pad = pos < 0
+    assert not k[0].active[pad].any() and not k[0].converged[pad].any()
+
+
+def test_raygen_fp32_tensor_core_matches_plain():
+    """K5 with the FP32 chain on the tensor cores: csg_demo widened to 128
+    at 64x64 in 16x16 block order plus 8 pad lanes (a partial last warp),
+    the coarse call's eps and relaxation, at the tensor-core bar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import camera as camera_lib
+    from cudaneuralrender_torch.render import renderer
+
+    dev = torch.device("cuda", 0)
+    params = chip_smoke.wide_params(cnr, 4, dev)
+    cfg = cnr.RenderConfig(width=64, height=64)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
+    pos = torch.cat([renderer._block_order(64, 64, 16, 16, dev),
+                     torch.full((8,), -1, dtype=torch.int32, device=dev)])
+    kw = dict(march_eps=cfg.coarse_eps, relax_omega=cfg.relax_omega, return_resolve=True,
+              cyl_window=cfg.cyl_window_coarse)
+    k = megakernel.march_raygen(params, c2w, pos, cfg, **kw)
+    p = megakernel.march_raygen_plain(params, c2w, pos, cfg, **kw)
+    a = chip_smoke.call_agreement(params, (*megakernel.raygen_state(c2w, pos, cfg), cfg, 0.0, kw),
+                                  k, p)
+    assert a["tc_order"]
+    chip_smoke.check_agreement({"raygen": a})
     pad = pos < 0
     assert not k[0].active[pad].any() and not k[0].converged[pad].any()

@@ -8,12 +8,15 @@ be held here:
     (which lane holds which element of A, B and C, from the PTX ISA), through
     which ``fused_mlp.pack_mma`` must unpack to the padded stack exactly, and
     the accumulator-to-A hand-offs the kernels rely on;
-  * numpy emulations of the two chains as the kernels sum them (tf32
-    rounding as cvt.rna rounds, products exact, each k-chunk's MMAs run
-    from zero, each rounding once to FP32, and added to one FP32
-    accumulator), within 1e-5 of the plain versions, and for 3xTF32 of the
-    JAX package's ``mlp_forward_pallas`` in interpret mode (widths 32-256;
-    512 and 1024 against the plain version only, for interpret mode's time);
+  * the port's model of the 3xTF32 chain, ``mlp_chain_3xtf32_mma`` (tf32
+    rounding as cvt.rna rounds, each k-chunk's MMAs from zero, aligning and
+    truncating, each chunk's sum added to one FP32 accumulator), within
+    1e-5 of the plain version and of the JAX package's
+    ``mlp_forward_pallas`` in interpret mode (widths 32-256; 512 and 1024
+    against the plain version only, for interpret mode's time); and a
+    numpy emulation of the three-pass chain as the kernel sums it (products
+    exact, each k-chunk's MMAs rounding once to FP32, one FP32
+    accumulator), within 1e-5 of its plain version;
   * the port's own model of the three-pass sum, ``mlp_chain_3pass_mma``
     (the numpy one's order, with the tensor cores' alignment and truncation
     inside each MMA; chip_smoke.py holds the kernel against it on the
@@ -212,31 +215,14 @@ def mma_sum(acc: np.ndarray, terms, chunk: int) -> np.ndarray:
     return acc
 
 
-def fma_in_order(x: np.ndarray, w: np.ndarray) -> np.ndarray:
-    """sum_i x[:, i] w[i] from zero in input order, one rounding per term."""
-    acc = np.zeros((x.shape[0], w.shape[1]), np.float32)
-    for i in range(x.shape[1]):
-        acc = (acc.astype(np.float64) + x[:, i:i + 1].astype(np.float64) * w[i]).astype(np.float32)
-    return acc
-
-
 def forward_3xtf32(weights: torch.Tensor, biases: torch.Tensor, x: np.ndarray) -> np.ndarray:
-    """K3 as the kernel sums it (csrc/chain.cuh mlp_forward_kernel): the
-    first layer on FFMA, each hidden layer as m16n8k8 MMAs of a_small *
-    b_big, a_big * b_small, a_big * b_big per k-chunk of 8, each chunk's sum
-    added to one FP32 accumulator, bias and ReLU after; the head's column 0
-    in FP32."""
-    w, b = weights.numpy(), biases.numpy()
-    n_layers, n_in = w.shape[0], x.shape[1]
-    act = np.maximum(fma_in_order(x, w[0, :n_in]) + b[0], 0).astype(np.float32)
-    for l in range(1, n_layers - 1):
-        a_big, w_big = tf32_rna(act), tf32_rna(w[l])
-        a_small, w_small = tf32_rna(act - a_big), tf32_rna(w[l] - w_big)
-        acc = mma_sum(np.zeros_like(act),
-                      ((a_small, w_big), (a_big, w_small), (a_big, w_big)), 8)
-        act = np.maximum(acc + b[l], 0).astype(np.float32)
-    head = (act.astype(np.float64) @ w[-1, :, 0].astype(np.float64)).astype(np.float32)
-    return head + b[-1, 0]
+    """3xTF32 as the tensor-core chains sum it, on points x [N, n_in]:
+    ``fused_mlp.mlp_chain_3xtf32_mma`` (K1's chain from width 128: per
+    k-chunk of 8, a_small * b_big, a_big * b_small, a_big * b_big, each
+    chunk's sum added to one FP32 accumulator) on the zero-padded inputs."""
+    xp = torch.zeros((x.shape[0], weights.shape[2]))
+    xp[:, :x.shape[1]] = torch.from_numpy(x)
+    return fused_t.mlp_chain_3xtf32_mma(weights, biases, xp).numpy()
 
 
 def chain_3pass_one_acc(weights: torch.Tensor, biases: torch.Tensor, x: np.ndarray) -> np.ndarray:

@@ -12,8 +12,14 @@ Tolerances, each the JAX package's own bar:
   * the fused forward (K3): atol 1e-5 (test_pallas.py:295-308);
   * the march (K1, and K2h at precision HIGH): converged flags agree on
     >99%, t within 1e-4 where both converged, resolve steps equal on >=99%,
-    equal step counters (test_pallas.py:49-72); at 1024 the refine calls
-    bounded at 8 steps, and whole against a float64 witness (MARCH_NETS);
+    equal step counters (test_pallas.py:49-72); where a refine call's
+    resolve steps fall below that share or its counters differ, every
+    differing lane must part at a test float32 cannot decide
+    (chip_smoke.undecided_lanes, ROADMAP section 3); at 1024 the refine
+    calls bounded at 8 steps, and whole against a float64 witness
+    (MARCH_NETS); the port's march with the model of the kernel's
+    tensor-core FP32 chain (fused_mlp.mlp_chain_3xtf32_mma) at 128 and 512
+    to the same bar;
   * dense ``render_image`` with use_pallas: atol 1e-5 (test_pallas.py:311-321);
   * ``render_staged``: hits agree on >=99%, >=97% of common hits within
     1e-3 (test_render.py:85-101).
@@ -159,7 +165,8 @@ def wide_chain(request):
     """Both packages' outputs for the staged renderer's kinds of march call
     (MARCH_NETS, and WITNESS_NET: random_1024 with whole refine calls),
     each starting from the JAX package's output of the one before (the
-    refine entry re-marks the near set active); and the rays."""
+    refine entry re-marks the near set active); the rays; and per call the
+    port's march inputs and each side's chain, for ``_undecided``."""
     res, bound = MARCH_NETS.get(request.param, (16, None))
     pj, pt = _net(request.param)
     cfg_j = cj.RenderConfig(width=res, height=res)
@@ -190,31 +197,157 @@ def wide_chain(request):
             t=torch.tensor(s["t"]), budget=torch.tensor(s["budget"]),
             active=torch.tensor(s["active"]), converged=torch.tensor(s["converged"]),
             steps=torch.tensor(int(s["steps"]), dtype=torch.int32))
+        kw = dict(march_eps=eps, num_steps=num_steps, relax_omega=omega)
         to, tr = mk_t.march_state(pt, torch.tensor(origin), torch.tensor(dirs), state_t, cfg_t,
-                                  march_eps=eps, num_steps=num_steps, relax_omega=omega,
-                                  return_resolve=True)
+                                  return_resolve=True, **kw)
         out[variant] = (s, (_state_np(jo), np.asarray(jr).astype(np.int64)),
-                        (_state_np(to), tr.numpy().astype(np.int64)))
+                        (_state_np(to), tr.numpy().astype(np.int64)),
+                        dict(call=(torch.tensor(origin), torch.tensor(dirs), state_t, cfg_t, 0.0,
+                                   kw),
+                             outs=((_state_t(jo), torch.from_numpy(np.array(jr)).int()),
+                                   (to, tr)),
+                             chains=(_jax_chain(pj, prec), None), pj=pj, pt=pt))
         s = out[variant][1][0]
     return out
 
 
 @pytest.mark.parametrize("wide_chain,variant", MARCH_CASES, indirect=["wide_chain"])
 def test_march_state_plain_matches_jax_wide(wide_chain, variant):
-    _check_march_bar(wide_chain[variant])
+    _check_march_bar(wide_chain[variant][:3], lambda: _undecided(wide_chain[variant][3]))
 
 
-def _check_march_bar(call):
-    """test_pallas.py:49-72's bar on (entry, JAX output, port output)."""
+# The model of the kernel's FP32 chain on the tensor cores
+# (fused_mlp.mlp_chain_3xtf32_mma) marches the nets at 128 and 512 wide.
+MODEL_CASES = [(net, v) for net in ("random_128", "random_512") for v in VARIANTS]
+
+
+def _model_chain(pt):
+    """``fused_mlp.mlp_chain_3xtf32_mma`` as ``march_state_plain`` takes a
+    chain, on the rows up to the last nonzero one (the plain march pads its
+    batch with zero rows, and the model sums each product one by one)."""
+    weights, biases, _, _ = fused_t.pack_params(pt)
+
+    def chain(x):
+        n = int(x.abs().sum(dim=1).nonzero().max()) + 1
+        out = torch.zeros_like(x)
+        out[:n, 0] = fused_t.mlp_chain_3xtf32_mma(weights, biases, x[:n])
+        return out
+
+    return chain
+
+
+@pytest.mark.parametrize("wide_chain,variant", MODEL_CASES, indirect=["wide_chain"])
+def test_march_3xtf32_model_matches_jax_wide(wide_chain, variant):
+    """The port's plain march with the model of the kernel's tensor-core
+    FP32 chain in place of its plain chain, from the entry of
+    test_march_state_plain_matches_jax_wide's call, against the JAX
+    megakernel: the coarse call at JAX's own bar, the refine calls at that
+    bar and, where float32 cannot decide a test, ``undecided_lanes`` of the
+    model against JAX's chain."""
+    entry, jax_out, _, rec = wide_chain[variant]
+    pt, pj = rec["pt"], rec["pj"]
+    origin, dirs, state, cfg, frame, kw = rec["call"]
+    chain = _model_chain(pt)
+    mo, mr = mk_t.march_state_plain(pt, origin, dirs, state, cfg, frame, chain=chain,
+                                    return_resolve=True, **kw)
+
+    def undecided():
+        return chip_smoke.undecided_lanes(
+            pt, rec["call"], (rec["chains"][0], chain), (rec["outs"][0], (mo, mr)),
+            lambda pts: torch.from_numpy(_sdf64(pj, pts.numpy())))
+
+    _check_march_bar((entry, jax_out, (_state_np(mo), mr.numpy().astype(np.int64))),
+                     None if variant == "coarse" else undecided)
+
+
+def _state_t(s):
+    """A JAX MarchState as the port's, on the CPU."""
+    return march_t.MarchState(
+        t=torch.from_numpy(np.array(s.t)), budget=torch.from_numpy(np.array(s.budget)),
+        active=torch.from_numpy(np.array(s.active)),
+        converged=torch.from_numpy(np.array(s.converged)),
+        steps=torch.tensor(int(s.steps), dtype=torch.int32))
+
+
+def _jax_chain(pj, precision):
+    """The JAX megakernel's chain (``fused_mlp._mlp_chain`` on [H, T]
+    activations) as ``march_state_plain`` takes a chain, x [T, H] -> [T, H].
+    At the call's tile (T = 256 rows, which ``march_state_plain`` pads any
+    16x16 call to on the CPU) its sums are the megakernel's bit for bit, so
+    a replay lands on the JAX march (``chip_smoke.undecided_lanes`` checks)."""
+    wj, bj, _, _ = fused_j.pack_params(pj)
+
+    def chain(x):
+        y = fused_j._mlp_chain(wj, bj, jnp.asarray(x.numpy().T), len(pj), precision)
+        return torch.from_numpy(np.asarray(y).T.copy())
+
+    return chain
+
+
+def _undecided(rec):
+    """``chip_smoke.undecided_lanes`` of a call, JAX against the port, the
+    float64 distance from ``_sdf64``."""
+    pj = rec["pj"]
+    return chip_smoke.undecided_lanes(
+        rec["pt"], rec["call"], rec["chains"], rec["outs"],
+        lambda pts: torch.from_numpy(_sdf64(pj, pts.numpy())))
+
+
+def _check_march_bar(call, undecided=None):
+    """test_pallas.py:49-72's bar on (entry, JAX output, port output).
+    Where float32 cannot decide a test at the refine rungs' eps 1e-6
+    (ROADMAP section 3), the two packages' sums in their own orders send a
+    ray to resolve a step apart: if resolve steps are equal on fewer than
+    99% of the lanes, or the step counters differ, ``undecided()``
+    (``_undecided``) must find every differing lane undecidable by float32
+    at the step where the two marches part, each replay landing on its
+    side's results."""
     entry, (sj, rj), (st, rt) = call
     assert entry["active"].sum() > 20  # the call has work to do
     assert (sj["converged"] == st["converged"]).mean() > 0.99
     both = sj["converged"] & st["converged"]
     assert both.sum() > 0
     np.testing.assert_allclose(st["t"][both], sj["t"][both], rtol=0, atol=1e-4)
-    assert int(st["steps"]) == int(sj["steps"])
     assert (st["active"] == sj["active"]).mean() > 0.99
+    if undecided is not None and (int(st["steps"]) != int(sj["steps"])
+                                  or (rt == rj).mean() < 0.99):
+        u = undecided()
+        print(f"resolve steps equal on {(rt == rj).mean():.4f}, step counters port "
+              f"{int(st['steps'])} JAX {int(sj['steps'])}: {u}")
+        assert (u["replay_equal"] and u["lanes"] > 0 and u["n_decided"] == 0
+                and u["n_unparted"] == 0), u
+        return
+    assert int(st["steps"]) == int(sj["steps"])
     assert (rt == rj).mean() >= 0.99, (rt != rj).sum()
+
+
+def test_undecided_lanes_fails_a_decidable_disagreement():
+    """``chip_smoke.undecided_lanes`` on a disagreement float32 decides:
+    csg_demo's refine rung 0 (eps 1e-6) at 16x16 against the same march at
+    eps 1e-3, a fault of the step rule. Both sides run the same chain, so
+    its error bounds delta and the two replays never part: no differing
+    lane has a test float32 cannot decide, and the faulty side's replay
+    does not land on it."""
+    pt = ct.from_numpy_params(_layers(CSG), device="cpu")
+    cfg = ct.RenderConfig(width=16, height=16)
+    c2w, _ = cam_j.view_matrices(cj.Camera(**CAM))
+    origin, dirs = (torch.from_numpy(np.array(a)) for a in
+                    cam_j.generate_rays(c2w, 16, 16, cfg.focal))
+    cold = march_t.init_state(origin, dirs, cfg.bound_center, cfg.bound_radius)
+    coarse = mk_t.march_state(pt, origin, dirs, cold, cfg, march_eps=0.05, relax_omega=1.6)
+    entry = chip_smoke.refine_entry(coarse, origin, dirs, cfg)
+    kw = dict(march_eps=1e-6, num_steps=16, relax_omega=0.0)
+    good = mk_t.march_state(pt, origin, dirs, entry, cfg, return_resolve=True, **kw)
+    bad = mk_t.march_state(pt, origin, dirs, entry, cfg, return_resolve=True,
+                           **dict(kw, march_eps=1e-3))
+    sdf64 = lambda pts: chip_smoke.sdf_float64(pt, pts)  # noqa: E731
+    u = chip_smoke.undecided_lanes(pt, (origin, dirs, entry, cfg, 0.0, kw), (None, None),
+                                   (good, bad), sdf64)
+    assert u["lanes"] > 0 and u["n_unparted"] == u["lanes"] and not u["replay_equal"], u
+    assert u["delta"] < 1e-5
+    same = chip_smoke.undecided_lanes(pt, (origin, dirs, entry, cfg, 0.0, kw), (None, None),
+                                      (good, good), sdf64)
+    assert same["lanes"] == 0 and same["n_decided"] == 0
 
 
 def _sdf64(pj, pts):
@@ -273,7 +406,7 @@ def test_march_1024_refine_float64_witness(wide_chain, variant):
     resolve steps, which float32 cannot decide at eps 1e-6, are printed:
     the port against JAX, and each against float64."""
     origin, dirs, pj, pt = wide_chain["rays"]
-    entry, (sj, rj), (st, rt) = wide_chain[variant]
+    entry, (sj, rj), (st, rt) = wide_chain[variant][:3]
     eps, num_steps, omega = VARIANTS[variant]
     act = entry["active"]
     assert act.sum() > 20
