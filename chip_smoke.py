@@ -10,27 +10,33 @@ Phases; any failure exits non-zero and nothing is caught:
      shared memory its launch asks for at 9 layers, and its HMMA count in
      ``cuobjdump -sass``: every K3 and K2h instantiation and every FP32
      march instantiation from width 128 must have some, the FP32 march
-     instantiations at 32 and 64 none);
+     instantiations at 32 and 64 none, a ray per thread or a ray per warp
+     (march_split_kernel));
   3. hold the kernel against its plain PyTorch version on the same CUDA
      tensors: csg_demo rays at 256x256 from Camera(rotation_y=30,
      rotation_x=-20), for the staged renderer's three kinds of call
      (coarse, refine rung 0, terminal rung);
   4. drive the main path — ``Renderer(...).render`` with the staged
      mixed-precision config — at 1920x1080 with the csg_demo weights,
-     counting kernel launches, then the 256x256 golden render against
-     examples/assets/csg_demo.png;
+     counting kernel launches (those a ray per warp must not be 0), then
+     the 256x256 golden render against examples/assets/csg_demo.png;
   5. time 5 warm 1080p frames; record the inputs of every march call of
      one more frame and hold the kernel against its plain version on each
      (the coarse pass over 2M rays and the retuned refine rungs); time the
-     coarse pass both ways; profile one more frame (device time per
-     kernel, each march launch, the device's idle share);
+     coarse pass both ways; each call through the kernel a ray per thread
+     and a ray per warp, equal bit for bit and timed, with the mode
+     ``megakernel.ray_lanes`` picks (``compare_modes``), the terminal rung
+     against its plain version, its bound and critical-path floor
+     (``split_entry``); profile one more frame (device time per kernel,
+     each march launch, the device's idle share);
   6. the CSG scenes at 1080p, each composed inside the kernel: csg_demo
      under neural_tanh, many_sphere (frame 90), many_sphere_cut (frame 90),
      many_cylinder_cut and displacement, and the 4-input anim_demo under
      many_sphere (frame 37). Per scene: a cold and a warm staged frame with
      the scene's kernel launches counted, the foreground checked, the
      median of 3 warm frames, kernel = plain version on every march call
-     of one more frame, and the coarse pass timed both ways;
+     of one more frame, both modes on each (``compare_modes``), and the
+     coarse pass timed both ways;
   7. the turntable: ``render_sequence`` over 24 frames of many_sphere
      (yaw and frame number i), twice; the second call must stay on the
      fast path and is timed; frames 0 and 23 against ``render_staged``;
@@ -39,7 +45,9 @@ Phases; any failure exits non-zero and nothing is caught:
      512x512 at 256, 256x256 at 512) with its width's launches counted, the
      256x256 golden, the median of 3 warm frames (1 from 128 up), kernel =
      plain version on every march call of one more frame (from 128 the
-     FP32 chain runs on the tensor cores, held to the TC_ bar), the coarse
+     FP32 chain runs on the tensor cores, held to the TC_ bar; at 64 both
+     modes on each call and the terminal rung's entry, as in phase 5, and
+     launches a ray per warp on the main path), the coarse
      pass timed both ways beside its FP32 and 3xTF32 bounds, a profiled
      frame; from 128 the kernel's FP32 SDF against the model of its
      summation order (fused_mlp.mlp_chain_3xtf32_mma), the plain chain and
@@ -155,6 +163,9 @@ SIZES = {
     1024: Sizes((128, 128), 0, 1, 1 << 18, 32, 64, True),
 }
 WIDE = tuple(h for h in SIZES if h > 32)  # the widened nets
+# Phase 5's smaller frames, timed in both modes (``mode_sweep``), the last
+# one's march calls compared mode against mode.
+MODE_SIDES = ((1280, 720), (512, 512), (256, 256))
 BOUNDED_VARIANTS = ("coarse", "refine_rung0")
 # Phase 9's bar: FP32-grade sums in two orders (3xTF32 MMA in the kernel,
 # cuBLAS FP32 in the plain version), the JAX package's own bar for its fused
@@ -368,6 +379,8 @@ def sm_clock_mhz() -> float:
 KERNEL_LABELS = (
     (r"march_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E",
      "march_kernel<H={}, scene={}, window={}, three_pass={}>"),
+    (r"march_split_kernelILi(\d+)ELi(\d+)ELi(\d+)EE",
+     "march_split_kernel<H={}, scene={}, window={}>"),
     (r"mlp_forward_kernelILi(\d+)E", "mlp_forward_kernel<H={}>"),
     (r"x1_loop_kernelILi(\d+)E", "x1_loop_kernel<H={}>"),
     (r"x2_stepcost_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
@@ -425,7 +438,7 @@ def sass_counts(library: str, opcode: str) -> dict:
         m = re.search(r"Function : (\w+)", line)
         if m:
             cur = None
-            for pattern, fmt in KERNEL_LABELS[:2]:
+            for pattern, fmt in KERNEL_LABELS[:3]:
                 k = re.search(pattern, m.group(1))
                 if k:
                     cur = fmt.format(*k.groups())
@@ -566,7 +579,8 @@ def uncounted():
     they were: a check's own calls are not the main path's."""
     from cudaneuralrender_torch.kernels import megakernel
 
-    tables = ("SCENE_LAUNCHES", "WIDTH_LAUNCHES", "PRECISION_LAUNCHES", "THREE_PASS_LAUNCHES")
+    tables = ("SCENE_LAUNCHES", "WIDTH_LAUNCHES", "PRECISION_LAUNCHES", "THREE_PASS_LAUNCHES",
+              "SPLIT_LAUNCHES")
     saved = (megakernel.KERNEL_LAUNCHES, megakernel.RAYGEN_LAUNCHES,
              {name: dict(getattr(megakernel, name)) for name in tables})
     try:
@@ -757,17 +771,18 @@ def undecided_lanes(params, call, chains, outs, sdf64) -> dict:
     return result
 
 
-def compare_kernel_with_plain(params, config, origin, dirs, frame=0.0, variants=None):
-    """Run each variant (of ``variants``, all by default) through the kernel
-    and the plain version on the same inputs (each variant starts from the
-    plain output of the one before; the coarse call composes with
-    ``config.cyl_window_coarse``, as the staged renderer's does). Returns
-    {variant: agreement dict}."""
+def variant_calls(params, config, origin, dirs, frame=0.0, variants=None) -> list:
+    """The staged path's calls of each variant (of ``variants``, all by
+    default) on these rays, each starting from the plain version's output
+    of the one before (the coarse call composes with
+    ``config.cyl_window_coarse``, as the staged renderer's does):
+    [(name, call, the plain output with resolve steps)], a call being
+    (origin, dirs, state, config, frame, march_state's keywords)."""
     from cudaneuralrender_torch.kernels import megakernel
     from cudaneuralrender_torch.ops import march
 
     state = march.init_state(origin, dirs, config.bound_center, config.bound_radius)
-    result = {}
+    out = []
     for name, eps, num_steps, omega in VARIANTS:
         if variants is not None and name not in variants:
             continue
@@ -775,11 +790,152 @@ def compare_kernel_with_plain(params, config, origin, dirs, frame=0.0, variants=
             state = refine_entry(state, origin, dirs, config)
         kw = dict(march_eps=eps, num_steps=num_steps, relax_omega=omega, return_resolve=True,
                   cyl_window=config.cyl_window_coarse if name == "coarse" else None)
-        k = megakernel.march_state(params, origin, dirs, state, config, frame, **kw)
         p = megakernel.march_state_plain(params, origin, dirs, state, config, frame, **kw)
-        result[name] = call_agreement(params, (origin, dirs, state, config, frame, kw), k, p)
+        out.append((name, (origin, dirs, state, config, frame, kw), p))
         state = p[0]
+    return out
+
+
+def compare_kernel_with_plain(params, config, origin, dirs, frame=0.0, variants=None):
+    """Run each variant (``variant_calls``) through the kernel and the plain
+    version on the same inputs. Returns {variant: agreement dict}."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    result = {}
+    for name, call, p in variant_calls(params, config, origin, dirs, frame, variants):
+        result[name] = call_agreement(params, call, megakernel.march_state(params, *call[:5],
+                                                                           **call[5]), p)
     return result
+
+
+def split_equal(params, call) -> tuple:
+    """``call`` through the kernel a ray per thread and a ray per warp
+    (``_ray_lanes`` 1 and SPLIT_LANES), uncounted: raises unless t, budget,
+    the active and converged flags, the lane steps and the step counter are
+    equal bit for bit. Returns both outputs, (state, lane steps) each."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    origin, dirs, state, config, frame, kw = call
+    kw = dict(kw, return_resolve=True)
+    with uncounted():
+        (a, sa), (b, sb) = (
+            megakernel.march_state(params, origin, dirs, state, config, frame,
+                                   _ray_lanes=lanes, **kw)
+            for lanes in (1, megakernel.SPLIT_LANES))
+    fields = dict(t=(a.t.view(torch.int32), b.t.view(torch.int32)),
+                  budget=(a.budget.view(torch.int32), b.budget.view(torch.int32)),
+                  active=(a.active, b.active), converged=(a.converged, b.converged),
+                  lane_steps=(sa, sb), steps=(a.steps, b.steps))
+    unequal = {name: int((x != y).sum()) for name, (x, y) in fields.items()
+               if not torch.equal(x, y)}
+    if unequal:
+        raise RuntimeError(f"a ray per warp differs from a ray per thread on "
+                           f"{dirs.shape[0]} lanes (lanes unequal by field): {unequal}")
+    return (a, sa), (b, sb)
+
+
+def lane_utilisation(state, lane_steps) -> float:
+    """A ray-per-thread call's share of busy lanes: its ray-steps over 32
+    times the sum of each warp's deepest ray-steps (warps are 32
+    consecutive lanes)."""
+    act = state.active
+    steps = torch.where(act, lane_steps.long() - int(state.steps), 0)
+    steps = torch.cat([steps, steps.new_zeros((-steps.numel()) % 32)]).view(-1, 32)
+    return float(steps.sum()) / max(1, 32 * int(steps.max(dim=1).values.sum()))
+
+
+def floor_ms(deepest: int, hidden: int, n_layers: int, n_in: int, sm_mhz: float) -> float:
+    """The ray-split chain's critical-path floor for a ray marching
+    ``deepest`` steps: each output summed in input order from zero, so a
+    step waits on n_in fused multiply-adds, then (H + 1) dependent
+    operations a hidden layer and H + 1 for the head (H products, the bias;
+    267 at width 32, 523 at 64 for the 9-layer nets), 4 cycles each at the
+    SM clock."""
+    ops = n_in + (n_layers - 2) * (hidden + 1) + hidden + 1
+    return deepest * ops * 4 / (sm_mhz * 1e3)
+
+
+def compare_modes(params, calls, tag: str, card: str) -> list:
+    """Every recorded call of an FP32 chain at width 32 or 64 through the
+    kernel in both modes (``split_equal``: equal bit for bit), each mode
+    timed by CUDA events (median of 3 after a warm-up), one line per call
+    with the mode ``megakernel.ray_lanes`` picks for it; the coarse call's
+    lane utilisation a ray per thread. Returns a row per call: n, active,
+    ray-steps, deepest, ms by mode, picked."""
+    from cudaneuralrender_torch.kernels import fused_mlp, megakernel
+
+    hidden = fused_mlp.packed_params(params)[3]
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for i, call in enumerate(calls):
+        origin, dirs, state, config, frame, kw = call
+        precision = kw.get("precision", "highest")
+        if megakernel.tensor_core_chain(hidden, precision):
+            continue
+        (_, lane_steps), _ = split_equal(params, call)
+        act = state.active
+        steps = lane_steps.long() - int(state.steps)
+        n = dirs.shape[0]
+        with uncounted():
+            ms = {lanes: time_cuda(lambda: megakernel.march_state(
+                params, origin, dirs, state, config, frame, _ray_lanes=lanes, **kw), 3, 1)
+                for lanes in (1, megakernel.SPLIT_LANES)}
+        row = dict(call=i, n=n, num_steps=kw.get("num_steps"), eps=kw.get("march_eps"),
+                   active=int(act.sum()), ray_steps=int(steps[act].sum()),
+                   deepest=int(steps[act].max()) if bool(act.any()) else 0,
+                   thread_ms=ms[1], split_ms=ms[megakernel.SPLIT_LANES],
+                   picked=megakernel.ray_lanes(n, hidden, precision, sm_count))
+        if i == 0:
+            row["lane_util"] = lane_utilisation(state, lane_steps)
+        rows.append(row)
+        print(f"modes {tag} width {hidden} call{i} n={n} steps={row['num_steps']} "
+              f"eps={row['eps']}: {row['active']} active, {row['ray_steps']} ray-steps, deepest "
+              f"{row['deepest']}; a ray per thread {ms[1]:.3f} ms, a ray per warp "
+              f"{row['split_ms']:.3f} ms (equal bit for bit); ray_lanes picks {row['picked']}"
+              + (f"; lane utilisation a ray per thread {row['lane_util']:.4f}" if i == 0 else "")
+              + f" [{card}]", flush=True)
+    return rows
+
+
+def split_entry(params, calls, rows, launches: int, card: str) -> dict:
+    """The kernels line's entry of the ray-split mode at this width: the
+    frame's terminal rung (its last call) a ray per warp, its plain
+    version's time, its bound (the ray-steps' fused multiply-adds at the
+    FP32 peak, or its bytes) and ``floor_ms``, the chain's critical path
+    along its deepest ray."""
+    from cudaneuralrender_torch.kernels import fused_mlp, megakernel
+
+    origin, dirs, state, config, frame, kw = calls[-1]
+    row = rows[-1]
+    if kw.get("num_steps") is not None or row["call"] != len(calls) - 1:
+        raise RuntimeError(f"the frame's last march call is not the terminal rung: {kw}")
+    weights, biases, n_in, hidden = fused_mlp.packed_params(params)
+    sm_mhz = sm_clock_mhz()
+    kw = dict(kw, return_resolve=True)
+    outs = {}
+
+    def plain():
+        outs["plain"] = megakernel.march_state_plain(params, origin, dirs, state, config, frame,
+                                                     **kw)
+
+    plain_ms = time_cuda(plain, 1)
+    with uncounted():
+        k = megakernel.march_state(params, origin, dirs, state, config, frame,
+                                   _ray_lanes=megakernel.SPLIT_LANES, **kw)
+    a = agreement(k, outs["plain"])
+    check_agreement({"terminal rung, a ray per warp": a})
+    n = dirs.shape[0]
+    bnd = bound(row["ray_steps"] * chain_fmas(hidden, weights.shape[0], n_in),
+                n * (12 + 4 + 4 + 1) + n * (4 + 4 + 1 + 1 + 4)
+                + 4 * (weights.numel() + biases.numel()))
+    floor = floor_ms(row["deepest"], hidden, weights.shape[0], n_in, sm_mhz)
+    print(f"width {hidden} terminal rung ({n} lanes, {row['active']} active, deepest "
+          f"{row['deepest']} steps): a ray per warp {row['split_ms']:.3f} ms, a ray per thread "
+          f"{row['thread_ms']:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+          f"(FP32), critical-path floor {floor:.3f} ms at {sm_mhz:.0f} MHz [{card}]", flush=True)
+    return dict(kernel_entry(f"march_kernel_split_h{hidden}", K1_SOURCE,
+                             "cudaneuralrender_tpu/pallas/megakernel.py:45", launches,
+                             a["max_abs_err"], row["split_ms"], plain_ms, bnd), floor_ms=floor)
 
 
 def undecided_bar(u: dict) -> list:
@@ -925,7 +1081,8 @@ def device_breakdown(renderer, cam, frame=0.0) -> dict:
     return dict(
         wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
         idle_share=1.0 - busy_us / 1e3 / wall_ms, n_device_ops=len(spans),
-        march_kernel_ms=[(e - s) / 1e3 for s, e, n in spans if "march_kernel" in n],
+        march_kernel_ms=[(e - s) / 1e3 for s, e, n in spans
+                         if "march_kernel" in n or "march_split_kernel" in n],
         top_kernels_ms=top,
     )
 
@@ -940,6 +1097,43 @@ def time_frames(renderer, cam, frame, reps: int) -> list:
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
     return out
+
+
+@contextlib.contextmanager
+def thread_per_ray():
+    """Inside the block ``megakernel.ray_lanes`` picks a ray per thread for
+    every launch: the march as it ran before the ray-split mode."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    bound = megakernel.SPLIT_MAX_RAYS_PER_SM
+    megakernel.SPLIT_MAX_RAYS_PER_SM = 0
+    try:
+        yield
+    finally:
+        megakernel.SPLIT_MAX_RAYS_PER_SM = bound
+
+
+def mode_sweep(cnr, params, card) -> None:
+    """Warm csg_demo frames at MODE_SIDES, each timed with ``ray_lanes``'
+    choice and a ray per thread throughout (3 frames each, in the order
+    choice, thread, thread, choice), and both modes on every march call of
+    the smallest side's frame (``compare_modes``): at small sides the
+    coarse call itself is under ``ray_lanes``' bound."""
+    cam = cnr.Camera(**CAMERA)
+    for width, height in MODE_SIDES:
+        cfg = cnr.RenderConfig(width=width, height=height, march_impl="staged")
+        renderer = cnr.Renderer(params, cfg)
+        renderer.render(cam)
+        renderer.render(cam)
+        ms = {"choice": [], "thread": []}
+        for tag in ("choice", "thread", "thread", "choice"):
+            with thread_per_ray() if tag == "thread" else contextlib.nullcontext():
+                ms[tag] += time_frames(renderer, cam, 0.0, 3)
+        print(f"{width}x{height} staged frame: median {statistics.median(ms['choice']):.3f} ms "
+              f"with ray_lanes' choice {[round(x, 3) for x in ms['choice']]}, "
+              f"{statistics.median(ms['thread']):.3f} ms a ray per thread "
+              f"{[round(x, 3) for x in ms['thread']]} [{card}]", flush=True)
+    compare_modes(params, record_march_calls(renderer, cam), f"{width}x{height}", card)
 
 
 def check_image(img, what: str, height: int = 1080, width: int = 1920) -> float:
@@ -1017,6 +1211,7 @@ def drive_scene(cnr, params, scene, frame, num_inputs, card, width=1920, height=
     for name, a in result.items():
         print(f"compare {scene} {res} {name}: {json.dumps(a)}")
     check_agreement(result)
+    compare_modes(params, calls, f"{tag} {res}", card)
     ms, plain_ms, bnd = time_coarse(params, calls)
     print(f"scene {tag}: coarse march {res} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bnd['bound_ms']:.3f} ms [{card}]")
@@ -1040,15 +1235,17 @@ def golden_render(cnr, params, cam, **fields):
     return iou, frac2
 
 
-def drive_width(cnr, params, hidden, card, size: Sizes) -> dict:
+def drive_width(cnr, params, hidden, card, size: Sizes) -> list:
     """Phase 8 for one width at ``size``: the staged main path with this
-    width's launches counted (a cold and a warm frame), the golden, the
-    median of ``size.frames`` warm frames, kernel = plain version on every
-    march call of one more frame, the coarse pass timed both ways, and a
-    profiled frame. A bounded width drives BOUNDED_VARIANTS instead of the
-    frame: the calls through the kernel with its launches counted, against
-    the plain version on the same inputs, and the coarse call timed both
-    ways."""
+    width's launches counted (a cold and a warm frame; at 64 its launches a
+    ray per warp too, which must not be 0), the golden, the median of
+    ``size.frames`` warm frames, kernel = plain version on every march call
+    of one more frame (at 64 both modes equal bit for bit and timed,
+    ``compare_modes``), the coarse pass timed both ways, and a profiled
+    frame. A bounded width drives BOUNDED_VARIANTS instead of the frame: the
+    calls through the kernel with its launches counted, against the plain
+    version on the same inputs, and the coarse call timed both ways.
+    Returns the width's kernels entries (at 64 the ray-split mode's too)."""
     from cudaneuralrender_torch.kernels import megakernel
     from cudaneuralrender_torch.ops import camera as camera_lib
     from cudaneuralrender_torch.ops import march
@@ -1057,6 +1254,8 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> dict:
     cfg = cnr.RenderConfig(width=width, height=height, march_impl="staged")
     cam = cnr.Camera(**CAMERA)
     tag = f"width {hidden} {width}x{height}"
+    split = not megakernel.tensor_core_chain(hidden, "highest")
+    entries = []
     megakernel.reset_launch_counts()
     if size.bounded:
         c2w, _ = camera_lib.view_matrices(cam, params.device)
@@ -1079,10 +1278,13 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> dict:
         img = renderer.render(cam)
         torch.cuda.synchronize()
         launches = megakernel.WIDTH_LAUNCHES[hidden]
-        print(f"{tag}: {launches} kernel launches in a cold and a warm frame, "
-              f"stats {json.dumps(renderer.last_stats)}")
+        split_launches = megakernel.SPLIT_LAUNCHES[hidden]
+        print(f"{tag}: {launches} kernel launches in a cold and a warm frame ({split_launches} "
+              f"a ray per warp), stats {json.dumps(renderer.last_stats)}")
         if launches == 0:
             raise RuntimeError(f"{tag}: the staged render never launched the march kernel")
+        if split and split_launches == 0:
+            raise RuntimeError(f"{tag}: the staged render never marched a ray per warp")
         fg = check_image(img, tag, height, width)
         iou, frac2 = golden_render(cnr, params, cam)
         print(f"{tag}: foreground {fg:.4f}; golden 256x256 IoU {iou:.5f}, {frac2:.5f} of "
@@ -1095,6 +1297,9 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> dict:
     for name, a in result.items():
         print(f"compare {tag} {name}: {json.dumps(a)}")
     check_agreement(result)
+    if split and not size.bounded:
+        rows = compare_modes(params, calls, tag, card)
+        entries.append(split_entry(params, calls, rows, split_launches, card))
     ms, plain_ms, bnd = time_coarse(params, calls, size.reps, min(3, size.reps))
     print(f"{tag}: coarse march kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
           f"{bnd['bound_ms']:.3f} ms (FP32), {bnd['tc_bound_ms']:.3f} ms (3xTF32) [{card}]",
@@ -1102,11 +1307,12 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> dict:
     if not size.bounded:
         print(f"{tag}: breakdown {json.dumps(device_breakdown(renderer, cam))} [{card}]",
               flush=True)
-    if megakernel.tensor_core_chain(hidden, "highest"):
+    if not split:
         tc_sdf_errors(params, hidden, card, size.points)
-    return kernel_entry(f"march_kernel_h{hidden}", K1_SOURCE,
-                        "cudaneuralrender_tpu/pallas/megakernel.py:45", launches,
-                        max(a["max_abs_err"] for a in result.values()), ms, plain_ms, bnd)
+    return [kernel_entry(f"march_kernel_h{hidden}", K1_SOURCE,
+                         "cudaneuralrender_tpu/pallas/megakernel.py:45", launches,
+                         max(a["max_abs_err"] for a in result.values()), ms, plain_ms, bnd)
+            ] + entries
 
 
 def drive_forward(cnr, params, hidden, card, size: Sizes) -> dict:
@@ -1875,7 +2081,8 @@ def main() -> int:
                 f"spill stores, {spill_ld} bytes spill loads")
         if not label.startswith("x"):  # the launch's dynamic shared memory at 9 layers
             h = int(label.split("H=")[1].split(",")[0].rstrip(">"))
-            kind = 2 if label.startswith("mlp") else int(label.endswith("three_pass=1>"))
+            kind = (2 if label.startswith("mlp") else 3 if label.startswith("march_split")
+                    else int(label.endswith("three_pass=1>")))
             line += (f"; {lib.cnr_smem_bytes(kind, h, 9)} bytes dynamic shared memory; "
                      f"{hmma.get(label, 'no')} HMMA in its SASS")
         print(line)
@@ -1884,13 +2091,14 @@ def main() -> int:
     tensor_core = [k for k in hmma if k.startswith("mlp") or k.endswith("three_pass=1>")
                    or fp32_march.get(k, 0) in megakernel.TENSOR_CORE_FP32_WIDTHS]
     ffma = [k for k, h in fp32_march.items() if h not in megakernel.TENSOR_CORE_FP32_WIDTHS]
+    split = [k for k in hmma if k.startswith("march_split")]
     idle = [k for k in tensor_core if hmma[k] == 0]
-    stray = [k for k in ffma if hmma[k]]
+    stray = [k for k in ffma + split if hmma[k]]
     print(f"SASS (cuobjdump -sass): {len(tensor_core) - len(idle)} of {len(tensor_core)} K3, "
           f"K2h and FP32 march (widths {megakernel.TENSOR_CORE_FP32_WIDTHS}) instantiations "
-          f"issue HMMA; FP32 march instantiations at the other widths with HMMA: {len(stray)} "
-          f"of {len(ffma)}", flush=True)
-    if idle or stray or not tensor_core or not ffma:
+          f"issue HMMA; FP32 march instantiations at the other widths, a ray per thread or a "
+          f"ray per warp, with HMMA: {len(stray)} of {len(ffma) + len(split)}", flush=True)
+    if idle or stray or not tensor_core or not ffma or len(split) != len(ffma):
         raise RuntimeError(f"tensor-core kernels without HMMA: {idle}; FFMA march kernels "
                            f"with HMMA: {stray}")
 
@@ -1916,9 +2124,13 @@ def main() -> int:
     img = renderer.render(cam)
     torch.cuda.synchronize()
     launches = megakernel.KERNEL_LAUNCHES
-    print(f"main path 1080p: {launches} kernel launches, stats {json.dumps(renderer.last_stats)}")
+    split_launches = megakernel.SPLIT_LAUNCHES[32]
+    print(f"main path 1080p: {launches} kernel launches ({split_launches} a ray per warp), "
+          f"stats {json.dumps(renderer.last_stats)}")
     if launches == 0:
         raise RuntimeError("the 1080p staged render never launched the march kernel")
+    if split_launches == 0:
+        raise RuntimeError("the 1080p staged render never marched a ray per warp")
     fg = check_image(img, "neural_raw")
     print(f"main path 1080p: foreground fraction {fg:.4f}")
 
@@ -1945,10 +2157,17 @@ def main() -> int:
           f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms [{card}]")
 
     print(f"breakdown 1080p frame: {json.dumps(device_breakdown(renderer, cam))} [{card}]")
+    with thread_per_ray():
+        frame_ms = time_frames(renderer, cam, 0.0, narrow.frames)
+    print(f"1080p staged frame a ray per thread: median {statistics.median(frame_ms):.3f} ms "
+          f"over {narrow.frames} warm frames {[round(x, 3) for x in frame_ms]} [{card}]")
+    mode_sweep(cnr, params, card)
 
+    rows = compare_modes(params, calls, "1080p neural_raw", card)
     kernels = [kernel_entry("march_kernel", K1_SOURCE,
                             "cudaneuralrender_tpu/pallas/megakernel.py:45", launches,
-                            max_abs_err, ms, plain_ms, bnd)]
+                            max_abs_err, ms, plain_ms, bnd),
+               split_entry(params, calls, rows, split_launches, card)]
 
     # 6. the CSG scenes, composed inside the kernel
     t6 = time.perf_counter()
@@ -1970,7 +2189,7 @@ def main() -> int:
     nets = {32: params}
     for hidden in WIDE:
         nets[hidden] = wide_params(cnr, hidden // 32, dev)
-        kernels.append(drive_width(cnr, nets[hidden], hidden, card, SIZES[hidden]))
+        kernels.extend(drive_width(cnr, nets[hidden], hidden, card, SIZES[hidden]))
     r = drive_scene(cnr, nets[128], "many_sphere", 90.0, 3, card, 512, 512)
     kernels.append(kernel_entry("compose_many_sphere_h128", K1_SOURCE,
                                 "cudaneuralrender_tpu/pallas/scenes.py:57", **r))

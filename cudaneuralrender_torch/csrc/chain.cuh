@@ -24,6 +24,9 @@
 //       per 4 fused multiply-adds; activations x[H] and y[H] live in
 //       registers. Each output sums its products in input order from zero
 //       and adds the bias last, the plain version's order bit for bit.
+//       For launches of few rays the march kernel runs the same chain for
+//       one point split over a warp's lanes instead (split_sdf below, a
+//       ray per warp), in the same order.
 //     - H = 128 to 1024: 3xTF32 on the tensor cores over the 32 rays of a
 //       warp, activations in the warp's shared memory, the stack (590 KB /
 //       2.36 MB / 9.4 MB / 37.7 MB at L=9) read from the 50 MB L2 (see
@@ -194,6 +197,155 @@ __device__ __forceinline__ void stage_weights(const float* __restrict__ weights,
   __syncthreads();
   w = sw;
   b = sb;
+}
+
+// ---------------------------------------------------------------------------
+// The FP32 chain of ONE point split over the 32 lanes of a warp (H = 32, 64;
+// the ray-split march kernel, march.cuh march_split_kernel).
+//
+// Every lane passes the same point; lane j computes outputs j and, at 64,
+// j + 32 of each layer; every lane returns the same head value. Each output
+// sums its products with fmaf in input order from zero, then adds the bias
+// with __fadd_rn and applies fmaxf, as mlp_sdf does, so the value equals
+// mlp_sdf's bit for bit. The head is one sum over the layer's inputs in
+// input order, computed alike in every lane: a tree or __reduce_add_sync
+// would reorder it. Every branch depends on n_layers and n_inputs only, so
+// the whole warp runs every warp-wide operation.
+//
+// What bounds it: a weight serves one point, where the per-thread chain's
+// serves the 32 points of a warp (a broadcast), so a hidden layer moves
+// H^2 * 4 bytes of shared memory per point (32 cycles of the SM's 128
+// bytes a cycle at H = 32, 128 at 64) and its H inputs to every lane as
+// many again; a step's latency is the chain of one output, H + 1 dependent
+// operations a layer. Hence the layout: the stack is staged transposed, a
+// row per output padded to split_stride(H) floats, so a lane reads four
+// consecutive inputs' weights as one 16-byte load and the eight lanes of a
+// quarter-warp fall in distinct banks; and a layer's inputs pass through
+// the warp's row of shared memory, each lane writing its outputs and
+// reading all H as 16-byte broadcasts, all before the layer's first
+// product, so the loads' latency overlaps instead of sitting on the chain.
+// Shuffles of the inputs (H a layer, one a product), and the row-major
+// stack read a weight at a time, ran slower on the H100, at the terminal
+// rung and on the larger rungs alike (PERF.md).
+
+// Floats per row of the transposed stack: H weights and 4 of padding.
+__host__ __device__ constexpr int split_stride(int h) { return h + 4; }
+
+// Rays (warps) of a block of the ray-split march kernel.
+constexpr int kSplitRays = 16;
+
+// Dynamic shared memory of a ray-split march block: the transposed stack,
+// the biases, and each warp's row of layer inputs.
+__host__ __device__ constexpr size_t split_smem_bytes(int h, int n_layers) {
+  return sizeof(float) * (static_cast<size_t>(n_layers) * h * split_stride(h) +
+                          static_cast<size_t>(n_layers) * h + kSplitRays * h);
+}
+
+// Stages the stack transposed (row o of layer l = W[l][:, o]) and the
+// biases into shared memory, every thread of the block helping; returns
+// where the biases start. Call before any thread of the block leaves.
+template <int H>
+__device__ __forceinline__ const float* stage_weights_split(const float* __restrict__ weights,
+                                                            const float* __restrict__ biases,
+                                                            int n_layers) {
+  static_assert(H == 32 || H == 64, "the ray-split chain runs at widths 32 and 64");
+  extern __shared__ float4 smem4[];
+  float* sw = reinterpret_cast<float*>(smem4);
+  constexpr int S = split_stride(H);
+  for (int k = threadIdx.x; k < n_layers * H * H; k += blockDim.x) {
+    const int row = k / H;  // l * H + i
+    const int l = row / H, i = row % H, o = k % H;
+    sw[(l * H + o) * S + i] = weights[k];
+  }
+  float* sb = sw + n_layers * H * S;
+  for (int k = threadIdx.x; k < n_layers * H; k += blockDim.x) sb[k] = biases[k];
+  __syncthreads();
+  return sb;
+}
+
+// xs[i] = input i of the layer in every lane, from the outputs x the lanes
+// hold (lane j: j + 32k in x[k]), through the warp's row xrow of shared
+// memory: each lane writes its outputs, then reads all H as 16-byte
+// broadcasts.
+template <int H>
+__device__ __forceinline__ void gather_inputs(const float (&x)[H / 32], float* xrow,
+                                              float (&xs)[H]) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();  // every lane has read the row's last inputs
+#pragma unroll
+  for (int k = 0; k < H / 32; ++k) xrow[lane + 32 * k] = x[k];
+  __syncwarp();
+  const float4* x4 = reinterpret_cast<const float4*>(xrow);
+#pragma unroll
+  for (int q = 0; q < H / 4; ++q) {
+    const float4 v = x4[q];
+    xs[4 * q] = v.x;
+    xs[4 * q + 1] = v.y;
+    xs[4 * q + 2] = v.z;
+    xs[4 * q + 3] = v.w;
+  }
+}
+
+// Sum_i xs[i] * row[i] with fmaf in input order from zero, the row read as
+// 16-byte loads.
+template <int H>
+__device__ __forceinline__ float dot_in_order(const float (&xs)[H], const float* row) {
+  const float4* w4 = reinterpret_cast<const float4*>(row);
+  float y = 0.f;
+#pragma unroll
+  for (int q = 0; q < H / 4; ++q) {
+    const float4 w = w4[q];
+    y = fmaf(xs[4 * q], w.x, y);
+    y = fmaf(xs[4 * q + 1], w.y, y);
+    y = fmaf(xs[4 * q + 2], w.z, y);
+    y = fmaf(xs[4 * q + 3], w.w, y);
+  }
+  return y;
+}
+
+// The raw head value at one point; sw: the transposed stack, sb: its
+// biases (stage_weights_split), xrow: the warp's row of H floats.
+template <int H>
+__device__ __forceinline__ float split_sdf(const float* sw, const float* sb, float* xrow,
+                                           int n_layers, int n_inputs, float px, float py,
+                                           float pz, float frame) {
+  constexpr int K = H / 32;  // outputs a lane owns
+  constexpr int S = split_stride(H);
+  const int lane = threadIdx.x & 31;
+  const float in[4] = {px, py, pz, frame};
+  if (n_layers == 1) {  // the head is the first layer: row 0
+    const float4 w = *reinterpret_cast<const float4*>(sw);
+    const float wi[4] = {w.x, w.y, w.z, w.w};
+    float d = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (i < n_inputs) d = fmaf(in[i], wi[i], d);
+    return __fadd_rn(d, sb[0]);
+  }
+  float x[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float4 w = *reinterpret_cast<const float4*>(sw + (lane + 32 * k) * S);
+    const float wi[4] = {w.x, w.y, w.z, w.w};
+    float v = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (i < n_inputs) v = fmaf(in[i], wi[i], v);
+    x[k] = fmaxf(__fadd_rn(v, sb[lane + 32 * k]), 0.f);
+  }
+
+  float xs[H];  // the layer's inputs, all of them in every lane
+  for (int l = 1; l < n_layers - 1; ++l) {
+    gather_inputs<H>(x, xrow, xs);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int o = lane + 32 * k;
+      x[k] = fmaxf(__fadd_rn(dot_in_order<H>(xs, sw + (l * H + o) * S), sb[l * H + o]), 0.f);
+    }
+  }
+  gather_inputs<H>(x, xrow, xs);
+  const int head = n_layers - 1;
+  return __fadd_rn(dot_in_order<H>(xs, sw + head * H * S), sb[head * H]);
 }
 
 // ---------------------------------------------------------------------------

@@ -41,6 +41,8 @@ struct MarchArgs {
   int scene;
   int window;
   int three_pass;
+  int ray_lanes;           // 1: a ray per thread; 32: a ray per warp (the
+                           // FP32 chain at H = 32, 64, continue mode only)
   int n;
   int max_steps;
   int num_steps;

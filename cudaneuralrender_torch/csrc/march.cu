@@ -12,9 +12,11 @@
 // weights are the [L, H, H] stack at widths 32 and 64 and the stack in tf32
 // fragment order from 128; 1 for the three-pass chain K2h), to the
 // instantiation in csrc/hidden{H}.cu or
-// csrc/hidden{H}_3pass.cu, and returns a cudaError_t: a width, scene, window
-// or input count with no instantiation gives cudaErrorInvalidValue, and a
-// refused launch its own error. Nothing is launched in either case. The
+// csrc/hidden{H}_3pass.cu; cnr_march also on the mode (ray_lanes: 1 for a
+// ray per thread, 32 for a ray per warp, the FP32 chain at widths 32 and 64
+// only: march.cuh march_split_kernel). Each returns a cudaError_t: a width,
+// scene, window, input count or mode with no instantiation gives
+// cudaErrorInvalidValue, and a refused launch its own error. Nothing is launched in either case. The
 // experiment kernels X1-X3 have their own entries (csrc/experiments.cu).
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,7 +68,8 @@ extern "C" int cnr_march(int device, const float* dirs, const float* origin,
                          const uint8_t* active0, const int32_t* steps0,
                          const void* weights, const float* biases, int n_layers,
                          int hidden, int n_inputs, float frame, int scene, int window,
-                         int three_pass, int n, int max_steps, int num_steps, float eps,
+                         int three_pass, int ray_lanes, int n, int max_steps, int num_steps,
+                         float eps,
                          float omega, float* t_out, float* budget_out,
                          uint8_t* active_out, uint8_t* conv_out,
                          int32_t* steps_out, void* stream) {
@@ -85,6 +88,7 @@ extern "C" int cnr_march(int device, const float* dirs, const float* origin,
   a.scene = scene;
   a.window = window;
   a.three_pass = three_pass;
+  a.ray_lanes = ray_lanes;
   a.n = n;
   a.max_steps = max_steps;
   a.num_steps = num_steps;
@@ -127,6 +131,7 @@ extern "C" int cnr_march_raygen(int device, const int32_t* pos, const float* c2w
   a.scene = scene;
   a.window = window;
   a.three_pass = three_pass;
+  a.ray_lanes = 1;  // a cold start marches a ray per thread
   a.n = n;
   a.max_steps = max_steps;
   a.num_steps = -1;  // run to dry
@@ -148,8 +153,9 @@ extern "C" int cnr_mlp_forward(int device, const float* x, const float* weights,
 }
 
 // Bytes of dynamic shared memory a launch asks for: kind 0 the march kernel
-// with the FP32 chain, 1 with the three-pass chain, 2 the fused forward;
-// -1 for an unknown kind or width.
+// with the FP32 chain, 1 with the three-pass chain, 2 the fused forward, 3
+// the ray-split march kernel (widths 32 and 64); -1 for an unknown kind or
+// width.
 extern "C" long long cnr_smem_bytes(int kind, int hidden, int n_layers) {
   bool known = false;
   for (int k = 0; k < kNumWidths; ++k) known = known || kWidths[k] == hidden;
@@ -158,6 +164,9 @@ extern "C" long long cnr_smem_bytes(int kind, int hidden, int n_layers) {
     case 0:
     case 1: return static_cast<long long>(cnr::march_smem_bytes(hidden, n_layers, kind == 1));
     case 2: return static_cast<long long>(cnr::forward_smem_bytes(hidden));
+    case 3:
+      return hidden <= 64 ? static_cast<long long>(cnr::split_smem_bytes(hidden, n_layers))
+                          : -1;
     default: return -1;
   }
 }

@@ -21,7 +21,8 @@
 //
 // Design:
 //   * one thread per ray, march_block(H, three_pass) threads per block
-//     (chain.cuh);
+//     (chain.cuh); or, for the FP32 chain at H = 32 and 64 on a launch of
+//     few rays, one warp per ray (march_split_kernel below);
 //   * the chain at the padded width H, a template parameter (32, 64, 128,
 //     256, 512 or 1024; one instantiation of every scene per width, in
 //     csrc/hidden{H}.cu); see chain.cuh for where weights and activations
@@ -385,6 +386,100 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
   steps_out[r] = act ? step : res;
 }
 
+// The ray-split mode of the FP32 chain at H = 32 and 64 (march_state's
+// ray_lanes = kSplitLanes): warp w of the grid marches ray w, the chain of
+// its point split over the warp's lanes (chain.cuh split_sdf). Every lane
+// reads the ray's state and keeps it, runs the same compose and march_step
+// on the same values, so every branch and the loop condition are the same
+// in all 32 lanes; lane 0 writes the results. A ray's steps and results are
+// those of march_kernel<H, S, W, false> bit for bit: the chain's value is
+// mlp_sdf's, and the bookkeeping is march_step itself.
+//
+// Why: in one ray per thread, a warp marches as long as its slowest ray, and
+// a straggler's warp issues the whole chain for that one ray every step
+// (7.3k FFMA at H = 32, 28.9k at 64) while 31 lanes idle. In the split mode
+// a step's latency is the chain of one output per layer, so a refine rung
+// whose few active rays march hundreds of steps (the terminal rung) ends
+// sooner. Its throughput is lower (each weight is read once per ray, not
+// once per 32 rays), so march_state picks it per launch (ray_lanes in
+// kernels/megakernel.py). Continue mode only: a cold start (K5) marches one
+// ray per thread.
+//
+// A block is kSplitRays warps, 512 threads, and one block an SM is enough
+// for the launch bound, so ptxas may give a thread up to 128 registers: the
+// chain loads a layer's inputs and weights ahead of its products (chain.cuh
+// split_sdf). Capped at 64 (1024 threads a block, or 512 with no minimum
+// of blocks), it issued many loads just before their products, on the
+// critical path, and a straggler's step took several times as long on the
+// H100. The block's first kSplitRays
+// threads write the entry state back for its inactive rays (r < n),
+// coalesced; a warp whose ray is inactive (or r >= n) then leaves, and a
+// block with no active ray also skips staging the stack, so the empty
+// lanes of a sorted refine bucket cost a read of their flag and a write of
+// their results.
+constexpr int kSplitLanes = 32;
+constexpr int kSplitBlock = 32 * kSplitRays;
+
+template <int H, int S, int W>
+__global__ void __launch_bounds__(kSplitBlock, 1)
+march_split_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
+                   const float* __restrict__ t0, const float* __restrict__ budget0,
+                   const uint8_t* __restrict__ active0, const int32_t* __restrict__ steps0,
+                   const float* __restrict__ weights, const float* __restrict__ biases,
+                   int n_layers, int n_inputs, float frame, int n, int max_steps, int num_steps,
+                   float eps, float omega, float* __restrict__ t_out,
+                   float* __restrict__ budget_out, uint8_t* __restrict__ active_out,
+                   uint8_t* __restrict__ conv_out, int32_t* __restrict__ steps_out) {
+  const int r0 = blockIdx.x * kSplitRays;
+  const int start = *steps0;
+  bool entry_act = false;  // thread k < kSplitRays: ray r0 + k's flag
+  if (threadIdx.x < kSplitRays && r0 + static_cast<int>(threadIdx.x) < n) {
+    const int q = r0 + static_cast<int>(threadIdx.x);
+    entry_act = active0[q] != 0;
+    if (!entry_act) {
+      t_out[q] = t0[q];
+      budget_out[q] = budget0[q];
+      active_out[q] = 0;
+      conv_out[q] = 0;
+      steps_out[q] = start;
+    }
+  }
+  if (!__syncthreads_or(entry_act)) return;
+  extern __shared__ float4 smem4[];
+  const float* sw = reinterpret_cast<const float*>(smem4);
+  const float* sb = stage_weights_split<H>(weights, biases, n_layers);
+  float* xrow = reinterpret_cast<float*>(smem4) + n_layers * H * split_stride(H) +
+                n_layers * H + (threadIdx.x / 32) * H;
+  const int r = r0 + static_cast<int>(threadIdx.x / 32);
+  if (r >= n || active0[r] == 0) return;  // the whole warp
+
+  const float ox = origin[0], oy = origin[1], oz = origin[2];
+  const float dx = dirs[3 * r], dy = dirs[3 * r + 1], dz = dirs[3 * r + 2];
+  float t = t0[r];
+  float budget = budget0[r];
+  bool act = true;
+  bool conv = false;
+  int step = start;
+  int res = start;
+  const bool relax = omega > 1.f;
+  float prev_r = 0.f, step_len = 0.f;
+  while (act && step < max_steps && (num_steps < 0 || step - start < num_steps)) {
+    const float px = __fmaf_rn(dx, t, ox);
+    const float py = __fmaf_rn(dy, t, oy);
+    const float pz = __fmaf_rn(dz, t, oz);
+    const float raw = split_sdf<H>(sw, sb, xrow, n_layers, n_inputs, px, py, pz, frame);
+    march_step<S, W>(px, py, pz, raw, frame, relax, eps, omega, t, budget, prev_r, step_len,
+                     conv, act, step, res);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    t_out[r] = t;
+    budget_out[r] = budget;
+    active_out[r] = act ? 1 : 0;
+    conv_out[r] = conv ? 1 : 0;
+    steps_out[r] = act ? step : res;
+  }
+}
+
 // The kernel takes its arguments one by one: passed as one MarchArgs by
 // value, ptxas allots the FP32 instantiations more registers (100-103 at
 // width 32 instead of 96) and spills at 128 and 256.
@@ -393,6 +488,44 @@ using MarchKernel = void (*)(const float*, const float*, const float*, const flo
                              int, float, float, float, float, float, const void*, const float*,
                              int, int, float, int, int, int, float, float, float*,
                              float*, uint8_t*, uint8_t*, int32_t*);
+using SplitKernel = void (*)(const float*, const float*, const float*, const float*,
+                             const uint8_t*, const int32_t*, const float*, const float*, int,
+                             int, float, int, int, int, float, float, float*, float*, uint8_t*,
+                             uint8_t*, int32_t*);
+
+// The ray-split instantiation for a scene id and cylinder window, or nullptr.
+template <int H>
+SplitKernel pick_split_kernel(int scene, int window) {
+  if (window != 1 && window != 3 && window != 5) return nullptr;
+  switch (scene) {
+    case kNeuralRaw: return march_split_kernel<H, kNeuralRaw, 0>;
+    case kNeuralTanh: return march_split_kernel<H, kNeuralTanh, 0>;
+    case kManySphere: return march_split_kernel<H, kManySphere, 0>;
+    case kManySphereCut: return march_split_kernel<H, kManySphereCut, 0>;
+    case kManyCylinderCut:
+      if (window == 1) return march_split_kernel<H, kManyCylinderCut, 1>;
+      if (window == 3) return march_split_kernel<H, kManyCylinderCut, 3>;
+      return march_split_kernel<H, kManyCylinderCut, 5>;
+    case kDisplacement: return march_split_kernel<H, kDisplacement, 0>;
+    default: return nullptr;
+  }
+}
+
+template <int H>
+int launch_march_split(const MarchArgs& a, cudaStream_t stream) {
+  const SplitKernel kernel = pick_split_kernel<H>(a.scene, a.window);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = split_smem_bytes(H, a.n_layers);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (a.n + kSplitRays - 1) / kSplitRays;
+  kernel<<<grid, kSplitBlock, smem, stream>>>(
+      a.dirs, a.origin, a.t0, a.budget0, a.active0, a.steps0,
+      static_cast<const float*>(a.weights), a.biases, a.n_layers, a.n_inputs, a.frame, a.n,
+      a.max_steps, a.num_steps, a.eps, a.omega, a.t_out, a.budget_out, a.active_out,
+      a.conv_out, a.steps_out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The instantiation for a width, chain, scene id and cylinder window, or
 // nullptr.
@@ -419,7 +552,15 @@ int launch_march(const MarchArgs& a, cudaStream_t stream) {
   const bool state_given = a.pos != nullptr || a.steps0 != nullptr;
   if (kernel == nullptr || !state_given || a.n_layers < 1 || a.n_inputs < 1 || a.n_inputs > 4)
     return static_cast<int>(cudaErrorInvalidValue);
+  // The ray-split mode: the FP32 chain at 32 and 64, continue mode only.
+  const bool split = a.ray_lanes == kSplitLanes;
+  if ((!split && a.ray_lanes != 1) ||
+      (split && (warp_chain(H, kThreePass) || a.pos != nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (a.n <= 0) return 0;
+  if constexpr (!warp_chain(H, kThreePass)) {
+    if (split) return launch_march_split<H>(a, stream);
+  }
   const size_t smem = march_smem_bytes(H, a.n_layers, kThreePass);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -124,7 +124,7 @@ def load_library() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _P,  # dirs, origin, t0, budget0, active0, steps0
             _P, _P,                  # weights (FP32, or bf16 fragment-ordered), biases
             _I, _I, _I, _F,          # n_layers, hidden, n_inputs, frame
-            _I, _I, _I,              # scene id, cylinder window, three_pass
+            _I, _I, _I, _I,          # scene id, cylinder window, three_pass, ray_lanes
             _I, _I, _I, _F, _F,      # n, max_steps, num_steps, eps, omega
             _P, _P, _P, _P, _P,      # t, budget, active, conv, steps (outputs)
             _P,                      # stream

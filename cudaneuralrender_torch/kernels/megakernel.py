@@ -36,13 +36,21 @@ The kernel marches nets of every width of ``fused_mlp.KERNEL_WIDTHS``
 (32, 64, 128, 256, 512, 1024), the net padded to the smallest that holds
 it; the plain version marches any width ``pack_params`` accepts.
 
+At widths 32 and 64 the FP32 chain marches in one of two modes, chosen
+per launch by ``ray_lanes`` from the launch's lane count and the card's SM
+count: a ray per thread, or a ray per warp with the chain of its point
+split over the warp's lanes (csrc/march.cuh ``march_split_kernel``), for
+launches of few lanes, where a few stragglers march for hundreds of steps.
+Both give the same results bit for bit.
+
 Launch counts (plain-version calls do not count): ``KERNEL_LAUNCHES``
 counts ``march_state``'s launches, ``SCENE_LAUNCHES`` the same launches per
 scene, ``WIDTH_LAUNCHES`` per padded width, ``PRECISION_LAUNCHES`` per
-precision and ``THREE_PASS_LAUNCHES`` the "high" ones per width;
-``RAYGEN_LAUNCHES`` counts ``march_raygen``'s. A run can so show that its
-main path, each scene's compose, each width's chain and the three-pass
-chain went through the kernel.
+precision, ``THREE_PASS_LAUNCHES`` the "high" ones per width and
+``SPLIT_LAUNCHES`` the ray-per-warp ones per width; ``RAYGEN_LAUNCHES``
+counts ``march_raygen``'s. A run can so show that its main path, each
+scene's compose, each width's chain, the three-pass chain and the
+ray-split mode went through the kernel.
 """
 from __future__ import annotations
 
@@ -70,6 +78,10 @@ PRECISIONS = ("default", "high", "highest")
 #: cores (csrc/chain.cuh ``warp_chain``): from 128 up.
 TENSOR_CORE_FP32_WIDTHS = tuple(h for h in KERNEL_WIDTHS if h >= 128)
 
+#: ``ray_lanes``' bound: launches of at most this many lanes an SM (540672
+#: on an H100's 132 SMs) march a ray per warp.
+SPLIT_MAX_RAYS_PER_SM = 4096
+
 #: Launches of the CUDA march kernel by ``march_state`` in this process.
 KERNEL_LAUNCHES = 0
 
@@ -85,8 +97,14 @@ PRECISION_LAUNCHES = {p: 0 for p in PRECISIONS}
 #: The same launches at precision "high" (the three-pass chain) by width.
 THREE_PASS_LAUNCHES = {h: 0 for h in KERNEL_WIDTHS}
 
+#: The same launches in the ray-split mode (a ray per warp) by width.
+SPLIT_LAUNCHES = {h: 0 for h in KERNEL_WIDTHS}
+
 #: Launches of the kernel by ``march_raygen`` (K5) in this process.
 RAYGEN_LAUNCHES = 0
+
+#: The lanes that march one ray in the ray-split mode: a warp.
+SPLIT_LANES = 32
 
 
 def _new_steps(state: march_lib.MarchState, lane_steps: torch.Tensor,
@@ -100,10 +118,11 @@ def _new_steps(state: march_lib.MarchState, lane_steps: torch.Tensor,
 
 def reset_launch_counts() -> None:
     """Set ``KERNEL_LAUNCHES``, ``RAYGEN_LAUNCHES`` and every entry of the
-    per-scene, per-width and per-precision counts to 0."""
+    per-scene, per-width, per-precision and per-mode counts to 0."""
     global KERNEL_LAUNCHES, RAYGEN_LAUNCHES
     KERNEL_LAUNCHES = RAYGEN_LAUNCHES = 0
-    for counts in (SCENE_LAUNCHES, WIDTH_LAUNCHES, PRECISION_LAUNCHES, THREE_PASS_LAUNCHES):
+    for counts in (SCENE_LAUNCHES, WIDTH_LAUNCHES, PRECISION_LAUNCHES, THREE_PASS_LAUNCHES,
+                   SPLIT_LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -114,6 +133,44 @@ def tensor_core_chain(hidden: int, precision: str) -> bool:
     the three-pass chain at every width, the FP32 chain at
     ``TENSOR_CORE_FP32_WIDTHS``."""
     return precision == "high" or hidden in TENSOR_CORE_FP32_WIDTHS
+
+
+def ray_lanes(n: int, hidden: int, precision: str, sm_count: int) -> int:
+    """The lanes that march one ray in a launch of ``n`` lanes: SPLIT_LANES
+    (the ray-split mode, a warp a ray) or 1 (a thread a ray).
+
+    The split mode exists for the FP32 chain at widths 32 and 64, never
+    where ``tensor_core_chain``. A straggler's step runs several times
+    faster in it than in its warp's thread, while many rays march slower
+    (each weight serves one ray, not 32). A launch cannot see its active
+    count without syncing the host, so its lane count stands in for it:
+    launches of at most SPLIT_MAX_RAYS_PER_SM lanes an SM (the staged
+    renderer's later refine rungs, whose buckets hold few active rays) march
+    a ray per warp, larger ones (the coarse call, the first rungs) a ray per
+    thread. PERF.md has the per-rung times that set the bound."""
+    if tensor_core_chain(hidden, precision):
+        return 1
+    return SPLIT_LANES if n <= SPLIT_MAX_RAYS_PER_SM * sm_count else 1
+
+
+def _check_ray_lanes(value: int, hidden: int, precision: str) -> None:
+    """Raise unless a ``_ray_lanes`` override is 1, or SPLIT_LANES where the
+    chain is the FP32 one at 32 or 64."""
+    if value not in (1, SPLIT_LANES):
+        raise ValueError(f"_ray_lanes must be 1 or {SPLIT_LANES}, not {value!r}")
+    if value != 1 and tensor_core_chain(hidden, precision):
+        raise ValueError(f"the ray-split mode runs the FP32 chain at widths 32 and 64 only, "
+                         f"not width {hidden} at precision {precision!r}")
+
+
+_SM_COUNTS = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    index = _device_index(dev)
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNTS[index]
 
 
 def _check_precision(precision: str) -> None:
@@ -294,12 +351,15 @@ def _march_state_cuda(
     state: march_lib.MarchState, config: RenderConfig, frame: float,
     march_eps: Optional[float], num_steps: Optional[int], relax_omega: float,
     return_resolve: bool, cyl_window: Optional[int], precision: str = "highest",
+    lanes: Optional[int] = None,
 ):
     global KERNEL_LAUNCHES
     scene_id, window = kernel_scene(config, cyl_window)
     dev = dirs.device
     weights, biases, n_layers, hidden = _kernel_weights(params, config, precision, dev)
     n = dirs.shape[0]
+    if lanes is None:
+        lanes = ray_lanes(n, hidden, precision, _sm_count(dev))
     check_tensor("dirs", dirs, torch.float32, (n, 3), dev)
     check_tensor("origin", origin, torch.float32, (3,), dev)
     check_tensor("state.t", state.t, torch.float32, (n,), dev)
@@ -316,7 +376,7 @@ def _march_state_cuda(
         dirs.data_ptr(), origin.data_ptr(), state.t.data_ptr(),
         state.budget.data_ptr(), state.active.data_ptr(), state.steps.data_ptr(),
         weights.data_ptr(), biases.data_ptr(), n_layers, hidden, config.num_inputs,
-        float(frame), scene_id, window, int(precision == "high"),
+        float(frame), scene_id, window, int(precision == "high"), lanes,
         n, config.max_steps, -1 if num_steps is None else int(num_steps),
         float(eps), omega,
         t.data_ptr(), budget.data_ptr(), active.data_ptr(), conv.data_ptr(),
@@ -329,6 +389,8 @@ def _march_state_cuda(
     PRECISION_LAUNCHES[precision] += 1
     if precision == "high":
         THREE_PASS_LAUNCHES[hidden] += 1
+    if lanes != 1:
+        SPLIT_LAUNCHES[hidden] += 1
     out = march_lib.MarchState(
         t=t, budget=budget, active=active & state.active,
         converged=conv | state.converged,
@@ -343,6 +405,7 @@ def march_state(
     march_eps: Optional[float] = None, num_steps: Optional[int] = None,
     precision: str = "highest", relax_omega: float = 0.0,
     return_resolve: bool = False, cyl_window: Optional[int] = None,
+    _ray_lanes: Optional[int] = None,
 ):
     """Continue an existing march state inside the march kernel.
 
@@ -353,10 +416,14 @@ def march_state(
     over-relaxation. ``return_resolve=True`` also returns each ray's
     resolve step [n] int32 (the staged renderer's difficulty key).
     ``cyl_window`` overrides ``config.cyl_window`` for this call.
+    ``_ray_lanes`` (1 or SPLIT_LANES) overrides ``ray_lanes``' choice of
+    mode, for the checks that hold the two modes against each other.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
     _check_precision(precision)
+    if _ray_lanes is not None:
+        _check_ray_lanes(_ray_lanes, packed_params(params)[3], precision)
     if dirs.device.type == "cpu":
         return march_state_plain(
             params, origin, dirs, state, config, frame, march_eps=march_eps,
@@ -366,7 +433,7 @@ def march_state(
         raise ValueError(f"march_state runs on cpu or cuda tensors, not {dirs.device}")
     return _march_state_cuda(
         params, origin, dirs, state, config, frame, march_eps, num_steps, relax_omega,
-        return_resolve, cyl_window, precision)
+        return_resolve, cyl_window, precision, _ray_lanes)
 
 
 def raygen_state(cam_to_world: torch.Tensor, pos: torch.Tensor, config: RenderConfig):

@@ -31,6 +31,11 @@ K2H_SDF_ATOL); the cold-start kernel (K5) against its plain version at
 "default" and "high". The step-cost
 experiment kernels X1-X3 against their plain versions at chip_smoke.X_RTOL
 of each output's own magnitude (chip_smoke.x_scale), every instantiation.
+The march kernel's ray-split mode (a ray per warp) at widths 32 and 64
+against a ray per thread, bit for bit (chip_smoke.split_equal): every
+scene and the 4-input anim_demo on the three kinds of call, a bucket with
+no active lane, lane counts that are not a multiple of a block, and its
+launches counted.
 """
 import os
 
@@ -528,3 +533,112 @@ def test_raygen_fp32_tensor_core_matches_plain():
     chip_smoke.check_agreement({"raygen": a})
     pad = pos < 0
     assert not k[0].active[pad].any() and not k[0].converged[pad].any()
+
+
+# The ray-split mode (a ray per warp, csrc/march.cuh march_split_kernel)
+# against a ray per thread, bit for bit (chip_smoke.split_equal): csg_demo
+# at 32 and widened to 64 (chip_smoke.widen) under every scene, anim_demo
+# (4 inputs, frame 37) at both widths too, on the staged renderer's three
+# kinds of call at 64x64 (chip_smoke.variant_calls).
+SPLIT_CASES = [(label, hidden) for label in CASES for hidden in (32, 64)]
+
+
+def _split_params(asset, hidden, dev):
+    import cudaneuralrender_torch as cnr
+
+    layers = cnr.mlp.to_numpy_params(cnr.load(asset, device="cpu"))
+    k = hidden // 32
+    return cnr.from_numpy_params(chip_smoke.widen(layers, k, seed=k) if k > 1 else layers,
+                                 device=dev)
+
+
+@pytest.fixture(scope="module", params=SPLIT_CASES, ids=[f"{c}_h{h}" for c, h in SPLIT_CASES])
+def split_calls(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.ops import camera as camera_lib
+
+    label, hidden = request.param
+    scene, frame, asset, n_in = CASES[label]
+    dev = torch.device("cuda", 0)
+    params = _split_params(asset, hidden, dev)
+    cfg = cnr.RenderConfig(width=64, height=64, scene=scene, num_inputs=n_in)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
+    origin, dirs = camera_lib.generate_rays(c2w, 64, 64, cfg.focal)
+    return params, {name: call for name, call, _ in
+                    chip_smoke.variant_calls(params, cfg, origin, dirs, frame)}
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_split_kernel_matches_thread(split_calls, variant):
+    params, calls = split_calls
+    call = calls[variant]
+    assert bool(call[2].active.any())
+    (_, lane_steps), _ = chip_smoke.split_equal(params, call)
+    torch.cuda.synchronize()
+    assert int(lane_steps.max()) > int(call[2].steps)  # the rays marched
+
+
+def _terminal_call(hidden):
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.ops import camera as camera_lib
+
+    dev = torch.device("cuda", 0)
+    params = _split_params(NPZ, hidden, dev)
+    cfg = cnr.RenderConfig(width=64, height=64)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
+    origin, dirs = camera_lib.generate_rays(c2w, 64, 64, cfg.focal)
+    (_, call, _), = chip_smoke.variant_calls(params, cfg, origin, dirs)[-1:]
+    return params, call
+
+
+@pytest.mark.parametrize("hidden", [32, 64])
+def test_split_kernel_no_active_lane(hidden):
+    """A bucket with no active lane: both modes write the entry state back
+    (resolve step = the entry step), bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    params, (origin, dirs, state, cfg, frame, kw) = _terminal_call(hidden)
+    idle = state._replace(active=torch.zeros_like(state.active))
+    (out, lane_steps), _ = chip_smoke.split_equal(params, (origin, dirs, idle, cfg, frame, kw))
+    assert torch.equal(out.t, idle.t) and torch.equal(out.budget, idle.budget)
+    assert not bool(out.active.any())
+    assert bool((lane_steps == int(idle.steps)).all())
+
+
+@pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("n", [1, 17, 1000, 4095])
+def test_split_kernel_ragged_n(hidden, n):
+    """Lane counts that are not a multiple of a block's 16 rays: the
+    terminal call's first n lanes (sorted, the actives first)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    params, (origin, dirs, state, cfg, frame, kw) = _terminal_call(hidden)
+    order = torch.argsort((~state.active).to(torch.int8), stable=True)[:n]
+    part = state._replace(**{f: getattr(state, f)[order]
+                             for f in ("t", "budget", "active", "converged")})
+    assert bool(part.active[0])
+    chip_smoke.split_equal(params, (origin, dirs[order].contiguous(), part, cfg, frame, kw))
+
+
+@pytest.mark.parametrize("hidden", [32, 64])
+def test_split_kernel_launch_counted(hidden):
+    """A launch that ray_lanes sends to the ray-split mode counts once in
+    total, under its width and under SPLIT_LAUNCHES; ``_ray_lanes=1`` does
+    not count there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cudaneuralrender_torch.kernels import megakernel
+
+    params, (origin, dirs, state, cfg, frame, kw) = _terminal_call(hidden)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    assert megakernel.ray_lanes(dirs.shape[0], hidden, "highest", sm_count) == 32
+    before = (megakernel.KERNEL_LAUNCHES, megakernel.WIDTH_LAUNCHES[hidden],
+              megakernel.SPLIT_LAUNCHES[hidden])
+    megakernel.march_state(params, origin, dirs, state, cfg, frame, **kw)
+    megakernel.march_state(params, origin, dirs, state, cfg, frame, _ray_lanes=1, **kw)
+    torch.cuda.synchronize()
+    after = (megakernel.KERNEL_LAUNCHES, megakernel.WIDTH_LAUNCHES[hidden],
+             megakernel.SPLIT_LAUNCHES[hidden])
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 1)
