@@ -9,9 +9,9 @@ Phases; any failure exits non-zero and nothing is caught:
      line per kernel instantiation (registers, stack, spills, the dynamic
      shared memory its launch asks for at 9 layers, and its HMMA count in
      ``cuobjdump -sass``: every K3 and K2h instantiation and every FP32
-     march instantiation from width 128 must have some, the FP32 march
-     instantiations at 32 and 64 none, a ray per thread or a ray per warp
-     (march_split_kernel));
+     march instantiation a ray per thread (3xTF32 at every width) must
+     have some, the ray-per-warp ones at 32 and 64 (march_split_kernel,
+     FFMA) none);
   3. hold the kernel against its plain PyTorch version on the same CUDA
      tensors: csg_demo rays at 256x256 from Camera(rotation_y=30,
      rotation_x=-20), for the staged renderer's three kinds of call
@@ -23,12 +23,14 @@ Phases; any failure exits non-zero and nothing is caught:
   5. time 5 warm 1080p frames; record the inputs of every march call of
      one more frame and hold the kernel against its plain version on each
      (the coarse pass over 2M rays and the retuned refine rungs); time the
-     coarse pass both ways; each call through the kernel a ray per thread
-     and a ray per warp, equal bit for bit and timed, with the mode
-     ``megakernel.ray_lanes`` picks (``compare_modes``), the terminal rung
-     against its plain version, its bound and critical-path floor
-     (``split_entry``); profile one more frame (device time per kernel,
-     each march launch, the device's idle share);
+     coarse pass both ways; the kernel's FP32 SDF against the model of its
+     summation order, the plain chain and float64 (``tc_sdf_errors``);
+     each call through the kernel a ray per thread and a ray per warp, each
+     timed, the ray per warp equal to the plain version bit for bit, with
+     the mode ``megakernel.ray_lanes`` picks (``compare_modes``), the
+     terminal rung against its plain version, its bound and critical-path
+     floor (``split_entry``); profile one more frame (device time per
+     kernel, each march launch, the device's idle share);
   6. the CSG scenes at 1080p, each composed inside the kernel: csg_demo
      under neural_tanh, many_sphere (frame 90), many_sphere_cut (frame 90),
      many_cylinder_cut and displacement, and the 4-input anim_demo under
@@ -44,14 +46,14 @@ Phases; any failure exits non-zero and nothing is caught:
      and 512 (``widen``), each driven through the staged path (1080p;
      512x512 at 256, 256x256 at 512) with its width's launches counted, the
      256x256 golden, the median of 3 warm frames (1 from 128 up), kernel =
-     plain version on every march call of one more frame (from 128 the
-     FP32 chain runs on the tensor cores, held to the TC_ bar; at 64 both
-     modes on each call and the terminal rung's entry, as in phase 5, and
-     launches a ray per warp on the main path), the coarse
+     plain version on every march call of one more frame (a ray per
+     thread the FP32 chain runs on the tensor cores, held to the TC_ bar;
+     at 64 both modes on each call and the terminal rung's entry, as in
+     phase 5, and launches a ray per warp on the main path), the coarse
      pass timed both ways beside its FP32 and 3xTF32 bounds, a profiled
-     frame; from 128 the kernel's FP32 SDF against the model of its
-     summation order (fused_mlp.mlp_chain_3xtf32_mma), the plain chain and
-     float64 (``tc_sdf_errors``); csg_demo widened to 1024 on bounded calls
+     frame; the kernel's FP32 SDF against the model of its summation order
+     (fused_mlp.mlp_chain_3xtf32_mma), the plain chain and float64
+     (``tc_sdf_errors``); csg_demo widened to 1024 on bounded calls
      only (the coarse call and refine rung 0 at 128x128, launches counted,
      kernel = plain, the coarse call timed both ways): a staged frame's
      straggler tail would take tens of seconds at that width; many_sphere
@@ -118,8 +120,10 @@ VARIANTS = (
     ("refine_rung0", 1e-6, 16, 0.0),
     ("terminal_rung", 1e-6, None, 1.6),
 )
-# Kernel vs plain: FP32 in two summation orders (sequential FMA in the
-# kernel, cuBLAS in the plain version), so a ray sitting at the epsilon may
+# Kernel vs plain where both sum the FP32 chain in input order (the
+# ray-split mode's FFMA chain, cuBLAS in the plain version at its padded
+# row counts): the bar of the JAX package's kernel against its reference
+# (tests/test_pallas.py:49-72), where a ray sitting at the epsilon may
 # converge one step apart.
 MIN_CONV_AGREE = 0.999
 MAX_T_ERR = 1e-4
@@ -163,8 +167,8 @@ SIZES = {
     1024: Sizes((128, 128), 0, 1, 1 << 18, 32, 64, True),
 }
 WIDE = tuple(h for h in SIZES if h > 32)  # the widened nets
-# Phase 5's smaller frames, timed in both modes (``mode_sweep``), the last
-# one's march calls compared mode against mode.
+# Phase 5's smaller frames, timed in both modes (``mode_sweep``), each one's
+# march calls timed mode against mode.
 MODE_SIDES = ((1280, 720), (512, 512), (256, 256))
 BOUNDED_VARIANTS = ("coarse", "refine_rung0")
 # Phase 9's bar: FP32-grade sums in two orders (3xTF32 MMA in the kernel,
@@ -226,9 +230,9 @@ PEAK_HBM_BYTES = 3.35e12
 TF32_PASSES = 3
 # The chains on the tensor cores sum in their own order: the three-pass
 # chain (K2h) in one accumulator, where its plain version sums three float32
-# products, and from width 128 the FP32 chain (3xTF32, per k-chunk of 8)
-# where its plain version (cuBLAS) sums in input order. Neither equals its
-# plain version bit for bit. The three-pass kernel's SDF agrees with a model
+# products, and a ray per thread the FP32 chain (3xTF32, per k-chunk of 8,
+# at every width) where its plain version (cuBLAS) sums in input order.
+# Neither equals its plain version bit for bit. The three-pass kernel's SDF agrees with a model
 # of its own summation order (fused_mlp.mlp_chain_3pass_mma; phase 10 prints
 # the difference), and that model alone moves csg_demo's 9-layer SDF
 # 2.6e-5 off the plain chain's over 65536 points on the CPU
@@ -535,7 +539,7 @@ def agreement(kernel_out, plain_out) -> dict:
 
 def tc_agreement(params, call, kernel_out, plain_out) -> dict:
     """``agreement`` of a call whose chain sums in the tensor cores' order
-    (the three-pass chain; the FP32 chain from width 128), which
+    (the three-pass chain; the FP32 chain a ray per thread), which
     ``check_agreement`` holds to the TC_ bar: with the call's eps, the
     chain's SDF bar and ``replay_beyond``'s witness; and, on a call at eps
     <= UNDECIDED_EPS whose resolve steps are equal on fewer than
@@ -561,14 +565,26 @@ def tc_agreement(params, call, kernel_out, plain_out) -> dict:
     return a
 
 
+def call_lanes(params, call) -> int:
+    """The lanes a ray that ``megakernel.ray_lanes`` picks for a call."""
+    from cudaneuralrender_torch.kernels import fused_mlp, megakernel
+
+    kw = call[5]
+    return megakernel.ray_lanes(fused_mlp.packed_params(params)[3],
+                                kw.get("precision", "highest"), kw.get("num_steps"),
+                                kw.get("coarse", False))
+
+
 def call_agreement(params, call, kernel_out, plain_out) -> dict:
     """How a march call's kernel and plain results agree, by the bar of the
-    call's chain: ``tc_agreement`` where the kernel sums it on the tensor
-    cores (``megakernel.tensor_core_chain``), else ``agreement``."""
+    chain the call ran (its mode, ``call_lanes``): ``tc_agreement`` where
+    the kernel sums it on the tensor cores (``megakernel.tensor_core_chain``),
+    else ``agreement``."""
     from cudaneuralrender_torch.kernels import fused_mlp, megakernel
 
     hidden = fused_mlp.packed_params(params)[3]
-    if megakernel.tensor_core_chain(hidden, call[5].get("precision", "highest")):
+    if megakernel.tensor_core_chain(hidden, call[5].get("precision", "highest"),
+                                    call_lanes(params, call)):
         return tc_agreement(params, call, kernel_out, plain_out)
     return agreement(kernel_out, plain_out)
 
@@ -594,8 +610,8 @@ def uncounted():
 def kernel_chain(params, precision: str, frame: float = 0.0, on_call=None):
     """The kernel's chain at a precision as ``march_state_plain`` takes a
     chain (x [T, H] -> [T, H], the head in column 0): its SDF read off the
-    card (``kernel_sdf``) at the rows' points. ``on_call(x, d)``, if given,
-    sees each call's inputs and heads."""
+    card a ray per thread (``kernel_sdf``) at the rows' points.
+    ``on_call(x, d)``, if given, sees each call's inputs and heads."""
     def chain(x):
         d = kernel_sdf(params, x[:, :3], precision, frame)
         if on_call is not None:
@@ -775,7 +791,8 @@ def variant_calls(params, config, origin, dirs, frame=0.0, variants=None) -> lis
     """The staged path's calls of each variant (of ``variants``, all by
     default) on these rays, each starting from the plain version's output
     of the one before (the coarse call composes with
-    ``config.cyl_window_coarse``, as the staged renderer's does):
+    ``config.cyl_window_coarse`` and marches a ray per thread, as the
+    staged renderer's does):
     [(name, call, the plain output with resolve steps)], a call being
     (origin, dirs, state, config, frame, march_state's keywords)."""
     from cudaneuralrender_torch.kernels import megakernel
@@ -789,7 +806,8 @@ def variant_calls(params, config, origin, dirs, frame=0.0, variants=None) -> lis
         if name == "refine_rung0":
             state = refine_entry(state, origin, dirs, config)
         kw = dict(march_eps=eps, num_steps=num_steps, relax_omega=omega, return_resolve=True,
-                  cyl_window=config.cyl_window_coarse if name == "coarse" else None)
+                  cyl_window=config.cyl_window_coarse if name == "coarse" else None,
+                  coarse=name == "coarse")
         p = megakernel.march_state_plain(params, origin, dirs, state, config, frame, **kw)
         out.append((name, (origin, dirs, state, config, frame, kw), p))
         state = p[0]
@@ -808,20 +826,23 @@ def compare_kernel_with_plain(params, config, origin, dirs, frame=0.0, variants=
     return result
 
 
-def split_equal(params, call) -> tuple:
-    """``call`` through the kernel a ray per thread and a ray per warp
-    (``_ray_lanes`` 1 and SPLIT_LANES), uncounted: raises unless t, budget,
-    the active and converged flags, the lane steps and the step counter are
-    equal bit for bit. Returns both outputs, (state, lane steps) each."""
+def split_equal(params, call, plain_out=None) -> tuple:
+    """``call`` through the kernel a ray per warp (``_ray_lanes`` =
+    SPLIT_LANES: the FFMA chain, each output summed in input order),
+    uncounted, against the plain version's output ``plain_out`` (run here
+    if not given): raises unless t, budget, the active and converged flags,
+    the lane steps and the step counter are equal bit for bit. Returns both
+    outputs, (state, lane steps) each, the kernel's first."""
     from cudaneuralrender_torch.kernels import megakernel
 
     origin, dirs, state, config, frame, kw = call
     kw = dict(kw, return_resolve=True)
     with uncounted():
-        (a, sa), (b, sb) = (
-            megakernel.march_state(params, origin, dirs, state, config, frame,
-                                   _ray_lanes=lanes, **kw)
-            for lanes in (1, megakernel.SPLIT_LANES))
+        a, sa = megakernel.march_state(params, origin, dirs, state, config, frame,
+                                       _ray_lanes=megakernel.SPLIT_LANES, **kw)
+    if plain_out is None:
+        plain_out = megakernel.march_state_plain(params, origin, dirs, state, config, frame, **kw)
+    b, sb = plain_out
     fields = dict(t=(a.t.view(torch.int32), b.t.view(torch.int32)),
                   budget=(a.budget.view(torch.int32), b.budget.view(torch.int32)),
                   active=(a.active, b.active), converged=(a.converged, b.converged),
@@ -829,7 +850,7 @@ def split_equal(params, call) -> tuple:
     unequal = {name: int((x != y).sum()) for name, (x, y) in fields.items()
                if not torch.equal(x, y)}
     if unequal:
-        raise RuntimeError(f"a ray per warp differs from a ray per thread on "
+        raise RuntimeError(f"a ray per warp differs from the plain version on "
                            f"{dirs.shape[0]} lanes (lanes unequal by field): {unequal}")
     return (a, sa), (b, sb)
 
@@ -855,24 +876,25 @@ def floor_ms(deepest: int, hidden: int, n_layers: int, n_in: int, sm_mhz: float)
     return deepest * ops * 4 / (sm_mhz * 1e3)
 
 
-def compare_modes(params, calls, tag: str, card: str) -> list:
+def compare_modes(params, calls, tag: str, card: str, plains=None) -> list:
     """Every recorded call of an FP32 chain at width 32 or 64 through the
-    kernel in both modes (``split_equal``: equal bit for bit), each mode
-    timed by CUDA events (median of 3 after a warm-up), one line per call
-    with the mode ``megakernel.ray_lanes`` picks for it; the coarse call's
-    lane utilisation a ray per thread. Returns a row per call: n, active,
-    ray-steps, deepest, ms by mode, picked."""
+    kernel in both modes, each mode timed by CUDA events (median of 3 after
+    a warm-up), one line per call with the mode ``megakernel.ray_lanes``
+    picks for it; a ray per warp held to the plain version bit for bit
+    (``split_equal``, against ``plains[i]``, the plain output of call i,
+    where given); the coarse call's lane utilisation a ray per thread.
+    Returns a row per call: n, active, ray-steps, deepest, ms by mode,
+    picked."""
     from cudaneuralrender_torch.kernels import fused_mlp, megakernel
 
     hidden = fused_mlp.packed_params(params)[3]
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for i, call in enumerate(calls):
         origin, dirs, state, config, frame, kw = call
         precision = kw.get("precision", "highest")
-        if megakernel.tensor_core_chain(hidden, precision):
+        if not megakernel.split_chain(hidden, precision):
             continue
-        (_, lane_steps), _ = split_equal(params, call)
+        _, (_, lane_steps) = split_equal(params, call, None if plains is None else plains[i])
         act = state.active
         steps = lane_steps.long() - int(state.steps)
         n = dirs.shape[0]
@@ -884,14 +906,14 @@ def compare_modes(params, calls, tag: str, card: str) -> list:
                    active=int(act.sum()), ray_steps=int(steps[act].sum()),
                    deepest=int(steps[act].max()) if bool(act.any()) else 0,
                    thread_ms=ms[1], split_ms=ms[megakernel.SPLIT_LANES],
-                   picked=megakernel.ray_lanes(n, hidden, precision, sm_count))
+                   picked=call_lanes(params, call))
         if i == 0:
             row["lane_util"] = lane_utilisation(state, lane_steps)
         rows.append(row)
         print(f"modes {tag} width {hidden} call{i} n={n} steps={row['num_steps']} "
               f"eps={row['eps']}: {row['active']} active, {row['ray_steps']} ray-steps, deepest "
               f"{row['deepest']}; a ray per thread {ms[1]:.3f} ms, a ray per warp "
-              f"{row['split_ms']:.3f} ms (equal bit for bit); ray_lanes picks {row['picked']}"
+              f"{row['split_ms']:.3f} ms (= plain bit for bit); ray_lanes picks {row['picked']}"
               + (f"; lane utilisation a ray per thread {row['lane_util']:.4f}" if i == 0 else "")
               + f" [{card}]", flush=True)
     return rows
@@ -1038,8 +1060,9 @@ def record_march_calls(renderer, cam, frame=0.0) -> list:
     return calls
 
 
-def compare_recorded_calls(params, calls) -> dict:
-    """Kernel vs plain version on the inputs of each recorded call."""
+def compare_recorded_calls(params, calls, plains=None) -> dict:
+    """Kernel vs plain version on the inputs of each recorded call; each
+    plain output (state, resolve steps) appended to ``plains`` if given."""
     from cudaneuralrender_torch.kernels import megakernel
 
     result = {}
@@ -1047,6 +1070,8 @@ def compare_recorded_calls(params, calls) -> dict:
         kw = dict(kw, return_resolve=True)
         k = megakernel.march_state(params, origin, dirs, state, config, frame, **kw)
         p = megakernel.march_state_plain(params, origin, dirs, state, config, frame, **kw)
+        if plains is not None:
+            plains.append(p)
         name = f"call{i}_{dirs.shape[0]}lanes_steps{kw.get('num_steps')}"
         if kw.get("cyl_window") is not None:
             name += f"_window{kw['cyl_window']}"
@@ -1105,20 +1130,20 @@ def thread_per_ray():
     every launch: the march as it ran before the ray-split mode."""
     from cudaneuralrender_torch.kernels import megakernel
 
-    bound = megakernel.SPLIT_MAX_RAYS_PER_SM
-    megakernel.SPLIT_MAX_RAYS_PER_SM = 0
+    pick = megakernel.ray_lanes
+    megakernel.ray_lanes = lambda *args, **kw: 1
     try:
         yield
     finally:
-        megakernel.SPLIT_MAX_RAYS_PER_SM = bound
+        megakernel.ray_lanes = pick
 
 
 def mode_sweep(cnr, params, card) -> None:
     """Warm csg_demo frames at MODE_SIDES, each timed with ``ray_lanes``'
     choice and a ray per thread throughout (3 frames each, in the order
     choice, thread, thread, choice), and both modes on every march call of
-    the smallest side's frame (``compare_modes``): at small sides the
-    coarse call itself is under ``ray_lanes``' bound."""
+    each side's frame (``compare_modes``): ``ray_lanes`` decides by the
+    call's place in the ladder, which has to hold at every side."""
     cam = cnr.Camera(**CAMERA)
     for width, height in MODE_SIDES:
         cfg = cnr.RenderConfig(width=width, height=height, march_impl="staged")
@@ -1133,7 +1158,7 @@ def mode_sweep(cnr, params, card) -> None:
               f"with ray_lanes' choice {[round(x, 3) for x in ms['choice']]}, "
               f"{statistics.median(ms['thread']):.3f} ms a ray per thread "
               f"{[round(x, 3) for x in ms['thread']]} [{card}]", flush=True)
-    compare_modes(params, record_march_calls(renderer, cam), f"{width}x{height}", card)
+        compare_modes(params, record_march_calls(renderer, cam), f"{width}x{height}", card)
 
 
 def check_image(img, what: str, height: int = 1080, width: int = 1920) -> float:
@@ -1206,12 +1231,12 @@ def drive_scene(cnr, params, scene, frame, num_inputs, card, width=1920, height=
     print(f"scene {tag}: foreground {fg:.4f}; {res} staged frame median "
           f"{statistics.median(frame_ms):.3f} ms over 3 warm frames "
           f"{[round(x, 3) for x in frame_ms]} [{card}]")
-    calls = record_march_calls(renderer, cam, frame)
-    result = compare_recorded_calls(params, calls)
+    calls, plains = record_march_calls(renderer, cam, frame), []
+    result = compare_recorded_calls(params, calls, plains)
     for name, a in result.items():
         print(f"compare {scene} {res} {name}: {json.dumps(a)}")
     check_agreement(result)
-    compare_modes(params, calls, f"{tag} {res}", card)
+    compare_modes(params, calls, f"{tag} {res}", card, plains)
     ms, plain_ms, bnd = time_coarse(params, calls)
     print(f"scene {tag}: coarse march {res} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bnd['bound_ms']:.3f} ms [{card}]")
@@ -1242,7 +1267,8 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> list:
     ``size.frames`` warm frames, kernel = plain version on every march call
     of one more frame (at 64 both modes equal bit for bit and timed,
     ``compare_modes``), the coarse pass timed both ways, and a profiled
-    frame. A bounded width drives BOUNDED_VARIANTS instead of the frame: the
+    frame, and the FP32 SDF (``tc_sdf_errors``). A bounded width drives
+    BOUNDED_VARIANTS instead of the frame: the
     calls through the kernel with its launches counted, against the plain
     version on the same inputs, and the coarse call timed both ways.
     Returns the width's kernels entries (at 64 the ray-split mode's too)."""
@@ -1254,7 +1280,7 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> list:
     cfg = cnr.RenderConfig(width=width, height=height, march_impl="staged")
     cam = cnr.Camera(**CAMERA)
     tag = f"width {hidden} {width}x{height}"
-    split = not megakernel.tensor_core_chain(hidden, "highest")
+    split = megakernel.split_chain(hidden, "highest")
     entries = []
     megakernel.reset_launch_counts()
     if size.bounded:
@@ -1271,7 +1297,8 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> list:
         cold = march.init_state(origin, dirs, cfg.bound_center, cfg.bound_radius)
         calls = [(origin, dirs, cold, cfg, 0.0, dict(march_eps=cfg.coarse_eps,
                                                      relax_omega=cfg.relax_omega,
-                                                     cyl_window=cfg.cyl_window_coarse))]
+                                                     cyl_window=cfg.cyl_window_coarse,
+                                                     coarse=True))]
     else:
         renderer = cnr.Renderer(params, cfg)
         renderer.render(cam)  # cold: may overflow and teach the memo
@@ -1292,13 +1319,13 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> list:
         frame_ms = time_frames(renderer, cam, 0.0, size.frames)
         print(f"{tag}: staged frame median {statistics.median(frame_ms):.3f} ms over "
               f"{size.frames} warm frames {[round(x, 3) for x in frame_ms]} [{card}]")
-        calls = record_march_calls(renderer, cam)
-        result = compare_recorded_calls(params, calls)
+        calls, plains = record_march_calls(renderer, cam), []
+        result = compare_recorded_calls(params, calls, plains)
     for name, a in result.items():
         print(f"compare {tag} {name}: {json.dumps(a)}")
     check_agreement(result)
     if split and not size.bounded:
-        rows = compare_modes(params, calls, tag, card)
+        rows = compare_modes(params, calls, tag, card, plains)
         entries.append(split_entry(params, calls, rows, split_launches, card))
     ms, plain_ms, bnd = time_coarse(params, calls, size.reps, min(3, size.reps))
     print(f"{tag}: coarse march kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
@@ -1307,8 +1334,7 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> list:
     if not size.bounded:
         print(f"{tag}: breakdown {json.dumps(device_breakdown(renderer, cam))} [{card}]",
               flush=True)
-    if not split:
-        tc_sdf_errors(params, hidden, card, size.points)
+    tc_sdf_errors(params, hidden, card, size.points)
     return [kernel_entry(f"march_kernel_h{hidden}", K1_SOURCE,
                          "cudaneuralrender_tpu/pallas/megakernel.py:45", launches,
                          max(a["max_abs_err"] for a in result.values()), ms, plain_ms, bnd)
@@ -1467,7 +1493,8 @@ def compare_high_with_plain(params, config, origin, dirs, variants=None) -> dict
 
 def kernel_sdf(params, pts, precision: str, frame: float = 0.0):
     """The march kernel's SDF at points [n, 3] (the net's, neural_raw; a
-    4-input net reads ``frame``), read off one step: rays from the origin
+    4-input net reads ``frame``), a ray per thread, read off one step: rays
+    from the origin
     along dirs = pts at t = 1 sit exactly on the points (the kernel's
     fma(p, 1, 0)); with budget 0, the step writes budget = 0 - d, exact, and
     eps = -inf converges no ray."""
@@ -1483,7 +1510,8 @@ def kernel_sdf(params, pts, precision: str, frame: float = 0.0):
         converged=torch.zeros(n, dtype=torch.bool, device=dev),
         steps=torch.zeros((), dtype=torch.int32, device=dev))
     out = megakernel.march_state(params, torch.zeros(3, device=dev), pts.contiguous(), state, cfg,
-                                 frame, march_eps=float("-inf"), num_steps=1, precision=precision)
+                                 frame, march_eps=float("-inf"), num_steps=1, precision=precision,
+                                 _ray_lanes=1)
     return -out.budget
 
 
@@ -1569,8 +1597,8 @@ def ball_points(seed: int, n: int, dev) -> torch.Tensor:
 
 
 def tc_sdf_errors(params, hidden, card, n_points) -> dict:
-    """Phase 8 from width 128: the kernel's FP32 SDF (3xTF32 on the tensor
-    cores), read off one step, on ``n_points`` seeded points in the
+    """Phases 5 and 8: the kernel's FP32 SDF (3xTF32 on the tensor cores),
+    read off one step, on ``n_points`` seeded points in the
     bounding sphere: against the model of its summation order
     (``fused_mlp.mlp_chain_3xtf32_mma``, on the first points: it sums each
     MMA's products one by one), the plain FP32 chain (cuBLAS) and float64,
@@ -1616,15 +1644,15 @@ def row_sweep(params, card, n_points) -> dict:
     as the plain versions run them (``fused_mlp.plain_rows`` and
     ``chain_in_blocks``) on ``n_points``. The FP32 chain must agree bit for
     bit at the row counts the plain versions use (powers of two to
-    ``ROW_BLOCK``, then blocks): with the kernel where it sums the FP32
-    chain per ray (widths 32 and 64), and from 128, where the kernel sums
-    it on the tensor cores, with itself as the plain versions run it (a
-    replay of a few lanes must sum as the whole call did), the kernel
-    within K1_MMA_SDF_ATOL of it; the three-pass chain, summed on the
+    ``ROW_BLOCK``, then blocks) with itself as the plain versions run it
+    (a replay of a few lanes must sum as the whole call did; at widths 32
+    and 64 the ray-split mode sums in that order, ``split_equal``), the
+    kernel, which sums it on the tensor cores, within K1_MMA_SDF_ATOL of
+    it; the three-pass chain, summed on the
     tensor cores in another order, within K2H_SDF_ATOL at every row count.
     Returns the FP32 row counts at which some row differs, and the
     three-pass chain's largest |difference| per row count."""
-    from cudaneuralrender_torch.kernels import fused_mlp, megakernel
+    from cudaneuralrender_torch.kernels import fused_mlp
 
     dev = params.device
     weights, biases, n_in, h = fused_mlp.packed_params(params)
@@ -1640,11 +1668,11 @@ def row_sweep(params, card, n_points) -> dict:
     xb = torch.zeros((fused_mlp.plain_rows(pows[-1], h, dev), h), dtype=torch.float32,
                      device=dev)
     xb[:, :n_in] = pts
-    fp32_mma = None  # the FP32 kernel's distance from its plain chain, from 128
-    if megakernel.tensor_core_chain(h, "highest"):
-        plain = fused_mlp.chain_in_blocks(chains["fp32"][1], xb)[:pows[-1], 0]
-        fp32_mma = (want["highest"] - plain).abs().max().item()
-        want["highest"] = plain
+    # the FP32 kernel (3xTF32) against its plain chain, which then stands in
+    # for it
+    plain = fused_mlp.chain_in_blocks(chains["fp32"][1], xb)[:pows[-1], 0]
+    fp32_mma = (want["highest"] - plain).abs().max().item()
+    want["highest"] = plain
     off, dmax = [], {}
     for m in list(ROW_SWEEP) + pows:
         xp = torch.zeros((m, h), dtype=torch.float32, device=dev)
@@ -1657,8 +1685,7 @@ def row_sweep(params, card, n_points) -> dict:
     fp32_rows = int((blocked["fp32"] != 0).sum())
     tp_max = blocked["three_pass"].abs().max().item()
     sweep_max = max(dmax[m] for m in ROW_SWEEP)
-    ref = ("the kernel" if fp32_mma is None else "the plain FP32 chain in blocks (the "
-           f"kernel's 3xTF32 SDF {fp32_mma:.3g} off it)")
+    ref = f"the plain FP32 chain in blocks (the kernel's 3xTF32 SDF {fp32_mma:.3g} off it)"
     print(f"row sweep width {h}: plain chain on m seeded points in one product against the "
           f"kernel, m in range({ROW_SWEEP.start}, {ROW_SWEEP.stop}, {ROW_SWEEP.step}) "
           f"({len(ROW_SWEEP)} counts) and 2^10-{pows[-1]}: FP32 row counts with a row off "
@@ -1667,7 +1694,7 @@ def row_sweep(params, card, n_points) -> dict:
           f"{pows[-1]} points in "
           f"blocks of {fused_mlp.ROW_BLOCK} rows: FP32 rows off {fp32_rows}, "
           f"three-pass max |d| {tp_max:.3g} [{card}]", flush=True)
-    if fp32_mma is not None and not fp32_mma <= K1_MMA_SDF_ATOL:
+    if not fp32_mma <= K1_MMA_SDF_ATOL:
         raise RuntimeError(f"width {h}: the FP32 kernel's SDF is {fp32_mma} off its plain "
                            f"chain's, more than {K1_MMA_SDF_ATOL}")
     used = [m for m in pows if fused_mlp.card_min_rows(h) <= m <= fused_mlp.ROW_BLOCK]
@@ -1819,7 +1846,7 @@ def high_agreement(params, cfg, origin, dirs, hidden, card, reps=5, variants=Non
     check_agreement(result)
     cold = march.init_state(origin, dirs, cfg.bound_center, cfg.bound_radius)
     call = (origin, dirs, cold, cfg, 0.0,
-            dict(march_eps=HIGH_EPS, precision="high", relax_omega=1.6))
+            dict(march_eps=HIGH_EPS, precision="high", relax_omega=1.6, coarse=True))
     t = time_precisions(params, call, card, reps)
     return dict(launches=launches, max_abs_err=max(a["max_abs_err"] for a in result.values()),
                 ms=t["ms"], plain_ms=t["plain_ms"], bnd=t["bnd"])
@@ -1851,7 +1878,9 @@ def drive_raygen(cnr, params, card, width=1920, height=1080) -> dict:
         if launches == 0:
             raise RuntimeError(f"march_raygen ({prec}) never launched the kernel")
         p = megakernel.march_raygen_plain(params, c2w, pos, cfg, **kw)
-        a = call_agreement(params, (*megakernel.raygen_state(c2w, pos, cfg), cfg, 0.0, kw), k, p)
+        # K5 marches a ray per thread, as a frame's coarse call does
+        a = call_agreement(params, (*megakernel.raygen_state(c2w, pos, cfg), cfg, 0.0,
+                                    dict(kw, coarse=True)), k, p)
         print(f"compare raygen {prec} 1080p: {json.dumps(a)}")
         check_agreement({f"raygen_{prec}": a})
 
@@ -1859,7 +1888,7 @@ def drive_raygen(cnr, params, card, width=1920, height=1080) -> dict:
             origin = c2w[:, 3].contiguous()
             dirs = camera_lib.ray_dirs_from_index(c2w, pos, cfg.height, cfg.width, cfg.focal)
             state = march.init_state(origin, dirs, cfg.bound_center, cfg.bound_radius)
-            return megakernel.march_state(params, origin, dirs, state, cfg, **kw)
+            return megakernel.march_state(params, origin, dirs, state, cfg, coarse=True, **kw)
 
         o = build_and_march()
         conv_agree = (o[0].converged == k[0].converged).float().mean().item()
@@ -2090,17 +2119,18 @@ def main() -> int:
                   if k.endswith("three_pass=0>")}
     tensor_core = [k for k in hmma if k.startswith("mlp") or k.endswith("three_pass=1>")
                    or fp32_march.get(k, 0) in megakernel.TENSOR_CORE_FP32_WIDTHS]
-    ffma = [k for k, h in fp32_march.items() if h not in megakernel.TENSOR_CORE_FP32_WIDTHS]
     split = [k for k in hmma if k.startswith("march_split")]
+    splittable = [k for k, h in fp32_march.items() if h in megakernel.SPLIT_WIDTHS]
     idle = [k for k in tensor_core if hmma[k] == 0]
-    stray = [k for k in ffma + split if hmma[k]]
+    stray = [k for k in split if hmma[k]]
     print(f"SASS (cuobjdump -sass): {len(tensor_core) - len(idle)} of {len(tensor_core)} K3, "
-          f"K2h and FP32 march (widths {megakernel.TENSOR_CORE_FP32_WIDTHS}) instantiations "
-          f"issue HMMA; FP32 march instantiations at the other widths, a ray per thread or a "
-          f"ray per warp, with HMMA: {len(stray)} of {len(ffma) + len(split)}", flush=True)
-    if idle or stray or not tensor_core or not ffma or len(split) != len(ffma):
-        raise RuntimeError(f"tensor-core kernels without HMMA: {idle}; FFMA march kernels "
-                           f"with HMMA: {stray}")
+          f"K2h and FP32 march (widths {megakernel.TENSOR_CORE_FP32_WIDTHS}, a ray per thread) "
+          f"instantiations issue HMMA; FP32 march instantiations a ray per warp (widths "
+          f"{megakernel.SPLIT_WIDTHS}) with HMMA: {len(stray)} of {len(split)}", flush=True)
+    if idle or stray or not tensor_core or not split or len(split) != len(splittable):
+        raise RuntimeError(f"tensor-core kernels without HMMA: {idle}; ray-per-warp FFMA march "
+                           f"kernels with HMMA: {stray}; {len(split)} ray-per-warp kernels for "
+                           f"{len(splittable)} FP32 march kernels at {megakernel.SPLIT_WIDTHS}")
 
     params = cnr.load(ASSET, device=dev)
 
@@ -2145,8 +2175,8 @@ def main() -> int:
     # 5b. kernel vs plain at the main path's own sizes: the inputs of every
     # march call of one warm 1080p frame (the coarse pass first, then the
     # retuned rungs), and the coarse pass timed both ways.
-    calls = record_march_calls(renderer, cam)
-    full = compare_recorded_calls(params, calls)
+    calls, plains = record_march_calls(renderer, cam), []
+    full = compare_recorded_calls(params, calls, plains)
     for name, a in full.items():
         print(f"compare 1080p {name}: {json.dumps(a)}")
     check_agreement(full)
@@ -2154,7 +2184,9 @@ def main() -> int:
 
     ms, plain_ms, bnd = time_coarse(params, calls)
     print(f"coarse march 1080p ({cfg.num_rays} rays): kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms [{card}]")
+          f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms (FP32), "
+          f"{bnd['tc_bound_ms']:.3f} ms (3xTF32) [{card}]")
+    tc_sdf_errors(params, 32, card, narrow.points)
 
     print(f"breakdown 1080p frame: {json.dumps(device_breakdown(renderer, cam))} [{card}]")
     with thread_per_ray():
@@ -2163,7 +2195,7 @@ def main() -> int:
           f"over {narrow.frames} warm frames {[round(x, 3) for x in frame_ms]} [{card}]")
     mode_sweep(cnr, params, card)
 
-    rows = compare_modes(params, calls, "1080p neural_raw", card)
+    rows = compare_modes(params, calls, "1080p neural_raw", card, plains)
     kernels = [kernel_entry("march_kernel", K1_SOURCE,
                             "cudaneuralrender_tpu/pallas/megakernel.py:45", launches,
                             max_abs_err, ms, plain_ms, bnd),

@@ -12,7 +12,9 @@ that takes a piece of a march step apart, its plain PyTorch version and a
     from a bare loop of products to the march chain, and the bfloat16
     emulations of FP32.
 
-Their kernels are in ``csrc/experiments.cu``. Each wrapper launches its
+Their kernels are in ``csrc/experiments.cu``. ``k1_variants`` is of
+another kind: it builds K1's FP32 chain at widths 32 and 64 with one
+design choice undone at a time and measures each beside the tree's. Each wrapper launches its
 kernel on CUDA tensors (or raises) and runs its plain version on CPU
 tensors, and counts its launches in its module's ``LAUNCHES``. Run one on
 the card from the repository root::

@@ -15,25 +15,22 @@
 // 1.84M at 512, 7.34M at 1024.
 //
 // Design, by width and arithmetic:
-//   * the FP32 chain inside the march kernel (K1):
-//     - H = 32, 64: one thread per point on FFMA (mlp_sdf), so every thread
-//       of a warp needs the same weight at the same time: the whole padded
-//       stack [L, H, H] + [L, H] is staged into shared memory once per block
-//       (37 KB at L=9, H=32; 150 KB at 64: one block per SM, so 256 threads
-//       per block at 64) and read at warp-uniform addresses, one broadcast
-//       per 4 fused multiply-adds; activations x[H] and y[H] live in
-//       registers. Each output sums its products in input order from zero
-//       and adds the bias last, the plain version's order bit for bit.
-//       For launches of few rays the march kernel runs the same chain for
-//       one point split over a warp's lanes instead (split_sdf below, a
-//       ray per warp), in the same order.
-//     - H = 128 to 1024: 3xTF32 on the tensor cores over the 32 rays of a
-//       warp, activations in the warp's shared memory, the stack (590 KB /
-//       2.36 MB / 9.4 MB / 37.7 MB at L=9) read from the 50 MB L2 (see
-//       "K1's FP32 chain on the tensor cores" below). Until PR 7 these
-//       widths ran one thread per point on FFMA with the activations in a
-//       1-8 KB local-memory frame (mlp_sdf_wide, at 1-12% of its bound and
-//       slower than its cuBLAS plain version at every one of them).
+//   * the FP32 chain inside the march kernel (K1): 3xTF32 on the tensor
+//     cores over the 32 rays of a warp at every width (see "K1's FP32 chain
+//     on the tensor cores" below):
+//     - H = 32, 64: the activations in registers, each layer's accumulators
+//       handed to the next layer as its A fragments; the stack in tf32
+//       fragment order staged in shared memory once per block (37 KB at
+//       L=9, H=32; 150 KB at 64) (chain_tf32_regs). For the refine
+//       ladder's later rungs the march kernel runs the chain of one point
+//       split over a warp's lanes on FFMA instead (split_sdf below, a ray
+//       per warp), each output summed in input order from zero, the bias
+//       last: the plain version's order bit for bit;
+//     - H = 128 to 1024: the activations in the warp's shared memory, the
+//       stack (590 KB / 2.36 MB / 9.4 MB / 37.7 MB at L=9) read from the
+//       50 MB L2 (chain_tf32_smem).
+//     The per-thread FFMA chain (mlp_sdf, chain_sdf) runs in the step-cost
+//     experiments X2 and X3 (csrc/experiments.cu).
 //   * the fused forward K3: 3xTF32 on the tensor cores over a tile of points
 //     per block, activations in shared memory (see "K3" below).
 //   * the three-pass chain K2h inside the march kernel: bf16 MMA over the 32
@@ -56,9 +53,6 @@
 
 namespace cnr {
 
-// Threads per block at a hidden width.
-__host__ __device__ constexpr int block_for(int h) { return h == 64 ? 256 : 128; }
-
 // Output chunk of the step-cost experiment X1's FFMA chain at width 128
 // (csrc/experiments.cu; accumulators held in registers).
 constexpr int kChunk = 32;
@@ -72,10 +66,11 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// Activations in registers, weights from shared memory (H = 32, 64). Each
-// layer sums its products in input order, starting from zero, and adds the
-// bias last: the order of a plain GEMM followed by a bias add, so the
-// kernel's SDF values match its plain version's on both CPU and cuBLAS.
+// The per-thread FFMA chain (H = 32, 64; X2 and X3): activations in
+// registers, weights from shared memory. Each layer sums its products in
+// input order, starting from zero, and adds the bias last: the order of a
+// plain GEMM followed by a bias add, so the SDF values match the plain
+// version's on both CPU and cuBLAS (as split_sdf's do).
 template <int H>
 __device__ __forceinline__ float mlp_sdf(const float* __restrict__ sw,
                                          const float* __restrict__ sb,
@@ -163,24 +158,26 @@ __device__ __noinline__ float mlp_sdf_called(int n_layers, int n_inputs, float p
   return mlp_sdf<H>(sw, sw + n_layers * H * H, n_layers, n_inputs, px, py, pz, frame);
 }
 
-// The per-thread FP32 chain's raw head value at one point (H = 32, 64); w
-// and b are where stage_weights<H> put the stack.
+// The per-thread FFMA chain's raw head value at one point (H = 32, 64; the
+// step-cost experiments X2 and X3); w and b are where stage_weights<H> put
+// the stack.
 template <int H>
 __device__ __forceinline__ float chain_sdf(const float* __restrict__ w,
                                            const float* __restrict__ b,
                                            int n_layers, int n_inputs,
                                            float px, float py, float pz,
                                            float frame) {
-  static_assert(H <= 64, "from width 128 the FP32 chain is chain_sdf_tf32");
+  static_assert(H <= 64, "the per-thread FFMA chain is built at widths 32 and 64 only");
   if constexpr (H == 32)
     return mlp_sdf<H>(w, b, n_layers, n_inputs, px, py, pz, frame);
   else
     return mlp_sdf_called<H>(n_layers, n_inputs, px, py, pz, frame);
 }
 
-// Stages the FP32 stack (H = 32, 64) and its biases in shared memory, every
-// thread of the block helping copy them in; w and b point there after.
-// Call before any thread leaves the kernel.
+// Stages a stack of L * H * H floats (H = 32, 64: the FP32 stack [L, H, H],
+// or the same values in tf32 fragment order) and its biases in shared
+// memory, every thread of the block helping copy them in; w and b point
+// there after. Call before any thread leaves the kernel.
 template <int H>
 __device__ __forceinline__ void stage_weights(const float* __restrict__ weights,
                                               const float* __restrict__ biases,
@@ -745,20 +742,13 @@ __device__ __forceinline__ void stage_weights_3pass(const uint16_t* __restrict__
 //     march at once on the card, each reading the whole 37.7 MB stack once
 //     per m-tile and step.
 
-// Whether a march instantiation runs its chain for the 32 rays of a warp
-// together on the tensor cores: the three-pass chain (K2h) at every width,
-// the FP32 chain from width 128 (chain_sdf_tf32 below; at 32 and 64 its
-// per-thread FFMA chain runs at 41% / 36% of its bound and stays).
-__host__ __device__ constexpr bool warp_chain(int h, bool three_pass) {
-  return three_pass || h >= 128;
-}
-
-// Threads of a block of the march kernel: block_for(H) for the per-thread
-// chain; for a warp chain the same at 32 / 64 (the stack staged), and at
-// 128-1024 as many warps as their activation buffers allow (4, 2, 1, 1).
-__host__ __device__ constexpr int march_block(int h, bool three_pass) {
-  return !warp_chain(h, three_pass) || h <= 64 ? block_for(h)
-                                               : (h == 128 ? 128 : (h == 256 ? 64 : 32));
+// Threads of a block of the march kernel, whose chains (the FP32 one and
+// the three-pass one) both run for the 32 rays of a warp together on the
+// tensor cores: 128 at 32 and 256 at 64, where the block stages the stack
+// (at 64 its 150 KB leave one block an SM), and at 128-1024 as many warps
+// as their activation buffers allow (4, 2, 1, 1).
+__host__ __device__ constexpr int march_block(int h) {
+  return h == 32 ? 128 : (h == 64 ? 256 : (h == 128 ? 128 : (h == 256 ? 64 : 32)));
 }
 
 // 4-byte words of a row of a warp's activation buffers at H >= 128: H FP32
@@ -771,12 +761,13 @@ __host__ __device__ constexpr int act_words(int h) { return h + 8; }
 __host__ __device__ constexpr int act_pairs(int h) { return act_words(h) / 2; }
 
 // Dynamic shared memory of a march block: the staged stack and its biases
-// (H = 32, 64: FP32, or the bf16 hi and lo halves in as many bytes), or each
-// warp's two activation buffers [16, act_words(H)] (H >= 128).
-__host__ __device__ constexpr size_t march_smem_bytes(int h, int n_layers, bool three_pass) {
+// (H = 32, 64: FP32 in tf32 fragment order, or the bf16 hi and lo halves in
+// as many bytes), or each warp's two activation buffers [16, act_words(H)]
+// (H >= 128).
+__host__ __device__ constexpr size_t march_smem_bytes(int h, int n_layers) {
   return h <= 64 ? sizeof(float) * static_cast<size_t>(n_layers) * h * (h + 1)
-                 : static_cast<size_t>(march_block(h, three_pass) / 32) * 2 * 16 *
-                       act_words(h) * sizeof(float);
+                 : static_cast<size_t>(march_block(h) / 32) * 2 * 16 * act_words(h) *
+                       sizeof(float);
 }
 
 // Output columns of a layer chunk at H >= 128 (8 n-tiles).
@@ -1028,63 +1019,94 @@ __device__ __forceinline__ float chain_sdf_mma(const uint4* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// K1's FP32 chain on the tensor cores (widths 128 to 1024).
+// K1's FP32 chain on the tensor cores (every width).
 //
-// The march kernel's FP32 instantiations from width 128 (precisions DEFAULT
-// and HIGHEST; march.cuh, warp_chain) run the chain for the 32 rays of a
-// warp together, as K2h does: a product with M = 32 rows (ray = lane =
-// row), two m16 tiles, on m16n8k8 tf32 MMA at FP32-grade precision
-// (3xTF32, mma.cuh mma_3xtf32_rows): per k-chunk of 8, a_small * b_big,
-// a_big * b_small, a_big * b_big from zero, the chunk's sum rounded to even
-// (round_to_even: the tensor cores truncate it toward zero, and left so a
-// chain of ReLU layers drifts low) and added to an FP32 accumulator with a
-// round-to-nearest add; then bias and ReLU in FP32. The first layer is one
-// k-chunk (the 3 or 4 true inputs gathered from their lanes by shuffles,
-// the padded weight rows zero), the head n-tile 0 of the last layer, its
-// column 0 shuffled back to each ray's lane (head_to_ray): both are a few
-// MMAs next to a hidden layer's 3 * (H/8)^2, where an FFMA first layer and
-// head would need the FP32 stack beside the packed one. The result is no
+// The march kernel's FP32 instantiations (precisions DEFAULT and HIGHEST;
+// march.cuh) run the chain for the 32 rays of a warp together, as K2h
+// does: a product with M = 32 rows (ray = lane = row), two m16 tiles, on
+// m16n8k8 tf32 MMA at FP32-grade precision (3xTF32): per k-chunk of 8 the
+// products a_small * b_big, a_big * b_small, a_big * b_big, the chunk's
+// sum added to an FP32 accumulator with a round-to-nearest add; then bias
+// and ReLU in FP32. The tensor cores truncate a chunk's sum toward zero,
+// and left so a chain of ReLU layers drifts low. From 128 (mma.cuh
+// mma_3xtf32_rows) the truncated sum is rounded to even (round_to_even),
+// unbiased but up to an ulp off; at 32 and 64 (mma_tf32_tiles) one more
+// MMA recovers what the truncation dropped, so the chunk's sum reaches
+// the accumulator rounded to nearest, and at 32 a fourth product,
+// a_small * b_small, is kept (tf32_passes): the 32- and 64-wide layers sum
+// too few products for their chunks' errors to average out, and on the
+// card the rounded-to-even chain's SDF lay 1.26x (32) and 1.39x (64) as
+// far from float64 as the plain chain's on the lanes where two marches
+// part (chip_smoke.py's witness bar is 1.25x; PERF.md). From 128
+// the first layer is one k-chunk (the 3 or 4 true inputs gathered from
+// their lanes by shuffles, the padded weight rows zero), a few MMAs next to
+// a hidden layer's 3 * (H/8)^2; at 32 and 64 it runs on FFMA in the plain
+// version's order (first_layer_ffma), its weights read from the packed
+// stack. The head is n-tile 0 of the last layer, its column 0 shuffled
+// back to each ray's lane (head_to_ray). The result is no
 // longer the plain version's (cuBLAS FP32, each output summed in input
-// order) bit for bit: fused_mlp.mlp_chain_3xtf32_mma models this order, and
-// chip_smoke.py holds the kernel to its plain version at the bar of a chain
-// summed in the tensor cores' order (K1_MMA_SDF_ATOL and the shares), with
-// the lanes beyond it replayed.
+// order) bit for bit: fused_mlp.mlp_chain_3xtf32_mma models this order at
+// every width, and chip_smoke.py holds the kernel to its plain version at
+// the bar of a chain summed in the tensor cores' order (K1_MMA_SDF_ATOL and
+// the shares), with the lanes beyond it replayed.
 //
 // What bounds it: the three tf32 products per weight at 495 TFLOP/s, 0.406x
-// the FP32 FFMA bound (chip_smoke.py tc_bound_ms); each weight pair is
-// split where it is loaded and each activation where it is read, a few
-// FP32 and integer operations per MMA beside it.
+// the FP32 FFMA bound (chip_smoke.py tc_bound_ms), the least an
+// FP32-accurate chain on the tensor cores could take; at 32 and 64 the
+// kernel issues 5 and 4 MMAs a weight (the residual, the fourth product).
+// Each weight pair is split where it is loaded and each activation where
+// it is read, and each chunk's sum is corrected or rounded and added, a
+// few FP32 and integer operations per MMA beside it.
 //
-// Where things live (K2h's budget; FP32 activations fill the bytes its
-// (hi, lo) pairs did):
-//   * the stack in tf32 fragment order (fused_mlp.packed_mma(params,
-//     "tf32"), K3's layout of the FP32 values): a lane's B pair of one
-//     n-tile and k-chunk is one 64-bit load from L2, prefetched a k-chunk
-//     ahead and split into big / small in registers. It is not stored
-//     pre-split: at 1024 two 37.7 MB copies would not fit the 50 MB L2;
-//   * a warp's activations in its own two shared-memory buffers
-//     [16, act_words(H) = H + 8] FP32, the layer's input and output (the
-//     padded stride makes a lane's a0 / a2 pair, under pack_mma's
-//     permutation of k, one conflict-free 64-bit load, and the epilogue's
-//     stores conflict-free), split into big / small as they are read. The
-//     two m-tiles take turns through them: 2 * 16 * (H + 8) * 4 bytes a
-//     warp, 17 / 33 / 65 / 129 KB at 128 / 256 / 512 / 1024, with 4 / 2 / 1
-//     / 1 warps a block (march_block), so each warp reads the stack once
-//     per m-tile and step;
-//   * each layer's output in chunks of kMmaChunkTiles n-tiles (64 columns)
+// Where things live. The stack is in tf32 fragment order
+// (fused_mlp.packed_mma(params, "tf32"), K3's layout of the FP32 values): a
+// lane's B pair of one n-tile and k-chunk is one 64-bit load, split into
+// big / small in registers. It is not stored pre-split: at 64 the two
+// halves would need 300 KB of shared memory, at 1024 two 37.7 MB copies
+// would not fit the 50 MB L2. Then, by width:
+//   * H = 32, 64 (chain_tf32_regs): the stack, as many bytes as the FP32
+//     stack (37 KB / 150 KB at 9 layers), staged in shared memory once per
+//     block, and each B pair read there for both m-tiles. The activations
+//     stay in registers, both m-tiles at once: under pack_mma's permutation
+//     of k, n-tile j's accumulators are k-chunk j's A fragment in the same
+//     lane (mma.cuh), so bias + ReLU write each layer's output where the
+//     next layer reads it, as FP32 values split into big / small once per
+//     layer as they are read. A lane holds 2 * H/8 * 4 activations and as
+//     many accumulators (32 + 32 at H = 32, 64 + 64 at 64); the n-tiles of
+//     a k-chunk run in groups of kRegTiles, each MMA pass over a group's
+//     2 * kRegTiles tiles before the next pass (groups of 4 ran as fast
+//     at 32, and at 64 spilled 300 B a thread once the first layer moved
+//     to FFMA);
+//   * H = 128 to 1024 (chain_tf32_smem; K2h's budget, FP32 activations in
+//     the bytes of its (hi, lo) pairs): the stack read from L2, each B pair
+//     prefetched a k-chunk ahead; a warp's activations in its own two
+//     shared-memory buffers [16, act_words(H) = H + 8] FP32, the layer's
+//     input and output (the padded stride makes a lane's a0 / a2 pair one
+//     conflict-free 64-bit load, and the epilogue's stores conflict-free),
+//     split into big / small as they are read. The two m-tiles take turns
+//     through them: 2 * 16 * (H + 8) * 4 bytes a warp, 17 / 33 / 65 / 129 KB
+//     at 128 / 256 / 512 / 1024, with 4 / 2 / 1 / 1 warps a block
+//     (march_block), so each warp reads the stack once per m-tile and step;
+//     each layer's output in chunks of kMmaChunkTiles n-tiles (64 columns)
 //     held in accumulators, 32 a lane.
 // Budget by width over the 8 scene instantiations (registers, stack and
 // spills as ptxas reports them for sm_90a, chip_smoke.py phase 2):
 //     H     warps  shared memory  blocks an SM  registers  stack    spill st/ld
+//     32    4      37.1 KB        3             142-145    0 (32)   0 / 0 B
+//     64    8      146.3 KB       1             255        120-168  266-322 / 196-260 B
 //     128   4      68.0 KB        3             153-158    0 (32)   0 / 0 B
 //     256   2      66.0 KB        3             153-158    0 (32)   0 / 0 B
 //     512   1      65.0 KB        3             127-158    0 (32)   0 / 0 B
 //     1024  1      129.0 KB       1             127-158    0 (32)   0 / 0 B
-// No instantiation spills; the displacement scene's 32-byte frame is
-// sinf's range reduction, as at 32 and 64. Shared memory sets the warps an
-// SM holds: 12, 6, 3 and 1 at 128-1024, so at 512 and 1024 one or three
-// warps' MMAs, loads and splits cannot hide each other's latency; that,
-// not the tensor cores' rate, bounds the wide widths (PERF.md, PR 7).
+// Only the 64-wide units spill: their 128 activations and accumulators a
+// lane, the MMA temporaries and the first layer's inputs exceed the
+// 255-register cap; the displacement scene's 32-byte frame is sinf's range
+// reduction. Registers set the warps an SM holds at 32 (12) and shared
+// memory from 64 (8 at 64, where 512 threads a block spilled 600 B a thread
+// under the 128-register cap and ran slower; 12, 6, 3 and 1 at 128-1024),
+// so at 512 and 1024 one or three warps' MMAs, loads and splits cannot
+// hide each other's latency; that, not the tensor cores' rate, bounds the
+// wide widths (PERF.md).
 
 // The tf32 A fragments (big, small) of m-tile mt for the first contraction:
 // row r holds ray 16 mt + r's inputs (x, y, z, frame or 0) in physical
@@ -1103,6 +1125,147 @@ __device__ __forceinline__ void inputs_a_tf32(int mt, float px, float py, float 
     split_tf32(t == 0 ? x : (t == 1 ? z : 0.f), abig[half], asmall[half]);
     split_tf32(t == 0 ? y : (t == 1 ? f : 0.f), abig[2 + half], asmall[2 + half]);
   }
+}
+
+// N-tiles of a k-chunk whose three passes chain_tf32_regs issues together
+// (for both m-tiles: 2 * kRegTiles independent MMAs a pass), and the group
+// of a layer that computes n of them.
+constexpr int kRegTiles = 2;
+__host__ __device__ constexpr int reg_group(int n) { return n < kRegTiles ? n : kRegTiles; }
+
+// The tf32 products per weight of the FP32 chain at width h (32, 64): 3
+// (3xTF32), and at 32 a fourth, a_small * b_small, the last of each
+// chunk's MMAs (mma.cuh mma_tf32_tiles). Without it the chain's SDF on the
+// shipped 3 -> 32 x 8 -> 1 net lay 1.15-1.25x as far from float64 as the
+// plain chain's on the lanes where two marches part, on the card (1.00-
+// 1.04x with it, for 11% of the coarse call's time; 64-wide: 0.94-0.98x
+// with three): a 32-wide layer sums too few products for the dropped
+// 2^-22 terms to hide in the FP32 sum's own rounding (PERF.md).
+__host__ __device__ constexpr int tf32_passes(int h) { return h == 32 ? 4 : 3; }
+
+// acc += x (FP32 values in A-fragment slots, both m-tiles) times the
+// first N of the layer's NT n-tiles (the head: N = 1), kPasses tf32
+// products per weight (mma.cuh mma_tf32_tiles); wl: the layer's stack in
+// tf32 fragment order at this lane's first B pair.
+template <int kPasses, int KT, int NT, int N>
+__device__ __forceinline__ void layer_tf32_regs(
+    const float (&x)[2][KT][4], const float2* wl,
+    float (&acc)[N / reg_group(N)][2][reg_group(N)][4]) {
+  constexpr int G = reg_group(N);
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    uint32_t abig[2][4], nbig[2][4], asmall[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        split_tf32(x[mt][kk][e], abig[mt][e], asmall[mt][e]);
+        nbig[mt][e] = abig[mt][e] ^ 0x80000000u;
+      }
+#pragma unroll
+    for (int q = 0; q < N / G; ++q) {
+      float2 bv[G];
+#pragma unroll
+      for (int jj = 0; jj < G; ++jj) bv[jj] = wl[(kk * NT + q * G + jj) * 32];
+      mma_tf32_tiles<kPasses>(acc[q], abig, nbig, asmall, bv);
+    }
+  }
+}
+
+// The first layer at H = 32, 64 on FFMA, each output summed from zero in
+// input order with fused multiply-adds, the bias last, then ReLU (the plain
+// version's order bit for bit), written in the lane's A-fragment slots:
+// lane 4g + t holds rows 16 mt + 8 half + g, columns 8j + 2t + c, in
+// x[mt][j][half + 2c]. A 3xTF32 first layer would split the point's
+// coordinates to 22 bits and move the SDF by up to 2^-22 of them, as much
+// as the rest of the chain's error. w: layer 0 of the stack in tf32
+// fragment order, whose B pair of n-tile j in lane 4(2t + c) + i/2 holds
+// W[i][8j + 2t + c] and W[i + 1][8j + 2t + c] (i even, pack_mma).
+template <int H>
+__device__ __forceinline__ void first_layer_ffma(const float2* __restrict__ w,
+                                                 const float* __restrict__ b, float px, float py,
+                                                 float pz, float pf, float (&x)[2][H / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float in[2][2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int src = 16 * mt + 8 * half + g;
+      in[mt][half][0] = __shfl_sync(0xffffffffu, px, src);
+      in[mt][half][1] = __shfl_sync(0xffffffffu, py, src);
+      in[mt][half][2] = __shfl_sync(0xffffffffu, pz, src);
+      in[mt][half][3] = __shfl_sync(0xffffffffu, pf, src);
+    }
+#pragma unroll
+  for (int j = 0; j < H / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float2 w01 = w[j * 32 + 4 * (2 * t + c)], w23 = w[j * 32 + 4 * (2 * t + c) + 1];
+      const float bias = b[8 * j + 2 * t + c];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float(&v)[4] = in[mt][half];
+          float y = fmaf(v[0], w01.x, 0.f);
+          y = fmaf(v[1], w01.y, y);
+          y = fmaf(v[2], w23.x, y);
+          y = fmaf(v[3], w23.y, y);
+          x[mt][j][half + 2 * c] = fmaxf(__fadd_rn(y, bias), 0.f);
+        }
+    }
+}
+
+// H = 32, 64: activations in registers, the stack (tf32 fragment order)
+// and its biases in shared memory where stage_weights<H> put them.
+template <int H>
+__device__ __forceinline__ float chain_tf32_regs(const float2* __restrict__ w,
+                                                 const float* __restrict__ b, int n_layers,
+                                                 float px, float py, float pz, float pf) {
+  constexpr int NT = H / 8, KT = H / 8, G = reg_group(NT), P = tf32_passes(H);
+  static_assert(NT % G == 0, "a layer's n-tiles split into groups of kRegTiles");
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  if (n_layers == 1) {  // the head is the first layer: column 0, this lane's ray
+    const float2 w01 = w[0], w23 = w[1];
+    float y = fmaf(px, w01.x, 0.f);
+    y = fmaf(py, w01.y, y);
+    y = fmaf(pz, w23.x, y);
+    y = fmaf(pf, w23.y, y);
+    return __fadd_rn(y, b[0]);
+  }
+  float x[2][KT][4];  // the layer's input, k-chunk kk's A-fragment values
+  first_layer_ffma<H>(w, b, px, py, pz, pf, x);
+#pragma unroll 1
+  for (int l = 1; l < n_layers - 1; ++l) {
+    float acc[NT / G][2][G][4];
+#pragma unroll
+    for (int q = 0; q < NT / G; ++q)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[q][mt][jj][e] = 0.f;
+    layer_tf32_regs<P, KT, NT, NT>(x, w + l * KT * NT * 32 + lane, acc);
+    const float* bl = b + l * H;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 bias = *reinterpret_cast<const float2*>(bl + 8 * j + 2 * t);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float(&c)[4] = acc[j / G][mt][j % G];
+        // n-tile j's (c0, c1, c2, c3) are k-chunk j's (a0, a2, a1, a3)
+        x[mt][j][0] = fmaxf(__fadd_rn(c[0], bias.x), 0.f);
+        x[mt][j][2] = fmaxf(__fadd_rn(c[1], bias.y), 0.f);
+        x[mt][j][1] = fmaxf(__fadd_rn(c[2], bias.x), 0.f);
+        x[mt][j][3] = fmaxf(__fadd_rn(c[3], bias.y), 0.f);
+      }
+    }
+  }
+  float h[1][2][1][4] = {{{{0.f, 0.f, 0.f, 0.f}}, {{0.f, 0.f, 0.f, 0.f}}}};
+  layer_tf32_regs<P, KT, NT, 1>(x, w + (n_layers - 1) * KT * NT * 32 + lane, h);
+  return __fadd_rn(head_to_ray(h[0]), b[(n_layers - 1) * H]);
 }
 
 // The tf32 A fragments (big, small) of k-chunk kk from a shared-memory
@@ -1221,18 +1384,21 @@ __device__ __forceinline__ float chain_tf32_smem(const float2* __restrict__ w,
   return __fadd_rn(head_to_ray(h), __ldg(b + (n_layers - 1) * H));
 }
 
-// The FP32 chain's raw head value for each ray of the warp at H >= 128,
-// called by all 32 lanes together (rays that do not march pass any finite
-// point: rows do not mix). w: the stack in tf32 fragment order
-// (fused_mlp.packed_mma(params, "tf32")); buf: this warp's activation
-// buffers.
+// The FP32 chain's raw head value for each ray of the warp, called by all
+// 32 lanes together (rays that do not march pass any finite point: rows do
+// not mix). w: the stack in tf32 fragment order (fused_mlp.packed_mma(
+// params, "tf32")), staged in shared memory at H = 32, 64 (stage_weights);
+// buf: this warp's activation buffers at H >= 128.
 template <int H>
 __device__ __forceinline__ float chain_sdf_tf32(const float2* __restrict__ w,
                                                 const float* __restrict__ b, int n_layers,
                                                 int n_inputs, float px, float py, float pz,
                                                 float frame, float* __restrict__ buf) {
-  static_assert(H >= 128, "at widths 32 and 64 the FP32 chain runs per thread (chain_sdf)");
-  return chain_tf32_smem<H>(w, b, n_layers, px, py, pz, n_inputs == 4 ? frame : 0.f, buf);
+  const float pf = n_inputs == 4 ? frame : 0.f;
+  if constexpr (H <= 64)
+    return chain_tf32_regs<H>(w, b, n_layers, px, py, pz, pf);
+  else
+    return chain_tf32_smem<H>(w, b, n_layers, px, py, pz, pf, buf);
 }
 
 }  // namespace cnr

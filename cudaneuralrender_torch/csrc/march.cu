@@ -9,12 +9,12 @@
 //
 // Each dispatches on the padded hidden width (32, 64, 128, 256, 512 or
 // 1024), and the march entries on the chain (three_pass: 0 for FP32, whose
-// weights are the [L, H, H] stack at widths 32 and 64 and the stack in tf32
-// fragment order from 128; 1 for the three-pass chain K2h), to the
-// instantiation in csrc/hidden{H}.cu or
+// weights are the stack in tf32 fragment order; 1 for the three-pass chain
+// K2h), to the instantiation in csrc/hidden{H}.cu or
 // csrc/hidden{H}_3pass.cu; cnr_march also on the mode (ray_lanes: 1 for a
 // ray per thread, 32 for a ray per warp, the FP32 chain at widths 32 and 64
-// only: march.cuh march_split_kernel). Each returns a cudaError_t: a width,
+// only, whose weights are then the FP32 stack [L, H, H]: march.cuh
+// march_split_kernel). Each returns a cudaError_t: a width,
 // scene, window, input count or mode with no instantiation gives
 // cudaErrorInvalidValue, and a refused launch its own error. Nothing is launched in either case. The
 // experiment kernels X1-X3 have their own entries (csrc/experiments.cu).
@@ -162,7 +162,7 @@ extern "C" long long cnr_smem_bytes(int kind, int hidden, int n_layers) {
   if (!known) return -1;
   switch (kind) {
     case 0:
-    case 1: return static_cast<long long>(cnr::march_smem_bytes(hidden, n_layers, kind == 1));
+    case 1: return static_cast<long long>(cnr::march_smem_bytes(hidden, n_layers));
     case 2: return static_cast<long long>(cnr::forward_smem_bytes(hidden));
     case 3:
       return hidden <= 64 ? static_cast<long long>(cnr::split_smem_bytes(hidden, n_layers))

@@ -12,28 +12,25 @@
 //
 // What bounds it on this card: arithmetic. A step of a 9-layer net is
 // 3H + 7H^2 + H fused multiply-adds per ray (7.3k at H=32: the true 3-input
-// first layer and the 1-column head), on FFMA at H = 32 and 64 and on the
-// tensor cores from 128 (3xTF32, three tf32 products per weight), while
-// the ray state lives in registers; at H = 32 and 64 the weights come from
-// shared memory, at 128 to 1024 from L2 (chain.cuh). Device memory is
-// touched once per ray on entry (direction, t, budget, flags) and once on
-// exit.
+// first layer and the 1-column head), on the tensor cores at every width
+// (3xTF32, three tf32 products per weight), while the ray state lives in
+// registers; at H = 32 and 64 the weights come from shared memory, at 128
+// to 1024 from L2 (chain.cuh). Device memory is touched once per ray on
+// entry (direction, t, budget, flags) and once on exit.
 //
 // Design:
-//   * one thread per ray, march_block(H, three_pass) threads per block
-//     (chain.cuh); or, for the FP32 chain at H = 32 and 64 on a launch of
-//     few rays, one warp per ray (march_split_kernel below);
+//   * one thread per ray, march_block(H) threads per block (chain.cuh), a
+//     warp's 32 rays the rows of one product on the tensor cores; or, for
+//     the FP32 chain at H = 32 and 64 on a launch of few rays, one warp per
+//     ray on FFMA (march_split_kernel below);
 //   * the chain at the padded width H, a template parameter (32, 64, 128,
 //     256, 512 or 1024; one instantiation of every scene per width, in
 //     csrc/hidden{H}.cu); see chain.cuh for where weights and activations
 //     live at each width;
 //   * the chain's arithmetic, a template parameter: FP32 for both of the
-//     JAX package's precisions DEFAULT and HIGHEST (FFMA at H = 32 and 64,
-//     3xTF32 on the tensor cores from 128), or the three-pass bfloat16
-//     chain for HIGH on the tensor cores (kThreePass; its instantiations in
-//     csrc/hidden{H}_3pass.cu, compiled in parallel with the others). On
-//     the tensor cores a warp's 32 rays are the rows of one product
-//     (chain.cuh warp_chain);
+//     JAX package's precisions DEFAULT and HIGHEST (3xTF32), or the
+//     three-pass bfloat16 chain for HIGH (kThreePass; its instantiations in
+//     csrc/hidden{H}_3pass.cu, compiled in parallel with the others);
 //   * the cold start (K5) is a prologue chosen at run time, the same for the
 //     whole launch (pos set or not), so it adds no instantiation: each ray
 //     is built from its pixel index and the camera by the TPU kernel's own
@@ -46,11 +43,11 @@
 //     cylinder window are template parameters, one instantiation per
 //     (scene, window): the compose is straight-line code with no branch on
 //     the scene, and the neural_raw instantiation is the bare chain;
-//   * each ray loops until it resolves (per-ray exit; the TPU kernel exits
-//     per 8192-lane tile, with identical per-ray results); with a warp chain
-//     a warp loops until its last ray resolves, each lane's state advancing
-//     only while its own ray marches;
-//   * outside the tensor-core chains all arithmetic is FP32 FFMA.
+//   * a warp loops until its last ray resolves, each lane's state advancing
+//     only while its own ray marches (the TPU kernel exits per 8192-lane
+//     tile, with identical per-ray results);
+//   * outside the tensor-core chains all arithmetic is FP32 (FFMA in the
+//     ray-split mode's chain).
 //
 // The compose's cost: it is FP32 elementwise work on the ray's own
 // registers, about 100 (many_sphere: 9 sphere distances and smooth
@@ -280,17 +277,14 @@ __device__ __forceinline__ void march_step(float px, float py, float pz, float r
   if (!act) res = step;
 }
 
-// The FP32 instantiations at H = 32 and 64 run one ray per thread, each
-// looping until its ray resolves. The warp-chain instantiations (the
-// three-pass chain, and the FP32 chain from 128: chain.cuh warp_chain)
-// evaluate the chain for the 32 rays of a warp together (chain_sdf_mma,
-// chain_sdf_tf32), so their loop is warp-uniform: it runs while any lane's
+// The chain runs for the 32 rays of a warp together (chain_sdf_mma,
+// chain_sdf_tf32), so the loop is warp-uniform: it runs while any lane's
 // ray marches, and a lane whose ray is done, or that has no ray (r >= n),
 // stays in it inactive, passing a finite point. SIMT ran a warp until its
 // slowest ray already, so this adds no steps; a lane's own step count and
-// state are those of the per-ray loop.
+// state are those of a per-ray loop.
 template <int H, int S, int W, bool kThreePass>
-__global__ void __launch_bounds__(march_block(H, kThreePass))
+__global__ void __launch_bounds__(march_block(H))
 march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
              const float* __restrict__ t0, const float* __restrict__ budget0,
              const uint8_t* __restrict__ active0, const int32_t* __restrict__ steps0,
@@ -301,22 +295,20 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
              int max_steps, int num_steps, float eps, float omega, float* __restrict__ t_out,
              float* __restrict__ budget_out, uint8_t* __restrict__ active_out,
              uint8_t* __restrict__ conv_out, int32_t* __restrict__ steps_out) {
-  constexpr bool kWarp = warp_chain(H, kThreePass);
-  const float* sw = nullptr;    // the FP32 stack (H = 32, 64)
   const uint4* sw3 = nullptr;   // the three-pass stack, bf16 fragment order
-  const float2* swt = nullptr;  // the FP32 stack, tf32 fragment order (H >= 128)
+  const float2* swt = nullptr;  // the FP32 stack, tf32 fragment order
   const float* sb = biases;
-  if constexpr (kThreePass)
+  if constexpr (kThreePass) {
     stage_weights_mma<H>(static_cast<const uint4*>(weights), biases, n_layers, sw3, sb);
-  else if constexpr (kWarp)
-    swt = static_cast<const float2*>(weights);
-  else
+  } else if constexpr (H <= 64) {
+    const float* sw;
     stage_weights<H>(static_cast<const float*>(weights), biases, n_layers, sw, sb);
+    swt = reinterpret_cast<const float2*>(sw);
+  } else {
+    swt = static_cast<const float2*>(weights);
+  }
 
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if constexpr (!kWarp) {
-    if (r >= n) return;
-  }
   const bool in_range = r < n;
 
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f, t = 0.f, budget = 0.f;
@@ -347,37 +339,26 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
   const bool relax = omega > 1.f;
   float prev_r = 0.f, step_len = 0.f;
 
-  if constexpr (kWarp) {
-    extern __shared__ float4 smem4[];
-    float* buf = reinterpret_cast<float*>(smem4) +
-                 (threadIdx.x / 32) * 2 * 16 * act_words(H);  // H >= 128 only
-    while (__any_sync(0xffffffffu,
-                      act && step < max_steps && (num_steps < 0 || step - start < num_steps))) {
-      const bool go = act && step < max_steps && (num_steps < 0 || step - start < num_steps);
-      const float px = __fmaf_rn(dx, t, ox);
-      const float py = __fmaf_rn(dy, t, oy);
-      const float pz = __fmaf_rn(dz, t, oz);
-      float raw;
-      if constexpr (kThreePass)
-        raw = chain_sdf_mma<H>(sw3, sb, n_layers, n_inputs, px, py, pz, frame,
-                               reinterpret_cast<uint2*>(buf));
-      else
-        raw = chain_sdf_tf32<H>(swt, sb, n_layers, n_inputs, px, py, pz, frame, buf);
-      if (go)
-        march_step<S, W>(px, py, pz, raw, frame, relax, eps, omega, t, budget, prev_r, step_len,
-                         conv, act, step, res);
-    }
-    if (!in_range) return;
-  } else {
-    while (act && step < max_steps && (num_steps < 0 || step - start < num_steps)) {
-      const float px = __fmaf_rn(dx, t, ox);
-      const float py = __fmaf_rn(dy, t, oy);
-      const float pz = __fmaf_rn(dz, t, oz);
-      const float raw = chain_sdf<H>(sw, sb, n_layers, n_inputs, px, py, pz, frame);
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4) +
+               (threadIdx.x / 32) * 2 * 16 * act_words(H);  // H >= 128 only
+  while (__any_sync(0xffffffffu,
+                    act && step < max_steps && (num_steps < 0 || step - start < num_steps))) {
+    const bool go = act && step < max_steps && (num_steps < 0 || step - start < num_steps);
+    const float px = __fmaf_rn(dx, t, ox);
+    const float py = __fmaf_rn(dy, t, oy);
+    const float pz = __fmaf_rn(dz, t, oz);
+    float raw;
+    if constexpr (kThreePass)
+      raw = chain_sdf_mma<H>(sw3, sb, n_layers, n_inputs, px, py, pz, frame,
+                             reinterpret_cast<uint2*>(buf));
+    else
+      raw = chain_sdf_tf32<H>(swt, sb, n_layers, n_inputs, px, py, pz, frame, buf);
+    if (go)
       march_step<S, W>(px, py, pz, raw, frame, relax, eps, omega, t, budget, prev_r, step_len,
                        conv, act, step, res);
-    }
   }
+  if (!in_range) return;
 
   t_out[r] = t;
   budget_out[r] = budget;
@@ -392,16 +373,19 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
 // reads the ray's state and keeps it, runs the same compose and march_step
 // on the same values, so every branch and the loop condition are the same
 // in all 32 lanes; lane 0 writes the results. A ray's steps and results are
-// those of march_kernel<H, S, W, false> bit for bit: the chain's value is
-// mlp_sdf's, and the bookkeeping is march_step itself.
+// those of the plain version (megakernel.march_state_plain) bit for bit:
+// the chain sums each output in input order from zero on FFMA, the order of
+// mlp_sdf and of the plain version's cuBLAS chain, and the bookkeeping is
+// march_step itself (a ray per thread, march_kernel<H, S, W, false> sums
+// on the tensor cores in their own order).
 //
 // Why: in one ray per thread, a warp marches as long as its slowest ray, and
-// a straggler's warp issues the whole chain for that one ray every step
-// (7.3k FFMA at H = 32, 28.9k at 64) while 31 lanes idle. In the split mode
-// a step's latency is the chain of one output per layer, so a refine rung
-// whose few active rays march hundreds of steps (the terminal rung) ends
-// sooner. Its throughput is lower (each weight is read once per ray, not
-// once per 32 rays), so march_state picks it per launch (ray_lanes in
+// a straggler's warp issues the whole chain for its rows every step while
+// the other lanes idle. In the split mode a step's latency is the chain of
+// one output per layer, so a refine rung whose few active rays march
+// hundreds of steps (the terminal rung) ends sooner. Its throughput is
+// lower (each weight is read once per ray, not once per 32 rays, and on
+// FFMA), so march_state picks it per launch (ray_lanes in
 // kernels/megakernel.py). Continue mode only: a cold start (K5) marches one
 // ray per thread.
 //
@@ -553,18 +537,18 @@ int launch_march(const MarchArgs& a, cudaStream_t stream) {
   if (kernel == nullptr || !state_given || a.n_layers < 1 || a.n_inputs < 1 || a.n_inputs > 4)
     return static_cast<int>(cudaErrorInvalidValue);
   // The ray-split mode: the FP32 chain at 32 and 64, continue mode only.
+  constexpr bool kSplittable = !kThreePass && H <= 64;
   const bool split = a.ray_lanes == kSplitLanes;
-  if ((!split && a.ray_lanes != 1) ||
-      (split && (warp_chain(H, kThreePass) || a.pos != nullptr)))
+  if ((!split && a.ray_lanes != 1) || (split && (!kSplittable || a.pos != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n <= 0) return 0;
-  if constexpr (!warp_chain(H, kThreePass)) {
+  if constexpr (kSplittable) {
     if (split) return launch_march_split<H>(a, stream);
   }
-  const size_t smem = march_smem_bytes(H, a.n_layers, kThreePass);
+  const size_t smem = march_smem_bytes(H, a.n_layers);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int block = march_block(H, kThreePass);
+  const int block = march_block(H);
   const int grid = (a.n + block - 1) / block;
   kernel<<<grid, block, smem, stream>>>(
       a.dirs, a.origin, a.t0, a.budget0, a.active0, a.steps0, a.pos, a.c2w, a.width, a.height,

@@ -1,5 +1,5 @@
 // Warp-level tensor-core building blocks for the redesigned K3, K2h and
-// K1's FP32 chain from width 128 (csrc/chain.cuh, csrc/march.cuh): mma.sync
+// K1's FP32 chain (csrc/chain.cuh, csrc/march.cuh): mma.sync
 // in inline PTX, the splits of an FP32 value into tensor-core operands, and
 // the products at the two precisions (the fragment loaders are in
 // csrc/chain.cuh).
@@ -25,7 +25,10 @@
 // in B alike (kernels/fused_mlp.py packed_mma packs the weights so). A
 // contraction does not depend on the order of its index, so the product is
 // unchanged, and a lane then reads its a0/a2 (and a1/a3) pair of a row as
-// one 64-bit load.
+// one 64-bit load. Under that permutation the tf32 A fragment of k-chunk j
+// (columns 8j..8j+7) is what C of n-tile j holds, in the same lanes: a0 =
+// c0, a1 = c2, a2 = c1, a3 = c3 (K1's FP32 chain at widths 32 and 64 hands
+// each layer's output to the next so).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -90,7 +93,9 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, u
 // MMAs from zero and add the chunk's sum to the FP32 accumulator with a
 // round-to-nearest add, as an FP32 GEMM would: the truncation then only
 // touches one chunk's sum (8 or 16 products), whose sign varies. K1's
-// 3xTF32 product also rounds that chunk sum to even (round_to_even below).
+// 3xTF32 product from width 128 also rounds that chunk sum to even
+// (round_to_even below); at 32 and 64 it recovers what the truncation
+// dropped with one more MMA instead (mma_tf32_tiles).
 
 // The products below issue pass by pass over N independent tiles (all the
 // first products, then all the second, ...), so that N MMAs are in flight
@@ -166,6 +171,72 @@ __device__ __forceinline__ void mma_3xtf32_rows(float (&acc)[N][4], const uint32
   for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = __fadd_rn(acc[j][i], round_to_even(d[j][i]));
+}
+
+// acc[m][j] += a_m * b_j at FP32-grade precision on the tf32 tensor cores,
+// for M m-tiles m and N n-tiles j at once (K1's FP32 chain at widths 32
+// and 64, both m-tiles of a warp's rays), each k-chunk's sum added to the
+// FP32 accumulator nearly as a correctly rounded FP32 sum: the big pass
+// first from zero on the negated A, u = -t, t = a_big * b_big truncated;
+// then d = a_big * b_big + u, what that truncation dropped (up to the
+// products' alignment, which C = u may move up by the few bits |t| has
+// over the largest product), then a_small * b_big,
+// a_big * b_small and, with kPasses = 4, a_small * b_small into d (small
+// terms on a small accumulator); then acc += t + d with round-to-nearest
+// adds. Each B pair is split once for the M m-tiles, each A fragment given
+// split (big, its negation nbig, small) once for the N n-tiles; M * N
+// independent tiles a pass. 4 or 5 MMAs a tile and k-chunk.
+template <int kPasses, int M, int N>
+__device__ __forceinline__ void mma_tf32_tiles(float (&acc)[M][N][4],
+                                               const uint32_t (&abig)[M][4],
+                                               const uint32_t (&nbig)[M][4],
+                                               const uint32_t (&asmall)[M][4],
+                                               const float2 (&b)[N]) {
+  static_assert(kPasses == 3 || kPasses == 4, "3 or 4 products a weight");
+  uint32_t bbig[N][2], bsmall[N][2];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    split_tf32(b[j].x, bbig[j][0], bsmall[j][0]);
+    split_tf32(b[j].y, bbig[j][1], bsmall[j][1]);
+  }
+  float u[M][N][4], d[M][N][4];
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) u[m][j][i] = 0.f;
+      mma_tf32(u[m][j], nbig[m], bbig[j][0], bbig[j][1]);
+    }
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[m][j][i] = u[m][j][i];
+      mma_tf32(d[m][j], abig[m], bbig[j][0], bbig[j][1]);
+    }
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int j = 0; j < N; ++j) mma_tf32(d[m][j], asmall[m], bbig[j][0], bbig[j][1]);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int j = 0; j < N; ++j) mma_tf32(d[m][j], abig[m], bsmall[j][0], bsmall[j][1]);
+  if constexpr (kPasses == 4) {
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < N; ++j) mma_tf32(d[m][j], asmall[m], bsmall[j][0], bsmall[j][1]);
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[m][j][i] = __fadd_rn(acc[m][j][i], __fsub_rn(d[m][j][i], u[m][j][i]));
 }
 
 // acc[m] += a_m * b at FP32-grade precision on the tf32 tensor cores

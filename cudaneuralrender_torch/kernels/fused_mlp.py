@@ -14,8 +14,8 @@ The PyTorch counterpart of the JAX package's ``pallas/fused_mlp.py``:
     K2h, which the march kernel runs at ``precision="high"``;
     ``mlp_chain_3pass_mma`` models the same chain summed in the tensor-core
     kernel's order, for checks; ``mlp_chain_3xtf32_mma`` models the FP32
-    chain as the march kernel sums it on the tensor cores from width 128
-    (3xTF32);
+    chain as the march kernel sums it on the tensor cores a ray per thread
+    (3xTF32; 4xTF32 at width 32, ``tf32_passes``);
   * ``mlp_forward`` is the counterpart of ``mlp_forward_pallas``
     (``fused_mlp.py:194``): on CUDA tensors it launches the hand-written
     kernel in ``csrc/chain.cuh``, on CPU tensors it runs
@@ -24,7 +24,7 @@ The PyTorch counterpart of the JAX package's ``pallas/fused_mlp.py``:
   * ``pack_mma`` / ``packed_mma`` lay the stack out in the tensor cores'
     fragment order, the form the tensor-core kernels read: "tf32" for the
     3xTF32 products of the forward kernel and of the march kernel's FP32
-    chain from width 128, "bf16" (the two bfloat16 halves) for the
+    chain, "bf16" (the two bfloat16 halves) for the
     three-pass chain inside the march kernel.
 
 Zero padding is exact: padded input features are zero, so weight rows
@@ -328,12 +328,38 @@ def round_truncated_to_even(d: torch.Tensor) -> torch.Tensor:
     return (bits + (bits & 1)).view(torch.float32)
 
 
-def _layer_3xtf32(x: torch.Tensor, w: torch.Tensor, k: int, n: int) -> torch.Tensor:
-    """x[:, :k] @ w[:k, :n] (float32) as the kernel sums it: per k-chunk of
-    8, the three tf32 MMAs a_small * b_big, a_big * b_small, a_big * b_big
-    from zero (``_mma_model``), the chunk's sum rounded to even
-    (``round_truncated_to_even``) and added to a float32 accumulator with
-    a rounded add, chunk by chunk. No bias."""
+def tf32_passes(hidden: int) -> int:
+    """The tf32 products per weight of the march kernel's FP32 chain at a
+    padded width (csrc/chain.cuh ``tf32_passes``): 4 at 32, where the
+    a_small * b_small term is kept (without it the shipped 32-wide net's
+    SDF lies 1.14x as far from float64 as the FFMA chain's here,
+    tests/test_torch_k1mma.py, and up to 1.25x on the card), 3 elsewhere."""
+    return 4 if hidden == 32 else 3
+
+
+def _layer_fma(x: torch.Tensor, w: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """x[:, :k] @ w[:k, :n] with each output summed from zero in input order,
+    one rounding per fused multiply-add (the product and sum exact in
+    float64, then rounded to float32), as FFMA sums it. No bias."""
+    acc = torch.zeros((x.shape[0], n), dtype=torch.float32, device=x.device)
+    for i in range(k):
+        acc = (acc.double() + x[:, i:i + 1].double() * w[i, :n].double()).float()
+    return acc
+
+
+def _layer_tf32(x: torch.Tensor, w: torch.Tensor, k: int, n: int, hidden: int) -> torch.Tensor:
+    """x[:, :k] @ w[:k, :n] (float32) as the kernel sums it at a padded
+    width, per k-chunk of 8 MMAs (``_mma_model``), each chunk's sum added to
+    a float32 accumulator with a rounded add, chunk by chunk. No bias.
+
+      * widths 32 and 64 (csrc/mma.cuh ``mma_tf32_tiles``): u = -a_big *
+        b_big from zero, d = a_big * b_big + u (what u's truncation
+        dropped), then a_small * b_big, a_big * b_small and, with
+        ``tf32_passes`` 4, a_small * b_small into d; the chunk's sum is
+        d - u, rounded;
+      * from 128 (``mma_3xtf32_rows``): a_small * b_big, a_big * b_small,
+        a_big * b_big from zero, the truncated sum rounded to even
+        (``round_truncated_to_even``)."""
     t, kt = x.shape[0], k // 8
     a = x[:, :k].float()
     a_big = tf32_rna(a)
@@ -341,16 +367,24 @@ def _layer_3xtf32(x: torch.Tensor, w: torch.Tensor, k: int, n: int) -> torch.Ten
     b = w[:k, :n].float()
     b_big = tf32_rna(b)
     b_small = tf32_rna(b - b_big)
-    passes = [(p.reshape(t, kt, 8), q.reshape(kt, 8, n))
-              for p, q in ((a_small, b_big), (a_big, b_small), (a_big, b_big))]
+    regs = hidden <= 64
+    terms = ((a_big, b_big), (a_small, b_big), (a_big, b_small))
+    if regs and tf32_passes(hidden) == 4:
+        terms += ((a_small, b_small),)
+    elif not regs:
+        terms = terms[1:] + terms[:1]
+    passes = [(p.reshape(t, kt, 8), q.reshape(kt, 8, n)) for p, q in terms]
     acc = torch.zeros((t, n), dtype=torch.float32, device=x.device)
     group = max(1, MODEL_ELEMENTS // (t * 9 * n))
     for g0 in range(0, kt, group):
         g = slice(g0, g0 + group)
         d = torch.zeros((t, len(range(kt)[g]), n), dtype=torch.float32, device=x.device)
+        if regs:
+            u = _mma_model(d, -passes[0][0][:, g], passes[0][1][g])
+            d = u
         for p, q in passes:
             d = _mma_model(d, p[:, g], q[g])
-        d = round_truncated_to_even(d)
+        d = d - u if regs else round_truncated_to_even(d)
         for j in range(d.shape[1]):
             acc = acc + d[:, j]
     return acc
@@ -359,18 +393,20 @@ def _layer_3xtf32(x: torch.Tensor, w: torch.Tensor, k: int, n: int) -> torch.Ten
 def mlp_chain_3xtf32_mma(weights: torch.Tensor, biases: torch.Tensor,
                          x: torch.Tensor) -> torch.Tensor:
     """The FP32 chain summed as the march kernel's tensor-core chain sums it
-    (K1 from width 128, csrc/chain.cuh ``chain_tf32_smem``), a model for
-    checks on any device: weights [L, H, H] and biases [L, H] from
-    ``pack_params``, x [T, H] zero-padded inputs. Returns the head [T].
+    (K1 a ray per thread, csrc/chain.cuh ``chain_tf32_regs`` at 32 and 64,
+    ``chain_tf32_smem`` from 128), a model for checks on any device:
+    weights [L, H, H] and biases [L, H] from ``pack_params``, x [T, H]
+    zero-padded inputs. Returns the head [T].
 
-    Every layer is 3xTF32 (``_layer_3xtf32``): each operand split into
-    big = tf32(v) and small = tf32(v - big) (``tf32_rna``), per k-chunk of 8
-    rows three MMAs from zero, each aligning and truncating its products as
-    ``_mma_model`` does, the chunk's sum rounded to even and added to a
-    float32 accumulator with a rounded add; then the bias, then ReLU on
-    every layer but the last. The first layer is one k-chunk (the true
-    inputs, zero-padded to 8), the head n-tile 0 (8 columns, the SDF
-    column 0)."""
+    Every layer is 3xTF32 (4xTF32 at width 32, ``tf32_passes``;
+    ``_layer_tf32``): each operand split into big = tf32(v) and
+    small = tf32(v - big) (``tf32_rna``), per k-chunk of 8 rows the MMAs of
+    the width's scheme, each aligning and truncating its products as
+    ``_mma_model`` does, the chunk's sum added to a float32 accumulator
+    with a rounded add; then the bias, then ReLU on every layer but the
+    last. The first layer is one k-chunk (the true inputs, zero-padded to
+    8); at widths 32 and 64 it is summed on FFMA in input order instead
+    (``_layer_fma``). The head is n-tile 0 (8 columns, the SDF column 0)."""
     n_layers, h = weights.shape[0], weights.shape[2]
     rows = max(1, MODEL_ELEMENTS // (9 * h))
     if x.shape[0] > rows:
@@ -379,7 +415,11 @@ def mlp_chain_3xtf32_mma(weights: torch.Tensor, biases: torch.Tensor,
     for l in range(n_layers):
         last = l + 1 == n_layers
         n = 8 if last else h
-        y = _layer_3xtf32(x, weights[l], 8 if l == 0 else h, n) + biases[l, :n]
+        if l == 0 and h <= 64:
+            y = _layer_fma(x, weights[0], 8, n)
+        else:
+            y = _layer_tf32(x, weights[l], 8 if l == 0 else h, n, h)
+        y = y + biases[l, :n]
         x = y if last else torch.relu(y)
     return x[:, 0]
 

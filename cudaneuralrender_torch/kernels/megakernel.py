@@ -27,9 +27,8 @@ phase's, HIGHEST the refine rungs'); "high" runs the emulated
 Precision.HIGH three-pass chain K2h (``fused_mlp.mlp_chain_3pass_plain``)
 on the bfloat16 halves of the weights (the HIGH ladder phase of
 ``mid_eps``, and ``coarse_precision="high"``). Any other name raises. The
-kernel runs the FP32 chain per ray on FFMA at widths 32 and 64, in its
-plain version's order, and from width 128 as 3xTF32 on the tensor cores
-over a warp's rays (``tensor_core_chain``), in their own order
+kernel runs the FP32 chain as 3xTF32 on the tensor cores over a warp's
+rays at every width (``tensor_core_chain``), in their own order
 (``fused_mlp.mlp_chain_3xtf32_mma`` models it).
 
 The kernel marches nets of every width of ``fused_mlp.KERNEL_WIDTHS``
@@ -37,11 +36,14 @@ The kernel marches nets of every width of ``fused_mlp.KERNEL_WIDTHS``
 it; the plain version marches any width ``pack_params`` accepts.
 
 At widths 32 and 64 the FP32 chain marches in one of two modes, chosen
-per launch by ``ray_lanes`` from the launch's lane count and the card's SM
-count: a ray per thread, or a ray per warp with the chain of its point
-split over the warp's lanes (csrc/march.cuh ``march_split_kernel``), for
-launches of few lanes, where a few stragglers march for hundreds of steps.
-Both give the same results bit for bit.
+per launch by ``ray_lanes`` from the call's place in the staged march
+(``split_chain``): a ray per thread on the tensor cores, or a ray per warp
+with the chain of its point split over the warp's lanes on FFMA
+(csrc/march.cuh ``march_split_kernel``), for the refine ladder's later
+rungs, where a few stragglers march for hundreds of steps; a frame's
+coarse call (``coarse=True``) always marches a ray per thread. A ray per
+warp sums each output in input order from zero, the plain version's order,
+and gives its results bit for bit.
 
 Launch counts (plain-version calls do not count): ``KERNEL_LAUNCHES``
 counts ``march_state``'s launches, ``SCENE_LAUNCHES`` the same launches per
@@ -75,12 +77,15 @@ from .fused_mlp import (
 PRECISIONS = ("default", "high", "highest")
 
 #: The padded widths at which the kernel runs the FP32 chain on the tensor
-#: cores (csrc/chain.cuh ``warp_chain``): from 128 up.
-TENSOR_CORE_FP32_WIDTHS = tuple(h for h in KERNEL_WIDTHS if h >= 128)
+#: cores a ray per thread: every width (csrc/chain.cuh ``chain_sdf_tf32``).
+TENSOR_CORE_FP32_WIDTHS = KERNEL_WIDTHS
 
-#: ``ray_lanes``' bound: launches of at most this many lanes an SM (540672
-#: on an H100's 132 SMs) march a ray per warp.
-SPLIT_MAX_RAYS_PER_SM = 4096
+#: The padded widths at which the FP32 chain also marches a ray per warp.
+SPLIT_WIDTHS = (32, 64)
+
+#: ``ray_lanes``' bound: a bounded refine call of at least this many steps
+#: (the staged renderer's (32, 64) rung) marches a ray per warp.
+SPLIT_MIN_STEPS = 64
 
 #: Launches of the CUDA march kernel by ``march_state`` in this process.
 KERNEL_LAUNCHES = 0
@@ -127,30 +132,43 @@ def reset_launch_counts() -> None:
             counts[key] = 0
 
 
-def tensor_core_chain(hidden: int, precision: str) -> bool:
-    """Whether the kernel's chain at a padded width and precision sums on
-    the tensor cores, in their own order rather than its plain version's:
-    the three-pass chain at every width, the FP32 chain at
-    ``TENSOR_CORE_FP32_WIDTHS``."""
-    return precision == "high" or hidden in TENSOR_CORE_FP32_WIDTHS
+def split_chain(hidden: int, precision: str) -> bool:
+    """Whether the kernel also marches the chain at a padded width and
+    precision a ray per warp: the FP32 chain at ``SPLIT_WIDTHS``."""
+    return precision != "high" and hidden in SPLIT_WIDTHS
 
 
-def ray_lanes(n: int, hidden: int, precision: str, sm_count: int) -> int:
-    """The lanes that march one ray in a launch of ``n`` lanes: SPLIT_LANES
-    (the ray-split mode, a warp a ray) or 1 (a thread a ray).
+def tensor_core_chain(hidden: int, precision: str, lanes: int = 1) -> bool:
+    """Whether the kernel's chain at a padded width and precision, marching
+    ``lanes`` lanes a ray, sums on the tensor cores, in their own order
+    rather than its plain version's: the three-pass chain at every width,
+    the FP32 chain a ray per thread at ``TENSOR_CORE_FP32_WIDTHS``. A ray
+    per warp (``split_chain``) sums on FFMA in the plain version's order."""
+    return lanes == 1 or not split_chain(hidden, precision)
 
-    The split mode exists for the FP32 chain at widths 32 and 64, never
-    where ``tensor_core_chain``. A straggler's step runs several times
-    faster in it than in its warp's thread, while many rays march slower
-    (each weight serves one ray, not 32). A launch cannot see its active
-    count without syncing the host, so its lane count stands in for it:
-    launches of at most SPLIT_MAX_RAYS_PER_SM lanes an SM (the staged
-    renderer's later refine rungs, whose buckets hold few active rays) march
-    a ray per warp, larger ones (the coarse call, the first rungs) a ray per
-    thread. PERF.md has the per-rung times that set the bound."""
-    if tensor_core_chain(hidden, precision):
+
+def ray_lanes(hidden: int, precision: str, num_steps: Optional[int],
+              coarse: bool = False) -> int:
+    """The lanes that march one ray in a launch: SPLIT_LANES (the ray-split
+    mode, a warp a ray) or 1 (a thread a ray).
+
+    The split mode exists for the FP32 chain at widths 32 and 64
+    (``split_chain``). A straggler's step runs several times faster in it
+    than in its warp's thread, while many rays march slower (each weight
+    serves one ray, not a warp's 32, and on FFMA, not the tensor cores). A
+    launch cannot see its active count without syncing the host, so the
+    call's place in the staged march stands in for it: a frame's coarse
+    call (``coarse``) marches every ray, a ray per thread; a refine call
+    run to dry (``num_steps`` None: the terminal rung) or bounded at
+    SPLIT_MIN_STEPS steps or more (the ladder's later rungs) holds the
+    stragglers, a few percent of its lanes or less, a ray per warp; a
+    shorter bounded call (the first rungs, a third to three quarters of
+    their lanes active) a ray per thread. The share follows the rung's
+    place in the ladder at every image size, where a lane count does not
+    (PERF.md has the per-rung times in both modes)."""
+    if coarse or not split_chain(hidden, precision):
         return 1
-    return SPLIT_LANES if n <= SPLIT_MAX_RAYS_PER_SM * sm_count else 1
+    return SPLIT_LANES if num_steps is None or num_steps >= SPLIT_MIN_STEPS else 1
 
 
 def _check_ray_lanes(value: int, hidden: int, precision: str) -> None:
@@ -158,19 +176,9 @@ def _check_ray_lanes(value: int, hidden: int, precision: str) -> None:
     chain is the FP32 one at 32 or 64."""
     if value not in (1, SPLIT_LANES):
         raise ValueError(f"_ray_lanes must be 1 or {SPLIT_LANES}, not {value!r}")
-    if value != 1 and tensor_core_chain(hidden, precision):
+    if value != 1 and not split_chain(hidden, precision):
         raise ValueError(f"the ray-split mode runs the FP32 chain at widths 32 and 64 only, "
                          f"not width {hidden} at precision {precision!r}")
-
-
-_SM_COUNTS = {}
-
-
-def _sm_count(dev: torch.device) -> int:
-    index = _device_index(dev)
-    if index not in _SM_COUNTS:
-        _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _SM_COUNTS[index]
 
 
 def _check_precision(precision: str) -> None:
@@ -216,13 +224,15 @@ def march_state_plain(
     march_eps: Optional[float] = None, num_steps: Optional[int] = None,
     precision: str = "highest", relax_omega: float = 0.0,
     return_resolve: bool = False, cyl_window: Optional[int] = None,
-    chain=None, trace=None,
+    coarse: bool = False, chain=None, trace=None,
 ):
     """Plain PyTorch version of the march kernel, on any device.
 
     Each step evaluates only the rays still active (per-ray results do not
     depend on which rays march together) and reads the active count on the
-    host, so it suits the CPU and comparisons, not the hot path. ``chain``
+    host, so it suits the CPU and comparisons, not the hot path. ``coarse``
+    is ``march_state``'s, which picks the kernel's mode: the plain version
+    has one. ``chain``
     (x [T, H] -> [T, H], the head column 0) marches with another chain in
     place of the precision's plain one: a check replays the kernel's own
     chain through it. ``trace``, if given, is called once a step with a
@@ -302,12 +312,12 @@ def march_state_plain(
     return (out, lane_steps) if return_resolve else out
 
 
-def _kernel_weights(params: MLP, config: RenderConfig, precision: str, dev):
-    """The stack a launch reads, checked: (weights, biases, n_layers,
-    hidden). At "high" the bfloat16 halves in fragment order
-    (``packed_mma(params, "bf16")``); else the FP32 stack [L, H, H] at
-    widths 32 and 64, and from 128 the same values in tf32 fragment order
-    (``packed_mma(params, "tf32")``); biases [L, H] float32."""
+def _kernel_weights(params: MLP, config: RenderConfig, precision: str, dev, lanes: int = 1):
+    """The stack a launch of ``lanes`` lanes a ray reads, checked:
+    (weights, biases, n_layers, hidden). At "high" the bfloat16 halves in
+    fragment order (``packed_mma(params, "bf16")``); else, a ray per thread,
+    the FP32 values in tf32 fragment order (``packed_mma(params, "tf32")``),
+    and a ray per warp the FP32 stack [L, H, H]; biases [L, H] float32."""
     weights, biases, n_in, hidden = packed_params(params)
     if hidden not in KERNEL_WIDTHS:
         raise ValueError(f"the march kernel is built for widths {KERNEL_WIDTHS}, "
@@ -319,7 +329,7 @@ def _kernel_weights(params: MLP, config: RenderConfig, precision: str, dev):
         weights = packed_mma(params, "bf16")
         check_tensor("weights", weights, torch.bfloat16,
                      (n_layers, hidden // 16, hidden // 8, 32, 8), dev)
-    elif tensor_core_chain(hidden, precision):
+    elif tensor_core_chain(hidden, precision, lanes):
         weights = packed_mma(params, "tf32")
         check_tensor("weights", weights, torch.float32,
                      (n_layers, hidden // 8, hidden // 8, 32, 2), dev)
@@ -351,15 +361,15 @@ def _march_state_cuda(
     state: march_lib.MarchState, config: RenderConfig, frame: float,
     march_eps: Optional[float], num_steps: Optional[int], relax_omega: float,
     return_resolve: bool, cyl_window: Optional[int], precision: str = "highest",
-    lanes: Optional[int] = None,
+    lanes: Optional[int] = None, coarse: bool = False,
 ):
     global KERNEL_LAUNCHES
     scene_id, window = kernel_scene(config, cyl_window)
     dev = dirs.device
-    weights, biases, n_layers, hidden = _kernel_weights(params, config, precision, dev)
     n = dirs.shape[0]
     if lanes is None:
-        lanes = ray_lanes(n, hidden, precision, _sm_count(dev))
+        lanes = ray_lanes(packed_params(params)[3], precision, num_steps, coarse)
+    weights, biases, n_layers, hidden = _kernel_weights(params, config, precision, dev, lanes)
     check_tensor("dirs", dirs, torch.float32, (n, 3), dev)
     check_tensor("origin", origin, torch.float32, (3,), dev)
     check_tensor("state.t", state.t, torch.float32, (n,), dev)
@@ -405,7 +415,7 @@ def march_state(
     march_eps: Optional[float] = None, num_steps: Optional[int] = None,
     precision: str = "highest", relax_omega: float = 0.0,
     return_resolve: bool = False, cyl_window: Optional[int] = None,
-    _ray_lanes: Optional[int] = None,
+    coarse: bool = False, _ray_lanes: Optional[int] = None,
 ):
     """Continue an existing march state inside the march kernel.
 
@@ -416,8 +426,10 @@ def march_state(
     over-relaxation. ``return_resolve=True`` also returns each ray's
     resolve step [n] int32 (the staged renderer's difficulty key).
     ``cyl_window`` overrides ``config.cyl_window`` for this call.
+    ``coarse=True`` marks a frame's coarse call, every ray of the frame
+    from its cold start: it marches a ray per thread (``ray_lanes``).
     ``_ray_lanes`` (1 or SPLIT_LANES) overrides ``ray_lanes``' choice of
-    mode, for the checks that hold the two modes against each other.
+    mode, for the checks that hold each mode against the plain version.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
@@ -433,7 +445,7 @@ def march_state(
         raise ValueError(f"march_state runs on cpu or cuda tensors, not {dirs.device}")
     return _march_state_cuda(
         params, origin, dirs, state, config, frame, march_eps, num_steps, relax_omega,
-        return_resolve, cyl_window, precision, _ray_lanes)
+        return_resolve, cyl_window, precision, _ray_lanes, coarse)
 
 
 def raygen_state(cam_to_world: torch.Tensor, pos: torch.Tensor, config: RenderConfig):
@@ -562,7 +574,7 @@ def march(params: MLP, origin: torch.Tensor, dirs: torch.Tensor,
           config: RenderConfig, frame: float = 0.0):
     """March every ray from a cold start. Returns (t [N], hit [N] bool)."""
     state = march_lib.init_state(origin, dirs, config.bound_center, config.bound_radius)
-    out = march_state(params, origin, dirs, state, config, frame)
+    out = march_state(params, origin, dirs, state, config, frame, coarse=True)
     return out.t, out.converged
 
 

@@ -392,7 +392,7 @@ def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
         state, resolve = megakernel.march_state(
             params, origin, dirs, state, config, frame, march_eps=eps_a,
             precision=prec_a, relax_omega=(0.0 if config.relax_newton else relax),
-            return_resolve=True, cyl_window=config.cyl_window_coarse)
+            return_resolve=True, cyl_window=config.cyl_window_coarse, coarse=True)
         # The coarse resolve step is the refine phase's difficulty key;
         # valid while pr stays in the coarse lane order.
         pr = _pack_init(state, dirs)

@@ -6,17 +6,23 @@ elsewhere. Run them on the card with:
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
 
 Rays at 64x64 from chip_smoke.CAMERA for the staged renderer's three kinds
-of call, at the bar chip_smoke.py holds the kernel to (its constants):
-csg_demo under neural_raw and under every scene the kernel composes
-(chip_smoke.SCENES, the 4-input anim_demo under many_sphere included),
-each scene's launches counted under its name; csg_demo widened to 64, 128,
-256 and 512 (chip_smoke.widen) under neural_raw, each width's launches
-counted, and to 1024 on the bounded calls (chip_smoke.BOUNDED_VARIANTS);
-from 128 the FP32 chain runs as 3xTF32 on the tensor cores and is held to
-the bar of a chain summed in their order (chip_smoke.tc_agreement), its SDF
-within chip_smoke.K1_MMA_SDF_ATOL of the plain chain's, with the share equal
-to a model of its order (fused_mlp.mlp_chain_3xtf32_mma) printed, on the
-4-input anim_demo widened too, and from a cold start (K5).
+of call, at the bar chip_smoke.py holds the kernel to (its constants; the
+mode ``megakernel.ray_lanes`` picks: the coarse call a ray per thread, at
+32 and 64 the refine calls a ray per warp): csg_demo under neural_raw and
+under every scene the kernel composes (chip_smoke.SCENES, the 4-input
+anim_demo under many_sphere included), each scene's launches counted under
+its name; csg_demo widened to 64, 128, 256 and 512 (chip_smoke.widen) under
+neural_raw, each width's launches counted, and to 1024 on the bounded calls
+(chip_smoke.BOUNDED_VARIANTS). A ray per thread the FP32 chain runs as
+3xTF32 on the tensor cores at every width and is held to the bar of a chain
+summed in their order (chip_smoke.tc_agreement), its SDF within
+chip_smoke.K1_MMA_SDF_ATOL of the plain chain's, with the share equal to a
+model of its order (fused_mlp.mlp_chain_3xtf32_mma) printed; at 32 and 64
+on every call of every scene and of anim_demo (256x256 rays, where the
+bar's shares are read), on lane counts that end
+inside a warp (the march replayed with the kernel's own chain, bit for
+bit) and on a bucket with no active lane; on the 4-input anim_demo widened
+too, and from a cold start (K5).
 The fused forward (K3, 3xTF32 on the tensor cores) against its plain
 version at every width, on 65536 seeded points, at chip_smoke.K3_ATOL, and
 on ragged batches and shallow nets. The three-pass chain (K2h, bf16 MMA over
@@ -31,11 +37,11 @@ K2H_SDF_ATOL); the cold-start kernel (K5) against its plain version at
 "default" and "high". The step-cost
 experiment kernels X1-X3 against their plain versions at chip_smoke.X_RTOL
 of each output's own magnitude (chip_smoke.x_scale), every instantiation.
-The march kernel's ray-split mode (a ray per warp) at widths 32 and 64
-against a ray per thread, bit for bit (chip_smoke.split_equal): every
-scene and the 4-input anim_demo on the three kinds of call, a bucket with
-no active lane, lane counts that are not a multiple of a block, and its
-launches counted.
+The march kernel's ray-split mode (a ray per warp, the FFMA chain summed
+in input order) at widths 32 and 64 against the plain version, bit for bit
+(chip_smoke.split_equal): every scene and the 4-input anim_demo on the
+three kinds of call, a bucket with no active lane, lane counts that are not
+a multiple of a block, and its launches counted.
 """
 import os
 
@@ -151,9 +157,9 @@ def test_widest_kernel_matches_plain():
     chip_smoke.check_agreement(result)
 
 
-@pytest.mark.parametrize("hidden", sorted(WIDE)[1:] + [WIDEST])
+@pytest.mark.parametrize("hidden", [32] + sorted(WIDE) + [WIDEST])
 def test_fp32_tensor_core_sdf(hidden):
-    """The kernel's FP32 SDF from width 128 (3xTF32), read off one step, on
+    """The kernel's FP32 SDF at every width (3xTF32), read off one step, on
     4096 seeded points: within K1_MMA_SDF_ATOL of the plain chain's
     (chip_smoke.tc_sdf_errors raises otherwise) and of the model of its
     summation order, the share equal to the model bit for bit printed."""
@@ -500,8 +506,11 @@ def test_raygen_kernel_matches_plain(precision):
     torch.cuda.synchronize()
     assert megakernel.RAYGEN_LAUNCHES == before + 1
     p = megakernel.march_raygen_plain(params, c2w, pos, cfg, **kw)
-    call = (*megakernel.raygen_state(c2w, pos, cfg), cfg, 0.0, kw)
-    chip_smoke.check_agreement({"raygen": chip_smoke.call_agreement(params, call, k, p)})
+    # K5 marches a ray per thread, as a frame's coarse call does
+    call = (*megakernel.raygen_state(c2w, pos, cfg), cfg, 0.0, dict(kw, coarse=True))
+    a = chip_smoke.call_agreement(params, call, k, p)
+    assert a["tc_order"]  # the FP32 chain too: 3xTF32 a ray per thread
+    chip_smoke.check_agreement({"raygen": a})
     pad = pos < 0
     assert not k[0].active[pad].any() and not k[0].converged[pad].any()
 
@@ -527,19 +536,21 @@ def test_raygen_fp32_tensor_core_matches_plain():
               cyl_window=cfg.cyl_window_coarse)
     k = megakernel.march_raygen(params, c2w, pos, cfg, **kw)
     p = megakernel.march_raygen_plain(params, c2w, pos, cfg, **kw)
-    a = chip_smoke.call_agreement(params, (*megakernel.raygen_state(c2w, pos, cfg), cfg, 0.0, kw),
-                                  k, p)
+    a = chip_smoke.call_agreement(
+        params, (*megakernel.raygen_state(c2w, pos, cfg), cfg, 0.0, dict(kw, coarse=True)), k, p)
     assert a["tc_order"]
     chip_smoke.check_agreement({"raygen": a})
     pad = pos < 0
     assert not k[0].active[pad].any() and not k[0].converged[pad].any()
 
 
-# The ray-split mode (a ray per warp, csrc/march.cuh march_split_kernel)
-# against a ray per thread, bit for bit (chip_smoke.split_equal): csg_demo
-# at 32 and widened to 64 (chip_smoke.widen) under every scene, anim_demo
-# (4 inputs, frame 37) at both widths too, on the staged renderer's three
-# kinds of call at 64x64 (chip_smoke.variant_calls).
+# The two modes of the FP32 chain at 32 and 64 on the staged renderer's
+# three kinds of call at 64x64 (chip_smoke.variant_calls): csg_demo at 32
+# and widened to 64 (chip_smoke.widen) under every scene, anim_demo (4
+# inputs, frame 37) at both widths too. A ray per warp (csrc/march.cuh
+# march_split_kernel) against the plain version bit for bit
+# (chip_smoke.split_equal); a ray per thread (3xTF32 on the tensor cores)
+# against it at the tensor-core bar (chip_smoke.tc_agreement).
 SPLIT_CASES = [(label, hidden) for label in CASES for hidden in (32, 64)]
 
 
@@ -572,6 +583,8 @@ def split_calls(request):
 
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_split_kernel_matches_thread(split_calls, variant):
+    """A ray per warp equals the plain version bit for bit (the plain
+    chain's order; a ray per thread now sums on the tensor cores)."""
     params, calls = split_calls
     call = calls[variant]
     assert bool(call[2].active.any())
@@ -579,6 +592,81 @@ def test_split_kernel_matches_thread(split_calls, variant):
     torch.cuda.synchronize()
     assert int(lane_steps.max()) > int(call[2].steps)  # the rays marched
 
+
+def _thread_call(params, call):
+    """``call`` through the kernel a ray per thread and through the plain
+    version: (kernel output, plain output), (state, lane steps) each."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    origin, dirs, state, cfg, frame, kw = call
+    kw = dict(kw, return_resolve=True)
+    k = megakernel.march_state(params, origin, dirs, state, cfg, frame, _ray_lanes=1, **kw)
+    return k, megakernel.march_state_plain(params, origin, dirs, state, cfg, frame, **kw)
+
+
+# The tensor-core bar's shares (chip_smoke.TC_STRAGGLERS: 1e-4 of the
+# lanes) are read on calls of 65536 lanes and more (chip_smoke.py phase 3's
+# 256x256 rays and up): on 64x64 rays one straggler is 2.4e-4 of the lanes.
+# So a ray per thread is held to it on the three kinds of call at 256x256.
+THREAD_SIDE = 256
+
+
+@pytest.fixture(scope="module", params=SPLIT_CASES, ids=[f"{c}_h{h}" for c, h in SPLIT_CASES])
+def thread_calls(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.ops import camera as camera_lib
+
+    label, hidden = request.param
+    scene, frame, asset, n_in = CASES[label]
+    dev = torch.device("cuda", 0)
+    params = _split_params(asset, hidden, dev)
+    cfg = cnr.RenderConfig(width=THREAD_SIDE, height=THREAD_SIDE, scene=scene, num_inputs=n_in)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
+    origin, dirs = camera_lib.generate_rays(c2w, THREAD_SIDE, THREAD_SIDE, cfg.focal)
+    return params, {name: (call, p) for name, call, p in
+                    chip_smoke.variant_calls(params, cfg, origin, dirs, frame)}
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_thread_kernel_matches_plain(thread_calls, variant):
+    """A ray per thread (3xTF32 on the tensor cores) against the plain
+    version at the tensor-core bar, replays and undecided lanes included,
+    on 256x256 rays."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    params, calls = thread_calls
+    call, p = calls[variant]
+    origin, dirs, state, cfg, frame, kw = call
+    k = megakernel.march_state(params, origin, dirs, state, cfg, frame, _ray_lanes=1, **kw)
+    a = chip_smoke.tc_agreement(params, call, k, p)
+    chip_smoke.check_agreement({variant: a})
+
+
+def _replay_equal(params, call, k):
+    """The plain march of ``call`` with the kernel's own chain read off the
+    card (chip_smoke.kernel_chain) lands on the kernel's output ``k`` bit
+    for bit, and that chain stays within K1_MMA_SDF_ATOL of the plain one at
+    every point it visits."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    origin, dirs, state, cfg, frame, kw = call
+    plain = megakernel._chain_plain(params, "highest")
+    worst = [0.0]
+
+    def compare(x, d):
+        worst[0] = max(worst[0], (plain(x)[:, 0] - d).abs().max().item())
+
+    r, rs = megakernel.march_state_plain(
+        params, origin, dirs, state, cfg, frame,
+        chain=chip_smoke.kernel_chain(params, "highest", frame, compare),
+        **dict(kw, return_resolve=True))
+    ko, ks = k
+    for x, y in ((r.t, ko.t), (r.budget, ko.budget), (r.active, ko.active),
+                 (r.converged, ko.converged), (rs, ks), (r.steps, ko.steps)):
+        assert torch.equal(x, y)
+    assert worst[0] <= chip_smoke.K1_MMA_SDF_ATOL
 
 def _terminal_call(hidden):
     import cudaneuralrender_torch as cnr
@@ -595,8 +683,9 @@ def _terminal_call(hidden):
 
 @pytest.mark.parametrize("hidden", [32, 64])
 def test_split_kernel_no_active_lane(hidden):
-    """A bucket with no active lane: both modes write the entry state back
-    (resolve step = the entry step), bit for bit."""
+    """A bucket with no active lane: a ray per warp writes the entry state
+    back (resolve step = the entry step), as the plain version does, bit
+    for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     params, (origin, dirs, state, cfg, frame, kw) = _terminal_call(hidden)
@@ -605,6 +694,21 @@ def test_split_kernel_no_active_lane(hidden):
     assert torch.equal(out.t, idle.t) and torch.equal(out.budget, idle.budget)
     assert not bool(out.active.any())
     assert bool((lane_steps == int(idle.steps)).all())
+
+
+@pytest.mark.parametrize("hidden", [32, 64])
+def test_thread_kernel_no_active_lane(hidden):
+    """A bucket with no active lane a ray per thread: the entry state back,
+    the plain version's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    params, (origin, dirs, state, cfg, frame, kw) = _terminal_call(hidden)
+    idle = state._replace(active=torch.zeros_like(state.active))
+    (out, lane_steps), (p, p_steps) = _thread_call(params, (origin, dirs, idle, cfg, frame, kw))
+    assert torch.equal(out.t, idle.t) and torch.equal(out.budget, idle.budget)
+    assert torch.equal(out.t, p.t) and torch.equal(out.budget, p.budget)
+    assert not bool(out.active.any()) and torch.equal(out.converged, idle.converged)
+    assert bool((lane_steps == int(idle.steps)).all()) and torch.equal(lane_steps, p_steps)
 
 
 @pytest.mark.parametrize("hidden", [32, 64])
@@ -623,6 +727,29 @@ def test_split_kernel_ragged_n(hidden, n):
 
 
 @pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("n", [1, 17, 1000, 4095])
+def test_thread_kernel_ragged_n(hidden, n):
+    """Lane counts that end inside a warp (and n = 1) a ray per thread: the
+    terminal call's first n lanes (sorted, the actives first), replayed by
+    the plain march with the kernel's own chain bit for bit, that chain
+    within K1_MMA_SDF_ATOL of the plain one on the way, and the replay of
+    the lanes beyond the tensor-core bar (chip_smoke.replay_beyond) landing
+    on the kernel's results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    params, (origin, dirs, state, cfg, frame, kw) = _terminal_call(hidden)
+    order = torch.argsort((~state.active).to(torch.int8), stable=True)[:n]
+    part = state._replace(**{f: getattr(state, f)[order]
+                             for f in ("t", "budget", "active", "converged")})
+    assert bool(part.active[0])
+    call = (origin, dirs[order].contiguous(), part, cfg, frame, kw)
+    k, p = _thread_call(params, call)
+    _replay_equal(params, call, k)
+    beyond = chip_smoke.replay_beyond(params, call, k, p)
+    assert beyond["replay_equal"] and beyond["chain_max_diff"] <= chip_smoke.K1_MMA_SDF_ATOL
+
+
+@pytest.mark.parametrize("hidden", [32, 64])
 def test_split_kernel_launch_counted(hidden):
     """A launch that ray_lanes sends to the ray-split mode counts once in
     total, under its width and under SPLIT_LAUNCHES; ``_ray_lanes=1`` does
@@ -632,8 +759,7 @@ def test_split_kernel_launch_counted(hidden):
     from cudaneuralrender_torch.kernels import megakernel
 
     params, (origin, dirs, state, cfg, frame, kw) = _terminal_call(hidden)
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    assert megakernel.ray_lanes(dirs.shape[0], hidden, "highest", sm_count) == 32
+    assert megakernel.ray_lanes(hidden, "highest", kw.get("num_steps")) == 32
     before = (megakernel.KERNEL_LAUNCHES, megakernel.WIDTH_LAUNCHES[hidden],
               megakernel.SPLIT_LAUNCHES[hidden])
     megakernel.march_state(params, origin, dirs, state, cfg, frame, **kw)

@@ -1,15 +1,19 @@
-"""The march kernel's FP32 chain on the tensor cores (K1 from width 128),
-modelled on the CPU.
+"""The march kernel's FP32 chain on the tensor cores (K1), modelled on the
+CPU.
 
-From width 128 the march kernel runs its FP32 chain (precisions "default"
-and "highest") as 3xTF32 MMA over a warp's 32 rays (csrc/chain.cuh
-``chain_tf32_smem``), which no CPU runs. ``fused_mlp.mlp_chain_3xtf32_mma``
-models its summation order; these tests hold that model, on seeded random
-3 -> H x 3 -> 1 nets (tests/test_torch_mma.py's ``random_stack``) and on
-csg_demo widened to H (``chip_smoke.widen``, 9 layers), points uniform in
-[-1.2, 1.2]^3:
+A ray per thread the march kernel runs its FP32 chain (precisions
+"default" and "highest") as 3xTF32 MMA over a warp's 32 rays at every
+width (csrc/chain.cuh ``chain_tf32_regs`` at 32 and 64, the activations in
+registers, each k-chunk's truncated sum corrected by a residual MMA and a
+fourth product at 32; ``chain_tf32_smem`` from 128, each chunk's sum
+rounded to even), which no CPU runs. ``fused_mlp.mlp_chain_3xtf32_mma``
+models its summation order at each width; these tests hold that model, on
+seeded random 3 -> H x 3 -> 1
+nets (tests/test_torch_mma.py's ``random_stack``) and on csg_demo (the
+shipped net at 32, widened to H by ``chip_smoke.widen`` above, 9 layers),
+points uniform in [-1.2, 1.2]^3:
 
-  * within 1e-5 of the plain FP32 chain at widths 128-1024 (FP32-grade
+  * within 1e-5 of the plain FP32 chain at widths 32-1024 (FP32-grade
     sums in two orders, 3xTF32's dropped small * small term; the JAX
     package's bar for its fused forward, tests/test_pallas.py:308);
   * as close to float64 as the FP32 chain in the order it runs on the card
@@ -21,12 +25,20 @@ csg_demo widened to H (``chip_smoke.widen``, 9 layers), points uniform in
     accurately (blocked partial sums; mean |error| 2.7e-8 at 1024 wide),
     and its figures are printed beside;
   * within 1e-5 of the JAX package's ``mlp_forward_pallas`` in interpret
-    mode at HIGHEST (its default) at 128 and 256;
+    mode at HIGHEST (its default) at 32, 64, 128 and 256;
   * without the round to even of each chunk's truncated sum, biased low
-    against float64 (the reason the kernel rounds it).
+    against float64 (the reason the wide kernel rounds it);
+  * at width 32 without the fourth product a_small * b_small
+    (``fused_mlp.tf32_passes``), further from float64 on the shipped net
+    (the reason the kernel keeps it there: on the card the march's float64
+    witness came to the edge of its bar without it, PERF.md).
 
 tests/test_torch_wide.py marches with the model against the JAX megakernel.
+The design variants ``benchmarks/k1_variants.py`` builds on the card are
+checked to edit the tree's csrc/ (each replaced text there once).
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,18 +46,20 @@ import torch
 
 import chip_smoke
 import cudaneuralrender_torch as ct
+from cudaneuralrender_torch.benchmarks import k1_variants
+from cudaneuralrender_torch.kernels import build
 from cudaneuralrender_torch.kernels import fused_mlp as fused_t
 from cudaneuralrender_tpu.pallas import fused_mlp as fused_j
 from test_torch_mma import points, random_stack
 
 torch.set_num_threads(2)
 
-WIDTHS = (128, 256, 512, 1024)
+WIDTHS = (32, 64, 128, 256, 512, 1024)
 ATOL = 1e-5
 CSG = chip_smoke.ASSET
 # Points a width: the model sums each MMA's products one by one in torch
 # (T x H^2 values a layer and pass).
-N_POINTS = {128: 1024, 256: 512, 512: 128, 1024: 32}
+N_POINTS = {32: 4096, 64: 2048, 128: 1024, 256: 512, 512: 128, 1024: 32}
 
 
 def _stack(net: str, h: int):
@@ -54,7 +68,9 @@ def _stack(net: str, h: int):
         return random_stack(h, 3, seed=5 * h)
     with np.load(CSG) as data:
         layers = [(data[f"w{i}"], data[f"b{i}"]) for i in range(len(data.files) // 2)]
-    params = ct.from_numpy_params(chip_smoke.widen(layers, h // 32, seed=h), device="cpu")
+    if h > 32:
+        layers = chip_smoke.widen(layers, h // 32, seed=h)
+    params = ct.from_numpy_params(layers, device="cpu")
     weights, biases, _, width = fused_t.pack_params(params)
     assert width == h
     return weights, biases
@@ -146,7 +162,25 @@ def test_round_to_even_removes_the_truncation_bias(monkeypatch):
     assert rounded.mean().abs() < 0.25 * truncated.mean().abs()
 
 
-@pytest.mark.parametrize("h", WIDTHS[:2])
+def test_fourth_pass_at_32_brings_the_sdf_to_fp32(monkeypatch):
+    """The shipped csg_demo at 32: with the kernel's fourth tf32 product
+    per weight the model's mean |SDF - float64| is within 5% of the FFMA
+    chain's; with three it lies over 10% further (a 32-wide layer sums too
+    few products for the dropped a_small * b_small terms to vanish in the
+    sum's own rounding; on the card that took the march's float64 witness
+    to the edge of its bar, PERF.md)."""
+    assert (fused_t.tf32_passes(32), fused_t.tf32_passes(64)) == (4, 3)
+    _, _, exact, inputs = _heads("csg_demo", 32)
+    card = (_fp32_in_order(*inputs).double() - exact).abs().mean()
+    four = (fused_t.mlp_chain_3xtf32_mma(*inputs).double() - exact).abs().mean()
+    monkeypatch.setattr(fused_t, "tf32_passes", lambda h: 3)
+    three = (fused_t.mlp_chain_3xtf32_mma(*inputs).double() - exact).abs().mean()
+    print(f"width 32, mean |SDF - float64|: 3 passes {three:.3g}, 4 passes {four:.3g}, FP32 chain "
+          f"in the card's order {card:.3g}")
+    assert four <= 1.05 * card and three > 1.1 * card
+
+
+@pytest.mark.parametrize("h", WIDTHS[:4])
 def test_3xtf32_model_matches_jax_pallas(h):
     """The same inputs through JAX's fused forward, Pallas in interpret
     mode, at its default precision HIGHEST."""
@@ -173,3 +207,14 @@ def test_tf32_rna_rounds_to_nearest_ties_away():
     r = fused_t.tf32_rna(x)
     assert torch.equal(fused_t.tf32_rna(r), r)
     assert ((r - x).abs() <= x.abs() * 2.0 ** -11).all()
+
+
+@pytest.mark.parametrize("name", sorted(k1_variants.VARIANTS))
+def test_k1_variants_edit_the_tree(name):
+    """Each design variant that ``benchmarks/k1_variants.py`` builds on the
+    card undoes one choice of the tree's csrc/: the text it replaces is
+    there, once."""
+    path, old, new = k1_variants.VARIANTS[name]
+    with open(os.path.join(build.CSRC_DIR, path)) as f:
+        text = f.read()
+    assert text.count(old) == 1 and new not in text

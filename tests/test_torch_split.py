@@ -1,14 +1,21 @@
 """The march kernel's ray-split mode (a ray per warp) on the CPU.
 
 ``megakernel.ray_lanes`` picks, per launch, whether the kernel marches a
-ray per thread or a ray per warp (the FP32 chain at widths 32 and 64 split
-over the warp's lanes, csrc/march.cuh ``march_split_kernel``), from the
-launch's lane count and the card's SM count alone. Both modes compute
-``march_state_plain``'s function; on the card they equal each other bit for
-bit (tests/test_torch_cuda.py). Here, without a card:
-  * ``ray_lanes``: the split mode at a terminal rung's lane count, a ray
-    per thread at the coarse call's and wherever the chain sums on the
-    tensor cores, and the same answer for the same inputs;
+ray per thread (the FP32 chain on the tensor cores over a warp's rays) or
+a ray per warp (at widths 32 and 64 the FFMA chain split over the warp's
+lanes, csrc/march.cuh ``march_split_kernel``), from the call's steps and
+whether it is a frame's coarse call. Both
+modes compute ``march_state_plain``'s function; on the card a ray per warp
+equals it bit for bit, a ray per thread within the tensor-core bar
+(tests/test_torch_cuda.py). Here, without a card:
+  * ``ray_lanes``: the split mode on the ladder's later rungs (at least
+    SPLIT_MIN_STEPS steps, or run to dry), a ray per thread on its first
+    rungs and on every call marked ``coarse`` (the
+    staged renderer marks its coarse call so, whatever the image's size)
+    and wherever the chain has no split mode (``split_chain``: the
+    three-pass chain, widths from 128), and the same answer for the same
+    inputs; the stack each mode's launch reads (``_kernel_weights``): tf32
+    fragment order a ray per thread, the FP32 stack a ray per warp;
   * the case the split mode is for, against the JAX package: a sorted
     2048-lane refine bucket in which only a few lanes are active, built
     from JAX's refine entry (csg_demo at 64x64 rays, coarse to eps 0.05,
@@ -21,7 +28,7 @@ bit (tests/test_torch_cuda.py). Here, without a card:
     flags and active flags agree on >99% of lanes, t within 1e-4 where both
     converged, resolve steps equal on >=99%, equal step counters;
   * the ``_ray_lanes`` override raises on a value other than 1 or 32 and
-    on 32 for a chain on the tensor cores, without loading the library,
+    on 32 for a chain without a split mode, without loading the library,
     and the CPU march ignores the mode.
 """
 import os
@@ -48,50 +55,145 @@ ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "example
 RES = 64
 BUCKET = 2048
 PRE_STEPS = 16 + 24 + 64  # the bounded refine rungs before the terminal one
-SM_COUNT = 132  # an H100 SXM
-# The staged renderer's launches at 1080p with csg_demo (a CPU run of the
-# warm frame): the coarse call over every ray, the terminal rung's tuned
-# bucket, and the smallest bucket a rung has (compact_min).
-COARSE_N = 1920 * 1080
-TERMINAL_N = 442368
-COMPACT_MIN = ct.RenderConfig().compact_min
+# The staged renderer's refine rungs (ct.RenderConfig().refine_schedule):
+# the steps of each call, None for the terminal rung run to dry.
+RUNG_STEPS = tuple(steps or None for _, steps in ct.RenderConfig().refine_schedule)
 
 
 @pytest.mark.parametrize("hidden", [32, 64])
 @pytest.mark.parametrize("precision", ["default", "highest"])
 def test_ray_lanes_splits_small_launches(hidden, precision):
-    for n in (1, COMPACT_MIN, TERMINAL_N):
-        assert mk_t.ray_lanes(n, hidden, precision, SM_COUNT) == mk_t.SPLIT_LANES == 32, n
+    """The ladder's later rungs, whose buckets are the small launches with
+    a few stragglers active: the (32, 64) rung and the terminal rung run to
+    dry march a ray per warp; so does any bounded call of SPLIT_MIN_STEPS
+    steps or more."""
+    assert RUNG_STEPS == (16, 24, 64, None)
+    for num_steps in (64, None, mk_t.SPLIT_MIN_STEPS, 10 * mk_t.SPLIT_MIN_STEPS):
+        assert mk_t.ray_lanes(hidden, precision, num_steps) == mk_t.SPLIT_LANES == 32, num_steps
 
 
 @pytest.mark.parametrize("hidden", [32, 64])
 def test_ray_lanes_keeps_a_ray_per_thread_on_the_coarse_call(hidden):
+    """The coarse call and the ladder's first rungs (16 and 24 steps, a
+    third to three quarters of their lanes active) march a ray per thread."""
     for precision in ("default", "highest"):
-        assert mk_t.ray_lanes(COARSE_N, hidden, precision, SM_COUNT) == 1
+        assert mk_t.ray_lanes(hidden, precision, None, coarse=True) == 1
+        for num_steps in (1, 16, 24, mk_t.SPLIT_MIN_STEPS - 1):
+            assert mk_t.ray_lanes(hidden, precision, num_steps) == 1
+
+
+@pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_ray_lanes_never_splits_a_coarse_call(hidden, precision):
+    """A call marked ``coarse`` marches a ray per thread whatever it is run
+    for, the small images' coarse calls included (a bound on the lane count
+    sent 256x256's a ray per warp, 1.5x slower)."""
+    for num_steps in (None, 1, 16, 64, 1000):
+        assert mk_t.ray_lanes(hidden, precision, num_steps, coarse=True) == 1
+
+
+@pytest.mark.parametrize("hidden", [32, 64])
+def test_ray_lanes_splits_refine_calls_run_to_dry(hidden):
+    """A refine call run to dry (the terminal rung: a few stragglers for
+    hundreds of steps) marches a ray per warp, whatever its lane count
+    (a bound on the lane count kept many_sphere f90's 720896-lane bucket a
+    ray per thread, 7.7x slower); not the three-pass chain, nor a coarse
+    call."""
+    assert mk_t.ray_lanes(hidden, "highest", None) == mk_t.SPLIT_LANES
+    assert mk_t.ray_lanes(hidden, "high", None) == 1
+    assert mk_t.ray_lanes(hidden, "highest", None, coarse=True) == 1
 
 
 @pytest.mark.parametrize("hidden,precision", [(128, "highest"), (256, "default"),
                                               (512, "highest"), (1024, "highest"),
                                               (32, "high"), (64, "high")])
 def test_ray_lanes_keeps_a_ray_per_thread_on_tensor_core_chains(hidden, precision):
+    """Chains without a split mode march a ray per thread at every lane
+    count; they sum on the tensor cores in either mode's accounting."""
+    assert not mk_t.split_chain(hidden, precision)
     assert mk_t.tensor_core_chain(hidden, precision)
-    for n in (1, COMPACT_MIN, TERMINAL_N, COARSE_N):
-        assert mk_t.ray_lanes(n, hidden, precision, SM_COUNT) == 1
+    assert mk_t.tensor_core_chain(hidden, precision, mk_t.SPLIT_LANES)
+    for num_steps in RUNG_STEPS:
+        assert mk_t.ray_lanes(hidden, precision, num_steps) == 1
+
+
+@pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_fp32_chain_at_32_and_64_sums_on_the_tensor_cores_a_ray_per_thread(hidden, precision):
+    """The FP32 chain at 32 and 64: 3xTF32 a ray per thread, the FFMA chain
+    in the plain version's order a ray per warp."""
+    assert mk_t.split_chain(hidden, precision)
+    assert mk_t.tensor_core_chain(hidden, precision)
+    assert not mk_t.tensor_core_chain(hidden, precision, mk_t.SPLIT_LANES)
+
+
+def test_staged_coarse_call_never_splits():
+    """The staged renderer marks its coarse call ``coarse`` and no other:
+    at 64x64 (4096 lanes, a small launch) ``ray_lanes`` picks a ray
+    per thread for it, and for the refine rungs by their steps (RUNG_STEPS):
+    the first two a ray per thread, the later ones a ray per warp."""
+    pt = ct.from_numpy_params(_layers("csg_demo", 1), device="cpu")
+    cfg = ct.RenderConfig(width=64, height=64, march_impl="staged")
+    calls = []
+    real = mk_t.march_state
+
+    def recording(params, origin, dirs, state, config, frame=0.0, **kw):
+        calls.append((dirs.shape[0], kw))
+        return real(params, origin, dirs, state, config, frame, **kw)
+
+    mk_t.march_state = recording
+    try:
+        ct.render_staged(pt, ct.Camera(rotation_y=30.0, rotation_x=-20.0), cfg)
+    finally:
+        mk_t.march_state = real
+    assert len(calls) > 1
+    (n0, kw0), rest = calls[0], calls[1:]
+    assert kw0.get("coarse") is True and n0 == cfg.num_rays
+    assert not any(kw.get("coarse", False) for _, kw in rest)
+    assert [kw.get("num_steps") for _, kw in rest] == list(RUNG_STEPS)
+    pick = [mk_t.ray_lanes(32, kw.get("precision", "highest"), kw.get("num_steps"),
+                           kw.get("coarse", False)) for _, kw in calls]
+    assert pick[0] == 1 and mk_t.ray_lanes(32, kw0["precision"], kw0.get("num_steps")) == 32
+    assert pick[1:] == [1, 1, mk_t.SPLIT_LANES, mk_t.SPLIT_LANES]
+
+
+@pytest.mark.parametrize("k", [1, 2], ids=["h32", "h64"])
+@pytest.mark.parametrize("lanes", [1, 32], ids=["thread", "warp"])
+def test_kernel_weights_by_mode(k, lanes):
+    """The stack ``_kernel_weights`` hands a launch: a ray per thread the
+    FP32 values in tf32 fragment order (``pack_mma(..., "tf32")``), a ray per
+    warp the FP32 stack [L, H, H]; at "high" the bfloat16 halves in either
+    accounting; the biases [L, H] in every case."""
+    from cudaneuralrender_torch.kernels import fused_mlp
+
+    pt = ct.from_numpy_params(_layers("csg_demo", k), device="cpu")
+    cfg = ct.RenderConfig()
+    weights, biases, _, h = fused_mlp.packed_params(pt)
+    assert h == 32 * k
+    dev = torch.device("cpu")
+    for precision in ("default", "highest"):
+        w, b, n_layers, hidden = mk_t._kernel_weights(pt, cfg, precision, dev, lanes)
+        assert (n_layers, hidden) == (len(pt), h) and torch.equal(b, biases)
+        if lanes == 1:
+            assert w.shape == (n_layers, h // 8, h // 8, 32, 2)
+            assert torch.equal(w, fused_mlp.pack_mma(weights, "tf32"))
+        else:
+            assert torch.equal(w, weights)
+    w, _, _, _ = mk_t._kernel_weights(pt, cfg, "high", dev, lanes)
+    assert w.dtype == torch.bfloat16 and w.shape == (len(pt), h // 16, h // 8, 32, 8)
 
 
 def test_ray_lanes_depends_on_n_and_sm_count_alone():
-    """The same (n, sm_count) gives the same mode, whatever came before;
-    more SMs never take the split mode away from a launch."""
-    ns = [1, 2048, 8192, TERMINAL_N, 491520, 598016, 1146880, COARSE_N, 1 << 24]
-    for sm in (66, 114, 132):
-        first = [mk_t.ray_lanes(n, 32, "highest", sm) for n in ns]
-        assert [mk_t.ray_lanes(n, 32, "highest", sm) for n in reversed(ns)][::-1] == first
-        for n, lanes in zip(ns, first):
-            assert lanes in (1, 32)
-            if lanes == 32:
-                assert mk_t.ray_lanes(n, 32, "highest", 2 * sm) == 32
-        # a smaller launch never marches a ray per thread where a larger splits
-        assert first == sorted(first, reverse=True)
+    """The same call gives the same mode, whatever came before. Neither the
+    lane count nor the SM count enters any more (``ray_lanes`` takes
+    neither): the call's steps and coarse flag stand in for its active
+    share, and a longer bounded call never marches a ray per thread where a
+    shorter one splits."""
+    steps = [1, 8, 16, 24, 32, 63, 64, 65, 128, 1000]
+    first = [mk_t.ray_lanes(32, "highest", k) for k in steps]
+    assert [mk_t.ray_lanes(32, "highest", k) for k in reversed(steps)][::-1] == first
+    assert set(first) == {1, 32} and first == sorted(first)
+    assert mk_t.ray_lanes(32, "highest", None) == 32
 
 
 def _layers(asset, k):
@@ -205,6 +307,10 @@ def test_ray_lanes_override_rejects_bad_values(no_library, value):
 @pytest.mark.parametrize("k,precision", [(4, "highest"), (1, "high"), (2, "high")],
                          ids=["h128_fp32", "h32_high", "h64_high"])
 def test_ray_lanes_override_rejects_tensor_core_chains(no_library, k, precision):
+    """32 lanes a ray only where the chain has a split mode: not the FP32
+    chain from 128 nor the three-pass chain, which march a ray per thread
+    on the tensor cores."""
+    assert not mk_t.split_chain(32 * k, precision)
     pt, origin, dirs, state, cfg = _cpu_call(_layers("csg_demo", k))
     with pytest.raises(ValueError, match="widths 32 and 64 only"):
         mk_t.march_state(pt, origin, dirs, state, cfg, precision=precision, _ray_lanes=32)

@@ -18,8 +18,8 @@ Tolerances, each the JAX package's own bar:
     (chip_smoke.undecided_lanes, ROADMAP section 3); at 1024 the refine
     calls bounded at 8 steps, and whole against a float64 witness
     (MARCH_NETS); the port's march with the model of the kernel's
-    tensor-core FP32 chain (fused_mlp.mlp_chain_3xtf32_mma) at 128 and 512
-    to the same bar;
+    tensor-core FP32 chain (fused_mlp.mlp_chain_3xtf32_mma) on csg_demo at
+    32 and widened to 64, and at 128 and 512, to the same bar;
   * dense ``render_image`` with use_pallas: atol 1e-5 (test_pallas.py:311-321);
   * ``render_staged``: hits agree on >=99%, >=97% of common hits within
     1e-3 (test_render.py:85-101).
@@ -145,6 +145,8 @@ VARIANTS = {"coarse": (0.05, None, 1.6), "rung0": (1e-6, 16, 0.0), "terminal": (
 MARCH_NETS = {"random_128": (16, None), "csg_demo_x2": (32, None), "random_512": (16, None),
               "random_1024": (16, 8)}
 MARCH_CASES = [(net, v) for net in MARCH_NETS for v in VARIANTS]
+# The shipped net itself (3->32x8->1), marched only with the model below.
+MODEL_NETS = {"csg_demo": (32, None)}
 # The whole refine calls at 1024, for the float64 witness.
 WITNESS_NET = "random_1024_whole"
 
@@ -153,6 +155,8 @@ def _net(name):
     if name.startswith("random_"):  # seed 4 crosses the bounding sphere at 512 and 1024
         h = int(name.split("_")[1])
         return _init_jax(2 if h == 128 else 4, (3, h, h, 1))
+    if name == "csg_demo":
+        return _both(_layers(CSG))
     return _both(chip_smoke.widen(_layers(CSG), 2, seed=3))
 
 
@@ -167,7 +171,7 @@ def wide_chain(request):
     each starting from the JAX package's output of the one before (the
     refine entry re-marks the near set active); the rays; and per call the
     port's march inputs and each side's chain, for ``_undecided``."""
-    res, bound = MARCH_NETS.get(request.param, (16, None))
+    res, bound = {**MARCH_NETS, **MODEL_NETS}.get(request.param, (16, None))
     pj, pt = _net(request.param)
     cfg_j = cj.RenderConfig(width=res, height=res)
     cfg_t = ct.RenderConfig(width=res, height=res)
@@ -217,8 +221,10 @@ def test_march_state_plain_matches_jax_wide(wide_chain, variant):
 
 
 # The model of the kernel's FP32 chain on the tensor cores
-# (fused_mlp.mlp_chain_3xtf32_mma) marches the nets at 128 and 512 wide.
-MODEL_CASES = [(net, v) for net in ("random_128", "random_512") for v in VARIANTS]
+# (fused_mlp.mlp_chain_3xtf32_mma) marches csg_demo at 32 and widened to 64
+# (the chain_tf32_regs widths) and the nets at 128 and 512 wide.
+MODEL_CASES = [(net, v) for net in ("csg_demo", "csg_demo_x2", "random_128", "random_512")
+               for v in VARIANTS]
 
 
 def _model_chain(pt):
