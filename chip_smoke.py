@@ -95,7 +95,25 @@ Phases; any failure exits non-zero and nothing is caught:
      version where the outputs are finite and carry the SDF (X1 at 9 reps,
      X2 at the JAX sizes, X3's v0 at 1 step and the others at 8, v3-v5p
      from t0 = 0), each output within X_RTOL of its own magnitude, and each
-     plain version timed once at the JAX sizes.
+     plain version timed once at the JAX sizes;
+ 12. training on the card (cudaneuralrender_torch/diff) at 1920x1080 with
+     csg_demo, the staged mixed config: the target the port's
+     ``render_image_diff`` at Camera(rotation_y=24), the start csg_demo plus
+     0.01 N(0,1) noise (a torch.Generator seeded 7); 2 warm and 5 timed
+     steps of ``pixel_train_step_fast`` at Camera(rotation_y=20+2i), one
+     stats dict shared: every timed step on the fast path through the
+     packed grad step, the march kernel launched by the solve (launches a
+     step), the loss along the gradient at a fixed solve (printed);
+     the same 8 steps on the architecture distilled to a sphere, whose
+     loss must fall (SPHERE_*); ``train_loop_fast`` over 8 steps from the
+     same start equal to the 8 sequential steps (TRAIN_LOOP_RTOL); every
+     march call of a solve of the trained weights against its plain
+     version, its coarse call timed both ways, and the solve equal to one
+     of the same weights loaded fresh; one ``pixel_loss`` gradient on the
+     card against the CPU's (TRAIN_GRAD_RTOL); the step's solve and grad +
+     update by CUDA events, the loop's amortized step, a profiled step's
+     idle share and its host syncs; 20 ``sdf_train_step``s at batch 8192
+     with the eikonal term; 3 dense ``pixel_train_step``s at 256x256.
 The line before the last is a JSON object of the kernels' launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
 """
@@ -1037,8 +1055,8 @@ def golden_check(img: np.ndarray, golden: np.ndarray) -> tuple:
     return float(iou), float((diff.max(axis=-1)[fg] <= 2).mean())
 
 
-def record_march_calls(renderer, cam, frame=0.0) -> list:
-    """Render one frame, recording (origin, dirs, state, config, frame,
+def record_calls(run) -> list:
+    """Call ``run()``, recording (origin, dirs, state, config, frame,
     kwargs) of every march_state call it makes, inputs cloned."""
     from cudaneuralrender_torch.kernels import megakernel
     from cudaneuralrender_torch.ops import march
@@ -1053,11 +1071,16 @@ def record_march_calls(renderer, cam, frame=0.0) -> list:
 
     megakernel.march_state = recording
     try:
-        renderer.render(cam, frame)
+        run()
     finally:
         megakernel.march_state = real
     torch.cuda.synchronize()
     return calls
+
+
+def record_march_calls(renderer, cam, frame=0.0) -> list:
+    """``record_calls`` over one rendered frame."""
+    return record_calls(lambda: renderer.render(cam, frame))
 
 
 def compare_recorded_calls(params, calls, plains=None) -> dict:
@@ -1080,16 +1103,21 @@ def compare_recorded_calls(params, calls, plains=None) -> dict:
 
 
 def device_breakdown(renderer, cam, frame=0.0) -> dict:
-    """torch.profiler over one warm frame: device time per kernel name,
-    each march kernel launch, and the device's idle share of the same
-    profiled frame (the profiler's host overhead is inside that frame, so
-    the idle share is an upper bound)."""
+    """``profile_breakdown`` of one warm frame."""
+    return profile_breakdown(lambda: renderer.render(cam, frame))
+
+
+def profile_breakdown(run) -> dict:
+    """torch.profiler over one warm ``run()`` (a frame, a training step):
+    device time per kernel name, each march kernel launch, and the device's
+    idle share of the same profiled run (the profiler's host overhead is
+    inside it, so the idle share is an upper bound)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        renderer.render(cam, frame)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -2083,6 +2111,307 @@ def drive_experiments(card) -> list:
     return entries
 
 
+# Phase 12: training on the card (cudaneuralrender_torch/diff), at 1080p
+# with csg_demo, the staged mixed config. TRAIN_WARM untimed and
+# TRAIN_TIMED timed steps of pixel_train_step_fast, then train_loop_fast
+# over TRAIN_LOOP steps from the same start against the sequential steps.
+TRAIN_SIDE = (1920, 1080)
+TRAIN_LR = 1e-4
+TRAIN_WARM, TRAIN_TIMED, TRAIN_LOOP = 2, 5, 8
+TRAIN_NOISE, TRAIN_SEED = 0.01, 7
+# Whether the loss falls is read on the shipped architecture distilled to a
+# sphere (as tests/test_diff.py's tiny_params): csg_demo's ReLU normals are
+# constant on small regions, so its pixel loss rises under Adam in both
+# packages (PERF.md, ROADMAP §3); the implicit gradient predicts the loss only
+# for parameter steps below SURROGATE_ETAS' scale, which is printed.
+SPHERE_RADIUS, SPHERE_FIT_STEPS, SPHERE_FIT_BATCH, SPHERE_FIT_LR = 0.7, 300, 2048, 3e-3
+SURROGATE_ETAS = (1e-6, 1e-5, 1e-4, 1e-3)
+# The pipelined loop reorders host reads only: its losses and parameters
+# equal the sequential steps' (as tests/test_diff.py:412-445 holds JAX's);
+# atol for parameters that are near 0.
+TRAIN_LOOP_RTOL, TRAIN_LOOP_ATOL = 1e-6, 1e-7
+# The card's gradient against the CPU's on the same solve and inputs: the
+# plain chains sum in other orders on the two devices.
+TRAIN_GRAD_RTOL = 1e-4
+SDF_FIT_BATCH, SDF_FIT_STEPS, SDF_FIT_EIKONAL, SDF_FIT_LR = 8192, 20, 0.1, 2e-3
+DENSE_TRAIN_SIDE, DENSE_TRAIN_MAX_STEPS, DENSE_TRAIN_STEPS = 256, 300, 3
+
+
+def _train_target(cnr, params, cfg):
+    """The port's ``render_image_diff`` of ``params`` at Camera(rotation_y=24),
+    its surface from ``solve_surface``."""
+    from cudaneuralrender_torch import diff
+
+    cam = cnr.Camera(rotation_y=24.0)
+    with torch.no_grad():
+        t_star, hit = diff.solve_surface(params, cam, cfg)
+        return diff.render_image_diff(params, cam, cfg, t_star=t_star, hit=hit)
+
+
+def _leaves_close(a, b, rtol: float, atol: float) -> float:
+    """Raise unless every tensor pair is within atol + rtol |b|; the
+    largest |a - b| over all of them."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        x, y = x.detach(), y.detach()
+        d = (x - y).abs()
+        if bool((d > atol + rtol * y.abs()).any()):
+            raise RuntimeError(f"tensors differ by up to {float(d.max()):.3g} "
+                               f"(rtol {rtol}, atol {atol})")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def count_host_syncs(run) -> collections.Counter:
+    """The synchronising CUDA calls ``run()`` makes, by the Python line
+    that made them (``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                               for w in caught if "synchroniz" in str(w.message))
+
+
+def _sphere_batch(generator, n: int, radius: float):
+    pts = torch.rand((n, 3), generator=generator, device=generator.device) * 2.4 - 1.2
+    return pts, torch.linalg.vector_norm(pts, dim=-1) - radius
+
+
+def drive_training(cnr, params, card) -> dict:
+    """Phase 12: csg_demo trained at 1080p through ``diff`` on the card (the
+    module docstring lists the steps). Returns K1's entry for the training
+    solve: its launches in the timed steps, the agreement of every march
+    call of a solve of the trained weights, that solve's coarse call
+    timed both ways."""
+    from cudaneuralrender_torch import diff
+    from cudaneuralrender_torch.diff import train
+    from cudaneuralrender_torch.examples.train_sdf import sample
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.models import mlp
+    from cudaneuralrender_torch.ops import compaction
+    from cudaneuralrender_torch.render import renderer as renderer_lib
+
+    dev = params.device
+    cfg = cnr.RenderConfig(width=TRAIN_SIDE[0], height=TRAIN_SIDE[1], march_impl="staged")
+    target = _train_target(cnr, params, cfg)
+    check_image(target, "training target", TRAIN_SIDE[1], TRAIN_SIDE[0])
+    gen = torch.Generator().manual_seed(TRAIN_SEED)
+    start = cnr.MLP([(l.w + TRAIN_NOISE * torch.randn(l.w.shape, generator=gen).to(dev),
+                      l.b + TRAIN_NOISE * torch.randn(l.b.shape, generator=gen).to(dev))
+                     for l in params])
+    s0 = train.init_train_state(start, TRAIN_LR)
+    cams = [cnr.Camera(rotation_y=20.0 + 2 * i) for i in range(TRAIN_LOOP)]
+
+    # Sequential steps, one stats dict shared: from the second on the
+    # pipelined packed path; its grad steps' buckets recorded.
+    buckets = []
+    real_packed = train._pixel_grad_step_packed
+
+    def counting(state, camera, target, pos, t_packed, conv, config, lr, cap, within):
+        buckets.append(cap)
+        return real_packed(state, camera, target, pos, t_packed, conv, config, lr, cap, within)
+
+    state, stats, losses, step_ms, rows = s0, {}, [], [], []
+    trained = None
+    train._pixel_grad_step_packed = counting
+    try:
+        for i in range(TRAIN_LOOP):
+            if i == TRAIN_WARM:
+                megakernel.reset_launch_counts()
+                first_bucket = len(buckets)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = train.pixel_train_step_fast(state, cams[i], target, cfg, TRAIN_LR,
+                                                      stats_out=stats)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            rows.append(dict(stats, bucket=buckets[-1] if buckets else None))
+            if i == TRAIN_WARM + TRAIN_TIMED - 1:
+                launches = megakernel.KERNEL_LAUNCHES
+                timed_buckets = len(buckets) - first_bucket
+                trained = state
+    finally:
+        train._pixel_grad_step_packed = real_packed
+    print(f"phase 12 sequential steps: {json.dumps(rows)}", flush=True)
+    print(f"phase 12 losses {losses}")
+    timed = rows[TRAIN_WARM:TRAIN_WARM + TRAIN_TIMED]
+    if not all(r["fast_path"] for r in timed):
+        raise RuntimeError(f"a timed 1080p training step left the fast path: {timed}")
+    if timed_buckets < TRAIN_TIMED:
+        raise RuntimeError(f"{timed_buckets} packed grad steps in {TRAIN_TIMED} timed steps: "
+                           "the pipelined packed path was not taken")
+    if launches == 0:
+        raise RuntimeError("the training solve never launched the march kernel")
+    per_step = launches / TRAIN_TIMED
+    seq_ms = statistics.median(step_ms[TRAIN_WARM:TRAIN_WARM + TRAIN_TIMED])
+    print(f"phase 12 K1 launches: {launches} in {TRAIN_TIMED} timed steps, {per_step:.1f} a step")
+
+    # The loss along the gradient of the trained state at a fixed solve:
+    # how far the first-order prediction holds.
+    with torch.no_grad():
+        t_star, hit = diff.solve_surface(trained.params, cams[0], cfg)
+    loss0 = diff.pixel_loss(trained.params, cams[0], cfg, target, t_star=t_star, hit=hit)
+    grads = torch.autograd.grad(loss0, train._flat(trained.params))
+    gnorm = float(torch.sqrt(sum((g ** 2).sum() for g in grads)))
+    drops = []
+    for eta in SURROGATE_ETAS:
+        moved = cnr.MLP([(w.detach() - eta / gnorm * gw, b.detach() - eta / gnorm * gb)
+                         for (w, b), gw, gb in zip(trained.params, grads[0::2], grads[1::2])])
+        with torch.no_grad():
+            loss = diff.pixel_loss(moved, cams[0], cfg, target, t_star=t_star, hit=hit)
+        drops.append((eta, float(loss - loss0.detach()), -eta * gnorm))
+    print(f"phase 12 csg_demo loss along -grad at a fixed solve (step, change, first-order "
+          f"prediction): {drops}")
+
+    # The pipelined loop from the same start, against the sequential steps.
+    loop_stats = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop_state, loop_losses = train.train_loop_fast(s0, cams, target, cfg, TRAIN_LR,
+                                                    stats_out=loop_stats)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_LOOP
+    loss_err = _leaves_close([torch.tensor(loop_losses)], [torch.tensor(losses)],
+                             TRAIN_LOOP_RTOL, 0.0)
+    param_err = _leaves_close(train._state_leaves(loop_state), train._state_leaves(state),
+                              TRAIN_LOOP_RTOL, TRAIN_LOOP_ATOL)
+    print(f"phase 12 train_loop_fast: {TRAIN_LOOP} steps, losses within {loss_err:.3g}, "
+          f"state within {param_err:.3g} of the sequential steps; fast path "
+          f"{[r.get('fast_path') for r in loop_stats]}")
+
+    # K1 on a solve of the trained weights, counted as a check, not the
+    # main path; the packed stack follows the update: the solve equals a
+    # solve of the same weights loaded fresh.
+    fresh = mlp.from_numpy_params(mlp.to_numpy_params(trained.params), device=dev)
+    with uncounted(), torch.no_grad():
+        calls = record_calls(lambda: diff.solve_surface(trained.params, cams[0], cfg))
+        result = compare_recorded_calls(trained.params, calls)
+        ms, plain_ms, bnd = time_coarse(trained.params, calls)
+        a, b = diff.solve_surface(trained.params, cams[0], cfg), diff.solve_surface(
+            fresh, cams[0], cfg)
+    for name, agree in result.items():
+        print(f"compare training solve {name}: {json.dumps(agree)}")
+    check_agreement(result)
+    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        raise RuntimeError("the solve of the trained weights differs from a solve of the "
+                           "same weights loaded fresh: a stale packed stack")
+
+    # One gradient on the card and the same on the CPU.
+    with torch.no_grad():
+        t_star, hit = diff.solve_surface(trained.params, cams[0], cfg)
+    cap = compaction.capacity_pow2_of(int(hit.sum()), cfg.num_rays, minimum=cfg.compact_min)
+
+    def grad_on(p, d):
+        loss = diff.pixel_loss(p, cams[0], cfg, target.to(d), t_star=t_star.to(d),
+                               hit=hit.to(d), compact_cap=cap)
+        return torch.autograd.grad(loss, train._flat(p))
+
+    g_card = [g.cpu() for g in grad_on(trained.params, dev)]
+    cpu_params = train._trainable(mlp.from_numpy_params(mlp.to_numpy_params(trained.params),
+                                                        device="cpu"))
+    g_cpu = grad_on(cpu_params, torch.device("cpu"))
+    delta = float(torch.sqrt(sum(((x - y) ** 2).sum() for x, y in zip(g_card, g_cpu))))
+    norm = float(torch.sqrt(sum((y ** 2).sum() for y in g_cpu)))
+    print(f"phase 12 gradient card vs CPU ({cap}-lane bucket): |d| {delta:.4g}, "
+          f"|g_cpu| {norm:.4g}, ratio {delta / norm:.3g}")
+    if not (norm > 0 and delta <= TRAIN_GRAD_RTOL * norm):
+        raise RuntimeError(f"card gradient off the CPU's: {delta} > {TRAIN_GRAD_RTOL} * {norm}")
+
+    # The step split: the packed solve and the grad + update, CUDA events.
+    hint = rows[-1]["hits"]
+    within = renderer_lib._conv_within(renderer_lib.memo_lookup(trained.params, cfg))
+    bucket = min(compaction.capacity_pow2_of(hint, cfg.num_rays, minimum=cfg.compact_min),
+                 within)
+    solve_ms = time_cuda(lambda: diff.solve_surface_packed_async(trained.params, cams[0], cfg),
+                         TRAIN_TIMED, warmup=1)
+    pos, t_p, conv, w_bound, _ = diff.solve_surface_packed_async(trained.params, cams[0], cfg)
+    grad_ms = time_cuda(lambda: train._pixel_grad_step_packed(
+        trained, cams[0], target, pos, t_p, conv, cfg, TRAIN_LR, bucket, w_bound),
+        TRAIN_TIMED, warmup=1)
+    prof = profile_breakdown(lambda: train.pixel_train_step_fast(
+        trained, cams[0], target, cfg, TRAIN_LR, stats_out=dict(rows[-1])))
+    syncs = count_host_syncs(lambda: train.pixel_train_step_fast(
+        trained, cams[0], target, cfg, TRAIN_LR, stats_out=dict(rows[-1])))
+    side = f"{TRAIN_SIDE[0]}x{TRAIN_SIDE[1]}"
+    print(f"train step {side}: median {seq_ms:.3f} ms over {TRAIN_TIMED} sequential steps "
+          f"{[round(x, 3) for x in step_ms]}; solve {solve_ms:.3f} ms, grad + update "
+          f"{grad_ms:.3f} ms ({bucket}-lane bucket); loop {loop_ms:.3f} ms a step amortized "
+          f"over {TRAIN_LOOP}; K1 {per_step:.1f} launches a step [{card}]")
+    print(f"train step {side} profile: {json.dumps(prof)} [{card}]")
+    print(f"train step {side} host syncs: {sum(syncs.values())} {json.dumps(syncs.most_common())}")
+
+    # The loss falls: the shipped architecture distilled to a sphere, the
+    # same noise, target and steps.
+    net = cnr.init_mlp(torch.Generator().manual_seed(3), device=dev)
+    sphere, _ = train.fit_sdf(
+        net, lambda g, n: _sphere_batch(g, n, SPHERE_RADIUS), steps=SPHERE_FIT_STEPS,
+        batch=SPHERE_FIT_BATCH, lr=SPHERE_FIT_LR)
+    sphere.requires_grad_(False)
+    starget = _train_target(cnr, sphere, cfg)
+    gen = torch.Generator().manual_seed(TRAIN_SEED)
+    state = train.init_train_state(cnr.MLP(
+        [(l.w + TRAIN_NOISE * torch.randn(l.w.shape, generator=gen).to(dev),
+          l.b + TRAIN_NOISE * torch.randn(l.b.shape, generator=gen).to(dev)) for l in sphere]),
+        TRAIN_LR)
+    stats, sphere_losses = {}, []
+    for cam in cams:
+        state, loss = train.pixel_train_step_fast(state, cam, starget, cfg, TRAIN_LR,
+                                                  stats_out=stats)
+        sphere_losses.append(float(loss))
+    print(f"phase 12 sphere-distilled net: losses {sphere_losses}")
+    if not min(sphere_losses[1:]) < sphere_losses[0]:
+        raise RuntimeError(f"the training loss did not fall: {sphere_losses}")
+
+    # SDF fitting: the shipped architecture against train_sdf's target.
+    net = cnr.init_mlp(torch.Generator().manual_seed(0), device=dev)
+    fit = train.init_train_state(net, SDF_FIT_LR)
+    sgen = torch.Generator(device=dev).manual_seed(0)
+    fit_ms, fit_losses = [], []
+    for _ in range(SDF_FIT_STEPS):
+        pts, d = sample(sgen, SDF_FIT_BATCH)
+        start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        start_ev.record()
+        fit, loss = train.sdf_train_step(fit, pts, d, SDF_FIT_LR, eikonal_weight=SDF_FIT_EIKONAL)
+        end_ev.record()
+        torch.cuda.synchronize()
+        fit_ms.append(start_ev.elapsed_time(end_ev))
+        fit_losses.append(float(loss))
+    print(f"sdf_train_step batch {SDF_FIT_BATCH}, eikonal {SDF_FIT_EIKONAL}: median "
+          f"{statistics.median(fit_ms[1:]):.3f} ms over {SDF_FIT_STEPS - 1} warm steps; losses "
+          f"{fit_losses[0]:.5f} -> {fit_losses[-1]:.5f} [{card}]")
+    if not (np.isfinite(fit_losses).all() and min(fit_losses[1:]) < fit_losses[0]):
+        raise RuntimeError(f"SDF fitting loss not finite or not falling: {fit_losses}")
+
+    # The dense step: the surface solved by the dense march inside.
+    dside = DENSE_TRAIN_SIDE
+    dcfg = cnr.RenderConfig(width=dside, height=dside, max_steps=DENSE_TRAIN_MAX_STEPS,
+                            march_impl="while")
+    dtarget = _train_target(cnr, params, dcfg.replace(march_impl="staged"))
+    dense, dense_ms, dense_losses = s0, [], []
+    for _ in range(DENSE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense, loss = train.pixel_train_step(dense, cams[0], dtarget, dcfg, TRAIN_LR)
+        dense_losses.append(float(loss))
+        dense_ms.append((time.perf_counter() - t0) * 1e3)
+    if not np.isfinite(dense_losses).all():
+        raise RuntimeError(f"dense training step losses not finite: {dense_losses}")
+    print(f"pixel_train_step {dside}x{dside} (dense march, max_steps {DENSE_TRAIN_MAX_STEPS}): "
+          f"median {statistics.median(dense_ms):.3f} ms over {DENSE_TRAIN_STEPS} "
+          f"{[round(x, 3) for x in dense_ms]}; losses {dense_losses} [{card}]", flush=True)
+    return dict(launches=launches, max_abs_err=max(a["max_abs_err"] for a in result.values()),
+                ms=ms, plain_ms=plain_ms, bnd=bnd)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
@@ -2271,6 +2600,13 @@ def main() -> int:
     kernels.extend(drive_experiments(card))
     print(f"phase 11 (step-cost experiments): {time.perf_counter() - t11:.1f} s wall",
           flush=True)
+
+    # 12. training on the card
+    t12 = time.perf_counter()
+    kernels.append(kernel_entry("march_kernel_train_solve", K1_SOURCE,
+                                "cudaneuralrender_tpu/pallas/megakernel.py:45",
+                                **drive_training(cnr, params, card)))
+    print(f"phase 12 (training): {time.perf_counter() - t12:.1f} s wall", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

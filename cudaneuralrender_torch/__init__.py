@@ -3,7 +3,9 @@
 A neural-SDF sphere-trace renderer for NVIDIA Hopper: load Keras-HDF5 SDF
 networks (3 or 4 inputs, hidden layers up to 1024 wide), march them with a
 hand-written CUDA kernel (csrc/march.cuh), and shade with facing-ratio or
-matcap. Models load onto the card unless the CPU is asked for. The JAX package beside it is the
+matcap. ``diff`` trains the network through the renderer (implicit-surface
+pixel gradients, the surface solve on the march kernel, Adam steps).
+Models load onto the card unless the CPU is asked for. The JAX package beside it is the
 reference this package is tested against; this package never imports JAX.
 
 Quick start::
@@ -34,6 +36,7 @@ from .render.renderer import (
 )
 from .utils import image_io
 from .utils.config import RenderConfig
+from . import diff
 
 __all__ = [
     "Camera",
@@ -44,6 +47,7 @@ __all__ = [
     "bounds",
     "camera",
     "compaction",
+    "diff",
     "fit_bound_sphere",
     "from_numpy_params",
     "image_io",

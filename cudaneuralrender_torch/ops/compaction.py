@@ -30,6 +30,17 @@ def capacity_bucket_of(count: int, total: int, minimum: int = 8192) -> int:
     return min(cap, total)
 
 
+def capacity_pow2_of(count: int, total: int, minimum: int = 8192,
+                     headroom: float = 1.25) -> int:
+    """Snug power-of-2 capacity holding ``count`` with ``headroom`` slack
+    (floored at ``minimum``, capped at ``total``). Finer than
+    ``capacity_bucket_of``'s powers of 4: the training step's grad bucket
+    (diff/losses.pixel_loss ``compact_cap``) costs in proportion to it."""
+    need = max(int(count * headroom), int(minimum), 1)
+    cap = 1 << (need - 1).bit_length()
+    return min(cap, int(total))
+
+
 def compact_indices(mask: torch.Tensor, capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Indices of True lanes packed into a dense [capacity] prefix.
 

@@ -34,14 +34,24 @@ def _normalize(v: torch.Tensor) -> torch.Tensor:
     return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
 
 
-def autodiff_normals(sdf_fn: SdfFn, points: torch.Tensor) -> torch.Tensor:
+def autodiff_normals(sdf_fn: SdfFn, points: torch.Tensor, *,
+                     differentiable: bool = False) -> torch.Tensor:
     """Exact unit normals: normalize(grad sdf). points (..., 3) -> (..., 3).
 
     Each SDF value depends on its own point only, so the gradient of the
-    sum is every point's own gradient (the JAX package's vmap(grad))."""
+    sum is every point's own gradient (the JAX package's vmap(grad)).
+
+    By default the normals are constants: the points are detached and the
+    gradient records no graph, which is all a render needs.
+    ``differentiable=True`` keeps the incoming points in the graph and
+    records the gradient's own graph, so a loss on the normals reaches the
+    parameters ``sdf_fn`` closes over and the points (the training path,
+    diff/implicit.py)."""
     with torch.enable_grad():
-        p = points.detach().reshape(-1, 3).requires_grad_(True)
-        (g,) = torch.autograd.grad(sdf_fn(p).sum(), p)
+        p = points.reshape(-1, 3)
+        if not (differentiable and p.requires_grad):
+            p = p.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(sdf_fn(p).sum(), p, create_graph=differentiable)
     return _normalize(g).reshape(points.shape)
 
 
@@ -109,10 +119,15 @@ def shade(
     sdf_fn: SdfFn, points: torch.Tensor, dirs: torch.Tensor, *,
     mode: str = "facing", normal_mode: str = "autodiff", normal_eps: float = 1e-5,
     world_to_cam: torch.Tensor | None = None, matcap: torch.Tensor | None = None,
+    differentiable: bool = False,
 ) -> torch.Tensor:
-    """rgba colours for surface points. points/dirs (..., 3) -> (..., 4)."""
+    """rgba colours for surface points. points/dirs (..., 3) -> (..., 4).
+
+    ``differentiable=True`` makes autodiff normals carry gradients to the
+    SDF's parameters and the points (``autodiff_normals``); the
+    tetrahedron normals are differentiable either way."""
     if normal_mode == "autodiff":
-        normals = autodiff_normals(sdf_fn, points)
+        normals = autodiff_normals(sdf_fn, points, differentiable=differentiable)
     elif normal_mode == "tetrahedron":
         normals = tetrahedron_normals(sdf_fn, points, normal_eps)
     else:

@@ -768,3 +768,158 @@ def test_split_kernel_launch_counted(hidden):
     after = (megakernel.KERNEL_LAUNCHES, megakernel.WIDTH_LAUNCHES[hidden],
              megakernel.SPLIT_LAUNCHES[hidden])
     assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 1)
+
+
+# Training (cudaneuralrender_torch/diff) on the card: noisy csg_demo at
+# 256x256, the staged mixed config, the solve on the march kernel.
+TRAIN_SIDE = 256
+
+
+def _train_setup():
+    """(cnr, diff, train, noisy start on the card, config, target)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch import diff
+    from cudaneuralrender_torch.diff import train
+
+    dev = torch.device("cuda", 0)
+    params = cnr.load(NPZ, device=dev)
+    cfg = cnr.RenderConfig(width=TRAIN_SIDE, height=TRAIN_SIDE, march_impl="staged")
+    target = chip_smoke._train_target(cnr, params, cfg)
+    gen = torch.Generator().manual_seed(chip_smoke.TRAIN_SEED)
+    start = cnr.MLP([(l.w + 0.01 * torch.randn(l.w.shape, generator=gen).to(dev),
+                      l.b + 0.01 * torch.randn(l.b.shape, generator=gen).to(dev))
+                     for l in params])
+    return cnr, diff, train, start, cfg, target
+
+
+def test_pixel_grad_card_matches_cpu():
+    """One ``pixel_loss`` gradient (the compact bucket) on the card and on
+    the CPU from the same solve: |d| <= TRAIN_GRAD_RTOL |g_cpu|."""
+    cnr, diff, train, start, cfg, target = _train_setup()
+    from cudaneuralrender_torch.ops import compaction
+
+    cam = cnr.Camera(rotation_y=20.0)
+    params = train._trainable(start)
+    with torch.no_grad():
+        t_star, hit = diff.solve_surface(params, cam, cfg)
+    cap = compaction.capacity_pow2_of(int(hit.sum()), cfg.num_rays, minimum=cfg.compact_min)
+    grads = {}
+    for dev, p in (("cuda", params),
+                   ("cpu", train._trainable(cnr.from_numpy_params(
+                       cnr.mlp.to_numpy_params(params), device="cpu")))):
+        loss = diff.pixel_loss(p, cam, cfg, target.to(dev), t_star=t_star.to(dev),
+                               hit=hit.to(dev), compact_cap=cap)
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, train._flat(p))]
+    delta = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(grads["cuda"], grads["cpu"])))
+    norm = torch.sqrt(sum((b ** 2).sum() for b in grads["cpu"]))
+    assert 0 < norm and delta <= chip_smoke.TRAIN_GRAD_RTOL * norm
+
+
+def test_train_steps_on_card():
+    """3 steps of ``pixel_train_step_fast``, one stats dict shared: the
+    pipelined steps on the fast path through the packed grad step, the
+    march kernel launched by the solve; ``train_loop_fast`` over the same
+    cameras equals them (chip_smoke.TRAIN_LOOP_RTOL)."""
+    cnr, diff, train, start, cfg, target = _train_setup()
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.render import renderer
+
+    assert renderer._conv_within(cfg) is not None
+    cams = [cnr.Camera(rotation_y=20.0 + 2 * i) for i in range(3)]
+    s0 = train.init_train_state(start, chip_smoke.TRAIN_LR)
+    state, stats, losses, packed = s0, {}, [], []
+    real = train._pixel_grad_step_packed
+    train._pixel_grad_step_packed = lambda *a: packed.append(a[8]) or real(*a)
+    before = megakernel.KERNEL_LAUNCHES
+    try:
+        for cam in cams:
+            state, loss = train.pixel_train_step_fast(state, cam, target, cfg,
+                                                      chip_smoke.TRAIN_LR, stats_out=stats)
+            losses.append(float(loss))
+    finally:
+        train._pixel_grad_step_packed = real
+    assert megakernel.KERNEL_LAUNCHES > before
+    assert stats["fast_path"] and len(packed) >= 2 and packed[-1] >= stats["hits"]
+    assert np.isfinite(losses).all()
+    loop, loop_losses = train.train_loop_fast(s0, cams, target, cfg, chip_smoke.TRAIN_LR)
+    chip_smoke._leaves_close([torch.tensor(loop_losses)], [torch.tensor(losses)],
+                             chip_smoke.TRAIN_LOOP_RTOL, 0.0)
+    chip_smoke._leaves_close(train._state_leaves(loop), train._state_leaves(state),
+                             chip_smoke.TRAIN_LOOP_RTOL, chip_smoke.TRAIN_LOOP_ATOL)
+
+
+def test_solve_follows_training_step_on_card():
+    """After a step the solve marches the new weights: equal, bit for bit,
+    to a solve of the same weights loaded fresh."""
+    cnr, diff, train, start, cfg, target = _train_setup()
+    cam = cnr.Camera(rotation_y=20.0)
+    state = train.init_train_state(start, 1e-2)
+    diff.solve_surface(state.params, cam, cfg)
+    state, _ = train.pixel_train_step_fast(state, cam, target, cfg, 1e-2)
+    a = diff.solve_surface(state.params, cam, cfg)
+    b = diff.solve_surface(cnr.from_numpy_params(cnr.mlp.to_numpy_params(state.params),
+                                                 device=state.params.device), cam, cfg)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_adam_card_matches_torch_optim():
+    """The out-of-place Adam on the card against ``torch.optim.Adam`` with
+    ``capturable=True``, which forms its bias corrections in float32 on
+    the device as optax does: 5 steps, params and moments within rtol 1e-6,
+    atol 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.diff import train
+
+    dev = torch.device("cuda", 0)
+    params = train._trainable(cnr.init_mlp(torch.Generator().manual_seed(3), (3, 16, 16, 1),
+                                           device=dev))
+    gen = torch.Generator().manual_seed(5)
+    grads = [[torch.randn(t.shape, generator=gen).to(dev) * 10.0 ** -k
+              for t in train._flat(params)] for k in range(5)]
+    ref = [torch.nn.Parameter(t.detach().clone()) for t in train._flat(params)]
+    ref_opt = torch.optim.Adam(ref, lr=1e-3, capturable=True)
+    opt = train.make_optimizer(1e-3)
+    state = opt.init(params)
+    for g in grads:
+        params, state = opt.update(g, state, params)
+        for q, x in zip(ref, g):
+            q.grad = x.clone()
+        ref_opt.step()
+    got = [train._flat(params), train._flat(state.mu), train._flat(state.nu)]
+    want = [ref, [ref_opt.state[q]["exp_avg"] for q in ref],
+            [ref_opt.state[q]["exp_avg_sq"] for q in ref]]
+    for got_l, want_l in zip(got, want):
+        for a, b in zip(got_l, want_l):
+            torch.testing.assert_close(a.detach(), b.detach(), rtol=1e-6, atol=1e-9)
+
+
+def test_sdf_fit_on_card():
+    """``sdf_train_step`` with the eikonal term at batch 8192 on the card:
+    the gradient equals the CPU's (|d| <= TRAIN_GRAD_RTOL |g|), and 20
+    steps reduce the loss."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.diff import losses, train
+    from cudaneuralrender_torch.examples.train_sdf import sample
+
+    dev = torch.device("cuda", 0)
+    net = cnr.init_mlp(torch.Generator().manual_seed(0), device=dev)
+    pts, d = sample(torch.Generator(device=dev).manual_seed(0), chip_smoke.SDF_FIT_BATCH)
+    grads = {}
+    for where, p in (("cuda", train._trainable(net)),
+                     ("cpu", train._trainable(cnr.from_numpy_params(
+                         cnr.mlp.to_numpy_params(net), device="cpu")))):
+        x, y = pts.to(where), d.to(where)
+        loss = (losses.sdf_distillation_loss(p, x, y)
+                + chip_smoke.SDF_FIT_EIKONAL * losses.eikonal_loss(p, x))
+        grads[where] = [g.cpu() for g in torch.autograd.grad(loss, train._flat(p))]
+    delta = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(grads["cuda"], grads["cpu"])))
+    norm = torch.sqrt(sum((b ** 2).sum() for b in grads["cpu"]))
+    assert delta <= chip_smoke.TRAIN_GRAD_RTOL * norm
+    _, history = train.fit_sdf(net, sample, steps=20, batch=chip_smoke.SDF_FIT_BATCH, lr=2e-3)
+    assert np.isfinite(history).all() and min(history[1:]) < history[0]
