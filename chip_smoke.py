@@ -113,7 +113,25 @@ Phases; any failure exits non-zero and nothing is caught:
      card against the CPU's (TRAIN_GRAD_RTOL); the step's solve and grad +
      update by CUDA events, the loop's amortized step, a profiled step's
      idle share and its host syncs; 20 ``sdf_train_step``s at batch 8192
-     with the eikonal term; 3 dense ``pixel_train_step``s at 256x256.
+     with the eikonal term; 3 dense ``pixel_train_step``s at 256x256;
+ 13. the render package (csg_demo, the 1080p staged config, Camera(rotation_x
+     =-20, rotation_y=30+i), frame number i): the warm turntable, 24 frames
+     cold and warm (``render_sequence(warm_start=True)``), frame 0 bit-equal,
+     later frames at WARM_MIN_HIT_AGREE / WARM_MIN_EQUAL, ms/frame both ways,
+     kernel = plain on every march call of a warm frame (the kernels line's
+     ``march_kernel_warm``) and its coarse call timed beside the cold one's;
+     fused chunks, the same 24 frames under neural_raw and many_sphere at
+     ``chunk`` in CHUNKS (CUDA graphs), every image and stats vector equal to
+     ``chunk=1`` bit for bit, one capture per key and the replays counted,
+     ms/frame with the capture apart, a profiled chunk beside the per-frame
+     path; matcap shading (benchmarks/recovered_matcaps/plane_1.png) and
+     tetrahedron normals at 1080p beside the main path's frame, and the card
+     against the port's CPU render at 256x256 at the mixed-path bar;
+     ``render_frame_interactive``'s bytes equal to ``render_frame``'s at 1080p,
+     both timed with the u32 and float32 fetches, the viewer on a free port
+     answering VIEWER_REQUESTS frames; ``render_batch_staged`` over csg_demo
+     and 4 noisy copies at 1080p, each frame equal to its ``render_staged``,
+     pipelined against sequential, and ``render_batch`` at 128x128.
 The line before the last is a JSON object of the kernels' launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
 """
@@ -1108,10 +1126,11 @@ def device_breakdown(renderer, cam, frame=0.0) -> dict:
 
 
 def profile_breakdown(run) -> dict:
-    """torch.profiler over one warm ``run()`` (a frame, a training step):
-    device time per kernel name, each march kernel launch, and the device's
-    idle share of the same profiled run (the profiler's host overhead is
-    inside it, so the idle share is an upper bound)."""
+    """torch.profiler over one warm ``run()`` (a frame, a training step, a
+    chunk's graph replay): device time per kernel name, each march kernel
+    launch, and the device's idle share of the same profiled run (the
+    profiler's host overhead is inside it, so the idle share is an upper
+    bound)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1735,14 +1754,14 @@ def row_sweep(params, card, n_points) -> dict:
     return dict(fp32=off, three_pass=dmax)
 
 
-def mixed_bar(img, ref, what: str) -> tuple:
+def mixed_bar(img, ref, what: str, ref_name: str = "the default config") -> tuple:
     """The mixed path's bar (tests/test_render.py:85-101): hit masks agree
     on >= 99% of pixels and >= 97% of common hits within 1e-3 in rgba."""
     hit, hit_ref = img[..., 3] > 0, ref[..., 3] > 0
     agree = (hit == hit_ref).float().mean().item()
     both = hit & hit_ref
     close = (img - ref).abs().amax(dim=-1)[both].lt(1e-3).float().mean().item()
-    print(f"{what}: hit masks agree with the default config on {agree:.6f}, "
+    print(f"{what}: hit masks agree with {ref_name} on {agree:.6f}, "
           f"{int(both.sum())} common hits, {close:.6f} of them within 1e-3")
     if agree < 0.99 or close < 0.97 or int(both.sum()) == 0:
         raise RuntimeError(f"{what}: masks agree {agree}, common hits within 1e-3 {close}")
@@ -2175,8 +2194,10 @@ def count_host_syncs(run) -> collections.Counter:
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    # (the debug mode's own notice, that it is a prototype, is not a sync)
     return collections.Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
-                               for w in caught if "synchroniz" in str(w.message))
+                               for w in caught if "synchroniz" in str(w.message)
+                               and "prototype" not in str(w.message))
 
 
 def _sphere_batch(generator, n: int, radius: float):
@@ -2412,6 +2433,373 @@ def drive_training(cnr, params, card) -> dict:
                 ms=ms, plain_ms=plain_ms, bnd=bnd)
 
 
+# Phase 13: the render package. The turntable's frames: csg_demo at 1080p,
+# Camera(rotation_x=-20, rotation_y=30 + i), frame number i.
+RENDER_FRAMES = 24
+CHUNKS = (1, 4, 8, 24)
+CHUNK_SCENES = ("neural_raw", "many_sphere")
+PROFILED_CHUNK = 8
+# Warm against cold, per frame after the first (tests/test_render.py:236-300).
+WARM_MIN_HIT_AGREE = 0.995
+WARM_MIN_EQUAL = 0.98
+MATCAP = os.path.join(ROOT, "benchmarks", "recovered_matcaps", "plane_1.png")
+# The card against the port's CPU render (item 10) at this side. The
+# tetrahedron frames are compared at TET_NORMAL_EPS: at the reference's
+# 1e-5 the 4-tap difference of four float32 SDF values leaves ~2.5e-3 of
+# noise in a normal (tests/test_torch_staged_shading.py), which two devices
+# summing in their own orders cannot share. At 1e-5 the card's normals are
+# held against the same formula in float64 instead, as that test holds the
+# CPU port's against JAX's: mean and largest error within TET_WITNESS_MEAN
+# and TET_WITNESS_MAX times the CPU port's.
+ITEM10_SIDE = 256
+TET_NORMAL_EPS = 1e-3
+TET_WITNESS_MEAN, TET_WITNESS_MAX = 1.5, 2.0
+VIEWER_REQUESTS = 3
+MULTIGEOM_COPIES = 4  # csg_demo and this many noisy copies (phase 12's noise)
+BATCH_SIDE, BATCH_MAX_STEPS = 128, 500  # the dense march syncs the host every step
+
+
+def _turntable(cnr, n=RENDER_FRAMES):
+    cams = [cnr.Camera(rotation_x=CAMERA["rotation_x"], rotation_y=CAMERA["rotation_y"] + i)
+            for i in range(n)]
+    return cams, [float(i) for i in range(n)]
+
+
+def _timed_sequence(cnr, params, cams, cfg, frames, **kw) -> tuple:
+    """One synchronised ``render_sequence`` call: (images, stats, ms/frame)."""
+    stats = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cnr.render_sequence(params, cams, cfg, frames=frames, stats_out=stats, **kw)
+    torch.cuda.synchronize()
+    return out, stats, (time.perf_counter() - t0) * 1e3 / len(cams)
+
+
+def _frame_groups(calls) -> list:
+    """Recorded march calls split into frames: each frame opens with its
+    coarse call (``coarse=True``)."""
+    groups = []
+    for call in calls:
+        if call[5].get("coarse") or not groups:
+            groups.append([])
+        groups[-1].append(call)
+    return groups
+
+
+def drive_warm(cnr, params, card) -> dict:
+    """Phase 13, warm turntable: 24 frames cold and warm. Returns the warm
+    march kernel's entry: launches of the timed warm sequence, kernel =
+    plain on every march call of a warm frame, its coarse call both ways."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged")
+    cams, frames = _turntable(cnr)
+    _timed_sequence(cnr, params, cams, cfg, frames)  # teaches the memo its caps
+    cold, cold_stats, cold_ms = _timed_sequence(cnr, params, cams, cfg, frames)
+    _timed_sequence(cnr, params, cams, cfg, frames, warm_start=True)
+    megakernel.reset_launch_counts()
+    warm, warm_stats, warm_ms = _timed_sequence(cnr, params, cams, cfg, frames,
+                                                warm_start=True)
+    launches = megakernel.KERNEL_LAUNCHES
+    if launches == 0:
+        raise RuntimeError("the warm turntable never launched the march kernel")
+    if not torch.equal(warm[0], cold[0]):
+        raise RuntimeError("warm frame 0 differs from the cold frame 0")
+    agree, equal = [], []
+    for c, w in zip(cold[1:], warm[1:]):
+        agree.append(((c[..., 3] > 0) == (w[..., 3] > 0)).float().mean().item())
+        equal.append((c == w).all(dim=-1).float().mean().item())
+    print(f"warm turntable 1080p, {len(cams)} frames: cold {cold_ms:.3f} ms/frame, warm "
+          f"{warm_ms:.3f} ms/frame, {launches} kernel launches warm; frames 1-: hit masks agree "
+          f"min {min(agree):.6f}, equal pixels min {min(equal):.6f}; steps cold "
+          f"{[s['steps'] for s in cold_stats]} warm {[s['steps'] for s in warm_stats]} [{card}]")
+    if min(agree) < WARM_MIN_HIT_AGREE or min(equal) < WARM_MIN_EQUAL:
+        raise RuntimeError(f"warm turntable: hit agreement {agree}, equal pixels {equal}")
+    if not all(s["fast_path"] for s in warm_stats + cold_stats):
+        raise RuntimeError("a turntable frame left the fast path")
+    for i in (0, len(cams) - 1):
+        check_image(warm[i], f"warm turntable frame {i}")
+
+    warm_calls = _frame_groups(record_calls(lambda: cnr.render_sequence(
+        params, cams[:3], cfg, frames=frames[:3], warm_start=True)))[-1]
+    cold_calls = _frame_groups(record_calls(lambda: cnr.render_sequence(
+        params, cams[2:3], cfg, frames=frames[2:3])))[-1]
+    result = compare_recorded_calls(params, warm_calls)
+    for name, a in result.items():
+        print(f"compare warm frame 2 {name}: {json.dumps(a)}")
+    check_agreement(result)
+    ms, plain_ms, bnd = time_coarse(params, warm_calls)
+    cold_ms_call, cold_plain, _ = time_coarse(params, cold_calls)
+    lanes = int(warm_calls[0][2].active.sum())
+    warm_lanes = int((warm_calls[0][2].t > cold_calls[0][2].t).sum())
+    print(f"warm turntable frame 2: coarse call kernel {ms:.3f} ms (cold {cold_ms_call:.3f}), "
+          f"plain {plain_ms:.3f} ms (cold {cold_plain:.3f}); {warm_lanes} of {lanes} active "
+          f"lanes start warm; bound {bnd['bound_ms']:.3f} ms [{card}]", flush=True)
+    for name, kw in (("cold", {}), ("warm", dict(warm_start=True))):
+        prof = profile_breakdown(lambda: cnr.render_sequence(params, cams[:3], cfg,
+                                                             frames=frames[:3], **kw))
+        print(f"warm turntable, 3 frames {name}: {json.dumps(prof)} [{card}]")
+    return dict(launches=launches, max_abs_err=max(a["max_abs_err"] for a in result.values()),
+                ms=ms, plain_ms=plain_ms, bnd=bnd)
+
+
+def drive_chunks(cnr, params, card) -> None:
+    """Phase 13, fused chunks: the 24 frames under neural_raw and
+    many_sphere, ``chunk`` in CHUNKS, each chunked sequence equal to
+    ``chunk=1`` bit for bit, images and stats; captures one per key."""
+    from cudaneuralrender_torch.render import renderer as renderer_lib
+
+    cams, frames = _turntable(cnr)
+    for scene in CHUNK_SCENES:
+        cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged", scene=scene)
+        if renderer_lib.frame_reads_host(renderer_lib.memo_lookup(params, cfg)):
+            raise RuntimeError(f"{scene}: the 1080p staged config reads the host")
+        _timed_sequence(cnr, params, cams, cfg, frames)  # teaches the memo its caps
+        ref, ref_stats, ref_ms = _timed_sequence(cnr, params, cams, cfg, frames)
+        rows = {1: dict(ms_per_frame=ref_ms)}
+        for k in CHUNKS[1:]:
+            before = renderer_lib.graph_stats()
+            first, first_stats, first_ms = _timed_sequence(cnr, params, cams, cfg, frames,
+                                                           chunk=k)
+            out, stats, ms = _timed_sequence(cnr, params, cams, cfg, frames, chunk=k)
+            after = renderer_lib.graph_stats()
+            graph = [g for g in after["graphs"] if g["k"] == k and g["scene"] == scene][-1]
+            captures = after["captures"] - before["captures"]
+            replays = after["replays"] - before["replays"]
+            for images, st in ((first, first_stats), (out, stats)):
+                unequal = [i for i, (a, b) in enumerate(zip(ref, images)) if not torch.equal(a, b)]
+                if unequal or st != ref_stats or len(images) != len(ref):
+                    raise RuntimeError(f"{scene} chunk={k}: frames {unequal} differ from "
+                                       f"chunk=1, stats equal {st == ref_stats}")
+            if captures != 1 or replays != 2 * (-(-len(cams) // k)):
+                raise RuntimeError(f"{scene} chunk={k}: {captures} captures, {replays} replays")
+            rows[k] = dict(ms_per_frame=ms, first_call_ms_per_frame=first_ms,
+                           capture_ms=graph["capture_ms"], march_nodes=graph["march_nodes"],
+                           replays=replays)
+        print(f"chunks 1080p {scene}, {len(cams)} frames, all equal to chunk=1 bit for bit: "
+              f"{json.dumps(rows)} [{card}]")
+        sub = slice(0, PROFILED_CHUNK)
+        per_frame = profile_breakdown(lambda: cnr.render_sequence(
+            params, cams[sub], cfg, frames=frames[sub]))
+        chunked = profile_breakdown(lambda: cnr.render_sequence(
+            params, cams[sub], cfg, frames=frames[sub], chunk=PROFILED_CHUNK))
+        for name, prof in (("per frame", per_frame), (f"chunk={PROFILED_CHUNK}", chunked)):
+            prof = {k: v for k, v in prof.items() if k != "march_kernel_ms"}
+            print(f"chunks 1080p {scene}, {PROFILED_CHUNK} frames {name}: {json.dumps(prof)} "
+                  f"[{card}]")
+        renderer_lib.reset_graphs()
+    print(f"graphs: {json.dumps(renderer_lib.graph_stats())}", flush=True)
+
+
+def drive_item10(cnr, params, card) -> None:
+    """Phase 13, matcap shading and tetrahedron normals through the staged
+    path: 1080p frames beside the main path's, the card against the
+    port's CPU render at ITEM10_SIDE, and the tetrahedron normals at the
+    reference's normal_eps against float64 (``tet_normals_witness``)."""
+    from cudaneuralrender_torch.utils import image_io
+
+    matcap = image_io.load_matcap(MATCAP)
+    cpu_params = cnr.load(ASSET, device="cpu")
+    cam = cnr.Camera(**CAMERA)
+    times = {}
+    for name, fields in (("main path", {}), ("matcap", dict(shading="matcap")),
+                         ("tetrahedron", dict(normal_mode="tetrahedron"))):
+        cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged", **fields)
+        r = cnr.Renderer(params, cfg, matcap if "shading" in fields else None)
+        r.render(cam)  # cold: may teach the memo
+        check_image(r.render(cam), name)
+        times[name] = statistics.median(time_frames(r, cam, 0.0, 3))
+    print(f"item 10 1080p staged frames, median of 3 warm: "
+          f"{json.dumps({k: round(v, 3) for k, v in times.items()})} ms [{card}]")
+    for name, fields in (("matcap", dict(shading="matcap")),
+                         ("tetrahedron", dict(normal_mode="tetrahedron",
+                                              normal_eps=TET_NORMAL_EPS))):
+        cfg = cnr.RenderConfig(width=ITEM10_SIDE, height=ITEM10_SIDE, march_impl="staged",
+                               **fields)
+        mc = matcap if "shading" in fields else None
+        card_img = cnr.Renderer(params, cfg, mc).render(cam)
+        cpu_img = cnr.Renderer(cpu_params, cfg, mc).render(cam).to(card_img.device)
+        mixed_bar(card_img, cpu_img, f"item 10 {name} {ITEM10_SIDE}x{ITEM10_SIDE}, the card",
+                  "the CPU render")
+    tet_normals_witness(cnr, params, cpu_params, cam, card)
+
+
+def tet_normals_witness(cnr, params, cpu_params, cam, card) -> None:
+    """Tetrahedron normals at the reference's normal_eps (1e-5, the default
+    config's), on the card: the 4-tap normals a staged ITEM10_SIDE^2 frame
+    shades with (taken at ``shading.tetrahedron_normals`` with the points
+    and eps the frame passes it) against the same formula in float64 at
+    1e-5; their mean and largest error must lie within TET_WITNESS_MEAN and
+    TET_WITNESS_MAX times the port's CPU normals' at the same points."""
+    from cudaneuralrender_torch.ops import shading
+    from cudaneuralrender_torch.render import renderer as renderer_lib
+
+    cfg = cnr.RenderConfig(width=ITEM10_SIDE, height=ITEM10_SIDE, march_impl="staged",
+                           normal_mode="tetrahedron")
+    plain, calls = shading.tetrahedron_normals, []
+
+    def taken(sdf_fn, points, eps=1e-5):
+        normals = plain(sdf_fn, points, eps)
+        calls.append((points.detach(), eps, normals.detach()))
+        return normals
+
+    shading.tetrahedron_normals = taken
+    try:
+        check_image(cnr.Renderer(params, cfg).render(cam), "item 10 tetrahedron witness frame",
+                    ITEM10_SIDE, ITEM10_SIDE)
+    finally:
+        shading.tetrahedron_normals = plain
+    eps = 1e-5
+    if not calls or any(e != eps for _, e, _ in calls):
+        raise RuntimeError(f"item 10 tetrahedron witness: the frame shaded with eps "
+                           f"{[e for _, e, _ in calls]}, not the reference's {eps}")
+    pts = torch.cat([c[0] for c in calls]).cpu()
+    n_card = torch.cat([c[2] for c in calls]).cpu()
+    n_cpu = plain(renderer_lib.shade_fn(cpu_params, cfg, 0.0), pts, eps)
+    p64 = cnr.from_numpy_params(cnr.mlp.to_numpy_params(cpu_params), device="cpu",
+                                dtype=torch.float64)
+    verts = torch.from_numpy(shading.TETRAHEDRON_VERTS).double()
+    taps = pts.double()[:, None, :] + verts[None] * eps
+    d = cnr.mlp.apply_scalar(p64, taps.reshape(-1, 3)).reshape(-1, 4) @ verts
+    n64 = d / d.norm(dim=-1, keepdim=True)
+    err_card = (n_card.double() - n64).abs().amax(-1)
+    err_cpu = (n_cpu.double() - n64).abs().amax(-1)
+    share = (n_card - n_cpu).abs().amax(-1).lt(1e-3).float().mean().item()
+    print(f"item 10 tetrahedron normals at normal_eps {eps}, the {pts.shape[0]} points a "
+          f"{ITEM10_SIDE}x{ITEM10_SIDE} staged frame shades: |n - float64| mean / max, the "
+          f"card {err_card.mean().item():.6g} / {err_card.max().item():.6g}, the CPU "
+          f"{err_cpu.mean().item():.6g} / {err_cpu.max().item():.6g}; the card within 1e-3 "
+          f"of the CPU on {share:.6f} [{card}]")
+    if pts.shape[0] < 500 or not bool(torch.isfinite(n_card).all()):
+        raise RuntimeError(f"item 10 tetrahedron witness: {pts.shape[0]} points, or normals "
+                           "not finite")
+    if (err_card.mean() > TET_WITNESS_MEAN * err_cpu.mean()
+            or err_card.max() > TET_WITNESS_MAX * err_cpu.max()):
+        raise RuntimeError("item 10 tetrahedron normals at the reference's normal_eps: the "
+                           "card's error against float64 exceeds the CPU port's by more than "
+                           f"{TET_WITNESS_MEAN}x (mean) or {TET_WITNESS_MAX}x (max)")
+
+
+
+def drive_interactive(cnr, params, card) -> None:
+    """Phase 13, interactive frames at 1080p: bytes against the synchronous
+    frame, each path's time and the fetch of u32 against float32 pixels,
+    and the viewer answering VIEWER_REQUESTS frames."""
+    import threading
+    import urllib.request
+
+    from cudaneuralrender_torch.render import viewer
+
+    cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged")
+    r = cnr.Renderer(params, cfg)
+    cam = cnr.Camera(**CAMERA)
+    sync_img = r.render_frame(cam)
+    for _ in range(2):
+        inter_img = r.render_frame_interactive(cam)
+        if not np.array_equal(inter_img, sync_img):
+            raise RuntimeError("render_frame_interactive's bytes differ from render_frame's")
+
+    def wall(fn, reps=3):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    rgba = r.render(cam)
+    packed = r.render_interactive_packed(cam)
+    torch.cuda.synchronize()
+    ms = dict(render_frame=wall(lambda: r.render_frame(cam)),
+              render_frame_interactive=wall(lambda: r.render_frame_interactive(cam)),
+              fetch_f32=wall(lambda: rgba.cpu(), 5), fetch_u32=wall(lambda: packed.cpu(), 5))
+    print(f"interactive 1080p, median ms: {json.dumps({k: round(v, 3) for k, v in ms.items()})}; "
+          f"last_stats {json.dumps(r.last_stats)} [{card}]")
+    srv = viewer.make_server(r, cam, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    latency = []
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}/frame?rx=-20&ry="
+        for i in range(VIEWER_REQUESTS):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(f"{url}{30 + i}&zoom=2", timeout=120) as resp:
+                body = resp.read()
+            latency.append((time.perf_counter() - t0) * 1e3)
+            if resp.status != 200 or not body.startswith(b"\x89PNG"):
+                raise RuntimeError(f"viewer /frame answered {resp.status}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    print(f"viewer 1080p: {VIEWER_REQUESTS} /frame requests, latency ms "
+          f"{[round(x, 3) for x in latency]} [{card}]", flush=True)
+
+
+def drive_multigeom(cnr, params, card) -> None:
+    """Phase 13, multi-geometry batches: ``render_batch_staged`` over csg_demo
+    and MULTIGEOM_COPIES noisy copies at 1080p, each frame equal to its own
+    ``render_staged``, pipelined against sequential; ``render_batch`` at
+    BATCH_SIDE equal to each geometry's ``render_image``."""
+    from cudaneuralrender_torch.render import multigeom
+    from cudaneuralrender_torch.utils import memo
+
+    dev = params.device
+    geoms = [params]
+    for i in range(MULTIGEOM_COPIES):
+        gen = torch.Generator().manual_seed(TRAIN_SEED + i)
+        g = cnr.MLP([(l.w + TRAIN_NOISE * torch.randn(l.w.shape, generator=gen).to(dev),
+                      l.b + TRAIN_NOISE * torch.randn(l.b.shape, generator=gen).to(dev))
+                     for l in params])
+        memo.tag_geometry(g, f"{ASSET} noisy copy {i}")  # a memo entry of its own
+        geoms.append(g)
+    cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged")
+    cam = cnr.Camera(**CAMERA)
+    multigeom.render_batch_staged(geoms, cam, cfg)  # teaches each geometry's memo entry
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = []
+    out = multigeom.render_batch_staged(geoms, cam, cfg, stats_out=stats)
+    torch.cuda.synchronize()
+    piped = (time.perf_counter() - t0) * 1e3 / len(geoms)
+    t0 = time.perf_counter()
+    singles = [cnr.render_staged(g, cam, cfg) for g in geoms]
+    torch.cuda.synchronize()
+    seq = (time.perf_counter() - t0) * 1e3 / len(geoms)
+    unequal = [i for i, (a, b) in enumerate(zip(out, singles)) if not torch.equal(a, b)]
+    print(f"multigeom 1080p, {len(geoms)} geometries: {piped:.3f} ms a geometry pipelined, "
+          f"{seq:.3f} sequential; hits {[s['hits'] for s in stats]}, fast path "
+          f"{[s['fast_path'] for s in stats]} [{card}]")
+    if unequal:
+        raise RuntimeError(f"multigeom: geometries {unequal} differ from their render_staged")
+    for i, img in enumerate(out):
+        check_image(img, f"multigeom geometry {i}")
+    bcfg = cnr.RenderConfig(width=BATCH_SIDE, height=BATCH_SIDE, max_steps=BATCH_MAX_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = multigeom.render_batch(multigeom.stack_params(geoms), cam, bcfg)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    unequal = [i for i, g in enumerate(geoms)
+               if not torch.equal(batch[i], cnr.render_image(g, cam, bcfg))]
+    print(f"render_batch {BATCH_SIDE}x{BATCH_SIDE} (dense), {len(geoms)} geometries: "
+          f"{batch_ms:.3f} ms [{card}]", flush=True)
+    if unequal or tuple(batch.shape) != (len(geoms), BATCH_SIDE, BATCH_SIDE, 4):
+        raise RuntimeError(f"render_batch: geometries {unequal} differ from render_image")
+
+
+def drive_render_package(cnr, params, card) -> dict:
+    """Phase 13 (the module docstring lists the steps). Returns the warm
+    march kernel's entry."""
+    entry = drive_warm(cnr, params, card)
+    drive_chunks(cnr, params, card)
+    drive_item10(cnr, params, card)
+    drive_interactive(cnr, params, card)
+    drive_multigeom(cnr, params, card)
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
@@ -2607,6 +2995,13 @@ def main() -> int:
                                 "cudaneuralrender_tpu/pallas/megakernel.py:45",
                                 **drive_training(cnr, params, card)))
     print(f"phase 12 (training): {time.perf_counter() - t12:.1f} s wall", flush=True)
+
+    # 13. the render package: warm starts, fused chunks, item 10, interactive, multigeom
+    t13 = time.perf_counter()
+    kernels.append(kernel_entry("march_kernel_warm", K1_SOURCE,
+                                "cudaneuralrender_tpu/pallas/megakernel.py:45",
+                                **drive_render_package(cnr, params, card)))
+    print(f"phase 13 (render package): {time.perf_counter() - t13:.1f} s wall", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

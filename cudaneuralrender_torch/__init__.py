@@ -4,7 +4,9 @@ A neural-SDF sphere-trace renderer for NVIDIA Hopper: load Keras-HDF5 SDF
 networks (3 or 4 inputs, hidden layers up to 1024 wide), march them with a
 hand-written CUDA kernel (csrc/march.cuh), and shade with facing-ratio or
 matcap. ``diff`` trains the network through the renderer (implicit-surface
-pixel gradients, the surface solve on the march kernel, Adam steps).
+pixel gradients, the surface solve on the march kernel, Adam steps);
+``render.viewer`` serves interactive frames to a browser and
+``render.multigeom`` renders batches of geometries.
 Models load onto the card unless the CPU is asked for. The JAX package beside it is the
 reference this package is tested against; this package never imports JAX.
 
@@ -27,6 +29,7 @@ from .ops.bounds import fit_bound_sphere
 from .ops.camera import Camera
 from .render.renderer import (
     Renderer,
+    neural_sdf_fn,
     render_image,
     render_sequence,
     render_staged,
@@ -57,6 +60,7 @@ __all__ = [
     "load_pytree",
     "march",
     "mlp",
+    "neural_sdf_fn",
     "render_image",
     "render_sequence",
     "render_staged",

@@ -9,7 +9,11 @@ package's CLI has it:
   -M matcap path                 (enables matcap shading)
   -rx/-ry rotation degrees, -z zoom (default 2 -> eye at distance 2)
   --single   render one frame and exit (prints the MTexels/s line)
-  --spin     360-frame turntable, {prefix}_{i:03d}.png (main.cpp:445-478)
+  --spin     360-frame turntable, {prefix}_{i:03d}.png (main.cpp:445-478);
+             --warm-start chains each frame's surface into the next
+             frame's march init (render_sequence(warm_start=True))
+  --serve    interactive browser viewer on --port (the GLUT window's
+             replacement, render/viewer.py)
   --animation  4-input (x,y,z,frame) mode
 plus --scene, --steps, --march, --normal-mode, --stats, --parity-flip,
 --pallas (config.use_pallas: the fused forward kernel for every SDF
@@ -17,8 +21,8 @@ evaluation outside the march kernel) and -d/--device (default cuda). With
 ``cuda`` and no card the CLI fails; the CPU is used only when asked for with
 ``-d cpu``.
 
-``--warm-start``, ``--serve``, ``--profile`` and ``--fault-inject`` are not
-ported yet: they print so and exit with code 2.
+``--profile`` and ``--fault-inject`` are not ported yet: they print so and
+exit with code 2.
 
 Run: python -m cudaneuralrender_torch.cli -i examples/assets/csg_demo.npz --single
 """
@@ -30,7 +34,7 @@ import os
 import sys
 import time
 
-NOT_PORTED = ("warm_start", "serve", "profile", "fault_inject")
+NOT_PORTED = ("profile", "fault_inject")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,9 +67,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print a JSON line of per-frame render stats")
     p.add_argument("--spin", action="store_true", help="360-frame turntable")
     p.add_argument("--warm-start", action="store_true",
-                   help="turntable: warm-start each frame's march (not ported)")
-    p.add_argument("--serve", action="store_true", help="browser viewer (not ported)")
-    p.add_argument("--port", type=int, default=8000)
+                   help="turntable: chain each frame's surface depths into the next frame's "
+                        "march init (an approximation near silhouettes; "
+                        "RenderConfig.warm_margin)")
+    p.add_argument("--serve", action="store_true",
+                   help="interactive browser viewer (the GLUT window's replacement)")
+    p.add_argument("--port", type=int, default=8000, help="--serve's port (0: any free port)")
     p.add_argument("--profile", default=None, metavar="DIR", help="(not ported)")
     p.add_argument("--fault-inject", type=int, default=0, metavar="N", help="(not ported)")
     p.add_argument("--pallas", action="store_true",
@@ -131,6 +138,12 @@ def main(argv=None) -> int:
     renderer = cnr.Renderer(params, cfg, matcap)
     camera = cnr.Camera.from_cli(rx=args.rx, ry=args.ry, zoom=args.zoom)
 
+    if args.serve:
+        from cudaneuralrender_torch.render.viewer import serve
+
+        serve(renderer, camera, port=args.port)
+        return 0
+
     def save(rgba, path):
         img = image_io.to_uint8_image(rgba.detach().cpu().numpy(), parity_flip=args.parity_flip)
         if path.lower().endswith(".ppm"):
@@ -169,7 +182,8 @@ def main(argv=None) -> int:
                         for i in idxs]
                 t0 = time.perf_counter()
                 rgbas = cnr.render_sequence(params, cams, cfg, renderer.matcap,
-                                            frames=[float(i) for i in idxs])
+                                            frames=[float(i) for i in idxs],
+                                            warm_start=args.warm_start)
                 _sync(device)
                 times.append((time.perf_counter() - t0) / len(idxs))
                 for i, rgba in zip(idxs, rgbas):

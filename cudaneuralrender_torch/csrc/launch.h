@@ -37,7 +37,7 @@ struct MarchArgs {
   const float* biases;
   int n_layers;
   int n_inputs;
-  float frame;
+  const float* frame;       // [1] the frame number, in device memory
   int scene;
   int window;
   int three_pass;

@@ -67,12 +67,13 @@ extern "C" int cnr_march(int device, const float* dirs, const float* origin,
                          const float* t0, const float* budget0,
                          const uint8_t* active0, const int32_t* steps0,
                          const void* weights, const float* biases, int n_layers,
-                         int hidden, int n_inputs, float frame, int scene, int window,
+                         int hidden, int n_inputs, const float* frame, int scene, int window,
                          int three_pass, int ray_lanes, int n, int max_steps, int num_steps,
                          float eps,
                          float omega, float* t_out, float* budget_out,
                          uint8_t* active_out, uint8_t* conv_out,
                          int32_t* steps_out, void* stream) {
+  if (frame == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cnr::MarchArgs a{};
   a.dirs = dirs;
   a.origin = origin;
@@ -106,12 +107,12 @@ extern "C" int cnr_march_raygen(int device, const int32_t* pos, const float* c2w
                                 int width, int height, float focal, float bound_cx,
                                 float bound_cy, float bound_cz, float bound_r2,
                                 const void* weights, const float* biases, int n_layers, int hidden,
-                                int n_inputs, float frame, int scene, int window,
+                                int n_inputs, const float* frame, int scene, int window,
                                 int three_pass, int n, int max_steps, float eps,
                                 float omega, float* t_out, float* budget_out,
                                 uint8_t* active_out, uint8_t* conv_out,
                                 int32_t* steps_out, void* stream) {
-  if (pos == nullptr || c2w == nullptr || width <= 0 || height <= 0)
+  if (pos == nullptr || c2w == nullptr || frame == nullptr || width <= 0 || height <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cnr::MarchArgs a{};
   a.pos = pos;

@@ -291,8 +291,9 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
              const int32_t* __restrict__ pos, const float* __restrict__ c2w, int width,
              int height, float focal, float bound_cx, float bound_cy, float bound_cz,
              float bound_r2, const void* __restrict__ weights,
-             const float* __restrict__ biases, int n_layers, int n_inputs, float frame, int n,
-             int max_steps, int num_steps, float eps, float omega, float* __restrict__ t_out,
+             const float* __restrict__ biases, int n_layers, int n_inputs,
+             const float* __restrict__ frame_ptr, int n, int max_steps, int num_steps, float eps,
+             float omega, float* __restrict__ t_out,
              float* __restrict__ budget_out, uint8_t* __restrict__ active_out,
              uint8_t* __restrict__ conv_out, int32_t* __restrict__ steps_out) {
   const uint4* sw3 = nullptr;   // the three-pass stack, bf16 fragment order
@@ -308,6 +309,10 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
     swt = static_cast<const float2*>(weights);
   }
 
+  // The frame number lives in device memory, so a CUDA graph of a frame
+  // reads the value its caller copied in before each replay: one uniform
+  // load a warp, the same float32 the plain version composes with.
+  const float frame = __ldg(frame_ptr);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = r < n;
 
@@ -410,7 +415,8 @@ march_split_kernel(const float* __restrict__ dirs, const float* __restrict__ ori
                    const float* __restrict__ t0, const float* __restrict__ budget0,
                    const uint8_t* __restrict__ active0, const int32_t* __restrict__ steps0,
                    const float* __restrict__ weights, const float* __restrict__ biases,
-                   int n_layers, int n_inputs, float frame, int n, int max_steps, int num_steps,
+                   int n_layers, int n_inputs, const float* __restrict__ frame_ptr, int n,
+                   int max_steps, int num_steps,
                    float eps, float omega, float* __restrict__ t_out,
                    float* __restrict__ budget_out, uint8_t* __restrict__ active_out,
                    uint8_t* __restrict__ conv_out, int32_t* __restrict__ steps_out) {
@@ -437,6 +443,7 @@ march_split_kernel(const float* __restrict__ dirs, const float* __restrict__ ori
   const int r = r0 + static_cast<int>(threadIdx.x / 32);
   if (r >= n || active0[r] == 0) return;  // the whole warp
 
+  const float frame = __ldg(frame_ptr);  // as march_kernel reads it
   const float ox = origin[0], oy = origin[1], oz = origin[2];
   const float dx = dirs[3 * r], dy = dirs[3 * r + 1], dz = dirs[3 * r + 2];
   float t = t0[r];
@@ -470,11 +477,11 @@ march_split_kernel(const float* __restrict__ dirs, const float* __restrict__ ori
 using MarchKernel = void (*)(const float*, const float*, const float*, const float*,
                              const uint8_t*, const int32_t*, const int32_t*, const float*, int,
                              int, float, float, float, float, float, const void*, const float*,
-                             int, int, float, int, int, int, float, float, float*,
+                             int, int, const float*, int, int, int, float, float, float*,
                              float*, uint8_t*, uint8_t*, int32_t*);
 using SplitKernel = void (*)(const float*, const float*, const float*, const float*,
                              const uint8_t*, const int32_t*, const float*, const float*, int,
-                             int, float, int, int, int, float, float, float*, float*, uint8_t*,
+                             int, const float*, int, int, int, float, float, float*, float*, uint8_t*,
                              uint8_t*, int32_t*);
 
 // The ray-split instantiation for a scene id and cylinder window, or nullptr.

@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..models.mlp import MLP
+from ..ops.sdf import frame_tensor
 from . import build
 
 #: The hidden widths the CUDA kernels are instantiated for. 1024 is the
@@ -509,8 +510,7 @@ def neural_sdf_fn_kernel(params: MLP, frame=0.0, num_inputs: int = 3):
     def fn(p: torch.Tensor) -> torch.Tensor:
         flat = p.reshape(-1, p.shape[-1])
         if num_inputs == 4:
-            f = torch.full((flat.shape[0], 1), float(frame), dtype=flat.dtype,
-                           device=flat.device)
+            f = frame_tensor(frame, flat.device).to(flat.dtype).expand(flat.shape[0], 1)
             flat = torch.cat([flat, f], dim=-1)
         return mlp_forward(weights, biases, flat.contiguous(), packed).reshape(p.shape[:-1])
 

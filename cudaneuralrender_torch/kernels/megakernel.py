@@ -21,6 +21,11 @@ Per-ray semantics (both versions): each ray marches while it is active,
 singleMarch update order; optional constant over-relaxation; the resolve
 step per ray (see csrc/march.cuh).
 
+``frame`` is a float or a [] float32 tensor on the rays' device; the
+kernel reads it from device memory (``ops.sdf.frame_tensor``), so a CUDA
+graph of a frame renders whatever frame its caller copied in before a
+replay (render/renderer.py ``_ChunkGraph``).
+
 ``precision`` names the JAX package's matmul precision of the call:
 "default" and "highest" run the chain in FP32 (DEFAULT is the coarse
 phase's, HIGHEST the refine rungs'); "high" runs the emulated
@@ -64,7 +69,7 @@ import torch
 from ..models.mlp import MLP
 from ..ops import camera as camera_lib
 from ..ops import march as march_lib
-from ..ops import shading
+from ..ops import sdf, shading
 from ..ops.camera import Camera
 from ..utils.config import RenderConfig
 from . import build, scenes
@@ -241,6 +246,7 @@ def march_state_plain(
     near, moved): where two marches part (``chip_smoke.undecided_lanes``).
     """
     _check_precision(precision)
+    frame = float(frame)  # a [] tensor on the card is read here: the plain version syncs anyway
     compose = _compose(config, cyl_window)
     _, _, n_in, hidden = packed_params(params)
     if n_in != config.num_inputs:
@@ -381,12 +387,14 @@ def _march_state_cuda(
 
     t, budget, active, conv, lane_steps = _outputs(n, dev)
     lib = build.load_library()
+    frame_t = sdf.frame_tensor(frame, dev)
+    check_tensor("frame", frame_t, torch.float32, (), dev)
     err = lib.cnr_march(
         _device_index(dev),
         dirs.data_ptr(), origin.data_ptr(), state.t.data_ptr(),
         state.budget.data_ptr(), state.active.data_ptr(), state.steps.data_ptr(),
         weights.data_ptr(), biases.data_ptr(), n_layers, hidden, config.num_inputs,
-        float(frame), scene_id, window, int(precision == "high"), lanes,
+        frame_t.data_ptr(), scene_id, window, int(precision == "high"), lanes,
         n, config.max_steps, -1 if num_steps is None else int(num_steps),
         float(eps), omega,
         t.data_ptr(), budget.data_ptr(), active.data_ptr(), conv.data_ptr(),
@@ -520,13 +528,15 @@ def _march_raygen_cuda(
     cx, cy, cz = (float(c) for c in config.bound_center)
 
     t, budget, active, conv, lane_steps = _outputs(n, dev)
+    frame_t = sdf.frame_tensor(frame, dev)
+    check_tensor("frame", frame_t, torch.float32, (), dev)
     lib = build.load_library()
     err = lib.cnr_march_raygen(
         _device_index(dev), pos.data_ptr(), cam_to_world.data_ptr(),
         config.width, config.height, float(config.focal), cx, cy, cz,
         float(config.bound_radius) * float(config.bound_radius),
         weights.data_ptr(), biases.data_ptr(), n_layers, hidden, config.num_inputs,
-        float(frame), scene_id, window, int(precision == "high"), n, config.max_steps,
+        frame_t.data_ptr(), scene_id, window, int(precision == "high"), n, config.max_steps,
         float(eps), omega,
         t.data_ptr(), budget.data_ptr(), active.data_ptr(), conv.data_ptr(),
         lane_steps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,

@@ -1,7 +1,8 @@
 """ctypes bindings for the native runtime library (native/cnr_native.cpp).
 
-The zlib-backed C++ PNG codec, shared with the JAX package (the C++
-source and its Makefile live in the repo-root ``native/`` directory).
+The zlib-backed C++ PNG codec and its worker-pool frame writer
+(``AsyncFrameWriter``), shared with the JAX package (the C++ source and its
+Makefile live in the repo-root ``native/`` directory).
 Built with ``make -C native``; auto-builds on first use when a toolchain
 is present, and degrades gracefully (callers fall back to PIL) when not.
 """
@@ -76,6 +77,17 @@ def _load():
             ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32),
         ]
         lib.cnr_decode_png.restype = ctypes.c_int
+        lib.cnr_writer_create.argtypes = [ctypes.c_int]
+        lib.cnr_writer_create.restype = ctypes.c_void_p
+        lib.cnr_writer_enqueue.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+        ]
+        lib.cnr_writer_enqueue.restype = None
+        lib.cnr_writer_flush.argtypes = [ctypes.c_void_p]
+        lib.cnr_writer_flush.restype = ctypes.c_int
+        lib.cnr_writer_destroy.argtypes = [ctypes.c_void_p]
+        lib.cnr_writer_destroy.restype = None
         _lib = lib
         return _lib
 
@@ -120,3 +132,42 @@ def decode_png(path: str) -> np.ndarray:
     if rc != 0:
         raise RuntimeError(f"cnr_decode_png failed (rc={rc}) for {path}")
     return out
+
+
+class AsyncFrameWriter:
+    """Worker-pool PNG writer: the render loop enqueues frames (each copied
+    on enqueue) and C++ threads encode and write them, so a turntable's
+    disk I/O overlaps its rendering."""
+
+    def __init__(self, n_threads: int = 2):
+        self._lib = _load()
+        if self._lib is None:
+            raise RuntimeError("native codec not built")
+        self._handle = self._lib.cnr_writer_create(n_threads)
+
+    def enqueue(self, path: str, pixels: np.ndarray) -> None:
+        """Queue an [H, W, C] (C in 1/3/4) or [H, W] uint8 frame for ``path``."""
+        if not self._handle:
+            raise RuntimeError("AsyncFrameWriter is closed")
+        pixels = np.ascontiguousarray(pixels, np.uint8)
+        if pixels.ndim == 2:
+            pixels = pixels[:, :, None]
+        h, w, c = pixels.shape
+        self._lib.cnr_writer_enqueue(self._handle, path.encode(), _as_u8_ptr(pixels), w, h, c)
+
+    def flush(self) -> int:
+        """Block until every queued frame is written; returns the number of
+        frames that failed to encode or write."""
+        return self._lib.cnr_writer_flush(self._handle) if self._handle else 0
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.cnr_writer_destroy(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.flush()
+        self.close()

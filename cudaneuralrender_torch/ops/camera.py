@@ -35,8 +35,18 @@ class Camera:
         return cls(rotation_x=rx, rotation_y=ry, translation=(tx, ty, -zoom))
 
 
-def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+def pose_tensor(camera: Camera, device="cpu") -> torch.Tensor:
+    """The camera's pose [rotation_x, rotation_y, tx, ty, tz] as a float32
+    tensor on ``device``. On the card the values go through pinned host
+    memory by a copy that does not block: a copy from pageable memory waits
+    until the device has run everything queued before it, which would cost
+    a pipelined turntable its overlap."""
+    vals = torch.tensor([float(camera.rotation_x), float(camera.rotation_y),
+                         *(float(v) for v in camera.translation)], dtype=torch.float32)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return vals.to(device)
+    return vals.pin_memory().to(device, non_blocking=True)
 
 
 def _rot_x(deg: torch.Tensor) -> torch.Tensor:
@@ -61,14 +71,18 @@ def _rot_y(deg: torch.Tensor) -> torch.Tensor:
     ])
 
 
-def view_matrices(camera: Camera, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Return (cam_to_world [3,4], world_to_cam [4,4]) on ``device``."""
-    r = _rot_x(-_f32(camera.rotation_x, device)) @ _rot_y(-_f32(camera.rotation_y, device))
-    t = _f32(camera.translation, device)
+def view_matrices(camera, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Return (cam_to_world [3,4], world_to_cam [4,4]) on ``device``.
+    ``camera`` is a Camera, or its ``pose_tensor`` already on the device (a
+    CUDA graph's static input), from which the matrices are built with the
+    same operations."""
+    pose = camera if isinstance(camera, torch.Tensor) else pose_tensor(camera, device)
+    r = _rot_x(-pose[0]) @ _rot_y(-pose[1])
+    t = pose[2:5]
     trans = r @ (-t)  # M = R @ Translate(-t)
     cam_to_world = torch.cat([r, trans[:, None]], dim=1)
     # Inverse of [R | R@(-t); 0 0 0 1] is [R^T | t; 0 0 0 1].
-    world_to_cam = torch.eye(4, dtype=torch.float32, device=device)
+    world_to_cam = torch.eye(4, dtype=torch.float32, device=pose.device)
     world_to_cam[:3, :3] = r.T
     world_to_cam[:3, 3] = t
     return cam_to_world, world_to_cam

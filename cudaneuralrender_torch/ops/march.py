@@ -20,7 +20,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .sdf import SdfFn
+from .sdf import SdfFn, device_constant
 
 
 class MarchState(NamedTuple):
@@ -42,7 +42,8 @@ class MarchResult(NamedTuple):
 
 
 def _steps_tensor(steps: int, device) -> torch.Tensor:
-    return torch.tensor(steps, dtype=torch.int32, device=device)
+    # Filled on the device: a copy from the host would wait for its queue.
+    return torch.full((), int(steps), dtype=torch.int32, device=device)
 
 
 def intersect_sphere(
@@ -52,8 +53,8 @@ def intersect_sphere(
     volumeRender_kernel.cu:200-215). origin [3] or [N,3]; dirs [N,3].
     Returns (tnear [N], tfar [N], hit [N] bool); grazing rays (disc == 0)
     miss, as in the reference."""
-    center = torch.as_tensor(center, dtype=dirs.dtype, device=dirs.device)
-    q = origin - center
+    center = center if isinstance(center, torch.Tensor) else device_constant(center, dirs.device)
+    q = origin - center.to(dirs.dtype)
     a = torch.sum(dirs * dirs, dim=-1)
     b = 2.0 * torch.sum(q * dirs, dim=-1)
     c = torch.sum(q * q, dim=-1) - radius * radius
@@ -66,16 +67,32 @@ def intersect_sphere(
 
 
 def init_state(origin: torch.Tensor, dirs: torch.Tensor, bound_center,
-               bound_radius: float) -> MarchState:
-    """Cold-start per-ray init: bounding-sphere cull, start at the sphere's
-    near intersection with the budget tfar (reference initMarcher,
-    volumeRender_kernel.cu:293-358). Rays that miss start inactive."""
+               bound_radius: float, t_init: torch.Tensor | None = None,
+               warm_margin: float = 0.0) -> MarchState:
+    """Per-ray init: bounding-sphere cull, start at the sphere's near
+    intersection with the budget tfar (reference initMarcher,
+    volumeRender_kernel.cu:293-358). Rays that miss start inactive.
+
+    ``t_init`` [N] (temporal warm start): each ray's suggested start depth
+    from an earlier frame of a smooth camera path; non-finite or
+    non-positive lanes mean "no suggestion" (cold). A warm lane starts at
+    ``clip(t_init - warm_margin, tnear, tfar)`` with the budget reduced to
+    keep ``budget == tfar - (t - tnear)``. The caller probes the warm points
+    for lanes that start inside the surface (render/renderer.py
+    ``_warm_guard``)."""
     tnear, tfar, hit = intersect_sphere(origin, dirs, bound_center, bound_radius)
     tnear = torch.clamp(tnear, min=0.0)
     zero = torch.zeros_like(tnear)
+    t = torch.where(hit, tnear, zero)
+    budget = torch.where(hit, tfar, zero)
+    if t_init is not None:
+        warm = hit & torch.isfinite(t_init) & (t_init > 0.0)
+        t_w = torch.minimum(torch.maximum(t_init - warm_margin, tnear), tfar)
+        t = torch.where(warm, t_w, t)
+        budget = torch.where(warm, tfar - (t_w - tnear), budget)
     return MarchState(
-        t=torch.where(hit, tnear, zero),
-        budget=torch.where(hit, tfar, zero),
+        t=t,
+        budget=budget,
         active=hit,
         converged=torch.zeros_like(hit),
         steps=_steps_tensor(0, dirs.device),

@@ -34,6 +34,47 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(v * v, dim=-1))
 
 
+# Constants already on a device, keyed by (bytes, shape, device); see
+# device_constant.
+_CONSTANTS: dict = {}
+
+
+def device_constant(values, device) -> torch.Tensor:
+    """``values`` as a float32 tensor on ``device``, copied from the host
+    once per (values, device) and shared by every later call, so callers
+    must not write into it. A copy from pageable host memory waits for the
+    device's queue to drain and cannot be captured in a CUDA graph; a frame
+    that builds its constants through here copies none."""
+    arr = np.ascontiguousarray(values, dtype=np.float32)
+    key = (arr.tobytes(), arr.shape, str(torch.device(device)))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.from_numpy(arr.copy()).to(device)
+    return t
+
+
+def _const(x, p: torch.Tensor) -> torch.Tensor:
+    """A constant operand of an SDF over points ``p``: a tensor as given, on
+    ``p``'s device and type; anything else through ``device_constant``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=p.dtype, device=p.device)
+    return device_constant(x, p.device)
+
+
+def frame_tensor(frame, device) -> torch.Tensor:
+    """The frame number as a [] float32 tensor on ``device``: ``frame``
+    itself when it is one (a CUDA graph's static input, read afresh at each
+    replay), else a tensor filled on the device with ``frame`` rounded to
+    float32, with no copy from the host."""
+    device = torch.device(device)
+    if isinstance(frame, torch.Tensor):
+        if frame.dtype != torch.float32 or frame.dim() != 0 or frame.device.type != device.type:
+            raise ValueError(f"a frame tensor must be a [] float32 tensor on {device}, not "
+                             f"{frame.dtype} {tuple(frame.shape)} on {frame.device}")
+        return frame
+    return torch.full((), float(np.float32(frame)), dtype=torch.float32, device=device)
+
+
 # ---------------------------------------------------------------------------
 # Primitives (reference volumeRender_kernel.cu:67-101)
 # ---------------------------------------------------------------------------
@@ -41,13 +82,13 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
 def sphere(p: torch.Tensor, radius: float, center=None) -> torch.Tensor:
     """Signed distance to a sphere (reference :67-71)."""
     if center is not None:
-        p = p - torch.as_tensor(center, dtype=p.dtype, device=p.device)
+        p = p - _const(center, p)
     return _norm(p) - radius
 
 
 def box(p: torch.Tensor, half_extent, round_radius: float = 0.0) -> torch.Tensor:
     """Signed distance to an axis-aligned (rounded) box (reference :81-89)."""
-    q = torch.abs(p) - torch.as_tensor(half_extent, dtype=p.dtype, device=p.device)
+    q = torch.abs(p) - _const(half_extent, p)
     outside = _norm(torch.clamp(q, min=0.0))
     inside = torch.clamp(torch.amax(q, dim=-1), max=0.0)
     return outside + inside - round_radius
@@ -62,7 +103,7 @@ def cylinder(p: torch.Tensor, c) -> torch.Tensor:
     """Infinite cylinder in the reference's parameterization (:96-101):
     ``length((p.x, p.y) - (c.x, c.z)) - c.y``, an infinite cylinder along z
     centered at (c.x, c.z) in the xy-plane with radius c.y."""
-    c = torch.as_tensor(c, dtype=p.dtype, device=p.device)
+    c = _const(c, p)
     d = torch.stack([p[..., 0] - c[..., 0], p[..., 1] - c[..., 2]], dim=-1)
     return _norm(d) - c[..., 1]
 
@@ -138,14 +179,18 @@ def _many_sphere_centers() -> np.ndarray:
 
 
 _MANY_SPHERE_CENTERS = _many_sphere_centers()
+# many_sphere_z's constants, float32 values.
+_SPHERE_Z0 = float(np.float32(-0.7))
+_SPHERE_Z_STEP = float(np.float32(2.0 * 0.7 / 360.0))
 
 
 def many_sphere_z(frame) -> float:
     """The spheres' animated z offset ``-0.7 + frame * (2*0.7/360)`` in
     float32 (the constant rounded to float32, then one multiply and one
     add, each rounded), as the JAX package computes it from a float32
-    frame. The value is exactly representable in float32."""
-    z = np.float32(-0.7) + np.float32(frame) * np.float32(2.0 * 0.7 / 360.0)
+    frame (a [] tensor is read on the host). The value is exactly
+    representable in float32."""
+    z = np.float32(_SPHERE_Z0) + np.float32(float(frame)) * np.float32(_SPHERE_Z_STEP)
     return float(z)
 
 
@@ -153,9 +198,12 @@ def many_sphere(p: torch.Tensor, neural_d: torch.Tensor, frame,
                 do_union: bool = True) -> torch.Tensor:
     """Nine animated spheres smooth-combined with the neural SDF (reference
     :176-196). The frame moves the spheres along z: the world center's z is
-    ``-many_sphere_z(frame)``."""
-    centers = torch.as_tensor(_MANY_SPHERE_CENTERS, device=p.device).clone()
-    centers[:, 2] = -many_sphere_z(frame)
+    ``-many_sphere_z(frame)``, computed on the device from ``frame_tensor``
+    by the same two float32 roundings, so a float frame and a [] tensor
+    holding it give the same distances."""
+    z = frame_tensor(frame, p.device) * _SPHERE_Z_STEP + _SPHERE_Z0
+    base = device_constant(_MANY_SPHERE_CENTERS, p.device)
+    centers = torch.cat([base[:, :2], (-z).to(base.dtype).expand(base.shape[0], 1)], dim=1)
     d = neural_d
     for c in centers:
         sd = sphere(p - c, 0.1)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .sdf import SdfFn
+from .sdf import SdfFn, device_constant
 
 # Tetrahedron vertices for the 4-tap normal estimate
 # (reference tetrahedronVerts, volumeRender_kernel.cu:38-43).
@@ -59,7 +59,7 @@ def tetrahedron_normals(sdf_fn: SdfFn, points: torch.Tensor, eps: float = 1e-5) 
     """4-tap finite-difference normals (reference surfaceNormal,
     volumeRender_kernel.cu:362-377): n = normalize(sum_i v_i * sdf(p + v_i*eps));
     the four offsets evaluate as one [4N, 3] batch."""
-    verts = torch.as_tensor(TETRAHEDRON_VERTS, device=points.device)
+    verts = device_constant(TETRAHEDRON_VERTS, points.device)
     flat = points.reshape(-1, 3)
     offs = flat[:, None, :] + verts[None, :, :] * eps
     d = sdf_fn(offs.reshape(-1, 3)).reshape(-1, 4)

@@ -1,9 +1,10 @@
 """High-level renderer: camera + neural SDF -> image.
 
-The PyTorch counterpart of the JAX package's ``render/renderer.py``:
-``render_staged`` with the default mixed-precision config (the main path),
-the dense ``render_image``, and ``render_sequence``, the pipelined
-turntable, for every scene of ops/sdf.py.
+The PyTorch counterpart of the JAX package's ``render/renderer.py``, in
+full: ``render_staged`` with the default mixed-precision config (the main
+path), the dense ``render_image``, ``render_sequence`` (the pipelined
+turntable, with warm starts and fused chunks), and the ``Renderer``'s
+interactive frames, for every scene of ops/sdf.py.
 
 A staged frame runs, in order:
   1. camera -> rays, in block-major lane order, and the bounding-sphere init;
@@ -20,7 +21,12 @@ A staged frame runs, in order:
      the overflow retry, the schedule memo and the rare host-driven
      continuation.
 Bucket capacities are static per config, so nothing between 1 and 5 reads
-the device from the host.
+the device from the host: the camera pose, the frame number and every
+constant reach the device without a blocking copy (ops/camera.py
+``pose_tensor``, ops/sdf.py ``frame_tensor`` and ``device_constant``), so a
+frame's work queues behind the frames before it, and k frames can be
+captured as one CUDA graph (``render_sequence(chunk=k)``). Configs whose
+marches leave the kernel read the host every step (``frame_reads_host``).
 
 PyTorch runs eagerly; the JAX package's jit boundaries become plain
 function calls. JAX arrays are immutable and the staged code relies on
@@ -51,8 +57,10 @@ Configs that select phases not ported yet (``prepass_factor``,
 """
 from __future__ import annotations
 
+import collections
 import functools
 import hashlib
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -101,7 +109,7 @@ def neural_sdf_fn(params: MLP, frame, num_inputs: int = 3):
     def fn(p: torch.Tensor) -> torch.Tensor:
         x = p
         if num_inputs == 4:
-            f = torch.full(p.shape[:-1] + (1,), float(frame), dtype=p.dtype, device=p.device)
+            f = sdf.frame_tensor(frame, p.device).to(p.dtype).expand(p.shape[:-1] + (1,))
             x = torch.cat([p, f], dim=-1)
         return mlp.apply_scalar(params, x)
 
@@ -200,12 +208,49 @@ def _tail_kernel_fn(params, config: RenderConfig, frame):
     return run
 
 
-def _rung_kernel_fn(params, config: RenderConfig, frame, relax: float):
-    """The march kernel for the refine ladder's rungs, or None (refine
-    kernel turned off, a scene the kernel does not compose, or relaxed
-    rungs under ``relax_newton``, which the kernel does not implement)."""
-    if (not config.refine_pallas or not kscenes.kernel_supported(config.scene)
-            or (relax and config.relax_newton)):
+def _coarse_on_kernel(config: RenderConfig) -> bool:
+    """Whether the coarse phase runs as one kernel pass (else densely, with
+    ``march.march_stage``, and the coarse schedule's rungs)."""
+    return (config.march_precision == "mixed" and config.coarse_pallas
+            and kscenes.kernel_supported(config.scene))
+
+
+def _rungs_on_kernel(config: RenderConfig) -> bool:
+    """Whether the refine ladder's rungs run on the kernel: not when the
+    refine kernel is turned off, on a scene the kernel does not compose,
+    or for relaxed rungs under ``relax_newton``, which the kernel does not
+    implement."""
+    relax = config.relax_omega if config.march_precision == "mixed" else 0.0
+    return (config.refine_pallas and kscenes.kernel_supported(config.scene)
+            and not (relax and config.relax_newton))
+
+
+def _dense_rung(cap: int, n: int, rung_steps: int, entry: bool) -> bool:
+    """Whether a rung marches densely over the whole bundle (off the
+    kernel, with ``march.march_stage``): its bucket spans the bundle and it
+    is a ladder phase's entry rung or a terminal rung (``rung_steps`` 0),
+    which must run to completion. Any other rung whose bucket spans the
+    bundle is skipped."""
+    return cap >= n and (entry or rung_steps == 0)
+
+
+def _ladder(config: RenderConfig) -> list:
+    """The mixed march's precision ladder as (precision, eps, schedule,
+    caps): the near-surface set re-marches at each finer precision down to
+    the epsilon that precision's SDF error allows. Tuned caps belong to the
+    HIGHEST phase; the HIGH phase keeps its divisor schedule."""
+    ladder = []
+    if config.mid_eps > config.march_eps:
+        ladder.append(("high", config.mid_eps,
+                       config.mid_schedule or config.refine_schedule, None))
+    ladder.append(("highest", config.march_eps, config.refine_schedule, config.refine_caps))
+    return ladder
+
+
+def _rung_kernel_fn(params, config: RenderConfig, frame):
+    """The march kernel for the refine ladder's rungs, or None
+    (``_rungs_on_kernel``)."""
+    if not _rungs_on_kernel(config):
         return None
 
     def run(sub: march.MarchState, sub_dirs, origin, eps, precision, num_steps,
@@ -319,9 +364,7 @@ def _run_schedule(
         if count_stranding and cap < n:
             stranded = torch.maximum(stranded, entry_active - cap)
         if cap >= n:
-            # A bucket spanning the image marches densely; a terminal rung
-            # must still run to completion.
-            if rung_steps == 0:
+            if _dense_rung(cap, n, rung_steps, entry=False):
                 state, dirs_b = _pr_bucket(pr, n, steps, cam_to_world, origin, config)
                 state = march.march_stage(
                     f, origin, dirs_b, state, num_steps=config.max_steps,
@@ -361,13 +404,38 @@ def _block_order(h: int, w: int, bh: int, bw: int, device: torch.device) -> torc
     return torch.as_tensor(order, device=device)
 
 
+def _warm_block_order(config: RenderConfig) -> bool:
+    """True when the coarse kernel pass runs in block-major lane order: the
+    order warm-start state is produced in and consumed from (the predicate
+    of ``_scheduled_march``'s ``coarse_block`` branch)."""
+    return _coarse_on_kernel(config) and bool(config.coarse_block) and not config.grid_res
+
+
+def _warm_guard(coarse, origin, dirs, state: march.MarchState,
+                config: RenderConfig) -> march.MarchState:
+    """Warm-start inside-surface guard (``RenderConfig.warm_margin``): one
+    probe of the coarse SDF at the warm points; lanes that landed inside the
+    surface (a closer surface swung in front of the pixel since the last
+    frame) restart cold from the bounding sphere."""
+    cold = march.init_state(origin, dirs, config.bound_center, config.bound_radius)
+    d0 = coarse(origin + dirs * state.t[:, None])
+    bad = state.active & (d0 < 0.0)
+    return state._replace(t=torch.where(bad, cold.t, state.t),
+                          budget=torch.where(bad, cold.budget, state.budget))
+
+
 def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
                      frame, t_init=None):
     """The staged march: the coarse phase, then the precision ladder.
 
+    ``t_init`` [N] warm-starts the march (``render_sequence(warm_start=True)``):
+    each lane's suggested start depth, margins already applied, in the lane
+    order of ``_render_scheduled(return_state=True)``'s output (block-major
+    when ``_warm_block_order(config)``, else image order); non-finite or
+    non-positive lanes start cold, and ``_warm_guard`` resets lanes that
+    start inside the surface.
+
     Returns (pr, steps, refine_overflow, rung_actives)."""
-    if t_init is not None:
-        raise _not_ported("warm start (t_init)", "item 2: warm start")
     fine = scene_fn(params, config, frame)
     mixed = config.march_precision == "mixed"
     tail_kernel = _tail_kernel_fn(params, config, frame)
@@ -377,18 +445,25 @@ def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
     else:
         prec_a = "highest"
         eps_a, schedule_a = config.march_eps, config.fine_schedule
-    state = march.init_state(origin, dirs, config.bound_center, config.bound_radius)
     relax = config.relax_omega if mixed else 0.0
+    pos0 = None
+    if _warm_block_order(config):
+        # Block-major lane order (_block_order) for the coarse kernel pass.
+        bh, bw = config.coarse_block
+        pos0 = _block_order(config.height, config.width, bh, bw, dirs.device)
+        dirs = camera_lib.ray_dirs_from_index(
+            cam_to_world, pos0, config.height, config.width, config.focal)
+    # t_init arrives in this lane order (_render_scheduled's return_state
+    # sorts it so: no gather), its margins applied by the producer.
+    state = march.init_state(origin, dirs, config.bound_center, config.bound_radius,
+                             t_init=t_init, warm_margin=0.0)
+    if t_init is not None:
+        # The guard probes the coarse phase's SDF: the dense chain, FP32 at
+        # every precision here, the fused forward kernel under use_pallas.
+        state = _warm_guard(fine, origin, dirs, state, config)
 
-    if mixed and config.coarse_pallas and kscenes.kernel_supported(config.scene):
+    if _coarse_on_kernel(config):
         # The whole coarse phase as ONE run-to-dry kernel pass over the image.
-        pos0 = None
-        if config.coarse_block:
-            bh, bw = config.coarse_block
-            pos0 = _block_order(config.height, config.width, bh, bw, dirs.device)
-            dirs = camera_lib.ray_dirs_from_index(
-                cam_to_world, pos0, config.height, config.width, config.focal)
-            state = march.init_state(origin, dirs, config.bound_center, config.bound_radius)
         state, resolve = megakernel.march_state(
             params, origin, dirs, state, config, frame, march_eps=eps_a,
             precision=prec_a, relax_omega=(0.0 if config.relax_newton else relax),
@@ -415,23 +490,14 @@ def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
     refine_overflow = _zero_i32(dev)
     rung_actives = torch.zeros((len(config.refine_schedule),), dtype=torch.int32, device=dev)
     if mixed:
-        # The precision ladder: the near-surface set re-marches at each finer
-        # precision down to the epsilon that precision's SDF error allows.
-        ladder = [("high", config.mid_eps)] if config.mid_eps > config.march_eps else []
-        ladder.append(("highest", config.march_eps))
-        rung_kernel = _rung_kernel_fn(params, config, frame, relax)
-        for prec, eps in ladder:
-            # Adaptive caps and per-rung stats belong to the HIGHEST phase on
-            # refine_schedule; the HIGH phase keeps its divisor schedule.
-            highest = prec == "highest"
-            collect = [] if highest else None
+        rung_kernel = _rung_kernel_fn(params, config, frame)
+        for prec, eps, schedule, caps in _ladder(config):
+            # Per-rung stats belong to the HIGHEST phase.
+            collect = [] if prec == "highest" else None
             pr, steps, _, ovf = _refine_phase(
                 fine, origin, cam_to_world, pr, steps, config, eps,
                 precision=prec, tail_kernel=tail_kernel, relax=config.relax_omega_refine,
-                rung_kernel=rung_kernel,
-                schedule=(config.refine_schedule if highest
-                          else config.mid_schedule or config.refine_schedule),
-                order=difficulty, caps=(config.refine_caps if highest else None),
+                rung_kernel=rung_kernel, schedule=schedule, order=difficulty, caps=caps,
                 stats_collect=collect,
             )
             if collect is not None:
@@ -462,7 +528,7 @@ def _refine_phase(
     overflow = _zero_i32(near.device)
     div0, steps0 = schedule[0]
     cap = _cap_for(n, div0, caps[0] if caps else 0, config)
-    if cap < n:
+    if not _dense_rung(cap, n, steps0, entry=True):
         # Slim entry sort: only (pos, t) ride it; the packed active prefix
         # is a lane comparison and converged is cleared phase-wide.
         pos, t = compaction.sort_pack_leaves(near, (pr.pos, pr.t), order=order)
@@ -551,8 +617,16 @@ def _shade_capacity(config: RenderConfig, n: int, within) -> int:
     return max(n // config.shade_div, config.compact_min)
 
 
+def _u32_words(packed: torch.Tensor) -> torch.Tensor:
+    """``shading.pack_rgba_u32``'s words (held in int64) as int32 of the same
+    32 bits: a quarter of the float32 frame's bytes to fetch, read on the
+    host as uint32 (``image_io.packed_u32_to_uint8_image``)."""
+    return torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed).to(torch.int32)
+
+
 def _shade_packed(params, origin, cam_to_world, pr: PackedRays, world_to_cam,
-                  config: RenderConfig, matcap, frame, within=None):
+                  config: RenderConfig, matcap, frame, within=None,
+                  packed_out: bool = False):
     """Shade hit pixels in packed lane order, then restore image order.
 
       * ``within`` bound (mixed march): shade that prefix in place, masked
@@ -561,6 +635,9 @@ def _shade_packed(params, origin, cam_to_world, pr: PackedRays, world_to_cam,
         hits sort into an N/shade_div bucket (the caller re-shades densely
         if hit_count exceeds it);
       * bucket >= image: shade densely.
+
+    ``packed_out=True`` returns the u32 [H, W] display image (``_u32_words``)
+    in place of float rgba.
 
     Returns (rgba [H,W,4], pr unchanged, hit_count)."""
     n = pr.pos.shape[0]
@@ -597,12 +674,16 @@ def _shade_packed(params, origin, cam_to_world, pr: PackedRays, world_to_cam,
         if region < n:
             packed = torch.cat([packed, packed.new_zeros(n - region)])
         (restored,) = compaction.sort_restore_leaves(pos_sh, (packed,))
-        rgba = shading.unpack_rgba_u32(restored)
+        rgba = _u32_words(restored) if packed_out else shading.unpack_rgba_u32(restored)
     else:
         colors = region_colors
         if region < n:
             colors = torch.cat([colors, colors.new_zeros((n - region, 4))])
         (rgba,) = compaction.sort_restore_leaves(pos_sh, (colors,))
+        if packed_out:
+            rgba = _u32_words(shading.pack_rgba_u32(rgba))
+    if packed_out:
+        return rgba.reshape(config.height, config.width), pr, hit_count
     return rgba.reshape(config.height, config.width, 4), pr, hit_count
 
 
@@ -621,25 +702,48 @@ def _restore_state(pr: PackedRays, steps, origin, dirs,
     )
 
 
-def _render_scheduled(params, camera: Camera, config: RenderConfig, matcap, frame):
+def _render_scheduled(params, camera, config: RenderConfig, matcap, frame,
+                      t_init=None, return_state: bool = False, packed_out: bool = False):
     """March + compacted shading of one frame, with no host sync.
 
-    Returns (rgba, packed pr, stats) with stats = [active_count,
-    steps_done, hit_count, refine_overflow, per-rung entry actives...] as
-    one int32 tensor, so the caller fetches once."""
+    ``camera`` is a Camera or its pose tensor on the device, and ``frame`` a
+    float or a [] float32 tensor on the device (a CUDA graph's static
+    inputs: ``_ChunkGraph``). ``t_init`` warm-starts the march
+    (``_scheduled_march``); ``return_state=True`` appends the next frame's
+    warm init (t, hit), restored by one sort into the order the next frame
+    consumes with no gather: keyed on (block id, pixel index) when
+    ``_warm_block_order(config)``, else on the pixel index.
+    ``packed_out=True`` returns the u32 [H, W] image (``_shade_packed``).
+
+    Returns (rgba, packed pr, stats[, (t, hit)]) with stats =
+    [active_count, steps_done, hit_count, refine_overflow, per-rung entry
+    actives...] as one int32 tensor, so the caller fetches once."""
     _check_supported(config)
     dev = _device_of(params)
+    frame = sdf.frame_tensor(frame, dev)
     cam_to_world, world_to_cam = camera_lib.view_matrices(camera, dev)
     origin, dirs = camera_lib.generate_rays(
         cam_to_world, config.height, config.width, config.focal)
     pr, steps, refine_overflow, rung_actives = _scheduled_march(
-        params, cam_to_world, origin, dirs, config, frame)
+        params, cam_to_world, origin, dirs, config, frame, t_init)
     rgba, pr, hit_count = _shade_packed(
         params, origin, cam_to_world, pr, world_to_cam, config, matcap, frame,
-        within=_conv_within(config))
+        within=_conv_within(config), packed_out=packed_out)
     head = torch.stack([pr.active.sum(dtype=torch.int32), steps.to(torch.int32),
                         hit_count, refine_overflow.to(torch.int32)])
-    return rgba, pr, torch.cat([head, rung_actives.to(torch.int32)])
+    stats = torch.cat([head, rung_actives.to(torch.int32)])
+    if not return_state:
+        return rgba, pr, stats
+    if _warm_block_order(config):
+        # (block id, pixel index) as one int64 key: _block_order's order.
+        bh, bw = config.coarse_block
+        pos = pr.pos.to(torch.int64)
+        block = (pos // (config.width * bh)) * (-(-config.width // bw)) + (pos % config.width) // bw
+        perm = torch.sort(block * config.num_rays + pos).indices
+        state = (pr.t[perm], pr.converged[perm])
+    else:
+        state = compaction.sort_restore_leaves(pr.pos, (pr.t, pr.converged))
+    return rgba, pr, stats, tuple(state)
 
 
 # Adaptive-schedule memo: (geometry tag, config) -> the schedule a previous
@@ -907,6 +1011,144 @@ def render_staged(
                         config, matcap, frame)
 
 
+def frame_reads_host(config: RenderConfig) -> bool:
+    """Whether a staged frame of ``config`` reads the device from the host
+    between its ray build and its stats, so that it cannot be captured in a
+    CUDA graph: wherever a march runs outside the kernel,
+    ``march.march_stage`` reads the step counter and the active count every
+    step. That is the coarse phase off the kernel (``coarse_pallas=False``,
+    ``march_precision="full"``, a scene the kernel does not compose), a
+    refine rung off it (``refine_pallas=False``; ``relax_newton``'s relaxed
+    rungs, which the kernel has no Newton step for), and a bucket that spans
+    the image (``compact_min`` at or above the image's rays: small images),
+    which marches densely. It asks the helpers that route the staged march
+    (``_coarse_on_kernel``, ``_rungs_on_kernel``, ``_ladder``,
+    ``_dense_rung``)."""
+    if not (_coarse_on_kernel(config) and _rungs_on_kernel(config)):
+        return True
+    n = config.num_rays
+    return any(_dense_rung(_cap_for(n, div, caps[i] if caps else 0, config), n, rung_steps,
+                           entry=(i == 0))
+               for _, _, schedule, caps in _ladder(config)
+               for i, (div, rung_steps) in enumerate(schedule))
+
+
+#: CUDA graphs captured by ``render_sequence(chunk=k)`` in this process,
+#: and their replays (each replay renders k frames; a graph's kernel nodes
+#: were counted once, by each wrapper's launch count, at capture).
+GRAPH_CAPTURES = 0
+GRAPH_REPLAYS = 0
+
+# Captured chunk graphs by (config, k, device), most recently used last.
+_GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
+_MAX_GRAPHS = 4
+
+
+class _ChunkGraph:
+    """k staged frames (``_render_scheduled`` each) captured as one CUDA
+    graph: the counterpart of the JAX package's ``lax.scan`` chunk
+    (``_render_scheduled_chunk``). Its inputs are static buffers on the
+    device, poses [k, 5] (``camera.pose_tensor``) and frame numbers [k],
+    written before each replay; the march kernel reads the frame from
+    device memory, so one capture serves any cameras and frames. Each
+    replay overwrites its outputs (rgba and stats per frame), so ``replay``
+    clones them out. The graph holds pointers to the parameters, their
+    packed stacks and the matcap: ``matches`` says whether it may serve a
+    call."""
+
+    def __init__(self, params, config: RenderConfig, matcap, poses, frames):
+        global GRAPH_CAPTURES
+        self.params, self.matcap = params, matcap
+        self.stack = fused_mlp.packed_params(params)[0] if params is not None else None
+        self.poses, self.frames = poses.clone(), frames.clone()
+        k = frames.shape[0]
+        dev = frames.device
+        # Warm up on the capture stream first: the library, the lazily made
+        # constants and block order, the kernels' shared-memory attributes,
+        # cuBLAS's workspace and the autograd normals all exist before
+        # capture begins.
+        stream = torch.cuda.Stream(device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            _render_scheduled(params, self.poses[0], config, matcap, self.frames[0])
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        t0 = time.perf_counter()
+        launches = megakernel.KERNEL_LAUNCHES
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            outs = [_render_scheduled(params, self.poses[j], config, matcap, self.frames[j])
+                    for j in range(k)]
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.march_nodes = megakernel.KERNEL_LAUNCHES - launches
+        self.rgba = [o[0] for o in outs]
+        self.stats = [o[2] for o in outs]
+        GRAPH_CAPTURES += 1
+
+    def matches(self, params, matcap) -> bool:
+        stack = fused_mlp.packed_params(params)[0] if params is not None else None
+        return self.params is params and self.stack is stack and self.matcap is matcap
+
+    def replay(self, poses, frames):
+        """Render k frames at ``poses`` [k, 5] and ``frames`` [k] (device
+        tensors): ([rgba], [stats]), each a fresh tensor."""
+        global GRAPH_REPLAYS
+        self.poses.copy_(poses)
+        self.frames.copy_(frames)
+        self.graph.replay()
+        GRAPH_REPLAYS += 1
+        return [r.clone() for r in self.rgba], [st.clone() for st in self.stats]
+
+
+def reset_graphs() -> None:
+    """Drop every captured chunk graph and the device memory it holds."""
+    _GRAPHS.clear()
+
+
+def graph_stats() -> dict:
+    """Captures and replays in this process, and each cached graph's k,
+    march-kernel nodes and capture time."""
+    return dict(captures=GRAPH_CAPTURES, replays=GRAPH_REPLAYS, graphs=[
+        dict(k=key[1], width=key[0].width, height=key[0].height, scene=key[0].scene,
+             march_nodes=g.march_nodes, capture_ms=g.capture_ms)
+        for key, g in _GRAPHS.items()])
+
+
+def _chunk_graph(params, config: RenderConfig, matcap, poses, frames) -> _ChunkGraph:
+    """The graph of (config, k, device) that ``matches`` these parameters and
+    matcap, else a new capture at these inputs."""
+    key = (config, frames.shape[0], str(frames.device))
+    g = _GRAPHS.get(key)
+    if g is None or not g.matches(params, matcap):
+        _GRAPHS.pop(key, None)
+        g = _ChunkGraph(params, config, matcap, poses, frames)
+        _GRAPHS[key] = g
+        while len(_GRAPHS) > _MAX_GRAPHS:
+            _GRAPHS.popitem(last=False)
+    _GRAPHS.move_to_end(key)
+    return g
+
+
+def _render_chunks(params, cameras, frames, config: RenderConfig, matcap,
+                   k: int, dev) -> list:
+    """Every frame through k-frame CUDA graphs: (rgba, stats) per frame. The
+    tail chunk is padded with the last camera and frame, and the pads
+    dropped. All poses and frames reach the device in one copy that does
+    not block; each replay's inputs are copies on the device."""
+    n = len(cameras)
+    slots = -(-n // k) * k
+    idx = [min(j, n - 1) for j in range(slots)]
+    host = torch.stack([camera_lib.pose_tensor(cameras[j]) for j in idx])
+    poses = host.pin_memory().to(dev, non_blocking=True)
+    fr = torch.tensor([frames[j] for j in idx], dtype=torch.float32)
+    fr = fr.pin_memory().to(dev, non_blocking=True)
+    graph = _chunk_graph(params, config, matcap, poses[:k], fr[:k])
+    queued = []
+    for c in range(0, slots, k):
+        rgbas, stats = graph.replay(poses[c:c + k], fr[c:c + k])
+        queued.extend(list(zip(rgbas, stats))[:max(0, min(k, n - c))])
+    return queued
+
+
 def render_sequence(
     params: MLP, cameras, config: RenderConfig,
     matcap: Optional[torch.Tensor] = None, frames=None, *,
@@ -923,16 +1165,26 @@ def render_sequence(
     doABarrelRoll (src/main.cpp:470-478) renders 360 such frames back to
     back.
 
+    ``warm_start=True`` chains each frame's surface into the next frame's
+    march init (``RenderConfig.warm_margin``): the second frame starts its
+    hits ``warm_margin`` short of the first's surface, and from the third
+    on, where both earlier frames hit, at the linear extrapolation
+    ``2 t_N - t_{N-1} - warm_margin / 4``. The chain stays on the device
+    and adds no host sync. Meant for smooth camera paths (the turntable);
+    an approximation near silhouettes, so benchmarks render cold.
+
+    ``chunk=k > 1`` renders k frames at a time as one CUDA graph
+    (``_ChunkGraph``: captured once per config, k, parameters and matcap,
+    then replayed), the counterpart of the JAX package's fused ``lax.scan``
+    chunk; images and stats are those of ``chunk=1``. It runs frame by frame
+    where there is nothing to capture: on the CPU, and for configs whose
+    frames read the host (``frame_reads_host``). ``warm_start=True``
+    ignores ``chunk``, as the JAX package does. On the card a capture or
+    replay that fails raises.
+
     ``stats_out`` receives one dict per frame. Returns a list of [H, W, 4]
     rgba tensors on the parameters' device.
     """
-    if warm_start:
-        raise _not_ported("render_sequence(warm_start=True)",
-                          "item 2: warm start")
-    if chunk is not None and chunk > 1:
-        # The JAX package fuses k frames into one lax.scan program; the
-        # counterpart here would be a CUDA graph over k frames.
-        raise _not_ported("render_sequence(chunk > 1)", "item 2: fused chunks")
     _require_fp32_matmul()
     if frames is None:
         frames = [0.0] * len(cameras)
@@ -941,10 +1193,30 @@ def render_sequence(
         return []
     orig_config = config
     config = memo_lookup(params, config)
-    queued = []
-    for cam, fr in zip(cameras, frames):
-        rgba, _, stats = _render_scheduled(params, cam, config, matcap, fr)
-        queued.append((rgba, stats))
+    dev = _device_of(params)
+    if (chunk is not None and chunk > 1 and not warm_start and dev.type == "cuda"
+            and not frame_reads_host(config)):
+        queued = _render_chunks(params, cameras, frames, config, matcap, int(chunk), dev)
+    else:
+        queued = []
+        prev = prev2 = None
+        for cam, fr in zip(cameras, frames):
+            if not warm_start:
+                rgba, _, stats = _render_scheduled(params, cam, config, matcap, fr)
+                queued.append((rgba, stats))
+                continue
+            t_init = None
+            if prev is not None:
+                t_prev, hit_prev = prev
+                t_init = torch.where(hit_prev, t_prev - config.warm_margin, float("-inf"))
+                if prev2 is not None:
+                    t_pp, hit_pp = prev2
+                    pred = 2.0 * t_prev - t_pp - 0.25 * config.warm_margin
+                    t_init = torch.where(hit_prev & hit_pp, pred, t_init)
+            rgba, _, stats, state = _render_scheduled(params, cam, config, matcap, fr, t_init,
+                                                      return_state=True)
+            prev2, prev = prev, state
+            queued.append((rgba, stats))
     all_stats = torch.stack([st for _, st in queued]).cpu().numpy()  # the one sync
     return _sequence_finish(params, cameras, frames, queued, all_stats, config,
                             orig_config, matcap, stats_out)
@@ -989,6 +1261,27 @@ def _sequence_finish(params, cameras, frames, queued, all_stats,
     return out
 
 
+class _HostCopy:
+    """A small tensor's copy to the host, started without waiting for it: on
+    the card into pinned memory behind an event, so ``result`` waits for
+    the work queued before the copy and not for work queued after it."""
+
+    def __init__(self, x: torch.Tensor):
+        self.event = None
+        if x.device.type != "cuda":
+            self.host = x
+            return
+        self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        self.host.copy_(x, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(x.device))
+
+    def result(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
 class Renderer:
     """Stateful convenience wrapper (config + assets on the model's device)."""
 
@@ -1007,8 +1300,12 @@ class Renderer:
         )
         if config.shading == "matcap" and self.matcap is None:
             raise ValueError("matcap shading requires a matcap texture")
-        #: per-frame render statistics of the most recent staged ``render``.
+        #: per-frame render statistics of the most recent staged ``render``
+        #: (of the frame before the latest, after ``render_interactive``).
         self.last_stats: dict = {}
+        #: the deferred fast-path check of the last interactive frame:
+        #: (its stats on their way to the host, its config).
+        self._pending_check = None
 
     def render(self, camera: Camera, frame: float = 0.0) -> torch.Tensor:
         """Render to [H, W, 4] float rgba (a tensor on the model's device)."""
@@ -1023,11 +1320,61 @@ class Renderer:
         return render_image(self.params, camera, self.config, self.matcap, frame,
                             device=self.device)
 
+    def render_interactive(self, camera: Camera, frame: float = 0.0) -> torch.Tensor:
+        """Optimistic staged frame for live viewing: the fast-path check of
+        its stats is deferred to the next call, so a frame costs one host
+        sync (its pixels) instead of two, and the check's small fetch
+        overlaps the next frame's device work. A rare overflow frame may
+        show silhouette gaps for one displayed frame; the check then
+        teaches the widened schedule and later frames dispatch it. Saved
+        output keeps the synchronous check (``render``). Non-staged configs
+        render through ``render``."""
+        if self.config.march_impl != "staged":
+            return self.render(camera, frame)
+        return self._interactive(camera, frame, packed=False)
+
+    def render_interactive_packed(self, camera: Camera, frame: float = 0.0) -> torch.Tensor:
+        """``render_interactive`` as the u32-packed [H, W] image, the
+        reference's display format (rgbaFloatToInt's PBO layout,
+        volumeRender_kernel.cu:266-274), a quarter of the float32 frame's
+        bytes to fetch: an int32 tensor holding the u32 words
+        (``image_io.packed_u32_to_uint8_image`` unpacks it to the bytes
+        ``to_uint8_image`` gives the float frame)."""
+        if self.config.march_impl != "staged":
+            return _u32_words(shading.pack_rgba_u32(self.render(camera, frame)))
+        return self._interactive(camera, frame, packed=True)
+
+    def _interactive(self, camera: Camera, frame: float, packed: bool):
+        config = memo_lookup(self.params, self.config)
+        rgba, _, stats = _render_scheduled(self.params, camera, config, self.matcap,
+                                           float(frame), packed_out=packed)
+        fetch = _HostCopy(stats)
+        if self._pending_check is not None:
+            prev, prev_cfg = self._pending_check
+            st = prev.result()  # the previous frame only: this one keeps running
+            fast = check_fast(st, prev_cfg)
+            self.last_stats = dict(steps=int(st[1]), hits=int(st[2]), unresolved=int(st[0]),
+                                   refine_overflow=int(st[3]), fast_path=fast)
+            if int(st[3]) > 0:
+                memo_teach(self.params, self.config, _widen(prev_cfg))
+            elif fast:
+                _maybe_tune(self.params, self.config, prev_cfg, st[4:], margin=1.35)
+        self._pending_check = (fetch, config)
+        return rgba
+
     def render_frame(self, camera: Camera, frame: float = 0.0, *,
                      parity_flip: bool = False) -> np.ndarray:
         """Render to a host uint8 [H, W, 4] image (top-down rows)."""
         rgba = self.render(camera, frame)
         return image_io.to_uint8_image(rgba.detach().cpu().numpy(), parity_flip=parity_flip)
+
+    def render_frame_interactive(self, camera: Camera, frame: float = 0.0, *,
+                                 parity_flip: bool = False) -> np.ndarray:
+        """Host uint8 frame through the optimistic interactive path: the
+        u32 frame is fetched and unpacked on the host, the bytes of
+        ``render_frame`` at a quarter of the transfer."""
+        packed = self.render_interactive_packed(camera, frame)
+        return image_io.packed_u32_to_uint8_image(packed.cpu().numpy(), parity_flip=parity_flip)
 
     def save_frame(self, path: str, camera: Camera, frame: float = 0.0) -> None:
         img = self.render_frame(camera, frame)

@@ -35,6 +35,41 @@ def to_uint8_image(rgba: np.ndarray, *, parity_flip: bool = False) -> np.ndarray
     return img
 
 
+def packed_u32_to_uint8_image(packed: np.ndarray, *,
+                              parity_flip: bool = False) -> np.ndarray:
+    """[H, W] uint32 words a<<24|b<<16|g<<8|r (ops/shading.pack_rgba_u32, the
+    reference's PBO format; an int32 array of the same bits is accepted) ->
+    uint8 top-down [H, W, 4] image, byte for byte
+    ``to_uint8_image(unpack_rgba_u32(packed))``. The interactive display path
+    fetches these words, a quarter of the float32 frame's bytes."""
+    v = np.asarray(packed)
+    if v.dtype == np.int32:
+        v = v.view(np.uint32)
+    # A little-endian word's bytes are r, g, b, a in memory order.
+    img = np.ascontiguousarray(v, dtype="<u4").view(np.uint8).reshape(v.shape + (4,))
+    return np.ascontiguousarray(img[::-1, ::-1] if parity_flip else img[::-1])
+
+
+def pack_rgba_uint32(rgba_u8: np.ndarray) -> np.ndarray:
+    """[H, W, 4] uint8 -> [H, W] uint32 packed a<<24|b<<16|g<<8|r (the
+    reference's device pixel format, volumeRender_kernel.cu:273)."""
+    r = rgba_u8[..., 0].astype(np.uint32)
+    g = rgba_u8[..., 1].astype(np.uint32)
+    b = rgba_u8[..., 2].astype(np.uint32)
+    a = rgba_u8[..., 3].astype(np.uint32)
+    return (a << 24) | (b << 16) | (g << 8) | r
+
+
+def unpack_rgba_uint32(packed: np.ndarray) -> np.ndarray:
+    """[H, W] uint32 -> [H, W, 4] uint8 (inverse of pack_rgba_uint32)."""
+    p = packed.astype(np.uint32)
+    return np.stack(
+        [(p & 0xFF).astype(np.uint8), ((p >> 8) & 0xFF).astype(np.uint8),
+         ((p >> 16) & 0xFF).astype(np.uint8), ((p >> 24) & 0xFF).astype(np.uint8)],
+        axis=-1,
+    )
+
+
 def _native_codec():
     try:
         from ..native import codec  # lazy: needs the built shared library

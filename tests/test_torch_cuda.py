@@ -923,3 +923,124 @@ def test_sdf_fit_on_card():
     assert delta <= chip_smoke.TRAIN_GRAD_RTOL * norm
     _, history = train.fit_sdf(net, sample, steps=20, batch=chip_smoke.SDF_FIT_BATCH, lr=2e-3)
     assert np.isfinite(history).all() and min(history[1:]) < history[0]
+
+
+# The render package on the card: a staged frame that never waits for the
+# host, fused chunks as CUDA graphs, the frame number read from device
+# memory, warm starts.
+SEQ_SIDE = 128
+
+
+def _seq_setup(scene="many_sphere", n=6):
+    import cudaneuralrender_torch as cnr
+
+    dev = torch.device("cuda", 0)
+    params = cnr.load(NPZ, device=dev)
+    cfg = cnr.RenderConfig(width=SEQ_SIDE, height=SEQ_SIDE, march_impl="staged", scene=scene)
+    cams = [cnr.Camera(rotation_x=chip_smoke.CAMERA["rotation_x"],
+                       rotation_y=chip_smoke.CAMERA["rotation_y"] + i) for i in range(n)]
+    return cnr, params, cfg, cams, [float(9 * i) for i in range(n)]
+
+
+def test_staged_frame_makes_no_host_sync():
+    """From ray build to stats a staged frame makes no synchronising CUDA
+    call (torch.cuda.set_sync_debug_mode("error") raises on one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cudaneuralrender_torch.render import renderer
+
+    cnr, params, cfg, cams, frames = _seq_setup()
+    renderer._render_scheduled(params, cams[0], cfg, None, frames[1])  # constants, library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for cam, fr in zip(cams[:2], frames[:2]):
+            renderer._render_scheduled(params, cam, cfg, None, fr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_chunked_sequence_equals_per_frame_on_card():
+    """``render_sequence(chunk=4)`` over 6 frames of many_sphere whose frame
+    numbers vary (the tail chunk padded): images and stats equal
+    ``chunk=1`` bit for bit, twice, from one capture (2 chunks a call, 4
+    replays)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cudaneuralrender_torch.render import renderer
+
+    cnr, params, cfg, cams, frames = _seq_setup()
+    renderer.reset_graphs()
+    cnr.reset_schedule_memo()
+    cnr.render_sequence(params, cams, cfg, frames=frames)  # teaches the memo its caps
+    assert not renderer.frame_reads_host(renderer.memo_lookup(params, cfg))
+    ref_stats = []
+    ref = cnr.render_sequence(params, cams, cfg, frames=frames, stats_out=ref_stats)
+    before = renderer.graph_stats()
+    for _ in range(2):
+        stats = []
+        out = cnr.render_sequence(params, cams, cfg, frames=frames, stats_out=stats, chunk=4)
+        assert stats == ref_stats
+        assert len(out) == len(ref) and all(torch.equal(a, b) for a, b in zip(out, ref))
+    after = renderer.graph_stats()
+    assert after["captures"] - before["captures"] == 1
+    assert after["replays"] - before["replays"] == 4
+    nodes = after["graphs"][0]["march_nodes"]  # the same calls in each of the 4 frames
+    assert nodes > 0 and nodes % 4 == 0
+    renderer.reset_graphs()
+    cnr.reset_schedule_memo()
+
+
+@pytest.mark.parametrize("frame", [0.0, 90.0])
+def test_frame_from_device_kernel_matches_plain(frame):
+    """The march kernel reads the frame from device memory: at two frames of
+    many_sphere, a [] tensor frame gives the float frame's results bit for
+    bit, and the kernel meets its plain version's bar on the staged
+    renderer's three kinds of call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import camera as camera_lib
+    from cudaneuralrender_torch.ops import march
+
+    dev = torch.device("cuda", 0)
+    params = cnr.load(NPZ, device=dev)
+    cfg = cnr.RenderConfig(width=64, height=64, scene="many_sphere")
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
+    origin, dirs = camera_lib.generate_rays(c2w, 64, 64, cfg.focal)
+    state = march.init_state(origin, dirs, cfg.bound_center, cfg.bound_radius)
+    frame_t = torch.full((), frame, dtype=torch.float32, device=dev)
+    a = megakernel.march_state(params, origin, dirs, state, cfg, frame, coarse=True,
+                               march_eps=cfg.coarse_eps, return_resolve=True)
+    b = megakernel.march_state(params, origin, dirs, state, cfg, frame_t, coarse=True,
+                               march_eps=cfg.coarse_eps, return_resolve=True)
+    for x, y in zip(a[0], b[0]):
+        assert torch.equal(x, y)
+    assert torch.equal(a[1], b[1])
+    result = chip_smoke.compare_kernel_with_plain(params, cfg, origin, dirs, frame_t)
+    chip_smoke.check_agreement(result)
+
+
+def test_warm_frame_calls_match_plain():
+    """A warm sequence of 3 frames (the third extrapolated): frame 0 equal
+    to the cold frame 0, later frames at chip_smoke's warm bars, and every
+    march call of the third frame against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cnr, params, cfg, cams, frames = _seq_setup("neural_raw", 3)
+    cnr.reset_schedule_memo()
+    cold = cnr.render_sequence(params, cams, cfg, frames=frames)
+    cold = cnr.render_sequence(params, cams, cfg, frames=frames)
+    calls = chip_smoke.record_calls(lambda: cnr.render_sequence(
+        params, cams, cfg, frames=frames, warm_start=True))
+    warm = cnr.render_sequence(params, cams, cfg, frames=frames, warm_start=True)
+    assert torch.equal(warm[0], cold[0])
+    for c, w in zip(cold[1:], warm[1:]):
+        assert ((c[..., 3] > 0) == (w[..., 3] > 0)).float().mean() >= chip_smoke.WARM_MIN_HIT_AGREE
+        assert (c == w).all(dim=-1).float().mean() >= chip_smoke.WARM_MIN_EQUAL
+    groups = chip_smoke._frame_groups(calls)
+    assert len(groups) == 3
+    chip_smoke.check_agreement(chip_smoke.compare_recorded_calls(params, groups[-1]))
+    cnr.reset_schedule_memo()
