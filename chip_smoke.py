@@ -131,7 +131,26 @@ Phases; any failure exits non-zero and nothing is caught:
      both timed with the u32 and float32 fetches, the viewer on a free port
      answering VIEWER_REQUESTS frames; ``render_batch_staged`` over csg_demo
      and 4 noisy copies at 1080p, each frame equal to its ``render_staged``,
-     pipelined against sequential, and ``render_batch`` at 128x128.
+     pipelined against sequential, and ``render_batch`` at 128x128;
+ 14. parallel/ (csg_demo, the 1080p staged config, CAMERA): the sharded
+     staged frame at SHARDS = 1, 2, 4, 8 logical shards of the card, each
+     equal to ``render_staged``'s bit for bit (a ray per thread throughout
+     too), its fast path, load stats and ms per frame
+     (median of 3) beside the single-device frame; the 8-shard frame's
+     kernel launches and, a ray per thread throughout, its agreement; the
+     1- and 8-shard frames profiled (device busy, ops, idle share); shard
+     0's march calls against the plain version and its coarse call timed
+     (the kernels line's ``march_kernel_sharded``); ``solve_surface_sharded``
+     + ``pixel_train_step_sharded`` on 4 shards against the unsharded step
+     on the same solve (loss, the gradient within TRAIN_GRAD_RTOL of its
+     norm), both timed; the fault drill, ``render_tiled`` in 4 bands with 2
+     injected faults, equal to the fault-free bands bit for bit, each band
+     execution's kernel launches counted; a 2-process gloo world on the
+     card (``examples/multihost_drill.py`` at WORLD_SIDE: band and failover
+     tiles equal to the single-process bands bit for bit, and with the
+     global tiles against the single-process frames; the memo broadcast, the
+     losses on both ranks); a world of one on NCCL (the global frame and the
+     train step equal to the single-process ones); ``dryrun.run(4)``.
 The line before the last is a JSON object of the kernels' launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
 """
@@ -1159,13 +1178,14 @@ def profile_breakdown(run) -> dict:
     )
 
 
-def time_frames(renderer, cam, frame, reps: int) -> list:
-    """Wall milliseconds of ``reps`` warm frames, each synchronised."""
+def time_frames(run, reps: int) -> list:
+    """Wall milliseconds of ``reps`` warm calls of ``run`` (a frame, a
+    step), each synchronised."""
     out = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        renderer.render(cam, frame)
+        run()
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
     return out
@@ -1200,7 +1220,7 @@ def mode_sweep(cnr, params, card) -> None:
         ms = {"choice": [], "thread": []}
         for tag in ("choice", "thread", "thread", "choice"):
             with thread_per_ray() if tag == "thread" else contextlib.nullcontext():
-                ms[tag] += time_frames(renderer, cam, 0.0, 3)
+                ms[tag] += time_frames(lambda: renderer.render(cam, 0.0), 3)
         print(f"{width}x{height} staged frame: median {statistics.median(ms['choice']):.3f} ms "
               f"with ray_lanes' choice {[round(x, 3) for x in ms['choice']]}, "
               f"{statistics.median(ms['thread']):.3f} ms a ray per thread "
@@ -1218,9 +1238,10 @@ def check_image(img, what: str, height: int = 1080, width: int = 1920) -> float:
     return fg
 
 
-def time_coarse(params, calls, reps: int = 5, plain_reps: int = 3) -> tuple:
-    """The frame's first march call (the coarse pass), timed through the
-    kernel and through the plain version: (kernel ms, plain ms, bound).
+def time_coarse(params, calls, reps: int = 5, plain_reps: int = 3, lanes=None) -> tuple:
+    """The frame's first march call (the coarse pass, over ``lanes`` rays:
+    the frame's, or a shard's), timed through the kernel and through the
+    plain version: (kernel ms, plain ms, bound).
     The bound counts this call's ray-steps (each ray's resolve step) times
     the chain's fused multiply-adds, the compose's few hundred operations
     per step left out, and its bytes: per ray the direction, t, budget and
@@ -1228,7 +1249,7 @@ def time_coarse(params, calls, reps: int = 5, plain_reps: int = 3) -> tuple:
     from cudaneuralrender_torch.kernels import fused_mlp, megakernel
 
     origin, dirs, state, ccfg, frame, kw = calls[0]
-    if dirs.shape[0] != ccfg.num_rays or kw.get("march_eps") != ccfg.coarse_eps:
+    if dirs.shape[0] != (lanes or ccfg.num_rays) or kw.get("march_eps") != ccfg.coarse_eps:
         raise RuntimeError(f"the frame's first march call is not the coarse pass: {kw}")
     ms = time_cuda(
         lambda: megakernel.march_state(params, origin, dirs, state, ccfg, frame, **kw), reps)
@@ -1274,7 +1295,7 @@ def drive_scene(cnr, params, scene, frame, num_inputs, card, width=1920, height=
     if launches == 0:
         raise RuntimeError(f"{tag}: the staged render never launched the march kernel")
     fg = check_image(img, tag, height, width)
-    frame_ms = time_frames(renderer, cam, frame, 3)
+    frame_ms = time_frames(lambda: renderer.render(cam, frame), 3)
     print(f"scene {tag}: foreground {fg:.4f}; {res} staged frame median "
           f"{statistics.median(frame_ms):.3f} ms over 3 warm frames "
           f"{[round(x, 3) for x in frame_ms]} [{card}]")
@@ -1363,7 +1384,7 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> list:
         iou, frac2 = golden_render(cnr, params, cam)
         print(f"{tag}: foreground {fg:.4f}; golden 256x256 IoU {iou:.5f}, {frac2:.5f} of "
               "foreground within 2 levels")
-        frame_ms = time_frames(renderer, cam, 0.0, size.frames)
+        frame_ms = time_frames(lambda: renderer.render(cam, 0.0), size.frames)
         print(f"{tag}: staged frame median {statistics.median(frame_ms):.3f} ms over "
               f"{size.frames} warm frames {[round(x, 3) for x in frame_ms]} [{card}]")
         calls, plains = record_march_calls(renderer, cam), []
@@ -1828,7 +1849,7 @@ def drive_high_config(cnr, params, name, fields, ref_img, card, frames=3, width=
     check_image(img, name, height, width)
     mixed_bar(img, ref_img, f"{name} 1080p")
     iou, frac2 = golden_render(cnr, params, cam, **fields)
-    frame_ms = time_frames(renderer, cam, 0.0, frames)
+    frame_ms = time_frames(lambda: renderer.render(cam, 0.0), frames)
     print(f"{name}: golden 256x256 IoU {iou:.5f}, {frac2:.5f} of foreground within 2 levels; "
           f"1080p staged frame median {statistics.median(frame_ms):.3f} ms over {frames} warm "
           f"frames {[round(x, 3) for x in frame_ms]} [{card}]")
@@ -2280,7 +2301,7 @@ def drive_training(cnr, params, card) -> dict:
     with torch.no_grad():
         t_star, hit = diff.solve_surface(trained.params, cams[0], cfg)
     loss0 = diff.pixel_loss(trained.params, cams[0], cfg, target, t_star=t_star, hit=hit)
-    grads = torch.autograd.grad(loss0, train._flat(trained.params))
+    grads = train._grads(loss0, trained.params)
     gnorm = float(torch.sqrt(sum((g ** 2).sum() for g in grads)))
     drops = []
     for eta in SURROGATE_ETAS:
@@ -2333,7 +2354,7 @@ def drive_training(cnr, params, card) -> dict:
     def grad_on(p, d):
         loss = diff.pixel_loss(p, cams[0], cfg, target.to(d), t_star=t_star.to(d),
                                hit=hit.to(d), compact_cap=cap)
-        return torch.autograd.grad(loss, train._flat(p))
+        return train._grads(loss, p)
 
     g_card = [g.cpu() for g in grad_on(trained.params, dev)]
     cpu_params = train._trainable(mlp.from_numpy_params(mlp.to_numpy_params(trained.params),
@@ -2608,7 +2629,7 @@ def drive_item10(cnr, params, card) -> None:
         r = cnr.Renderer(params, cfg, matcap if "shading" in fields else None)
         r.render(cam)  # cold: may teach the memo
         check_image(r.render(cam), name)
-        times[name] = statistics.median(time_frames(r, cam, 0.0, 3))
+        times[name] = statistics.median(time_frames(lambda: r.render(cam, 0.0), 3))
     print(f"item 10 1080p staged frames, median of 3 warm: "
           f"{json.dumps({k: round(v, 3) for k, v in times.items()})} ms [{card}]")
     for name, fields in (("matcap", dict(shading="matcap")),
@@ -2800,6 +2821,336 @@ def drive_render_package(cnr, params, card) -> dict:
     return entry
 
 
+# Phase 14: parallel/ on the card, csg_demo at 1080p in the default staged
+# config at CAMERA. The sharded frame's shard counts (1080 rows divide by
+# each; a sharded frame must equal the single-device frame bit for bit: the
+# march is per lane, and a shard's rungs march each ray as the frame's do;
+# a band render or the 2-process world's image is held to ``mixed_bar``
+# where it is not: a band widens its own buckets, or finishes densely); the
+# sharded train step's shards; the fault drill's bands and injected faults;
+# the 2-process world's image side and shards a rank (a quarter of 1080p's
+# pixels keeps its two dense marches short).
+PARALLEL_SIDE = (1920, 1080)
+SHARDS = (1, 2, 4, 8)
+TRAIN_SHARDS = 4
+FAULT_BANDS, FAULT_INJECTED = 4, 2
+WORLD_SIDE, WORLD_SHARDS = (960, 540), 2
+
+
+def unequal_pixels(img, ref) -> int:
+    return int((img != ref).any(dim=-1).sum())
+
+
+def drive_sharded(cnr, params, card) -> tuple:
+    """Phase 14, the sharded staged frame at SHARDS logical shards of the
+    card: each equal to ``render_staged``'s bit for bit,
+    its fast path, load stats and ms per frame beside the single-device
+    frame's; the 8-shard frame's kernel launches (the main path of this
+    phase) and once more a ray per thread throughout; the 1- and 8-shard
+    frames profiled; shard 0's march calls of an 8-shard frame against the
+    plain version, its coarse call timed both ways. Returns (the kernels line's entry, the single-device frame,
+    the 2-shard frame)."""
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.parallel import mesh as mesh_lib
+    from cudaneuralrender_torch.parallel import sharding
+
+    dev = params.device
+    cfg = cnr.RenderConfig(width=PARALLEL_SIDE[0], height=PARALLEL_SIDE[1], march_impl="staged")
+    cam = cnr.Camera(**CAMERA)
+    renderer = cnr.Renderer(params, cfg)
+    ref = renderer.render(cam)
+    single_ms = statistics.median(time_frames(lambda: renderer.render(cam, 0.0), 3))
+    print(f"phase 14 single-device {cfg.width}x{cfg.height} frame: median {single_ms:.3f} ms over 3 [{card}]")
+    frames = {}
+    for n in SHARDS:
+        mesh = mesh_lib.make_mesh((n,), ("data",), [dev] * n)
+        sharding.render_image_sharded_staged(params, cam, cfg, mesh)
+        stats = {}
+        megakernel.reset_launch_counts()
+        img = sharding.render_image_sharded_staged(params, cam, cfg, mesh, stats_out=stats)
+        torch.cuda.synchronize()
+        launches = megakernel.KERNEL_LAUNCHES
+        if launches == 0:
+            raise RuntimeError(f"the {n}-shard frame never launched the march kernel")
+        check_image(img, f"{n}-shard frame", cfg.height, cfg.width)
+        unequal = unequal_pixels(img, ref)
+        if unequal:
+            raise RuntimeError(f"the {n}-shard frame differs from the single-device frame "
+                               f"at {unequal} pixels")
+        ms = time_frames(lambda: sharding.render_image_sharded_staged(params, cam, cfg, mesh), 3)
+        load = {k: stats[k] for k in ("fast_path", "shard_imbalance",
+                                      "predicted_scaling_efficiency", "shard_near", "shard_steps")}
+        print(f"phase 14 {n}-shard {cfg.width}x{cfg.height} frame: {unequal} pixels off the "
+              f"single-device frame; {launches} kernel launches; "
+              f"{json.dumps(load)}; median {statistics.median(ms):.3f} ms over 3 "
+              f"{[round(x, 3) for x in ms]} against {single_ms:.3f} single-device [{card}]",
+              flush=True)
+        frames[n] = (img, launches)
+    with thread_per_ray():
+        mesh8 = mesh_lib.make_mesh((SHARDS[-1],), ("data",), [dev] * SHARDS[-1])
+        threads = unequal_pixels(sharding.render_image_sharded_staged(params, cam, cfg, mesh8),
+                                 renderer.render(cam))
+    print(f"phase 14 {SHARDS[-1]}-shard frame a ray per thread throughout: {threads} pixels off "
+          f"the single-device frame a ray per thread")
+    if threads:
+        raise RuntimeError(f"a ray per thread, the sharded frame differs at {threads} pixels")
+    for n, mesh in ((1, mesh_lib.make_mesh((1,), ("data",), [dev])), (SHARDS[-1], mesh8)):
+        prof = profile_breakdown(lambda: sharding.render_image_sharded_staged(params, cam, cfg,
+                                                                              mesh))
+        prof.pop("top_kernels_ms")
+        prof["march_kernel_ms"] = sum(prof["march_kernel_ms"])
+        print(f"phase 14 {n}-shard frame profile: {json.dumps(prof)} [{card}]")
+
+    with uncounted():
+        groups = _frame_groups(record_calls(
+            lambda: sharding.render_image_sharded_staged(params, cam, cfg, mesh8)))
+        if len(groups) != SHARDS[-1]:
+            raise RuntimeError(f"{len(groups)} coarse calls in an {SHARDS[-1]}-shard frame")
+        result = compare_recorded_calls(params, groups[0])
+        ms, plain_ms, bnd = time_coarse(params, groups[0], lanes=cfg.num_rays // SHARDS[-1])
+    for name, a in result.items():
+        print(f"compare shard 0 of {SHARDS[-1]} {name}: {json.dumps(a)}")
+    check_agreement(result)
+    print(f"phase 14 shard 0's coarse call ({cfg.num_rays // SHARDS[-1]} rays): kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms [{card}]")
+    entry = kernel_entry("march_kernel_sharded", K1_SOURCE,
+                         "cudaneuralrender_tpu/pallas/megakernel.py:45", frames[SHARDS[-1]][1],
+                         max(a["max_abs_err"] for a in result.values()), ms, plain_ms, bnd)
+    return entry, ref, frames[2][0]
+
+
+def drive_sharded_train(cnr, params, card) -> tuple:
+    """Phase 14, the sharded train step at 1080p on TRAIN_SHARDS shards:
+    ``solve_surface_sharded`` (against ``diff.solve_surface``) feeding
+    ``pixel_train_step_sharded``, against the unsharded step on the same
+    solve (loss, and the gradient within TRAIN_GRAD_RTOL of its norm: the
+    first Adam moments are a tenth of it), both timed. Returns the step's
+    inputs for the NCCL world: (state, target, solve, its new state)."""
+    from cudaneuralrender_torch import diff
+    from cudaneuralrender_torch.diff import train
+    from cudaneuralrender_torch.parallel import mesh as mesh_lib
+    from cudaneuralrender_torch.parallel import sharding
+
+    dev = params.device
+    cfg = cnr.RenderConfig(width=PARALLEL_SIDE[0], height=PARALLEL_SIDE[1], march_impl="staged")
+    target = _train_target(cnr, params, cfg)
+    gen = torch.Generator().manual_seed(TRAIN_SEED)
+    start = cnr.MLP([(l.w + TRAIN_NOISE * torch.randn(l.w.shape, generator=gen).to(dev),
+                      l.b + TRAIN_NOISE * torch.randn(l.b.shape, generator=gen).to(dev))
+                     for l in params])
+    s0 = train.init_train_state(start, TRAIN_LR)
+    cam = cnr.Camera(rotation_y=20.0)
+    mesh = mesh_lib.make_mesh((TRAIN_SHARDS,), ("data",), [dev] * TRAIN_SHARDS)
+
+    def sharded_step():
+        t_star, hit = sharding.solve_surface_sharded(s0.params, cam, cfg, mesh)
+        return sharding.pixel_train_step_sharded(s0, cam, target, cfg, mesh, TRAIN_LR,
+                                                 t_star=t_star, hit=hit), (t_star, hit)
+
+    def unsharded_step():
+        t_star, hit = diff.solve_surface(s0.params, cam, cfg)
+        return train._pixel_grad_step_from_t(s0, cam, target, t_star, hit, cfg, TRAIN_LR)
+
+    (state, loss), (t_star, hit) = sharded_step()
+    t1, hit1 = diff.solve_surface(s0.params, cam, cfg)
+    both = hit & hit1
+    solve = dict(equal=bool(torch.equal(t_star, t1) and torch.equal(hit, hit1)),
+                 hit_agree=(hit == hit1).float().mean().item(),
+                 max_dt=(t_star - t1).abs()[both].max().item())
+    ref_state, ref_loss = train._pixel_grad_step_from_t(s0, cam, target, t_star, hit, cfg,
+                                                        TRAIN_LR)
+    mu = torch.cat([m.reshape(-1) for m in train._flat(state.opt_state.mu)])
+    mu_ref = torch.cat([m.reshape(-1) for m in train._flat(ref_state.opt_state.mu)])
+    delta, norm = float((mu - mu_ref).norm()), float(mu_ref.norm())
+    loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    sharded_ms = time_frames(sharded_step, 3)
+    unsharded_ms = time_frames(unsharded_step, 3)
+    print(f"phase 14 sharded train step {cfg.width}x{cfg.height}, {TRAIN_SHARDS} shards: solve against "
+          f"diff.solve_surface {json.dumps(solve)}; loss {float(loss):.8g} vs unsharded "
+          f"{float(ref_loss):.8g} (rel {loss_err:.3g}); gradient |d| {delta:.4g}, |g| {norm:.4g}, "
+          f"ratio {delta / norm:.3g}; step (solve + grad + update) median "
+          f"{statistics.median(sharded_ms):.3f} ms {[round(x, 3) for x in sharded_ms]}, "
+          f"unsharded {statistics.median(unsharded_ms):.3f} ms [{card}]", flush=True)
+    if not (norm > 0 and delta <= TRAIN_GRAD_RTOL * norm and loss_err <= 1e-5):
+        raise RuntimeError(f"sharded train step off the unsharded one: loss rel {loss_err}, "
+                           f"gradient {delta} vs {TRAIN_GRAD_RTOL} * {norm}")
+    return s0, target, (t_star, hit), state
+
+
+def drive_fault(cnr, params, ref, card) -> None:
+    """Phase 14, the fault drill: ``render_tiled`` in FAULT_BANDS bands, once
+    fault-free and once with FAULT_INJECTED injected faults; the two images
+    equal bit for bit, the faults recovered, and every band execution's
+    march on the kernel (its launches counted), so that no retry can hide a
+    broken kernel; the bands against the single-device frame."""
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.parallel import fault
+
+    cfg = cnr.RenderConfig(width=PARALLEL_SIDE[0], height=PARALLEL_SIDE[1], march_impl="staged")
+    cam = cnr.Camera(**CAMERA)
+    real = fault.render_band_auto
+    runs = []
+
+    def counting(*args, **kw):
+        before = megakernel.KERNEL_LAUNCHES
+        out = real(*args, **kw)
+        runs.append((args[5], megakernel.KERNEL_LAUNCHES - before))
+        return out
+
+    fault.render_band_auto = counting
+    try:
+        clean = fault.render_tiled(params, cam, cfg, n_bands=FAULT_BANDS)
+        clean_runs = list(runs)
+        runs.clear()
+        injector = fault.FaultInjector(FAULT_INJECTED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drilled = fault.render_tiled(params, cam, cfg, n_bands=FAULT_BANDS, injector=injector)
+        drill_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        fault.render_band_auto = real
+    drilled_t = torch.as_tensor(drilled, device=ref.device)
+    unequal = unequal_pixels(drilled_t, ref)
+    print(f"phase 14 fault drill {cfg.width}x{cfg.height}, {FAULT_BANDS} bands: {injector.injected} injected faults "
+          f"recovered; band executions (band, kernel launches) {runs}, fault-free {clean_runs}; "
+          f"image equal to the fault-free one: {bool(np.array_equal(drilled, clean))}; against "
+          f"the single-device frame: {unequal} pixels off; {drill_ms:.3f} ms with the retries "
+          f"[{card}]", flush=True)
+    if injector.injected != FAULT_INJECTED or not np.array_equal(drilled, clean):
+        raise RuntimeError("the fault drill did not recover to the fault-free image")
+    if len(runs) != FAULT_BANDS + FAULT_INJECTED or min(n for _, n in runs + clean_runs) == 0:
+        raise RuntimeError(f"a band execution left the march kernel: {runs}, {clean_runs}")
+    if unequal:
+        mixed_bar(drilled_t, ref, "phase 14 the banded frame", "the single-device frame")
+
+
+def drive_world(cnr, params, card) -> None:
+    """Phase 14, a 2-process gloo world on the card (the example
+    ``multihost_drill``, each rank on the card, the collectives through the
+    CPU): the band tiles and the failover tiles (host 1 failed, its bands
+    adopted by host 0) equal to the single-process ``render_tiled`` bit for
+    bit; those and the global staged frame's tiles against the
+    single-process staged frame, the global dense frame against
+    ``render_image``, the memo's broadcast reaching rank 1, and the train
+    step's loss equal on both ranks. The kernels' library was built by this
+    process; the ranks only load it."""
+    import tempfile
+
+    from cudaneuralrender_torch.examples import multihost_drill as drill
+    from cudaneuralrender_torch.parallel import multihost
+
+    from cudaneuralrender_torch.parallel import fault
+
+    w, h = WORLD_SIDE
+    cfg = cnr.RenderConfig(width=w, height=h, march_impl="staged")
+    cam = cnr.Camera(**drill.CAMERA)
+    staged_ref = cnr.render_staged(params, cam, cfg)
+    dense_ref = cnr.render_image(params, cam, cfg.replace(march_impl="while"))
+    banded = fault.render_tiled(params, cam, cfg, n_bands=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        env = dict(os.environ, CNR_SCHEDULE_MEMO="")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "cudaneuralrender_torch.examples.multihost_drill",
+             "--init", f"file://{tmp}/rendezvous", "--world", "2", "--rank", str(rank),
+             "--out", out, "--device", "cuda", "--backend", "gloo", "--shards",
+             str(WORLD_SHARDS), "-W", str(w), "-H", str(h), "--steps", str(cfg.max_steps)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        world_s = time.perf_counter() - t0
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {rank} of the 2-process world failed:\n{log[-4000:]}")
+        rows, imgs = {}, {}
+        for stem in ("bands", "failover", "gspmd_staged", "gspmd"):
+            tiles = multihost.assemble_tiles(out, stem)
+            img = torch.as_tensor(tiles, device=params.device)
+            imgs[stem] = (img, dense_ref if stem == "gspmd" else staged_ref)
+            rows[stem] = dict(unequal_pixels=unequal_pixels(*imgs[stem]))
+            if stem in ("bands", "failover"):
+                rows[stem]["equal_to_single_process_bands"] = bool(np.array_equal(tiles, banded))
+        memo = [int(np.load(os.path.join(out, f"memo_fast_p{r}.npy"))[0]) for r in (0, 1)]
+        losses = [float(np.load(os.path.join(out, f"loss_p{r}.npy"))) for r in (0, 1)]
+    print(f"phase 14 2-process gloo world on the card, {w}x{h}, {WORLD_SHARDS} shards a rank: "
+          f"{json.dumps(rows)}; memo broadcast fast path on ranks 0, 1: {memo}; train step "
+          f"losses {losses}; {world_s:.1f} s wall with the ranks' start-up [{card}]", flush=True)
+    for stem, agree in rows.items():
+        if agree["unequal_pixels"]:
+            mixed_bar(*imgs[stem], f"phase 14 the 2-process {stem} image",
+                      "the single-process frame")
+        if not agree.get("equal_to_single_process_bands", True):
+            raise RuntimeError(f"the 2-process {stem} tiles differ from the single-process bands")
+    if memo != [1, 1] or losses[0] != losses[1]:
+        raise RuntimeError(f"2-process world: memo flags {memo}, losses {losses}")
+
+
+def drive_nccl_world(cnr, params, card, two_shard_frame, train_case) -> None:
+    """Phase 14, a world of one process on NCCL: the global staged frame
+    over two shards of the card, gathered, equal to the single-process
+    2-shard frame bit for bit, and the sharded train step (its gradient
+    all-reduced on the card) equal to the single-process one."""
+    import socket
+
+    import torch.distributed as dist
+
+    from cudaneuralrender_torch.diff import train
+    from cudaneuralrender_torch.parallel import multihost, sharding
+
+    dev = params.device
+    cfg = cnr.RenderConfig(width=PARALLEL_SIDE[0], height=PARALLEL_SIDE[1], march_impl="staged")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        mesh = multihost.global_mesh(devices=[dev] * 2)
+        img = multihost.render_global(params, cnr.Camera(**CAMERA), cfg, mesh)
+        full = torch.as_tensor(multihost.gather_image(img), device=dev)
+        s0, target, (t_star, hit), single_state = train_case
+        state, loss = sharding.pixel_train_step_sharded(
+            s0, cnr.Camera(rotation_y=20.0), target, cfg,
+            multihost.global_mesh(devices=[dev] * TRAIN_SHARDS), TRAIN_LR,
+            t_star=t_star, hit=hit)
+        same = all(torch.equal(a, b) for a, b in zip(train._state_leaves(state),
+                                                      train._state_leaves(single_state)))
+        print(f"phase 14 NCCL world of 1: backend {dist.get_backend()}, {len(img.tiles)} row "
+              f"tiles; the gathered frame equal to the single-process 2-shard frame: "
+              f"{bool(torch.equal(full, two_shard_frame))}; the train step's state equal to the "
+              f"single-process one: {same} [{card}]", flush=True)
+        if not (torch.equal(full, two_shard_frame) and same):
+            raise RuntimeError("the NCCL world's frame or train step differs from the "
+                               "single-process one")
+    finally:
+        dist.destroy_process_group()
+
+
+def drive_parallel(cnr, params, card) -> dict:
+    """Phase 14 (the module docstring lists the steps). Returns the sharded
+    march kernel's entry."""
+    from cudaneuralrender_torch.parallel import dryrun
+
+    entry, ref, two_shard_frame = drive_sharded(cnr, params, card)
+    train_case = drive_sharded_train(cnr, params, card)
+    drive_fault(cnr, params, ref, card)
+    drive_world(cnr, params, card)
+    drive_nccl_world(cnr, params, card, two_shard_frame, train_case)
+    t0 = time.perf_counter()
+    dryrun.run(4)
+    print(f"phase 14 dryrun.run(4): completed in {time.perf_counter() - t0:.2f} s", flush=True)
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
@@ -2885,7 +3236,7 @@ def main() -> int:
     print(f"golden 256x256: IoU {iou:.5f}, {frac2:.5f} of foreground within 2 levels")
 
     # 5. timing
-    frame_ms = time_frames(renderer, cam, 0.0, narrow.frames)
+    frame_ms = time_frames(lambda: renderer.render(cam, 0.0), narrow.frames)
     print(f"1080p staged frame: median {statistics.median(frame_ms):.3f} ms over "
           f"{narrow.frames} warm frames {[round(x, 3) for x in frame_ms]} [{card}]")
 
@@ -2907,7 +3258,7 @@ def main() -> int:
 
     print(f"breakdown 1080p frame: {json.dumps(device_breakdown(renderer, cam))} [{card}]")
     with thread_per_ray():
-        frame_ms = time_frames(renderer, cam, 0.0, narrow.frames)
+        frame_ms = time_frames(lambda: renderer.render(cam, 0.0), narrow.frames)
     print(f"1080p staged frame a ray per thread: median {statistics.median(frame_ms):.3f} ms "
           f"over {narrow.frames} warm frames {[round(x, 3) for x in frame_ms]} [{card}]")
     mode_sweep(cnr, params, card)
@@ -3002,6 +3353,11 @@ def main() -> int:
                                 "cudaneuralrender_tpu/pallas/megakernel.py:45",
                                 **drive_render_package(cnr, params, card)))
     print(f"phase 13 (render package): {time.perf_counter() - t13:.1f} s wall", flush=True)
+
+    # 14. parallel/: sharded frames and training, the fault drill, process worlds
+    t14 = time.perf_counter()
+    kernels.append(drive_parallel(cnr, params, card))
+    print(f"phase 14 (parallel): {time.perf_counter() - t14:.1f} s wall", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@ that takes a piece of a march step apart, its plain PyTorch version and a
 
 Their kernels are in ``csrc/experiments.cu``. ``k1_variants`` is of
 another kind: it builds K1's FP32 chain at widths 32 and 64 with one
-design choice undone at a time and measures each beside the tree's. Each wrapper launches its
+design choice undone at a time and measures each beside the tree's;
+``relu_ties`` times a frame and a training step with and without JAX's
+gradient at ReLU ties (``models.mlp.relu_tie``). Each wrapper launches its
 kernel on CUDA tensors (or raises) and runs its plain version on CPU
 tensors, and counts its launches in its module's ``LAUNCHES``. Run one on
 the card from the repository root::

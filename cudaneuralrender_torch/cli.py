@@ -17,12 +17,12 @@ package's CLI has it:
   --animation  4-input (x,y,z,frame) mode
 plus --scene, --steps, --march, --normal-mode, --stats, --parity-flip,
 --pallas (config.use_pallas: the fused forward kernel for every SDF
-evaluation outside the march kernel) and -d/--device (default cuda). With
-``cuda`` and no card the CLI fails; the CPU is used only when asked for with
-``-d cpu``.
+evaluation outside the march kernel), --fault-inject N (a frame renders band
+by band through parallel/fault.py's ``render_tiled``, N band failures
+injected and retried) and -d/--device (default cuda). With ``cuda`` and no
+card the CLI fails; the CPU is used only when asked for with ``-d cpu``.
 
-``--profile`` and ``--fault-inject`` are not ported yet: they print so and
-exit with code 2.
+``--profile`` is not ported yet: it prints so and exits with code 2.
 
 Run: python -m cudaneuralrender_torch.cli -i examples/assets/csg_demo.npz --single
 """
@@ -34,7 +34,7 @@ import os
 import sys
 import time
 
-NOT_PORTED = ("profile", "fault_inject")
+NOT_PORTED = ("profile",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,7 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="interactive browser viewer (the GLUT window's replacement)")
     p.add_argument("--port", type=int, default=8000, help="--serve's port (0: any free port)")
     p.add_argument("--profile", default=None, metavar="DIR", help="(not ported)")
-    p.add_argument("--fault-inject", type=int, default=0, metavar="N", help="(not ported)")
+    p.add_argument("--fault-inject", type=int, default=0, metavar="N",
+                   help="render band by band with N injected band failures, each "
+                        "retried (the fault drill; parallel/fault.py)")
     p.add_argument("--pallas", action="store_true",
                    help="evaluate the SDF through the fused forward kernel (use_pallas)")
     return p
@@ -153,7 +155,15 @@ def main(argv=None) -> int:
 
     def render_one(cam, frame, path):
         t0 = time.perf_counter()
-        rgba = renderer.render(cam, frame)
+        if args.fault_inject:
+            from cudaneuralrender_torch.parallel import fault
+
+            injector = fault.FaultInjector(fail_times=args.fault_inject)
+            rgba = torch.from_numpy(fault.render_tiled(params, cam, cfg, renderer.matcap, frame,
+                                                       injector=injector))
+            print(f"fault drill: {injector.injected} injected failures recovered")
+        else:
+            rgba = renderer.render(cam, frame)
         _sync(device)
         dt = time.perf_counter() - t0
         if args.stats:
@@ -171,7 +181,7 @@ def main(argv=None) -> int:
         # skipped, so an interrupted turntable continues where it stopped.
         prefix = args.output or args.input
         times = []
-        if cfg.march_impl == "staged":
+        if cfg.march_impl == "staged" and not args.fault_inject:
             todo = [i for i in range(360) if not os.path.exists(f"{prefix}_{i:03d}.png")]
             if len(todo) < 360:
                 print(f"turntable resume: {360 - len(todo)} frames already on disk")

@@ -103,13 +103,24 @@ def init_train_state(params: MLP, lr: float = 1e-3) -> TrainState:
                       torch.zeros((), dtype=torch.int32, device=params.device))
 
 
+def _update(state: TrainState, grads: Sequence[torch.Tensor], lr: float) -> TrainState:
+    """One Adam step of ``state`` with ``grads`` (in ``_flat`` order)."""
+    params, opt_state = make_optimizer(lr).update(grads, state.opt_state, state.params)
+    return TrainState(params, opt_state, state.step + 1)
+
+
+def _grads(loss: torch.Tensor, params) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``loss`` with respect to ``params``' leaves, in
+    ``_flat`` order. A leaf the graph does not reach gets zeros, as JAX's
+    gradient does: a pixel loss's shading normals are piecewise constant in
+    the biases, and ``mlp.relu_tie`` records no edge for that zero."""
+    return torch.autograd.grad(loss, _flat(params), allow_unused=True, materialize_grads=True)
+
+
 def _apply_grads(state: TrainState, loss: torch.Tensor, lr: float):
     """The gradient of ``loss`` with respect to the state's parameters and
     one Adam step: (new state, loss)."""
-    grads = torch.autograd.grad(loss, _flat(state.params), allow_unused=True,
-                                materialize_grads=True)
-    params, opt_state = make_optimizer(lr).update(grads, state.opt_state, state.params)
-    return TrainState(params, opt_state, state.step + 1), loss.detach()
+    return _update(state, _grads(loss, state.params), lr), loss.detach()
 
 
 def pixel_train_step(state: TrainState, camera: Camera, target: torch.Tensor,

@@ -113,21 +113,54 @@ def init_mlp(
     return MLP(layers)
 
 
-def apply(params: MLP, x: torch.Tensor) -> torch.Tensor:
+class _TieReLU(torch.autograd.Function):
+    """ReLU whose gradient at a pre-activation of exactly 0 is 1/2, as
+    ``jnp.maximum(h, 0.0)``'s is (``torch.relu``'s is 0). The forward is
+    ``torch.relu``; the backward is two kernels to relu's one."""
+
+    @staticmethod
+    def forward(ctx, h):
+        ctx.save_for_backward(h)
+        return torch.relu(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        (h,) = ctx.saved_tensors
+        # The step function is constant where it is defined: a second
+        # derivative sees only the product with g.
+        # A 0-dim CPU tensor is a scalar operand on any device, with no copy.
+        return g * torch.heaviside(h.detach(), torch.tensor(0.5, dtype=h.dtype))
+
+
+def relu_tie(h: torch.Tensor) -> torch.Tensor:
+    """ReLU with JAX's gradient at ties (``_TieReLU``) where autograd
+    records; ``torch.relu`` otherwise."""
+    if torch.is_grad_enabled() and h.requires_grad:
+        return _TieReLU.apply(h)
+    return torch.relu(h)
+
+
+def apply(params: MLP, x: torch.Tensor, ties: bool = True) -> torch.Tensor:
     """Forward pass. x: (..., n_in) -> (..., n_out); ReLU on every layer but
-    the last."""
+    the last. ``ties=True`` gives a pre-activation of exactly 0 the
+    gradient 1/2, as the JAX package's ``jnp.maximum`` does: a zero-bias
+    net's ray through the origin (every first-layer pre-activation 0)
+    otherwise gets a zero SDF gradient and a NaN normal. ``ties=False``
+    keeps ``torch.relu``'s cheaper backward (the render's shading
+    normals)."""
+    relu = relu_tie if ties else torch.relu
     h = x
     n = len(params)
     for i, layer in enumerate(params):
         h = h @ layer.w + layer.b
         if i + 1 < n:
-            h = torch.relu(h)
+            h = relu(h)
     return h
 
 
-def apply_scalar(params: MLP, x: torch.Tensor) -> torch.Tensor:
+def apply_scalar(params: MLP, x: torch.Tensor, ties: bool = True) -> torch.Tensor:
     """(..., n_in) -> (...) for single-output networks (SDF value)."""
-    return apply(params, x).squeeze(-1)
+    return apply(params, x, ties).squeeze(-1)
 
 
 def num_weight_params(params: MLP) -> int:

@@ -102,29 +102,31 @@ def _check_supported(config: RenderConfig) -> None:
         raise _not_ported("grid_res > 0", "item 6: grid")
 
 
-def neural_sdf_fn(params: MLP, frame, num_inputs: int = 3):
+def neural_sdf_fn(params: MLP, frame, num_inputs: int = 3, ties: bool = True):
     """Wrap MLP params as an SdfFn over (..., 3) points; num_inputs=4
-    appends the frame number as a 4th input (animation mode)."""
+    appends the frame number as a 4th input (animation mode). ``ties`` as
+    in ``mlp.apply``."""
 
     def fn(p: torch.Tensor) -> torch.Tensor:
         x = p
         if num_inputs == 4:
             f = sdf.frame_tensor(frame, p.device).to(p.dtype).expand(p.shape[:-1] + (1,))
             x = torch.cat([p, f], dim=-1)
-        return mlp.apply_scalar(params, x)
+        return mlp.apply_scalar(params, x, ties)
 
     return fn
 
 
 def scene_fn(params: Optional[MLP], config: RenderConfig, frame, *,
-             for_grad: bool = False, surface_local: bool = False):
+             for_grad: bool = False, surface_local: bool = False, ties: bool = True):
     """The scene SDF for a config.
 
     With ``config.use_pallas`` the neural field evaluates through the fused
     forward kernel (K3, ``fused_mlp.neural_sdf_fn_kernel``; its plain
     version on the CPU). The kernel has no gradient: gradient consumers
     (autodiff normals) pass ``for_grad=True`` for the plain, differentiable
-    chain, which gives the same values.
+    chain, which gives the same values. Its gradient at a ReLU tie is
+    JAX's 1/2 (``mlp.apply``); ``ties=False`` keeps ``torch.relu``'s.
 
     The chain is FP32 whatever the phase's precision: the three-pass chain
     (K2h) runs only inside the march kernel. The JAX package's dense chain
@@ -140,17 +142,19 @@ def scene_fn(params: Optional[MLP], config: RenderConfig, frame, *,
     elif config.use_pallas and not for_grad:
         neural = fused_mlp.neural_sdf_fn_kernel(params, frame, config.num_inputs)
     else:
-        neural = neural_sdf_fn(params, frame, config.num_inputs)
+        neural = neural_sdf_fn(params, frame, config.num_inputs, ties)
     return sdf.make_scene(
         config.scene, neural, frame,
         cyl_window=(config.cyl_window if surface_local else None))
 
 
 def shade_fn(params: Optional[MLP], config: RenderConfig, frame):
-    """Scene SDF for shading normals: differentiable (the plain chain), with
-    surface-local composes. Every precision runs in FP32 here, so
-    config.shade_precision selects nothing."""
-    return scene_fn(params, config, frame, for_grad=True, surface_local=True)
+    """Scene SDF for a render's shading normals: differentiable (the plain
+    chain), with surface-local composes. Every precision runs in FP32 here,
+    so config.shade_precision selects nothing. It keeps ``torch.relu``'s
+    one-kernel backward: a pre-activation of exactly 0 gets gradient 0,
+    where JAX's gives 1/2 (ROADMAP section 3)."""
+    return scene_fn(params, config, frame, for_grad=True, surface_local=True, ties=False)
 
 
 def _device_of(params: Optional[MLP], device=None) -> torch.device:
@@ -277,12 +281,12 @@ class PackedRays(NamedTuple):
     converged: torch.Tensor  # [N] bool hit surface
 
 
-def _pack_init(state: march.MarchState, dirs) -> PackedRays:
-    n = dirs.shape[0]
-    return PackedRays(
-        pos=torch.arange(n, dtype=torch.int32, device=dirs.device),
-        t=state.t, active=state.active, converged=state.converged,
-    )
+def _pack_init(state: march.MarchState, dirs, pos=None) -> PackedRays:
+    """The bundle of a march state whose lanes hold the pixel indices
+    ``pos`` (default: lane i is pixel i)."""
+    if pos is None:
+        pos = torch.arange(dirs.shape[0], dtype=torch.int32, device=dirs.device)
+    return PackedRays(pos=pos, t=state.t, active=state.active, converged=state.converged)
 
 
 def _pr_sort(pr: PackedRays, mask, within=None, order=None) -> PackedRays:
@@ -425,7 +429,7 @@ def _warm_guard(coarse, origin, dirs, state: march.MarchState,
 
 
 def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
-                     frame, t_init=None):
+                     frame, t_init=None, pos=None):
     """The staged march: the coarse phase, then the precision ladder.
 
     ``t_init`` [N] warm-starts the march (``render_sequence(warm_start=True)``):
@@ -434,6 +438,13 @@ def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
     when ``_warm_block_order(config)``, else image order); non-finite or
     non-positive lanes start cold, and ``_warm_guard`` resets lanes that
     start inside the surface.
+
+    ``pos`` [n] int32 (optional): the global pixel index of each lane, for
+    a caller that marches a subset of the image (a shard or a band of
+    parallel/), in the caller's lane order; ``dirs`` (and ``t_init``) must
+    already correspond to it. The image-order phases, the block reorder and
+    with it the warm block hand-off, are skipped; every later stage reads
+    the carried index.
 
     Returns (pr, steps, refine_overflow, rung_actives)."""
     fine = scene_fn(params, config, frame)
@@ -446,8 +457,8 @@ def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
         prec_a = "highest"
         eps_a, schedule_a = config.march_eps, config.fine_schedule
     relax = config.relax_omega if mixed else 0.0
-    pos0 = None
-    if _warm_block_order(config):
+    pos0 = pos
+    if pos is None and _warm_block_order(config):
         # Block-major lane order (_block_order) for the coarse kernel pass.
         bh, bw = config.coarse_block
         pos0 = _block_order(config.height, config.width, bh, bw, dirs.device)
@@ -470,9 +481,7 @@ def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
             return_resolve=True, cyl_window=config.cyl_window_coarse, coarse=True)
         # The coarse resolve step is the refine phase's difficulty key;
         # valid while pr stays in the coarse lane order.
-        pr = _pack_init(state, dirs)
-        if pos0 is not None:
-            pr = pr._replace(pos=pos0)
+        pr = _pack_init(state, dirs, pos0)
         difficulty = resolve if config.ordered_packing else None
         steps = state.steps
     else:
@@ -480,7 +489,7 @@ def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
             fine, origin, dirs, state, num_steps=config.stage_steps,
             max_steps=config.max_steps, march_eps=eps_a, relax_omega=relax,
             newton=config.relax_newton, omega_max=config.relax_omega_max)
-        pr, steps = _pack_init(state, dirs), state.steps
+        pr, steps = _pack_init(state, dirs, pos0), state.steps
         difficulty = None
         pr, steps, _, _ = _run_schedule(
             fine, origin, cam_to_world, pr, steps, schedule_a, config, eps_a,
@@ -626,7 +635,7 @@ def _u32_words(packed: torch.Tensor) -> torch.Tensor:
 
 def _shade_packed(params, origin, cam_to_world, pr: PackedRays, world_to_cam,
                   config: RenderConfig, matcap, frame, within=None,
-                  packed_out: bool = False):
+                  packed_out: bool = False, flat: bool = False):
     """Shade hit pixels in packed lane order, then restore image order.
 
       * ``within`` bound (mixed march): shade that prefix in place, masked
@@ -637,7 +646,9 @@ def _shade_packed(params, origin, cam_to_world, pr: PackedRays, world_to_cam,
       * bucket >= image: shade densely.
 
     ``packed_out=True`` returns the u32 [H, W] display image (``_u32_words``)
-    in place of float rgba.
+    in place of float rgba. ``flat=True`` returns the colours as [n, 4]
+    (or [n] words) in pos-ascending lane order, with no image reshape: a
+    bundle over a subset of the image (parallel/) colours its own pixels.
 
     Returns (rgba [H,W,4], pr unchanged, hit_count)."""
     n = pr.pos.shape[0]
@@ -682,6 +693,8 @@ def _shade_packed(params, origin, cam_to_world, pr: PackedRays, world_to_cam,
         (rgba,) = compaction.sort_restore_leaves(pos_sh, (colors,))
         if packed_out:
             rgba = _u32_words(shading.pack_rgba_u32(rgba))
+    if flat:
+        return rgba, pr, hit_count
     if packed_out:
         return rgba.reshape(config.height, config.width), pr, hit_count
     return rgba.reshape(config.height, config.width, 4), pr, hit_count

@@ -78,6 +78,10 @@ def _store_path() -> Optional[str]:
 
 _STORE: Optional[dict] = None
 
+#: (tag, config) keys whose rank-0 entry this process has received in a
+#: broadcast to every rank of a process world.
+BROADCAST_DONE: set = set()
+
 
 def _load_store() -> dict:
     global _STORE
@@ -118,9 +122,11 @@ def store_put(key: str, value: dict) -> None:
 
 
 def reset_store(clear_file: bool = False) -> None:
-    """Forget the in-process store cache (and optionally the file)."""
+    """Forget the in-process store cache (and optionally the file), and
+    which entries were broadcast across processes (``BROADCAST_DONE``)."""
     global _STORE
     _STORE = None
+    BROADCAST_DONE.clear()
     if clear_file:
         path = _store_path()
         if path and os.path.exists(path):

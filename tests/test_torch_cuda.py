@@ -811,7 +811,7 @@ def test_pixel_grad_card_matches_cpu():
                        cnr.mlp.to_numpy_params(params), device="cpu")))):
         loss = diff.pixel_loss(p, cam, cfg, target.to(dev), t_star=t_star.to(dev),
                                hit=hit.to(dev), compact_cap=cap)
-        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, train._flat(p))]
+        grads[dev] = [g.cpu() for g in train._grads(loss, p)]
     delta = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(grads["cuda"], grads["cpu"])))
     norm = torch.sqrt(sum((b ** 2).sum() for b in grads["cpu"]))
     assert 0 < norm and delta <= chip_smoke.TRAIN_GRAD_RTOL * norm
@@ -1044,3 +1044,124 @@ def test_warm_frame_calls_match_plain():
     assert len(groups) == 3
     chip_smoke.check_agreement(chip_smoke.compare_recorded_calls(params, groups[-1]))
     cnr.reset_schedule_memo()
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_sharded_staged_frame_on_card(n_shards):
+    """A 256x256 staged frame over logical shards of the card
+    (parallel/sharding.py), after one frame that teaches the memo, against
+    the single-device frame: the fast path, every shard's
+    march on the kernel, the image equal bit for bit (chip_smoke's phase 14
+    bar: the shards' rungs march each ray as the frame's do), and shard 0's
+    march calls against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.parallel import mesh as mesh_lib
+    from cudaneuralrender_torch.parallel import sharding
+
+    dev = torch.device("cuda", 0)
+    params = cnr.load(NPZ, device=dev)
+    cfg = cnr.RenderConfig(width=256, height=256, march_impl="staged")
+    cam = cnr.Camera(**chip_smoke.CAMERA)
+    cnr.reset_schedule_memo()
+    ref = cnr.render_staged(params, cam, cfg)
+    cnr.reset_schedule_memo()
+    mesh = mesh_lib.make_mesh((n_shards,), ("data",), [dev] * n_shards)
+    # The first frame teaches the memo what an overflowing rung needs (the
+    # persistent store may be off); the second runs on the fast path.
+    sharding.render_image_sharded_staged(params, cam, cfg, mesh)
+    before = megakernel.KERNEL_LAUNCHES
+    stats = {}
+    img = sharding.render_image_sharded_staged(params, cam, cfg, mesh, stats_out=stats)
+    torch.cuda.synchronize()
+    assert megakernel.KERNEL_LAUNCHES - before >= n_shards
+    assert stats["fast_path"] and len(stats["shard_near"]) == n_shards
+    assert torch.equal(img, ref)
+    groups = chip_smoke._frame_groups(chip_smoke.record_calls(
+        lambda: sharding.render_image_sharded_staged(params, cam, cfg, mesh)))
+    assert len(groups) == n_shards
+    chip_smoke.check_agreement(chip_smoke.compare_recorded_calls(params, groups[0]))
+    cnr.reset_schedule_memo()
+
+
+def test_sharded_train_step_on_card():
+    """solve_surface_sharded feeding pixel_train_step_sharded on 4 logical
+    shards of the card (64x64, csg_demo with phase 12's noise) against the
+    unsharded step on the same solve: loss within rtol 1e-5, the gradient
+    (the first Adam moments, a tenth of it) within chip_smoke.TRAIN_GRAD_RTOL
+    of its norm; the sharded solve equal to diff.solve_surface's hit mask."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch import diff
+    from cudaneuralrender_torch.diff import train
+    from cudaneuralrender_torch.parallel import mesh as mesh_lib
+    from cudaneuralrender_torch.parallel import sharding
+
+    dev = torch.device("cuda", 0)
+    params = cnr.load(NPZ, device=dev)
+    cfg = cnr.RenderConfig(width=64, height=64, march_impl="staged")
+    target = chip_smoke._train_target(cnr, params, cfg)
+    gen = torch.Generator().manual_seed(chip_smoke.TRAIN_SEED)
+    start = cnr.MLP([(l.w + chip_smoke.TRAIN_NOISE * torch.randn(l.w.shape, generator=gen).to(dev),
+                      l.b + chip_smoke.TRAIN_NOISE * torch.randn(l.b.shape, generator=gen).to(dev))
+                     for l in params])
+    s0 = train.init_train_state(start, chip_smoke.TRAIN_LR)
+    cam = cnr.Camera(rotation_y=20.0)
+    mesh = mesh_lib.make_mesh((4,), ("data",), [dev] * 4)
+    t_star, hit = sharding.solve_surface_sharded(s0.params, cam, cfg, mesh)
+    _, hit1 = diff.solve_surface(s0.params, cam, cfg)
+    assert (hit == hit1).float().mean() >= 0.99
+    state, loss = sharding.pixel_train_step_sharded(s0, cam, target, cfg, mesh,
+                                                    chip_smoke.TRAIN_LR, t_star=t_star, hit=hit)
+    ref, ref_loss = train._pixel_grad_step_from_t(s0, cam, target, t_star, hit, cfg,
+                                                  chip_smoke.TRAIN_LR)
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-5)
+    mu = torch.cat([m.reshape(-1) for m in train._flat(state.opt_state.mu)])
+    mu_ref = torch.cat([m.reshape(-1) for m in train._flat(ref.opt_state.mu)])
+    assert float((mu - mu_ref).norm()) <= chip_smoke.TRAIN_GRAD_RTOL * float(mu_ref.norm())
+
+
+def test_zero_bias_net_step_on_card():
+    """``mlp.relu_tie`` on the card: gradient 1/2 at an exact tie (and its
+    double backward, as differentiable shading takes it), then the dry
+    run's zero-bias net (``init_mlp``, seed 3) at Camera() and 16x8, whose
+    pixel (4, 8) meets the surface at the origin: the 4-shard train step on
+    the CPU's dense solve, its loss finite and within rtol 1e-5 of the same
+    step on the CPU, its
+    gradient (the first Adam moments) within chip_smoke.TRAIN_GRAD_RTOL of
+    the CPU's norm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.diff import implicit, train
+    from cudaneuralrender_torch.models import mlp
+    from cudaneuralrender_torch.parallel import mesh as mesh_lib
+    from cudaneuralrender_torch.parallel import sharding
+
+    dev = torch.device("cuda", 0)
+    h = torch.tensor([-1.0, 0.0, 2.0], device=dev, requires_grad=True)
+    w = torch.tensor(3.0, device=dev, requires_grad=True)
+    (g,) = torch.autograd.grad(mlp.relu_tie(h * w).sum(), h, create_graph=True)
+    assert g.tolist() == [0.0, 1.5, 3.0]
+    (gw,) = torch.autograd.grad(g.sum(), w)  # d/dw of w * step(h w): the step's sum
+    assert float(gw) == 1.5
+    cfg = cnr.RenderConfig(width=16, height=8, scene="neural_raw", max_steps=16)
+    net = mlp.init_mlp(torch.Generator().manual_seed(3), device="cpu")
+    origin, dirs, _ = implicit._rays(net, cnr.Camera(), cfg)
+    t_star, hit = implicit._solve_t_dense(net, cfg, 0.0, origin, dirs)
+    out = {}
+    for d in ("cpu", dev):
+        mesh = mesh_lib.make_mesh((4,), ("data",), [torch.device(d)] * 4)
+        s0 = train.init_train_state(mlp.MLP([(l.w.to(d), l.b.to(d)) for l in net]))
+        state, loss = sharding.pixel_train_step_sharded(
+            s0, cnr.Camera(), torch.zeros((8, 16, 4), device=d), cfg, mesh,
+            t_star=t_star.to(d), hit=hit.to(d))
+        out[str(d)] = (float(loss), torch.cat([m.reshape(-1).cpu()
+                                               for m in train._flat(state.opt_state.mu)]))
+    (cpu_loss, cpu_mu), (card_loss, card_mu) = out["cpu"], out[str(dev)]
+    assert np.isfinite(card_loss)
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5)
+    assert float((card_mu - cpu_mu).norm()) <= chip_smoke.TRAIN_GRAD_RTOL * float(cpu_mu.norm())
