@@ -4,8 +4,8 @@
 
 Phases; any failure exits non-zero and nothing is caught:
   1. require a CUDA device; print the card's name and power limit;
-  2. build the kernels (csrc/*.cu, one nvcc per hidden width and chain, in
-     parallel, for sm_90a) and print the build time, ptxas's report and one
+  2. build the kernels (csrc/*.cu, one nvcc per hidden width and chain and
+     one for the elementwise kernels, in parallel, for sm_90a) and print the build time, ptxas's report and one
      line per kernel instantiation (registers, stack, spills, the dynamic
      shared memory its launch asks for at 9 layers, and its HMMA count in
      ``cuobjdump -sass``: every K3 and K2h instantiation and every FP32
@@ -18,7 +18,8 @@ Phases; any failure exits non-zero and nothing is caught:
      (coarse, refine rung 0, terminal rung);
   4. drive the main path — ``Renderer(...).render`` with the staged
      mixed-precision config — at 1920x1080 with the csg_demo weights,
-     counting kernel launches (those a ray per warp must not be 0), then
+     counting kernel launches (those a ray per warp and those of the
+     normals' ``relu_tie_backward`` must not be 0), then
      the 256x256 golden render against examples/assets/csg_demo.png;
   5. time 5 warm 1080p frames; record the inputs of every march call of
      one more frame and hold the kernel against its plain version on each
@@ -150,7 +151,26 @@ Phases; any failure exits non-zero and nothing is caught:
      tiles equal to the single-process bands bit for bit, and with the
      global tiles against the single-process frames; the memo broadcast, the
      losses on both ranks); a world of one on NCCL (the global frame and the
-     train step equal to the single-process ones); ``dryrun.run(4)``.
+     train step equal to the single-process ones); ``dryrun.run(4)``;
+ 15. the empty-space phases and the ReLU tie backward (csg_demo, the 1080p
+     staged config, CAMERA): frames with ``prepass_factor=4`` and with
+     ``grid_res=64`` (EMPTY_SPACE), each with its K1 launches counted, at
+     the mixed bar against the default frame, kernel = plain version on
+     every march call of a warm frame (the coarse call starts from the cone
+     trace's or the grid walk's state; the kernels line's
+     ``march_kernel_prepass`` / ``march_kernel_grid``), the median of 3
+     beside the default's, the option's init alone by CUDA events (the
+     renderer's ``_march_init``: the cone trace; the bake and the grid
+     walk) and a profiled frame's idle share; a 24-frame warm
+     turntable with ``grid_res=64`` against the cold one at the mixed bar;
+     an EMPTY_SHARDS-shard ``grid_res=64`` frame equal to the unsharded
+     one bit for bit; ``relu_tie_backward`` (csrc/elementwise.cu, the
+     normals' backward since this phase's slice; phase 4 counts its
+     main-path launches) against its plain version bit for bit on every
+     call of a 1080p frame's normals, the frame's calls timed kernel /
+     plain / ``threshold_backward`` beside the bytes bound, and
+     ``benchmarks/relu_ties.py``'s frame variants (the tree, ``torch.relu``,
+     the plain backward). The script's total wall time follows.
 The line before the last is a JSON object of the kernels' launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
 """
@@ -445,6 +465,7 @@ KERNEL_LABELS = (
     (r"x2_stepcost_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
      "x2_stepcost_kernel<H={}, chain={}, variant={}>"),
     (r"x3_ablation_kernelILi(\d+)ELi(\d+)E", "x3_ablation_kernel<H={}, variant={}>"),
+    (r"relu_tie_backward_kernel", "relu_tie_backward_kernel"),
 )
 
 
@@ -3151,14 +3172,223 @@ def drive_parallel(cnr, params, card) -> dict:
     return entry
 
 
+# Phase 15: the cone-traced prepass and the baked-grid walk at 1080p, and
+# the ReLU tie backward kernel.
+EMPTY_SPACE = (("prepass_factor=4", dict(prepass_factor=4)), ("grid_res=64", dict(grid_res=64)))
+EMPTY_ENTRIES = ("march_kernel_prepass", "march_kernel_grid")  # the kernels line's names
+EMPTY_SIDE = (1920, 1080)
+EMPTY_SHARDS = 4
+ELEMENTWISE_SOURCE = "cudaneuralrender_torch/csrc/elementwise.cu"
+T_START = None  # main()'s start, for the script's total time
+
+
+def _phase_alone(params, cfg, origin, dirs):
+    """A callable that runs the option's init alone on the frame's rays,
+    through the renderer's own ``_march_init`` (the prepass, or the
+    bounding-sphere init, the bake and the grid walk), and returns the
+    state the coarse call starts from and its SDF calls (a cone-trace step
+    each; the bake's one)."""
+    from cudaneuralrender_torch.render import renderer as renderer_lib
+
+    fine = renderer_lib.scene_fn(params, cfg, 0.0)
+    use_prepass = renderer_lib._prepass_on(cfg)
+    evals = []
+
+    def counted(p):
+        evals.append(1)
+        return fine(p)
+
+    def run():
+        evals.clear()
+        state = renderer_lib._march_init(counted, origin, dirs, cfg, use_prepass=use_prepass)
+        return state, len(evals)
+
+    return run
+
+
+def drive_empty_space(cnr, params, card) -> list:
+    """Phase 15, the opt-in empty-space phases on csg_demo at 1080p (the
+    default staged config, CAMERA): for each of EMPTY_SPACE a frame with
+    its K1 launches counted, at the mixed bar against the default frame,
+    kernel = plain version on every march call of a warm frame (the coarse
+    call starts from the cone trace's or the grid walk's state), its coarse
+    call timed both ways, the median of 3 frames beside the default's, the
+    phase alone by CUDA events (with what it leaves active), a profiled
+    frame's idle share; with grid_res=64 a 24-frame warm turntable against
+    the cold one at the mixed bar, and an EMPTY_SHARDS-shard frame equal to
+    the unsharded one. Returns the kernels line's entries, one an option."""
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import camera as camera_lib
+    from cudaneuralrender_torch.parallel import mesh as mesh_lib
+    from cudaneuralrender_torch.parallel import sharding
+
+    dev = params.device
+    base = cnr.RenderConfig(width=EMPTY_SIDE[0], height=EMPTY_SIDE[1], march_impl="staged")
+    cam = cnr.Camera(**CAMERA)
+    default = cnr.Renderer(params, base)
+    ref = default.render(cam)
+    ref_ms = time_frames(lambda: default.render(cam, 0.0), 3)
+    print(f"phase 15 default 1080p frame: median {statistics.median(ref_ms):.3f} ms over 3 "
+          f"{[round(x, 3) for x in ref_ms]} [{card}]")
+    c2w, _ = camera_lib.view_matrices(cam, dev)
+    origin, dirs = camera_lib.generate_rays(c2w, base.height, base.width, base.focal)
+    entries = []
+    for (name, fields), entry_name in zip(EMPTY_SPACE, EMPTY_ENTRIES):
+        cfg = base.replace(**fields)
+        renderer = cnr.Renderer(params, cfg)
+        renderer.render(cam)  # teaches the memo
+        megakernel.reset_launch_counts()
+        img = renderer.render(cam)
+        torch.cuda.synchronize()
+        launches, stats = megakernel.KERNEL_LAUNCHES, dict(renderer.last_stats)
+        if launches == 0:
+            raise RuntimeError(f"the {name} frame never launched the march kernel")
+        check_image(img, name, base.height, base.width)
+        mixed_bar(img, ref, f"phase 15 {name} 1080p frame")
+        with uncounted():
+            calls = record_march_calls(renderer, cam)
+            result = compare_recorded_calls(params, calls)
+            k_ms, plain_ms, bnd = time_coarse(params, calls)
+        for cname, a in result.items():
+            print(f"compare phase 15 {name} 1080p {cname}: {json.dumps(a)}")
+        check_agreement(result)
+        print(f"phase 15 {name} coarse march 1080p ({cfg.num_rays} rays, from the option's "
+              f"state): kernel {k_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bnd['bound_ms']:.3f} ms [{card}]")
+        entries.append(kernel_entry(entry_name, K1_SOURCE,
+                                    "cudaneuralrender_tpu/pallas/megakernel.py:45", launches,
+                                    max(a["max_abs_err"] for a in result.values()), k_ms,
+                                    plain_ms, bnd))
+        ms = time_frames(lambda: renderer.render(cam, 0.0), 3)
+        print(f"phase 15 {name} 1080p frame: median {statistics.median(ms):.3f} ms over 3 "
+              f"{[round(x, 3) for x in ms]} against {statistics.median(ref_ms):.3f} default; "
+              f"{launches} K1 launches; stats {json.dumps(stats)} [{card}]")
+        run = _phase_alone(params, cfg, origin, dirs)
+        state, evals = run()
+        print(f"phase 15 {name} init alone (renderer._march_init): "
+              f"{time_cuda(run, 3, warmup=1):.3f} ms (CUDA events, median of 3); {evals} SDF "
+              f"calls, {int(state.active.sum())} of {cfg.num_rays} rays left active, steps "
+              f"{int(state.steps)} [{card}]")
+        prof = profile_breakdown(lambda: renderer.render(cam, 0.0))
+        prof["march_kernel_ms"] = sum(prof["march_kernel_ms"])
+        print(f"phase 15 {name} 1080p frame profile: {json.dumps(prof)} [{card}]", flush=True)
+
+    cfg = base.replace(grid_res=64)
+    cams, frames = _turntable(cnr)
+    cold, cold_stats, cold_ms = _timed_sequence(cnr, params, cams, cfg, frames)
+    _timed_sequence(cnr, params, cams, cfg, frames, warm_start=True)
+    warm, warm_stats, warm_ms = _timed_sequence(cnr, params, cams, cfg, frames, warm_start=True)
+    if not torch.equal(warm[0], cold[0]):
+        raise RuntimeError("grid_res=64: warm frame 0 differs from the cold frame 0")
+    bars = [mixed_bar(w, c, f"phase 15 grid_res=64 warm turntable frame {i}", "the cold frame")
+            for i, (c, w) in enumerate(zip(cold[1:], warm[1:]), 1)]
+    print(f"phase 15 grid_res=64 turntable 1080p, {len(cams)} frames: cold {cold_ms:.3f} "
+          f"ms/frame, warm {warm_ms:.3f} ms/frame; hit masks agree min "
+          f"{min(b[0] for b in bars):.6f}, common hits within 1e-3 min "
+          f"{min(b[1] for b in bars):.6f}; steps cold {[s['steps'] for s in cold_stats]} warm "
+          f"{[s['steps'] for s in warm_stats]} [{card}]", flush=True)
+
+    one = cnr.Renderer(params, cfg).render(cam)
+    mesh = mesh_lib.make_mesh((EMPTY_SHARDS,), ("data",), [dev] * EMPTY_SHARDS)
+    megakernel.reset_launch_counts()
+    shard_img = sharding.render_image_sharded_staged(params, cam, cfg, mesh)
+    torch.cuda.synchronize()
+    unequal = unequal_pixels(shard_img, one)
+    print(f"phase 15 grid_res=64 {EMPTY_SHARDS}-shard 1080p frame: {unequal} pixels off the "
+          f"unsharded frame, {megakernel.KERNEL_LAUNCHES} K1 launches")
+    if unequal or megakernel.KERNEL_LAUNCHES == 0:
+        raise RuntimeError(f"grid_res=64: the {EMPTY_SHARDS}-shard frame differs from the "
+                           f"unsharded frame at {unequal} pixels")
+    return entries
+
+
+def record_tie_calls(run) -> list:
+    """Call ``run()``, recording (g, h) of every ``relu_tie_backward`` call
+    it makes, cloned."""
+    from cudaneuralrender_torch.kernels import elementwise
+
+    calls = []
+    real = elementwise.relu_tie_backward
+
+    def recording(g, h):
+        calls.append((g.clone(), h.clone()))
+        return real(g, h)
+
+    elementwise.relu_tie_backward = recording
+    try:
+        run()
+    finally:
+        elementwise.relu_tie_backward = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def drive_relu_tie(cnr, params, launches: int, card) -> dict:
+    """Phase 15, ``relu_tie_backward`` (csrc/elementwise.cu): against its
+    plain version bit for bit on every call of a 1080p frame's shading
+    normals (the main path's pre-activations and gradients), the frame's
+    calls timed kernel / plain / ``threshold_backward`` (relu's backward,
+    the library yardstick) beside the bound (12 bytes a value at the HBM
+    rate); then ``benchmarks/relu_ties.py``'s frame variants. Returns the
+    kernels line's entry (``launches``: phase 4's main-path count)."""
+    from cudaneuralrender_torch.benchmarks import relu_ties
+    from cudaneuralrender_torch.kernels import elementwise
+
+    cfg = cnr.RenderConfig(width=EMPTY_SIDE[0], height=EMPTY_SIDE[1], march_impl="staged")
+    cam = cnr.Camera(**CAMERA)
+    renderer = cnr.Renderer(params, cfg)
+    calls = record_tie_calls(lambda: renderer.render(cam))
+    if not calls:
+        raise RuntimeError("a 1080p frame's normals made no relu_tie_backward call")
+    err, unequal = 0.0, 0
+    for g, h in calls:
+        got = elementwise.relu_tie_backward(g, h)
+        want = elementwise.relu_tie_backward_plain(g, h)
+        unequal += int((got != want).sum()) - int((got.isnan() & want.isnan()).sum())
+        err = max(err, float((got - want).abs().nan_to_num(0.0).max()))
+    values = sum(g.numel() for g, _ in calls)
+    ties = sum(int((h == 0).sum()) for _, h in calls)
+    torch.cuda.synchronize()
+    print(f"phase 15 relu_tie_backward on a 1080p frame's {len(calls)} calls "
+          f"({[tuple(g.shape) for g, _ in calls[:2]]}..., {values} values, {ties} exact ties): "
+          f"{unequal} values off the plain version, max |d| {err}")
+    if unequal:
+        raise RuntimeError(f"relu_tie_backward differs from its plain version at {unequal} values")
+
+    def each(fn):
+        return lambda: [fn(g, h) for g, h in calls]
+
+    ms = time_cuda(each(elementwise.relu_tie_backward), 10, warmup=2)
+    plain_ms = time_cuda(each(elementwise.relu_tie_backward_plain), 10, warmup=2)
+    library_ms = time_cuda(each(lambda g, h: torch.ops.aten.threshold_backward(g, h, 0.0)),
+                           10, warmup=2)
+    bnd = bound(0, 12.0 * values)
+    print(f"phase 15 relu_tie_backward, a frame's {len(calls)} calls: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, threshold_backward (relu's backward) {library_ms:.4f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms ({12 * values} bytes at 3.35 TB/s) [{card}]", flush=True)
+
+    variants = relu_ties.frame_variants(renderer, cam)
+    tree_ms, tree_img = variants["relu_tie (tree)"]
+    for name, (f_ms, img) in variants.items():
+        print(f"phase 15 relu_ties frame 1920x1080, shading normals on {name}: {f_ms:.3f} ms "
+              f"(median of {2 * relu_ties.TIMED_RUNS}, {f_ms - tree_ms:+.3f} against the tree); "
+              f"{unequal_pixels(img, tree_img)} pixels off the tree's [{card}]", flush=True)
+    bnd.pop("tc_bound_ms", None)
+    return dict(name="relu_tie_backward", route="cuda", source=ELEMENTWISE_SOURCE,
+                replaces="cudaneuralrender_tpu/models/mlp.py:99", launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd, library_ms=library_ms)
+
+
 def main() -> int:
+    global T_START
+    T_START = time.perf_counter()
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
     os.environ.setdefault("CNR_SCHEDULE_MEMO", "")  # no learned schedules from disk
     import cudaneuralrender_torch as cnr
-    from cudaneuralrender_torch.kernels import build, megakernel
+    from cudaneuralrender_torch.kernels import build, elementwise, megakernel
     from cudaneuralrender_torch.ops import camera as camera_lib
 
     dev = torch.device("cuda", 0)
@@ -3176,7 +3406,7 @@ def main() -> int:
     for label, regs, stack, spill_st, spill_ld in ptxas_table(build.BUILD_LOG):
         line = (f"ptxas {label}: {regs} registers, {stack} bytes stack frame, {spill_st} bytes "
                 f"spill stores, {spill_ld} bytes spill loads")
-        if not label.startswith("x"):  # the launch's dynamic shared memory at 9 layers
+        if "H=" in label and not label.startswith("x"):  # dynamic shared memory at 9 layers
             h = int(label.split("H=")[1].split(",")[0].rstrip(">"))
             kind = (2 if label.startswith("mlp") else 3 if label.startswith("march_split")
                     else int(label.endswith("three_pass=1>")))
@@ -3219,14 +3449,18 @@ def main() -> int:
     renderer = cnr.Renderer(params, cfg)
     cam = cnr.Camera(**CAMERA)
     megakernel.reset_launch_counts()
+    elementwise.reset_launch_counts()
     img = renderer.render(cam)
     torch.cuda.synchronize()
     launches = megakernel.KERNEL_LAUNCHES
     split_launches = megakernel.SPLIT_LAUNCHES[32]
+    tie_launches = elementwise.RELU_TIE_LAUNCHES
     print(f"main path 1080p: {launches} kernel launches ({split_launches} a ray per warp), "
-          f"stats {json.dumps(renderer.last_stats)}")
+          f"{tie_launches} relu_tie_backward launches, stats {json.dumps(renderer.last_stats)}")
     if launches == 0:
         raise RuntimeError("the 1080p staged render never launched the march kernel")
+    if tie_launches == 0:
+        raise RuntimeError("the 1080p staged render's normals never launched relu_tie_backward")
     if split_launches == 0:
         raise RuntimeError("the 1080p staged render never marched a ray per warp")
     fg = check_image(img, "neural_raw")
@@ -3358,6 +3592,14 @@ def main() -> int:
     t14 = time.perf_counter()
     kernels.append(drive_parallel(cnr, params, card))
     print(f"phase 14 (parallel): {time.perf_counter() - t14:.1f} s wall", flush=True)
+
+    # 15. the empty-space phases (prepass, grid) and the ReLU tie backward
+    t15 = time.perf_counter()
+    kernels.extend(drive_empty_space(cnr, params, card))
+    kernels.append(drive_relu_tie(cnr, params, tie_launches, card))
+    print(f"phase 15 (prepass, grid, relu_tie_backward): {time.perf_counter() - t15:.1f} s wall",
+          flush=True)
+    print(f"chip_smoke total: {time.perf_counter() - T_START:.1f} s wall [{card}]", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

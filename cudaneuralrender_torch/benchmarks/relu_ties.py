@@ -2,23 +2,25 @@
 
 The JAX package's MLP takes ``jnp.maximum(h, 0.0)``, whose gradient at a
 pre-activation of exactly 0 is 1/2; ``torch.relu``'s is 0. The port's
-differentiated chain takes ``models.mlp.relu_tie`` (JAX's gradient, a
-backward of two kernels to relu's one), except a render's shading normals
-(``render.renderer.shade_fn``), which keep ``torch.relu``. This measures
-both choices where they apply, on csg_demo at 1080p in the default staged
-config at chip_smoke.py's camera:
+chain takes ``models.mlp.relu_tie`` everywhere it is differentiated (a
+render's shading normals, ``diff/``), its backward one kernel on the card
+(``kernels.elementwise.relu_tie_backward``, ``csrc/elementwise.cu``). This
+measures it on csg_demo at 1080p in the default staged config at
+chip_smoke.py's camera:
 
-  * a frame (``Renderer.render``) with the shading normals on
-    ``torch.relu`` (the tree) and on ``relu_tie``;
+  * a frame (``Renderer.render``) with the shading normals on the tree's
+    ``relu_tie``, on ``torch.relu``, and on ``relu_tie`` with the kernel's
+    plain version as its backward (``g * torch.heaviside(h, 1/2)``, two
+    kernels: the backward before the fused kernel);
   * a training step (``diff.train.pixel_train_step_fast``, the packed fast
     path, from csg_demo with seeded noise toward the frame) on ``relu_tie``
     (the tree) and on ``torch.relu``.
 
-Each pair runs in the order A, B, B, A, five synchronised wall-clock runs a
-turn after a warm-up, and prints the medians, the pixels where the two
-images differ (a pre-activation of exactly 0 at a surface point) or the two
-losses, and the card's name and power limit. Run on the card from the
-repository root::
+The variants run in the order A, B, C, C, B, A (the step: A, B, B, A), five
+synchronised wall-clock runs a turn after a warm-up, and it prints the
+medians, the pixels where an image differs from the tree's (a
+pre-activation of exactly 0 at a surface point) or the two losses, and the
+card's name and power limit. Run on the card from the repository root::
 
     python -m cudaneuralrender_torch.benchmarks.relu_ties
 """
@@ -31,8 +33,8 @@ import time
 
 import torch
 
+from ..kernels import elementwise
 from ..models import mlp
-from ..render import renderer as renderer_lib
 from ..utils.timing import card_line
 from . import ASSET, TIMED_RUNS, require_cuda
 
@@ -42,29 +44,25 @@ NOISE, SEED = 0.01, 7
 
 
 @contextlib.contextmanager
-def _render_normals_with_ties():
-    """Shading normals on ``relu_tie`` inside the block."""
-    real = renderer_lib.shade_fn
-
-    def shade_fn(params, config, frame):
-        return renderer_lib.scene_fn(params, config, frame, for_grad=True, surface_local=True)
-
-    renderer_lib.shade_fn = shade_fn
+def _patched(module, name, value):
+    """``module.name`` set to ``value`` inside the block."""
+    real = getattr(module, name)
+    setattr(module, name, value)
     try:
         yield
     finally:
-        renderer_lib.shade_fn = real
+        setattr(module, name, real)
 
 
-@contextlib.contextmanager
-def _training_on_relu():
+def on_relu():
     """The differentiated chain on ``torch.relu`` inside the block."""
-    real = mlp.relu_tie
-    mlp.relu_tie = torch.relu
-    try:
-        yield
-    finally:
-        mlp.relu_tie = real
+    return _patched(mlp, "relu_tie", torch.relu)
+
+
+def on_plain_backward():
+    """``relu_tie``'s backward on its plain version (two kernels) inside
+    the block."""
+    return _patched(elementwise, "relu_tie_backward", elementwise.relu_tie_backward_plain)
 
 
 def _wall_ms(run) -> list:
@@ -78,15 +76,22 @@ def _wall_ms(run) -> list:
     return out
 
 
-def _pair(name_a, ctx_a, name_b, ctx_b, run) -> dict:
-    """Medians of ``run`` under ``ctx_a`` and ``ctx_b`` (A, B, B, A), with
-    each side's last output."""
-    ms, last = {name_a: [], name_b: []}, {}
-    for name, ctx in ((name_a, ctx_a), (name_b, ctx_b), (name_b, ctx_b), (name_a, ctx_a)):
+def compare(variants, run) -> dict:
+    """Medians of ``run`` under each (name, context) of ``variants``, in
+    the order given and then reversed, with each variant's last output."""
+    ms, last = {name: [] for name, _ in variants}, {}
+    for name, ctx in list(variants) + list(variants)[::-1]:
         with ctx():
             last[name] = run()
             ms[name] += _wall_ms(run)
     return {name: (statistics.median(v), last[name]) for name, v in ms.items()}
+
+
+def frame_variants(renderer, cam) -> dict:
+    """The three frame variants: name -> (median ms, image)."""
+    return compare((("relu_tie (tree)", contextlib.nullcontext), ("torch.relu", on_relu),
+                    ("relu_tie, plain backward", on_plain_backward)),
+                   lambda: renderer.render(cam))
 
 
 def main() -> None:
@@ -100,12 +105,13 @@ def main() -> None:
     cfg = cnr.RenderConfig(width=SIDE[0], height=SIDE[1], march_impl="staged")
     cam = cnr.Camera(**CAMERA)
     renderer = cnr.Renderer(params, cfg)
-    frames = _pair("torch.relu (tree)", contextlib.nullcontext, "relu_tie",
-                   _render_normals_with_ties, lambda: renderer.render(cam))
-    (a_ms, a_img), (b_ms, b_img) = frames.values()
-    print(f"relu_ties frame {SIDE[0]}x{SIDE[1]}, shading normals: torch.relu (tree) "
-          f"{a_ms:.3f} ms, relu_tie {b_ms:.3f} ms (median of {2 * TIMED_RUNS}); the images "
-          f"differ at {int((a_img != b_img).any(dim=-1).sum())} pixels [{card}]", flush=True)
+    frames = frame_variants(renderer, cam)
+    tree_ms, tree_img = frames["relu_tie (tree)"]
+    for name, (ms, img) in frames.items():
+        print(f"relu_ties frame {SIDE[0]}x{SIDE[1]}, shading normals on {name}: {ms:.3f} ms "
+              f"(median of {2 * TIMED_RUNS}, {ms - tree_ms:+.3f} against the tree); differs "
+              f"from the tree's image at {int((img != tree_img).any(dim=-1).sum())} pixels "
+              f"[{card}]", flush=True)
 
     target = renderer.render(cnr.Camera(rotation_y=CAMERA["rotation_y"] - 6.0,
                                         rotation_x=CAMERA["rotation_x"]))
@@ -118,8 +124,7 @@ def main() -> None:
     def step():
         return train.pixel_train_step_fast(s0, cam, target, cfg)[1]
 
-    steps = _pair("relu_tie (tree)", contextlib.nullcontext, "torch.relu", _training_on_relu,
-                  step)
+    steps = compare((("relu_tie (tree)", contextlib.nullcontext), ("torch.relu", on_relu)), step)
     (a_ms, a_loss), (b_ms, b_loss) = steps.values()
     print(f"relu_ties training step {SIDE[0]}x{SIDE[1]} (pixel_train_step_fast): relu_tie (tree) "
           f"{a_ms:.3f} ms, torch.relu {b_ms:.3f} ms (median of {2 * TIMED_RUNS}); losses "

@@ -19,10 +19,10 @@ plus --scene, --steps, --march, --normal-mode, --stats, --parity-flip,
 --pallas (config.use_pallas: the fused forward kernel for every SDF
 evaluation outside the march kernel), --fault-inject N (a frame renders band
 by band through parallel/fault.py's ``render_tiled``, N band failures
-injected and retried) and -d/--device (default cuda). With ``cuda`` and no
-card the CLI fails; the CPU is used only when asked for with ``-d cpu``.
-
-``--profile`` is not ported yet: it prints so and exits with code 2.
+injected and retried), --save-ckpt PATH (re-save the loaded weights as
+.npz), --profile DIR (a torch.profiler Chrome trace of the render, written
+into DIR) and -d/--device (default cuda). With ``cuda`` and no card the CLI
+fails; the CPU is used only when asked for with ``-d cpu``.
 
 Run: python -m cudaneuralrender_torch.cli -i examples/assets/csg_demo.npz --single
 """
@@ -33,8 +33,6 @@ import json
 import os
 import sys
 import time
-
-NOT_PORTED = ("profile",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,7 +71,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve", action="store_true",
                    help="interactive browser viewer (the GLUT window's replacement)")
     p.add_argument("--port", type=int, default=8000, help="--serve's port (0: any free port)")
-    p.add_argument("--profile", default=None, metavar="DIR", help="(not ported)")
+    p.add_argument("--save-ckpt", default=None, help="re-save the loaded weights as .npz")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the render into DIR "
+                        "(open it in Perfetto or chrome://tracing)")
     p.add_argument("--fault-inject", type=int, default=0, metavar="N",
                    help="render band by band with N injected band failures, each "
                         "retried (the fault drill; parallel/fault.py)")
@@ -89,13 +90,26 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _profiled(run, device, out_dir: str):
+    """``run()`` under torch.profiler (the card's kernels too on a card),
+    its Chrome trace written into ``out_dir``; returns what ``run`` did."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        out = run()
+        _sync(device)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"render_{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profile trace: {path}")
+    return out
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, flag):
-            print(f"error: --{flag.replace('_', '-')} is not yet ported to the "
-                  "PyTorch package (see ROADMAP.md)", file=sys.stderr)
-            return 2
 
     import torch
 
@@ -111,6 +125,9 @@ def main(argv=None) -> int:
     params = cnr.load(args.input, device=device)
     print(f"Model initialized... ({cnr.mlp.num_params(params)} params, "
           f"layers {cnr.mlp.layer_sizes(params)})")
+    if args.save_ckpt:
+        cnr.save_pytree(args.save_ckpt, params)
+        print(f"saved checkpoint: {args.save_ckpt}")
 
     num_inputs = 4 if args.animation else 3
     model_in = cnr.mlp.layer_sizes(params)[0]
@@ -162,6 +179,8 @@ def main(argv=None) -> int:
             rgba = torch.from_numpy(fault.render_tiled(params, cam, cfg, renderer.matcap, frame,
                                                        injector=injector))
             print(f"fault drill: {injector.injected} injected failures recovered")
+        elif args.profile:
+            rgba = _profiled(lambda: renderer.render(cam, frame), device, args.profile)
         else:
             rgba = renderer.render(cam, frame)
         _sync(device)

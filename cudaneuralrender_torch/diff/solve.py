@@ -53,7 +53,6 @@ def _march_packed(params, camera: Camera, config: RenderConfig, frame):
     """Ray generation and ``renderer._scheduled_march``, with the stats
     vector of ``_render_scheduled`` ([:4] the fast-path check's counts,
     [4:] each refine rung's entry actives); the bundle stays packed."""
-    renderer_lib._check_supported(config)
     dev = renderer_lib._device_of(params)
     cam_to_world, _ = camera_lib.view_matrices(camera, dev)
     origin, dirs = camera_lib.generate_rays(

@@ -4,8 +4,8 @@ The sources under ``cudaneuralrender_torch/csrc/`` compile with ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers). Each ``.cu`` file is one translation unit
 (one per hidden width and chain, FP32 and three-pass, the C entry points of
-the render kernels, and the step-cost experiment kernels X1-X3 with their
-entries); they compile in parallel processes, one ``nvcc`` each, and link
+the render kernels, the elementwise backward kernels, and the step-cost
+experiment kernels X1-X3 with their entries); they compile in parallel processes, one ``nvcc`` each, and link
 into the library. The build runs at
 first CUDA use, never at import, into ``cudaneuralrender_torch/build/``
 (listed in .gitignore) under a name keyed by a hash of the sources, headers
@@ -176,6 +176,13 @@ def load_library() -> ctypes.CDLL:
             _P, _P,                  # out, stream
         ]
         lib.cnr_x3_ablation.restype = _I
+        lib.cnr_relu_tie_backward.argtypes = [
+            _I,                      # device
+            _P, _P, _P,              # g, h, out
+            ctypes.c_longlong,       # n
+            _P,                      # stream
+        ]
+        lib.cnr_relu_tie_backward.restype = _I
         lib.cnr_error_string.argtypes = [_I]
         lib.cnr_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -608,7 +608,7 @@ def render_image_kernel(params: MLP, camera: Camera, config: RenderConfig,
     t, hit = march(params, origin, dirs, config, frame)
     points = origin + dirs * t[:, None]
     colors = shading.shade(
-        scene_fn(params, config, frame, for_grad=True, ties=False), points, dirs,
+        scene_fn(params, config, frame, for_grad=True), points, dirs,
         mode=config.shading, normal_mode=config.normal_mode,
         normal_eps=config.normal_eps, world_to_cam=world_to_cam, matcap=matcap,
     )

@@ -7,8 +7,8 @@ other's files. Keras files are walked like the reference's loader
 group, a 1-D bias and a 2-D (in, out) kernel; layer order follows the
 ``layer_names`` attribute, falling back to a natural-numeric sort.
 
-h5py is imported only to read a Keras file; the npz format needs numpy
-alone (hosts without h5py load ``.npz`` checkpoints).
+h5py is imported only to read or write a Keras file; the npz format needs
+numpy alone (hosts without h5py load ``.npz`` checkpoints).
 """
 from __future__ import annotations
 
@@ -36,9 +36,18 @@ def _ordered_layer_names(f) -> List[str]:
     return sorted(f.keys(), key=_natural_key)
 
 
+def _h5py():
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError("a Keras .h5 file needs the h5py package, which is not installed; "
+                          ".npz checkpoints (save_pytree, load_pytree) need numpy alone") from e
+    return h5py
+
+
 def read_keras_h5(path: str):
     """The dense chain of a Keras HDF5 weight file as (w, b) ndarrays."""
-    import h5py
+    h5py = _h5py()
 
     layers = []
     with h5py.File(path, "r") as f:
@@ -79,6 +88,24 @@ def load_keras_h5(path: str, *, device="cuda") -> MLP:
     """Load a Keras-exported dense-stack HDF5 file into an ``MLP`` on
     ``device`` (default the card)."""
     return mlp.from_numpy_params(read_keras_h5(path), device=device)
+
+
+def save_keras_h5(path: str, params: MLP) -> None:
+    """Write an MLP as a Keras-layout HDF5 weight file, the structure
+    ``read_keras_h5`` (and the reference's loader) parses: one top-level
+    group per layer named dense, dense_1, ..., an inner group of the same
+    name holding ``kernel:0`` (in, out) and ``bias:0``, and the
+    ``layer_names`` root attribute Keras writes (the JAX package's
+    ``save_keras_h5``). Needs h5py."""
+    h5py = _h5py()
+    layers = mlp.to_numpy_params(params)
+    names = [f"dense_{i}" if i else "dense" for i in range(len(layers))]
+    with h5py.File(path, "w") as f:
+        f.attrs["layer_names"] = np.array([n.encode() for n in names])
+        for name, (w, b) in zip(names, layers):
+            inner = f.create_group(name).create_group(name)
+            inner.create_dataset("kernel:0", data=w)
+            inner.create_dataset("bias:0", data=b)
 
 
 def save_pytree(path: str, params: MLP) -> None:

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..kernels import elementwise
+
 
 class DenseParams(NamedTuple):
     """One dense layer: y = x @ w + b.  w: (in, out), b: (out,)."""
@@ -113,10 +115,28 @@ def init_mlp(
     return MLP(layers)
 
 
+class _TieStep(torch.autograd.Function):
+    """``g * H(h, 1/2)`` (``elementwise.relu_tie_backward``: one kernel on
+    the card), differentiable in g with the step held constant: its own
+    backward is the same product with the incoming gradient. A second
+    derivative (differentiable shading, the training step) sees only that
+    product, as with the JAX package's step function."""
+
+    @staticmethod
+    def forward(ctx, g, h):
+        ctx.save_for_backward(h)
+        return elementwise.relu_tie_backward(g.contiguous(), h.contiguous())
+
+    @staticmethod
+    def backward(ctx, gg):
+        (h,) = ctx.saved_tensors
+        return _TieStep.apply(gg, h), None
+
+
 class _TieReLU(torch.autograd.Function):
     """ReLU whose gradient at a pre-activation of exactly 0 is 1/2, as
     ``jnp.maximum(h, 0.0)``'s is (``torch.relu``'s is 0). The forward is
-    ``torch.relu``; the backward is two kernels to relu's one."""
+    ``torch.relu``; the backward is one kernel, as relu's is (``_TieStep``)."""
 
     @staticmethod
     def forward(ctx, h):
@@ -126,10 +146,9 @@ class _TieReLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (h,) = ctx.saved_tensors
-        # The step function is constant where it is defined: a second
-        # derivative sees only the product with g.
-        # A 0-dim CPU tensor is a scalar operand on any device, with no copy.
-        return g * torch.heaviside(h.detach(), torch.tensor(0.5, dtype=h.dtype))
+        if torch.is_grad_enabled():  # create_graph: the product must be differentiable
+            return _TieStep.apply(g, h.detach())
+        return elementwise.relu_tie_backward(g.contiguous(), h.contiguous())
 
 
 def relu_tie(h: torch.Tensor) -> torch.Tensor:
@@ -140,27 +159,25 @@ def relu_tie(h: torch.Tensor) -> torch.Tensor:
     return torch.relu(h)
 
 
-def apply(params: MLP, x: torch.Tensor, ties: bool = True) -> torch.Tensor:
+def apply(params: MLP, x: torch.Tensor) -> torch.Tensor:
     """Forward pass. x: (..., n_in) -> (..., n_out); ReLU on every layer but
-    the last. ``ties=True`` gives a pre-activation of exactly 0 the
-    gradient 1/2, as the JAX package's ``jnp.maximum`` does: a zero-bias
-    net's ray through the origin (every first-layer pre-activation 0)
-    otherwise gets a zero SDF gradient and a NaN normal. ``ties=False``
-    keeps ``torch.relu``'s cheaper backward (the render's shading
-    normals)."""
-    relu = relu_tie if ties else torch.relu
+    the last. A pre-activation of exactly 0 gets the gradient 1/2, as the
+    JAX package's ``jnp.maximum`` gives it (``relu_tie``): with
+    ``torch.relu``'s 0, a zero-bias net's ray through the origin (every
+    first-layer pre-activation 0) gets a zero SDF gradient and a NaN
+    normal."""
     h = x
     n = len(params)
     for i, layer in enumerate(params):
         h = h @ layer.w + layer.b
         if i + 1 < n:
-            h = relu(h)
+            h = relu_tie(h)
     return h
 
 
-def apply_scalar(params: MLP, x: torch.Tensor, ties: bool = True) -> torch.Tensor:
+def apply_scalar(params: MLP, x: torch.Tensor) -> torch.Tensor:
     """(..., n_in) -> (...) for single-output networks (SDF value)."""
-    return apply(params, x, ties).squeeze(-1)
+    return apply(params, x).squeeze(-1)
 
 
 def num_weight_params(params: MLP) -> int:

@@ -20,6 +20,14 @@ import torch
 _INACTIVE_KEY = 1 << 62
 
 
+def capacity_bucket(count: int, minimum: int = 256) -> int:
+    """Smallest power of two >= ``count`` (and >= ``minimum``)."""
+    cap = max(int(minimum), 1)
+    while cap < count:
+        cap *= 2
+    return cap
+
+
 def capacity_bucket_of(count: int, total: int, minimum: int = 8192) -> int:
     """Coarse capacity bucket: total / 4^k, the largest shrink that still
     holds ``count`` (floored at ``minimum``)."""
@@ -91,6 +99,18 @@ def sort_restore_leaves(pos: torch.Tensor, leaves):
     on the carried original-position payload (a permutation)."""
     perm = torch.sort(pos.to(torch.int64), stable=True).indices
     return tuple(l[perm] for l in leaves)
+
+
+def gather_state(tree, indices: torch.Tensor):
+    """The rows ``indices`` of every [N, ...] tensor of ``tree``: a tensor,
+    or a tuple or NamedTuple of them (nested), returned in the same
+    structure."""
+    if isinstance(tree, torch.Tensor):
+        return tree[indices]
+    leaves = [gather_state(v, indices) for v in tree]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a NamedTuple
+        return type(tree)(*leaves)
+    return type(tree)(leaves)
 
 
 def scatter_state(full_tree, compact_tree, indices: torch.Tensor, valid: torch.Tensor):

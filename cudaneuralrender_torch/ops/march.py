@@ -22,6 +22,10 @@ import torch
 
 from .sdf import SdfFn, device_constant
 
+#: Steps between two host reads of a masked loop's flag in the empty-space
+#: phases (ops/prepass.py's cone trace, ops/grid.py's walk).
+HOST_CHECK_EVERY = 8
+
 
 class MarchState(NamedTuple):
     """Per-ray march state (flat [N] tensors; points are recomputed as

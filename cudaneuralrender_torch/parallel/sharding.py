@@ -338,7 +338,6 @@ def staged_subset(params, pos, cam_to_world, world_to_cam, config: RenderConfig,
     [len(refine_schedule)]: this subset's share of the near-set work, the
     per-shard load observable.
     """
-    renderer_lib._check_supported(config)
     n_local = pos.shape[0]
     origin = cam_to_world[:, 3].contiguous()
     dirs = camera_lib.ray_dirs_from_index(

@@ -51,9 +51,14 @@ kernel to it, and ``relax_newton`` (secant-adaptive relaxation) keeps the
 relaxed rungs off the kernel, which has no Newton step. Dense marches run
 the FP32 chain at every precision.
 
-Configs that select phases not ported yet (``prepass_factor``,
-``grid_res``) raise ``NotImplementedError`` naming their ROADMAP item
-(``_check_supported``).
+Two opt-in phases replace the march's initial state in the mixed
+precision, as in the JAX package: the cone-traced low-resolution prepass
+(``prepass_factor``, ops/prepass.py; image-order lanes of a cold frame
+only, when the factor divides H and W) and the baked-grid walk
+(``grid_res``, ops/grid.py; after any init, warm and sharded lanes too).
+Both are plain PyTorch loops that read a flag on the host every few steps
+(``frame_reads_host``), and their SDF is the coarse phase's dense chain
+(K3 under ``use_pallas``).
 """
 from __future__ import annotations
 
@@ -71,7 +76,7 @@ from ..kernels import scenes as kscenes
 from ..models import mlp
 from ..models.mlp import MLP
 from ..ops import camera as camera_lib
-from ..ops import compaction, march, sdf, shading
+from ..ops import compaction, grid, march, prepass, sdf, shading
 from ..ops.camera import Camera
 from ..utils import image_io
 from ..utils import memo as _memo_store
@@ -89,36 +94,22 @@ def _require_fp32_matmul() -> None:
             "full-FP32 matmuls (set it to False)")
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, {item})")
-
-
-def _check_supported(config: RenderConfig) -> None:
-    """Raise for config options whose phases this package has not ported."""
-    mixed = config.march_precision == "mixed"
-    if mixed and config.prepass_factor > 1:
-        raise _not_ported("prepass_factor > 1", "item 5: prepass")
-    if mixed and config.grid_res:
-        raise _not_ported("grid_res > 0", "item 6: grid")
-
-
-def neural_sdf_fn(params: MLP, frame, num_inputs: int = 3, ties: bool = True):
+def neural_sdf_fn(params: MLP, frame, num_inputs: int = 3):
     """Wrap MLP params as an SdfFn over (..., 3) points; num_inputs=4
-    appends the frame number as a 4th input (animation mode). ``ties`` as
-    in ``mlp.apply``."""
+    appends the frame number as a 4th input (animation mode)."""
 
     def fn(p: torch.Tensor) -> torch.Tensor:
         x = p
         if num_inputs == 4:
             f = sdf.frame_tensor(frame, p.device).to(p.dtype).expand(p.shape[:-1] + (1,))
             x = torch.cat([p, f], dim=-1)
-        return mlp.apply_scalar(params, x, ties)
+        return mlp.apply_scalar(params, x)
 
     return fn
 
 
 def scene_fn(params: Optional[MLP], config: RenderConfig, frame, *,
-             for_grad: bool = False, surface_local: bool = False, ties: bool = True):
+             for_grad: bool = False, surface_local: bool = False):
     """The scene SDF for a config.
 
     With ``config.use_pallas`` the neural field evaluates through the fused
@@ -126,7 +117,7 @@ def scene_fn(params: Optional[MLP], config: RenderConfig, frame, *,
     version on the CPU). The kernel has no gradient: gradient consumers
     (autodiff normals) pass ``for_grad=True`` for the plain, differentiable
     chain, which gives the same values. Its gradient at a ReLU tie is
-    JAX's 1/2 (``mlp.apply``); ``ties=False`` keeps ``torch.relu``'s.
+    JAX's 1/2 (``mlp.apply``).
 
     The chain is FP32 whatever the phase's precision: the three-pass chain
     (K2h) runs only inside the march kernel. The JAX package's dense chain
@@ -142,7 +133,7 @@ def scene_fn(params: Optional[MLP], config: RenderConfig, frame, *,
     elif config.use_pallas and not for_grad:
         neural = fused_mlp.neural_sdf_fn_kernel(params, frame, config.num_inputs)
     else:
-        neural = neural_sdf_fn(params, frame, config.num_inputs, ties)
+        neural = neural_sdf_fn(params, frame, config.num_inputs)
     return sdf.make_scene(
         config.scene, neural, frame,
         cyl_window=(config.cyl_window if surface_local else None))
@@ -151,10 +142,11 @@ def scene_fn(params: Optional[MLP], config: RenderConfig, frame, *,
 def shade_fn(params: Optional[MLP], config: RenderConfig, frame):
     """Scene SDF for a render's shading normals: differentiable (the plain
     chain), with surface-local composes. Every precision runs in FP32 here,
-    so config.shade_precision selects nothing. It keeps ``torch.relu``'s
-    one-kernel backward: a pre-activation of exactly 0 gets gradient 0,
-    where JAX's gives 1/2 (ROADMAP section 3)."""
-    return scene_fn(params, config, frame, for_grad=True, surface_local=True, ties=False)
+    so config.shade_precision selects nothing. A pre-activation of exactly
+    0 gets JAX's gradient 1/2 (``mlp.relu_tie``), through one backward
+    kernel on the card (``elementwise.relu_tie_backward``), as many as
+    ``torch.relu``'s backward takes."""
+    return scene_fn(params, config, frame, for_grad=True, surface_local=True)
 
 
 def _device_of(params: Optional[MLP], device=None) -> torch.device:
@@ -408,6 +400,21 @@ def _block_order(h: int, w: int, bh: int, bw: int, device: torch.device) -> torc
     return torch.as_tensor(order, device=device)
 
 
+def _prepass_on(config: RenderConfig) -> bool:
+    """Whether a cold image-order frame of ``config`` starts from the
+    cone-traced prepass: the mixed march, ``prepass_factor > 1`` dividing
+    both H and W (the JAX package skips it silently otherwise)."""
+    f = config.prepass_factor
+    return (config.march_precision == "mixed" and f > 1
+            and config.height % f == 0 and config.width % f == 0)
+
+
+def _grid_on(config: RenderConfig) -> bool:
+    """Whether every frame of ``config`` walks the baked grid after its
+    init: the mixed march with ``grid_res`` set."""
+    return config.march_precision == "mixed" and bool(config.grid_res)
+
+
 def _warm_block_order(config: RenderConfig) -> bool:
     """True when the coarse kernel pass runs in block-major lane order: the
     order warm-start state is produced in and consumed from (the predicate
@@ -428,6 +435,39 @@ def _warm_guard(coarse, origin, dirs, state: march.MarchState,
                           budget=torch.where(bad, cold.budget, state.budget))
 
 
+def _march_init(fine, origin, dirs, config: RenderConfig, t_init=None,
+                use_prepass: bool = False) -> march.MarchState:
+    """The state the coarse phase starts from: the cone-traced prepass
+    (``use_prepass``: image-order lanes of a cold frame), else the
+    bounding-sphere init, warm-started from ``t_init`` and guarded; then,
+    with ``_grid_on(config)``, the baked-grid walk. ``fine`` is the coarse
+    phase's SDF: the dense chain, FP32 at every precision here, the fused
+    forward kernel under ``use_pallas``."""
+    if use_prepass:
+        # The cone-traced prepass (ops/prepass.py) reads the lanes as an
+        # H x W image: sky neighbourhoods die, the rest start margin-close.
+        state = prepass.prepass_init(
+            fine, origin, dirs, config.height, config.width, config.prepass_factor,
+            margin=config.coarse_eps, bound_center=config.bound_center,
+            bound_radius=config.bound_radius)
+    else:
+        # t_init arrives in this lane order (_render_scheduled's
+        # return_state sorts it so: no gather), its margins applied by the
+        # producer.
+        state = march.init_state(origin, dirs, config.bound_center, config.bound_radius,
+                                 t_init=t_init, warm_margin=0.0)
+        if t_init is not None:
+            state = _warm_guard(fine, origin, dirs, state, config)
+    if _grid_on(config):
+        # The baked-grid walk (ops/grid.py) after any init, warm and
+        # sharded lanes included; its steps count against max_steps.
+        gbound = config.bound_radius * 1.05
+        baked = grid.bake(fine, config.grid_res, gbound, device=dirs.device)
+        state = grid.grid_march(baked, origin, dirs, state, bound=gbound,
+                                max_steps=config.max_steps)
+    return state
+
+
 def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
                      frame, t_init=None, pos=None):
     """The staged march: the coarse phase, then the precision ladder.
@@ -442,9 +482,13 @@ def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
     ``pos`` [n] int32 (optional): the global pixel index of each lane, for
     a caller that marches a subset of the image (a shard or a band of
     parallel/), in the caller's lane order; ``dirs`` (and ``t_init``) must
-    already correspond to it. The image-order phases, the block reorder and
-    with it the warm block hand-off, are skipped; every later stage reads
-    the carried index.
+    already correspond to it. The image-order phases (the prepass, the
+    block reorder and with it the warm block hand-off) are skipped; every
+    later stage reads the carried index.
+
+    A cold image-order frame with ``_prepass_on(config)`` starts from the
+    prepass in image order (no block reorder); with ``grid_res`` every
+    frame walks the baked grid after its init.
 
     Returns (pr, steps, refine_overflow, rung_actives)."""
     fine = scene_fn(params, config, frame)
@@ -457,21 +501,15 @@ def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
         prec_a = "highest"
         eps_a, schedule_a = config.march_eps, config.fine_schedule
     relax = config.relax_omega if mixed else 0.0
+    use_prepass = t_init is None and pos is None and _prepass_on(config)
     pos0 = pos
-    if pos is None and _warm_block_order(config):
+    if pos is None and not use_prepass and _warm_block_order(config):
         # Block-major lane order (_block_order) for the coarse kernel pass.
         bh, bw = config.coarse_block
         pos0 = _block_order(config.height, config.width, bh, bw, dirs.device)
         dirs = camera_lib.ray_dirs_from_index(
             cam_to_world, pos0, config.height, config.width, config.focal)
-    # t_init arrives in this lane order (_render_scheduled's return_state
-    # sorts it so: no gather), its margins applied by the producer.
-    state = march.init_state(origin, dirs, config.bound_center, config.bound_radius,
-                             t_init=t_init, warm_margin=0.0)
-    if t_init is not None:
-        # The guard probes the coarse phase's SDF: the dense chain, FP32 at
-        # every precision here, the fused forward kernel under use_pallas.
-        state = _warm_guard(fine, origin, dirs, state, config)
+    state = _march_init(fine, origin, dirs, config, t_init, use_prepass)
 
     if _coarse_on_kernel(config):
         # The whole coarse phase as ONE run-to-dry kernel pass over the image.
@@ -731,7 +769,6 @@ def _render_scheduled(params, camera, config: RenderConfig, matcap, frame,
     Returns (rgba, packed pr, stats[, (t, hit)]) with stats =
     [active_count, steps_done, hit_count, refine_overflow, per-rung entry
     actives...] as one int32 tensor, so the caller fetches once."""
-    _check_supported(config)
     dev = _device_of(params)
     frame = sdf.frame_tensor(frame, dev)
     cam_to_world, world_to_cam = camera_lib.view_matrices(camera, dev)
@@ -1036,8 +1073,11 @@ def frame_reads_host(config: RenderConfig) -> bool:
     the image (``compact_min`` at or above the image's rays: small images),
     which marches densely. It asks the helpers that route the staged march
     (``_coarse_on_kernel``, ``_rungs_on_kernel``, ``_ladder``,
-    ``_dense_rung``)."""
+    ``_dense_rung``). The prepass and the grid walk read their loop flag
+    every few steps too (``_prepass_on``, ``_grid_on``)."""
     if not (_coarse_on_kernel(config) and _rungs_on_kernel(config)):
+        return True
+    if _prepass_on(config) or _grid_on(config):
         return True
     n = config.num_rays
     return any(_dense_rung(_cap_for(n, div, caps[i] if caps else 0, config), n, rung_steps,
@@ -1302,8 +1342,6 @@ class Renderer:
                  matcap: Optional[np.ndarray] = None, *, device=None):
         config.validate()
         _require_fp32_matmul()
-        if config.march_impl == "staged":
-            _check_supported(config)
         self.params = params
         self.config = config
         self.device = _device_of(params, device)

@@ -6,10 +6,10 @@ together), so one config describes a render in either package. PyTorch runs
 eagerly, so the config is a plain value the render functions branch on; it
 stays frozen and hashable because the adaptive-schedule memo keys on it.
 
-Two fields select phases this package has not ported yet
-(``prepass_factor``, ``grid_res``); the renderer raises
-``NotImplementedError`` naming the ROADMAP item for those
-(render/renderer.py ``_check_supported``).
+``prepass_factor`` (a cone-traced prepass at 1/f resolution, ops/prepass.py)
+and ``grid_res`` (a baked distance grid walked ahead of the march,
+ops/grid.py) select the mixed march's optional empty-space phases, as in the
+JAX package (render/renderer.py ``_scheduled_march``).
 """
 from __future__ import annotations
 

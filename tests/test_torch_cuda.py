@@ -41,7 +41,10 @@ The march kernel's ray-split mode (a ray per warp, the FFMA chain summed
 in input order) at widths 32 and 64 against the plain version, bit for bit
 (chip_smoke.split_equal): every scene and the 4-input anim_demo on the
 three kinds of call, a bucket with no active lane, lane counts that are not
-a multiple of a block, and its launches counted.
+a multiple of a block, and its launches counted. The ReLU tie backward
+(``relu_tie_backward``, csrc/elementwise.cu) against its plain version bit
+for bit (ties, NaN, ragged tails, unaligned views), inside a CUDA graph,
+and in a render's normals at the zero-bias net's tie pixel.
 """
 import os
 
@@ -1165,3 +1168,92 @@ def test_zero_bias_net_step_on_card():
     assert np.isfinite(card_loss)
     np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5)
     assert float((card_mu - cpu_mu).norm()) <= chip_smoke.TRAIN_GRAD_RTOL * float(cpu_mu.norm())
+
+
+@pytest.mark.parametrize("n,offset", [(0, 0), (3, 0), (4099, 0), (1 << 20, 0), (4099, 1),
+                                      (1 << 20, 3)])
+def test_relu_tie_backward_matches_plain(n, offset):
+    """``relu_tie_backward`` (csrc/elementwise.cu) against its plain version
+    bit for bit: seeded values with exact ties of both signs, NaN and inf,
+    lengths with a ragged tail, and views that start off a 16-byte boundary
+    (the kernel's scalar path); each launch counted; wrong types and
+    non-contiguous tensors refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cudaneuralrender_torch.kernels import elementwise
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(n + offset)
+    h = rng.standard_normal(n + offset).astype(np.float32)
+    h[::5] = 0.0
+    h[1::7] = -0.0
+    h[2::11] = np.nan
+    g = rng.standard_normal(n + offset).astype(np.float32)
+    g[3::13] = np.inf
+    g_t = torch.from_numpy(g).to(dev)[offset:]
+    h_t = torch.from_numpy(h).to(dev)[offset:]
+    before = elementwise.RELU_TIE_LAUNCHES
+    got = elementwise.relu_tie_backward(g_t, h_t)
+    torch.cuda.synchronize()
+    assert elementwise.RELU_TIE_LAUNCHES == before + (n > 0)  # nothing to launch at 0
+    want = elementwise.relu_tie_backward_plain(g_t, h_t)
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got[~nan], want[~nan])
+    assert torch.equal(got[~nan].signbit(), want[~nan].signbit())
+    with pytest.raises(ValueError):
+        elementwise.relu_tie_backward(g_t.double(), h_t.double())
+    if n > 8:
+        with pytest.raises(ValueError):
+            elementwise.relu_tie_backward(g_t[::2], h_t[::2])
+
+
+def test_relu_tie_backward_in_a_cuda_graph():
+    """The kernel launches on PyTorch's current stream, so a CUDA graph
+    captures it: a replay on new inputs equals the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cudaneuralrender_torch.kernels import elementwise
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(5)
+    g = torch.randn(65536, 32, generator=gen).to(dev)
+    h = torch.randn(65536, 32, generator=gen).round().to(dev)  # many exact ties
+    stream = torch.cuda.Stream(device=dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        elementwise.relu_tie_backward(g, h)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = elementwise.relu_tie_backward(g, h)
+    g.copy_(torch.randn(65536, 32, generator=gen).to(dev))
+    h.copy_(torch.randn(65536, 32, generator=gen).round().to(dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, elementwise.relu_tie_backward_plain(g, h))
+
+
+def test_zero_bias_tie_pixel_on_card():
+    """A render's normals take JAX's tie gradient on the card: the zero-bias
+    net (``init_mlp``, seed 3) at Camera() and 16x8, whose pixel (4, 8)
+    meets the surface at the origin; the card's ``render_staged`` is finite
+    there, its normals launched ``relu_tie_backward``, and it is within
+    1e-4 of the CPU's frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import elementwise
+    from cudaneuralrender_torch.models import mlp
+
+    net = mlp.init_mlp(torch.Generator().manual_seed(3), device="cpu")
+    cfg = cnr.RenderConfig(width=16, height=8, scene="neural_raw", march_impl="staged",
+                           rgba_packed=False)
+    want = cnr.render_staged(net, cnr.Camera(), cfg).numpy()
+    card = mlp.MLP([(l.w.cuda(), l.b.cuda()) for l in net])
+    cnr.reset_schedule_memo()
+    before = elementwise.RELU_TIE_LAUNCHES
+    got = cnr.render_staged(card, cnr.Camera(), cfg).cpu().numpy()
+    assert elementwise.RELU_TIE_LAUNCHES > before
+    assert np.isfinite(got).all() and got[4, 8, 3] == 1.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

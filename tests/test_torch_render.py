@@ -17,8 +17,11 @@ rotation_x=-20), on the CPU:
     here), ``render_staged`` at 64x64 (mixed bar), and ``render_sequence``
     over three turntable frames of many_sphere at 32x32 (mixed bar, per-frame
     stats);
-  * the CLI, its turntable (``--spin``) included.
+  * ``prepass_factor`` and ``grid_res`` frames against the option off;
+  * the CLI, its turntable (``--spin``), ``--profile`` and ``--save-ckpt``
+    included.
 """
+import json
 import os
 import subprocess
 import sys
@@ -104,11 +107,23 @@ def test_staged_render_matches_golden(params):
 
 
 def test_unported_options_raise(params):
+    """The options once refused (``prepass_factor``, ``grid_res``) render:
+    a 16x16 ``Renderer.render`` frame under each meets the mixed-path bar
+    (hits agree >= 99%, >= 97% of common hits within 1e-3) against the
+    frame with the option off (tests/test_torch_prepass.py and
+    tests/test_torch_grid.py hold them to JAX's)."""
     _, pt = params
-    base = ct.RenderConfig(width=16, height=16, march_impl="staged")
-    for kw in (dict(prepass_factor=2), dict(grid_res=32)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ct.render_staged(pt, ct.Camera(), base.replace(**kw))
+    base = ct.RenderConfig(width=16, height=16, march_impl="staged", rgba_packed=False)
+    ct.reset_schedule_memo()
+    off = ct.Renderer(pt, base).render(ct.Camera(**CAM)).numpy()
+    assert (off[..., 3] > 0).sum() > 20
+    for kw in (dict(prepass_factor=4), dict(grid_res=32)):
+        ct.reset_schedule_memo()
+        on = ct.Renderer(pt, base.replace(**kw)).render(ct.Camera(**CAM)).numpy()
+        hit_on, hit_off = on[..., 3] > 0, off[..., 3] > 0
+        assert (hit_on == hit_off).mean() >= 0.99, kw
+        both = hit_on & hit_off
+        assert np.all(np.abs(on[both] - off[both]) < 1e-3, axis=-1).mean() >= 0.97, kw
 
 
 def _cli(args, tmp_path):
@@ -131,12 +146,39 @@ def test_cli_single_frame_on_cpu(tmp_path):
 
 
 def test_cli_rejects_animation_on_3_input_model_and_unported_modes(tmp_path):
+    """--animation on a 3-input model exits 2; --profile (once refused) now
+    writes a torch.profiler Chrome trace of the frame and exits 0."""
     r = _cli(["-d", "cpu", "-i", H5, "--animation", "--single", "-W", "32", "-H", "32",
               "-o", str(tmp_path / "x.png")], tmp_path)
     assert r.returncode == 2
     assert "expects 3 inputs" in r.stderr
-    r = _cli(["-d", "cpu", "-i", H5, "--profile", str(tmp_path / "trace")], tmp_path)
-    assert r.returncode == 2 and "not yet ported" in r.stderr
+    trace = tmp_path / "trace"
+    r = _cli(["-d", "cpu", "-i", H5, "--single", "-W", "16", "-H", "16", "--profile", str(trace),
+              "-o", str(tmp_path / "p.png")], tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    files = list(trace.glob("*.json"))
+    assert len(files) == 1 and f"profile trace: {files[0]}" in r.stdout
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("aten::" in e.get("name", "") for e in events)
+    from cudaneuralrender_torch import cli
+
+    assert not hasattr(cli, "NOT_PORTED")
+
+
+def test_cli_save_ckpt_roundtrip(tmp_path):
+    """--save-ckpt re-saves the loaded weights as .npz (tests/test_cli.py:67):
+    both packages load them back equal to the source."""
+    ck = tmp_path / "w.npz"
+    r = _cli(["-d", "cpu", "-i", H5, "--single", "-W", "8", "-H", "8", "--steps", "16",
+              "--save-ckpt", str(ck), "-o", str(tmp_path / "x.png")], tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert f"saved checkpoint: {ck}" in r.stdout
+    src = ct.load(H5, device="cpu")
+    for la, lb, lj in zip(src, ct.load(str(ck), device="cpu"), cj.load(str(ck))):
+        np.testing.assert_array_equal(lb.w.numpy(), la.w.numpy())
+        np.testing.assert_array_equal(lb.b.numpy(), la.b.numpy())
+        np.testing.assert_array_equal(np.asarray(lj.w), la.w.numpy())
 
 
 def test_cli_pallas_matches_plain_chain_on_cpu(tmp_path):
