@@ -11,7 +11,7 @@ Phases; any failure exits non-zero and nothing is caught:
      ``cuobjdump -sass``: every K3 and K2h instantiation and every FP32
      march instantiation a ray per thread (3xTF32 at every width) must
      have some, the ray-per-warp ones at 32 and 64 (march_split_kernel,
-     FFMA) none);
+     FFMA) none; so must every X1 and X3 instantiation, and no X2 one);
   3. hold the kernel against its plain PyTorch version on the same CUDA
      tensors: csg_demo rays at 256x256 from Camera(rotation_y=30,
      rotation_x=-20), for the staged renderer's three kinds of call
@@ -95,8 +95,12 @@ Phases; any failure exits non-zero and nothing is caught:
      kernels' launches counted; then each kernel held against its plain
      version where the outputs are finite and carry the SDF (X1 at 9 reps,
      X2 at the JAX sizes, X3's v0 at 1 step and the others at 8, v3-v5p
-     from t0 = 0), each output within X_RTOL of its own magnitude, and each
-     plain version timed once at the JAX sizes;
+     from t0 = 0), each output within X_RTOL of its own magnitude, X2
+     bit-equal on all but X_MAX_UNEQUAL of its lanes, X1 and X3 (on the
+     tensor cores) beside the model of their summation order (printed) and
+     within the float64 witness bars of their plain versions
+     (``x_witness``); each plain version timed once at the JAX sizes, and
+     X1's cuBLAS reps loop (``x1_library``);
  12. training on the card (cudaneuralrender_torch/diff) at 1920x1080 with
      csg_demo, the staged mixed config: the target the port's
      ``render_image_diff`` at Camera(rotation_y=24), the start csg_demo plus
@@ -392,18 +396,25 @@ WITNESS_MAX = 2.0
 K1_SOURCE = "cudaneuralrender_torch/csrc/march.cuh"
 K3_SOURCE = "cudaneuralrender_torch/csrc/chain.cuh"
 X_SOURCE = "cudaneuralrender_torch/csrc/experiments.cu"
-# Phase 11: an experiment kernel against its plain version. Both sum each
-# output from zero in input order. Each output is held to its own
-# magnitude: |kernel - plain| <= X_RTOL * (|plain| + scale), the scale being
-# what an output of unit size becomes in that experiment (``x_scale``); and
-# at most a share X_MAX_UNEQUAL of the outputs may differ at all (on the
-# H100, X2's FP32 chain differs on 2 of 2^21 lanes, where t passed 1e15).
+# Phase 11: an experiment kernel against its plain version. Each output is
+# held to its own magnitude: |kernel - plain| <= X_RTOL * (|plain| + scale),
+# the scale being what an output of unit size becomes in that experiment
+# (``x_scale``). X2 and its plain version both sum each output from zero in
+# input order, so at most a share X_MAX_UNEQUAL of its outputs may differ at
+# all (on the H100, X2's FP32 chain differs on 2 of 2^21 lanes, where t
+# passed 1e15). X1 and X3 run on the tensor cores, which sum in their own
+# order (as K1, K2h and K3 do since their redesigns): for them the share is
+# replaced by the largest |kernel - the model of its order| (printed, on
+# the first X_MODEL_LANES lanes) and the float64 witness bars
+# (``x_witness``): the kernel's |error| against float64 within WITNESS_MEAN
+# times the plain version's on the mean and WITNESS_MAX times on the max,
+# over X1's 9-rep outputs and over one step of X3 at X3_WITNESS_POINTS
+# seeded points in [-1.2, 1.2]^3 (``x3_witness_rays``).
 X_RTOL = 1e-5
 X_MAX_UNEQUAL = 1e-5
+X_MODEL_LANES = 1 << 16
+X3_WITNESS_POINTS = 1 << 16
 X1_CHECK_REPS = 9  # one march step's layers: at 288 reps the outputs decay to 0
-# X1's outputs at 9 reps: 1e-4 lies below their median magnitude at either
-# width (6.7e-4 at H=32, 0.076 at H=128 on the H100).
-X1_SCALE = 1e-4
 # X3's steps against the plain version: v0 overflows within 64 steps; the
 # others' plain versions take seconds at 64 (the emulations 7-9 s).
 X3_CHECK_STEPS = {"v0": 1}
@@ -503,9 +514,8 @@ def ptxas_table(log: str) -> list:
 
 
 def sass_counts(library: str, opcode: str) -> dict:
-    """How many ``opcode`` instructions each march and forward kernel of
-    the built library has in its SASS (``cuobjdump -sass``), by the labels
-    of ``ptxas_table``."""
+    """How many ``opcode`` instructions each kernel of the built library has
+    in its SASS (``cuobjdump -sass``), by the labels of ``ptxas_table``."""
     import re
 
     from cudaneuralrender_torch.kernels import build
@@ -518,7 +528,7 @@ def sass_counts(library: str, opcode: str) -> dict:
         m = re.search(r"Function : (\w+)", line)
         if m:
             cur = None
-            for pattern, fmt in KERNEL_LABELS[:3]:
+            for pattern, fmt in KERNEL_LABELS:
                 k = re.search(pattern, m.group(1))
                 if k:
                     cur = fmt.format(*k.groups())
@@ -2047,16 +2057,104 @@ def x_scale(experiment: str, steps: int = 1) -> float:
     """What an output of unit size becomes in an experiment run ``steps``
     steps: X2's outputs are t itself (2-4 on the rays that hit); X3's v0
     carries x unscaled, v1 and v2 scale x by its SCALE (1e-8) each step,
-    and v3-v5p add sdf * SCALE to t from 0 each step; X1's: X1_SCALE."""
+    and v3-v5p add sdf * SCALE to t from 0 each step. X1's depends on its
+    weights: ``x1_scale``."""
     from cudaneuralrender_torch.benchmarks import exp_stepcost2 as x3
 
-    if experiment == "x1":
-        return X1_SCALE
     if experiment in ("x2", "v0"):
         return 1.0
     if experiment in ("v1", "v2"):
         return x3.SCALE ** steps
     return x3.SCALE * steps
+
+
+def x1_float64(x, w, b, reps: int) -> torch.Tensor:
+    """X1's reps of x <- relu(W^T x + b) on x [H, lanes] in float64."""
+    y = x.double()
+    for _ in range(reps):
+        y = torch.relu(w.double().t() @ y + b.double()[:, None])
+    return y
+
+
+def x1_scale(exact) -> float:
+    """What an output of unit size becomes in X1 (its ``x_scale``): the RMS
+    of its float64 outputs ``exact``, whose inputs are unit normal. A fixed
+    1e-4, below the outputs' median magnitude (6.7e-4 at H=32, 0.076 at 128
+    in phase 11), served while the kernel summed in the plain version's
+    order; on the tensor cores an output that a pre-activation's
+    cancellation leaves near zero differs from the plain one by an ulp of
+    the sum's terms, not of itself (1.9e-3 and 5.1e-3 of (|plain| + 1e-4)
+    on the card tests' outputs of unit size, NVIDIA H100), so the scale is
+    what X3's is: the size of a typical output."""
+    return exact.double().pow(2).mean().sqrt().item()
+
+
+def x1_library(x, w, b, reps: int) -> torch.Tensor:
+    """X1's reps as one PyTorch call a rep on all lanes, the yardstick of
+    the kernels line's library_ms (cuBLAS FP32: the caller keeps TF32 off):
+    rows [lanes, H] <- addmm(b, rows, W), then relu_ in place."""
+    y = x.t().contiguous()
+    for _ in range(reps):
+        y = torch.addmm(b, y, w).relu_()
+    return y
+
+
+def x3_witness_rays(pts: torch.Tensor):
+    """Rays whose point at t0 is exactly pts [n, 3] in every X3 variant:
+    origin 0, dirs pts * 2^100 [3, n], t0 2^-100 [1, n] (powers of two, so
+    the kernels' fused o + d*t is exact). A t-carried variant adds
+    sdf * 1e-8 to t0, far above 2^-100 wherever |sdf| > 2e-3."""
+    n = pts.shape[0]
+    dirs = (pts.t() * 2.0 ** 100).contiguous()
+    t0 = torch.full((1, n), 2.0 ** -100, dtype=torch.float32, device=pts.device)
+    return dirs, t0, torch.zeros((3, 1), dtype=torch.float32, device=pts.device)
+
+
+def x3_float64(variant: str, weights, biases, pts) -> torch.Tensor:
+    """One step of an X3 variant in float64 at the rays of
+    ``x3_witness_rays(pts)``: v0 the point through n_layers products by the
+    first weight; v1 and v2 through the n_layers weights (v2 with the
+    biases and ReLU), times 1e-8; v3-v5p 2^-100 + sdf * 1e-8. Returns [n]."""
+    from cudaneuralrender_torch.benchmarks import exp_stepcost2 as x3
+
+    kernel = x3.KERNEL_OF[variant][0]
+    n_layers, hidden = weights.shape[0], weights.shape[1]
+    x = torch.zeros((pts.shape[0], hidden), dtype=torch.float64, device=pts.device)
+    x[:, :3] = pts.double()
+    w, b = weights.double(), biases.double()
+    for l in range(n_layers):
+        x = x @ w[0 if kernel == "v0" else l]
+        if kernel not in ("v0", "v1"):
+            x = x + b[l]
+            if l + 1 < n_layers:
+                x = torch.relu(x)
+    if kernel == "v0":
+        return x[:, 0]
+    return x[:, 0] * x3.SCALE + (0.0 if kernel in ("v1", "v2") else 2.0 ** -100)
+
+
+def x_witness(got, plain, exact) -> dict:
+    """|kernel - float64| and |plain - float64| over the finite outputs:
+    their means and maxima."""
+    fin = torch.isfinite(exact) & torch.isfinite(plain)
+    k = (got.double().reshape(-1) - exact.reshape(-1)).abs()[fin.reshape(-1)]
+    p = (plain.double().reshape(-1) - exact.reshape(-1)).abs()[fin.reshape(-1)]
+    return dict(n=int(fin.sum()), kernel_mean=k.mean().item(), kernel_max=k.max().item(),
+                plain_mean=p.mean().item(), plain_max=p.max().item())
+
+
+def witness_bar(w: dict) -> list:
+    """What breaks the float64 witness bars: the kernel's mean |error| above
+    WITNESS_MEAN times the plain version's, or its max above WITNESS_MAX
+    times."""
+    bad = []
+    if not w["n"]:
+        bad.append("no finite output to witness")
+    if not w["kernel_mean"] <= WITNESS_MEAN * w["plain_mean"]:
+        bad.append(f"mean |error| {w['kernel_mean']:.3g} > {WITNESS_MEAN} x {w['plain_mean']:.3g}")
+    if not w["kernel_max"] <= WITNESS_MAX * w["plain_max"]:
+        bad.append(f"max |error| {w['kernel_max']:.3g} > {WITNESS_MAX} x {w['plain_max']:.3g}")
+    return bad
 
 
 def compare_outputs(got, want, scale: float) -> dict:
@@ -2075,16 +2173,32 @@ def compare_outputs(got, want, scale: float) -> dict:
 
 
 def check_outputs(name: str, r: dict) -> None:
-    """Raise unless the same outputs are finite, each agrees within
-    X_RTOL * (|plain| + scale), and at most X_MAX_UNEQUAL differ at all."""
-    if (not r["finite_equal"] or r["n_finite"] == 0 or not r["max_rel_err"] <= X_RTOL
-            or not 1.0 - r["bit_equal"] <= X_MAX_UNEQUAL):
-        raise RuntimeError(f"{name}: the kernel disagrees with its plain version: {r}")
+    """Raise unless the same outputs are finite and each agrees within
+    X_RTOL * (|plain| + scale); then, for a kernel on the tensor cores (one
+    with a ``witness``), unless it meets the float64 witness bars, and for
+    the others unless at most X_MAX_UNEQUAL of the outputs differ at all."""
+    bad = []
+    if not r["finite_equal"] or r["n_finite"] == 0 or not r["max_rel_err"] <= X_RTOL:
+        bad.append(f"outside X_RTOL {X_RTOL}")
+    if "witness" in r:
+        bad.extend(witness_bar(r["witness"]))
+    elif not 1.0 - r["bit_equal"] <= X_MAX_UNEQUAL:
+        bad.append(f"unequal on more than X_MAX_UNEQUAL {X_MAX_UNEQUAL} of the outputs")
+    if bad:
+        raise RuntimeError(f"{name}: the kernel disagrees with its plain version: {bad}: {r}")
 
 
-def _x_entry(name, jax_file, line, launches, check, ms, plain_ms, fmas, nbytes, peak):
+def _x_entry(name, jax_file, line, launches, check, ms, plain_ms, fmas, nbytes, peak,
+             tf32=False):
+    """An experiment kernel's entry; a ``tf32`` one (X1, X3 v0-v3: FP32-grade
+    products on the tensor cores) takes the 3xTF32 bound as its bound_ms,
+    its FFMA bound kept as fp32_bound_ms."""
+    bnd = bound(fmas, nbytes, peak)
+    if tf32:
+        tc = bound(fmas, nbytes, PEAK_TF32_FLOPS / TF32_PASSES)
+        bnd = dict(tc, tc_bound_ms=tc["bound_ms"], fp32_bound_ms=bnd["bound_ms"])
     return kernel_entry(name, X_SOURCE, f"benchmarks/{jax_file}:{line}", launches,
-                        check["max_abs_err"], ms, plain_ms, bound(fmas, nbytes, peak))
+                        check["max_abs_err"], ms, plain_ms, bnd)
 
 
 def drive_experiments(card) -> list:
@@ -2105,18 +2219,31 @@ def drive_experiments(card) -> list:
     print(f"phase 11 launches {json.dumps(launches)}", flush=True)
     entries = []
 
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the plain versions and X1's library loop need TF32 off")
+    sub = slice(0, X_MODEL_LANES)
     for h in x1.WIDTHS:  # X1: exp_blockdiag.py:32 _loop_kernel, pallas_call :49
         x, w, b = x1.setup(h, dev)
-        check = compare_outputs(x1.chain(x, w, b, reps=X1_CHECK_REPS),
-                                x1.chain_plain(x, w, b, X1_CHECK_REPS), x_scale("x1"))
+        got = x1.chain(x, w, b, reps=X1_CHECK_REPS)
+        want = x1.chain_plain(x, w, b, X1_CHECK_REPS)
+        exact = x1_float64(x, w, b, X1_CHECK_REPS)
+        check = compare_outputs(got, want, x1_scale(exact))
+        check["model_max_abs_err"] = (
+            got[:, sub] - x1.chain_model(x[:, sub], w, b, X1_CHECK_REPS)).abs().max().item()
+        check["witness"] = x_witness(got, want, exact)
         print(f"compare x1_loop_h{h} at {X1_CHECK_REPS} reps: {json.dumps(check)}")
         check_outputs(f"x1_loop_h{h}", check)
         plain_ms = time_cuda(lambda: x1.chain_plain(x, w, b, x1.REPS), 1)
+        library_ms = time_cuda(lambda: x1_library(x, w, b, x1.REPS), 3)
         ms = next(r["ms"] for r in rows["x1"] if r["hidden"] == h)
         lanes = x.shape[1]
-        entries.append(_x_entry(f"x1_loop_h{h}", "exp_blockdiag.py", 32, launches["x1"][h], check,
-                                ms, plain_ms, x1.REPS * lanes * h * h,
-                                8 * h * lanes + 4 * (h * h + h), PEAK_FP32_FLOPS))
+        entry = _x_entry(f"x1_loop_h{h}", "exp_blockdiag.py", 32, launches["x1"][h], check, ms,
+                         plain_ms, x1.REPS * lanes * h * h, 8 * h * lanes + 4 * (h * h + h),
+                         PEAK_FP32_FLOPS, tf32=True)
+        entries.append(dict(entry, library_ms=library_ms))
+        print(f"x1_loop_h{h}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cuBLAS reps loop "
+              f"(addmm + relu_) {library_ms:.3f} ms, bound {entry['bound_ms']:.3f} ms (3xTF32), "
+              f"{entry['fp32_bound_ms']:.3f} ms (FP32) [{card}]", flush=True)
 
     weights, biases, dirs, t0, origin = x2.setup(dev)
     n, n_layers = dirs.shape[1], weights.shape[0]
@@ -2143,15 +2270,25 @@ def drive_experiments(card) -> list:
 
     weights, biases, dirs, t0, origin = x3.setup(dev)
     zero = torch.zeros_like(t0)
+    gen = torch.Generator(dev).manual_seed(1)
+    pts = torch.rand((X3_WITNESS_POINTS, 3), generator=gen, device=dev) * 2.4 - 1.2
+    wit_rays = x3_witness_rays(pts)
     for variant in sorted({x3.KERNEL_OF[r["variant"]][0] for r in rows["x3"]}):
         # X3: exp_stepcost2.py:54 make_kernel; x-carried variants from t0,
         # t-carried ones from 0 so that t carries the SDF at full precision
         steps = X3_CHECK_STEPS.get(variant, X3_CHECK_STEPS_DEFAULT)
         start = t0 if variant in ("v0", "v1", "v2") else zero
+        got = x3.ablation(variant, weights, biases, dirs, start, origin, steps=steps)
         check = compare_outputs(
-            x3.ablation(variant, weights, biases, dirs, start, origin, steps=steps),
-            x3.ablation_plain(variant, weights, biases, dirs, start, origin, steps=steps),
+            got, x3.ablation_plain(variant, weights, biases, dirs, start, origin, steps=steps),
             x_scale(variant, steps))
+        check["model_max_abs_err"] = (got[:, sub] - x3.ablation_model(
+            variant, weights, biases, dirs[:, sub], start[:, sub], origin, steps=steps)
+        ).abs().max().item()
+        check["witness"] = x_witness(
+            x3.ablation(variant, weights, biases, *wit_rays, steps=1),
+            x3.ablation_plain(variant, weights, biases, *wit_rays, steps=1),
+            x3_float64(variant, weights, biases, pts))
         print(f"compare x3_{variant} at {steps} steps: {json.dumps(check)}")
         check_outputs(f"x3_{variant}", check)
         plain_ms = time_cuda(
@@ -2165,7 +2302,8 @@ def drive_experiments(card) -> list:
             fmas = passes * x3.STEPS * n * chain_fmas(h, n_layers, 3)
             peak = PEAK_FP32_FLOPS if passes == 1 else PEAK_BF16_FLOPS
         entries.append(_x_entry(f"x3_{variant}", "exp_stepcost2.py", 54,
-                                launches["x3"][variant], check, ms, plain_ms, fmas, nbytes, peak))
+                                launches["x3"][variant], check, ms, plain_ms, fmas, nbytes, peak,
+                                tf32=peak == PEAK_FP32_FLOPS))
     for e in entries:
         if e["launches"] == 0:
             raise RuntimeError(f"{e['name']}: main() never launched the kernel")
@@ -3410,8 +3548,9 @@ def main() -> int:
             h = int(label.split("H=")[1].split(",")[0].rstrip(">"))
             kind = (2 if label.startswith("mlp") else 3 if label.startswith("march_split")
                     else int(label.endswith("three_pass=1>")))
-            line += (f"; {lib.cnr_smem_bytes(kind, h, 9)} bytes dynamic shared memory; "
-                     f"{hmma.get(label, 'no')} HMMA in its SASS")
+            line += f"; {lib.cnr_smem_bytes(kind, h, 9)} bytes dynamic shared memory"
+        if "H=" in label:
+            line += f"; {hmma.get(label, 'no')} HMMA in its SASS"
         print(line)
     fp32_march = {k: int(k.split("H=")[1].split(",")[0]) for k in hmma
                   if k.endswith("three_pass=0>")}
@@ -3419,15 +3558,20 @@ def main() -> int:
                    or fp32_march.get(k, 0) in megakernel.TENSOR_CORE_FP32_WIDTHS]
     split = [k for k in hmma if k.startswith("march_split")]
     splittable = [k for k, h in fp32_march.items() if h in megakernel.SPLIT_WIDTHS]
-    idle = [k for k in tensor_core if hmma[k] == 0]
-    stray = [k for k in split if hmma[k]]
+    experiments = [k for k in hmma if k.startswith(("x1_", "x3_"))]  # on the tensor cores
+    idle = [k for k in tensor_core + experiments if hmma[k] == 0]
+    stray = [k for k in split if hmma[k]] + [k for k in hmma if k.startswith("x2_") and hmma[k]]
     print(f"SASS (cuobjdump -sass): {len(tensor_core) - len(idle)} of {len(tensor_core)} K3, "
           f"K2h and FP32 march (widths {megakernel.TENSOR_CORE_FP32_WIDTHS}, a ray per thread) "
           f"instantiations issue HMMA; FP32 march instantiations a ray per warp (widths "
-          f"{megakernel.SPLIT_WIDTHS}) with HMMA: {len(stray)} of {len(split)}", flush=True)
-    if idle or stray or not tensor_core or not split or len(split) != len(splittable):
-        raise RuntimeError(f"tensor-core kernels without HMMA: {idle}; ray-per-warp FFMA march "
-                           f"kernels with HMMA: {stray}; {len(split)} ray-per-warp kernels for "
+          f"{megakernel.SPLIT_WIDTHS}) with HMMA: {len(stray)} of {len(split)}; X1 and X3 "
+          f"instantiations with HMMA: {sum(hmma[k] > 0 for k in experiments)} of "
+          f"{len(experiments)}", flush=True)
+    if (idle or stray or not tensor_core or not split or len(split) != len(splittable)
+            or len(experiments) != 8):
+        raise RuntimeError(f"tensor-core kernels without HMMA: {idle}; FFMA kernels (a ray per "
+                           f"warp, X2) with HMMA: {stray}; {len(experiments)} X1 and X3 "
+                           f"kernels of 8; {len(split)} ray-per-warp kernels for "
                            f"{len(splittable)} FP32 march kernels at {megakernel.SPLIT_WIDTHS}")
 
     params = cnr.load(ASSET, device=dev)

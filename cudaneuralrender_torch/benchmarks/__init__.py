@@ -90,3 +90,36 @@ def output_counts(out: torch.Tensor) -> dict:
     """How many outputs are finite and how many are zero: at the JAX
     scripts' sizes some experiments decay to zero or overflow."""
     return dict(n=out.numel(), finite=int(torch.isfinite(out).sum()), zero=int((out == 0).sum()))
+
+
+def tf32_parts(v: torch.Tensor, n: int) -> list:
+    """v split into n tf32 parts from the largest (``fused_mlp.tf32_rna``),
+    each what the value before it dropped: two are K1's big and small, three
+    hold a float32 exactly."""
+    parts, rest = [], v.float()
+    for _ in range(n):
+        parts.append(fused_mlp.tf32_rna(rest))
+        rest = rest - parts[-1]
+    return parts
+
+
+def tf32_product_model(x: torch.Tensor, w: torch.Tensor, third: str) -> torch.Tensor:
+    """x [T, K] @ w [K, N] as the experiment kernels' repeated-weight product
+    sums it on the tensor cores (csrc/experiments.cu ``mma_tf32_exact``):
+    one operand in two tf32 parts, the other (``third`` "a": x, "b": w) in
+    three; per k-chunk of 8 MMAs (``fused_mlp._mma_model``) u = -a_big b_big
+    from zero, d = a_big b_big + u, then a_third b_big (or a_big b_third),
+    a_small b_small, a_small b_big, a_big b_small into d; d - u added to a
+    float32 accumulator with a rounded add, chunk by chunk. No bias."""
+    a = tf32_parts(x, 3 if third == "a" else 2)
+    b = tf32_parts(w, 3 if third == "b" else 2)
+    smallest = (a[2], b[0]) if third == "a" else (a[0], b[2])
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
+    for k0 in range(0, w.shape[0], 8):
+        rows = slice(k0, k0 + 8)
+        u = fused_mlp._mma_model(torch.zeros_like(acc), -a[0][:, rows], b[0][rows])
+        d = fused_mlp._mma_model(u, a[0][:, rows], b[0][rows])
+        for p, q in (smallest, (a[1], b[1]), (a[1], b[0]), (a[0], b[1])):
+            d = fused_mlp._mma_model(d, p[:, rows], q[rows])
+        acc = acc + (d - u)
+    return acc

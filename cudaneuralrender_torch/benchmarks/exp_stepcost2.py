@@ -27,8 +27,18 @@ counterpart of the kernel ``make_kernel`` builds and ``run_variant``
 launches (``pallas_call`` at exp_stepcost2.py:174), on CUDA tensors and
 counts it in ``LAUNCHES`` by kernel; on CPU tensors it runs
 ``ablation_plain``. Inputs keep the JAX layout: dirs [3, n], t0 [1, n],
-origin [3, 1]; the weights are the padded FP32 stack, split on each v5 /
-v5p call as ``run_variant`` splits them. ``SCALE`` is the script's 1e-8.
+origin [3, 1]; the weights are the padded FP32 stack, laid out for the
+tensor cores on each call (``fused_mlp.pack_mma(weights, "tf32")`` for
+v0-v3; for v5 / v5p split as ``run_variant`` splits them, ``pack_split3``).
+``SCALE`` is the script's 1e-8.
+
+The kernel runs v0-v3 on K1's tf32 chain at width 32 (v0 with a third
+tf32 part of each activation, ``tf32_product_model``) and v5 / v5p on bf16
+MMA (csrc/experiments.cu), each summed in the tensor cores' order, no
+longer the plain version's bit for bit: ``ablation_model`` repeats every
+variant in the kernel's order (``fused_mlp._layer_tf32``,
+``tf32_product_model``, ``fused_mlp.mlp_chain_3xtf32_mma``,
+``mlp_chain_split3_mma``).
 
 ``main()`` runs the JAX script's rows on the card: n = 2^21 lanes, dirs
 seeded normal x 0.1 (torch's generator: not the JAX script's numbers), t0
@@ -44,7 +54,8 @@ import torch
 
 from ..kernels import build, fused_mlp
 from ..utils.timing import card_line, time_cuda
-from . import TIMED_RUNS, demo_stack, launch, output_counts, padded, point_rows, require_cuda
+from . import (TIMED_RUNS, demo_stack, launch, output_counts, padded, point_rows, require_cuda,
+               tf32_product_model)
 
 STEPS = 64
 SCALE = 1e-8
@@ -83,6 +94,56 @@ def split3(w: torch.Tensor):
     mid = r.to(torch.bfloat16)
     lo = (r - mid.float()).to(torch.bfloat16)
     return hi, mid, lo
+
+
+def pack_split3(weights: torch.Tensor):
+    """The three bfloat16 parts of the stack [L, H, H] (``split3``), each in
+    m16n8k16 B-fragment order [L, H/16, H/8, 32, 4] (``fused_mlp.bf16_fragments``):
+    what the five- / six-pass kernel stages."""
+    return tuple(fused_mlp.bf16_fragments(part).contiguous() for part in split3(weights.float()))
+
+
+def mlp_chain_split3_mma(weights: torch.Tensor, biases: torch.Tensor, x: torch.Tensor,
+                         six: bool = True) -> torch.Tensor:
+    """The six- (``six``) or five-pass chain summed as ``x3_ablation_kernel``
+    sums it on the tensor cores (csrc/experiments.cu ``mma_split3``), a model
+    for checks on any device: weights [L, H, H] and biases [L, H] FP32, x
+    [T, H] zero-padded inputs. Returns the head [T].
+
+    Per layer the activations are split like the weights (``split3``); per
+    k-chunk of 16 rows the MMAs run from zero, each as
+    ``fused_mlp._mma_model`` takes it (the tensor cores align and truncate):
+    x_lo w_hi, x_hi w_lo, (x_mid w_mid), x_mid w_hi, x_hi w_mid, then
+    x_hi w_hi; the six-pass chain first takes u = -(x_hi w_hi) from zero and
+    d = x_hi w_hi + u, what u's truncation dropped, then the five smaller
+    products into d, and adds d - u where the five-pass chain adds d. Each
+    chunk's sum goes to a float32 accumulator with a rounded add, then the
+    bias, then ReLU on every layer but the last. The inputs are one k-chunk;
+    the head is n-tile 0 (8 columns, the SDF column 0)."""
+    parts = [p.double() for p in split3(weights.float())]  # hi, mid, lo: exact in float64
+    n_layers, h = weights.shape[0], weights.shape[2]
+    small = [(2, 0), (0, 2)] + ([(1, 1)] if six else []) + [(1, 0), (0, 1)]
+    for l in range(n_layers):
+        last = l + 1 == n_layers
+        n = 8 if last else h
+        xs = [p.double() for p in split3(x)]
+        acc = torch.zeros((x.shape[0], n), dtype=torch.float32, device=x.device)
+        for k0 in range(0, 16 if l == 0 else h, 16):
+            rows = slice(k0, k0 + 16)
+
+            def mma(c, pa, pb, sign=1.0):
+                return fused_mlp._mma_model(c, sign * xs[pa][:, rows], parts[pb][l, rows, :n])
+
+            d = torch.zeros_like(acc)
+            if six:
+                u = mma(d, 0, 0, -1.0)
+                d = mma(u, 0, 0)
+            for pa, pb in small + ([] if six else [(0, 0)]):
+                d = mma(d, pa, pb)
+            acc = acc + (d - u if six else d)
+        y = acc + biases[l, :n]
+        x = y if last else torch.relu(y)
+    return x[:, 0]
 
 
 def mlp_chain_split3_plain(w_hi, w_mid, w_lo, biases, x: torch.Tensor, n_layers: int,
@@ -156,6 +217,50 @@ def ablation_plain(variant: str, weights: torch.Tensor, biases: torch.Tensor,
     return t.reshape(1, n)
 
 
+def ablation_model(variant: str, weights: torch.Tensor, biases: torch.Tensor,
+                   dirs: torch.Tensor, t0: torch.Tensor, origin: torch.Tensor, *,
+                   steps: int = STEPS) -> torch.Tensor:
+    """The kernel's summation order on any device, a model for checks: the
+    plain version's steps with each product x @ W as K1's tf32 layer at
+    width H sums it (``fused_mlp._layer_tf32``; v1, v2) or as v0's
+    (``tf32_product_model``, a third part of each activation), each chain as K1's
+    (``fused_mlp.mlp_chain_3xtf32_mma``; v3) or as the bf16 MMA kernel's
+    (``mlp_chain_split3_mma``; v5, v5p), on exactly the n lanes. Returns
+    [1, n]."""
+    if variant not in KERNEL_OF:
+        raise ValueError(f"variant must be one of {VARIANTS}, not {variant!r}")
+    kernel = KERNEL_OF[variant][0]
+    n_layers, hidden = weights.shape[0], weights.shape[1]
+    n = dirs.shape[1]
+    t = t0.reshape(n)
+
+    def rows(t):
+        return torch.nn.functional.pad(point_rows(origin, dirs, t), (0, hidden - 3))
+
+    if kernel in ("v0", "v1", "v2"):
+        x = rows(t)
+        for _ in range(steps):
+            for k in range(n_layers):
+                if kernel == "v0":
+                    x = tf32_product_model(x, weights[0], "a")
+                else:
+                    x = fused_mlp._layer_tf32(x, weights[k], hidden, hidden, hidden)
+                if kernel == "v2":
+                    x = x + biases[k]
+                    if k + 1 < n_layers:
+                        x = torch.relu(x)
+            if kernel != "v0":
+                x = x * SCALE
+        return x[:, 0].reshape(1, n)
+    for _ in range(steps):
+        if kernel == "v3":
+            sdf = fused_mlp.mlp_chain_3xtf32_mma(weights, biases, rows(t))
+        else:
+            sdf = mlp_chain_split3_mma(weights, biases, rows(t), six=kernel == "v5")
+        t = t + sdf * SCALE
+    return t.reshape(1, n)
+
+
 def _ablation_cuda(variant, weights, biases, dirs, t0, origin, steps):
     n_layers, hidden = weights.shape[0], weights.shape[1]
     if hidden != WIDTH:
@@ -169,11 +274,12 @@ def _ablation_cuda(variant, weights, biases, dirs, t0, origin, steps):
     fused_mlp.check_tensor("origin", origin, torch.float32, (3, 1), dev)
     kernel, vid = KERNEL_OF[variant]
     split = kernel in ("v5", "v5p")
-    parts = split3(weights) if split else ()  # alive until the launch is enqueued
-    ptrs = [p.data_ptr() for p in parts] if split else [None] * 3
+    # the stack in the kernel's fragment order, alive until the launch is enqueued
+    packed = pack_split3(weights) if split else fused_mlp.pack_mma(weights, "tf32")
+    ptrs = [p.data_ptr() for p in packed] if split else [None] * 3
     out = torch.empty((1, n), dtype=torch.float32, device=dev)
     launch(build.load_library(), "cnr_x3_ablation", dev, dirs.data_ptr(), t0.data_ptr(),
-           origin.data_ptr(), None if split else weights.data_ptr(), *ptrs, biases.data_ptr(),
+           origin.data_ptr(), None if split else packed.data_ptr(), *ptrs, biases.data_ptr(),
            n_layers, hidden, vid, n, int(steps), out.data_ptr())
     LAUNCHES[kernel] += 1
     return out

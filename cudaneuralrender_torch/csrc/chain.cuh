@@ -30,14 +30,14 @@
 //       stack (590 KB / 2.36 MB / 9.4 MB / 37.7 MB at L=9) read from the
 //       50 MB L2 (chain_tf32_smem).
 //     The per-thread FFMA chain (mlp_sdf, chain_sdf) runs in the step-cost
-//     experiments X2 and X3 (csrc/experiments.cu).
+//     experiment X2 (csrc/experiments.cu).
 //   * the fused forward K3: 3xTF32 on the tensor cores over a tile of points
 //     per block, activations in shared memory (see "K3" below).
 //   * the three-pass chain K2h inside the march kernel: bf16 MMA over the 32
 //     rays of a warp, activations in registers (32, 64) or in the warp's
 //     shared memory (128-1024) (see "K2h on the tensor cores" below). The
 //     per-thread FFMA three-pass chain (chain_sdf_3pass) stays for the
-//     step-cost experiments X2 and X3 (csrc/experiments.cu).
+//     step-cost experiment X2 (csrc/experiments.cu).
 // 1024 is the widest: the JAX package's kernels hold the whole stack in
 // VMEM, and a wider 9-layer stack exceeds this card's L2 too. The first
 // layer contracts only the true 3 or 4 inputs (the frame is the 4th), and
@@ -53,10 +53,6 @@
 
 namespace cnr {
 
-// Output chunk of the step-cost experiment X1's FFMA chain at width 128
-// (csrc/experiments.cu; accumulators held in registers).
-constexpr int kChunk = 32;
-
 // Allow a launch above 48 KB of dynamic shared memory (a size too large for
 // the card fails here, with the error the launch would have given).
 template <typename Kernel>
@@ -66,7 +62,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// The per-thread FFMA chain (H = 32, 64; X2 and X3): activations in
+// The per-thread FFMA chain (H = 32, 64; X2): activations in
 // registers, weights from shared memory. Each layer sums its products in
 // input order, starting from zero, and adds the bias last: the order of a
 // plain GEMM followed by a bias add, so the SDF values match the plain
@@ -127,24 +123,6 @@ __device__ __forceinline__ float mlp_sdf(const float* __restrict__ sw,
   return __fadd_rn(d, sb[(n_layers - 1) * H]);
 }
 
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-// acc[o] += xi * w[o] for the chunk's 32 outputs, in that order, the
-// weights read through the read-only path (X1 at width 128).
-__device__ __forceinline__ void fma_chunk(float (&acc)[kChunk], float xi,
-                                          const float* __restrict__ w) {
-#pragma unroll
-  for (int o = 0; o < kChunk; o += 4) {
-    const float4 wv = ldg4(w + o);
-    acc[o] = fmaf(xi, wv.x, acc[o]);
-    acc[o + 1] = fmaf(xi, wv.y, acc[o + 1]);
-    acc[o + 2] = fmaf(xi, wv.z, acc[o + 2]);
-    acc[o + 3] = fmaf(xi, wv.w, acc[o + 3]);
-  }
-}
-
 // mlp_sdf on the stack staged at the start of shared memory, as a function
 // of its own. At H = 64 the unrolled chain is 4096 fused multiply-adds per
 // layer: called rather than inlined, each translation unit compiles it once
@@ -159,7 +137,7 @@ __device__ __noinline__ float mlp_sdf_called(int n_layers, int n_inputs, float p
 }
 
 // The per-thread FFMA chain's raw head value at one point (H = 32, 64; the
-// step-cost experiments X2 and X3); w and b are where stage_weights<H> put
+// step-cost experiment X2); w and b are where stage_weights<H> put
 // the stack.
 template <int H>
 __device__ __forceinline__ float chain_sdf(const float* __restrict__ w,
@@ -539,8 +517,8 @@ int launch_mlp_forward(const MlpArgs& a, cudaStream_t stream) {
 
 // ---------------------------------------------------------------------------
 // The three-pass chain on FFMA, one thread per point (K2h before its
-// tensor-core redesign below; the step-cost experiments X2 and X3 run it, at
-// H = 32, the only width they are built at).
+// tensor-core redesign below; the step-cost experiment X2 runs it, at
+// H = 32, the only width it is built at).
 //
 // Per layer, with the activations split like the weights (x_hi = bf16(x),
 // x_lo = bf16(x - x_hi), round to nearest even), each output is

@@ -154,7 +154,7 @@ def load_library() -> ctypes.CDLL:
         lib.cnr_smem_bytes.restype = ctypes.c_longlong
         lib.cnr_x1_loop.argtypes = [
             _I,                      # device
-            _P, _P, _P,              # x, w, b
+            _P, _P, _P,              # x, w (tf32 fragment order), b
             _I, _I, _I,              # hidden, lanes, reps
             _P, _P,                  # out, stream
         ]
@@ -171,7 +171,8 @@ def load_library() -> ctypes.CDLL:
         lib.cnr_x3_ablation.argtypes = [
             _I,                      # device
             _P, _P, _P,              # dirs, t0, origin
-            _P, _P, _P, _P, _P,      # weights (FP32 or NULL), bf16 hi, mid, lo or NULL, biases
+            _P, _P, _P, _P, _P,      # weights (tf32 fragment order) or NULL, bf16 hi, mid, lo
+                                     # (fragment order) or NULL, biases
             _I, _I, _I, _I, _I,      # n_layers, hidden, variant, n, steps
             _P, _P,                  # out, stream
         ]

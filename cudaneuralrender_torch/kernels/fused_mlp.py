@@ -192,12 +192,19 @@ def pack_mma(weights: torch.Tensor, kind: str) -> torch.Tensor:
         w = weights.float().reshape(n_layers, h // 8, 4, 2, h // 8, 8)  # l kk t e j g
         return w.permute(0, 1, 4, 5, 2, 3).reshape(n_layers, h // 8, h // 8, 32, 2).contiguous()
     if kind == "bf16":
-        halves = []
-        for half in split_hi_lo(weights.float()):
-            w = half.reshape(n_layers, h // 16, 2, 4, 2, h // 8, 8)  # l kk p t e j g
-            halves.append(w.permute(0, 1, 5, 6, 3, 2, 4).reshape(n_layers, h // 16, h // 8, 32, 4))
-        return torch.cat(halves, dim=-1).contiguous()
+        return torch.cat([bf16_fragments(half) for half in split_hi_lo(weights.float())],
+                         dim=-1).contiguous()
     raise ValueError(f"kind must be one of {MMA_KINDS}, not {kind!r}")
+
+
+def bf16_fragments(part: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 part [L, H, H] of a stack in m16n8k16 B-fragment order,
+    [L, H/16, H/8, 32, 4]: entry [l, kk, j, 4g + t] is b0 =
+    W[16kk + 2t + (0, 1), 8j + g] then b1 = W[16kk + 2t + 8 + (0, 1), 8j + g]
+    (``pack_mma``'s "bf16" kind holds the hi and lo parts so, side by side)."""
+    n_layers, h, _ = part.shape
+    w = part.reshape(n_layers, h // 16, 2, 4, 2, h // 8, 8)  # l kk p t e j g
+    return w.permute(0, 1, 5, 6, 3, 2, 4).reshape(n_layers, h // 16, h // 8, 32, 4)
 
 
 def packed_mma(params: MLP, kind: str) -> torch.Tensor:

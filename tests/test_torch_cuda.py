@@ -401,15 +401,19 @@ def _x_rays(n=4096):
             origin.reshape(3, 1).contiguous())
 
 
+@pytest.mark.parametrize("lanes", [4096, 4001])
 @pytest.mark.parametrize("hidden", [32, 128])
-def test_x1_kernel_matches_plain(hidden):
+def test_x1_kernel_matches_plain(hidden, lanes):
+    """X1 on the tensor cores against its plain version (X_RTOL), beside the
+    model of its order, and at the float64 witness bars; 4001 lanes end in
+    a partial warp."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from cudaneuralrender_torch.benchmarks import exp_blockdiag as x1
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(hidden)
-    x = torch.as_tensor(rng.normal(size=(hidden, 4096)).astype(np.float32), device=dev)
+    x = torch.as_tensor(rng.normal(size=(hidden, lanes)).astype(np.float32), device=dev)
     w = torch.as_tensor((rng.normal(size=(hidden, hidden)) * (1.2 / hidden ** 0.5))
                         .astype(np.float32), device=dev)
     b = torch.as_tensor((rng.normal(size=hidden) * 0.1).astype(np.float32), device=dev)
@@ -417,8 +421,13 @@ def test_x1_kernel_matches_plain(hidden):
     got = x1.chain(x, w, b, reps=18)
     torch.cuda.synchronize()
     assert x1.LAUNCHES[hidden] == before + 1
-    chip_smoke.check_outputs("x1", chip_smoke.compare_outputs(got, x1.chain_plain(x, w, b, 18),
-                                                              chip_smoke.x_scale("x1")))
+    want = x1.chain_plain(x, w, b, 18)
+    exact = chip_smoke.x1_float64(x, w, b, 18)
+    check = chip_smoke.compare_outputs(got, want, chip_smoke.x1_scale(exact))
+    check["model_max_abs_err"] = (got - x1.chain_model(x, w, b, 18)).abs().max().item()
+    check["witness"] = chip_smoke.x_witness(got, want, exact)
+    print(check)
+    chip_smoke.check_outputs("x1", check)
 
 
 @pytest.mark.parametrize("chain", ["fp32", "three_pass", "bf16_input"])
@@ -441,14 +450,18 @@ def test_x2_kernel_matches_plain(variant, chain):
     chip_smoke.check_outputs("x2", chip_smoke.compare_outputs(got, want, chip_smoke.x_scale("x2")))
 
 
+@pytest.mark.parametrize("n", [4096, 4001])
 @pytest.mark.parametrize("variant", ["v0", "v1", "v2", "v3", "v5", "v5p"])
-def test_x3_kernel_matches_plain(variant):
+def test_x3_kernel_matches_plain(variant, n):
+    """X3 on the tensor cores against its plain version (X_RTOL), beside the
+    model of its order, and at the float64 witness bars on 4096 seeded
+    points; 4001 lanes end in a partial warp."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from cudaneuralrender_torch.benchmarks import exp_stepcost2 as x3
 
     dev = torch.device("cuda", 0)
-    weights, biases, dirs, t0, origin = x3.setup(dev, n=4096)
+    weights, biases, dirs, t0, origin = x3.setup(dev, n=n)
     if variant in ("v3", "v5", "v5p"):
         t0 = torch.zeros_like(t0)  # t then carries the SDF at full precision
     before = x3.LAUNCHES[variant]
@@ -456,8 +469,18 @@ def test_x3_kernel_matches_plain(variant):
     torch.cuda.synchronize()
     assert x3.LAUNCHES[variant] == before + 1
     want = x3.ablation_plain(variant, weights, biases, dirs, t0, origin, steps=2)
-    chip_smoke.check_outputs("x3", chip_smoke.compare_outputs(got, want,
-                                                              chip_smoke.x_scale(variant, 2)))
+    check = chip_smoke.compare_outputs(got, want, chip_smoke.x_scale(variant, 2))
+    check["model_max_abs_err"] = (got - x3.ablation_model(
+        variant, weights, biases, dirs, t0, origin, steps=2)).abs().max().item()
+    gen = torch.Generator(dev).manual_seed(2)
+    pts = torch.rand((4096, 3), generator=gen, device=dev) * 2.4 - 1.2
+    rays = chip_smoke.x3_witness_rays(pts)
+    check["witness"] = chip_smoke.x_witness(
+        x3.ablation(variant, weights, biases, *rays, steps=1),
+        x3.ablation_plain(variant, weights, biases, *rays, steps=1),
+        chip_smoke.x3_float64(variant, weights, biases, pts))
+    print(check)
+    chip_smoke.check_outputs("x3", check)
 
 
 def test_three_pass_four_inputs_matches_plain():
