@@ -71,9 +71,21 @@ def launch(lib, fn_name: str, dev: torch.device, *args) -> None:
 
 def point_rows(origin: torch.Tensor, dirs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """The points o + d*t [n, 3] of dirs [3, n], origin [3, 1] and t [n],
-    each coordinate rounded once, as the kernels' fused multiply-add does
-    (exact product and sum in float64, then one rounding to float32)."""
-    return (origin.reshape(1, 3).double() + dirs.t().double() * t.double()[:, None]).float()
+    each coordinate rounded once, as the kernels' fused multiply-add does.
+    The product is exact in float64; the sum is not where d*t dwarfs o (t
+    up to 1e18 in X2), and a float64 sum that lands on a float32 tie would
+    round twice. So the float64 sum is rounded to odd (its last bit set
+    where its error is not zero, toward the exact sum), which then rounds
+    to float32 as the exact sum does."""
+    o = origin.reshape(1, 3).double()
+    prod = dirs.t().double() * t.double()[:, None]
+    s = o + prod
+    b = s - o
+    err = (o - (s - b)) + (prod - b)  # the sum's rounding error, exactly (TwoSum)
+    bits = s.view(torch.int64)
+    toward = torch.where((err > 0) == (s > 0), 1, -1)
+    odd = torch.where((err != 0) & (bits & 1 == 0), bits + toward, bits)
+    return odd.view(torch.float64).float()
 
 
 def padded(pts: torch.Tensor, hidden: int) -> torch.Tensor:

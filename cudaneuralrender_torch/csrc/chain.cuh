@@ -29,15 +29,14 @@
 //     - H = 128 to 1024: the activations in the warp's shared memory, the
 //       stack (590 KB / 2.36 MB / 9.4 MB / 37.7 MB at L=9) read from the
 //       50 MB L2 (chain_tf32_smem).
-//     The per-thread FFMA chain (mlp_sdf, chain_sdf) runs in the step-cost
-//     experiment X2 (csrc/experiments.cu).
+//     The step-cost experiment X2 (csrc/experiments.cu) times this chain,
+//     chain_tf32_regs at 32, with a fixed-step march around it.
 //   * the fused forward K3: 3xTF32 on the tensor cores over a tile of points
 //     per block, activations in shared memory (see "K3" below).
 //   * the three-pass chain K2h inside the march kernel: bf16 MMA over the 32
 //     rays of a warp, activations in registers (32, 64) or in the warp's
-//     shared memory (128-1024) (see "K2h on the tensor cores" below). The
-//     per-thread FFMA three-pass chain (chain_sdf_3pass) stays for the
-//     step-cost experiment X2 (csrc/experiments.cu).
+//     shared memory (128-1024) (see "K2h on the tensor cores" below); X2
+//     times chain_3pass_regs at 32 the same way.
 // 1024 is the widest: the JAX package's kernels hold the whole stack in
 // VMEM, and a wider 9-layer stack exceeds this card's L2 too. The first
 // layer contracts only the true 3 or 4 inputs (the frame is the 4th), and
@@ -62,98 +61,8 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// The per-thread FFMA chain (H = 32, 64; X2): activations in
-// registers, weights from shared memory. Each layer sums its products in
-// input order, starting from zero, and adds the bias last: the order of a
-// plain GEMM followed by a bias add, so the SDF values match the plain
-// version's on both CPU and cuBLAS (as split_sdf's do).
-template <int H>
-__device__ __forceinline__ float mlp_sdf(const float* __restrict__ sw,
-                                         const float* __restrict__ sb,
-                                         int n_layers, int n_inputs,
-                                         float px, float py, float pz,
-                                         float frame) {
-  const float in[4] = {px, py, pz, frame};
-  if (n_layers == 1) {  // the head is the first layer
-    float d = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (i < n_inputs) d = fmaf(in[i], sw[i * H], d);
-    return __fadd_rn(d, sb[0]);
-  }
-  float x[H];
-#pragma unroll
-  for (int o = 0; o < H; ++o) x[o] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (i < n_inputs) {
-#pragma unroll
-      for (int o = 0; o < H; ++o) x[o] = fmaf(in[i], sw[i * H + o], x[o]);
-    }
-  }
-#pragma unroll
-  for (int o = 0; o < H; ++o) x[o] = fmaxf(__fadd_rn(x[o], sb[o]), 0.f);
-
-  for (int l = 1; l < n_layers - 1; ++l) {
-    const float* w = sw + l * H * H;
-    const float* b = sb + l * H;
-    float y[H];
-#pragma unroll
-    for (int o = 0; o < H; ++o) y[o] = 0.f;
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const float xi = x[i];
-#pragma unroll
-      for (int o = 0; o < H; o += 4) {
-        const float4 wv = *reinterpret_cast<const float4*>(w + i * H + o);
-        y[o] = fmaf(xi, wv.x, y[o]);
-        y[o + 1] = fmaf(xi, wv.y, y[o + 1]);
-        y[o + 2] = fmaf(xi, wv.z, y[o + 2]);
-        y[o + 3] = fmaf(xi, wv.w, y[o + 3]);
-      }
-    }
-#pragma unroll
-    for (int o = 0; o < H; ++o) x[o] = fmaxf(__fadd_rn(y[o], b[o]), 0.f);
-  }
-
-  const float* w = sw + (n_layers - 1) * H * H;
-  float d = 0.f;
-#pragma unroll
-  for (int i = 0; i < H; ++i) d = fmaf(x[i], w[i * H], d);
-  return __fadd_rn(d, sb[(n_layers - 1) * H]);
-}
-
-// mlp_sdf on the stack staged at the start of shared memory, as a function
-// of its own. At H = 64 the unrolled chain is 4096 fused multiply-adds per
-// layer: called rather than inlined, each translation unit compiles it once
-// instead of once per scene (the inlined build took minutes). It reads the
-// stack through the shared-memory array itself, so its loads stay LDS.
-template <int H>
-__device__ __noinline__ float mlp_sdf_called(int n_layers, int n_inputs, float px,
-                                             float py, float pz, float frame) {
-  extern __shared__ float4 smem4[];
-  const float* sw = reinterpret_cast<const float*>(smem4);
-  return mlp_sdf<H>(sw, sw + n_layers * H * H, n_layers, n_inputs, px, py, pz, frame);
-}
-
-// The per-thread FFMA chain's raw head value at one point (H = 32, 64; the
-// step-cost experiment X2); w and b are where stage_weights<H> put
-// the stack.
-template <int H>
-__device__ __forceinline__ float chain_sdf(const float* __restrict__ w,
-                                           const float* __restrict__ b,
-                                           int n_layers, int n_inputs,
-                                           float px, float py, float pz,
-                                           float frame) {
-  static_assert(H <= 64, "the per-thread FFMA chain is built at widths 32 and 64 only");
-  if constexpr (H == 32)
-    return mlp_sdf<H>(w, b, n_layers, n_inputs, px, py, pz, frame);
-  else
-    return mlp_sdf_called<H>(n_layers, n_inputs, px, py, pz, frame);
-}
-
-// Stages a stack of L * H * H floats (H = 32, 64: the FP32 stack [L, H, H],
-// or the same values in tf32 fragment order) and its biases in shared
+// Stages a stack of L * H * H floats (H = 32, 64: the FP32 stack in tf32
+// fragment order, chain_tf32_regs' layout) and its biases in shared
 // memory, every thread of the block helping copy them in; w and b point
 // there after. Call before any thread leaves the kernel.
 template <int H>
@@ -181,16 +90,16 @@ __device__ __forceinline__ void stage_weights(const float* __restrict__ weights,
 // Every lane passes the same point; lane j computes outputs j and, at 64,
 // j + 32 of each layer; every lane returns the same head value. Each output
 // sums its products with fmaf in input order from zero, then adds the bias
-// with __fadd_rn and applies fmaxf, as mlp_sdf does, so the value equals
-// mlp_sdf's bit for bit. The head is one sum over the layer's inputs in
-// input order, computed alike in every lane: a tree or __reduce_add_sync
-// would reorder it. Every branch depends on n_layers and n_inputs only, so
-// the whole warp runs every warp-wide operation.
+// with __fadd_rn and applies fmaxf, as the plain version's cuBLAS chain
+// sums, so the value equals it bit for bit. The head is one sum over the
+// layer's inputs in input order, computed alike in every lane: a tree or
+// __reduce_add_sync would reorder it. Every branch depends on n_layers and
+// n_inputs only, so the whole warp runs every warp-wide operation.
 //
-// What bounds it: a weight serves one point, where the per-thread chain's
-// serves the 32 points of a warp (a broadcast), so a hidden layer moves
-// H^2 * 4 bytes of shared memory per point (32 cycles of the SM's 128
-// bytes a cycle at H = 32, 128 at 64) and its H inputs to every lane as
+// What bounds it: a weight serves one point, where a ray per thread's chain
+// serves the 32 points of a warp, so a hidden layer moves H^2 * 4 bytes of
+// shared memory per point (32 cycles of the SM's 128 bytes a cycle at
+// H = 32, 128 at 64) and its H inputs to every lane as
 // many again; a step's latency is the chain of one output, H + 1 dependent
 // operations a layer. Hence the layout: the stack is staged transposed, a
 // row per output padded to split_stride(H) floats, so a lane reads four
@@ -513,162 +422,6 @@ int launch_mlp_forward(const MlpArgs& a, cudaStream_t stream) {
       a.x, a.weights, static_cast<const float2*>(a.packed), a.biases, a.n_layers, a.n_inputs,
       a.n, a.out);
   return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// The three-pass chain on FFMA, one thread per point (K2h before its
-// tensor-core redesign below; the step-cost experiment X2 runs it, at
-// H = 32, the only width it is built at).
-//
-// Per layer, with the activations split like the weights (x_hi = bf16(x),
-// x_lo = bf16(x - x_hi), round to nearest even), each output is
-//   ((sum_i x_hi[i] w_hi[i][o] + sum_i x_lo[i] w_hi[i][o])
-//                              + sum_i x_hi[i] w_lo[i][o]) + b[o],
-// each of the three sums taken from zero in input order, in that order, the
-// bias last: the plain version's three float32 products and adds
-// (kernels/fused_mlp.py mlp_chain_3pass_plain), whose order the kernel keeps
-// so that the two agree bit for bit. A product of two bfloat16 values is
-// exact in float32, so each fused multiply-add rounds only the sum. The three
-// sums are never fused into one accumulator: that would round differently.
-//
-// What bounds it: arithmetic, 3x the FP32 chain's fused multiply-adds (the
-// weights are widened from bfloat16 by a shift, the activations split per
-// layer). x, the sum y and one temporary t, 32 each, live in registers; the
-// stack (the two bfloat16 halves, as many bytes as the FP32 stack) in shared
-// memory. The first layer contracts the true 3 or 4 inputs (the frame is
-// split too); the head computes column 0 only.
-
-// A bfloat16 value is the top half of the float32 with the same bits.
-__device__ __forceinline__ float bf16_low(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf16_high(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
-
-// The split of an activation: bf16(x) and bf16(x - bf16(x)), as floats.
-__device__ __forceinline__ float split_hi(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ float split_lo(float x) {
-  return __bfloat162float(__float2bfloat16_rn(__fsub_rn(x, split_hi(x))));
-}
-
-// acc[o] += xi * w[o] for N consecutive bfloat16 weights in shared memory,
-// in order.
-template <int N>
-__device__ __forceinline__ void fma_row_bf16(float (&acc)[N], float xi,
-                                             const uint16_t* __restrict__ w) {
-#pragma unroll
-  for (int o = 0; o < N; o += 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(w + o);
-    acc[o] = fmaf(xi, bf16_low(v.x), acc[o]);
-    acc[o + 1] = fmaf(xi, bf16_high(v.x), acc[o + 1]);
-    acc[o + 2] = fmaf(xi, bf16_low(v.y), acc[o + 2]);
-    acc[o + 3] = fmaf(xi, bf16_high(v.y), acc[o + 3]);
-    acc[o + 4] = fmaf(xi, bf16_low(v.z), acc[o + 4]);
-    acc[o + 5] = fmaf(xi, bf16_high(v.z), acc[o + 5]);
-    acc[o + 6] = fmaf(xi, bf16_low(v.w), acc[o + 6]);
-    acc[o + 7] = fmaf(xi, bf16_high(v.w), acc[o + 7]);
-  }
-}
-
-// One three-pass layer with everything in registers: out = the layer's
-// pre-activation sums of x[0..n) (without the bias). x may be out.
-template <int H, int NX>
-__device__ __forceinline__ void layer_3pass_regs(const float (&x)[NX], int n,
-                                                 const uint16_t* __restrict__ whi,
-                                                 const uint16_t* __restrict__ wlo,
-                                                 float (&out)[H]) {
-  float y[H], t[H];
-#pragma unroll
-  for (int o = 0; o < H; ++o) y[o] = t[o] = 0.f;
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-    if (i < n) fma_row_bf16<H>(y, split_hi(x[i]), whi + i * H);
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-    if (i < n) fma_row_bf16<H>(t, split_lo(x[i]), whi + i * H);
-#pragma unroll
-  for (int o = 0; o < H; ++o) {
-    y[o] = __fadd_rn(y[o], t[o]);
-    t[o] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-    if (i < n) fma_row_bf16<H>(t, split_hi(x[i]), wlo + i * H);
-#pragma unroll
-  for (int o = 0; o < H; ++o) out[o] = __fadd_rn(y[o], t[o]);
-}
-
-// The head of the three-pass chain: column 0 of the last layer over x[0..n).
-template <int NX>
-__device__ __forceinline__ float head_3pass(const float (&x)[NX], int n,
-                                            const uint16_t* __restrict__ whi,
-                                            const uint16_t* __restrict__ wlo, int stride,
-                                            float bias) {
-  float d1 = 0.f, d2 = 0.f, d3 = 0.f;
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    if (i < n) {
-      const float hi = split_hi(x[i]);
-      d1 = fmaf(hi, bf16_low(whi[i * stride]), d1);
-      d2 = fmaf(split_lo(x[i]), bf16_low(whi[i * stride]), d2);
-      d3 = fmaf(hi, bf16_low(wlo[i * stride]), d3);
-    }
-  }
-  return __fadd_rn(__fadd_rn(__fadd_rn(d1, d2), d3), bias);
-}
-
-// The three-pass chain on the stack staged at the start of shared memory, as
-// a function of its own: called rather than inlined, each translation unit
-// compiles it once instead of once per variant. It reads the stack through
-// the shared-memory array itself, so its loads stay LDS.
-template <int H>
-__device__ __noinline__ float mlp_sdf_3pass_called(int n_layers, int n_inputs, float px,
-                                                   float py, float pz, float frame) {
-  extern __shared__ float4 smem4[];
-  const uint16_t* whi = reinterpret_cast<const uint16_t*>(smem4);
-  const uint16_t* wlo = whi + n_layers * H * H;
-  const float* b = reinterpret_cast<const float*>(wlo + n_layers * H * H);
-  const float in[4] = {px, py, pz, frame};
-  if (n_layers == 1) return head_3pass<4>(in, n_inputs, whi, wlo, H, b[0]);
-  float x[H];
-  layer_3pass_regs<H, 4>(in, n_inputs, whi, wlo, x);
-#pragma unroll
-  for (int o = 0; o < H; ++o) x[o] = fmaxf(__fadd_rn(x[o], b[o]), 0.f);
-  for (int l = 1; l < n_layers - 1; ++l) {
-    layer_3pass_regs<H, H>(x, H, whi + l * H * H, wlo + l * H * H, x);
-#pragma unroll
-    for (int o = 0; o < H; ++o) x[o] = fmaxf(__fadd_rn(x[o], b[l * H + o]), 0.f);
-  }
-  const int l = n_layers - 1;
-  return head_3pass<H>(x, H, whi + l * H * H, wlo + l * H * H, H, b[l * H]);
-}
-
-// The three-pass chain's raw head value at one point, on the stack that
-// stage_weights_3pass<H> put in shared memory.
-template <int H>
-__device__ __forceinline__ float chain_sdf_3pass(int n_layers, int n_inputs, float px, float py,
-                                                 float pz, float frame) {
-  static_assert(H == 32, "the FFMA three-pass chain is built at width 32 only");
-  return mlp_sdf_3pass_called<H>(n_layers, n_inputs, px, py, pz, frame);
-}
-
-// Stages the three-pass chain's stack in shared memory: the hi half, the lo
-// half, then the biases. Call before any thread leaves the kernel.
-template <int H>
-__device__ __forceinline__ void stage_weights_3pass(const uint16_t* __restrict__ w_hi,
-                                                    const uint16_t* __restrict__ w_lo,
-                                                    const float* __restrict__ biases,
-                                                    int n_layers) {
-  static_assert(H == 32, "the FFMA three-pass chain is built at width 32 only");
-  extern __shared__ float4 smem4[];
-  uint4* s4 = reinterpret_cast<uint4*>(smem4);
-  const int n_w8 = n_layers * H * H / 8;  // eight bfloat16 values per uint4
-  for (int k = threadIdx.x; k < n_w8; k += blockDim.x) {
-    s4[k] = reinterpret_cast<const uint4*>(w_hi)[k];
-    s4[n_w8 + k] = reinterpret_cast<const uint4*>(w_lo)[k];
-  }
-  float* sb = reinterpret_cast<float*>(s4 + 2 * n_w8);
-  for (int k = threadIdx.x; k < n_layers * H; k += blockDim.x) sb[k] = biases[k];
-  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------

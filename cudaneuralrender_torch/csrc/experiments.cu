@@ -21,17 +21,19 @@
 // precisions; this card runs both at FP32 grade, so one kernel serves both
 // names.
 //
-// X2 runs the per-thread FFMA chains of chain.cuh (FP32, three-pass), one
-// lane per thread, 128 threads a block: each output summed from zero in
-// input order with the bias last, the point o + d*t built with one fused
-// multiply-add and the first layer contracted over the 3 true inputs, as
-// the plain versions (cuBLAS on the card) sum, so it equals them bit for
-// bit. It is built at H = 32, the width of the nets the JAX scripts run.
-//
-// X1 and X3 run their chains on the tensor cores, for the 32 lanes of a
-// warp together (lane = row, two m16 tiles), with the building blocks of
+// X2, X1 and X3 run their chains on the tensor cores, for the 32 lanes of
+// a warp together (lane = row, two m16 tiles), with the building blocks of
 // K1 and K2h (chain.cuh, mma.cuh), so that they time the chain that ships
 // beside the bfloat16 scheme that might replace it:
+//   * X2 (x2_stepcost_kernel): the march kernel's own chains, called as they
+//     ship, with the fixed-step march around them: K1's tf32 chain at width
+//     32 (chain_tf32_regs) over the tf32 fragment-ordered stack
+//     (fused_mlp.pack_mma(weights, "tf32"), staged as K1 stages it) for the
+//     FP32 kind, K2h's bf16 chain (chain_3pass_regs) over the bf16
+//     fragment-ordered hi / lo stack (pack_mma(weights, "bf16"), one
+//     16-byte load a lane, stage_weights_mma) for the three-pass kind. Each
+//     lane keeps its march state in registers and every lane runs every
+//     step, so the warp's MMAs never diverge;
 //   * X1 (x1_loop_kernel): K1's FP32-grade layer. At H = 32 the
 //     activations stay in registers and each rep is K1's layer_tf32_regs
 //     (tf32 MMA, the residual of each chunk's truncation recovered) with a
@@ -55,21 +57,25 @@
 //     layers; the activations split into their three parts once a layer,
 //     in registers, each layer's accumulators handed to the next layer's A
 //     fragments in place (mma.cuh).
-// The tensor cores sum in their own order, so X1 and X3 no longer equal
-// their plain versions bit for bit: the benchmarks' models
-// (exp_blockdiag.chain_model, exp_stepcost2.ablation_model) sum in the
-// kernels' order, and chip_smoke.py holds the kernels to the plain versions
-// within X_RTOL and to float64 at the witness bars.
+// The tensor cores sum in their own order, so X1-X3 no longer equal their
+// plain versions bit for bit: the benchmarks' models
+// (exp_stepcost.step_cost_model, exp_blockdiag.chain_model,
+// exp_stepcost2.ablation_model) sum in the kernels' order, and
+// chip_smoke.py holds the kernels to the plain versions within X_RTOL (X2's
+// lanes beyond it, rays that graze the surface and escape, replayed one by
+// one) and to float64 at the witness bars.
 //
-// What bounds X1 and X3 v0-v3: the FP32-grade products at the tf32 rate
-// (3 tf32 products a weight at 495 TFLOP/s; the kernels run 5 at H = 32,
-// X1 at 32 and v0 6); v5 / v5p: 6 / 5 bf16 products a weight at 989
-// TFLOP/s (v5 runs 7). The splits of every operand, the chunk sums'
-// corrections and the shuffles of the point sit beside the MMAs on the
-// CUDA cores.
+// What bounds X2's FP32 kind, X1 and X3 v0-v3: the FP32-grade products at
+// the tf32 rate (3 tf32 products a weight at 495 TFLOP/s; the kernels run 5
+// at H = 32, X1 at 32 and v0 6); X2's three-pass kind: 3 bf16 products a
+// weight at 989 TFLOP/s; v5 / v5p: 6 / 5 (v5 runs 7). The splits of every
+// operand, the chunk sums' corrections and the shuffles of the point sit
+// beside the MMAs on the CUDA cores. At width 32 each warp waits on its own
+// chain of dependent MMAs and splits, so latency, not the tensor cores'
+// rate, sets the time.
 //
 // A warp's MMAs need all 32 lanes: a partial last warp's spare lanes march
-// the last lane's ray (X3) or zero rows (X1) and write nothing.
+// the last lane's ray (X2, X3) or zero rows (X1) and write nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -438,70 +444,55 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// The chains X2 marches on.
-enum ChainKind : int { kFp32 = 0, kThreePassChain = 1 };
-
-// Bytes of shared memory each of X2's chain kinds stages at width H: the
-// FP32 stack, or its bfloat16 hi and lo halves in as many bytes, and the
-// biases.
-inline size_t x_smem_bytes(int kind, int h, int n_layers) {
-  const size_t w = static_cast<size_t>(n_layers) * h * h, bias = sizeof(float) * n_layers * h;
-  return (kind == kFp32 ? sizeof(float) : 2 * sizeof(uint16_t)) * w + bias;
-}
-
-// The stack of one of X2's chain kinds, staged in shared memory by every
-// thread of the block: FP32 [L, H, H] (w0) or the bfloat16 hi and lo halves
-// (w0, w1); the biases last.
-template <int H, int kKind>
-__device__ __forceinline__ void stage_x(const void* __restrict__ w0, const void* __restrict__ w1,
-                                        const float* __restrict__ biases, int n_layers,
-                                        const float*& w, const float*& b) {
-  if constexpr (kKind == kFp32) {
-    stage_weights<H>(static_cast<const float*>(w0), biases, n_layers, w, b);
-  } else {
-    stage_weights_3pass<H>(static_cast<const uint16_t*>(w0), static_cast<const uint16_t*>(w1),
-                           biases, n_layers);
-  }
-}
-
-// The SDF of one lane at t: the point o + d*t (one fused multiply-add), its
-// coordinates rounded to bfloat16 when bf16_input is set (X2's act_dtype),
-// through the chain of kind kKind.
-template <int H, int kKind>
-__device__ __forceinline__ float x_sdf(const Ray& ray, float t, bool bf16_input,
-                                       const float* __restrict__ w,
-                                       const float* __restrict__ b, int n_layers) {
-  float px = __fmaf_rn(ray.dx, t, ray.ox);
-  float py = __fmaf_rn(ray.dy, t, ray.oy);
-  float pz = __fmaf_rn(ray.dz, t, ray.oz);
-  if (bf16_input) {
-    px = round_bf16(px);
-    py = round_bf16(py);
-    pz = round_bf16(pz);
-  }
-  if constexpr (kKind == kFp32)
-    return chain_sdf<H>(w, b, n_layers, 3, px, py, pz, 0.f);
-  else
-    return chain_sdf_3pass<H>(n_layers, 3, px, py, pz, 0.f);
-}
-
 // --------------------------------------------------------------------------
-// X2: steps fixed steps of every lane, t_out [1, n].
+// X2: steps fixed steps of every lane, t_out [1, n], on the FP32 chain
+// (K1's) or the three-pass chain (K2h's). weights: the stack in tf32
+// fragment order (kFp32) or in bf16 fragment order (kThreePassChain), both
+// as many bytes as the FP32 stack, staged with the biases in shared memory
+// (march_smem_bytes).
+enum ChainKind : int { kFp32 = 0, kThreePassChain = 1 };
 enum StepCostVariant : int { kChainOnly = 0, kMarchState = 1, kMarchRelax = 2 };
 
 template <int H, int kKind, int V>
 __global__ void __launch_bounds__(kBlock)
 x2_stepcost_kernel(const float* __restrict__ dirs, const float* __restrict__ t0,
-                   const float* __restrict__ origin, const void* __restrict__ w0,
-                   const void* __restrict__ w1, const float* __restrict__ biases,
-                   int n_layers, int n, int steps, int bf16_input, float* __restrict__ t_out) {
-  const float* w = nullptr;
+                   const float* __restrict__ origin, const void* __restrict__ weights,
+                   const float* __restrict__ biases, int n_layers, int n, int steps,
+                   int bf16_input, float* __restrict__ t_out) {
+  static_assert(H == 32, "X2 is built at width 32");
   const float* b = nullptr;
-  stage_x<H, kKind>(w0, w1, biases, n_layers, w, b);
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
+  const float2* wt = nullptr;  // tf32 fragment order (kFp32)
+  const uint4* wb = nullptr;   // bf16 fragment order, hi and lo (kThreePassChain)
+  if constexpr (kKind == kFp32) {
+    const float* ws = nullptr;
+    stage_weights<H>(static_cast<const float*>(weights), biases, n_layers, ws, b);
+    wt = reinterpret_cast<const float2*>(ws);
+  } else {
+    stage_weights_mma<H>(static_cast<const uint4*>(weights), biases, n_layers, wb, b);
+  }
+  const int lane = threadIdx.x & 31;
+  const int r0 = warp_first_lane();
+  if (r0 >= n) return;  // whole warps only: the chains are warp-collective
+  const int r = min(r0 + lane, n - 1);  // a partial warp's spare lanes march the last ray
   const Ray ray = load_ray(dirs, origin, n, r);
   const bool bf16 = bf16_input != 0;
+  // The SDF of this lane at t, called by all 32 lanes together: the point
+  // o + d*t (one fused multiply-add), its coordinates rounded to bfloat16
+  // when bf16_input is set (the JAX script's act_dtype), through the chain.
+  auto sdf = [&](float t) {
+    float px = __fmaf_rn(ray.dx, t, ray.ox);
+    float py = __fmaf_rn(ray.dy, t, ray.oy);
+    float pz = __fmaf_rn(ray.dz, t, ray.oz);
+    if (bf16) {
+      px = round_bf16(px);
+      py = round_bf16(py);
+      pz = round_bf16(pz);
+    }
+    if constexpr (kKind == kFp32)
+      return chain_tf32_regs<H>(wt, b, n_layers, px, py, pz, 0.f);
+    else
+      return chain_3pass_regs<H>(wb, b, n_layers, px, py, pz, 0.f);
+  };
   float t = t0[r];
   if constexpr (V == kMarchRelax) {
     // The coarse kernel's bookkeeping (march.cuh) with no early exit: eps
@@ -511,7 +502,7 @@ x2_stepcost_kernel(const float* __restrict__ dirs, const float* __restrict__ t0,
     bool active = true, conv = false;
 #pragma unroll 1
     for (int s = 0; s < steps; ++s) {
-      const float d = x_sdf<H, kKind>(ray, t, bf16, w, b, n_layers);
+      const float d = sdf(t);
       const bool act = active;
       const bool sor_fail = act && step_len > prev_r && __fadd_rn(d, prev_r) < step_len;
       const bool near = act && !sor_fail && d < 1e-6f;
@@ -528,11 +519,11 @@ x2_stepcost_kernel(const float* __restrict__ dirs, const float* __restrict__ t0,
       if (moved && !sor_fail) prev_r = d;
       if (moved) step_len = stepv;
     }
-    t_out[r] = conv ? __fadd_rn(t, 1e-9f) : t;  // t + conv * 1e-9
+    if (conv) t = __fadd_rn(t, 1e-9f);  // t + conv * 1e-9
   } else {
 #pragma unroll 1
     for (int s = 0; s < steps; ++s) {
-      const float d = x_sdf<H, kKind>(ray, t, bf16, w, b, n_layers);
+      const float d = sdf(t);
       if constexpr (V == kChainOnly) {
         t = __fadd_rn(t, d);
       } else {  // kMarchState: act = d > -1e30; move unless near
@@ -540,8 +531,8 @@ x2_stepcost_kernel(const float* __restrict__ dirs, const float* __restrict__ t0,
         if (act && !(d < 1e-6f)) t = __fadd_rn(t, d);
       }
     }
-    t_out[r] = t;
   }
+  if (r0 + lane < n) t_out[r0 + lane] = t;
 }
 
 // --------------------------------------------------------------------------
@@ -889,14 +880,14 @@ x3_ablation_kernel(const float* __restrict__ dirs, const float* __restrict__ t0,
 }
 
 template <int H, int kKind, int V>
-int launch_x2(const float* dirs, const float* t0, const float* origin, const void* w0,
-              const void* w1, const float* biases, int n_layers, int n, int steps,
-              int bf16_input, float* t_out, cudaStream_t stream) {
-  const size_t smem = x_smem_bytes(kKind, H, n_layers);
+int launch_x2(const float* dirs, const float* t0, const float* origin, const void* weights,
+              const float* biases, int n_layers, int n, int steps, int bf16_input, float* t_out,
+              cudaStream_t stream) {
+  const size_t smem = march_smem_bytes(H, n_layers);
   const cudaError_t err = allow_smem(x2_stepcost_kernel<H, kKind, V>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   x2_stepcost_kernel<H, kKind, V><<<(n + kBlock - 1) / kBlock, kBlock, smem, stream>>>(
-      dirs, t0, origin, w0, w1, biases, n_layers, n, steps, bf16_input, t_out);
+      dirs, t0, origin, weights, biases, n_layers, n, steps, bf16_input, t_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -931,18 +922,18 @@ extern "C" int cnr_x1_loop(int device, const float* x, const float* w, const flo
 }
 
 // X2: variant 0 chain_only, 1 march_state, 2 march_relax; three_pass 0 (the
-// FP32 stack in weights) or 1 (its bfloat16 hi and lo halves in weights and
-// weights_lo); hidden 32.
+// stack [n_layers, 32, 32] in tf32 fragment order in weights,
+// fused_mlp.pack_mma(weights, "tf32")) or 1 (its bfloat16 hi and lo halves
+// in bf16 fragment order, pack_mma(weights, "bf16")); hidden 32.
 extern "C" int cnr_x2_stepcost(int device, const float* dirs, const float* t0,
-                               const float* origin, const void* weights,
-                               const void* weights_lo, const float* biases, int n_layers,
-                               int hidden, int variant, int three_pass, int bf16_input, int n,
-                               int steps, float* t_out, void* stream) {
+                               const float* origin, const void* weights, const float* biases,
+                               int n_layers, int hidden, int variant, int three_pass,
+                               int bf16_input, int n, int steps, float* t_out, void* stream) {
   using namespace cnr;
-  if (hidden != 32 || n_layers < 2 || n < 0 || steps < 0 || (three_pass && !weights_lo))
+  if (hidden != 32 || n_layers < 2 || n < 0 || steps < 0 || !weights)
     return static_cast<int>(cudaErrorInvalidValue);
-  using Launch = int (*)(const float*, const float*, const float*, const void*, const void*,
-                         const float*, int, int, int, int, float*, cudaStream_t);
+  using Launch = int (*)(const float*, const float*, const float*, const void*, const float*,
+                         int, int, int, int, float*, cudaStream_t);
   Launch launch = nullptr;
   switch (variant * 2 + (three_pass ? 1 : 0)) {
     case 0: launch = launch_x2<32, kFp32, kChainOnly>; break;
@@ -956,8 +947,8 @@ extern "C" int cnr_x2_stepcost(int device, const float* dirs, const float* t0,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return 0;
-  return launch(dirs, t0, origin, weights, weights_lo, biases, n_layers, n, steps, bf16_input,
-                t_out, static_cast<cudaStream_t>(stream));
+  return launch(dirs, t0, origin, weights, biases, n_layers, n, steps, bf16_input, t_out,
+                static_cast<cudaStream_t>(stream));
 }
 
 // X3: variant 0 v0, 1 v1, 2 v2, 3 v3, 5 v5, 6 v5p; weights the stack

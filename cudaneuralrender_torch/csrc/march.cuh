@@ -380,7 +380,7 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
 // in all 32 lanes; lane 0 writes the results. A ray's steps and results are
 // those of the plain version (megakernel.march_state_plain) bit for bit:
 // the chain sums each output in input order from zero on FFMA, the order of
-// mlp_sdf and of the plain version's cuBLAS chain, and the bookkeeping is
+// the plain version's cuBLAS chain, and the bookkeeping is
 // march_step itself (a ray per thread, march_kernel<H, S, W, false> sums
 // on the tensor cores in their own order).
 //

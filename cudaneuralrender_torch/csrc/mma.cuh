@@ -74,8 +74,8 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
 
 // The three-pass split of two neighbouring values (the lower column first)
 // into their bfloat16 halves, packed as an A-fragment register each:
-// hi = bf16(x), lo = bf16(x - hi), round to nearest even (chain.cuh
-// split_hi / split_lo).
+// hi = bf16(x), lo = bf16(x - hi), round to nearest even (the plain
+// version's split, fused_mlp.split_hi_lo).
 __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   const __nv_bfloat162 l = __floats2bfloat162_rn(__fsub_rn(x0, __low2float(h)),

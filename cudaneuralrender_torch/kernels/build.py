@@ -162,7 +162,7 @@ def load_library() -> ctypes.CDLL:
         lib.cnr_x2_stepcost.argtypes = [
             _I,                      # device
             _P, _P, _P,              # dirs, t0, origin
-            _P, _P, _P,              # weights (FP32 or bf16 hi), bf16 lo or NULL, biases
+            _P, _P,                  # weights (tf32 or bf16 fragment order), biases
             _I, _I, _I, _I, _I,      # n_layers, hidden, variant, three_pass, bf16_input
             _I, _I,                  # n, steps
             _P, _P,                  # t_out, stream

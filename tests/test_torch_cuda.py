@@ -36,7 +36,9 @@ and 1024 (chip_smoke.row_sweep: FP32 bit for bit, three-pass within
 K2H_SDF_ATOL); the cold-start kernel (K5) against its plain version at
 "default" and "high". The step-cost
 experiment kernels X1-X3 against their plain versions at chip_smoke.X_RTOL
-of each output's own magnitude (chip_smoke.x_scale), every instantiation.
+of each output's own magnitude (chip_smoke.x_scale), every instantiation,
+and at the float64 witness bars; X2's lanes beyond X_RTOL accounted for as
+chip_smoke.x2_check accounts for them, and partial last warps.
 The march kernel's ray-split mode (a ray per warp, the FFMA chain summed
 in input order) at widths 32 and 64 against the plain version, bit for bit
 (chip_smoke.split_equal): every scene and the 4-input anim_demo on the
@@ -430,24 +432,47 @@ def test_x1_kernel_matches_plain(hidden, lanes):
     chip_smoke.check_outputs("x1", check)
 
 
+@pytest.mark.parametrize("n", [4096, 4001])
 @pytest.mark.parametrize("chain", ["fp32", "three_pass", "bf16_input"])
 @pytest.mark.parametrize("variant", ["chain_only", "march_state", "march_relax"])
-def test_x2_kernel_matches_plain(variant, chain):
+def test_x2_kernel_matches_plain(variant, chain, n):
+    """X2 on the tensor cores (K1's tf32 chain, K2h's bf16 chain) against
+    its plain version as phase 11 holds it (``chip_smoke.x2_check``: X_RTOL,
+    the lanes beyond it accounted for as ``undecided_bar`` holds them, every
+    lane replayed on both sides, the kernel's on its own chain), beside the
+    model of its order, and at the float64 witness bars on 4096 seeded
+    points; 4001 lanes end in a partial warp."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
     from cudaneuralrender_torch.benchmarks import demo_stack
     from cudaneuralrender_torch.benchmarks import exp_stepcost as x2
 
-    weights, biases = demo_stack(torch.device("cuda", 0))
-    kw = dict(steps=16, three_pass=chain == "three_pass",
+    dev = torch.device("cuda", 0)
+    weights, biases = demo_stack(dev)
+    params = cnr.load(NPZ, device=dev)
+    three_pass = chain == "three_pass"
+    kw = dict(steps=16, three_pass=three_pass,
               act_dtype=torch.bfloat16 if chain == "bf16_input" else torch.float32)
-    key = variant + ("_3pass" if kw["three_pass"] else "")
+    key = variant + ("_3pass" if three_pass else "")
+    rays = _x_rays(n)
     before = x2.LAUNCHES[key]
-    got = x2.step_cost(variant, weights, biases, *_x_rays(), **kw)
+    got = x2.step_cost(variant, weights, biases, *rays, **kw)
     torch.cuda.synchronize()
     assert x2.LAUNCHES[key] == before + 1
-    want = x2.step_cost_plain(variant, weights, biases, *_x_rays(), **kw)
-    chip_smoke.check_outputs("x2", chip_smoke.compare_outputs(got, want, chip_smoke.x_scale("x2")))
+    want = x2.step_cost_plain(variant, weights, biases, *rays, **kw)
+    check = chip_smoke.x2_check(
+        variant, chip_smoke.x2_chains(weights, biases, params, three_pass),
+        lambda p: chip_smoke.sdf_float64(params, p), rays, got, want, steps=kw["steps"],
+        act_dtype=kw["act_dtype"],
+        sdf_atol=chip_smoke.K2H_SDF_ATOL if three_pass else chip_smoke.K1_MMA_SDF_ATOL)
+    check["model_max_abs_err"] = (
+        got - x2.step_cost_model(variant, weights, biases, *rays, **kw)).abs().max().item()
+    gen = torch.Generator(dev).manual_seed(2)
+    pts = torch.rand((4096, 3), generator=gen, device=dev) * 2.4 - 1.2
+    check["witness"] = chip_smoke.x2_witness(weights, biases, params, pts, three_pass)
+    print(check)
+    chip_smoke.check_outputs("x2", check)
 
 
 @pytest.mark.parametrize("n", [4096, 4001])

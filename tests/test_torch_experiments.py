@@ -20,17 +20,22 @@ products are exact but whose sums are not. Every case agreed bit for bit
 when these tests were written (plain sums in input order on both sides);
 each test reports the share of bit-equal outputs in its failure message.
 
-The card runs X1 and X3 on the tensor cores, which sum in their own order;
+The card runs X1-X3 on the tensor cores, which sum in their own order;
 the models of that order (``exp_blockdiag.chain_model``,
-``exp_stepcost2.ablation_model``) are held here to the plain versions and
-to the JAX kernels at the same tolerances, and to float64 at
-chip_smoke.py's witness bars: the model's |error| within WITNESS_MEAN
-(1.25x) of the plain version's on the mean and WITNESS_MAX (2x) on the max,
-over X1's 9-rep outputs and over one step of X3 at 4096 seeded points.
+``exp_stepcost.step_cost_model``, ``exp_stepcost2.ablation_model``) are
+held here to the plain versions and to the JAX kernels at the same
+tolerances (X2's three-pass chain on all but the lanes chip_smoke.py's
+``x2_beyond`` accounts for), and to float64 at chip_smoke.py's witness
+bars: the model's |error| within WITNESS_MEAN (1.25x) of the plain
+version's on the mean and WITNESS_MAX (2x) on the max, over X1's 9-rep
+outputs and over one step of X2 and X3 at 4096 seeded points. X2's check
+(``chip_smoke.x2_check``) runs here on the model as the kernel, and on a
+chain off the plain one, which it must fail.
 """
 import functools
 import importlib.util
 import os
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -43,11 +48,13 @@ torch.set_num_threads(2)
 
 import chip_smoke  # noqa: E402
 import cudaneuralrender_tpu as cj  # noqa: E402
+from cudaneuralrender_torch import benchmarks  # noqa: E402
 from cudaneuralrender_torch.benchmarks import exp_blockdiag as x1  # noqa: E402
 from cudaneuralrender_torch.benchmarks import exp_stepcost as x2  # noqa: E402
 from cudaneuralrender_torch.benchmarks import exp_stepcost2 as x3  # noqa: E402
 from cudaneuralrender_torch.kernels import build  # noqa: E402
 from cudaneuralrender_torch.kernels import fused_mlp as fused_t  # noqa: E402
+from cudaneuralrender_torch.models import checkpoint  # noqa: E402
 from cudaneuralrender_tpu.ops import camera as cam_j  # noqa: E402
 from cudaneuralrender_tpu.pallas import fused_mlp as fused_j  # noqa: E402
 from test_torch_mma import unpack  # noqa: E402
@@ -84,6 +91,17 @@ def _stack():
     pj = tuple(cj.mlp.DenseParams(jnp.asarray(w), jnp.asarray(b)) for w, b in layers)
     wj, bj, _, _ = fused_j.pack_params(pj)
     return (wj, bj), (torch.from_numpy(np.array(wj)), torch.from_numpy(np.array(bj)))
+
+
+@functools.lru_cache(maxsize=None)
+def _params():
+    """csg_demo's layers in the port, on the CPU."""
+    return checkpoint.load(CSG, device="cpu")
+
+
+def _sdf64():
+    """csg_demo's SDF in float64 (points [n, 3] -> [n]), X2's padded stack's."""
+    return lambda pts: chip_smoke.sdf_float64(_params(), pts)
 
 
 def _report(got, want):
@@ -198,6 +216,42 @@ X2_CHAINS = {"highest": ("HIGHEST", False, "float32"), "default": ("DEFAULT", Fa
                                                                        "bfloat16")}
 
 
+def _round_f32(q: Fraction) -> float:
+    """The rational q rounded once to float32 (to nearest, ties to even)."""
+    a = np.float32(float(q))
+    near = sorted((abs(Fraction(float(c)) - q), int(c.view(np.uint32)) & 1, float(c))
+                  for c in (np.nextafter(a, np.float32(-np.inf)), a,
+                            np.nextafter(a, np.float32(np.inf))))
+    return near[0][2]
+
+
+def test_point_rows_rounds_once():
+    """benchmarks.point_rows (the points of X2 and X3's plain versions)
+    rounds each coordinate of o + d*t once, as the kernels' fused
+    multiply-add does: where the float64 sum lands on a float32 tie that
+    the exact sum is off (o below half an ulp of d*t in float64: d*t = 1 +
+    k*2^-11 + k^2*2^-24), it rounds to the exact sum's side of the tie in
+    both directions and at both parities; and on seeded o, d, t with t up
+    to 1e18 it equals the exact sum rounded once."""
+    cases = []
+    for k in range(1, 9):
+        h = 1.0 + k * 2.0 ** -12
+        for o in (2.0 ** -80, -2.0 ** -80):
+            cases += [(o, h, h), (-o, -h, h)]
+    rng = np.random.default_rng(9)
+    cases += list(zip(rng.uniform(-2, 2, 200), rng.uniform(-1, 1, 200),
+                      10.0 ** rng.uniform(-1, 18, 200)))
+    naive_wrong = 0
+    for o, d, t in cases:
+        o, d, t = (float(np.float32(v)) for v in (o, d, t))
+        got = benchmarks.point_rows(torch.full((3, 1), o), torch.full((3, 1), d),
+                                    torch.tensor([t]))
+        want = _round_f32(Fraction(o) + Fraction(d) * Fraction(t))
+        assert got.shape == (1, 3) and got[0].tolist() == [want] * 3, (o, d, t)
+        naive_wrong += float(np.float32(o + d * t)) != want
+    assert naive_wrong >= 8  # the float64 sum rounded to float32 misses the ties
+
+
 @pytest.mark.parametrize("chain", list(X2_CHAINS))
 @pytest.mark.parametrize("variant", list(x2.VARIANTS))
 def test_x2_step_cost_plain_matches_jax(variant, chain):
@@ -226,6 +280,117 @@ def test_x2_variants_differ():
     for kw in (dict(three_pass=True), dict(act_dtype=torch.bfloat16)):
         assert not torch.equal(x2.step_cost("chain_only", wt, bt, *args, steps=8, **kw),
                                out["chain_only"])
+
+
+@pytest.mark.parametrize("chain", list(X2_CHAINS))
+@pytest.mark.parametrize("variant", list(x2.VARIANTS))
+def test_x2_model_matches_jax_and_float64(variant, chain):
+    """The kernel's order (K1's tf32 chain, or K2h's bf16 chain for the
+    three-pass kind) against the JAX kernel at the plain version's bar, and
+    one chain_only step at 4096 seeded points at the witness bars. The
+    FP32 chain holds the bar on every lane. The three-pass chain splits
+    each activation into bfloat16 halves, and a 1-ulp change of the
+    activation can move that split by 2^-17 of it: over 8 steps some lanes
+    end up to ~4e-4 from JAX's (t ~ 18). Those lanes are accounted for as
+    chip_smoke.py accounts for X2's lanes beyond X_RTOL (``x2_beyond`` to
+    ``undecided_bar``): marched again, with every other lane, on the
+    model's chain and on the plain one, each landing on its own t bit for
+    bit, the model's chain on their paths at the witness bars, the two
+    chains within K2H_SDF_ATOL."""
+    prec, three_pass, act = X2_CHAINS[chain]
+    (wj, bj), (wt, bt) = _stack()
+    dirs, t0, origin = _x2_inputs()
+    steps = 8
+    kern = STEPCOST.make_kernel(variant, wj.shape[0], wj.shape[1], steps, PRECISIONS[prec],
+                                getattr(jnp, act), three_pass=three_pass)
+    ops = (*fused_j.split_hi_lo(wj), bj) if three_pass else (wj, bj)
+    want = _interpret(kern, 1, dirs.shape[1], dirs, t0, origin, *ops)
+    args = [torch.from_numpy(a) for a in (dirs, t0, origin)]
+    kw = dict(steps=steps, three_pass=three_pass, act_dtype=getattr(torch, act))
+    model = x2.step_cost_model(variant, wt, bt, *args, **kw)
+    beyond = np.abs(model.numpy() - want) > 1e-4
+    if three_pass:
+        chains = (x2.model_sdf(wt, bt, True), x2.plain_sdf(wt, bt, True))
+        u = chip_smoke.x2_beyond(variant, chains, _sdf64(), args, model,
+                                 x2.step_cost(variant, wt, bt, *args, **kw),
+                                 torch.from_numpy(beyond.reshape(-1)).nonzero().squeeze(1),
+                                 torch.arange(dirs.shape[1]), steps, kw["act_dtype"])
+        assert u["replay_equal"] and not chip_smoke.undecided_bar(u, unparted_ok=True), u
+        assert u["chain_max_diff"] <= chip_smoke.K2H_SDF_ATOL, u
+    _close(model.numpy()[~beyond], want[~beyond], 1e-4)
+    assert three_pass or not beyond.any()
+    pts = torch.from_numpy(np.random.default_rng(5).uniform(-1.2, 1.2, (4096, 3))
+                           .astype(np.float32))
+    rays = chip_smoke.x3_witness_rays(pts)
+    kw = dict(steps=1, three_pass=three_pass)
+    witness = chip_smoke.x_witness(x2.step_cost_model("chain_only", wt, bt, *rays, **kw),
+                                   x2.step_cost_plain("chain_only", wt, bt, *rays, **kw),
+                                   chip_smoke.x2_float64(_params(), pts))
+    assert not chip_smoke.witness_bar(witness), witness
+
+
+def _x2_check(variant, three_pass, chains, steps=16):
+    """chip_smoke.x2_check of the march on ``chains``' first chain against
+    the plain version, on the rays of a 64x32 image."""
+    _, (wt, bt) = _stack()
+    cfg = cj.RenderConfig(width=64, height=32)
+    c2w, _ = cam_j.view_matrices(cj.Camera(rotation_y=25.0))
+    origin, dirs = cam_j.generate_rays(c2w, cfg.height, cfg.width, cfg.focal)
+    n = cfg.height * cfg.width
+    rays = (torch.from_numpy(np.ascontiguousarray(np.asarray(dirs).T)),
+            torch.full((1, n), 0.8), torch.from_numpy(np.array(origin).reshape(3, 1)))
+    got = x2.march_steps(variant, chains[0], *rays, steps=steps)
+    want = x2.step_cost_plain(variant, wt, bt, *rays, steps=steps, three_pass=three_pass)
+    atol = chip_smoke.K2H_SDF_ATOL if three_pass else chip_smoke.K1_MMA_SDF_ATOL
+    return chip_smoke.x2_check(variant, chains, _sdf64(), rays, got, want, steps=steps,
+                               sdf_atol=atol)
+
+
+def _beyond_bar(check) -> list:
+    """What breaks phase 11's bar on X2's lanes beyond X_RTOL
+    (``chip_smoke.check_outputs`` but the witness of one step)."""
+    u = check["beyond"]
+    bad = chip_smoke.undecided_bar(u, unparted_ok=True)
+    if not u["chain_max_diff"] <= check["sdf_atol"]:
+        bad.append(f"chains {u['chain_max_diff']} apart")
+    return bad
+
+
+@pytest.mark.parametrize("three_pass", [False, True])
+@pytest.mark.parametrize("variant", list(x2.VARIANTS))
+def test_x2_check_accounts_for_the_lanes_beyond(variant, three_pass):
+    """chip_smoke's X2 check on the model as the kernel: the march on the
+    kernel's chain lands on it on every lane, and the lanes beyond X_RTOL
+    (grazing rays, whose step's SDF difference grows) replay on both sides
+    bit for bit and meet phase 11's bar: the partings as undecided_bar
+    holds them, each chain on its paths at the float64 witness bars, the
+    two chains within the chain's bar; every lane's t is also marched in
+    float64 (``t_witness``)."""
+    _, (wt, bt) = _stack()
+    chains = (x2.model_sdf(wt, bt, three_pass), x2.plain_sdf(wt, bt, three_pass))
+    check = _x2_check(variant, three_pass, chains)
+    u = check["beyond"]
+    assert u["replay_equal"], u
+    assert u["lanes"] == check["n_beyond"]
+    assert u["lanes"] == u["n_undecided"] + u["n_decided"] + u["n_unparted"]
+    assert not _beyond_bar(check), u
+    assert u["replayed"] == 2048 and u["t_witness"]["n"] == 2048
+    assert check["n_finite"] > 0
+    if three_pass:  # the bfloat16 split of the activations parts some lanes at 16 steps
+        assert u["lanes"] > 0
+
+
+def test_x2_check_fails_a_chain_off_the_plain_one():
+    """A "kernel" chain whose weights are off by 1e-4 of themselves lands
+    lanes beyond X_RTOL, and its distances on the replayed paths miss the
+    float64 witness bars and the FP32 chain's bar."""
+    _, (wt, bt) = _stack()
+    off = x2.plain_sdf(wt * (1 + 1e-4), bt)
+    check = _x2_check("chain_only", False, (off, x2.plain_sdf(wt, bt)))
+    u = check["beyond"]
+    assert u["replay_equal"] and u["lanes"] > 0 and u["n_unparted"] > 0
+    bad = _beyond_bar(check)
+    assert any("|SDF - float64|" in b for b in bad) and any("chains" in b for b in bad), bad
 
 
 # --- X3 ---------------------------------------------------------------------
@@ -366,6 +531,15 @@ def test_experiment_wrappers_check_before_loading(monkeypatch):
     wide = torch.zeros((9, 64, 64))
     with pytest.raises(ValueError, match="width 32"):
         x2._step_cost_cuda("chain_only", wide, bt, *args, 8, False, torch.float32)
+    for three_pass in (False, True):  # the stack is laid out after the checks
+        with pytest.raises(ValueError, match="dtype"):
+            x2._step_cost_cuda("chain_only", wt.double(), bt, *args, 8, three_pass,
+                               torch.float32)
+        with pytest.raises(ValueError, match="contiguous"):
+            x2._step_cost_cuda("march_relax", wt.transpose(1, 2), bt, *args, 8, three_pass,
+                               torch.float32)
+        with pytest.raises(ValueError, match="shape"):
+            x2._step_cost_cuda("march_state", wt, bt[:8], *args, 8, three_pass, torch.float32)
     with pytest.raises(ValueError, match="width 32"):
         x3._ablation_cuda("v3", wide, bt, *args, 8)
     with pytest.raises(ValueError, match="widths"):
