@@ -14,17 +14,23 @@ Phases; any failure exits non-zero and nothing is caught:
      FFMA) none; so must every X1 and X3 instantiation, and no X2 one);
   3. hold the kernel against its plain PyTorch version on the same CUDA
      tensors: csg_demo rays at 256x256 from Camera(rotation_y=30,
-     rotation_x=-20), for the staged renderer's three kinds of call
-     (coarse, refine rung 0, terminal rung);
+     rotation_x=-20), for the FP32 kernel's three kinds of call in the
+     staged renderer (the coarse call of COARSE_FP32, refine rung 0, the
+     terminal rung) and for the default coarse call (the three-pass chain
+     at the config's coarse_eps, ``main_coarse_call``);
   4. drive the main path — ``Renderer(...).render`` with the staged
      mixed-precision config — at 1920x1080 with the csg_demo weights,
-     counting kernel launches (those a ray per warp and those of the
-     normals' ``relu_tie_backward`` must not be 0), then
-     the 256x256 golden render against examples/assets/csg_demo.png;
-  5. time 5 warm 1080p frames; record the inputs of every march call of
-     one more frame and hold the kernel against its plain version on each
-     (the coarse pass over 2M rays and the retuned refine rungs); time the
-     coarse pass both ways; the kernel's FP32 SDF against the model of its
+     counting kernel launches (the three-pass coarse call's, those a ray
+     per warp and those of the normals' ``relu_tie_backward`` must not be
+     0, the FP32 coarse call's must be), then the 256x256 golden render
+     against examples/assets/csg_demo.png;
+  5. time 10 warm 1080p frames beside 10 with the FP32 coarse call to 0.05
+     (COARSE_FP32; in the order default, FP32, FP32, default); record the
+     inputs of every march call of one more frame and hold the kernel
+     against its plain version on each (the three-pass coarse pass over 2M
+     rays and the retuned FP32 refine rungs); time the coarse pass (K2h)
+     and the first refine rung (K1) both ways; the kernel's FP32 SDF
+     against the model of its
      summation order, the plain chain and float64 (``tc_sdf_errors``);
      each call through the kernel a ray per thread and a ray per warp, each
      timed, the ray per warp equal to the plain version bit for bit, with
@@ -43,6 +49,8 @@ Phases; any failure exits non-zero and nothing is caught:
   7. the turntable: ``render_sequence`` over 24 frames of many_sphere
      (yaw and frame number i), twice; the second call must stay on the
      fast path and is timed; frames 0 and 23 against ``render_staged``;
+     frame DEEP_FRAME's stats, each march call of it and its deepest lanes
+     (``deep_lanes``: one lane grazes a surface and runs to max_steps);
   8. wide nets, each width at its SIZES: csg_demo widened to 64, 128, 256
      and 512 (``widen``), each driven through the staged path (1080p;
      512x512 at 256, 256x256 at 512) with its width's launches counted, the
@@ -76,13 +84,14 @@ Phases; any failure exits non-zero and nothing is caught:
      against float64 on 2^20 points (2^18 at 1024), beside the FP32
      chain's; both plain chains against the kernel at the row counts
      ROW_SWEEP and at powers of two (FP32 bit for bit, three-pass within
-     K2H_SDF_ATOL); the HIGH
-     configs (``mid_eps=1e-3``, and ``coarse_precision="high"`` with
-     ``coarse_eps=1e-3``) through the staged path at 1080p with their
-     three-pass launches counted, against the default image, the golden,
-     timed warm frames (1 for ``mid_eps``, 3), kernel = plain on every
-     march call of one more frame, and the coarse call timed FP32 vs
-     three-pass; ``mid_eps`` at 256x256 at widths 64-512 with each width's
+     K2H_SDF_ATOL); the default coarse_eps against ERR_FACTOR times the
+     largest three-pass error over widths 32-1024 (raises below it); the
+     ladder's other configs (``mid_eps=1e-3``, and COARSE_FP32) through the
+     staged path at 1080p with the launches of their chain counted, against
+     the default image, the golden, timed warm frames (1 for ``mid_eps``,
+     3), kernel = plain on every march call of one more frame, and the
+     main path's coarse call timed FP32 vs three-pass; ``mid_eps`` at
+     256x256 at widths 64-512 with each width's
      three-pass launches counted; the cold-start kernel (K5,
      ``march_raygen``) on the 1080p coarse call at "default" and "high",
      its launches counted, against its plain version and against the ray
@@ -193,8 +202,10 @@ import torch
 
 from cudaneuralrender_torch.utils.timing import card_line, time_cuda
 
-# The staged path's coarse call, refine rung 0 and terminal rung:
-# (name, march_eps, num_steps, relax_omega).
+# The FP32 march kernel's three kinds of call in the staged path: the coarse
+# call of COARSE_FP32, refine rung 0 and the terminal rung: (name,
+# march_eps, num_steps, relax_omega). The default coarse call (three-pass,
+# the config's coarse_eps) is ``main_coarse_call``.
 VARIANTS = (
     ("coarse", 0.05, None, 1.6),
     ("refine_rung0", 1e-6, 16, 0.0),
@@ -277,10 +288,16 @@ PADDINGS = (256, 512, 1024, 2048, 2640, 4096, 65536)
 # three-pass coarse pass to 0.05.
 HIGH_EPS = 1e-3
 HIGH_VARIANTS = (("coarse", None, 1.6), ("rung0", 16, 0.0), ("terminal", None, 1.6))
-# The opt-in configs of the ladder, rendered at 1080p with csg_demo, and
-# their timed warm frames (mid_eps leaves the fast path: ~10 s frames).
-HIGH_CONFIGS = (("mid_eps", dict(mid_eps=1e-3), 1),
-                ("coarse_high", dict(coarse_precision="high", coarse_eps=1e-3), 3))
+# The FP32 coarse call to 0.05: the JAX package's ladder, the port's default
+# before the H100's chain errors set it (utils/config.py).
+COARSE_FP32 = dict(coarse_precision="default", coarse_eps=0.05)
+# The ladder's other configs, rendered at 1080p with csg_demo: (name, fields,
+# timed warm frames, the precision whose launches the config adds) (mid_eps
+# leaves the fast path: ~10 s frames).
+HIGH_CONFIGS = (("mid_eps", dict(mid_eps=1e-3), 1, "high"),
+                ("coarse_fp32", COARSE_FP32, 3, "default"))
+# The default coarse_eps over each width's three-pass SDF error (phase 10).
+ERR_FACTOR = 10.0
 # K5 against the ray build + init + kernel: the two builds of a ray differ
 # by float32 ulps, which may move its convergence a step. The JAX package's
 # bar (tests/test_pallas.py:324-361, a 32x32 image): converged flags agree
@@ -607,14 +624,14 @@ def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bn
                 max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, **bnd, library_ms=None)
 
 
-def wide_params(cnr, k: int, dev):
-    """csg_demo widened k times (``widen``) on ``dev``, tagged for the
-    schedule memo as a geometry of its own."""
+def wide_params(cnr, k: int, dev, asset: str = ASSET):
+    """``asset``'s net (csg_demo's by default) widened k times (``widen``)
+    on ``dev``, tagged for the schedule memo as a geometry of its own."""
     from cudaneuralrender_torch.utils import memo
 
-    layers = cnr.mlp.to_numpy_params(cnr.load(ASSET, device="cpu"))
+    layers = cnr.mlp.to_numpy_params(cnr.load(asset, device="cpu"))
     params = cnr.from_numpy_params(widen(layers, k, seed=k) if k > 1 else layers, device=dev)
-    memo.tag_geometry(params, f"{ASSET} widened x{k}")
+    memo.tag_geometry(params, f"{asset} widened x{k}")
     return params
 
 
@@ -950,6 +967,24 @@ def variant_calls(params, config, origin, dirs, frame=0.0, variants=None) -> lis
         out.append((name, (origin, dirs, state, config, frame, kw), p))
         state = p[0]
     return out
+
+
+def main_coarse_call(params, config, origin, dirs, frame=0.0) -> dict:
+    """The staged path's coarse call at ``config``'s ladder (its
+    ``coarse_precision`` and ``coarse_eps``, the three-pass chain by
+    default) from the cold start, through the kernel and the plain version:
+    {"coarse_main": agreement dict}, by the bar of its chain."""
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import march
+
+    state = march.init_state(origin, dirs, config.bound_center, config.bound_radius)
+    kw = dict(march_eps=config.coarse_eps, precision=config.coarse_precision,
+              relax_omega=config.relax_omega, return_resolve=True,
+              cyl_window=config.cyl_window_coarse, coarse=True)
+    call = (origin, dirs, state, config, frame, kw)
+    return {"coarse_main": call_agreement(
+        params, call, megakernel.march_state(params, *call[:5], **kw),
+        megakernel.march_state_plain(params, *call[:5], **kw))}
 
 
 def compare_kernel_with_plain(params, config, origin, dirs, frame=0.0, variants=None):
@@ -1324,17 +1359,26 @@ def check_image(img, what: str, height: int = 1080, width: int = 1920) -> float:
 
 def time_coarse(params, calls, reps: int = 5, plain_reps: int = 3, lanes=None) -> tuple:
     """The frame's first march call (the coarse pass, over ``lanes`` rays:
-    the frame's, or a shard's), timed through the kernel and through the
-    plain version: (kernel ms, plain ms, bound).
-    The bound counts this call's ray-steps (each ray's resolve step) times
-    the chain's fused multiply-adds, the compose's few hundred operations
-    per step left out, and its bytes: per ray the direction, t, budget and
-    flag in and five results out, and the weight stack once."""
+    the frame's, or a shard's) through ``time_call``: (kernel ms, plain ms,
+    bound)."""
+    call = calls[0]
+    if call[1].shape[0] != (lanes or call[3].num_rays) or not call[5].get("coarse"):
+        raise RuntimeError(f"the frame's first march call is not the coarse pass: {call[5]}")
+    return time_call(params, call, reps, plain_reps)
+
+
+def time_call(params, call, reps: int = 5, plain_reps: int = 3) -> tuple:
+    """A recorded march call timed through the kernel and through the plain
+    version: (kernel ms, plain ms, bound).
+    The bound counts this call's ray-steps (each ray's resolve step less
+    the call's start) times the chain's fused multiply-adds, the compose's
+    few hundred operations per step left out: at the FP32 peak (and
+    3xTF32's, ``bound``), or for the three-pass chain three products a
+    weight at the bfloat16 peak; and its bytes: per ray the direction, t,
+    budget and flag in and five results out, and the weight stack once."""
     from cudaneuralrender_torch.kernels import fused_mlp, megakernel
 
-    origin, dirs, state, ccfg, frame, kw = calls[0]
-    if dirs.shape[0] != (lanes or ccfg.num_rays) or kw.get("march_eps") != ccfg.coarse_eps:
-        raise RuntimeError(f"the frame's first march call is not the coarse pass: {kw}")
+    origin, dirs, state, ccfg, frame, kw = call
     ms = time_cuda(
         lambda: megakernel.march_state(params, origin, dirs, state, ccfg, frame, **kw), reps)
     sm_mhz = sm_clock_mhz()
@@ -1343,16 +1387,24 @@ def time_coarse(params, calls, reps: int = 5, plain_reps: int = 3, lanes=None) -
         plain_reps)
     _, lane_steps = megakernel.march_state(params, origin, dirs, state, ccfg, frame,
                                            **dict(kw, return_resolve=True))
-    ray_steps = int((lane_steps.long() - int(state.steps)).sum())
+    ray_steps = int(torch.where(state.active, lane_steps.long() - int(state.steps), 0).sum())
     weights, biases, n_in, hidden = fused_mlp.packed_params(params)
     fmas = ray_steps * chain_fmas(hidden, weights.shape[0], n_in)
     n = dirs.shape[0]
-    bnd = bound(fmas, n * (12 + 4 + 4 + 1) + n * (4 + 4 + 1 + 1 + 4)
-                + 4 * (weights.numel() + biases.numel()))
+    three_pass = kw.get("precision") == "high"
+    nbytes = (n * (12 + 4 + 4 + 1) + n * (4 + 4 + 1 + 1 + 4)
+              + (2 if three_pass else 4) * weights.numel() + 4 * biases.numel())
+    if three_pass:
+        bnd = bound(3 * fmas, nbytes, PEAK_BF16_FLOPS)
+        rate = "3 products a weight at 989 TFLOP/s bf16"
+    else:
+        bnd = bound(fmas, nbytes)
+        rate = "67 TFLOP/s FP32"
     clock_ms = fmas / (132 * 128 * sm_mhz * 1e6) * 1e3
-    print(f"coarse bound: {ray_steps} ray-steps x {chain_fmas(hidden, weights.shape[0], n_in)} "
-          f"FMAs at width {hidden}: {bnd['bound_ms']:.3f} ms at 67 TFLOP/s, {clock_ms:.3f} ms "
-          f"at the SM clock read after the timing ({sm_mhz:.0f} MHz; 132 SMs x 128 lanes)")
+    print(f"call bound: {ray_steps} ray-steps x {chain_fmas(hidden, weights.shape[0], n_in)} "
+          f"FMAs at width {hidden} ({kw.get('precision', 'highest')}, eps {kw.get('march_eps')}): "
+          f"{bnd['bound_ms']:.3f} ms at {rate}, {clock_ms:.3f} ms at one FMA a lane a cycle at "
+          f"the SM clock read after the timing ({sm_mhz:.0f} MHz; 132 SMs x 128 lanes)")
     return ms, plain_ms, bnd
 
 
@@ -1418,11 +1470,12 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> list:
     ray per warp too, which must not be 0), the golden, the median of
     ``size.frames`` warm frames, kernel = plain version on every march call
     of one more frame (at 64 both modes equal bit for bit and timed,
-    ``compare_modes``), the coarse pass timed both ways, and a profiled
-    frame, and the FP32 SDF (``tc_sdf_errors``). A bounded width drives
-    BOUNDED_VARIANTS instead of the frame: the
+    ``compare_modes``), the coarse pass (three-pass) and the first refine
+    rung (FP32: the width's K1 entry, with the frame's FP32 launches) timed
+    both ways, and a profiled frame, and the FP32 SDF (``tc_sdf_errors``).
+    A bounded width drives BOUNDED_VARIANTS instead of the frame: the
     calls through the kernel with its launches counted, against the plain
-    version on the same inputs, and the coarse call timed both ways.
+    version on the same inputs, and the FP32 coarse call timed both ways.
     Returns the width's kernels entries (at 64 the ray-split mode's too)."""
     from cudaneuralrender_torch.kernels import megakernel
     from cudaneuralrender_torch.ops import camera as camera_lib
@@ -1447,7 +1500,8 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> list:
         if launches != len(BOUNDED_VARIANTS):
             raise RuntimeError(f"{tag}: {launches} launches on the bounded calls")
         cold = march.init_state(origin, dirs, cfg.bound_center, cfg.bound_radius)
-        calls = [(origin, dirs, cold, cfg, 0.0, dict(march_eps=cfg.coarse_eps,
+        calls = [(origin, dirs, cold, cfg, 0.0, dict(march_eps=COARSE_FP32["coarse_eps"],
+                                                     precision=COARSE_FP32["coarse_precision"],
                                                      relax_omega=cfg.relax_omega,
                                                      cyl_window=cfg.cyl_window_coarse,
                                                      coarse=True))]
@@ -1458,8 +1512,10 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> list:
         torch.cuda.synchronize()
         launches = megakernel.WIDTH_LAUNCHES[hidden]
         split_launches = megakernel.SPLIT_LAUNCHES[hidden]
-        print(f"{tag}: {launches} kernel launches in a cold and a warm frame ({split_launches} "
-              f"a ray per warp), stats {json.dumps(renderer.last_stats)}")
+        three_pass = megakernel.THREE_PASS_LAUNCHES[hidden]
+        print(f"{tag}: {launches} kernel launches in a cold and a warm frame ({three_pass} "
+              f"three-pass, {split_launches} a ray per warp), stats "
+              f"{json.dumps(renderer.last_stats)}")
         if launches == 0:
             raise RuntimeError(f"{tag}: the staged render never launched the march kernel")
         if split and split_launches == 0:
@@ -1479,18 +1535,27 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> list:
     if split and not size.bounded:
         rows = compare_modes(params, calls, tag, card, plains)
         entries.append(split_entry(params, calls, rows, split_launches, card))
-    ms, plain_ms, bnd = time_coarse(params, calls, size.reps, min(3, size.reps))
-    print(f"{tag}: coarse march kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bnd['bound_ms']:.3f} ms (FP32), {bnd['tc_bound_ms']:.3f} ms (3xTF32) [{card}]",
-          flush=True)
+    if size.bounded:  # the FP32 coarse call (COARSE_FP32)
+        ms, plain_ms, bnd = time_coarse(params, calls, size.reps, min(3, size.reps))
+    else:  # the frame's three-pass coarse call, then its first FP32 call (refine rung 0)
+        c_ms, c_plain, c_bnd = time_coarse(params, calls, size.reps, min(3, size.reps))
+        print(f"{tag}: coarse march ({calls[0][5].get('precision')}, eps "
+              f"{calls[0][5].get('march_eps')}) kernel {c_ms:.3f} ms, plain {c_plain:.3f} ms, "
+              f"bound {c_bnd['bound_ms']:.3f} ms [{card}]", flush=True)
+        ms, plain_ms, bnd = time_call(params, calls[1], size.reps, min(3, size.reps))
+        launches -= three_pass
+    print(f"{tag}: {'coarse march' if size.bounded else 'refine rung 0'} (FP32) kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms (FP32), "
+          f"{bnd['tc_bound_ms']:.3f} ms (3xTF32) [{card}]", flush=True)
     if not size.bounded:
         print(f"{tag}: breakdown {json.dumps(device_breakdown(renderer, cam))} [{card}]",
               flush=True)
     tc_sdf_errors(params, hidden, card, size.points)
+    fp32_err = [a["max_abs_err"] for n, a in result.items()
+                if size.bounded or not n.startswith("call0_")]
     return [kernel_entry(f"march_kernel_h{hidden}", K1_SOURCE,
                          "cudaneuralrender_tpu/pallas/megakernel.py:45", launches,
-                         max(a["max_abs_err"] for a in result.values()), ms, plain_ms, bnd)
-            ] + entries
+                         max(fp32_err), ms, plain_ms, bnd)] + entries
 
 
 def drive_forward(cnr, params, hidden, card, size: Sizes) -> dict:
@@ -1570,8 +1635,8 @@ def drive_forward(cnr, params, hidden, card, size: Sizes) -> dict:
 
 def drive_turntable(cnr, params, card) -> int:
     """Phase 7: render_sequence over 24 turntable frames of many_sphere
-    (yaw i, frame number i), twice. Returns the launches of the second
-    call."""
+    (yaw i, frame number i), twice, then frame DEEP_FRAME alone through
+    ``deep_lanes``. Returns the launches of the second call."""
     from cudaneuralrender_torch.kernels import megakernel
 
     cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged", scene="many_sphere")
@@ -1613,7 +1678,100 @@ def drive_turntable(cnr, params, card) -> int:
         print(f"turntable frame {i}: hit masks agree with render_staged on {agree:.6f}")
         if agree < 0.999:
             raise RuntimeError(f"turntable frame {i}: hit masks agree on {agree} < 0.999")
+    print(f"turntable frame {DEEP_FRAME} in the sequence: stats {json.dumps(stats[DEEP_FRAME])}")
+    with uncounted():
+        deep_lanes(cnr, params, cams[DEEP_FRAME], cfg, frames[DEEP_FRAME], card)
     return launches
+
+
+@contextlib.contextmanager
+def march_lanes():
+    """Inside the block every ``megakernel.march_state`` call is recorded
+    with the pixel index of each of its lanes: the staged renderer builds
+    each call's directions from the pixel indices it carries
+    (``camera.ray_dirs_from_index``), so the indices of a call's ``dirs``
+    are those of the build that returned that tensor. Yields a list that
+    receives, per call, (pixel indices [n], dirs, the state it started
+    from, its keywords, (state, resolve steps) it returned); the calls run
+    as the caller asked (one launch each), the resolve steps taken as
+    well."""
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import camera
+
+    built, calls = {}, []
+    real_dirs, real_march = camera.ray_dirs_from_index, megakernel.march_state
+
+    def dirs_of(cam_to_world, idx, *args, **kw):
+        out = real_dirs(cam_to_world, idx, *args, **kw)
+        built[id(out)] = (out, idx)  # the tensor held: its id stays its own
+        return out
+
+    def recording(params, origin, dirs, state, config, frame=0.0, **kw):
+        out, lane_steps = real_march(params, origin, dirs, state, config, frame,
+                                     **dict(kw, return_resolve=True))
+        calls.append((built[id(dirs)][1], dirs, state, dict(kw), (out, lane_steps)))
+        return (out, lane_steps) if kw.get("return_resolve") else out
+
+    camera.ray_dirs_from_index, megakernel.march_state = dirs_of, recording
+    try:
+        yield calls
+    finally:
+        camera.ray_dirs_from_index, megakernel.march_state = real_dirs, real_march
+
+
+# Phase 7: the turntable frame whose deepest lane runs to max_steps (6000) on
+# the H100 under either ladder, a ray that grazes a surface just above
+# march_eps (ROADMAP section 3), and its deepest lanes printed.
+DEEP_FRAME = 21
+DEEP_LANES = 8
+
+
+def deep_lanes(cnr, params, cam, cfg, frame, card, top: int = DEEP_LANES) -> None:
+    """Phase 7: one ``render_staged`` frame of ``cfg`` at ``cam`` and
+    ``frame``, its stats, and each march call that made it (``march_lanes``):
+    its lanes, precision, eps, steps and relaxation, the lanes active at its
+    start, its deepest resolve step and the lanes still active at
+    ``max_steps``; then the ``top`` deepest lanes of the frame's deepest
+    call, each with its pixel (x, y), resolve step, flags, its ray (origin,
+    direction) and t before and after the call, printed exactly (the float32
+    values as Python floats) so that a CPU run can march the same rays."""
+    stats = {}
+    with march_lanes() as calls:
+        cnr.render_staged(params, cam, cfg, frame=frame, stats_out=stats)
+    torch.cuda.synchronize()
+    tag = f"{cfg.scene} frame {frame:g} {cfg.width}x{cfg.height} ({cam})"
+    print(f"deep lanes {tag}: render_staged stats {json.dumps(stats)}, "
+          f"coarse_precision {cfg.coarse_precision!r}, coarse_eps {cfg.coarse_eps} [{card}]")
+    rows = []
+    for i, (pos, dirs, state, kw, (out, lane_steps)) in enumerate(calls):
+        act = state.active
+        capped = int((out.active & (lane_steps >= cfg.max_steps)).sum())
+        deepest = int(lane_steps[act].max()) if bool(act.any()) else int(state.steps)
+        rows.append(dict(call=i, lanes=int(pos.numel()), active_in=int(act.sum()),
+                         start_step=int(state.steps), deepest=deepest,
+                         active_at_cap=capped, active_out=int(out.active.sum()),
+                         precision=kw.get("precision", "highest"), eps=kw.get("march_eps"),
+                         num_steps=kw.get("num_steps"), relax=kw.get("relax_omega", 0.0)))
+        print(f"deep lanes {tag} call {i}: {json.dumps(rows[-1])}")
+    if not calls:
+        raise RuntimeError(f"{tag}: no march call recorded")
+    worst = max(range(len(calls)), key=lambda j: rows[j]["deepest"])
+    pos, dirs, state, kw, (out, lane_steps) = calls[worst]
+    from cudaneuralrender_torch.ops import camera as camera_lib
+
+    c2w, _ = camera_lib.view_matrices(cam, dirs.device)
+    origin = [float(v) for v in c2w[:, 3].cpu()]
+    order = torch.argsort(torch.where(state.active, lane_steps, -1).long(), descending=True)
+    lanes = []
+    for j in order[:top].tolist():
+        p = int(pos[j])
+        lanes.append(dict(pixel=p, x=p % cfg.width, y=p // cfg.width,
+                          resolve=int(lane_steps[j]), converged=bool(out.converged[j]),
+                          active=bool(out.active[j]), t_in=float(state.t[j]),
+                          budget_in=float(state.budget[j]), t_out=float(out.t[j]),
+                          dir=[float(v) for v in dirs[j].cpu()]))
+    print(f"deep lanes {tag}: call {worst} of {len(calls)} holds the deepest lanes (origin "
+          f"{origin}); its {len(lanes)} deepest: {json.dumps(lanes)} [{card}]", flush=True)
 
 
 def compare_high_with_plain(params, config, origin, dirs, variants=None) -> dict:
@@ -1907,14 +2065,15 @@ def time_precisions(params, call, card, reps: int = 5) -> dict:
     return dict(ms=ms, fp32_ms=fp32_ms, plain_ms=plain_ms, bnd=bnd)
 
 
-def drive_high_config(cnr, params, name, fields, ref_img, card, frames=3, width=1920,
-                      height=1080) -> dict:
-    """Phase 10 for one HIGH config at 1080p: the staged main path with the
-    three-pass launches counted (a cold and a warm frame), against the
-    default image at the mixed bar, the 256x256 golden under the same
+def drive_high_config(cnr, params, name, fields, ref_img, card, frames=3, precision="high",
+                      width=1920, height=1080) -> dict:
+    """Phase 10 for one config of the ladder at 1080p: the staged main path
+    with the launches at ``precision`` counted (a cold and a warm frame;
+    "high": the three-pass chain, "default": the FP32 coarse call), against
+    the default image at the mixed bar, the 256x256 golden under the same
     config, the median of ``frames`` warm frames, and kernel = plain on
     every march call of one more frame. Returns the launches, the largest
-    |dt| and the recorded calls."""
+    |dt|, the recorded calls and the frame times."""
     from cudaneuralrender_torch.kernels import megakernel
 
     cfg = cnr.RenderConfig(width=width, height=height, march_impl="staged", **fields)
@@ -1924,12 +2083,12 @@ def drive_high_config(cnr, params, name, fields, ref_img, card, frames=3, width=
     renderer.render(cam)  # cold: may overflow and teach the memo
     img = renderer.render(cam)
     torch.cuda.synchronize()
-    launches = megakernel.THREE_PASS_LAUNCHES[32]
-    print(f"{name} 1080p: {launches} three-pass launches of {megakernel.KERNEL_LAUNCHES} in a "
-          f"cold and a warm frame {json.dumps(megakernel.PRECISION_LAUNCHES)}, stats "
-          f"{json.dumps(renderer.last_stats)}")
+    launches = megakernel.PRECISION_LAUNCHES[precision]
+    print(f"{name} 1080p: {launches} launches at precision {precision!r} of "
+          f"{megakernel.KERNEL_LAUNCHES} in a cold and a warm frame "
+          f"{json.dumps(megakernel.PRECISION_LAUNCHES)}, stats {json.dumps(renderer.last_stats)}")
     if launches == 0:
-        raise RuntimeError(f"{name}: the staged render never launched the three-pass kernel")
+        raise RuntimeError(f"{name}: the staged render never launched the kernel at {precision}")
     check_image(img, name, height, width)
     mixed_bar(img, ref_img, f"{name} 1080p")
     iou, frac2 = golden_render(cnr, params, cam, **fields)
@@ -2006,10 +2165,11 @@ def high_agreement(params, cfg, origin, dirs, hidden, card, reps=5, variants=Non
 
 def drive_raygen(cnr, params, card, width=1920, height=1080) -> dict:
     """Phase 10, K5: ``march_raygen`` on the 1080p coarse call (block
-    order, coarse_eps, relax_omega, cyl_window_coarse) at "default" (its
-    launches counted, the main path of K5) and "high": against its plain
-    version at the kernel bar, against the ray build + init_state +
-    march_state at the JAX package's bar, and timed both ways."""
+    order, relax_omega, cyl_window_coarse) at "default" (COARSE_FP32's
+    eps) and "high" (the config's coarse_eps), its launches counted:
+    against its plain version at the kernel bar, against the ray build +
+    init_state + march_state at the JAX package's bar, and timed both
+    ways."""
     from cudaneuralrender_torch.kernels import fused_mlp, megakernel
     from cudaneuralrender_torch.ops import camera as camera_lib
     from cudaneuralrender_torch.ops import march
@@ -2020,8 +2180,8 @@ def drive_raygen(cnr, params, card, width=1920, height=1080) -> dict:
     c2w, _ = camera_lib.view_matrices(cnr.Camera(**CAMERA), dev)
     pos = renderer_lib._block_order(cfg.height, cfg.width, *cfg.coarse_block, dev)
     out = {}
-    for prec in ("default", "high"):
-        kw = dict(march_eps=cfg.coarse_eps, precision=prec, relax_omega=cfg.relax_omega,
+    for prec, eps in (("default", COARSE_FP32["coarse_eps"]), ("high", cfg.coarse_eps)):
+        kw = dict(march_eps=eps, precision=prec, relax_omega=cfg.relax_omega,
                   return_resolve=True, cyl_window=cfg.cyl_window_coarse)
         megakernel.reset_launch_counts()
         k = megakernel.march_raygen(params, c2w, pos, cfg, **kw)
@@ -2052,7 +2212,7 @@ def drive_raygen(cnr, params, card, width=1920, height=1080) -> dict:
         t_err_same = same.max().item() if same.numel() else 0.0
         # at "high", the rays resolving at the same step (RAYGEN_ comment)
         held = t_err_same if prec == "high" else t_err
-        one_step = cfg.relax_omega * cfg.coarse_eps
+        one_step = cfg.relax_omega * eps
         print(f"raygen {prec} 1080p vs ray build + init + march_state: converged flags agree on "
               f"{conv_agree:.6f}; over {int(both.sum())} common hits, {close:.7f} within "
               f"{RAYGEN_MAX_T_ERR} in t, max |dt| {t_err:.3g} ({t_err_same:.3g} among the "
@@ -3793,16 +3953,19 @@ def main() -> int:
 
     params = cnr.load(ASSET, device=dev)
 
-    # 3. kernel vs plain at 256x256
+    # 3. kernel vs plain at 256x256: the FP32 kernel's three kinds of call
+    # and the default coarse call
     cfg256 = cnr.RenderConfig(width=256, height=256)
     c2w, _ = camera_lib.view_matrices(cnr.Camera(**CAMERA), dev)
     origin, dirs = camera_lib.generate_rays(c2w, 256, 256, cfg256.focal)
     result = compare_kernel_with_plain(params, cfg256, origin, dirs)
+    result.update(main_coarse_call(params, cfg256, origin, dirs))
     torch.cuda.synchronize()
     for name, a in result.items():
         print(f"compare {name}: {json.dumps(a)}")
     check_agreement(result)
-    max_abs_err = max(a["max_abs_err"] for a in result.values())
+    max_abs_err = max(a["max_abs_err"] for n, a in result.items() if n != "coarse_main")
+    k2h_err = result["coarse_main"]["max_abs_err"]
 
     # 4. the main path at 1080p, counting launches
     narrow = SIZES[32]
@@ -3814,12 +3977,20 @@ def main() -> int:
     img = renderer.render(cam)
     torch.cuda.synchronize()
     launches = megakernel.KERNEL_LAUNCHES
+    three_pass = megakernel.THREE_PASS_LAUNCHES[32]
+    fp32_coarse = megakernel.PRECISION_LAUNCHES["default"]
     split_launches = megakernel.SPLIT_LAUNCHES[32]
     tie_launches = elementwise.RELU_TIE_LAUNCHES
-    print(f"main path 1080p: {launches} kernel launches ({split_launches} a ray per warp), "
-          f"{tie_launches} relu_tie_backward launches, stats {json.dumps(renderer.last_stats)}")
+    print(f"main path 1080p: {launches} kernel launches ({three_pass} three-pass, "
+          f"{fp32_coarse} FP32 coarse, {split_launches} a ray per warp; coarse_precision "
+          f"{cfg.coarse_precision!r}, coarse_eps {cfg.coarse_eps}), {tie_launches} "
+          f"relu_tie_backward launches, stats {json.dumps(renderer.last_stats)}")
     if launches == 0:
         raise RuntimeError("the 1080p staged render never launched the march kernel")
+    if cfg.coarse_precision == "high" and (three_pass == 0 or fp32_coarse):
+        raise RuntimeError(f"the 1080p staged render's coarse calls: {three_pass} three-pass, "
+                           f"{fp32_coarse} FP32: the default coarse call runs the three-pass "
+                           "chain")
     if tie_launches == 0:
         raise RuntimeError("the 1080p staged render's normals never launched relu_tie_backward")
     if split_launches == 0:
@@ -3830,23 +4001,40 @@ def main() -> int:
     iou, frac2 = golden_render(cnr, params, cam)
     print(f"golden 256x256: IoU {iou:.5f}, {frac2:.5f} of foreground within 2 levels")
 
-    # 5. timing
-    frame_ms = time_frames(lambda: renderer.render(cam, 0.0), narrow.frames)
+    # 5. timing: the default frame beside the FP32 coarse call's (COARSE_FP32),
+    # in the order default, FP32, FP32, default
+    fp32_renderer = cnr.Renderer(params, cfg.replace(**COARSE_FP32))
+    fp32_renderer.render(cam)
+    fp32_renderer.render(cam)
+    frame_ms, fp32_ms = [], []
+    for run, out in ((renderer, frame_ms), (fp32_renderer, fp32_ms), (fp32_renderer, fp32_ms),
+                     (renderer, frame_ms)):
+        out += time_frames(lambda: run.render(cam, 0.0), narrow.frames)
     print(f"1080p staged frame: median {statistics.median(frame_ms):.3f} ms over "
-          f"{narrow.frames} warm frames {[round(x, 3) for x in frame_ms]} [{card}]")
+          f"{len(frame_ms)} warm frames {[round(x, 3) for x in frame_ms]} (coarse_precision "
+          f"{cfg.coarse_precision!r}, coarse_eps {cfg.coarse_eps}); with the FP32 coarse call "
+          f"to {COARSE_FP32['coarse_eps']} (coarse_fp32): median "
+          f"{statistics.median(fp32_ms):.3f} ms {[round(x, 3) for x in fp32_ms]} [{card}]")
 
     # 5b. kernel vs plain at the main path's own sizes: the inputs of every
     # march call of one warm 1080p frame (the coarse pass first, then the
-    # retuned rungs), and the coarse pass timed both ways.
+    # retuned rungs), the coarse pass (K2h) and the first refine rung (K1)
+    # timed both ways.
     calls, plains = record_march_calls(renderer, cam), []
     full = compare_recorded_calls(params, calls, plains)
     for name, a in full.items():
         print(f"compare 1080p {name}: {json.dumps(a)}")
     check_agreement(full)
-    max_abs_err = max([max_abs_err] + [a["max_abs_err"] for a in full.values()])
+    errs = [a["max_abs_err"] for a in full.values()]
+    k2h_err = max(k2h_err, errs[0])
+    max_abs_err = max([max_abs_err] + errs[1:])
 
-    ms, plain_ms, bnd = time_coarse(params, calls)
-    print(f"coarse march 1080p ({cfg.num_rays} rays): kernel {ms:.3f} ms, "
+    coarse_t = time_coarse(params, calls)
+    print(f"coarse march 1080p ({cfg.num_rays} rays, {cfg.coarse_precision}, eps "
+          f"{cfg.coarse_eps}): kernel {coarse_t[0]:.3f} ms, plain {coarse_t[1]:.3f} ms, bound "
+          f"{coarse_t[2]['bound_ms']:.3f} ms [{card}]")
+    ms, plain_ms, bnd = time_call(params, calls[1])
+    print(f"refine rung 0 1080p ({calls[1][1].shape[0]} lanes, FP32): kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms (FP32), "
           f"{bnd['tc_bound_ms']:.3f} ms (3xTF32) [{card}]")
     tc_sdf_errors(params, 32, card, narrow.points)
@@ -3860,8 +4048,8 @@ def main() -> int:
 
     rows = compare_modes(params, calls, "1080p neural_raw", card, plains)
     kernels = [kernel_entry("march_kernel", K1_SOURCE,
-                            "cudaneuralrender_tpu/pallas/megakernel.py:45", launches,
-                            max_abs_err, ms, plain_ms, bnd),
+                            "cudaneuralrender_tpu/pallas/megakernel.py:45",
+                            launches - three_pass, max_abs_err, ms, plain_ms, bnd),
                split_entry(params, calls, rows, split_launches, card)]
 
     # 6. the CSG scenes, composed inside the kernel
@@ -3898,13 +4086,22 @@ def main() -> int:
 
     # 10. the precision ladder and the cold start
     t10 = time.perf_counter()
-    k2h = {}
+    k2h, errors = {}, {}
     for hidden, net in nets.items():
-        sdf_errors(net, hidden, card, SIZES[hidden].points)
+        errors[hidden] = sdf_errors(net, hidden, card, SIZES[hidden].points)
         row_sweep(net, card, SIZES[hidden].points)
-    for name, fields, frames in HIGH_CONFIGS:
-        k2h[name] = drive_high_config(cnr, params, name, fields, img, card, frames)
-    t = time_precisions(params, k2h["coarse_high"]["calls"][0], card)
+    chain = "high" if cfg.coarse_precision == "high" else "highest"
+    worst = max(e[chain] for e in errors.values())
+    print(f"phase 10 default coarse_eps {cfg.coarse_eps} ({cfg.coarse_precision}): "
+          f"{cfg.coarse_eps / worst:.1f} x its chain's largest |SDF - float64| over widths "
+          f"{list(errors)} ({worst:.3g}; per width "
+          f"{json.dumps({h: float(f'{e[chain]:.3g}') for h, e in errors.items()})}) [{card}]")
+    if cfg.coarse_eps < ERR_FACTOR * worst:
+        raise RuntimeError(f"the default coarse_eps {cfg.coarse_eps} is under {ERR_FACTOR} x "
+                           f"its chain's SDF error {worst}")
+    for name, fields, frames, precision in HIGH_CONFIGS:
+        k2h[name] = drive_high_config(cnr, params, name, fields, img, card, frames, precision)
+    time_precisions(params, calls[0], card)  # the main path's coarse call, FP32 beside it
     c2w, _ = camera_lib.view_matrices(cnr.Camera(**CAMERA), dev)
     side = narrow.high_side
     origin, dirs = camera_lib.generate_rays(c2w, side, side, cfg.focal)
@@ -3912,9 +4109,12 @@ def main() -> int:
                           card, narrow.reps)
     kernels.append(kernel_entry(
         "march_kernel_3pass_h32", K3_SOURCE, "cudaneuralrender_tpu/pallas/fused_mlp.py:130",
-        sum(r["launches"] for r in k2h.values()),
-        max([rays["max_abs_err"]] + [r["max_abs_err"] for r in k2h.values()]),
-        t["ms"], t["plain_ms"], t["bnd"]))
+        three_pass, max(k2h_err, rays["max_abs_err"], k2h["mid_eps"]["max_abs_err"]),
+        *coarse_t))
+    fp32 = k2h["coarse_fp32"]
+    kernels.append(kernel_entry("march_kernel_fp32_coarse", K1_SOURCE,
+                                "cudaneuralrender_tpu/pallas/megakernel.py:45", fp32["launches"],
+                                fp32["max_abs_err"], *time_coarse(params, fp32["calls"])))
     for hidden in WIDE:
         kernels.append(kernel_entry(f"march_kernel_3pass_h{hidden}", K3_SOURCE,
                                     "cudaneuralrender_tpu/pallas/fused_mlp.py:130",
@@ -3923,7 +4123,7 @@ def main() -> int:
     raygen = drive_raygen(cnr, params, card)
     kernels.append(kernel_entry("march_kernel_raygen", K1_SOURCE,
                                 "cudaneuralrender_tpu/pallas/megakernel.py:377",
-                                **raygen["default"]))
+                                **raygen[cfg.coarse_precision]))
     drive_option(cnr, params, "relax_newton", dict(relax_newton=True), card)
     drive_option(cnr, params, "tail_pallas", dict(tail_pallas=True, refine_pallas=False), card)
     print(f"phase 10 (precision ladder, cold start): {time.perf_counter() - t10:.1f} s wall",

@@ -28,10 +28,11 @@ replay (render/renderer.py ``_ChunkGraph``).
 
 ``precision`` names the JAX package's matmul precision of the call:
 "default" and "highest" run the chain in FP32 (DEFAULT is the coarse
-phase's, HIGHEST the refine rungs'); "high" runs the emulated
-Precision.HIGH three-pass chain K2h (``fused_mlp.mlp_chain_3pass_plain``)
-on the bfloat16 halves of the weights (the HIGH ladder phase of
-``mid_eps``, and ``coarse_precision="high"``). Any other name raises. The
+phase's under ``coarse_precision="default"``, HIGHEST the refine rungs');
+"high" runs the emulated Precision.HIGH three-pass chain K2h
+(``fused_mlp.mlp_chain_3pass_plain``) on the bfloat16 halves of the
+weights (the coarse phase's by default, and the HIGH ladder phase of
+``mid_eps``). Any other name raises. The
 kernel runs the FP32 chain as 3xTF32 on the tensor cores over a warp's
 rays at every width (``tensor_core_chain``), in their own order
 (``fused_mlp.mlp_chain_3xtf32_mma`` models it).

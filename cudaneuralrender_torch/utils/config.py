@@ -1,8 +1,10 @@
 """Render configuration.
 
 The same frozen dataclass as the JAX package's ``RenderConfig``: identical
-field names and defaults (tests/test_torch_config.py holds the two
-together), so one config describes a render in either package. PyTorch runs
+field names, and the same defaults but the coarse phase's
+(``coarse_precision``, ``coarse_eps``: set from the H100's chain errors, see
+below; tests/test_torch_config.py holds the two together), so one config
+describes a render in either package. PyTorch runs
 eagerly, so the config is a plain value the render functions branch on; it
 stays frozen and hashable because the adaptive-schedule memo keys on it.
 
@@ -102,9 +104,26 @@ class RenderConfig:
     # the three-pass bfloat16 chain (K2h): coarse_precision="high" for the
     # coarse pass, and mid_eps > march_eps for a HIGH phase down to mid_eps
     # before the HIGHEST one (on mid_schedule, or refine_schedule if empty).
+    #
+    # The coarse phase is the H100's, not the JAX package's (the TPU's
+    # DEFAULT: one bf16 pass, max SDF error 4.7e-2, hence eps 0.05). On an
+    # NVIDIA H100 80GB HBM3 at 700 W (benchmarks/precision_ladder.py, the
+    # table in PERF.md section 5) the max |SDF - float64| over seeded points
+    # in the bounding sphere is 1.09e-5 to 3.73e-5 for the three-pass chain
+    # and 5.0e-7 to 5.9e-7 for the FP32 chain at widths 32-1024, and a
+    # three-pass lane-step costs 0.15 ns against FP32's 0.44. This pair gives
+    # the fastest csg_demo 1080p frame of those whose eps is at least 10x its
+    # chain's worst error and that meet the mixed bar against "full" on every
+    # cell of the sweep: 21.459 ms against 29.044 for ("default", 0.05), no
+    # cell slower ("high" at 1e-3: 21.464 ms, a tie).
+    # mid_eps stays 0.0: a HIGH middle phase runs the chain the coarse phase
+    # just ran, so it adds rungs and saves the FP32 ones nothing. A 1080p
+    # frame at mid_eps 1e-3 takes 32.067 ms against 20.323 at 0.0 on the
+    # same card (chip_smoke.py phases 5 and 10); behind the FP32 coarse
+    # phase to 0.05 its dense rungs left the kernel: 9709.722 ms a frame.
     march_precision: str = "mixed"
-    coarse_precision: str = "default"
-    coarse_eps: float = 0.05
+    coarse_precision: str = "high"
+    coarse_eps: float = 3e-3
     mid_eps: float = 0.0
     mid_schedule: Tuple[Tuple[int, int], ...] = ()
 

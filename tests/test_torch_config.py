@@ -1,7 +1,9 @@
 """The PyTorch package's config and import hygiene.
 
 Its RenderConfig must not drift from the JAX package's (one config
-describes a render in either package), and the package must never import
+describes a render in either package): the same fields, the same defaults
+but the coarse phase's (``coarse_precision``, ``coarse_eps``), which the
+port sets from the H100's chain errors. The package must never import
 JAX: not at import time, and not while it renders.
 """
 import ast
@@ -21,11 +23,21 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "cudaneuralrender_torch")
 
 
+# The mixed march's coarse phase, which each package sets from its own
+# device's chain errors (the port's: utils/config.py, from the H100's).
+LADDER = ("coarse_precision", "coarse_eps")
+
+
 def test_render_config_fields_and_defaults_match():
     jf = [(f.name, f.default) for f in dataclasses.fields(JaxConfig)]
     tf = [(f.name, f.default) for f in dataclasses.fields(TorchConfig)]
-    assert tf == jf
-    assert repr(TorchConfig()) == repr(JaxConfig())
+    assert [name for name, _ in tf] == [name for name, _ in jf]
+    assert [x for x in tf if x[0] not in LADDER] == [x for x in jf if x[0] not in LADDER]
+    ladder = {name: getattr(TorchConfig(), name) for name in LADDER}
+    assert repr(TorchConfig()) == repr(JaxConfig(**ladder))
+    # the ladder's fields take the same values in both packages
+    assert repr(TorchConfig(**{name: getattr(JaxConfig(), name) for name in LADDER})) == \
+        repr(JaxConfig())
 
 
 def test_render_config_validation_matches():

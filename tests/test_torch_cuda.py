@@ -550,7 +550,8 @@ def test_raygen_kernel_matches_plain(precision):
     c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
     pos = torch.cat([renderer._block_order(64, 64, 16, 16, dev),
                      torch.full((8,), -1, dtype=torch.int32, device=dev)])
-    kw = dict(march_eps=cfg.coarse_eps, precision=precision, relax_omega=cfg.relax_omega,
+    eps = chip_smoke.COARSE_FP32["coarse_eps"] if precision == "default" else cfg.coarse_eps
+    kw = dict(march_eps=eps, precision=precision, relax_omega=cfg.relax_omega,
               return_resolve=True, cyl_window=cfg.cyl_window_coarse)
     before = megakernel.RAYGEN_LAUNCHES
     k = megakernel.march_raygen(params, c2w, pos, cfg, **kw)
@@ -579,7 +580,7 @@ def test_raygen_fp32_tensor_core_matches_plain():
 
     dev = torch.device("cuda", 0)
     params = chip_smoke.wide_params(cnr, 4, dev)
-    cfg = cnr.RenderConfig(width=64, height=64)
+    cfg = cnr.RenderConfig(width=64, height=64, **chip_smoke.COARSE_FP32)
     c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
     pos = torch.cat([renderer._block_order(64, 64, 16, 16, dev),
                      torch.full((8,), -1, dtype=torch.int32, device=dev)])
@@ -1058,7 +1059,7 @@ def test_frame_from_device_kernel_matches_plain(frame):
 
     dev = torch.device("cuda", 0)
     params = cnr.load(NPZ, device=dev)
-    cfg = cnr.RenderConfig(width=64, height=64, scene="many_sphere")
+    cfg = cnr.RenderConfig(width=64, height=64, scene="many_sphere", **chip_smoke.COARSE_FP32)
     c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
     origin, dirs = camera_lib.generate_rays(c2w, 64, 64, cfg.focal)
     state = march.init_state(origin, dirs, cfg.bound_center, cfg.bound_radius)

@@ -46,9 +46,13 @@ from cudaneuralrender_tpu.diff import solve as j_solve  # noqa: E402
 
 NPZ = "examples/assets/csg_demo.npz"
 CAM = dict(rotation_y=30.0, rotation_x=-20.0)
+# The port's coarse phase (utils/config.py, set from the H100's chain
+# errors), given to both packages: the JAX package's default is the TPU's.
+LADDER = dict(coarse_precision=ct.RenderConfig.coarse_precision,
+              coarse_eps=ct.RenderConfig.coarse_eps)
 SIDE = 32
 FIELDS = dict(width=SIDE, height=SIDE, scene="neural_raw", max_steps=300,
-              march_impl="staged", coarse_pallas=False, refine_pallas=False)
+              march_impl="staged", coarse_pallas=False, refine_pallas=False, **LADDER)
 
 
 def _nets():

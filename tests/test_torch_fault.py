@@ -34,9 +34,14 @@ from cudaneuralrender_tpu.parallel import fault as j_fault  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NPZ = os.path.join(REPO, "examples", "assets", "csg_demo.npz")
+# The port's coarse phase (utils/config.py, set from the H100's chain
+# errors), given to both packages: the JAX package's default is the TPU's.
+LADDER = dict(coarse_precision=ct.RenderConfig.coarse_precision,
+              coarse_eps=ct.RenderConfig.coarse_eps)
 SPHERE = dict(width=16, height=16, scene="sphere", max_steps=64)
 NEURAL = dict(width=32, height=32, scene="neural_raw", max_steps=200)
-STAGED = dict(width=32, height=32, scene="neural_raw", max_steps=200, march_impl="staged")
+STAGED = dict(width=32, height=32, scene="neural_raw", max_steps=200, march_impl="staged",
+              **LADDER)
 
 
 @pytest.fixture(scope="module")

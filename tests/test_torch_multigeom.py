@@ -31,8 +31,12 @@ from cudaneuralrender_tpu.render import multigeom as mg_j  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H5 = os.path.join(REPO, "examples", "assets", "csg_demo.h5")
+# The port's coarse phase (utils/config.py, set from the H100's chain
+# errors), given to both packages: the JAX package's default is the TPU's.
+LADDER = dict(coarse_precision=ct.RenderConfig.coarse_precision,
+              coarse_eps=ct.RenderConfig.coarse_eps)
 DENSE = dict(width=24, height=24, max_steps=200)
-STAGED = dict(width=48, height=48, max_steps=300, march_impl="staged")
+STAGED = dict(width=48, height=48, max_steps=300, march_impl="staged", **LADDER)
 
 
 def _noisy(layers, seed):

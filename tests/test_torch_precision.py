@@ -286,16 +286,25 @@ def test_march_stage_newton_matches_jax():
     assert not np.array_equal(sc["t"], st["t"])
 
 
-# option -> (config fields, the precisions of the march-kernel calls it makes)
+# The port's coarse phase (utils/config.py, set from the H100's chain
+# errors), given to both packages: the JAX package's default is the TPU's.
+LADDER = dict(coarse_precision=ct.RenderConfig.coarse_precision,
+              coarse_eps=ct.RenderConfig.coarse_eps)
+COARSE = LADDER["coarse_precision"]
+
+# option -> (config fields over LADDER, the precisions of the march-kernel
+# calls it makes)
 STAGED_OPTIONS = {
-    "mid_eps": (dict(mid_eps=1e-3), {"default", "high", "highest"}),
+    "mid_eps": (dict(mid_eps=1e-3), {COARSE, "high", "highest"}),
     "mid_schedule": (dict(mid_eps=1e-3, mid_schedule=((4, 8), (32, 0))),
-                     {"default", "high", "highest"}),
+                     {COARSE, "high", "highest"}),
     "coarse_high": (dict(coarse_precision="high", coarse_eps=1e-3), {"high", "highest"}),
+    # the FP32 coarse call (the JAX package's ladder)
+    "coarse_fp32": (dict(coarse_precision="default", coarse_eps=0.05), {"default", "highest"}),
     # the relaxed rungs leave the kernel, which has no Newton step
-    "relax_newton": (dict(relax_newton=True), {"default"}),
+    "relax_newton": (dict(relax_newton=True), {COARSE}),
     # the rungs march densely but the terminal one, which the kernel takes
-    "tail_pallas": (dict(tail_pallas=True, refine_pallas=False), {"default", "highest"}),
+    "tail_pallas": (dict(tail_pallas=True, refine_pallas=False), {COARSE, "highest"}),
 }
 
 
@@ -304,7 +313,7 @@ def test_staged_render_option_matches_jax(option, monkeypatch):
     fields, precisions = STAGED_OPTIONS[option]
     pj, pt = _net("csg_demo")
     kw = dict(width=64, height=64, scene="neural_raw", march_impl="staged",
-              rgba_packed=False, **fields)
+              rgba_packed=False, **dict(LADDER, **fields))
     cj.reset_schedule_memo()
     ct.reset_schedule_memo()
     stats_j, stats_t = {}, {}

@@ -57,6 +57,10 @@ from cudaneuralrender_tpu.ops import sdf as sdf_j  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H5 = os.path.join(REPO, "examples", "assets", "csg_demo.h5")
+# The port's coarse phase (utils/config.py, set from the H100's chain
+# errors), given to both packages: the JAX package's default is the TPU's.
+LADDER = dict(coarse_precision=ct.RenderConfig.coarse_precision,
+              coarse_eps=ct.RenderConfig.coarse_eps)
 CAM = dict(rotation_y=30.0, rotation_x=-20.0)
 SIDE, FACTOR = 32, 4
 BOUND = dict(bound_center=(0, 0, 0), bound_radius=1.2)
@@ -210,7 +214,7 @@ def _mixed_bar(a, b):
 
 def _cfg(pkg, **kw):
     return pkg.RenderConfig(**dict(dict(width=SIDE, height=SIDE, march_impl="staged",
-                                        rgba_packed=False), **kw))
+                                        rgba_packed=False, **LADDER), **kw))
 
 
 def test_staged_prepass_matches_jax_and_option_off(params, monkeypatch):

@@ -41,6 +41,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "examples", "assets")
 H5 = os.path.join(ASSETS, "csg_demo.h5")
 GOLDEN = os.path.join(ASSETS, "csg_demo.png")
+# The port's coarse phase (utils/config.py, set from the H100's chain
+# errors), given to both packages: the JAX package's default is the TPU's.
+LADDER = dict(coarse_precision=ct.RenderConfig.coarse_precision,
+              coarse_eps=ct.RenderConfig.coarse_eps)
 CAM = dict(rotation_y=30.0, rotation_x=-20.0)
 
 
@@ -75,7 +79,7 @@ def test_dense_render_image_matches_jax(params):
 def test_staged_render_matches_jax(params):
     stats_j = {}
     kw = dict(width=64, height=64, scene="neural_raw", march_impl="staged",
-              rgba_packed=False)
+              rgba_packed=False, **LADDER)
     a, b, stats_t = _both(params, "render_staged", kw, stats_out=stats_j)
     hit_a, hit_b = a[..., 3] > 0, b[..., 3] > 0
     assert (hit_a == hit_b).mean() >= 0.99
@@ -251,7 +255,8 @@ def test_dense_render_image_csg_scene_matches_jax(params, scene, frame):
                          ids=["many_sphere", "many_cylinder_cut", "displacement"])
 def test_staged_render_csg_scene_matches_jax(params, scene, frame):
     stats_j = {}
-    kw = dict(width=64, height=64, scene=scene, march_impl="staged", rgba_packed=False)
+    kw = dict(width=64, height=64, scene=scene, march_impl="staged", rgba_packed=False,
+              **LADDER)
     a, b, stats_t = _both(params, "render_staged", kw, frame=frame, stats_out=stats_j)
     _mixed_bar(a, b)
     # many_sphere overflows the first refine bucket and retries, in both
@@ -267,7 +272,7 @@ def test_render_sequence_matches_jax(params):
     together), pipelined, against the JAX package's render_sequence."""
     pj, pt = params
     kw = dict(width=32, height=32, scene="many_sphere", march_impl="staged",
-              rgba_packed=False)
+              rgba_packed=False, **LADDER)
     frames = [0.0, 1.0, 2.0]
     cj.reset_schedule_memo()
     ct.reset_schedule_memo()

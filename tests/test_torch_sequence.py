@@ -48,6 +48,10 @@ H5 = os.path.join(ASSETS, "csg_demo.h5")
 ANIM = os.path.join(ASSETS, "anim_demo.h5")
 SIDE = 48
 STEPS = 300
+# The port's coarse phase (utils/config.py, set from the H100's chain
+# errors), given to both packages: the JAX package's default is the TPU's.
+LADDER = dict(coarse_precision=ct.RenderConfig.coarse_precision,
+              coarse_eps=ct.RenderConfig.coarse_eps)
 
 
 @pytest.fixture(scope="module")
@@ -94,7 +98,8 @@ def test_init_state_warm_matches_jax():
 @pytest.mark.parametrize("block", [(128, 128), (16, 16)], ids=["default_block", "block16"])
 def test_warm_sequence_matches_cold_and_jax(params, block):
     pj, pt = params
-    kw = dict(width=SIDE, height=SIDE, max_steps=STEPS, march_impl="staged", coarse_block=block)
+    kw = dict(width=SIDE, height=SIDE, max_steps=STEPS, march_impl="staged", coarse_block=block,
+              **LADDER)
     ct.reset_schedule_memo()
     cold = ct.render_sequence(pt, _cams(ct, 3), ct.RenderConfig(**kw))
     ct.reset_schedule_memo()
@@ -136,7 +141,7 @@ def test_warm_state_hand_off_order(params):
 def test_chunk_matches_per_frame_and_jax(params, k):
     pj, pt = params
     kw = dict(width=SIDE, height=SIDE, max_steps=STEPS, march_impl="staged",
-              scene="many_sphere", rgba_packed=False)
+              scene="many_sphere", rgba_packed=False, **LADDER)
     frames = [float(7 * i) for i in range(5)]
     out = {}
     for chunk in (1, k):

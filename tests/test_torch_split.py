@@ -131,30 +131,36 @@ def test_staged_coarse_call_never_splits():
     """The staged renderer marks its coarse call ``coarse`` and no other:
     at 64x64 (4096 lanes, a small launch) ``ray_lanes`` picks a ray
     per thread for it, and for the refine rungs by their steps (RUNG_STEPS):
-    the first two a ray per thread, the later ones a ray per warp."""
+    the first two a ray per thread, the later ones a ray per warp. With the
+    FP32 coarse call (``coarse_precision="default"``) the mark is what keeps
+    it a ray per thread; the default coarse call runs the three-pass chain,
+    which has no ray-split mode."""
     pt = ct.from_numpy_params(_layers("csg_demo", 1), device="cpu")
-    cfg = ct.RenderConfig(width=64, height=64, march_impl="staged")
-    calls = []
-    real = mk_t.march_state
+    for ladder in (dict(coarse_precision="default", coarse_eps=0.05), {}):
+        cfg = ct.RenderConfig(width=64, height=64, march_impl="staged", **ladder)
+        calls = []
+        real = mk_t.march_state
 
-    def recording(params, origin, dirs, state, config, frame=0.0, **kw):
-        calls.append((dirs.shape[0], kw))
-        return real(params, origin, dirs, state, config, frame, **kw)
+        def recording(params, origin, dirs, state, config, frame=0.0, **kw):
+            calls.append((dirs.shape[0], kw))
+            return real(params, origin, dirs, state, config, frame, **kw)
 
-    mk_t.march_state = recording
-    try:
-        ct.render_staged(pt, ct.Camera(rotation_y=30.0, rotation_x=-20.0), cfg)
-    finally:
-        mk_t.march_state = real
-    assert len(calls) > 1
-    (n0, kw0), rest = calls[0], calls[1:]
-    assert kw0.get("coarse") is True and n0 == cfg.num_rays
-    assert not any(kw.get("coarse", False) for _, kw in rest)
-    assert [kw.get("num_steps") for _, kw in rest] == list(RUNG_STEPS)
-    pick = [mk_t.ray_lanes(32, kw.get("precision", "highest"), kw.get("num_steps"),
-                           kw.get("coarse", False)) for _, kw in calls]
-    assert pick[0] == 1 and mk_t.ray_lanes(32, kw0["precision"], kw0.get("num_steps")) == 32
-    assert pick[1:] == [1, 1, mk_t.SPLIT_LANES, mk_t.SPLIT_LANES]
+        mk_t.march_state = recording
+        try:
+            ct.render_staged(pt, ct.Camera(rotation_y=30.0, rotation_x=-20.0), cfg)
+        finally:
+            mk_t.march_state = real
+        assert len(calls) > 1
+        (n0, kw0), rest = calls[0], calls[1:]
+        assert kw0.get("coarse") is True and n0 == cfg.num_rays
+        assert kw0["precision"] == cfg.coarse_precision
+        assert not any(kw.get("coarse", False) for _, kw in rest)
+        assert [kw.get("num_steps") for _, kw in rest] == list(RUNG_STEPS)
+        pick = [mk_t.ray_lanes(32, kw.get("precision", "highest"), kw.get("num_steps"),
+                               kw.get("coarse", False)) for _, kw in calls]
+        unmarked = mk_t.ray_lanes(32, kw0["precision"], kw0.get("num_steps"))
+        assert pick[0] == 1 and unmarked == (1 if cfg.coarse_precision == "high" else 32)
+        assert pick[1:] == [1, 1, mk_t.SPLIT_LANES, mk_t.SPLIT_LANES]
 
 
 @pytest.mark.parametrize("k", [1, 2], ids=["h32", "h64"])

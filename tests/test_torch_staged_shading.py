@@ -38,6 +38,10 @@ from cudaneuralrender_tpu.utils import image_io as io_j  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H5 = os.path.join(REPO, "examples", "assets", "csg_demo.h5")
 MATCAP = os.path.join(REPO, "benchmarks", "recovered_matcaps", "plane_1.png")
+# The port's coarse phase (utils/config.py, set from the H100's chain
+# errors), given to both packages: the JAX package's default is the TPU's.
+LADDER = dict(coarse_precision=ct.RenderConfig.coarse_precision,
+              coarse_eps=ct.RenderConfig.coarse_eps)
 CAM = dict(rotation_y=30.0, rotation_x=-20.0)
 TET_EPS = 1e-3
 TET_WITNESS_MEAN = 1.5
@@ -62,7 +66,8 @@ def test_staged_shading_matches_jax(params, case):
     import jax.numpy as jnp
 
     pj, pt = params
-    kw = dict(width=64, height=64, march_impl="staged", rgba_packed=False, **CASES[case])
+    kw = dict(width=64, height=64, march_impl="staged", rgba_packed=False, **LADDER,
+              **CASES[case])
     matcap_j = matcap_t = None
     if kw.get("shading") == "matcap":
         m_j, m_t = io_j.load_matcap(MATCAP), io_t.load_matcap(MATCAP)

@@ -68,10 +68,16 @@ def zero_bias_net():
     return net, [cj.DenseParams(jnp.asarray(w), jnp.asarray(b)) for w, b in layers]
 
 
+# The port's coarse phase (utils/config.py, set from the H100's chain
+# errors), given to both packages: the JAX package's default is the TPU's.
+LADDER = dict(coarse_precision=ct.RenderConfig.coarse_precision,
+              coarse_eps=ct.RenderConfig.coarse_eps)
+
+
 @pytest.mark.parametrize("fn", ["render_staged", "render_image"])
 def test_zero_bias_tie_pixel_matches_jax(zero_bias_net, fn, monkeypatch):
     net, pj = zero_bias_net
-    kw = dict(width=16, height=8, scene="neural_raw", rgba_packed=False,
+    kw = dict(width=16, height=8, scene="neural_raw", rgba_packed=False, **LADDER,
               march_impl="staged" if fn == "render_staged" else "while")
     ct.reset_schedule_memo()
     cj.reset_schedule_memo()

@@ -49,8 +49,12 @@ from cudaneuralrender_tpu.diff import train as j_train  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NPZ = os.path.join(REPO, "examples", "assets", "csg_demo.npz")
 LR = 1e-3
+# The port's coarse phase (utils/config.py, set from the H100's chain
+# errors), given to both packages: the JAX package's default is the TPU's.
+LADDER = dict(coarse_precision=ct.RenderConfig.coarse_precision,
+              coarse_eps=ct.RenderConfig.coarse_eps)
 FIELDS = dict(width=32, height=32, scene="neural_raw", max_steps=300, march_impl="staged",
-              coarse_pallas=False, refine_pallas=False)
+              coarse_pallas=False, refine_pallas=False, **LADDER)
 PATHS = {"image": {}, "packed": dict(compact_min=64)}
 
 
@@ -268,9 +272,13 @@ def test_train_loop_fast_matches_sequential(target, path):
 def test_train_loop_fast_overflow_redo():
     """Tiny refine buckets fail the fast path mid-loop: the loop rolls back
     and redoes the step synchronously, as JAX's does, with the same
-    losses (rtol 1e-4)."""
+    losses (rtol 1e-4). At the JAX package's ladder: at the port's
+    coarse_eps the second step's solve has a lane at the 200-step budget's
+    edge (JAX resolves it at step 200, the port at 204)."""
     fields = dict(FIELDS, max_steps=200, compact_min=8,
                   refine_schedule=((1024, 4), (1024, 0)))
+    fields.update(coarse_precision=cj.RenderConfig.coarse_precision,
+                  coarse_eps=cj.RenderConfig.coarse_eps)
     cams = [dict(rotation_y=20.0 + 2 * i) for i in range(3)]
     layers = _csg()
     cj.reset_schedule_memo()

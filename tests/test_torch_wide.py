@@ -49,6 +49,10 @@ from cudaneuralrender_tpu.pallas import megakernel as mk_j  # noqa: E402
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "examples", "assets")
 CSG = os.path.join(ASSETS, "csg_demo.npz")
 ANIM = os.path.join(ASSETS, "anim_demo.npz")
+# The port's coarse phase (utils/config.py, set from the H100's chain
+# errors), given to both packages: the JAX package's default is the TPU's.
+LADDER = dict(coarse_precision=ct.RenderConfig.coarse_precision,
+              coarse_eps=ct.RenderConfig.coarse_eps)
 CAM = dict(rotation_y=30.0, rotation_x=-20.0)
 
 
@@ -479,7 +483,8 @@ def test_render_image_use_pallas_matches_jax():
 
 def test_render_staged_widened_matches_jax():
     pj, pt = _both(chip_smoke.widen(_layers(CSG), 2, seed=4))
-    kw = dict(width=32, height=32, scene="neural_raw", march_impl="staged", rgba_packed=False)
+    kw = dict(width=32, height=32, scene="neural_raw", march_impl="staged", rgba_packed=False,
+              **LADDER)
     cj.reset_schedule_memo()
     ct.reset_schedule_memo()
     a = np.asarray(cj.render_staged(pj, cj.Camera(**CAM), cj.RenderConfig(**kw)))
