@@ -6,7 +6,8 @@ hand-written CUDA kernel (csrc/march.cuh), and shade with facing-ratio or
 matcap. ``diff`` trains the network through the renderer (implicit-surface
 pixel gradients, the surface solve on the march kernel, Adam steps);
 ``render.viewer`` serves interactive frames to a browser and
-``render.multigeom`` renders batches of geometries.
+``render.multigeom`` renders batches of geometries; ``trace`` times the
+staged frame's phases and counts its march calls' lanes (off by default).
 Models load onto the card unless the CPU is asked for. The JAX package beside it is the
 reference this package is tested against; this package never imports JAX.
 
@@ -37,7 +38,7 @@ from .render.renderer import (
     scene_fn,
     tune_caps,
 )
-from .utils import image_io
+from .utils import image_io, trace
 from .utils.config import RenderConfig
 from . import diff
 
@@ -69,5 +70,6 @@ __all__ = [
     "scene_fn",
     "sdf",
     "shading",
+    "trace",
     "tune_caps",
 ]

@@ -20,8 +20,9 @@ plus --scene, --steps, --march, --normal-mode, --stats, --parity-flip,
 evaluation outside the march kernel), --fault-inject N (a frame renders band
 by band through parallel/fault.py's ``render_tiled``, N band failures
 injected and retried), --save-ckpt PATH (re-save the loaded weights as
-.npz), --profile DIR (a torch.profiler Chrome trace of the render, written
-into DIR) and -d/--device (default cuda). With ``cuda`` and no card the CLI
+.npz), --profile DIR (a torch.profiler Chrome trace of the render with the
+renderer's ``cnr.*`` phase spans, and their trace snapshot, written into
+DIR) and -d/--device (default cuda). With ``cuda`` and no card the CLI
 fails; the CPU is used only when asked for with ``-d cpu``.
 
 Run: python -m cudaneuralrender_torch.cli -i examples/assets/csg_demo.npz --single
@@ -73,8 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8000, help="--serve's port (0: any free port)")
     p.add_argument("--save-ckpt", default=None, help="re-save the loaded weights as .npz")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler Chrome trace of the render into DIR "
-                        "(open it in Perfetto or chrome://tracing)")
+                   help="write a torch.profiler Chrome trace of the render, with the "
+                        "staged frame's cnr.* phase spans (cnr.trace), into DIR (open it "
+                        "in Perfetto or chrome://tracing), and the trace's snapshot")
     p.add_argument("--fault-inject", type=int, default=0, metavar="N",
                    help="render band by band with N injected band failures, each "
                         "retried (the fault drill; parallel/fault.py)")
@@ -91,20 +93,35 @@ def _sync(device) -> None:
 
 
 def _profiled(run, device, out_dir: str):
-    """``run()`` under torch.profiler (the card's kernels too on a card),
-    its Chrome trace written into ``out_dir``; returns what ``run`` did."""
+    """``run()`` under torch.profiler (the card's kernels too on a card)
+    with ``cnr.trace`` on, so the Chrome trace written into ``out_dir``
+    shows the staged frame's phases as ``cnr.*`` ranges; the trace's
+    snapshot (each span's host and device ms, each march call's lanes,
+    active lanes and lane-steps) goes beside it. Returns what ``run`` did."""
     from torch.profiler import ProfilerActivity, profile
+
+    from cudaneuralrender_torch import trace
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        out = run()
-        _sync(device)
+    trace.enable()
+    trace.reset()
+    try:
+        with profile(activities=activities) as prof:
+            out = run()
+            _sync(device)
+        snapshot = trace.snapshot()
+    finally:
+        trace.disable()
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"render_{os.getpid()}.pt.trace.json")
     prof.export_chrome_trace(path)
     print(f"profile trace: {path}")
+    path = os.path.join(out_dir, f"trace_{os.getpid()}.json")
+    with open(path, "w") as f:
+        json.dump(snapshot, f, indent=1)
+    print(f"trace snapshot: {path}")
     return out
 
 

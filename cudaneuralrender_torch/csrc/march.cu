@@ -6,6 +6,7 @@
 //                     the kernel from its pixel index (K5)
 //   cnr_mlp_forward   the fused forward (K3, csrc/chain.cuh)
 //   cnr_smem_bytes    the dynamic shared memory a launch of a kernel asks for
+//   cnr_trace_mark    a span's begin or end mark on a stream (utils/trace.py)
 //
 // Each dispatches on the padded hidden width (32, 64, 128, 256, 512 or
 // 1024), and the march entries on the chain (three_pass: 0 for FP32, whose
@@ -61,7 +62,29 @@ int dispatch_march(int device, int hidden, const cnr::MarchArgs& a, void* stream
   return dispatch(device, hidden, a, stream, kMarch<false>);
 }
 
+// One thread: a begin mark stores %globaltimer (ns) in span[0]; an end mark
+// adds the time since span[0] to span[1] and 1 to span[2]. The stream runs
+// it after the work queued before it, so two marks bracket that work.
+__global__ void trace_mark_kernel(long long* span, int end) {
+  long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  if (end) {
+    span[1] += now - span[0];
+    span[2] += 1;
+  } else {
+    span[0] = now;
+  }
+}
+
 }  // namespace
+
+extern "C" int cnr_trace_mark(int device, long long* buf, int slot, int end, void* stream) {
+  if (buf == nullptr || slot < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  trace_mark_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(buf + slot, end);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int cnr_march(int device, const float* dirs, const float* origin,
                          const float* t0, const float* budget0,

@@ -184,6 +184,8 @@ def load_library() -> ctypes.CDLL:
             _P,                      # stream
         ]
         lib.cnr_relu_tie_backward.restype = _I
+        lib.cnr_trace_mark.argtypes = [_I, _P, _I, _I, _P]  # device, buffer, slot, end, stream
+        lib.cnr_trace_mark.restype = _I
         lib.cnr_error_string.argtypes = [_I]
         lib.cnr_error_string.restype = ctypes.c_char_p
         _lib = lib

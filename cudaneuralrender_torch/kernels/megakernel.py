@@ -72,6 +72,7 @@ from ..ops import camera as camera_lib
 from ..ops import march as march_lib
 from ..ops import sdf, shading
 from ..ops.camera import Camera
+from ..utils import trace
 from ..utils.config import RenderConfig
 from . import build, scenes
 from .fused_mlp import (
@@ -446,15 +447,39 @@ def march_state(
     if _ray_lanes is not None:
         _check_ray_lanes(_ray_lanes, packed_params(params)[3], precision)
     if dirs.device.type == "cpu":
-        return march_state_plain(
+        out, lane_steps = march_state_plain(
             params, origin, dirs, state, config, frame, march_eps=march_eps,
             num_steps=num_steps, precision=precision, relax_omega=relax_omega,
-            return_resolve=return_resolve, cyl_window=cyl_window)
-    if dirs.device.type != "cuda":
+            return_resolve=True, cyl_window=cyl_window)
+    elif dirs.device.type == "cuda":
+        out, lane_steps = _march_state_cuda(
+            params, origin, dirs, state, config, frame, march_eps, num_steps, relax_omega,
+            True, cyl_window, precision, _ray_lanes, coarse)
+    else:
         raise ValueError(f"march_state runs on cpu or cuda tensors, not {dirs.device}")
-    return _march_state_cuda(
-        params, origin, dirs, state, config, frame, march_eps, num_steps, relax_omega,
-        return_resolve, cyl_window, precision, _ray_lanes, coarse)
+    if trace.enabled():
+        # The kernel's mode, on the CPU too: the count is the launch's.
+        lanes = _ray_lanes or ray_lanes(packed_params(params)[3], precision, num_steps, coarse)
+        _count_march(state, lane_steps, lanes)
+    return (out, lane_steps) if return_resolve else out
+
+
+def _count_march(state: march_lib.MarchState, lane_steps: torch.Tensor, lanes: int) -> None:
+    """``trace.count("march", ...)`` for one march call from its entry state
+    and its ``lane_steps``: ``lanes`` the call's lanes, ``active_in`` those
+    active at entry, ``useful`` the steps its rays marched (sum of
+    ``lane_steps - start``) and ``slots`` the lane-steps the launch held:
+    a ray per thread, 32 x the steps of each warp's deepest lane (a warp
+    marches until its last ray stops); a ray per warp, each ray's steps."""
+    steps = lane_steps - state.steps
+    if lanes == 1:
+        pad = -steps.shape[0] % 32
+        warps = (torch.nn.functional.pad(steps, (0, pad)) if pad else steps).view(-1, 32)
+        slots = warps.amax(1).sum() * 32
+    else:
+        slots = steps.sum()
+    trace.count("march", lanes=steps.shape[0], active_in=state.active.sum(),
+                useful=steps.sum(), slots=slots)
 
 
 def raygen_state(cam_to_world: torch.Tensor, pos: torch.Tensor, config: RenderConfig):

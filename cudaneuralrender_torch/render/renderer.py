@@ -78,7 +78,7 @@ from ..models.mlp import MLP
 from ..ops import camera as camera_lib
 from ..ops import compaction, grid, march, prepass, sdf, shading
 from ..ops.camera import Camera
-from ..utils import image_io
+from ..utils import image_io, trace
 from ..utils import memo as _memo_store
 from ..utils.config import RenderConfig
 
@@ -333,7 +333,7 @@ def _run_schedule(
     f, origin, cam_to_world, pr: PackedRays, steps, schedule,
     config: RenderConfig, eps, *, precision=None, tail_kernel=None,
     relax: float = 0.0, within=None, rung_kernel=None, caps=None,
-    stats_collect=None, count_stranding=False,
+    stats_collect=None, count_stranding=False, rung0: int = 0,
 ):
     """Sort -> march-prefix compaction rungs over the packed bundle.
 
@@ -346,45 +346,47 @@ def _run_schedule(
     into the returned overflow. ``rung_kernel`` marches the rungs at
     ``precision`` unless that is "default"; otherwise ``tail_kernel``
     takes terminal rungs of at most ``config.tail_pallas_max`` lanes.
+    Each rung is the span ``rung<rung0 + i>`` (``utils/trace.py``).
     Returns (pr, steps, within, overflow).
     """
     n = pr.pos.shape[0]
     stranded = _zero_i32(pr.t.device)
     for rung_i, (div, rung_steps) in enumerate(schedule):
-        cap = _cap_for(n, div, caps[rung_i] if caps else 0, config)
-        entry_active = None
-        if stats_collect is not None or count_stranding:
-            entry_active = pr.active.sum(dtype=torch.int32)
-        if stats_collect is not None:
-            stats_collect.append(entry_active)
-        if count_stranding and cap < n:
-            stranded = torch.maximum(stranded, entry_active - cap)
-        if cap >= n:
-            if _dense_rung(cap, n, rung_steps, entry=False):
-                state, dirs_b = _pr_bucket(pr, n, steps, cam_to_world, origin, config)
-                state = march.march_stage(
-                    f, origin, dirs_b, state, num_steps=config.max_steps,
+        with trace.span(f"rung{rung0 + rung_i}"):
+            cap = _cap_for(n, div, caps[rung_i] if caps else 0, config)
+            entry_active = None
+            if stats_collect is not None or count_stranding:
+                entry_active = pr.active.sum(dtype=torch.int32)
+            if stats_collect is not None:
+                stats_collect.append(entry_active)
+            if count_stranding and cap < n:
+                stranded = torch.maximum(stranded, entry_active - cap)
+            if cap >= n:
+                if _dense_rung(cap, n, rung_steps, entry=False):
+                    state, dirs_b = _pr_bucket(pr, n, steps, cam_to_world, origin, config)
+                    state = march.march_stage(
+                        f, origin, dirs_b, state, num_steps=config.max_steps,
+                        max_steps=config.max_steps, march_eps=eps, relax_omega=relax,
+                        newton=config.relax_newton, omega_max=config.relax_omega_max)
+                    pr, steps = _pr_merge(pr, state), state.steps
+                continue
+            pr = _pr_sort(pr, pr.active, within=within)
+            sub, dirs_b = _pr_bucket(pr, cap, steps, cam_to_world, origin, config)
+            use_tail = (tail_kernel is not None and rung_steps == 0
+                        and cap <= config.tail_pallas_max)
+            if rung_kernel is not None and precision != "default":
+                sub = rung_kernel(sub, dirs_b, origin, eps, precision,
+                                  None if rung_steps == 0 else rung_steps, relax_omega=relax)
+            elif use_tail:
+                sub = tail_kernel(sub, dirs_b, origin, eps, precision)
+            else:
+                sub = march.march_stage(
+                    f, origin, dirs_b, sub,
+                    num_steps=(config.max_steps if rung_steps == 0 else rung_steps),
                     max_steps=config.max_steps, march_eps=eps, relax_omega=relax,
                     newton=config.relax_newton, omega_max=config.relax_omega_max)
-                pr, steps = _pr_merge(pr, state), state.steps
-            continue
-        pr = _pr_sort(pr, pr.active, within=within)
-        sub, dirs_b = _pr_bucket(pr, cap, steps, cam_to_world, origin, config)
-        use_tail = (tail_kernel is not None and rung_steps == 0
-                    and cap <= config.tail_pallas_max)
-        if rung_kernel is not None and precision != "default":
-            sub = rung_kernel(sub, dirs_b, origin, eps, precision,
-                              None if rung_steps == 0 else rung_steps, relax_omega=relax)
-        elif use_tail:
-            sub = tail_kernel(sub, dirs_b, origin, eps, precision)
-        else:
-            sub = march.march_stage(
-                f, origin, dirs_b, sub,
-                num_steps=(config.max_steps if rung_steps == 0 else rung_steps),
-                max_steps=config.max_steps, march_eps=eps, relax_omega=relax,
-                newton=config.relax_newton, omega_max=config.relax_omega_max)
-        pr, steps = _pr_merge(pr, sub), sub.steps
-        within = cap
+            pr, steps = _pr_merge(pr, sub), sub.steps
+            within = cap
     return pr, steps, within, stranded
 
 
@@ -501,57 +503,59 @@ def _scheduled_march(params, cam_to_world, origin, dirs, config: RenderConfig,
         prec_a = "highest"
         eps_a, schedule_a = config.march_eps, config.fine_schedule
     relax = config.relax_omega if mixed else 0.0
-    use_prepass = t_init is None and pos is None and _prepass_on(config)
-    pos0 = pos
-    if pos is None and not use_prepass and _warm_block_order(config):
-        # Block-major lane order (_block_order) for the coarse kernel pass.
-        bh, bw = config.coarse_block
-        pos0 = _block_order(config.height, config.width, bh, bw, dirs.device)
-        dirs = camera_lib.ray_dirs_from_index(
-            cam_to_world, pos0, config.height, config.width, config.focal)
-    state = _march_init(fine, origin, dirs, config, t_init, use_prepass)
+    with trace.span("coarse"):
+        use_prepass = t_init is None and pos is None and _prepass_on(config)
+        pos0 = pos
+        if pos is None and not use_prepass and _warm_block_order(config):
+            # Block-major lane order (_block_order) for the coarse kernel pass.
+            bh, bw = config.coarse_block
+            pos0 = _block_order(config.height, config.width, bh, bw, dirs.device)
+            dirs = camera_lib.ray_dirs_from_index(
+                cam_to_world, pos0, config.height, config.width, config.focal)
+        state = _march_init(fine, origin, dirs, config, t_init, use_prepass)
 
-    if _coarse_on_kernel(config):
-        # The whole coarse phase as ONE run-to-dry kernel pass over the image.
-        state, resolve = megakernel.march_state(
-            params, origin, dirs, state, config, frame, march_eps=eps_a,
-            precision=prec_a, relax_omega=(0.0 if config.relax_newton else relax),
-            return_resolve=True, cyl_window=config.cyl_window_coarse, coarse=True)
-        # The coarse resolve step is the refine phase's difficulty key;
-        # valid while pr stays in the coarse lane order.
-        pr = _pack_init(state, dirs, pos0)
-        difficulty = resolve if config.ordered_packing else None
-        steps = state.steps
-    else:
-        state = march.march_stage(
-            fine, origin, dirs, state, num_steps=config.stage_steps,
-            max_steps=config.max_steps, march_eps=eps_a, relax_omega=relax,
-            newton=config.relax_newton, omega_max=config.relax_omega_max)
-        pr, steps = _pack_init(state, dirs, pos0), state.steps
-        difficulty = None
-        pr, steps, _, _ = _run_schedule(
-            fine, origin, cam_to_world, pr, steps, schedule_a, config, eps_a,
-            precision=prec_a, tail_kernel=tail_kernel, relax=relax, within=None)
+        if _coarse_on_kernel(config):
+            # The whole coarse phase as ONE run-to-dry kernel pass over the image.
+            state, resolve = megakernel.march_state(
+                params, origin, dirs, state, config, frame, march_eps=eps_a,
+                precision=prec_a, relax_omega=(0.0 if config.relax_newton else relax),
+                return_resolve=True, cyl_window=config.cyl_window_coarse, coarse=True)
+            # The coarse resolve step is the refine phase's difficulty key;
+            # valid while pr stays in the coarse lane order.
+            pr = _pack_init(state, dirs, pos0)
+            difficulty = resolve if config.ordered_packing else None
+            steps = state.steps
+        else:
+            state = march.march_stage(
+                fine, origin, dirs, state, num_steps=config.stage_steps,
+                max_steps=config.max_steps, march_eps=eps_a, relax_omega=relax,
+                newton=config.relax_newton, omega_max=config.relax_omega_max)
+            pr, steps = _pack_init(state, dirs, pos0), state.steps
+            difficulty = None
+            pr, steps, _, _ = _run_schedule(
+                fine, origin, cam_to_world, pr, steps, schedule_a, config, eps_a,
+                precision=prec_a, tail_kernel=tail_kernel, relax=relax, within=None)
 
     dev = dirs.device
     refine_overflow = _zero_i32(dev)
     rung_actives = torch.zeros((len(config.refine_schedule),), dtype=torch.int32, device=dev)
-    if mixed:
-        rung_kernel = _rung_kernel_fn(params, config, frame)
-        for prec, eps, schedule, caps in _ladder(config):
-            # Per-rung stats belong to the HIGHEST phase.
-            collect = [] if prec == "highest" else None
-            pr, steps, _, ovf = _refine_phase(
-                fine, origin, cam_to_world, pr, steps, config, eps,
-                precision=prec, tail_kernel=tail_kernel, relax=config.relax_omega_refine,
-                rung_kernel=rung_kernel, schedule=schedule, order=difficulty, caps=caps,
-                stats_collect=collect,
-            )
-            if collect is not None:
-                rung_actives = torch.stack(collect)
-            refine_overflow = torch.maximum(refine_overflow, ovf)
-            # later phases see a re-sorted bundle: the image-order key is stale
-            difficulty = None
+    with trace.span("refine"):
+        if mixed:
+            rung_kernel = _rung_kernel_fn(params, config, frame)
+            for prec, eps, schedule, caps in _ladder(config):
+                # Per-rung stats belong to the HIGHEST phase.
+                collect = [] if prec == "highest" else None
+                pr, steps, _, ovf = _refine_phase(
+                    fine, origin, cam_to_world, pr, steps, config, eps,
+                    precision=prec, tail_kernel=tail_kernel, relax=config.relax_omega_refine,
+                    rung_kernel=rung_kernel, schedule=schedule, order=difficulty, caps=caps,
+                    stats_collect=collect,
+                )
+                if collect is not None:
+                    rung_actives = torch.stack(collect)
+                refine_overflow = torch.maximum(refine_overflow, ovf)
+                # later phases see a re-sorted bundle: the image-order key is stale
+                difficulty = None
     return pr, steps, refine_overflow, rung_actives
 
 
@@ -564,62 +568,65 @@ def _refine_phase(
     active, sort it into the first rung's bucket, march, then drain the
     straggler tail through the remaining rungs. Near rays beyond the first
     bucket (or stranded past a later rung's cap) are reported as overflow
-    so the caller retries with wider buckets."""
-    n = pr.pos.shape[0]
-    if schedule is None:
-        schedule = config.refine_schedule
-    near = pr.converged | pr.active
-    refine_count = near.sum(dtype=torch.int32)
-    if stats_collect is not None:
-        stats_collect.append(refine_count)
-    overflow = _zero_i32(near.device)
-    div0, steps0 = schedule[0]
-    cap = _cap_for(n, div0, caps[0] if caps else 0, config)
-    if not _dense_rung(cap, n, steps0, entry=True):
-        # Slim entry sort: only (pos, t) ride it; the packed active prefix
-        # is a lane comparison and converged is cleared phase-wide.
-        pos, t = compaction.sort_pack_leaves(near, (pr.pos, pr.t), order=order)
-        lane = torch.arange(n, dtype=torch.int32, device=near.device)
-        pr = PackedRays(pos=pos, t=t, active=lane < refine_count,
-                        converged=torch.zeros_like(near))
-        sub, dirs_b = _pr_bucket(pr, cap, steps, cam_to_world, origin, config)
-        # Constant over-relaxation is off in the phase's first rung: its
-        # bulk sits within ~coarse_eps of the surface head-on (3e-3 by
-        # default), where a fixed omega > 1 overshoots and backtracks every
-        # other step. On the H100 at every coarse_eps from 0.05 to 1e-4 the
-        # 1080p rung leaves more lanes active, in more time, relaxed at 1.6
-        # than plain (benchmarks/precision_ladder.py). The secant-adaptive
-        # one steps plainly there, so it stays on.
-        if rung_kernel is not None and precision != "default":
-            sub = rung_kernel(sub, dirs_b, origin, eps, precision,
-                              None if steps0 == 0 else steps0)
-        else:
-            sub = march.march_stage(
-                f, origin, dirs_b, sub,
-                num_steps=(config.max_steps if steps0 == 0 else steps0),
-                max_steps=config.max_steps, march_eps=eps,
-                relax_omega=(relax if config.relax_newton else 0.0),
-                newton=config.relax_newton, omega_max=config.relax_omega_max)
-        pr, steps = _pr_merge(pr, sub), sub.steps
-        within = cap
-        overflow = torch.clamp(refine_count - cap, min=0)
-    else:
-        state, dirs_b = _pr_bucket(
-            pr._replace(active=near, converged=torch.zeros_like(near)), n, steps,
-            cam_to_world, origin, config)
-        state = march.march_stage(
-            f, origin, dirs_b, state, num_steps=config.max_steps,
-            max_steps=config.max_steps, march_eps=eps, relax_omega=relax,
-            newton=config.relax_newton, omega_max=config.relax_omega_max)
-        pr, steps = _pr_merge(pr, state), state.steps
-        within = n
-    pr, steps, within, stranded = _run_schedule(
-        f, origin, cam_to_world, pr, steps, schedule[1:], config, eps,
-        precision=precision, tail_kernel=tail_kernel, relax=relax, within=within,
-        rung_kernel=rung_kernel, caps=(caps[1:] if caps else None),
-        stats_collect=stats_collect, count_stranding=True,
-    )
-    return pr, steps, within, torch.maximum(overflow, stranded)
+    so the caller retries with wider buckets. The phase is the span
+    ``<precision>``, its entry rung ``rung0`` (``utils/trace.py``)."""
+    with trace.span(precision):
+        n = pr.pos.shape[0]
+        if schedule is None:
+            schedule = config.refine_schedule
+        near = pr.converged | pr.active
+        refine_count = near.sum(dtype=torch.int32)
+        if stats_collect is not None:
+            stats_collect.append(refine_count)
+        overflow = _zero_i32(near.device)
+        div0, steps0 = schedule[0]
+        cap = _cap_for(n, div0, caps[0] if caps else 0, config)
+        with trace.span("rung0"):
+            if not _dense_rung(cap, n, steps0, entry=True):
+                # Slim entry sort: only (pos, t) ride it; the packed active prefix
+                # is a lane comparison and converged is cleared phase-wide.
+                pos, t = compaction.sort_pack_leaves(near, (pr.pos, pr.t), order=order)
+                lane = torch.arange(n, dtype=torch.int32, device=near.device)
+                pr = PackedRays(pos=pos, t=t, active=lane < refine_count,
+                                converged=torch.zeros_like(near))
+                sub, dirs_b = _pr_bucket(pr, cap, steps, cam_to_world, origin, config)
+                # Constant over-relaxation is off in the phase's first rung: its
+                # bulk sits within ~coarse_eps of the surface head-on (3e-3 by
+                # default), where a fixed omega > 1 overshoots and backtracks every
+                # other step. On the H100 at every coarse_eps from 0.05 to 1e-4 the
+                # 1080p rung leaves more lanes active, in more time, relaxed at 1.6
+                # than plain (benchmarks/precision_ladder.py). The secant-adaptive
+                # one steps plainly there, so it stays on.
+                if rung_kernel is not None and precision != "default":
+                    sub = rung_kernel(sub, dirs_b, origin, eps, precision,
+                                      None if steps0 == 0 else steps0)
+                else:
+                    sub = march.march_stage(
+                        f, origin, dirs_b, sub,
+                        num_steps=(config.max_steps if steps0 == 0 else steps0),
+                        max_steps=config.max_steps, march_eps=eps,
+                        relax_omega=(relax if config.relax_newton else 0.0),
+                        newton=config.relax_newton, omega_max=config.relax_omega_max)
+                pr, steps = _pr_merge(pr, sub), sub.steps
+                within = cap
+                overflow = torch.clamp(refine_count - cap, min=0)
+            else:
+                state, dirs_b = _pr_bucket(
+                    pr._replace(active=near, converged=torch.zeros_like(near)), n, steps,
+                    cam_to_world, origin, config)
+                state = march.march_stage(
+                    f, origin, dirs_b, state, num_steps=config.max_steps,
+                    max_steps=config.max_steps, march_eps=eps, relax_omega=relax,
+                    newton=config.relax_newton, omega_max=config.relax_omega_max)
+                pr, steps = _pr_merge(pr, state), state.steps
+                within = n
+        pr, steps, within, stranded = _run_schedule(
+            f, origin, cam_to_world, pr, steps, schedule[1:], config, eps,
+            precision=precision, tail_kernel=tail_kernel, relax=relax, within=within,
+            rung_kernel=rung_kernel, caps=(caps[1:] if caps else None),
+            stats_collect=stats_collect, count_stranding=True, rung0=1,
+        )
+        return pr, steps, within, torch.maximum(overflow, stranded)
 
 
 def _stage_step(params, origin, dirs, state, config: RenderConfig, frame, num_steps):
@@ -692,6 +699,16 @@ def _shade_packed(params, origin, cam_to_world, pr: PackedRays, world_to_cam,
     bundle over a subset of the image (parallel/) colours its own pixels.
 
     Returns (rgba [H,W,4], pr unchanged, hit_count)."""
+    region, pos_sh, region_colors, hit_count = _shade_hits(
+        params, origin, cam_to_world, pr, world_to_cam, config, matcap, frame, within)
+    rgba = _restore_image(region_colors, region, pos_sh, config, packed_out, flat)
+    return rgba, pr, hit_count
+
+
+def _shade_hits(params, origin, cam_to_world, pr: PackedRays, world_to_cam,
+                config: RenderConfig, matcap, frame, within):
+    """``_shade_packed``'s shading: (region, pos_sh, colours of the region's
+    lanes, hit_count), the lanes' pixel indices ``pos_sh``."""
     n = pr.pos.shape[0]
     cap = _shade_capacity(config, n, within)
     hit_count = pr.converged.sum(dtype=torch.int32)
@@ -720,7 +737,14 @@ def _shade_packed(params, origin, cam_to_world, pr: PackedRays, world_to_cam,
         pos_sh, t_sh, conv_sh = compaction.sort_pack_leaves(
             pr.converged, (pr.pos, pr.t, pr.converged), within=within)
         region_colors = shade_region(pos_sh[:cap], t_sh[:cap], conv_sh[:cap])
+    return region, pos_sh, region_colors, hit_count
 
+
+def _restore_image(region_colors, region: int, pos_sh, config: RenderConfig,
+                   packed_out: bool, flat: bool):
+    """``_shade_packed``'s restore: the region's colours padded to every lane
+    and sorted back to pixel order by ``pos_sh``."""
+    n = pos_sh.shape[0]
     if config.rgba_packed:
         packed = shading.pack_rgba_u32(region_colors)
         if region < n:
@@ -735,10 +759,10 @@ def _shade_packed(params, origin, cam_to_world, pr: PackedRays, world_to_cam,
         if packed_out:
             rgba = _u32_words(shading.pack_rgba_u32(rgba))
     if flat:
-        return rgba, pr, hit_count
+        return rgba
     if packed_out:
-        return rgba.reshape(config.height, config.width), pr, hit_count
-    return rgba.reshape(config.height, config.width, 4), pr, hit_count
+        return rgba.reshape(config.height, config.width)
+    return rgba.reshape(config.height, config.width, 4)
 
 
 def _restore_state(pr: PackedRays, steps, origin, dirs,
@@ -773,30 +797,35 @@ def _render_scheduled(params, camera, config: RenderConfig, matcap, frame,
     [active_count, steps_done, hit_count, refine_overflow, per-rung entry
     actives...] as one int32 tensor, so the caller fetches once."""
     dev = _device_of(params)
-    frame = sdf.frame_tensor(frame, dev)
-    cam_to_world, world_to_cam = camera_lib.view_matrices(camera, dev)
-    origin, dirs = camera_lib.generate_rays(
-        cam_to_world, config.height, config.width, config.focal)
-    pr, steps, refine_overflow, rung_actives = _scheduled_march(
-        params, cam_to_world, origin, dirs, config, frame, t_init)
-    rgba, pr, hit_count = _shade_packed(
-        params, origin, cam_to_world, pr, world_to_cam, config, matcap, frame,
-        within=_conv_within(config), packed_out=packed_out)
-    head = torch.stack([pr.active.sum(dtype=torch.int32), steps.to(torch.int32),
-                        hit_count, refine_overflow.to(torch.int32)])
-    stats = torch.cat([head, rung_actives.to(torch.int32)])
-    if not return_state:
-        return rgba, pr, stats
-    if _warm_block_order(config):
-        # (block id, pixel index) as one int64 key: _block_order's order.
-        bh, bw = config.coarse_block
-        pos = pr.pos.to(torch.int64)
-        block = (pos // (config.width * bh)) * (-(-config.width // bw)) + (pos % config.width) // bw
-        perm = torch.sort(block * config.num_rays + pos).indices
-        state = (pr.t[perm], pr.converged[perm])
-    else:
-        state = compaction.sort_restore_leaves(pr.pos, (pr.t, pr.converged))
-    return rgba, pr, stats, tuple(state)
+    with trace.span("frame", dev):
+        frame = sdf.frame_tensor(frame, dev)
+        cam_to_world, world_to_cam = camera_lib.view_matrices(camera, dev)
+        origin, dirs = camera_lib.generate_rays(
+            cam_to_world, config.height, config.width, config.focal)
+        pr, steps, refine_overflow, rung_actives = _scheduled_march(
+            params, cam_to_world, origin, dirs, config, frame, t_init)
+        with trace.span("shade"):
+            region, pos_sh, colors, hit_count = _shade_hits(
+                params, origin, cam_to_world, pr, world_to_cam, config, matcap, frame,
+                _conv_within(config))
+        with trace.span("restore"):
+            rgba = _restore_image(colors, region, pos_sh, config, packed_out, flat=False)
+            head = torch.stack([pr.active.sum(dtype=torch.int32), steps.to(torch.int32),
+                                hit_count, refine_overflow.to(torch.int32)])
+            stats = torch.cat([head, rung_actives.to(torch.int32)])
+            if not return_state:
+                return rgba, pr, stats
+            if _warm_block_order(config):
+                # (block id, pixel index) as one int64 key: _block_order's order.
+                bh, bw = config.coarse_block
+                pos = pr.pos.to(torch.int64)
+                block = ((pos // (config.width * bh)) * (-(-config.width // bw))
+                         + (pos % config.width) // bw)
+                perm = torch.sort(block * config.num_rays + pos).indices
+                state = (pr.t[perm], pr.converged[perm])
+            else:
+                state = compaction.sort_restore_leaves(pr.pos, (pr.t, pr.converged))
+            return rgba, pr, stats, tuple(state)
 
 
 # Adaptive-schedule memo: (geometry tag, config) -> the schedule a previous
@@ -979,14 +1008,28 @@ def render_staged(
     stats vector then decides whether the frame is final. Leftovers
     (bucket overflow, rays needing more than the schedule gave) are handled
     by an overflow retry with wider buckets or a host-driven continuation.
+    Spans (``utils/trace.py``): ``sequence/enqueue`` (the frame's
+    dispatch), ``sequence/fetch`` (the stats fetch) and ``sequence/finish``
+    (the checks, retries and tuning).
     """
     _require_fp32_matmul()
     frame = float(frame)
     orig_config = config
     config = memo_lookup(params, config)
 
-    rgba, pr, stats = _render_scheduled(params, camera, config, matcap, frame)
-    stats = stats.cpu().numpy()  # the one host fetch of the fast path
+    with trace.span("sequence/enqueue"):
+        rgba, pr, stats = _render_scheduled(params, camera, config, matcap, frame)
+    with trace.span("sequence/fetch"):
+        stats = stats.cpu().numpy()  # the one host fetch of the fast path
+    with trace.span("sequence/finish"):
+        return _staged_finish(params, camera, config, orig_config, matcap, frame, rgba, pr,
+                              stats, stats_out)
+
+
+def _staged_finish(params, camera, config: RenderConfig, orig_config: RenderConfig, matcap,
+                   frame: float, rgba, pr: PackedRays, stats, stats_out):
+    """render_staged after the fetch: the fast-path check, the overflow
+    retry, the slow path's continuation and adaptive tuning."""
     active_count, steps_done, hit_count, refine_overflow = (int(v) for v in stats[:4])
     if stats_out is not None:
         stats_out.update(
@@ -1095,7 +1138,7 @@ def frame_reads_host(config: RenderConfig) -> bool:
 GRAPH_CAPTURES = 0
 GRAPH_REPLAYS = 0
 
-# Captured chunk graphs by (config, k, device), most recently used last.
+# Captured chunk graphs by (config, k, device, tracing on), most recently used last.
 _GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
 _MAX_GRAPHS = 4
 
@@ -1170,9 +1213,11 @@ def graph_stats() -> dict:
 
 
 def _chunk_graph(params, config: RenderConfig, matcap, poses, frames) -> _ChunkGraph:
-    """The graph of (config, k, device) that ``matches`` these parameters and
-    matcap, else a new capture at these inputs."""
-    key = (config, frames.shape[0], str(frames.device))
+    """The graph of (config, k, device, tracing on) that ``matches`` these
+    parameters and matcap, else a new capture at these inputs: a graph
+    captured with the trace's marks and counters never serves an untraced
+    call, nor the reverse."""
+    key = (config, frames.shape[0], str(frames.device), trace.enabled())
     g = _GRAPHS.get(key)
     if g is None or not g.matches(params, matcap):
         _GRAPHS.pop(key, None)
@@ -1239,7 +1284,10 @@ def render_sequence(
     replay that fails raises.
 
     ``stats_out`` receives one dict per frame. Returns a list of [H, W, 4]
-    rgba tensors on the parameters' device.
+    rgba tensors on the parameters' device. Spans (``utils/trace.py``):
+    ``sequence/enqueue`` (up to the stats fetch: the graph replays or the
+    frames' dispatch), ``sequence/fetch`` and ``sequence/finish``
+    (``_sequence_finish``).
     """
     _require_fp32_matmul()
     if frames is None:
@@ -1248,34 +1296,38 @@ def render_sequence(
     if not cameras:
         return []
     orig_config = config
-    config = memo_lookup(params, config)
-    dev = _device_of(params)
-    if (chunk is not None and chunk > 1 and not warm_start and dev.type == "cuda"
-            and not frame_reads_host(config)):
-        queued = _render_chunks(params, cameras, frames, config, matcap, int(chunk), dev)
-    else:
-        queued = []
-        prev = prev2 = None
-        for cam, fr in zip(cameras, frames):
-            if not warm_start:
-                rgba, _, stats = _render_scheduled(params, cam, config, matcap, fr)
+    with trace.span("sequence/enqueue"):
+        config = memo_lookup(params, config)
+        dev = _device_of(params)
+        if (chunk is not None and chunk > 1 and not warm_start and dev.type == "cuda"
+                and not frame_reads_host(config)):
+            queued = _render_chunks(params, cameras, frames, config, matcap, int(chunk), dev)
+        else:
+            queued = []
+            prev = prev2 = None
+            for cam, fr in zip(cameras, frames):
+                if not warm_start:
+                    rgba, _, stats = _render_scheduled(params, cam, config, matcap, fr)
+                    queued.append((rgba, stats))
+                    continue
+                t_init = None
+                if prev is not None:
+                    t_prev, hit_prev = prev
+                    t_init = torch.where(hit_prev, t_prev - config.warm_margin, float("-inf"))
+                    if prev2 is not None:
+                        t_pp, hit_pp = prev2
+                        pred = 2.0 * t_prev - t_pp - 0.25 * config.warm_margin
+                        t_init = torch.where(hit_prev & hit_pp, pred, t_init)
+                rgba, _, stats, state = _render_scheduled(params, cam, config, matcap, fr, t_init,
+                                                          return_state=True)
+                prev2, prev = prev, state
                 queued.append((rgba, stats))
-                continue
-            t_init = None
-            if prev is not None:
-                t_prev, hit_prev = prev
-                t_init = torch.where(hit_prev, t_prev - config.warm_margin, float("-inf"))
-                if prev2 is not None:
-                    t_pp, hit_pp = prev2
-                    pred = 2.0 * t_prev - t_pp - 0.25 * config.warm_margin
-                    t_init = torch.where(hit_prev & hit_pp, pred, t_init)
-            rgba, _, stats, state = _render_scheduled(params, cam, config, matcap, fr, t_init,
-                                                      return_state=True)
-            prev2, prev = prev, state
-            queued.append((rgba, stats))
-    all_stats = torch.stack([st for _, st in queued]).cpu().numpy()  # the one sync
-    return _sequence_finish(params, cameras, frames, queued, all_stats, config,
-                            orig_config, matcap, stats_out)
+        stacked = torch.stack([st for _, st in queued])
+    with trace.span("sequence/fetch"):
+        all_stats = stacked.cpu().numpy()  # the one sync
+    with trace.span("sequence/finish"):
+        return _sequence_finish(params, cameras, frames, queued, all_stats, config,
+                                orig_config, matcap, stats_out)
 
 
 def _sequence_finish(params, cameras, frames, queued, all_stats,

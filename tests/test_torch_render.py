@@ -151,7 +151,9 @@ def test_cli_single_frame_on_cpu(tmp_path):
 
 def test_cli_rejects_animation_on_3_input_model_and_unported_modes(tmp_path):
     """--animation on a 3-input model exits 2; --profile (once refused) now
-    writes a torch.profiler Chrome trace of the frame and exits 0."""
+    writes a torch.profiler Chrome trace of the frame, with the staged
+    frame's ``cnr.*`` spans (``cnr.trace``), and the trace's snapshot, and
+    exits 0."""
     r = _cli(["-d", "cpu", "-i", H5, "--animation", "--single", "-W", "32", "-H", "32",
               "-o", str(tmp_path / "x.png")], tmp_path)
     assert r.returncode == 2
@@ -160,11 +162,18 @@ def test_cli_rejects_animation_on_3_input_model_and_unported_modes(tmp_path):
     r = _cli(["-d", "cpu", "-i", H5, "--single", "-W", "16", "-H", "16", "--profile", str(trace),
               "-o", str(tmp_path / "p.png")], tmp_path)
     assert r.returncode == 0, r.stderr[-2000:]
-    files = list(trace.glob("*.json"))
+    files = list(trace.glob("render_*.pt.trace.json"))
     assert len(files) == 1 and f"profile trace: {files[0]}" in r.stdout
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    assert any(e.get("name") == "cnr.sequence/enqueue/frame/coarse" for e in events)
+    (snapshot,) = trace.glob("trace_*.json")
+    assert f"trace snapshot: {snapshot}" in r.stdout
+    with open(snapshot) as f:
+        spans = json.load(f)["spans"]
+    assert spans["sequence/enqueue/frame/coarse"]["calls"] == 1
+    assert spans["sequence/enqueue/frame/coarse"]["device_ms"] is None
     from cudaneuralrender_torch import cli
 
     assert not hasattr(cli, "NOT_PORTED")
