@@ -21,9 +21,9 @@ Phases; any failure exits non-zero and nothing is caught:
   4. drive the main path — ``Renderer(...).render`` with the staged
      mixed-precision config — at 1920x1080 with the csg_demo weights,
      counting kernel launches (the three-pass coarse call's, those a ray
-     per warp and those of the normals' ``relu_tie_backward`` must not be
-     0, the FP32 coarse call's must be), then the 256x256 golden render
-     against examples/assets/csg_demo.png;
+     per warp and those of the normals' value-and-gradient kernel must not
+     be 0, the FP32 coarse call's and ``relu_tie_backward``'s must be),
+     then the 256x256 golden render against examples/assets/csg_demo.png;
   5. time 10 warm 1080p frames beside 10 with the FP32 coarse call to 0.05
      (COARSE_FP32; in the order default, FP32, FP32, default); record the
      inputs of every march call of one more frame and hold the kernel
@@ -179,12 +179,21 @@ Phases; any failure exits non-zero and nothing is caught:
      turntable with ``grid_res=64`` against the cold one at the mixed bar;
      an EMPTY_SHARDS-shard ``grid_res=64`` frame equal to the unsharded
      one bit for bit; ``relu_tie_backward`` (csrc/elementwise.cu, the
-     normals' backward since this phase's slice; phase 4 counts its
-     main-path launches) against its plain version bit for bit on every
-     call of a 1080p frame's normals, the frame's calls timed kernel /
-     plain / ``threshold_backward`` beside the bytes bound, and
-     ``benchmarks/relu_ties.py``'s frame variants (the tree, ``torch.relu``,
-     the plain backward). The script's total wall time follows.
+     autograd chain's tie backward) against its plain version bit for bit
+     on every call of a 1080p frame's normals taken on the autograd chain,
+     the frame's calls timed kernel / plain / ``threshold_backward`` beside
+     the bytes bound, and ``benchmarks/relu_ties.py``'s frame variants (the
+     tree's value-and-gradient kernel; on the autograd chain the tree's
+     ``relu_tie``, ``torch.relu``, the plain backward);
+ 16. the render normals' value-and-gradient kernel (csrc/value_grad.cu) at
+     each width it serves (32, 64, 128: csg_demo widened), at a 1080p
+     frame's shade region against its plain version, the chain under
+     autograd (VG_ bar: value, gradient, the points at a ReLU's kink
+     accounted for in float64), timed beside it and its FP32 and 3xTF32
+     bounds; the 4-input anim_demo and the zero-bias net at the origin at
+     the same bar; 1080p frames (SIZES' sides) with the normals on the
+     kernel and on the autograd chain, timed in turns, their launches and
+     differing pixels. The script's total wall time follows.
 The line before the last is a JSON object of the kernels' launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
 """
@@ -279,6 +288,29 @@ K3_ATOL = 1e-5
 # common hit within 1e-4, is not met (PERF.md, PR 6).
 K3_RENDER_ATOL = 1e-4
 K3_RENDER_CLOSE = 0.9995
+# Phase 16, the value-and-gradient kernel (csrc/value_grad.cu) against its
+# plain version, the chain under torch.autograd (cuBLAS FP32): the value
+# within VG_VALUE_RTOL of (|plain| + 1) (a shade region's points sit on the
+# surface, where the value is ~0); the gradient within VG_GRAD_RTOL of its
+# norm on >= VG_GRAD_SHARE of the points and within VG_GRAD_ALL on every
+# point but those where a hidden pre-activation h lies within VG_KINK of 0
+# in float64, relative to its terms' scale |a| @ |W| + |b| (``kink_distance``):
+# there the two FP32 chains round to either side of a ReLU's kink and take
+# different subgradients, both valid, and at most VG_KINK_SHARE of the
+# points may. On the H100 (my chip calls 2 and 5, PR 20) a 1080p csg_demo
+# frame's 966656 points had 15 such with K1's products and 22 with 3xTF32,
+# anim_demo (frame 37) at the same points 13, each within 2.5e-7 of a kink
+# so measured (within 1.3e-7 absolute at csg_demo's, 4e-6 at anim_demo's,
+# whose inputs and pre-activations are larger there).
+VG_VALUE_RTOL = 1e-5
+VG_GRAD_RTOL = 1e-5
+VG_GRAD_SHARE = 0.9999
+VG_GRAD_ALL = 1e-3
+VG_KINK = 1e-6
+VG_KINK_SHARE = 1e-4
+VG_SOURCE = "cudaneuralrender_torch/csrc/value_grad.cu"
+VG_REPLACES = "cudaneuralrender_tpu/ops/shading.py:41"  # jax.grad in autodiff_normals
+VG_FRAMES = 3  # 1080p frames a side, normals on the kernel and on the autograd chain
 # Row counts of the plain chains' padding sweeps: cuBLAS sums a 256-wide
 # layer in another order below 1024 rows and at 2625 rows and some above.
 PADDINGS = (256, 512, 1024, 2048, 2640, 4096, 65536)
@@ -522,6 +554,7 @@ KERNEL_LABELS = (
      "x2_stepcost_kernel<H={}, chain={}, variant={}>"),
     (r"x3_ablation_kernelILi(\d+)ELi(\d+)E", "x3_ablation_kernel<H={}, variant={}>"),
     (r"relu_tie_backward_kernel", "relu_tie_backward_kernel"),
+    (r"mlp_value_grad_kernelILi(\d+)E", "mlp_value_grad_kernel<H={}>"),
 )
 
 
@@ -3838,23 +3871,26 @@ def record_tie_calls(run) -> list:
     return calls
 
 
-def drive_relu_tie(cnr, params, launches: int, card) -> dict:
+def drive_relu_tie(cnr, params, card) -> dict:
     """Phase 15, ``relu_tie_backward`` (csrc/elementwise.cu): against its
     plain version bit for bit on every call of a 1080p frame's shading
-    normals (the main path's pre-activations and gradients), the frame's
-    calls timed kernel / plain / ``threshold_backward`` (relu's backward,
-    the library yardstick) beside the bound (12 bytes a value at the HBM
-    rate); then ``benchmarks/relu_ties.py``'s frame variants. Returns the
-    kernels line's entry (``launches``: phase 4's main-path count)."""
+    normals on the autograd chain (``relu_ties.on_autograd``: the
+    pre-activations and gradients the main path's normals had before the
+    value-and-gradient kernel; diff/ differentiates through it), the
+    frame's calls timed kernel / plain / ``threshold_backward`` (relu's
+    backward, the library yardstick) beside the bound (12 bytes a value at
+    the HBM rate); then ``benchmarks/relu_ties.py``'s frame variants.
+    Returns the kernels line's entry (launches: that frame's)."""
     from cudaneuralrender_torch.benchmarks import relu_ties
     from cudaneuralrender_torch.kernels import elementwise
 
     cfg = cnr.RenderConfig(width=EMPTY_SIDE[0], height=EMPTY_SIDE[1], march_impl="staged")
     cam = cnr.Camera(**CAMERA)
     renderer = cnr.Renderer(params, cfg)
-    calls = record_tie_calls(lambda: renderer.render(cam))
+    with relu_ties.on_autograd():
+        calls = record_tie_calls(lambda: renderer.render(cam))
     if not calls:
-        raise RuntimeError("a 1080p frame's normals made no relu_tie_backward call")
+        raise RuntimeError("a 1080p frame's autograd normals made no relu_tie_backward call")
     err, unequal = 0.0, 0
     for g, h in calls:
         got = elementwise.relu_tie_backward(g, h)
@@ -3864,9 +3900,9 @@ def drive_relu_tie(cnr, params, launches: int, card) -> dict:
     values = sum(g.numel() for g, _ in calls)
     ties = sum(int((h == 0).sum()) for _, h in calls)
     torch.cuda.synchronize()
-    print(f"phase 15 relu_tie_backward on a 1080p frame's {len(calls)} calls "
-          f"({[tuple(g.shape) for g, _ in calls[:2]]}..., {values} values, {ties} exact ties): "
-          f"{unequal} values off the plain version, max |d| {err}")
+    print(f"phase 15 relu_tie_backward on a 1080p frame's {len(calls)} calls (normals on the "
+          f"autograd chain; {[tuple(g.shape) for g, _ in calls[:2]]}..., {values} values, {ties} "
+          f"exact ties): {unequal} values off the plain version, max |d| {err}")
     if unequal:
         raise RuntimeError(f"relu_tie_backward differs from its plain version at {unequal} values")
 
@@ -3883,15 +3919,186 @@ def drive_relu_tie(cnr, params, launches: int, card) -> dict:
           f"{bnd['bound_ms']:.4f} ms ({12 * values} bytes at 3.35 TB/s) [{card}]", flush=True)
 
     variants = relu_ties.frame_variants(renderer, cam)
-    tree_ms, tree_img = variants["relu_tie (tree)"]
+    tree_ms, tree_img = variants[relu_ties.TREE]
     for name, (f_ms, img) in variants.items():
         print(f"phase 15 relu_ties frame 1920x1080, shading normals on {name}: {f_ms:.3f} ms "
               f"(median of {2 * relu_ties.TIMED_RUNS}, {f_ms - tree_ms:+.3f} against the tree); "
               f"{unequal_pixels(img, tree_img)} pixels off the tree's [{card}]", flush=True)
     bnd.pop("tc_bound_ms", None)
     return dict(name="relu_tie_backward", route="cuda", source=ELEMENTWISE_SOURCE,
-                replaces="cudaneuralrender_tpu/models/mlp.py:99", launches=launches,
+                replaces="cudaneuralrender_tpu/models/mlp.py:99", launches=len(calls),
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd, library_ms=library_ms)
+
+
+def value_grad_fmas(hidden: int, n_layers: int, n_in: int) -> int:
+    """Fused multiply-adds of one point's value and input gradient at padded
+    width H: the chain (``chain_fmas``), then the backward chain's hidden
+    layers and its last product onto the 3 spatial inputs."""
+    return chain_fmas(hidden, n_layers, n_in) + (n_layers - 2) * hidden * hidden + 3 * hidden
+
+
+def autograd_value_grad(params, pts, frame=0.0, num_inputs: int = 3) -> tuple:
+    """The value-and-gradient kernel's plain version on the card: the chain
+    under torch.autograd (``renderer.neural_sdf_fn``, cuBLAS FP32 and
+    ``relu_tie_backward``), the render normals' path before the kernel.
+    Returns (value [n], grad [n, 3])."""
+    from cudaneuralrender_torch.render import renderer
+
+    p = pts.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        value = renderer.neural_sdf_fn(params, frame, num_inputs)(p)
+        (grad,) = torch.autograd.grad(value.sum(), p)
+    return value.detach(), grad
+
+
+def kernel_value_grad(params, pts, frame=0.0, num_inputs: int = 3) -> tuple:
+    """The value-and-gradient kernel at ``pts`` [n, 3] (``fused_mlp.mlp_value_grad``)."""
+    from cudaneuralrender_torch.kernels import fused_mlp
+
+    w, b, _, _ = fused_mlp.packed_params(params)
+    return fused_mlp.mlp_value_grad(w, b, pts, num_inputs, frame,
+                                    fused_mlp.packed_mma(params, "tf32"),
+                                    fused_mlp.packed_mma_t(params))
+
+
+def kink_distance(params, pts, frame=0.0, num_inputs: int = 3) -> torch.Tensor:
+    """How far each point's ReLUs sit from their kinks, in float64: the
+    least over the hidden pre-activations h = a @ W + b of |h| / (|a| @ |W|
+    + |b|), the scale of the terms an FP32 sum of h rounds."""
+    a = pts.double()
+    if num_inputs == 4:
+        a = torch.cat([a, torch.full_like(a[:, :1], float(np.float32(frame)))], dim=1)
+    least = torch.full(a.shape[:1], float("inf"), dtype=torch.float64, device=a.device)
+    for layer in list(params)[:-1]:
+        w, b = layer.w.double(), layer.b.double()
+        h = a @ w + b
+        scale = a.abs() @ w.abs() + b.abs()
+        least = torch.minimum(least, (h.abs() / scale.clamp_min(1e-300)).amin(dim=1))
+        a = torch.relu(h)
+    return least
+
+
+def value_grad_agreement(params, pts, frame=0.0, num_inputs: int = 3) -> dict:
+    """The kernel against its plain version at ``pts``: the value's largest
+    |d| / (|plain| + 1); the share of gradients within VG_GRAD_RTOL of the
+    plain one's norm and the largest such ratio; the points beyond
+    VG_GRAD_ALL, and those of them whose every hidden pre-activation lies
+    farther than VG_KINK from 0 in float64 (none may)."""
+    v, g = kernel_value_grad(params, pts, frame, num_inputs)
+    vp, gp = autograd_value_grad(params, pts, frame, num_inputs)
+    norm = gp.norm(dim=1)
+    d = (g - gp).norm(dim=1)
+    rel = torch.where(norm > 0, d / norm.clamp_min(1e-30), d)
+    beyond = rel > VG_GRAD_ALL
+    off_kink = int((kink_distance(params, pts[beyond], frame, num_inputs) > VG_KINK).sum())
+    return dict(points=pts.shape[0], value_err=float(((v - vp).abs() / (vp.abs() + 1)).max()),
+                grad_within=float((rel <= VG_GRAD_RTOL).double().mean()),
+                grad_max=float(rel.max()), beyond=int(beyond.sum()), beyond_off_kink=off_kink,
+                nonfinite=int((~torch.isfinite(g)).sum() + (~torch.isfinite(v)).sum()))
+
+
+def value_grad_faults(r: dict) -> list:
+    """What ``value_grad_agreement``'s reading ``r`` fails of the bar."""
+    faults = []
+    if not r["value_err"] <= VG_VALUE_RTOL:
+        faults.append(f"value {r['value_err']:.3g} of (|plain| + 1) > {VG_VALUE_RTOL}")
+    if not r["grad_within"] >= VG_GRAD_SHARE:
+        faults.append(f"{r['grad_within']:.6f} of the gradients within {VG_GRAD_RTOL} of their "
+                      f"norm < {VG_GRAD_SHARE}")
+    if r["beyond_off_kink"]:
+        faults.append(f"{r['beyond_off_kink']} gradients beyond {VG_GRAD_ALL} of their norm at "
+                      f"points no hidden pre-activation puts within {VG_KINK} of a kink")
+    if r["beyond"] > VG_KINK_SHARE * r["points"]:
+        faults.append(f"{r['beyond']} gradients of {r['points']} beyond {VG_GRAD_ALL} > "
+                      f"{VG_KINK_SHARE} of them")
+    if r["nonfinite"]:
+        faults.append(f"{r['nonfinite']} values or gradients not finite")
+    return faults
+
+
+def shade_region(cnr, params, cam, cfg) -> torch.Tensor:
+    """The points a staged frame's normals hand the value-and-gradient
+    kernel (the last call's, recorded at ``fused_mlp.mlp_value_grad``)."""
+    from cudaneuralrender_torch.kernels import fused_mlp
+
+    calls, real = [], fused_mlp.mlp_value_grad
+
+    def recording(weights, biases, pts, *args):
+        calls.append(pts.clone())
+        return real(weights, biases, pts, *args)
+
+    fused_mlp.mlp_value_grad = recording
+    try:
+        cnr.Renderer(params, cfg).render(cnr.Camera(**cam))
+    finally:
+        fused_mlp.mlp_value_grad = real
+    if not calls:
+        raise RuntimeError("the frame's normals never reached the value-and-gradient kernel")
+    return calls[-1]
+
+
+def drive_value_grad(cnr, nets, anim, launches: int, card) -> list:
+    """Phase 16, the value-and-gradient kernel (csrc/value_grad.cu): at each
+    width it serves, csg_demo (widened) at a 1080p frame's shade region
+    against its plain version (``value_grad_agreement``, the VG_ bar),
+    timed beside it, its FP32 and 3xTF32 bounds; the 4-input anim_demo
+    (frame 37) and the zero-bias net at the origin (every pre-activation a
+    tie) at the bar; then 1080p frames with the normals on the kernel and on
+    the autograd chain (``relu_ties.on_autograd``), kernel, autograd,
+    autograd, kernel, VG_FRAMES each, the launches a frame and the pixels
+    that differ. Returns the kernels line's entries (``launches``: phase
+    4's main-path count at 32)."""
+    from cudaneuralrender_torch.benchmarks import relu_ties
+    from cudaneuralrender_torch.kernels import fused_mlp
+    from cudaneuralrender_torch.models import mlp
+
+    cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged")
+    region = shade_region(cnr, nets[32], CAMERA, cfg)
+    dev = region.device
+    faults, entries = [], []
+    zero = mlp.init_mlp(torch.Generator().manual_seed(3), device=dev)
+    checks = [("anim_demo 4 inputs, frame 37", anim, region, 37.0, 4),
+              ("zero-bias net at the origin", zero, torch.zeros(4096, 3, device=dev), 0.0, 3)]
+    for name, net, pts, frame, n_in in checks:
+        r = value_grad_agreement(net, pts, frame, n_in)
+        print(f"phase 16 value-and-gradient {name}: {json.dumps(r)}", flush=True)
+        faults += [f"{name}: {f}" for f in value_grad_faults(r)]
+    for hidden in fused_mlp.VALUE_GRAD_WIDTHS:
+        net = nets[hidden]
+        r = value_grad_agreement(net, region)
+        faults += [f"width {hidden}: {f}" for f in value_grad_faults(r)]
+        ms = time_cuda(lambda: kernel_value_grad(net, region), 10, warmup=2)
+        plain_ms = time_cuda(lambda: autograd_value_grad(net, region), 5, warmup=1)
+        n = region.shape[0]
+        bnd = bound(n * value_grad_fmas(hidden, len(net), 3), 28.0 * n)
+        renderer = cnr.Renderer(net, cfg.replace(width=SIZES[hidden].side[0],
+                                                 height=SIZES[hidden].side[1]))
+        cam = cnr.Camera(**CAMERA)
+        renderer.render(cam)
+        fused_mlp.reset_launch_counts()
+        img = renderer.render(cam)
+        frame_launches = fused_mlp.MLP_VALUE_GRAD_LAUNCHES
+        with relu_ties.on_autograd():
+            ref = renderer.render(cam)
+        frame_ms = {"kernel": [], "autograd": []}
+        for name in ("kernel", "autograd", "autograd", "kernel"):
+            with relu_ties.on_autograd() if name == "autograd" else contextlib.nullcontext():
+                frame_ms[name] += time_frames(lambda: renderer.render(cam), VG_FRAMES)
+        print(f"phase 16 value-and-gradient width {hidden}, a 1080p frame's shade region "
+              f"({n} points): {json.dumps(r)}; kernel {ms:.4f} ms, autograd chain "
+              f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms (FP32 FFMA), "
+              f"{bnd['tc_bound_ms']:.4f} ms (3xTF32); frame {renderer.config.width}x"
+              f"{renderer.config.height}: {frame_launches} launches, normals on the kernel "
+              f"{statistics.median(frame_ms['kernel']):.3f} ms, on the autograd chain "
+              f"{statistics.median(frame_ms['autograd']):.3f} ms (medians of "
+              f"{2 * VG_FRAMES}), {unequal_pixels(img, ref)} pixels differ [{card}]", flush=True)
+        entries.append(kernel_entry(f"mlp_value_grad_h{hidden}", VG_SOURCE, VG_REPLACES,
+                                    launches if hidden == 32 else frame_launches,
+                                    max(r["value_err"], r["grad_max"]), ms, plain_ms, bnd))
+    if faults:
+        raise RuntimeError("value-and-gradient kernel against its plain version: "
+                           + "; ".join(faults))
+    return entries
 
 
 def main() -> int:
@@ -3903,7 +4110,7 @@ def main() -> int:
         return 1
     os.environ.setdefault("CNR_SCHEDULE_MEMO", "")  # no learned schedules from disk
     import cudaneuralrender_torch as cnr
-    from cudaneuralrender_torch.kernels import build, elementwise, megakernel
+    from cudaneuralrender_torch.kernels import build, elementwise, fused_mlp, megakernel
     from cudaneuralrender_torch.ops import camera as camera_lib
 
     dev = torch.device("cuda", 0)
@@ -3925,7 +4132,9 @@ def main() -> int:
             h = int(label.split("H=")[1].split(",")[0].rstrip(">"))
             kind = (2 if label.startswith("mlp") else 3 if label.startswith("march_split")
                     else int(label.endswith("three_pass=1>")))
-            line += f"; {lib.cnr_smem_bytes(kind, h, 9)} bytes dynamic shared memory"
+            smem = (lib.cnr_value_grad_smem_bytes(h, 9) if label.startswith("mlp_value_grad")
+                    else lib.cnr_smem_bytes(kind, h, 9))
+            line += f"; {smem} bytes dynamic shared memory"
         if "H=" in label:
             line += f"; {hmma.get(label, 'no')} HMMA in its SASS"
         print(line)
@@ -3974,6 +4183,7 @@ def main() -> int:
     cam = cnr.Camera(**CAMERA)
     megakernel.reset_launch_counts()
     elementwise.reset_launch_counts()
+    fused_mlp.reset_launch_counts()
     img = renderer.render(cam)
     torch.cuda.synchronize()
     launches = megakernel.KERNEL_LAUNCHES
@@ -3981,18 +4191,22 @@ def main() -> int:
     fp32_coarse = megakernel.PRECISION_LAUNCHES["default"]
     split_launches = megakernel.SPLIT_LAUNCHES[32]
     tie_launches = elementwise.RELU_TIE_LAUNCHES
+    vg_launches = fused_mlp.MLP_VALUE_GRAD_LAUNCHES
     print(f"main path 1080p: {launches} kernel launches ({three_pass} three-pass, "
           f"{fp32_coarse} FP32 coarse, {split_launches} a ray per warp; coarse_precision "
-          f"{cfg.coarse_precision!r}, coarse_eps {cfg.coarse_eps}), {tie_launches} "
-          f"relu_tie_backward launches, stats {json.dumps(renderer.last_stats)}")
+          f"{cfg.coarse_precision!r}, coarse_eps {cfg.coarse_eps}), {vg_launches} "
+          f"value-and-gradient launches, {tie_launches} relu_tie_backward launches, stats "
+          f"{json.dumps(renderer.last_stats)}")
     if launches == 0:
         raise RuntimeError("the 1080p staged render never launched the march kernel")
     if cfg.coarse_precision == "high" and (three_pass == 0 or fp32_coarse):
         raise RuntimeError(f"the 1080p staged render's coarse calls: {three_pass} three-pass, "
                            f"{fp32_coarse} FP32: the default coarse call runs the three-pass "
                            "chain")
-    if tie_launches == 0:
-        raise RuntimeError("the 1080p staged render's normals never launched relu_tie_backward")
+    if vg_launches == 0 or tie_launches:
+        raise RuntimeError(f"the 1080p staged render's normals launched the value-and-gradient "
+                           f"kernel {vg_launches} times and relu_tie_backward {tie_launches} "
+                           "times: they take the kernel, not the autograd chain")
     if split_launches == 0:
         raise RuntimeError("the 1080p staged render never marched a ray per warp")
     fg = check_image(img, "neural_raw")
@@ -4157,8 +4371,14 @@ def main() -> int:
     # 15. the empty-space phases (prepass, grid) and the ReLU tie backward
     t15 = time.perf_counter()
     kernels.extend(drive_empty_space(cnr, params, card))
-    kernels.append(drive_relu_tie(cnr, params, tie_launches, card))
+    kernels.append(drive_relu_tie(cnr, params, card))
     print(f"phase 15 (prepass, grid, relu_tie_backward): {time.perf_counter() - t15:.1f} s wall",
+          flush=True)
+
+    # 16. the render normals' value-and-gradient kernel
+    t16 = time.perf_counter()
+    kernels.extend(drive_value_grad(cnr, nets, anim, vg_launches, card))
+    print(f"phase 16 (value-and-gradient kernel): {time.perf_counter() - t16:.1f} s wall",
           flush=True)
     print(f"chip_smoke total: {time.perf_counter() - T_START:.1f} s wall [{card}]", flush=True)
 

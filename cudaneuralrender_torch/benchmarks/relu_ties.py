@@ -2,13 +2,17 @@
 
 The JAX package's MLP takes ``jnp.maximum(h, 0.0)``, whose gradient at a
 pre-activation of exactly 0 is 1/2; ``torch.relu``'s is 0. The port's
-chain takes ``models.mlp.relu_tie`` everywhere it is differentiated (a
-render's shading normals, ``diff/``), its backward one kernel on the card
-(``kernels.elementwise.relu_tie_backward``, ``csrc/elementwise.cu``). This
-measures it on csg_demo at 1080p in the default staged config at
-chip_smoke.py's camera:
+chain takes ``models.mlp.relu_tie`` everywhere it is differentiated under
+autograd (``diff/``, and a render's shading normals where the
+value-and-gradient kernel does not serve the net), its backward one kernel
+on the card (``kernels.elementwise.relu_tie_backward``,
+``csrc/elementwise.cu``); the value-and-gradient kernel keeps the same
+factor in its masks. This measures it on csg_demo at 1080p in the default
+staged config at chip_smoke.py's camera:
 
-  * a frame (``Renderer.render``) with the shading normals on the tree's
+  * a frame (``Renderer.render``) with the tree's shading normals (the
+    value-and-gradient kernel, ``kernels.fused_mlp.mlp_value_grad``), and
+    with the normals on the autograd chain (``on_autograd``) on the tree's
     ``relu_tie``, on ``torch.relu``, and on ``relu_tie`` with the kernel's
     plain version as its backward (``g * torch.heaviside(h, 1/2)``, two
     kernels: the backward before the fused kernel);
@@ -33,7 +37,7 @@ import time
 
 import torch
 
-from ..kernels import elementwise
+from ..kernels import elementwise, fused_mlp
 from ..models import mlp
 from ..utils.timing import card_line
 from . import ASSET, TIMED_RUNS, require_cuda
@@ -65,6 +69,15 @@ def on_plain_backward():
     return _patched(elementwise, "relu_tie_backward", elementwise.relu_tie_backward_plain)
 
 
+@contextlib.contextmanager
+def on_autograd(inner=contextlib.nullcontext):
+    """A render's shading normals on the autograd chain (the
+    value-and-gradient kernel serving no width) inside the block, and
+    ``inner()`` with it."""
+    with _patched(fused_mlp, "VALUE_GRAD_WIDTHS", ()), inner():
+        yield
+
+
 def _wall_ms(run) -> list:
     out = []
     for _ in range(TIMED_RUNS):
@@ -87,10 +100,16 @@ def compare(variants, run) -> dict:
     return {name: (statistics.median(v), last[name]) for name, v in ms.items()}
 
 
+#: The tree's frame variant: the normals on the value-and-gradient kernel.
+TREE = "value-and-gradient kernel (tree)"
+
+
 def frame_variants(renderer, cam) -> dict:
-    """The three frame variants: name -> (median ms, image)."""
-    return compare((("relu_tie (tree)", contextlib.nullcontext), ("torch.relu", on_relu),
-                    ("relu_tie, plain backward", on_plain_backward)),
+    """The four frame variants: name -> (median ms, image)."""
+    return compare(((TREE, contextlib.nullcontext),
+                    ("autograd, relu_tie", on_autograd),
+                    ("autograd, torch.relu", lambda: on_autograd(on_relu)),
+                    ("autograd, relu_tie, plain backward", lambda: on_autograd(on_plain_backward))),
                    lambda: renderer.render(cam))
 
 
@@ -106,7 +125,7 @@ def main() -> None:
     cam = cnr.Camera(**CAMERA)
     renderer = cnr.Renderer(params, cfg)
     frames = frame_variants(renderer, cam)
-    tree_ms, tree_img = frames["relu_tie (tree)"]
+    tree_ms, tree_img = frames[TREE]
     for name, (ms, img) in frames.items():
         print(f"relu_ties frame {SIDE[0]}x{SIDE[1]}, shading normals on {name}: {ms:.3f} ms "
               f"(median of {2 * TIMED_RUNS}, {ms - tree_ms:+.3f} against the tree); differs "

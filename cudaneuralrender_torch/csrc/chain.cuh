@@ -911,8 +911,10 @@ __device__ __forceinline__ void layer_tf32_regs(
 // coordinates to 22 bits and move the SDF by up to 2^-22 of them, as much
 // as the rest of the chain's error. w: layer 0 of the stack in tf32
 // fragment order, whose B pair of n-tile j in lane 4(2t + c) + i/2 holds
-// W[i][8j + 2t + c] and W[i + 1][8j + 2t + c] (i even, pack_mma).
-template <int H>
+// W[i][8j + 2t + c] and W[i + 1][8j + 2t + c] (i even, pack_mma). With
+// kRelu false it writes the pre-activations (the value-and-gradient kernel,
+// csrc/value_grad.cu, reads their signs before its ReLU).
+template <int H, bool kRelu = true>
 __device__ __forceinline__ void first_layer_ffma(const float2* __restrict__ w,
                                                  const float* __restrict__ b, float px, float py,
                                                  float pz, float pf, float (&x)[2][H / 8][4]) {
@@ -943,7 +945,8 @@ __device__ __forceinline__ void first_layer_ffma(const float2* __restrict__ w,
           y = fmaf(v[1], w01.y, y);
           y = fmaf(v[2], w23.x, y);
           y = fmaf(v[3], w23.y, y);
-          x[mt][j][half + 2 * c] = fmaxf(__fadd_rn(y, bias), 0.f);
+          const float pre = __fadd_rn(y, bias);
+          x[mt][j][half + 2 * c] = kRelu ? fmaxf(pre, 0.f) : pre;
         }
     }
 }

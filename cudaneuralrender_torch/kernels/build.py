@@ -4,9 +4,10 @@ The sources under ``cudaneuralrender_torch/csrc/`` compile with ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers). Each ``.cu`` file is one translation unit
 (one per hidden width and chain, FP32 and three-pass, the C entry points of
-the render kernels, the elementwise backward kernels, and the step-cost
-experiment kernels X1-X3 with their entries); they compile in parallel processes, one ``nvcc`` each, and link
-into the library. The build runs at
+the render kernels, the elementwise backward kernels, the shading normals'
+value-and-gradient kernel, and the step-cost experiment kernels X1-X3 with
+their entries); they compile in parallel processes, one ``nvcc`` each, and
+link into the library. The build runs at
 first CUDA use, never at import, into ``cudaneuralrender_torch/build/``
 (listed in .gitignore) under a name keyed by a hash of the sources, headers
 and flags, so a second run reuses it. A missing ``nvcc`` or a failed build
@@ -184,6 +185,16 @@ def load_library() -> ctypes.CDLL:
             _P,                      # stream
         ]
         lib.cnr_relu_tie_backward.restype = _I
+        lib.cnr_mlp_value_grad.argtypes = [
+            _I,                      # device
+            _P, _P,                  # pts, frame ([1] float32, 4-input nets) or NULL
+            _P, _P, _P,              # stack and its transpose (tf32 fragment order), biases
+            _I, _I, _I, _I,          # n_layers, hidden, n_inputs, n
+            _P, _P, _P,              # value, grad (outputs), stream
+        ]
+        lib.cnr_mlp_value_grad.restype = _I
+        lib.cnr_value_grad_smem_bytes.argtypes = [_I, _I]  # hidden, n_layers
+        lib.cnr_value_grad_smem_bytes.restype = ctypes.c_longlong
         lib.cnr_trace_mark.argtypes = [_I, _P, _I, _I, _P]  # device, buffer, slot, end, stream
         lib.cnr_trace_mark.restype = _I
         lib.cnr_error_string.argtypes = [_I]

@@ -31,18 +31,31 @@ Zero padding is exact: padded input features are zero, so weight rows
 beyond a layer's true input width contribute nothing, and the head reads
 only output column 0.
 
-``MLP_LAUNCHES`` counts launches of the forward kernel (plain-version calls
-do not count).
+``mlp_value_grad`` is the render normals' value and input gradient of the
+chain at n points in one pass (``csrc/value_grad.cu``), with its plain
+version ``mlp_value_grad_plain`` (the chain rule written out);
+``neural_sdf_fn_grad_kernel`` wraps it as the SDF of a render's shading
+normals: a ``torch.autograd.Function`` whose backward is one product with
+the gradient the kernel saved. ``packed_mma_t`` is the transposed stack the
+kernel's backward chain reads.
+
+``MLP_LAUNCHES`` counts launches of the forward kernel and
+``MLP_VALUE_GRAD_LAUNCHES`` those of the value-and-gradient kernel
+(plain-version calls do not count).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
+from ..models import mlp
 from ..models.mlp import MLP
-from ..ops.sdf import frame_tensor
+from ..ops.sdf import frame_tensor, with_frame
+from ..utils import trace
 from . import build
+from .elementwise import relu_tie_backward_plain
 
 #: The hidden widths the CUDA kernels are instantiated for. 1024 is the
 #: widest: the JAX package's kernels hold the whole [L, H, H] stack in VMEM,
@@ -52,6 +65,14 @@ KERNEL_WIDTHS = (32, 64, 128, 256, 512, 1024)
 
 #: Launches of the CUDA forward kernel in this process.
 MLP_LAUNCHES = 0
+
+#: The padded hidden widths the value-and-gradient kernel serves
+#: (csrc/value_grad.cu); a render's normals at other widths take the
+#: autograd chain.
+VALUE_GRAD_WIDTHS = (32, 64, 128)
+
+#: Launches of the CUDA value-and-gradient kernel in this process.
+MLP_VALUE_GRAD_LAUNCHES = 0
 
 
 #: The largest batch the plain chains hand cuBLAS in one product.
@@ -101,9 +122,10 @@ def chain_in_blocks(chain, x: torch.Tensor) -> torch.Tensor:
 
 
 def reset_launch_counts() -> None:
-    """Set ``MLP_LAUNCHES`` to 0."""
-    global MLP_LAUNCHES
+    """Set ``MLP_LAUNCHES`` and ``MLP_VALUE_GRAD_LAUNCHES`` to 0."""
+    global MLP_LAUNCHES, MLP_VALUE_GRAD_LAUNCHES
     MLP_LAUNCHES = 0
+    MLP_VALUE_GRAD_LAUNCHES = 0
 
 
 def padded_width(widest: int) -> int:
@@ -210,6 +232,15 @@ def bf16_fragments(part: torch.Tensor) -> torch.Tensor:
 def packed_mma(params: MLP, kind: str) -> torch.Tensor:
     """``pack_mma`` of the packed stack, once per parameter state and kind."""
     return _cached(params, f"_packed_mma_{kind}", lambda p: pack_mma(packed_params(p)[0], kind))
+
+
+def packed_mma_t(params: MLP) -> torch.Tensor:
+    """The packed stack with each layer transposed (W_l^T: rows the layer's
+    outputs, columns its inputs) in "tf32" fragment order, once per
+    parameter state: the B operands of the value-and-gradient kernel's
+    backward chain, g <- g @ W_l^T."""
+    return _cached(params, "_packed_mma_tf32_t",
+                   lambda p: pack_mma(packed_params(p)[0].transpose(1, 2), "tf32"))
 
 
 def mlp_chain_plain(weights: torch.Tensor, biases: torch.Tensor,
@@ -515,10 +546,161 @@ def neural_sdf_fn_kernel(params: MLP, frame=0.0, num_inputs: int = 3):
     packed = packed_mma(params, "tf32") if weights.device.type == "cuda" else None
 
     def fn(p: torch.Tensor) -> torch.Tensor:
-        flat = p.reshape(-1, p.shape[-1])
-        if num_inputs == 4:
-            f = frame_tensor(frame, flat.device).to(flat.dtype).expand(flat.shape[0], 1)
-            flat = torch.cat([flat, f], dim=-1)
+        flat = with_frame(p.reshape(-1, p.shape[-1]), frame, num_inputs)
         return mlp_forward(weights, biases, flat.contiguous(), packed).reshape(p.shape[:-1])
+
+    return fn
+
+
+def mlp_value_grad_plain(weights: torch.Tensor, biases: torch.Tensor,
+                         x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the value-and-gradient kernel, on any device:
+    x [B, n_in] inputs through the padded chain (``mlp_forward_plain``),
+    then the chain rule written out from the head down, g <-
+    (g * H(h_l, 1/2)) @ W_l^T (``relu_tie_backward_plain``: JAX's 1/2 at a
+    pre-activation of exactly 0). Returns (the head [B], its gradient with
+    respect to x [B, n_in])."""
+    n, n_in = x.shape
+    n_layers, h = weights.shape[0], weights.shape[1]
+    xp = torch.zeros((plain_rows(n, h, x.device), h), dtype=torch.float32, device=x.device)
+    xp[:n, :n_in] = x
+
+    def block(a: torch.Tensor) -> torch.Tensor:
+        pre = []
+        for l in range(n_layers - 1):
+            pre.append(a @ weights[l] + biases[l])
+            a = torch.relu(pre[-1])
+        value = (a @ weights[-1] + biases[-1])[:, :1]
+        g = weights[-1][:, 0].expand(a.shape[0], h)
+        for l in range(n_layers - 2, -1, -1):
+            g = relu_tie_backward_plain(g, pre[l]) @ weights[l].T
+        return torch.cat([value, g[:, :n_in]], dim=1)
+
+    out = chain_in_blocks(block, xp)[:n]
+    return out[:, 0], out[:, 1:]
+
+
+def value_grad_served(params: MLP, num_inputs: int) -> bool:
+    """Whether the value-and-gradient kernel takes this net's normals: a
+    net on the card whose parameters need no gradient, with ``num_inputs``
+    (3, or 4 with the frame) inputs, one output, and a padded width in
+    ``VALUE_GRAD_WIDTHS``."""
+    sizes = mlp.layer_sizes(params)
+    widest = max(sizes)
+    return (params.device.type == "cuda" and num_inputs in (3, 4) and sizes[0] == num_inputs
+            and sizes[-1] == 1 and widest <= KERNEL_WIDTHS[-1]
+            and padded_width(widest) in VALUE_GRAD_WIDTHS
+            and not any(p.requires_grad for p in params.parameters()))
+
+
+def _mlp_value_grad_cuda(weights, biases, pts, num_inputs, frame, packed, packed_t):
+    global MLP_VALUE_GRAD_LAUNCHES
+    n_layers, hidden = weights.shape[0], weights.shape[1]
+    if hidden not in VALUE_GRAD_WIDTHS:
+        raise ValueError(f"the value-and-gradient kernel is built for widths "
+                         f"{VALUE_GRAD_WIDTHS}, not {hidden}")
+    if num_inputs not in (3, 4):
+        raise ValueError(f"the value-and-gradient kernel takes 3 or 4 inputs, not {num_inputs}")
+    n = pts.shape[0]
+    dev = pts.device
+    check_tensor("pts", pts, torch.float32, (n, 3), dev)
+    check_tensor("weights", weights, torch.float32, (n_layers, hidden, hidden), dev)
+    check_tensor("biases", biases, torch.float32, (n_layers, hidden), dev)
+    for name, t in (("packed", packed), ("packed_t", packed_t)):
+        check_tensor(name, t, torch.float32, (n_layers, hidden // 8, hidden // 8, 32, 2), dev)
+    frame_ptr = 0
+    if num_inputs == 4:
+        check_tensor("frame", frame, torch.float32, (), dev)
+        frame_ptr = frame.data_ptr()
+    value = torch.empty((n,), dtype=torch.float32, device=dev)
+    grad = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    lib = build.load_library()
+    err = lib.cnr_mlp_value_grad(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        pts.data_ptr(), frame_ptr, packed.data_ptr(), packed_t.data_ptr(), biases.data_ptr(),
+        n_layers, hidden, num_inputs, n, value.data_ptr(), grad.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"value-and-gradient kernel launch failed: "
+                           f"{lib.cnr_error_string(err).decode()} ({err})")
+    MLP_VALUE_GRAD_LAUNCHES += 1
+    return value, grad
+
+
+def mlp_value_grad(weights: torch.Tensor, biases: torch.Tensor, pts: torch.Tensor,
+                   num_inputs: int = 3, frame=None, packed: Optional[torch.Tensor] = None,
+                   packed_t: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chain's head value and its gradient with respect to the points:
+    weights [L, H, H] and biases [L, H] from ``pack_params``, pts [B, 3];
+    ``num_inputs=4`` appends ``frame`` (a [] float32 tensor on the card) as
+    a 4th input, with no gradient. Returns (value [B], grad [B, 3]).
+
+    CPU tensors run ``mlp_value_grad_plain``; CUDA tensors launch the kernel
+    (or raise), which reads ``packed = packed_mma(params, "tf32")`` and
+    ``packed_t = packed_mma_t(params)``. The kernel runs FP32-grade chains
+    (3xTF32 on the tensor cores), not the plain version's cuBLAS order."""
+    if pts.device.type == "cpu":
+        value, grad = mlp_value_grad_plain(weights, biases, with_frame(pts, frame, num_inputs))
+        return value, grad[:, :3]
+    if pts.device.type != "cuda":
+        raise ValueError(f"mlp_value_grad runs on cpu or cuda tensors, not {pts.device}")
+    if packed is None or packed_t is None:
+        raise ValueError("the value-and-gradient kernel reads packed = packed_mma(params, "
+                         "'tf32') and packed_t = packed_mma_t(params)")
+    return _mlp_value_grad_cuda(weights, biases, pts, num_inputs,
+                                frame_tensor(frame, pts.device) if num_inputs == 4 else None,
+                                packed, packed_t)
+
+
+class _ValueGrad(torch.autograd.Function):
+    """An SDF value whose gradient with respect to its points was computed
+    with it: the forward runs ``value_grad`` (points [N, 3] -> (value [N],
+    grad [N, 3])) and saves the gradient; the backward is one product,
+    ``grad_value[:, None] * grad``. It has no second derivative
+    (``once_differentiable`` raises where one is asked for)."""
+
+    @staticmethod
+    def forward(ctx, p, value_grad):
+        value, grad = value_grad(p)
+        ctx.save_for_backward(grad)
+        return value
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_value):
+        (grad,) = ctx.saved_tensors
+        return grad_value[:, None] * grad, None
+
+
+def neural_sdf_fn_grad_kernel(params: MLP, frame=0.0, num_inputs: int = 3):
+    """The SDF of a render's shading normals over (..., 3) points: where the
+    points require a gradient and ``value_grad_served`` holds, the
+    value-and-gradient kernel, as a ``torch.autograd.Function`` whose
+    gradient is the one the kernel computed; elsewhere (CPU tensors, the
+    tetrahedron normals' points, nets the kernel does not serve, parameters
+    that need a gradient) the plain chain ``mlp.apply`` under autograd,
+    ``render.renderer.neural_sdf_fn``'s values. ``num_inputs=4`` appends
+    the frame number as a 4th input.
+
+    Each call adds its points to ``trace.count("normals", kernel_lanes=...,
+    autograd_lanes=...)`` (the kernel's or the plain chain's)."""
+    served = value_grad_served(params, num_inputs)
+    if served:
+        weights, biases, _, _ = packed_params(params)
+        packed, packed_t = packed_mma(params, "tf32"), packed_mma_t(params)
+        frame = frame_tensor(frame, weights.device) if num_inputs == 4 else None
+
+    def value_grad(p: torch.Tensor):
+        return mlp_value_grad(weights, biases, p.contiguous(), num_inputs, frame, packed,
+                              packed_t)
+
+    def fn(p: torch.Tensor) -> torch.Tensor:
+        lanes = p.numel() // 3
+        if served and p.requires_grad and torch.is_grad_enabled():
+            trace.count("normals", kernel_lanes=lanes, autograd_lanes=0)
+            return _ValueGrad.apply(p.reshape(-1, 3), value_grad).reshape(p.shape[:-1])
+        trace.count("normals", kernel_lanes=0, autograd_lanes=lanes)
+        return mlp.apply_scalar(params, with_frame(p, frame, num_inputs))
 
     return fn

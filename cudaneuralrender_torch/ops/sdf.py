@@ -75,6 +75,16 @@ def frame_tensor(frame, device) -> torch.Tensor:
     return torch.full((), float(np.float32(frame)), dtype=torch.float32, device=device)
 
 
+def with_frame(p: torch.Tensor, frame, num_inputs: int) -> torch.Tensor:
+    """A neural SDF's inputs at points ``p`` (..., 3): the points, with the
+    frame number appended as a 4th input where ``num_inputs`` is 4
+    (animation mode, ``frame_tensor``)."""
+    if num_inputs != 4:
+        return p
+    f = frame_tensor(frame, p.device).to(p.dtype).expand(p.shape[:-1] + (1,))
+    return torch.cat([p, f], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Primitives (reference volumeRender_kernel.cu:67-101)
 # ---------------------------------------------------------------------------

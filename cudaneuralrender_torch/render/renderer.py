@@ -41,7 +41,8 @@ continuation) the complete 300-term chain.
 
 ``config.use_pallas`` sends every SDF evaluation that takes no gradient
 outside the march kernel (the dense marches, the continuation) through the
-fused forward kernel (K3); shading normals stay on the plain chain.
+fused forward kernel (K3). Shading normals take the value-and-gradient
+kernel on the card (``shade_fn``) whatever ``use_pallas`` says.
 
 The precision ladder runs as in the JAX package: the coarse kernel pass at
 ``coarse_precision`` ("high", the default: K2h; "default": FP32), the optional
@@ -99,11 +100,7 @@ def neural_sdf_fn(params: MLP, frame, num_inputs: int = 3):
     appends the frame number as a 4th input (animation mode)."""
 
     def fn(p: torch.Tensor) -> torch.Tensor:
-        x = p
-        if num_inputs == 4:
-            f = sdf.frame_tensor(frame, p.device).to(p.dtype).expand(p.shape[:-1] + (1,))
-            x = torch.cat([p, f], dim=-1)
-        return mlp.apply_scalar(params, x)
+        return mlp.apply_scalar(params, sdf.with_frame(p, frame, num_inputs))
 
     return fn
 
@@ -140,13 +137,20 @@ def scene_fn(params: Optional[MLP], config: RenderConfig, frame, *,
 
 
 def shade_fn(params: Optional[MLP], config: RenderConfig, frame):
-    """Scene SDF for a render's shading normals: differentiable (the plain
-    chain), with surface-local composes. Every precision runs in FP32 here,
-    so config.shade_precision selects nothing. A pre-activation of exactly
-    0 gets JAX's gradient 1/2 (``mlp.relu_tie``), through one backward
-    kernel on the card (``elementwise.relu_tie_backward``), as many as
-    ``torch.relu``'s backward takes."""
-    return scene_fn(params, config, frame, for_grad=True, surface_local=True)
+    """Scene SDF for a render's shading normals, with surface-local
+    composes. Its neural field is ``fused_mlp.neural_sdf_fn_grad_kernel``:
+    on the card, for the nets it serves, one kernel gives each point's value
+    and gradient, and autograd takes the neural part's gradient from it (the
+    CSG composes keep autograd over their own ops); elsewhere the plain
+    chain under autograd, ``scene_fn(for_grad=True)``'s. Every precision runs
+    in FP32 here, so config.shade_precision selects nothing. A
+    pre-activation of exactly 0 gets JAX's gradient 1/2 on both paths
+    (``mlp.relu_tie``). Training never shades through here: it
+    differentiates the normals themselves (``scene_fn(for_grad=True)``,
+    ``shading.shade(differentiable=True)``)."""
+    neural = (None if params is None
+              else fused_mlp.neural_sdf_fn_grad_kernel(params, frame, config.num_inputs))
+    return sdf.make_scene(config.scene, neural, frame, cyl_window=config.cyl_window)
 
 
 def _device_of(params: Optional[MLP], device=None) -> torch.device:

@@ -1287,12 +1287,13 @@ def test_zero_bias_tie_pixel_on_card():
     """A render's normals take JAX's tie gradient on the card: the zero-bias
     net (``init_mlp``, seed 3) at Camera() and 16x8, whose pixel (4, 8)
     meets the surface at the origin; the card's ``render_staged`` is finite
-    there, its normals launched ``relu_tie_backward``, and it is within
-    1e-4 of the CPU's frame."""
+    there, its normals launched the value-and-gradient kernel (which keeps
+    the tie's factor 1/2, csrc/value_grad.cu), and it is within 1e-4 of the
+    CPU's frame."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import cudaneuralrender_torch as cnr
-    from cudaneuralrender_torch.kernels import elementwise
+    from cudaneuralrender_torch.kernels import fused_mlp
     from cudaneuralrender_torch.models import mlp
 
     net = mlp.init_mlp(torch.Generator().manual_seed(3), device="cpu")
@@ -1301,8 +1302,185 @@ def test_zero_bias_tie_pixel_on_card():
     want = cnr.render_staged(net, cnr.Camera(), cfg).numpy()
     card = mlp.MLP([(l.w.cuda(), l.b.cuda()) for l in net])
     cnr.reset_schedule_memo()
-    before = elementwise.RELU_TIE_LAUNCHES
+    before = fused_mlp.MLP_VALUE_GRAD_LAUNCHES
     got = cnr.render_staged(card, cnr.Camera(), cfg).cpu().numpy()
-    assert elementwise.RELU_TIE_LAUNCHES > before
+    assert fused_mlp.MLP_VALUE_GRAD_LAUNCHES > before
     assert np.isfinite(got).all() and got[4, 8, 3] == 1.0
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+# The value-and-gradient kernel (csrc/value_grad.cu): each width it serves
+# (csg_demo widened), the 4-input anim_demo and the zero-bias net.
+VG_NETS = {"w32": (32, None), "w64": (64, None), "w128": (128, None),
+           "anim_demo": (32, 37.0), "zero_bias": (32, 0.0)}
+
+
+@pytest.fixture(scope="module")
+def shade_region():
+    """The points a 1080p csg_demo frame's normals hand the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+
+    params = cnr.load(NPZ, device=torch.device("cuda", 0))
+    cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged")
+    return chip_smoke.shade_region(cnr, params, chip_smoke.CAMERA, cfg)
+
+
+@pytest.mark.parametrize("net", list(VG_NETS))
+def test_value_grad_kernel_matches_plain(shade_region, net):
+    """The kernel against its plain version (the chain under autograd) at a
+    1080p csg_demo frame's shade region, at chip_smoke's VG_ bar: the value
+    within 1e-5 of (|plain| + 1); the gradient within 1e-5 of its norm on
+    >= 99.99% of the points and within 1e-3 on all but those at a ReLU's
+    kink (float64), at most 1e-4 of them; the zero-bias net at the origin,
+    where every pre-activation is a tie (factor 1/2); the launch counted."""
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import fused_mlp
+    from cudaneuralrender_torch.models import mlp
+
+    hidden, frame = VG_NETS[net]
+    dev = shade_region.device
+    pts, n_in = shade_region, 3
+    if net == "anim_demo":
+        params, n_in = cnr.load(os.path.join(ASSETS, "anim_demo.npz"), device=dev), 4
+    elif net == "zero_bias":
+        params = mlp.init_mlp(torch.Generator().manual_seed(3), device=dev)
+        pts = torch.zeros(4096, 3, device=dev)
+    else:
+        params = chip_smoke.wide_params(cnr, hidden // 32, dev)
+    before = fused_mlp.MLP_VALUE_GRAD_LAUNCHES
+    r = chip_smoke.value_grad_agreement(params, pts, frame or 0.0, n_in)
+    print(net, r)
+    assert fused_mlp.MLP_VALUE_GRAD_LAUNCHES == before + 1
+    assert not chip_smoke.value_grad_faults(r)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 4099])
+def test_value_grad_kernel_ragged_n(n):
+    """Point counts that end inside a warp, and shallow nets (1 and 2
+    layers), against the plain version at the same bar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(n)
+    pts = (torch.rand(n, 3, generator=gen) * 2 - 1).to(dev)
+    for sizes in ((3, 32, 32, 32, 1), (3, 32, 1), (3, 1)):
+        net = cnr.init_mlp(torch.Generator().manual_seed(1), sizes=sizes, device=dev)
+        with torch.no_grad():
+            for layer in net:
+                layer.b.copy_(torch.randn(layer.b.shape, generator=gen).to(dev) * 0.1)
+        r = chip_smoke.value_grad_agreement(net, pts)
+        assert not chip_smoke.value_grad_faults(r), (sizes, r)
+
+
+def test_value_grad_kernel_on_main_path():
+    """A staged 1080p frame's normals launch the kernel once (the autograd
+    chain's ``relu_tie_backward`` not at all), and ``trace``'s counter
+    under the shade span reads the shaded region's lanes through it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import elementwise, fused_mlp
+    from cudaneuralrender_torch.utils import trace
+
+    params = cnr.load(NPZ, device=torch.device("cuda", 0))
+    cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged")
+    rnd = cnr.Renderer(params, cfg)
+    cam = cnr.Camera(**chip_smoke.CAMERA)
+    rnd.render(cam)
+    vg, tie = fused_mlp.MLP_VALUE_GRAD_LAUNCHES, elementwise.RELU_TIE_LAUNCHES
+    lanes, real = [], fused_mlp.mlp_value_grad
+
+    def recording(weights, biases, pts, *args):
+        lanes.append(pts.shape[0])
+        return real(weights, biases, pts, *args)
+
+    trace.enable()
+    fused_mlp.mlp_value_grad = recording
+    try:
+        trace.reset()
+        rnd.render(cam)
+        counters = trace.snapshot()["counters"]
+    finally:
+        fused_mlp.mlp_value_grad = real
+        trace.disable()
+    assert fused_mlp.MLP_VALUE_GRAD_LAUNCHES == vg + 1
+    assert elementwise.RELU_TIE_LAUNCHES == tie
+    # the shaded region: the first refine bucket, shaded in place
+    assert len(lanes) == 1 and lanes[0] <= cfg.num_rays
+    shade = {k.split("frame/shade/")[-1]: v for k, v in counters.items() if "frame/shade/" in k}
+    assert shade == {"normals.kernel_lanes": lanes[0], "normals.autograd_lanes": 0}
+
+
+def test_value_grad_chunked_sequence_matches_autograd():
+    """``render_sequence(chunk=8)`` over 8 frames through a CUDA graph with
+    the normals on the kernel, against the same frames with the normals on
+    the autograd chain: images equal on >= 99.9% of pixels, the kernel
+    launched in the capture and replayed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.benchmarks import relu_ties
+    from cudaneuralrender_torch.kernels import fused_mlp
+    from cudaneuralrender_torch.render import renderer
+
+    params = cnr.load(NPZ, device=torch.device("cuda", 0))
+    cfg = cnr.RenderConfig(width=640, height=360, march_impl="staged")
+    cams = [cnr.Camera(rotation_x=chip_smoke.CAMERA["rotation_x"],
+                       rotation_y=chip_smoke.CAMERA["rotation_y"] + 3 * i) for i in range(8)]
+    renderer.reset_graphs()
+    cnr.reset_schedule_memo()
+    cnr.render_sequence(params, cams, cfg)  # teaches the memo its caps
+    before = renderer.graph_stats()
+    launches = fused_mlp.MLP_VALUE_GRAD_LAUNCHES
+    got = cnr.render_sequence(params, cams, cfg, chunk=8)
+    got = cnr.render_sequence(params, cams, cfg, chunk=8)
+    after = renderer.graph_stats()
+    assert after["captures"] - before["captures"] == 1
+    assert after["replays"] - before["replays"] == 2
+    assert fused_mlp.MLP_VALUE_GRAD_LAUNCHES > launches  # in the capture's first frame
+    with relu_ties.on_autograd():
+        want = cnr.render_sequence(params, cams, cfg)
+    renderer.reset_graphs()
+    cnr.reset_schedule_memo()
+    pixels, unequal = 0, 0
+    for a, b in zip(got, want):
+        differ = (torch.as_tensor(a) != torch.as_tensor(b)).reshape(cfg.num_rays, -1)
+        pixels += cfg.num_rays
+        unequal += int(differ.any(dim=-1).sum())
+    assert len(got) == len(want) == len(cams)
+    assert unequal <= 1e-3 * pixels, (unequal, pixels)
+
+
+def test_value_grad_kernel_not_on_training_or_tetrahedron():
+    """Differentiable normals (the training path) and tetrahedron normals
+    launch no value-and-gradient kernel: the first differentiates the
+    normals (parameters that need a gradient), the second takes no
+    gradient; both run the plain chain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import fused_mlp
+    from cudaneuralrender_torch.ops import shading
+    from cudaneuralrender_torch.render import renderer
+
+    dev = torch.device("cuda", 0)
+    params = cnr.load(NPZ, device=dev)
+    cfg = cnr.RenderConfig(width=64, height=64)
+    gen = torch.Generator().manual_seed(2)
+    pts = ((torch.rand(1000, 3, generator=gen) * 2 - 1) * 0.5).to(dev)
+    dirs = torch.nn.functional.normalize(torch.randn(1000, 3, generator=gen), dim=1).to(dev)
+    before = fused_mlp.MLP_VALUE_GRAD_LAUNCHES
+    shading.shade(renderer.shade_fn(params, cfg, 0.0), pts, dirs, normal_mode="tetrahedron")
+    params.requires_grad_(True)
+    try:
+        colors = shading.shade(renderer.shade_fn(params, cfg, 0.0), pts, dirs,
+                               differentiable=True)
+        colors.sum().backward()
+    finally:
+        params.requires_grad_(False)
+    assert fused_mlp.MLP_VALUE_GRAD_LAUNCHES == before
+    assert params[0].w.grad is not None and float(params[0].w.grad.abs().sum()) > 0
