@@ -56,10 +56,11 @@ def render_fields(cfg: dict, tr: dict) -> dict:
     return {**cfg["render"], **tr.get("render", {})}
 
 
-def reference_frame(layers, pose: dict, cfg: dict, tr: dict, device, precision="float32",
+def reference_frame(net, pose: dict, cfg: dict, tr: dict, device, precision="float32",
                     tilt: float = 0.0):
+    """The plain reference's frame of the model kind's ``reference_net``."""
     r = render_fields(cfg, tr)
-    return ref.render(layers, pose, scene=tr["scene"], width=int(tr["width"]),
+    return ref.render(net, pose, scene=tr["scene"], width=int(tr["width"]),
                       height=int(tr["height"]), device=device, max_steps=r["max_steps"],
                       march_eps=r["march_eps"], bound_radius=r["bound_radius"],
                       focal=r["focal"], precision=precision, tilt=tilt)
@@ -71,18 +72,18 @@ def as_served(out: dict, levels: int = 0) -> torch.Tensor:
     return torch.stack([grey] * 3 + [out["alpha"]], dim=-1)
 
 
-#: Stand-ins for the program: ``f(layers, pose, cfg, tr, device, out)``
-#: gives served bytes, ``out`` being the reference's own frame.
+#: Stand-ins for the program: ``f(net, pose, cfg, tr, device, out)`` gives
+#: served bytes, ``net`` being the reference net and ``out`` its own frame.
 STAND_INS = {
     # The reference at the precision below the configuration's (TF32 matmuls).
-    "control": lambda layers, pose, cfg, tr, dev, out: as_served(
-        reference_frame(layers, pose, cfg, tr, dev, precision="tf32")),
+    "control": lambda net, pose, cfg, tr, dev, out: as_served(
+        reference_frame(net, pose, cfg, tr, dev, precision="tf32")),
     # Every shade altered where it is produced, by 2 and by 16 levels.
-    "plus2": lambda layers, pose, cfg, tr, dev, out: as_served(out, 2),
-    "plus16": lambda layers, pose, cfg, tr, dev, out: as_served(out, 16),
+    "plus2": lambda net, pose, cfg, tr, dev, out: as_served(out, 2),
+    "plus16": lambda net, pose, cfg, tr, dev, out: as_served(out, 16),
     # Every normal tilted by about 3 degrees.
-    "normal_tilt": lambda layers, pose, cfg, tr, dev, out: as_served(
-        reference_frame(layers, pose, cfg, tr, dev, tilt=TILT)),
+    "normal_tilt": lambda net, pose, cfg, tr, dev, out: as_served(
+        reference_frame(net, pose, cfg, tr, dev, tilt=TILT)),
 }
 
 
@@ -93,15 +94,16 @@ def pooled(per_frame: list, poses: list) -> dict:
     return out
 
 
-def compare(layers, kept, cfg: dict, tr: dict, device, stand_ins=()) -> dict:
+def compare(net, kept, cfg: dict, tr: dict, device, stand_ins=()) -> dict:
     """The readings pooled over ``kept`` [(index, served bytes, pose)] under
-    ``program``, and those of each named stand-in under its name."""
+    ``program`` against the frames of the reference net ``net``, and those
+    of each named stand-in under its name."""
     got = {k: [] for k in ("program", *stand_ins)}
     for _, served, pose in kept:
-        out = reference_frame(layers, pose.as_dict(), cfg, tr, device)
+        out = reference_frame(net, pose.as_dict(), cfg, tr, device)
         got["program"].append(frame_readings(served, out["grey"], out["alpha"]))
         for name in stand_ins:
-            low = STAND_INS[name](layers, pose.as_dict(), cfg, tr, device, out)
+            low = STAND_INS[name](net, pose.as_dict(), cfg, tr, device, out)
             got[name].append(frame_readings(low, out["grey"], out["alpha"]))
     poses = [pose.as_dict() for _, _, pose in kept]
     return {k: pooled(v, poses) for k, v in got.items()}

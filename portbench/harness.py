@@ -13,7 +13,7 @@ import time
 
 import torch
 
-from . import check, spec, traffic, weights, work
+from . import check, spec, traffic, work
 
 
 def fresh_memo() -> None:
@@ -81,8 +81,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, device: str =
 
     cnr.reset_schedule_memo()  # a second run in one process learns afresh too
     dev = torch.device(device)
-    layers = weights.make(cfg, spec.ROOT, seed)
-    params = cnr.from_numpy_params(layers, device=dev)
+    kind = spec.model(cfg)
+    weights = kind.make(cfg, spec.ROOT, seed)
+    params = kind.program(cnr, weights, dev)
     rcfg = render_config(cnr, cfg, tr)
     driver = spec.mix(tr["delivery"]).Driver(cnr, params, rcfg, traffic.poses(tr, seed), tr)
 
@@ -101,7 +102,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, device: str =
         torch.cuda.empty_cache()
 
     t_check = time.perf_counter()
-    readings = check.compare(layers, kept, cfg, tr, device=dev, stand_ins=stand_ins)
+    net = kind.reference_net(weights, dev)
+    readings = check.compare(net, kept, cfg, tr, device=dev, stand_ins=stand_ins)
     check_s = time.perf_counter() - t_check
     limits = wl["limits"]
     checks = {k: dict(value=readings["program"][k], limit=limits[k]) for k in limits}
@@ -115,11 +117,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, device: str =
         poses = sl["poses"][:: max(1, len(sl["poses"]) // int(tr["work_frames"]))]
         poses = poses[: int(tr["work_frames"])]
         run["work"] = work.count_work(
-            layers, poses, scene=tr["scene"], width=int(tr["width"]),
+            net, poses, scene=tr["scene"], width=int(tr["width"]),
             height=int(tr["height"]), render=check.render_fields(cfg, tr),
             stride=int(tr["work_pixel_stride"]), rng=traffic.rng_for(seed, "work"),
             device=dev)
-        run["work"]["flops_per_eval"] = work.flops_per_eval(cfg["layer_sizes"])
+        run["work"].update(flops_per_eval=kind.flops_per_eval(cfg),
+                           bytes_per_eval=kind.bytes_per_eval(cfg))
 
     metrics = {}
     for m in (c["per_layer"] if trace else c["end_to_end"]):
@@ -131,8 +134,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, device: str =
                   metrics=metrics)
     result["device"] = device_info(dev, peak, win["slice"] if trace else None)
     if trace and win["slice"] is not None:
-        result["breakdown"] = dict(device_ops=win["slice"]["device_ops"],
-                                   idle_gaps=win["slice"].get("idle_gaps", []))
+        sl = win["slice"]
+        result["breakdown"] = dict(
+            device_ops=sl["device_ops"], idle_gaps=sl.get("idle_gaps", []),
+            program_idle_gaps=(sl.get("program") or {}).get("idle_gaps"))
     result["window"] = window_summary(win)
     result["check_s"] = check_s
     result["readings"] = readings

@@ -14,7 +14,9 @@ and recording the host's operations slows its enqueue several times over,
 so the slice's busy time and work are set against the unprofiled renderings
 of the same frames (``matched_s``, ``matched_frames``). One reading session
 of each kind: a process's later sessions can return the events of earlier
-ones. A traced window runs on past its seconds until the host batch is done.
+ones. After the host batch, the program's own spans and counters are read
+on the slice's poses (``program.run``) and kept as the slice's ``program``.
+A traced window runs on past its seconds until that is done.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import time
 
 import torch
 
-from .. import traffic, work
+from .. import program, traffic, work
 
 #: Unprofiled renderings of the slice's poses before it is profiled.
 MATCHED = 3
@@ -100,6 +102,8 @@ class Driver:
                                   poses=[p.as_dict() for p in poses])
                 elif slice_ is not None:
                     slice_["idle_gaps"] = ctx.result["idle_gaps"]
+                    slice_["program"] = program.run(
+                        self, [traffic.Pose(**p) for p in slice_["poses"]])
             b += 1
         return dict(start=start, end=last, frames=frames, slice=slice_)
 

@@ -15,8 +15,9 @@ semantics in NumPy) and what a cell's configuration states on top of them:
     (``:266-274``) packs them.
 
 Everything runs in float32 with TF32 off, unless a caller asks for the
-lower-precision control (``precision="tf32"``). It takes the weights and the
-poses as plain arrays and imports nothing of the program under test.
+lower-precision control (``precision="tf32"``). It takes the net's distance
+function (``Net`` for a dense chain; a model kind's ``reference_net``) and
+the poses, and imports nothing of the program under test.
 """
 from __future__ import annotations
 
@@ -35,22 +36,26 @@ TAIL_STEPS = 32
 
 
 @contextlib.contextmanager
-def matmul_precision(precision: str, device: torch.device):
+def matmul_precision(precision: str, device: torch.device, net):
     """FP32 matmuls (``"float32"``, TF32 off) or TF32 ones (``"tf32"``).
 
     On the card TF32 is the tensor cores' own; on the CPU, which has none,
-    each matmul operand is rounded to TF32's 10-bit mantissa (round to
-    nearest) and the product accumulates in float32, as the card does."""
+    ``net.emulate_tf32`` is switched on: each matmul operand is rounded to
+    TF32's 10-bit mantissa (round to nearest) and the product accumulates in
+    float32, as the card does."""
     if precision not in ("float32", "tf32"):
         raise ValueError(f"unknown precision {precision!r}")
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             net.emulate_tf32)
     on = precision == "tf32"
     torch.backends.cuda.matmul.allow_tf32 = on
     torch.backends.cudnn.allow_tf32 = on
+    net.emulate_tf32 = on and device.type != "cuda"
     try:
-        yield on and device.type != "cuda"
+        yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         net.emulate_tf32) = saved
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -130,7 +135,7 @@ def _sphere_offsets(z) -> np.ndarray:
     return np.asarray(out, np.float32)
 
 
-def scene_sdf(net: Net, scene: str, frame: float, device):
+def scene_sdf(net, scene: str, frame: float, device):
     """The scene's distance function over [N, 3] points on ``device``."""
     if scene == "neural_raw":
         return net
@@ -290,20 +295,20 @@ def facing_bytes(sdf, origin, dirs, t, hit, tilt: float = 0.0) -> torch.Tensor:
     return grey
 
 
-def render(layers, pose: dict, *, scene: str, width: int, height: int, device,
+def render(net, pose: dict, *, scene: str, width: int, height: int, device,
            max_steps: int, march_eps: float, bound_radius: float, focal: float,
            precision: str = "float32", pixels: torch.Tensor | None = None,
            tilt: float = 0.0) -> dict:
-    """One frame at ``pose`` (rotation_x, rotation_y, frame), in blocks of rays.
+    """One frame of the distance function ``net`` (a model kind's
+    ``reference_net``) at ``pose`` (rotation_x, rotation_y, frame), in
+    blocks of rays.
 
     ``pixels`` limits it to those flat indices (row 0 = bottom). Returns
     ``grey`` and ``alpha`` (uint8 [N], the bytes of each pixel's r/g/b and
     a) and ``evals`` (int32 [N], SDF evaluations of the march). ``tilt``
     plants a fault in the normals (``facing_bytes``)."""
     dev = torch.device(device)
-    net = Net(layers, dev)
-    with matmul_precision(precision, dev) as emulate:
-        net.emulate_tf32 = emulate
+    with matmul_precision(precision, dev, net):
         sdf = scene_sdf(net, scene, float(pose.get("frame", 0.0)), dev)
         cam = view_matrices(pose["rotation_x"], pose["rotation_y"], device=dev)
         origin = cam[:, 3].contiguous()

@@ -4,7 +4,10 @@
 metrics; each piece is a file of its own under ``portbench/``:
 
   * ``configs/<config>.json``: the net, its weights, its sizes and the
-    configuration's stated render settings;
+    configuration's stated render settings; its ``model`` (absent:
+    ``dense_relu``) names the model kind ``models/<model>.py``, which makes
+    the weights, hands them to the program and to the plain reference, and
+    counts an evaluation's work;
   * ``traffic/<traffic>.json``: the parameters of one traffic mix; its
     ``delivery`` names the driver loop ``mixes/<delivery>.py`` and its
     ``path.kind`` the pose path ``paths/<kind>.py``;
@@ -68,6 +71,23 @@ def reader(metric_name: str):
     """The ``read(run, name)`` function of a metric's family."""
     family = metric_name.split(".", 1)[0]
     return importlib.import_module(f"portbench.metrics.{family}").read
+
+
+#: The model kind of a configuration that names none.
+DEFAULT_MODEL = "dense_relu"
+
+
+def model(config: dict):
+    """The model kind module of a configuration (``portbench/models/``)."""
+    kind = config.get("model", DEFAULT_MODEL)
+    name = f"portbench.models.{kind}"
+    if isinstance(kind, str) and kind.isidentifier():
+        try:
+            return importlib.import_module(name)
+        except ModuleNotFoundError as err:
+            if err.name != name:
+                raise
+    raise ValueError(f"{config.get('name')}: no model kind file portbench/models/{kind}.py")
 
 
 def mix(delivery: str):

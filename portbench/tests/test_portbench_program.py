@@ -8,7 +8,7 @@ Run from the repository root: ``python -m pytest portbench/tests -q``.
 """
 import pytest
 
-from portbench import harness, program, spec, traffic, weights
+from portbench import harness, program, spec, traffic
 from portbench.mixes import pipelined
 
 NAMES = ("phase_ms_per_frame.coarse", "phase_ms_per_frame.refine",
@@ -78,8 +78,8 @@ def test_program_parts_on_the_cpu():
 
     cell = spec.cell(spec.benchmark()["workloads"][0]["name"])
     tr = dict(cell["traffic"], width=64, height=48, batch=2, render={"compact_min": 64})
-    layers = weights.make(cell["config"], spec.ROOT, 2**32 + 5)
-    params = cnr.from_numpy_params(layers, device="cpu")
+    kind = spec.model(cell["config"])
+    params = kind.program(cnr, kind.make(cell["config"], spec.ROOT, 2**32 + 5), "cpu")
     driver = pipelined.Driver(cnr, params, harness.render_config(cnr, cell["config"], tr),
                               traffic.poses(tr, 2**32 + 5), tr)
     prog = program.run(driver, traffic.take(driver.stream, 2))

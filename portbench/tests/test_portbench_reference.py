@@ -1,9 +1,9 @@
 """The yardstick on the CPU: the work count, the widening, the plain
-reference against the frozen NumPy oracle, and the TF32 control.
+reference against the frozen NumPy oracle, and the TF32 control (the
+cells' reference nets through their model kinds, ``portbench/models/``).
 
 Run from the repository root: ``python -m pytest portbench/tests -q``.
 """
-import json
 import os
 
 import numpy as np
@@ -18,15 +18,10 @@ LAYERS = weights.load_npz(os.path.join(spec.ROOT, "examples/assets/csg_demo.npz"
 RENDER = dict(max_steps=6000, march_eps=1e-6, bound_radius=1.2, focal=2.0)
 
 
-def config(name):
-    return json.load(open(os.path.join(spec.ROOT, "portbench/configs", name + ".json")))
-
-
-@pytest.mark.parametrize("name, flops", [("csg_demo", 14592), ("csg_demo_w128", 230400)])
-def test_flops_per_evaluation(name, flops):
-    cfg = config(name)
-    assert work.flops_per_eval(cfg["layer_sizes"]) == flops
-    assert weights.layer_sizes(weights.make(cfg, spec.ROOT, 7)) == cfg["layer_sizes"]
+def reference_net(cell, seed, device):
+    """The cell's reference net, through its configuration's model kind."""
+    kind = spec.model(cell["config"])
+    return kind.reference_net(kind.make(cell["config"], spec.ROOT, seed), device)
 
 
 @pytest.mark.parametrize("seed", [0, 2**31 + 5])
@@ -63,8 +58,8 @@ def test_reference_frame_agrees_with_the_oracle(rx, ry):
     """At 40x24: the same hits; the shading (exact gradient here, the
     oracle's 4-tap finite difference) within a few levels on most pixels."""
     w, h = 40, 24
-    out = ref.render(LAYERS, dict(rotation_x=rx, rotation_y=ry), scene="neural_raw",
-                     width=w, height=h, device="cpu", **RENDER)
+    out = ref.render(ref.Net(LAYERS, "cpu"), dict(rotation_x=rx, rotation_y=ry),
+                     scene="neural_raw", width=w, height=h, device="cpu", **RENDER)
     layers = [type("L", (), dict(w=a, b=b)) for a, b in LAYERS]
     rgba = oracle_np.render(layers, w, h, rotation_x=rx, rotation_y=ry).reshape(-1, 4)
     hit = rgba[:, 3] > 0
@@ -76,12 +71,13 @@ def test_reference_frame_agrees_with_the_oracle(rx, ry):
 
 
 def test_reference_counts_its_evaluations():
-    out = ref.render(LAYERS, dict(rotation_x=0.0, rotation_y=0.0), scene="neural_raw",
+    net = ref.Net(LAYERS, "cpu")
+    out = ref.render(net, dict(rotation_x=0.0, rotation_y=0.0), scene="neural_raw",
                      width=16, height=16, device="cpu", **RENDER)
     evals = out["evals"].numpy()
     assert evals.max() <= RENDER["max_steps"] and evals[out["alpha"].numpy() > 0].min() >= 1
     rng = traffic.rng_for(3, "work")
-    w = work.count_work(LAYERS, [dict(rotation_x=0.0, rotation_y=0.0)], scene="neural_raw",
+    w = work.count_work(net, [dict(rotation_x=0.0, rotation_y=0.0)], scene="neural_raw",
                         width=16, height=16, render=RENDER, stride=1, rng=rng, device="cpu")
     assert w["march_evals"] == pytest.approx(float(evals.sum()))
 
@@ -94,17 +90,17 @@ def test_the_control_fails_the_cells_limit(cell):
     c = spec.cell(cell)
     tr = dict(c["traffic"], width=160, height=90)
     poses = traffic.take(traffic.poses(tr, 11), 2)
-    layers = weights.make(c["config"], spec.ROOT, 11)
+    net = reference_net(c, 11, "cpu")
     kept = []
     for i, pose in enumerate(poses):
-        low = check.reference_frame(layers, pose.as_dict(), c["config"], tr, "cpu", "tf32")
+        low = check.reference_frame(net, pose.as_dict(), c["config"], tr, "cpu", "tf32")
         kept.append((i, torch.stack([low["grey"]] * 3 + [low["alpha"]], dim=-1), pose))
-    readings = check.compare(layers, kept, c["config"], tr, "cpu")["program"]
+    readings = check.compare(net, kept, c["config"], tr, "cpu")["program"]
     limits = c["workload"]["limits"]
     assert any(readings[k] > v for k, v in limits.items()), readings
-    same = check.reference_frame(layers, poses[0].as_dict(), c["config"], tr, "cpu")
+    same = check.reference_frame(net, poses[0].as_dict(), c["config"], tr, "cpu")
     served = torch.stack([same["grey"]] * 3 + [same["alpha"]], dim=-1)
-    again = check.compare(layers, [(0, served, poses[0])], c["config"], tr, "cpu")["program"]
+    again = check.compare(net, [(0, served, poses[0])], c["config"], tr, "cpu")["program"]
     assert all(again[k] == 0 for k in limits)
 
 
@@ -117,12 +113,12 @@ def test_each_planted_fault_fails_the_cells_limits(cell, stand_in):
     c = spec.cell(cell)
     tr = dict(c["traffic"], width=160, height=90)
     poses = traffic.take(traffic.poses(tr, 11), 2)
-    layers = weights.make(c["config"], spec.ROOT, 11)
+    net = reference_net(c, 11, "cpu")
     kept = []
     for i, pose in enumerate(poses):
-        out = check.reference_frame(layers, pose.as_dict(), c["config"], tr, "cpu")
+        out = check.reference_frame(net, pose.as_dict(), c["config"], tr, "cpu")
         kept.append((i, as_image(out), pose))
-    readings = check.compare(layers, kept, c["config"], tr, "cpu", stand_ins=(stand_in,))
+    readings = check.compare(net, kept, c["config"], tr, "cpu", stand_ins=(stand_in,))
     assert readings["program"]["shade_gap_pct"] == 0
     assert any(readings[stand_in][k] > v for k, v in c["workload"]["limits"].items()), \
         readings[stand_in]
@@ -141,9 +137,9 @@ def test_the_control_fails_on_the_card_at_the_cells_size():
     for w in spec.benchmark()["workloads"]:
         c = spec.cell(w["name"])
         pose = next(traffic.poses(c["traffic"], 5))
-        layers = weights.make(c["config"], spec.ROOT, 5)
-        low = check.reference_frame(layers, pose.as_dict(), c["config"], c["traffic"], "cuda",
+        net = reference_net(c, 5, "cuda")
+        low = check.reference_frame(net, pose.as_dict(), c["config"], c["traffic"], "cuda",
                                     "tf32")
         kept = [(0, torch.stack([low["grey"]] * 3 + [low["alpha"]], dim=-1), pose)]
-        readings = check.compare(layers, kept, c["config"], c["traffic"], "cuda")["program"]
+        readings = check.compare(net, kept, c["config"], c["traffic"], "cuda")["program"]
         assert any(readings[k] > v for k, v in c["workload"]["limits"].items()), readings

@@ -111,6 +111,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     for path in py_files(ref):
         names = imported_top_levels(path)
         assert "cudaneuralrender_torch" not in names and "portbench" not in names, path
+    for path in py_files(os.path.join(folder, "models")):  # the program is handed to a kind
+        assert "cudaneuralrender_torch" not in imported_top_levels(path), path
 
 
 @pytest.mark.parametrize("modules, flagged", [
@@ -209,10 +211,13 @@ def test_a_cell_added_as_files_runs_without_an_edit(tmp_path):
         assert list(result)[-1] == "checks"
 
 
-def test_a_traffic_file_passes_call_arguments_and_render_settings(monkeypatch):
+@pytest.mark.parametrize("stand_ins", [(), ("control",)])
+def test_a_traffic_file_passes_call_arguments_and_render_settings(monkeypatch, stand_ins):
     """A traffic's ``call`` reaches ``render_sequence`` as keyword arguments
     and its ``render`` overrides the configuration's render settings, on
-    the program's side and on the reference's."""
+    the program's side and on the reference's; the control stand-in renders
+    the model kind's reference net with its matmuls at TF32 (emulated on
+    the CPU), and only the control does."""
     import cudaneuralrender_torch as cnr
 
     from portbench import check, harness
@@ -225,17 +230,23 @@ def test_a_traffic_file_passes_call_arguments_and_render_settings(monkeypatch):
         return real(params, cams, rcfg, *args, **kw)
 
     monkeypatch.setattr(cnr, "render_sequence", render_sequence)
-    refs = []
+    refs, tf32 = [], []
     real_ref = check.ref.render
-    monkeypatch.setattr(check.ref, "render",
-                        lambda *a, **kw: refs.append(kw["max_steps"]) or real_ref(*a, **kw))
+    monkeypatch.setattr(check.ref, "render", lambda *a, **kw: refs.append(
+        (kw["max_steps"], kw.get("precision", "float32"))) or real_ref(*a, **kw))
+    real_tf32 = check.ref._Tf32Matmul.apply
+    monkeypatch.setattr(check.ref._Tf32Matmul, "apply",
+                        lambda *a: tf32.append(1) or real_tf32(*a))
     cell = BENCH["workloads"][0]["name"]
     result = harness.run_cell(cell, 2**32 + 3, 0.2, False, device="cpu", overrides=dict(
         width=32, height=18, batch=2, warm_batches=1, call={"chunk": 2},
-        render={"max_steps": 5000}))
+        render={"max_steps": 5000}), stand_ins=stand_ins)
     assert result["attempted"] > 0
     assert seen and all(s == (5000, 2) for s in seen)
-    assert refs and all(r == 5000 for r in refs)
+    assert refs and all(r[0] == 5000 for r in refs)
+    control = "control" in stand_ins
+    assert ("tf32" in {r[1] for r in refs}) == control and bool(tf32) == control
+    assert ("control" in result["readings"]) == control
 
 
 def test_a_traced_window_renders_its_slice_past_its_seconds(monkeypatch):

@@ -5,8 +5,10 @@ evaluations a plain sphere trace of the cell's own poses needs (no
 over-relaxation, down to ``march_eps`` from the bounding sphere's entry, at
 most ``max_steps``), on a seeded sample of pixels, plus 4 evaluations a hit
 pixel for the reference's tetrahedron normal (``volumeRender_kernel.cu:
-362-377``). An evaluation costs 2 * sum(fan_in * fan_out) FLOPs over the
-net's layers; the scene's compose arithmetic is left out.
+362-377``). An evaluation costs the configuration's model kind's
+``flops_per_eval`` FLOPs (2 * sum(fan_in * fan_out) for a dense chain) and
+moves its ``bytes_per_eval`` bytes beyond the weights; the scene's compose
+arithmetic is left out.
 """
 from __future__ import annotations
 
@@ -29,11 +31,6 @@ NORMAL_EVALS = 4
 MARCH_KERNELS = ("march_kernel", "march_split_kernel")
 #: The longest idle gaps of a slice that are labelled by the host's activity.
 LABELLED_GAPS = 400
-
-
-def flops_per_eval(layer_sizes) -> int:
-    """2 * sum(fan_in * fan_out) over a dense chain's layers."""
-    return 2 * sum(a * b for a, b in zip(layer_sizes[:-1], layer_sizes[1:]))
 
 
 def power_limit() -> str:
@@ -141,17 +138,18 @@ def read_trace(events, wall_s: float, frames: int) -> dict:
     )
 
 
-def count_work(layers, poses, *, scene: str, width: int, height: int, render: dict,
+def count_work(net, poses, *, scene: str, width: int, height: int, render: dict,
                stride: int, rng, device) -> dict:
-    """The plain reference's evaluations a frame, over a seeded sample of
-    one pixel in ``stride`` of each pose's frame, scaled to the frame."""
+    """The plain reference's evaluations a frame of the reference net
+    ``net``, over a seeded sample of one pixel in ``stride`` of each pose's
+    frame, scaled to the frame."""
     from .reference import render as ref
 
     n = width * height
     evals, hits = [], []
     for pose in poses:
         pixels = torch.as_tensor(np.sort(rng.choice(n, n // stride, replace=False)))
-        out = ref.render(layers, pose, scene=scene, width=width, height=height,
+        out = ref.render(net, pose, scene=scene, width=width, height=height,
                          device=device, max_steps=render["max_steps"],
                          march_eps=render["march_eps"], bound_radius=render["bound_radius"],
                          focal=render["focal"], pixels=pixels)
