@@ -193,7 +193,18 @@ Phases; any failure exits non-zero and nothing is caught:
      bounds; the 4-input anim_demo and the zero-bias net at the origin at
      the same bar; 1080p frames (SIZES' sides) with the normals on the
      kernel and on the autograd chain, timed in turns, their launches and
-     differing pixels. The script's total wall time follows.
+     differing pixels;
+ 17. the hash-grid SDF (models/hash_grid.py, the benchmark's hashgrid_sdf
+     built by its model kind) at 1080p: 8 turntable frames through
+     render_sequence(chunk=8), its graph captured anew with the launch
+     counts at 0 (the encoding's three-pass coarse call, FP32 rungs and
+     ray-per-warp rung, and the encoding kernel, each launched); every
+     march call of a warm frame against the plain version on the same state
+     (the ray-per-warp rung bit for bit; HG_ bar), timed; the encoding
+     kernel's features (bit for bit) and input gradient at the frame's
+     shade region against the plain encoding and its autograd, timed.
+     ``python3 chip_smoke.py hash_grid`` runs phases 1, 2 and 17 alone.
+     The script's total wall time follows.
 The line before the last is a JSON object of the kernels' launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
 """
@@ -4101,6 +4112,251 @@ def drive_value_grad(cnr, nets, anim, launches: int, card) -> list:
     return entries
 
 
+# Phase 17, the hash-grid SDF (models/hash_grid.py): the cell's configuration
+# built by its model kind at HG_SEED, a 1080p frame of it. Bars (the card
+# tests' in tests/test_torch_hash_grid.py): the ray-per-warp rung equals the
+# plain march bit for bit; a call a ray per thread (the chain summed in the
+# tensor cores' order) agrees on HG_MIN_CONV_AGREE of the converged flags
+# and within HG_T_ATOL[precision] on HG_MIN_T_CLOSE of the rays both hit; the
+# encoding kernel's features equal the plain encoding's bit for bit, its
+# gradient autograd's of the plain encoding within HG_GRAD_RTOL of the
+# gradient's norm on HG_GRAD_SHARE of the points and within HG_GRAD_ALL on
+# all (the two sum in other orders, and where a random weighting of the
+# features nearly cancels, the norm is small: my chip call 1, PR 22, read
+# 1.6e-4 at worst over a 1080p frame's 876544 points; both are also held to
+# the float64 encoding and printed). Bounds: an evaluation's or a point's 1024 gathered bytes
+# at HBM's peak (the table sits mostly in L2, so the kernels may pass it).
+HG_CONFIG = os.path.join(ROOT, "portbench", "configs", "hashgrid_sdf.json")
+HG_SEED = 3210000017
+HG_MIN_CONV_AGREE = 0.995
+HG_T_ATOL = {"high": 1e-2, "highest": 1e-4}
+HG_MIN_T_CLOSE = 0.99
+HG_GRAD_RTOL = 1e-5
+HG_GRAD_SHARE = 0.9999
+HG_GRAD_ALL = 1e-3
+HG_SIDE = (1920, 1080)
+HG_POSES = [(-15.0 + 15.0 * (i % 3), 30.0 + 137.50776405003788 * i) for i in range(8)]
+HG_SOURCE = "cudaneuralrender_torch/csrc/hash_grid.cuh"
+HG_REPLACES = "— (no TPU kernel: the JAX package has no hash grid)"
+
+
+def hash_region(cnr, model, cfg) -> torch.Tensor:
+    """The points a staged frame's normals hand the encoding kernel's
+    forward (the last call's)."""
+    from cudaneuralrender_torch.models import hash_grid
+
+    calls, real = [], hash_grid._encode_cuda
+
+    def recording(m, p, grad_features=None):
+        if grad_features is None:
+            calls.append(p.clone())
+        return real(m, p, grad_features)
+
+    hash_grid._encode_cuda = recording
+    try:
+        cnr.Renderer(model, cfg).render(cnr.Camera(**CAMERA))
+    finally:
+        hash_grid._encode_cuda = real
+    if not calls:
+        raise RuntimeError("the frame's normals never reached the hash-grid encoding kernel")
+    return calls[-1]
+
+
+def hash_march_agreement(model, call) -> dict:
+    """A recorded march call of the hash grid through the kernel in the
+    main path's mode against the plain version on the same state, by the
+    phase's bar for that mode; its kernel and plain times and its bound."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    origin, dirs, state, config, frame, kw = call
+    kw = dict(kw, return_resolve=True)
+    precision = kw.get("precision", "highest")
+    lanes = megakernel.ray_lanes(64, precision, kw.get("num_steps"), kw.get("coarse", False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = megakernel.march_state_plain(model, origin, dirs, state, config, frame, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    out = dict(lanes=dirs.shape[0], precision=precision, ray_per_warp=lanes != 1)
+    if lanes != 1:
+        (k, k_steps), _ = split_equal(model, call, plain)
+        out.update(bit_equal=True, max_abs_err=0.0)
+    else:
+        k, k_steps = megakernel.march_state(model, origin, dirs, state, config, frame, **kw)
+        p, _ = plain
+        both = k.converged & p.converged
+        err = (k.t - p.t).abs()[both]
+        out.update(conv_agree=float((k.converged == p.converged).float().mean()),
+                   t_close=float((err <= HG_T_ATOL[precision]).float().mean())
+                   if err.numel() else 1.0,
+                   max_abs_err=float(err.max()) if err.numel() else 0.0,
+                   n_converged=int(both.sum()))
+    out["ms"] = time_cuda(lambda: megakernel.march_state(model, origin, dirs, state, config,
+                                                         frame, **kw), 5, warmup=1)
+    out["plain_ms"] = plain_ms
+    evals = int(torch.where(state.active, k_steps.long() - int(state.steps), 0).sum())
+    out["evals"] = evals
+    out["bound"] = bound(evals * 6464, evals * float(model.gathers_per_eval * 8))
+    return out
+
+
+def hash_march_faults(name: str, a: dict) -> list:
+    if a["ray_per_warp"]:
+        return []
+    faults = []
+    if a["conv_agree"] < HG_MIN_CONV_AGREE:
+        faults.append(f"{name}: converged flags agree on {a['conv_agree']:.5f}")
+    if a["t_close"] < HG_MIN_T_CLOSE:
+        faults.append(f"{name}: t within {HG_T_ATOL[a['precision']]} on {a['t_close']:.5f}")
+    return faults
+
+
+def drive_hash_grid(cnr, card) -> list:
+    """Phase 17, the hash-grid SDF on the main path: the configuration
+    ``hashgrid_sdf`` built by its model kind (``make`` timed), 8 frames of
+    its cell's turntable at 1080p through ``render_sequence(chunk=8)``
+    warmed twice, then its graph captured anew with the launch counts at 0
+    (the three-pass coarse call, the FP32 rungs, the ray-per-warp rung, the
+    encoding kernel: none may be 0); every march call of a warm frame (op by
+    op, the same schedule) held against the plain version on the same state
+    (``hash_march_agreement``); the encoding kernel's forward and input
+    gradient at that frame's shade region against the plain encoding and
+    its autograd. Returns the kernels line's entries."""
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.models import hash_grid
+    from cudaneuralrender_torch.render import renderer as renderer_lib
+    from portbench import check
+    from portbench.models import hash_grid as kind
+
+    with open(HG_CONFIG) as f:
+        config = json.load(f)
+    t0 = time.perf_counter()
+    arrays = kind.make(config, ROOT, HG_SEED)
+    make_s = time.perf_counter() - t0
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = kind.program(cnr, arrays, dev)
+    cfg = cnr.RenderConfig(**check.render_fields(config, {}), width=HG_SIDE[0],
+                           height=HG_SIDE[1], scene="neural_raw").validate()
+    cams = [cnr.Camera(rotation_x=x, rotation_y=y) for x, y in HG_POSES]
+    for _ in range(2):
+        cnr.render_sequence(model, cams, cfg, chunk=8)
+    renderer_lib.reset_graphs()
+    megakernel.reset_launch_counts()
+    hash_grid.ENCODE_LAUNCHES = 0
+    stats = []
+    images = cnr.render_sequence(model, cams, cfg, chunk=8, stats_out=stats)
+    torch.cuda.synchronize()
+    launches = dict(three_pass=megakernel.THREE_PASS_LAUNCHES[64],
+                    fp32=megakernel.PRECISION_LAUNCHES["highest"] - megakernel.SPLIT_LAUNCHES[64],
+                    split=megakernel.SPLIT_LAUNCHES[64], encode=hash_grid.ENCODE_LAUNCHES)
+    fg = [check_image(img, "neural_raw", HG_SIDE[1], HG_SIDE[0]) for img in images]
+    print(f"phase 17 hashgrid_sdf (seed {HG_SEED}): make {make_s:.1f} s; 8 frames 1080p through "
+          f"render_sequence(chunk=8), the graph captured anew: launches {json.dumps(launches)}, "
+          f"foreground {min(fg):.4f}-{max(fg):.4f}, fast path on "
+          f"{sum(bool(s['fast_path']) for s in stats)} of {len(stats)} frames",
+          flush=True)
+    if min(launches.values()) == 0:
+        raise RuntimeError(f"the hash grid's main path left a kernel unlaunched: {launches}")
+
+    cam = cams[1]
+    calls = record_calls(lambda: cnr.render_sequence(model, [cam], cfg))
+    rows, faults = {}, []
+    for i, call in enumerate(calls):
+        name = f"call{i}_{call[1].shape[0]}lanes_steps{call[5].get('num_steps')}"
+        a = hash_march_agreement(model, call)
+        print(f"phase 17 compare 1080p {name}: {json.dumps({k: v for k, v in a.items() if k != 'bound'})}"
+              f"; bound {a['bound']['bound_ms']:.3f} ms ({a['bound']['bound_by']}) [{card}]",
+              flush=True)
+        faults += hash_march_faults(name, a)
+        rows[name] = a
+    if faults:
+        raise RuntimeError("hash-grid march kernels against the plain version: "
+                           + "; ".join(faults))
+    entries = []
+    picks = (("march_kernel_hash_3pass_h64", lambda a: a["precision"] == "high", "three_pass"),
+             ("march_kernel_hash_h64", lambda a: a["precision"] == "highest"
+              and not a["ray_per_warp"], "fp32"),
+             ("march_split_kernel_hash_h64", lambda a: a["ray_per_warp"], "split"))
+    for entry, pick, key in picks:
+        mine = [a for a in rows.values() if pick(a)]
+        if not mine:
+            raise RuntimeError(f"no march call of the warm frame ran {entry}")
+        first = mine[0]
+        entries.append(kernel_entry(entry, K1_SOURCE, HG_REPLACES, launches[key],
+                                    max(a["max_abs_err"] for a in mine), first["ms"],
+                                    first["plain_ms"], first["bound"]))
+
+    region = hash_region(cnr, model, cfg)
+    n = region.shape[0]
+    feats = hash_grid._encode_cuda(model, region)
+    plain_feats = model.features(region)
+    g = torch.randn(n, feats.shape[1], generator=torch.Generator(device=dev).manual_seed(6),
+                    device=dev)
+    got = hash_grid._encode_cuda(model, region, g)
+    q = region.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad((model.features(q) * g).sum(), q)
+    q64 = region.double().requires_grad_(True)
+    feats64 = hash_grid.encode_plain(q64, model.table.double(), model.levels, model.inv_span)
+    (exact,) = torch.autograd.grad((feats64 * g.double()).sum(), q64)
+
+    def rel(a, b):
+        return ((a.double() - b).abs() / (b.norm(dim=1, keepdim=True) + 1e-6)).amax(1)
+
+    err = rel(got, want.double())
+    grad_err, grad_share = float(err.max()), float((err <= HG_GRAD_RTOL).double().mean())
+    to64 = dict(kernel=float(rel(got, exact).max()), plain=float(rel(want, exact).max()))
+    equal = bool(torch.equal(feats, plain_feats))
+    fwd_ms = time_cuda(lambda: hash_grid._encode_cuda(model, region), 10, warmup=2)
+    bwd_ms = time_cuda(lambda: hash_grid._encode_cuda(model, region, g), 10, warmup=2)
+
+    def plain():
+        p = region.clone().requires_grad_(True)
+        torch.autograd.grad((model.features(p) * g).sum(), p)
+
+    plain_ms = time_cuda(plain, 3, warmup=1)
+    bnd = bound(n * 512 / 2, n * float(model.gathers_per_eval * 8))
+    print(f"phase 17 encoding kernel at a 1080p shade region ({n} points): features equal to "
+          f"the plain encoding: {equal}; gradient within {grad_err:.3g} of autograd's (of its "
+          f"norm), within {HG_GRAD_RTOL} on {grad_share:.6f} of the points; worst against the "
+          f"float64 encoding's: kernel {to64['kernel']:.3g}, plain {to64['plain']:.3g}; forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms, plain forward and "
+          f"gradient {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms a pass ({bnd['bound_by']}) "
+          f"[{card}]", flush=True)
+    if not equal or grad_err > HG_GRAD_ALL or grad_share < HG_GRAD_SHARE:
+        raise RuntimeError(f"the encoding kernel against the plain encoding: features equal "
+                           f"{equal}, gradient error {grad_err:.3g} (bar {HG_GRAD_ALL}), within "
+                           f"{HG_GRAD_RTOL} on {grad_share:.6f} (bar {HG_GRAD_SHARE})")
+    entries.append(kernel_entry("hash_encode_kernel", "cudaneuralrender_torch/csrc/hash_grid.cu",
+                                HG_REPLACES, launches["encode"], grad_err, fwd_ms + bwd_ms,
+                                plain_ms, dict(bnd, bound_ms=2 * bnd["bound_ms"])))
+    return entries
+
+
+def hash_grid_only() -> int:
+    """``python3 chip_smoke.py hash_grid``: the card, the build and phase 17
+    alone."""
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import build
+
+    if not torch.cuda.is_available():
+        print("error: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    torch.cuda.set_device(0)
+    card = card_line()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    build.load_library()
+    print(f"build: {time.perf_counter() - t0:.2f} s ({build.library_path()})", flush=True)
+    t17 = time.perf_counter()
+    kernels = drive_hash_grid(cnr, card)
+    print(f"phase 17 (hash grid): {time.perf_counter() - t17:.1f} s wall", flush=True)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     global T_START
     T_START = time.perf_counter()
@@ -4380,6 +4636,11 @@ def main() -> int:
     kernels.extend(drive_value_grad(cnr, nets, anim, vg_launches, card))
     print(f"phase 16 (value-and-gradient kernel): {time.perf_counter() - t16:.1f} s wall",
           flush=True)
+
+    # 17. the hash-grid SDF on the main path
+    t17 = time.perf_counter()
+    kernels.extend(drive_hash_grid(cnr, card))
+    print(f"phase 17 (hash grid): {time.perf_counter() - t17:.1f} s wall", flush=True)
     print(f"chip_smoke total: {time.perf_counter() - T_START:.1f} s wall [{card}]", flush=True)
 
     print(json.dumps({"kernels": kernels}))
@@ -4390,4 +4651,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(hash_grid_only() if sys.argv[1:] == ["hash_grid"] else main())

@@ -1,7 +1,8 @@
 """cudaneuralrender_torch — the PyTorch/CUDA port of cudaneuralrender_tpu.
 
 A neural-SDF sphere-trace renderer for NVIDIA Hopper: load Keras-HDF5 SDF
-networks (3 or 4 inputs, hidden layers up to 1024 wide), march them with a
+networks (3 or 4 inputs, hidden layers up to 1024 wide) or a multiresolution
+hash-grid SDF (``models.hash_grid``, Instant NGP's), march them with a
 hand-written CUDA kernel (csrc/march.cuh), and shade with facing-ratio or
 matcap. ``diff`` trains the network through the renderer (implicit-surface
 pixel gradients, the surface solve on the march kernel, Adam steps);
@@ -22,8 +23,9 @@ Quick start::
 
 __version__ = "0.1.0"
 
-from .models import mlp
+from .models import hash_grid, mlp
 from .models.checkpoint import load, load_keras_h5, load_pytree, save_pytree
+from .models.hash_grid import HashGridSDF, from_numpy_hash_grid
 from .models.mlp import MLP, DenseParams, from_numpy_params, init_mlp
 from .ops import bounds, camera, compaction, march, sdf, shading
 from .ops.bounds import fit_bound_sphere
@@ -45,6 +47,7 @@ from . import diff
 __all__ = [
     "Camera",
     "DenseParams",
+    "HashGridSDF",
     "MLP",
     "RenderConfig",
     "Renderer",
@@ -53,7 +56,9 @@ __all__ = [
     "compaction",
     "diff",
     "fit_bound_sphere",
+    "from_numpy_hash_grid",
     "from_numpy_params",
+    "hash_grid",
     "image_io",
     "init_mlp",
     "load",

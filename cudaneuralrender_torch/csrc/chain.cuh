@@ -187,6 +187,28 @@ __device__ __forceinline__ float dot_in_order(const float (&xs)[H], const float*
   return y;
 }
 
+// The layers from l0 on, from layer l0's inputs x (lane j: j + 32k in x[k]):
+// the hidden layers, then the head value, in every lane.
+template <int H>
+__device__ __forceinline__ float split_layers(const float* sw, const float* sb, float* xrow,
+                                              int l0, int n_layers, float (&x)[H / 32]) {
+  constexpr int K = H / 32;
+  constexpr int S = split_stride(H);
+  const int lane = threadIdx.x & 31;
+  float xs[H];  // the layer's inputs, all of them in every lane
+  for (int l = l0; l < n_layers - 1; ++l) {
+    gather_inputs<H>(x, xrow, xs);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int o = lane + 32 * k;
+      x[k] = fmaxf(__fadd_rn(dot_in_order<H>(xs, sw + (l * H + o) * S), sb[l * H + o]), 0.f);
+    }
+  }
+  gather_inputs<H>(x, xrow, xs);
+  const int head = n_layers - 1;
+  return __fadd_rn(dot_in_order<H>(xs, sw + head * H * S), sb[head * H]);
+}
+
 // The raw head value at one point; sw: the transposed stack, sb: its
 // biases (stage_weights_split), xrow: the warp's row of H floats.
 template <int H>
@@ -218,18 +240,7 @@ __device__ __forceinline__ float split_sdf(const float* sw, const float* sb, flo
     x[k] = fmaxf(__fadd_rn(v, sb[lane + 32 * k]), 0.f);
   }
 
-  float xs[H];  // the layer's inputs, all of them in every lane
-  for (int l = 1; l < n_layers - 1; ++l) {
-    gather_inputs<H>(x, xrow, xs);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int o = lane + 32 * k;
-      x[k] = fmaxf(__fadd_rn(dot_in_order<H>(xs, sw + (l * H + o) * S), sb[l * H + o]), 0.f);
-    }
-  }
-  gather_inputs<H>(x, xrow, xs);
-  const int head = n_layers - 1;
-  return __fadd_rn(dot_in_order<H>(xs, sw + head * H * S), sb[head * H]);
+  return split_layers<H>(sw, sb, xrow, 1, n_layers, x);
 }
 
 // ---------------------------------------------------------------------------
@@ -560,23 +571,16 @@ __device__ __forceinline__ float head_to_ray(const float (&h)[2][1][4]) {
   return lane & 16 ? (upper ? v12 : v10) : (upper ? v02 : v00);
 }
 
-// H = 32, 64: activations in registers, the stack in shared memory.
+// H = 32, 64: every layer from the first layer's input A fragments (hi,
+// lo) of both m-tiles, its first kin k-chunks nonzero; activations in
+// registers, the stack in shared memory.
 template <int H>
-__device__ __forceinline__ float chain_3pass_regs(const uint4* __restrict__ w,
-                                                  const float* __restrict__ b, int n_layers,
-                                                  float px, float py, float pz, float pf) {
+__device__ __forceinline__ float chain_3pass_layers(const uint4* __restrict__ w,
+                                                    const float* __restrict__ b, int n_layers,
+                                                    uint32_t (&ahi)[2][H / 16][4],
+                                                    uint32_t (&alo)[2][H / 16][4], int kin) {
   constexpr int NT = H / 8, KT = H / 16;
   const int lane = threadIdx.x & 31, t = lane & 3;
-  uint32_t ahi[2][KT][4], alo[2][KT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) ahi[mt][kk][c] = alo[mt][kk][c] = 0u;
-    inputs_a(mt, px, py, pz, pf, ahi[mt][0], alo[mt][0]);
-  }
-  int kin = 1;  // k-chunks of the layer's input: the inputs are one
 #pragma unroll 1
   for (int l = 0; l < n_layers - 1; ++l) {
     const uint4* wl = w + l * KT * NT * 32 + lane;
@@ -626,6 +630,24 @@ __device__ __forceinline__ float chain_3pass_regs(const uint4* __restrict__ w,
     }
   }
   return __fadd_rn(head_to_ray(h), b[(n_layers - 1) * H]);
+}
+
+// H = 32, 64: activations in registers, the stack in shared memory.
+template <int H>
+__device__ __forceinline__ float chain_3pass_regs(const uint4* __restrict__ w,
+                                                  const float* __restrict__ b, int n_layers,
+                                                  float px, float py, float pz, float pf) {
+  constexpr int KT = H / 16;
+  uint32_t ahi[2][KT][4], alo[2][KT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ahi[mt][kk][c] = alo[mt][kk][c] = 0u;
+    inputs_a(mt, px, py, pz, pf, ahi[mt][0], alo[mt][0]);
+  }
+  return chain_3pass_layers<H>(w, b, n_layers, ahi, alo, 1);  // the inputs are one k-chunk
 }
 
 // The A fragments (hi, lo) of k-chunk kk from a shared-memory buffer of 16
@@ -876,15 +898,16 @@ __host__ __device__ constexpr int tf32_passes(int h) { return h == 32 ? 4 : 3; }
 
 // acc += x (FP32 values in A-fragment slots, both m-tiles) times the
 // first N of the layer's NT n-tiles (the head: N = 1), kPasses tf32
-// products per weight (mma.cuh mma_tf32_tiles); wl: the layer's stack in
-// tf32 fragment order at this lane's first B pair.
-template <int kPasses, int KT, int NT, int N>
+// products per weight (mma.cuh mma_tf32_tiles), over x's first KIN
+// k-chunks (the rest zero); wl: the layer's stack in tf32 fragment order
+// at this lane's first B pair.
+template <int kPasses, int KT, int NT, int N, int KIN = KT>
 __device__ __forceinline__ void layer_tf32_regs(
     const float (&x)[2][KT][4], const float2* wl,
     float (&acc)[N / reg_group(N)][2][reg_group(N)][4]) {
   constexpr int G = reg_group(N);
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
+  for (int kk = 0; kk < KIN; ++kk) {
     uint32_t abig[2][4], nbig[2][4], asmall[2][4];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -951,15 +974,62 @@ __device__ __forceinline__ void first_layer_ffma(const float2* __restrict__ w,
     }
 }
 
+// Hidden layer l at H = 32, 64 (chain_tf32_regs) on x, the layer's input
+// in A-fragment slots, whose first KIN k-chunks are nonzero; its output,
+// bias and ReLU applied, replaces x in the same slots.
+template <int H, int KIN = H / 8>
+__device__ __forceinline__ void hidden_tf32_regs(const float2* __restrict__ w,
+                                                 const float* __restrict__ b, int l,
+                                                 float (&x)[2][H / 8][4]) {
+  constexpr int NT = H / 8, KT = H / 8, G = reg_group(NT), P = tf32_passes(H);
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  float acc[NT / G][2][G][4];
+#pragma unroll
+  for (int q = 0; q < NT / G; ++q)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int jj = 0; jj < G; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][mt][jj][e] = 0.f;
+  layer_tf32_regs<P, KT, NT, NT, KIN>(x, w + l * KT * NT * 32 + lane, acc);
+  const float* bl = b + l * H;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float2 bias = *reinterpret_cast<const float2*>(bl + 8 * j + 2 * t);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const float(&c)[4] = acc[j / G][mt][j % G];
+      // n-tile j's (c0, c1, c2, c3) are k-chunk j's (a0, a2, a1, a3)
+      x[mt][j][0] = fmaxf(__fadd_rn(c[0], bias.x), 0.f);
+      x[mt][j][2] = fmaxf(__fadd_rn(c[1], bias.y), 0.f);
+      x[mt][j][1] = fmaxf(__fadd_rn(c[2], bias.x), 0.f);
+      x[mt][j][3] = fmaxf(__fadd_rn(c[3], bias.y), 0.f);
+    }
+  }
+}
+
+// The head (the last layer's column 0) at H = 32, 64 on x, its input in
+// A-fragment slots: each ray's raw value, back in its lane.
+template <int H>
+__device__ __forceinline__ float head_tf32_regs(const float2* __restrict__ w,
+                                                const float* __restrict__ b, int n_layers,
+                                                const float (&x)[2][H / 8][4]) {
+  constexpr int NT = H / 8, KT = H / 8, P = tf32_passes(H);
+  const int lane = threadIdx.x & 31;
+  float h[1][2][1][4] = {{{{0.f, 0.f, 0.f, 0.f}}, {{0.f, 0.f, 0.f, 0.f}}}};
+  layer_tf32_regs<P, KT, NT, 1>(x, w + (n_layers - 1) * KT * NT * 32 + lane, h);
+  return __fadd_rn(head_to_ray(h[0]), b[(n_layers - 1) * H]);
+}
+
 // H = 32, 64: activations in registers, the stack (tf32 fragment order)
 // and its biases in shared memory where stage_weights<H> put them.
 template <int H>
 __device__ __forceinline__ float chain_tf32_regs(const float2* __restrict__ w,
                                                  const float* __restrict__ b, int n_layers,
                                                  float px, float py, float pz, float pf) {
-  constexpr int NT = H / 8, KT = H / 8, G = reg_group(NT), P = tf32_passes(H);
+  constexpr int NT = H / 8, KT = H / 8, G = reg_group(NT);
   static_assert(NT % G == 0, "a layer's n-tiles split into groups of kRegTiles");
-  const int lane = threadIdx.x & 31, t = lane & 3;
   if (n_layers == 1) {  // the head is the first layer: column 0, this lane's ray
     const float2 w01 = w[0], w23 = w[1];
     float y = fmaf(px, w01.x, 0.f);
@@ -971,35 +1041,8 @@ __device__ __forceinline__ float chain_tf32_regs(const float2* __restrict__ w,
   float x[2][KT][4];  // the layer's input, k-chunk kk's A-fragment values
   first_layer_ffma<H>(w, b, px, py, pz, pf, x);
 #pragma unroll 1
-  for (int l = 1; l < n_layers - 1; ++l) {
-    float acc[NT / G][2][G][4];
-#pragma unroll
-    for (int q = 0; q < NT / G; ++q)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int jj = 0; jj < G; ++jj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[q][mt][jj][e] = 0.f;
-    layer_tf32_regs<P, KT, NT, NT>(x, w + l * KT * NT * 32 + lane, acc);
-    const float* bl = b + l * H;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float2 bias = *reinterpret_cast<const float2*>(bl + 8 * j + 2 * t);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const float(&c)[4] = acc[j / G][mt][j % G];
-        // n-tile j's (c0, c1, c2, c3) are k-chunk j's (a0, a2, a1, a3)
-        x[mt][j][0] = fmaxf(__fadd_rn(c[0], bias.x), 0.f);
-        x[mt][j][2] = fmaxf(__fadd_rn(c[1], bias.y), 0.f);
-        x[mt][j][1] = fmaxf(__fadd_rn(c[2], bias.x), 0.f);
-        x[mt][j][3] = fmaxf(__fadd_rn(c[3], bias.y), 0.f);
-      }
-    }
-  }
-  float h[1][2][1][4] = {{{{0.f, 0.f, 0.f, 0.f}}, {{0.f, 0.f, 0.f, 0.f}}}};
-  layer_tf32_regs<P, KT, NT, 1>(x, w + (n_layers - 1) * KT * NT * 32 + lane, h);
-  return __fadd_rn(head_to_ray(h[0]), b[(n_layers - 1) * H]);
+  for (int l = 1; l < n_layers - 1; ++l) hidden_tf32_regs<H>(w, b, l, x);
+  return head_tf32_regs<H>(w, b, n_layers, x);
 }
 
 // The tf32 A fragments (big, small) of k-chunk kk from a shared-memory

@@ -1,8 +1,9 @@
 // The launchers of the package's kernels, one explicit instantiation per
 // hidden width and chain (csrc/hidden{H}.cu for the FP32 chain and the
 // forward kernel, csrc/hidden{H}_3pass.cu for the three-pass chain, H = 32,
-// 64, 128, 256, 512 and 1024), called by the C entry points in
-// csrc/march.cu. Each returns a cudaError_t as an int.
+// 64, 128, 256, 512 and 1024; csrc/hidden64_hash.cu and
+// hidden64_3pass_hash.cu for the hash-grid SDF), called by the C entry
+// points in csrc/march.cu. Each returns a cudaError_t as an int.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,6 +39,8 @@ struct MarchArgs {
   int n_layers;
   int n_inputs;
   const float* frame;       // [1] the frame number, in device memory
+  const void* table;        // the hash-grid SDF's table [sum T_l, 2] float32 and
+  const uint32_t* levels;   // its level words (hash_grid.cuh); NULL for a dense chain
   int scene;
   int window;
   int three_pass;
@@ -70,6 +73,11 @@ struct MlpArgs {
 
 template <int H, bool kThreePass>
 int launch_march(const MarchArgs& a, cudaStream_t stream);
+
+// The hash-grid SDF's march (width 64, neural_raw; csrc/hidden64_hash.cu,
+// hidden64_3pass_hash.cu).
+template <bool kThreePass>
+int launch_march_hash(const MarchArgs& a, cudaStream_t stream);
 
 template <int H>
 int launch_mlp_forward(const MlpArgs& a, cudaStream_t stream);

@@ -15,7 +15,9 @@
 // csrc/hidden{H}_3pass.cu; cnr_march also on the mode (ray_lanes: 1 for a
 // ray per thread, 32 for a ray per warp, the FP32 chain at widths 32 and 64
 // only, whose weights are then the FP32 stack [L, H, H]: march.cuh
-// march_split_kernel). Each returns a cudaError_t: a width,
+// march_split_kernel). Given a table and its level words, both march
+// entries run the hash-grid SDF's instantiations (width 64, neural_raw:
+// csrc/hash_grid.cuh). Each returns a cudaError_t: a width,
 // scene, window, input count or mode with no instantiation gives
 // cudaErrorInvalidValue, and a refused launch its own error. Nothing is launched in either case. The
 // experiment kernels X1-X3 have their own entries (csrc/experiments.cu).
@@ -58,6 +60,13 @@ constexpr Launcher<cnr::MlpArgs> kForward[kNumWidths] = {
     cnr::launch_mlp_forward<256>, cnr::launch_mlp_forward<512>, cnr::launch_mlp_forward<1024>};
 
 int dispatch_march(int device, int hidden, const cnr::MarchArgs& a, void* stream) {
+  if (a.table != nullptr) {  // the hash-grid SDF: width 64 only
+    if (hidden != 64) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return a.three_pass ? cnr::launch_march_hash<true>(a, s) : cnr::launch_march_hash<false>(a, s);
+  }
   if (a.three_pass) return dispatch(device, hidden, a, stream, kMarch<true>);
   return dispatch(device, hidden, a, stream, kMarch<false>);
 }
@@ -90,7 +99,8 @@ extern "C" int cnr_march(int device, const float* dirs, const float* origin,
                          const float* t0, const float* budget0,
                          const uint8_t* active0, const int32_t* steps0,
                          const void* weights, const float* biases, int n_layers,
-                         int hidden, int n_inputs, const float* frame, int scene, int window,
+                         int hidden, int n_inputs, const float* frame, const void* table,
+                         const uint32_t* levels, int scene, int window,
                          int three_pass, int ray_lanes, int n, int max_steps, int num_steps,
                          float eps,
                          float omega, float* t_out, float* budget_out,
@@ -109,6 +119,8 @@ extern "C" int cnr_march(int device, const float* dirs, const float* origin,
   a.n_layers = n_layers;
   a.n_inputs = n_inputs;
   a.frame = frame;
+  a.table = table;
+  a.levels = levels;
   a.scene = scene;
   a.window = window;
   a.three_pass = three_pass;
@@ -130,7 +142,8 @@ extern "C" int cnr_march_raygen(int device, const int32_t* pos, const float* c2w
                                 int width, int height, float focal, float bound_cx,
                                 float bound_cy, float bound_cz, float bound_r2,
                                 const void* weights, const float* biases, int n_layers, int hidden,
-                                int n_inputs, const float* frame, int scene, int window,
+                                int n_inputs, const float* frame, const void* table,
+                                const uint32_t* levels, int scene, int window,
                                 int three_pass, int n, int max_steps, float eps,
                                 float omega, float* t_out, float* budget_out,
                                 uint8_t* active_out, uint8_t* conv_out,
@@ -152,6 +165,8 @@ extern "C" int cnr_march_raygen(int device, const int32_t* pos, const float* c2w
   a.n_layers = n_layers;
   a.n_inputs = n_inputs;
   a.frame = frame;
+  a.table = table;
+  a.levels = levels;
   a.scene = scene;
   a.window = window;
   a.three_pass = three_pass;

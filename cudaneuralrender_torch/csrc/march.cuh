@@ -82,6 +82,7 @@
 #include <stdint.h>
 
 #include "chain.cuh"
+#include "hash_grid.cuh"
 #include "launch.h"
 
 namespace cnr {
@@ -277,13 +278,18 @@ __device__ __forceinline__ void march_step(float px, float py, float pz, float r
   if (!act) res = step;
 }
 
+// The chain's input stage E (hash_grid.cuh Inputs) is a template parameter
+// too: the point itself (kRawInputs), or its hash encoding (kHashInputs:
+// the hash-grid SDF, width 64, neural_raw only; table and levels are read
+// only there, csrc/hidden64_hash.cu and hidden64_3pass_hash.cu).
+//
 // The chain runs for the 32 rays of a warp together (chain_sdf_mma,
 // chain_sdf_tf32), so the loop is warp-uniform: it runs while any lane's
 // ray marches, and a lane whose ray is done, or that has no ray (r >= n),
 // stays in it inactive, passing a finite point. SIMT ran a warp until its
 // slowest ray already, so this adds no steps; a lane's own step count and
 // state are those of a per-ray loop.
-template <int H, int S, int W, bool kThreePass>
+template <int H, int S, int W, bool kThreePass, int E = kRawInputs>
 __global__ void __launch_bounds__(march_block(H))
 march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
              const float* __restrict__ t0, const float* __restrict__ budget0,
@@ -295,7 +301,8 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
              const float* __restrict__ frame_ptr, int n, int max_steps, int num_steps, float eps,
              float omega, float* __restrict__ t_out,
              float* __restrict__ budget_out, uint8_t* __restrict__ active_out,
-             uint8_t* __restrict__ conv_out, int32_t* __restrict__ steps_out) {
+             uint8_t* __restrict__ conv_out, int32_t* __restrict__ steps_out,
+             const float2* __restrict__ table, const uint32_t* __restrict__ levels) {
   const uint4* sw3 = nullptr;   // the three-pass stack, bf16 fragment order
   const float2* swt = nullptr;  // the FP32 stack, tf32 fragment order
   const float* sb = biases;
@@ -354,7 +361,11 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
     const float py = __fmaf_rn(dy, t, oy);
     const float pz = __fmaf_rn(dz, t, oz);
     float raw;
-    if constexpr (kThreePass)
+    if constexpr (E == kHashInputs && kThreePass)
+      raw = chain_hash_3pass<H>(sw3, sb, n_layers, table, levels, px, py, pz);
+    else if constexpr (E == kHashInputs)
+      raw = chain_hash_tf32<H>(swt, sb, n_layers, table, levels, px, py, pz);
+    else if constexpr (kThreePass)
       raw = chain_sdf_mma<H>(sw3, sb, n_layers, n_inputs, px, py, pz, frame,
                              reinterpret_cast<uint2*>(buf));
     else
@@ -409,7 +420,7 @@ march_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
 constexpr int kSplitLanes = 32;
 constexpr int kSplitBlock = 32 * kSplitRays;
 
-template <int H, int S, int W>
+template <int H, int S, int W, int E = kRawInputs>
 __global__ void __launch_bounds__(kSplitBlock, 1)
 march_split_kernel(const float* __restrict__ dirs, const float* __restrict__ origin,
                    const float* __restrict__ t0, const float* __restrict__ budget0,
@@ -419,7 +430,8 @@ march_split_kernel(const float* __restrict__ dirs, const float* __restrict__ ori
                    int max_steps, int num_steps,
                    float eps, float omega, float* __restrict__ t_out,
                    float* __restrict__ budget_out, uint8_t* __restrict__ active_out,
-                   uint8_t* __restrict__ conv_out, int32_t* __restrict__ steps_out) {
+                   uint8_t* __restrict__ conv_out, int32_t* __restrict__ steps_out,
+                   const float2* __restrict__ table, const uint32_t* __restrict__ levels) {
   const int r0 = blockIdx.x * kSplitRays;
   const int start = *steps0;
   bool entry_act = false;  // thread k < kSplitRays: ray r0 + k's flag
@@ -458,7 +470,11 @@ march_split_kernel(const float* __restrict__ dirs, const float* __restrict__ ori
     const float px = __fmaf_rn(dx, t, ox);
     const float py = __fmaf_rn(dy, t, oy);
     const float pz = __fmaf_rn(dz, t, oz);
-    const float raw = split_sdf<H>(sw, sb, xrow, n_layers, n_inputs, px, py, pz, frame);
+    float raw;
+    if constexpr (E == kHashInputs)
+      raw = split_hash_sdf<H>(sw, sb, xrow, n_layers, table, levels, px, py, pz);
+    else
+      raw = split_sdf<H>(sw, sb, xrow, n_layers, n_inputs, px, py, pz, frame);
     march_step<S, W>(px, py, pz, raw, frame, relax, eps, omega, t, budget, prev_r, step_len,
                      conv, act, step, res);
   }
@@ -478,11 +494,12 @@ using MarchKernel = void (*)(const float*, const float*, const float*, const flo
                              const uint8_t*, const int32_t*, const int32_t*, const float*, int,
                              int, float, float, float, float, float, const void*, const float*,
                              int, int, const float*, int, int, int, float, float, float*,
-                             float*, uint8_t*, uint8_t*, int32_t*);
+                             float*, uint8_t*, uint8_t*, int32_t*, const float2*,
+                             const uint32_t*);
 using SplitKernel = void (*)(const float*, const float*, const float*, const float*,
                              const uint8_t*, const int32_t*, const float*, const float*, int,
                              int, const float*, int, int, int, float, float, float*, float*, uint8_t*,
-                             uint8_t*, int32_t*);
+                             uint8_t*, int32_t*, const float2*, const uint32_t*);
 
 // The ray-split instantiation for a scene id and cylinder window, or nullptr.
 template <int H>
@@ -503,8 +520,7 @@ SplitKernel pick_split_kernel(int scene, int window) {
 }
 
 template <int H>
-int launch_march_split(const MarchArgs& a, cudaStream_t stream) {
-  const SplitKernel kernel = pick_split_kernel<H>(a.scene, a.window);
+int launch_split_kernel(SplitKernel kernel, const MarchArgs& a, cudaStream_t stream) {
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = split_smem_bytes(H, a.n_layers);
   const cudaError_t err = allow_smem(kernel, smem);
@@ -514,7 +530,7 @@ int launch_march_split(const MarchArgs& a, cudaStream_t stream) {
       a.dirs, a.origin, a.t0, a.budget0, a.active0, a.steps0,
       static_cast<const float*>(a.weights), a.biases, a.n_layers, a.n_inputs, a.frame, a.n,
       a.max_steps, a.num_steps, a.eps, a.omega, a.t_out, a.budget_out, a.active_out,
-      a.conv_out, a.steps_out);
+      a.conv_out, a.steps_out, static_cast<const float2*>(a.table), a.levels);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -537,21 +553,20 @@ MarchKernel pick_kernel(int scene, int window) {
   }
 }
 
-template <int H, bool kThreePass>
-int launch_march(const MarchArgs& a, cudaStream_t stream) {
-  const MarchKernel kernel = pick_kernel<H, kThreePass>(a.scene, a.window);
+// A launch of the ray-per-thread kernel, or of the ray-split kernel the
+// args' mode asks for (split: nullptr where the chain has none).
+template <int H>
+int launch_march_kernel(MarchKernel kernel, SplitKernel split_kernel, bool splittable,
+                        const MarchArgs& a, cudaStream_t stream) {
   const bool state_given = a.pos != nullptr || a.steps0 != nullptr;
   if (kernel == nullptr || !state_given || a.n_layers < 1 || a.n_inputs < 1 || a.n_inputs > 4)
     return static_cast<int>(cudaErrorInvalidValue);
   // The ray-split mode: the FP32 chain at 32 and 64, continue mode only.
-  constexpr bool kSplittable = !kThreePass && H <= 64;
   const bool split = a.ray_lanes == kSplitLanes;
-  if ((!split && a.ray_lanes != 1) || (split && (!kSplittable || a.pos != nullptr)))
+  if ((!split && a.ray_lanes != 1) || (split && (!splittable || a.pos != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n <= 0) return 0;
-  if constexpr (kSplittable) {
-    if (split) return launch_march_split<H>(a, stream);
-  }
+  if (split) return launch_split_kernel<H>(split_kernel, a, stream);
   const size_t smem = march_smem_bytes(H, a.n_layers);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -561,8 +576,31 @@ int launch_march(const MarchArgs& a, cudaStream_t stream) {
       a.dirs, a.origin, a.t0, a.budget0, a.active0, a.steps0, a.pos, a.c2w, a.width, a.height,
       a.focal, a.bound_cx, a.bound_cy, a.bound_cz, a.bound_r2, a.weights, a.biases, a.n_layers,
       a.n_inputs, a.frame, a.n, a.max_steps, a.num_steps, a.eps, a.omega, a.t_out,
-      a.budget_out, a.active_out, a.conv_out, a.steps_out);
+      a.budget_out, a.active_out, a.conv_out, a.steps_out, static_cast<const float2*>(a.table),
+      a.levels);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int H, bool kThreePass>
+int launch_march(const MarchArgs& a, cudaStream_t stream) {
+  // The ray-split mode: the FP32 chain at 32 and 64.
+  constexpr bool kSplittable = !kThreePass && H <= 64;
+  SplitKernel split = nullptr;
+  if constexpr (kSplittable) split = pick_split_kernel<H>(a.scene, a.window);
+  return launch_march_kernel<H>(pick_kernel<H, kThreePass>(a.scene, a.window), split,
+                                kSplittable, a, stream);
+}
+
+// The hash-grid SDF's instantiations: width 64, neural_raw, the encoding as
+// the chain's input stage (csrc/hidden64_hash.cu, hidden64_3pass_hash.cu).
+template <bool kThreePass>
+int launch_march_hash(const MarchArgs& a, cudaStream_t stream) {
+  if (a.scene != kNeuralRaw || a.table == nullptr || a.levels == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SplitKernel split = nullptr;
+  if constexpr (!kThreePass) split = march_split_kernel<64, kNeuralRaw, 0, kHashInputs>;
+  return launch_march_kernel<64>(march_kernel<64, kNeuralRaw, 0, kThreePass, kHashInputs>,
+                                 split, !kThreePass, a, stream);
 }
 
 }  // namespace cnr

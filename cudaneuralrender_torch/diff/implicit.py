@@ -91,6 +91,7 @@ def render_depth_diff(
     omitted the dense march runs here."""
     if (t_star is None) != (hit is None):
         raise ValueError("pass both t_star and hit, or neither")
+    params.require_dense("differentiable rendering")
     _require_fp32_matmul()
     origin, dirs, _ = _rays(params, camera, config)
     f = scene_fn(params, config, frame, for_grad=True)
@@ -118,6 +119,7 @@ def render_image_diff(
     without them the dense march runs here, gradient-severed."""
     if (t_star is None) != (hit is None):
         raise ValueError("pass both t_star and hit, or neither")
+    params.require_dense("differentiable rendering")
     _require_fp32_matmul()
     origin, dirs, world_to_cam = _rays(params, camera, config)
     f = scene_fn(params, config, frame, for_grad=True)

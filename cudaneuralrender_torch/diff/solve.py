@@ -97,6 +97,7 @@ def solve_surface_async(params, camera: Camera, config: RenderConfig, frame: flo
     fetches the stats and returns True iff the fast path sufficed. If it
     returns False the caller discards the downstream results and redoes
     the work through the synchronous ``solve_surface``."""
+    params.require_dense("the training surface solve")
     frame = float(frame)
     config = renderer_lib.memo_lookup(params, config)
     t, hit, stats = _solve_scheduled(params, camera, config, frame)
@@ -112,6 +113,7 @@ def solve_surface(params, camera: Camera, config: RenderConfig, frame: float = 0
     teaches the schedule memo); a schedule that leaves budgeted rays
     unresolved, or a step-starved "full"-precision truncation, falls back
     to the dense exact march."""
+    params.require_dense("the training surface solve")
     frame = float(frame)
     orig_config = config
     config = renderer_lib.memo_lookup(params, config)
@@ -169,6 +171,7 @@ def solve_surface_packed_async(params, camera: Camera, config: RenderConfig,
     conv, within, check), where ``within`` bounds the prefix that holds
     every converged lane (None when the bundle gives no bound; callers then
     use the image-order path). Same deferred-check contract."""
+    params.require_dense("the training surface solve")
     frame = float(frame)
     config = renderer_lib.memo_lookup(params, config)
     pos, t, conv, stats = _solve_scheduled_packed(params, camera, config, frame)

@@ -98,6 +98,7 @@ def make_optimizer(lr: float = 1e-3) -> Adam:
 
 def init_train_state(params: MLP, lr: float = 1e-3) -> TrainState:
     """A state at step 0 over ``params``' tensors (shared, never written)."""
+    params.require_dense("training")
     params = _trainable(params)
     return TrainState(params, make_optimizer(lr).init(params),
                       torch.zeros((), dtype=torch.int32, device=params.device))

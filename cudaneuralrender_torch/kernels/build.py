@@ -5,8 +5,9 @@ The sources under ``cudaneuralrender_torch/csrc/`` compile with ``nvcc`` for
 ``ctypes`` (no PyTorch headers). Each ``.cu`` file is one translation unit
 (one per hidden width and chain, FP32 and three-pass, the C entry points of
 the render kernels, the elementwise backward kernels, the shading normals'
-value-and-gradient kernel, and the step-cost experiment kernels X1-X3 with
-their entries); they compile in parallel processes, one ``nvcc`` each, and
+value-and-gradient kernel, the hash-grid encoding kernel and its march
+instantiations, and the step-cost experiment kernels X1-X3 with their
+entries); they compile in parallel processes, one ``nvcc`` each, and
 link into the library. The build runs at
 first CUDA use, never at import, into ``cudaneuralrender_torch/build/``
 (listed in .gitignore) under a name keyed by a hash of the sources, headers
@@ -125,6 +126,7 @@ def load_library() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _P,  # dirs, origin, t0, budget0, active0, steps0
             _P, _P,                  # weights (FP32, or bf16 fragment-ordered), biases
             _I, _I, _I, _P,          # n_layers, hidden, n_inputs, frame ([1] float32)
+            _P, _P,                  # hash-grid table, level words (NULL: a dense chain)
             _I, _I, _I, _I,          # scene id, cylinder window, three_pass, ray_lanes
             _I, _I, _I, _F, _F,      # n, max_steps, num_steps, eps, omega
             _P, _P, _P, _P, _P,      # t, budget, active, conv, steps (outputs)
@@ -138,6 +140,7 @@ def load_library() -> ctypes.CDLL:
             _F, _F, _F, _F,          # bounding sphere center x, y, z, radius squared
             _P, _P,                  # weights (FP32, or bf16 fragment-ordered), biases
             _I, _I, _I, _P,          # n_layers, hidden, n_inputs, frame ([1] float32)
+            _P, _P,                  # hash-grid table, level words (NULL: a dense chain)
             _I, _I, _I,              # scene id, cylinder window, three_pass
             _I, _I, _F, _F,          # n, max_steps, eps, omega
             _P, _P, _P, _P, _P,      # t, budget, active, conv, steps (outputs)
@@ -193,6 +196,13 @@ def load_library() -> ctypes.CDLL:
             _P, _P, _P,              # value, grad (outputs), stream
         ]
         lib.cnr_mlp_value_grad.restype = _I
+        lib.cnr_hash_encode.argtypes = [
+            _I,                      # device
+            _P, _P, _P,              # points, table, level words
+            _P, _I,                  # the features' gradient (NULL: the forward), n
+            _P, _P,                  # features or the points' gradient (output), stream
+        ]
+        lib.cnr_hash_encode.restype = _I
         lib.cnr_value_grad_smem_bytes.argtypes = [_I, _I]  # hidden, n_layers
         lib.cnr_value_grad_smem_bytes.restype = ctypes.c_longlong
         lib.cnr_trace_mark.argtypes = [_I, _P, _I, _I, _P]  # device, buffer, slot, end, stream

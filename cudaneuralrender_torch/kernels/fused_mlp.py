@@ -581,10 +581,12 @@ def mlp_value_grad_plain(weights: torch.Tensor, biases: torch.Tensor,
 
 
 def value_grad_served(params: MLP, num_inputs: int) -> bool:
-    """Whether the value-and-gradient kernel takes this net's normals: a
-    net on the card whose parameters need no gradient, with ``num_inputs``
+    """Whether the value-and-gradient kernel takes this net's normals: an
+    ``MLP`` on the card whose parameters need no gradient, with ``num_inputs``
     (3, or 4 with the frame) inputs, one output, and a padded width in
     ``VALUE_GRAD_WIDTHS``."""
+    if params.chain is not params:  # a model with an input stage shades through its own
+        return False
     sizes = mlp.layer_sizes(params)
     widest = max(sizes)
     return (params.device.type == "cuda" and num_inputs in (3, 4) and sizes[0] == num_inputs

@@ -39,7 +39,13 @@ rays at every width (``tensor_core_chain``), in their own order
 
 The kernel marches nets of every width of ``fused_mlp.KERNEL_WIDTHS``
 (32, 64, 128, 256, 512, 1024), the net padded to the smallest that holds
-it; the plain version marches any width ``pack_params`` accepts.
+it; the plain version marches any width ``pack_params`` accepts. A
+``models.hash_grid.HashGridSDF`` marches through the same kernels with its
+encoding as the chain's input stage (its MLP at width 64, ``neural_raw``
+only: ``csrc/hash_grid.cuh``). A model gives the kernels its ``chain``, its
+``grid()`` (the encoding's table, or none) and ``plain_inputs`` (the plain
+version's chain inputs); each call counts its table gathers
+(``gathers_per_eval``).
 
 At widths 32 and 64 the FP32 chain marches in one of two modes, chosen
 per launch by ``ray_lanes`` from the call's place in the staged march
@@ -188,6 +194,14 @@ def _check_ray_lanes(value: int, hidden: int, precision: str) -> None:
                          f"not width {hidden} at precision {precision!r}")
 
 
+def _check_inputs(params, config: RenderConfig) -> None:
+    """Raise unless the model renders ``config`` and takes its inputs."""
+    params.check_render(config)
+    if params.num_inputs != config.num_inputs:
+        raise ValueError(f"model has {params.num_inputs} inputs but "
+                         f"config.num_inputs={config.num_inputs}")
+
+
 def _check_precision(precision: str) -> None:
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, not {precision!r}")
@@ -250,10 +264,9 @@ def march_state_plain(
     _check_precision(precision)
     frame = float(frame)  # a [] tensor on the card is read here: the plain version syncs anyway
     compose = _compose(config, cyl_window)
-    _, _, n_in, hidden = packed_params(params)
-    if n_in != config.num_inputs:
-        raise ValueError(f"model has {n_in} inputs but config.num_inputs={config.num_inputs}")
-    chain = _chain_plain(params, precision) if chain is None else chain
+    _, _, n_in, hidden = packed_params(params.chain)
+    _check_inputs(params, config)
+    chain = _chain_plain(params.chain, precision) if chain is None else chain
     eps = config.march_eps if march_eps is None else march_eps
     relax = bool(relax_omega and relax_omega > 1.0)
     start = int(state.steps)
@@ -279,7 +292,8 @@ def march_state_plain(
         # march beside it (fused_mlp.plain_rows).
         x = torch.zeros((plain_rows(idx.numel(), hidden, t.device), hidden), dtype=torch.float32,
                         device=t.device)
-        x[:idx.numel(), :3] = pts
+        inputs = params.plain_inputs(pts)
+        x[:idx.numel(), :inputs.shape[1]] = inputs
         if n_in == 4:
             x[:, 3] = frame
         d = chain_in_blocks(chain, x)[:idx.numel(), 0]
@@ -326,19 +340,19 @@ def _kernel_weights(params: MLP, config: RenderConfig, precision: str, dev, lane
     fragment order (``packed_mma(params, "bf16")``); else, a ray per thread,
     the FP32 values in tf32 fragment order (``packed_mma(params, "tf32")``),
     and a ray per warp the FP32 stack [L, H, H]; biases [L, H] float32."""
-    weights, biases, n_in, hidden = packed_params(params)
+    chain = params.chain
+    weights, biases, _, hidden = packed_params(chain)
     if hidden not in KERNEL_WIDTHS:
         raise ValueError(f"the march kernel is built for widths {KERNEL_WIDTHS}, "
                          f"not {hidden}")
-    if n_in != config.num_inputs:
-        raise ValueError(f"model has {n_in} inputs but config.num_inputs={config.num_inputs}")
-    n_layers = len(params)
+    _check_inputs(params, config)
+    n_layers = len(chain)
     if precision == "high":
-        weights = packed_mma(params, "bf16")
+        weights = packed_mma(chain, "bf16")
         check_tensor("weights", weights, torch.bfloat16,
                      (n_layers, hidden // 16, hidden // 8, 32, 8), dev)
     elif tensor_core_chain(hidden, precision, lanes):
-        weights = packed_mma(params, "tf32")
+        weights = packed_mma(chain, "tf32")
         check_tensor("weights", weights, torch.float32,
                      (n_layers, hidden // 8, hidden // 8, 32, 2), dev)
     else:
@@ -349,6 +363,13 @@ def _kernel_weights(params: MLP, config: RenderConfig, precision: str, dev, lane
 
 def _device_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _grid_args(params):
+    """The encoding's table and level words a launch passes (NULL for a
+    model without one, whose chain reads the point)."""
+    grid = params.grid()
+    return (None, None) if grid is None else (grid[0].data_ptr(), grid[1].data_ptr())
 
 
 def _outputs(n: int, dev):
@@ -376,7 +397,7 @@ def _march_state_cuda(
     dev = dirs.device
     n = dirs.shape[0]
     if lanes is None:
-        lanes = ray_lanes(packed_params(params)[3], precision, num_steps, coarse)
+        lanes = ray_lanes(packed_params(params.chain)[3], precision, num_steps, coarse)
     weights, biases, n_layers, hidden = _kernel_weights(params, config, precision, dev, lanes)
     check_tensor("dirs", dirs, torch.float32, (n, 3), dev)
     check_tensor("origin", origin, torch.float32, (3,), dev)
@@ -396,7 +417,8 @@ def _march_state_cuda(
         dirs.data_ptr(), origin.data_ptr(), state.t.data_ptr(),
         state.budget.data_ptr(), state.active.data_ptr(), state.steps.data_ptr(),
         weights.data_ptr(), biases.data_ptr(), n_layers, hidden, config.num_inputs,
-        frame_t.data_ptr(), scene_id, window, int(precision == "high"), lanes,
+        frame_t.data_ptr(), *_grid_args(params), scene_id, window, int(precision == "high"),
+        lanes,
         n, config.max_steps, -1 if num_steps is None else int(num_steps),
         float(eps), omega,
         t.data_ptr(), budget.data_ptr(), active.data_ptr(), conv.data_ptr(),
@@ -445,7 +467,7 @@ def march_state(
     """
     _check_precision(precision)
     if _ray_lanes is not None:
-        _check_ray_lanes(_ray_lanes, packed_params(params)[3], precision)
+        _check_ray_lanes(_ray_lanes, packed_params(params.chain)[3], precision)
     if dirs.device.type == "cpu":
         out, lane_steps = march_state_plain(
             params, origin, dirs, state, config, frame, march_eps=march_eps,
@@ -459,18 +481,22 @@ def march_state(
         raise ValueError(f"march_state runs on cpu or cuda tensors, not {dirs.device}")
     if trace.enabled():
         # The kernel's mode, on the CPU too: the count is the launch's.
-        lanes = _ray_lanes or ray_lanes(packed_params(params)[3], precision, num_steps, coarse)
-        _count_march(state, lane_steps, lanes)
+        lanes = _ray_lanes or ray_lanes(packed_params(params.chain)[3], precision, num_steps,
+                                        coarse)
+        _count_march(state, lane_steps, lanes, params.gathers_per_eval)
     return (out, lane_steps) if return_resolve else out
 
 
-def _count_march(state: march_lib.MarchState, lane_steps: torch.Tensor, lanes: int) -> None:
+def _count_march(state: march_lib.MarchState, lane_steps: torch.Tensor, lanes: int,
+                 gathers: int = 0) -> None:
     """``trace.count("march", ...)`` for one march call from its entry state
     and its ``lane_steps``: ``lanes`` the call's lanes, ``active_in`` those
     active at entry, ``useful`` the steps its rays marched (sum of
     ``lane_steps - start``) and ``slots`` the lane-steps the launch held:
     a ray per thread, 32 x the steps of each warp's deepest lane (a warp
-    marches until its last ray stops); a ray per warp, each ray's steps."""
+    marches until its last ray stops); a ray per warp, each ray's steps.
+    With ``gathers`` table entries an evaluation, also ``gathers``, useful x
+    that (a dense chain reads no table, and counts none)."""
     steps = lane_steps - state.steps
     if lanes == 1:
         pad = -steps.shape[0] % 32
@@ -478,8 +504,10 @@ def _count_march(state: march_lib.MarchState, lane_steps: torch.Tensor, lanes: i
         slots = warps.amax(1).sum() * 32
     else:
         slots = steps.sum()
-    trace.count("march", lanes=steps.shape[0], active_in=state.active.sum(),
-                useful=steps.sum(), slots=slots)
+    useful = steps.sum()
+    table = dict(gathers=useful * gathers) if gathers else {}
+    trace.count("march", lanes=steps.shape[0], active_in=state.active.sum(), useful=useful,
+                slots=slots, **table)
 
 
 def raygen_state(cam_to_world: torch.Tensor, pos: torch.Tensor, config: RenderConfig):
@@ -562,7 +590,8 @@ def _march_raygen_cuda(
         config.width, config.height, float(config.focal), cx, cy, cz,
         float(config.bound_radius) * float(config.bound_radius),
         weights.data_ptr(), biases.data_ptr(), n_layers, hidden, config.num_inputs,
-        frame_t.data_ptr(), scene_id, window, int(precision == "high"), n, config.max_steps,
+        frame_t.data_ptr(), *_grid_args(params), scene_id, window, int(precision == "high"), n,
+        config.max_steps,
         float(eps), omega,
         t.data_ptr(), budget.data_ptr(), active.data_ptr(), conv.data_ptr(),
         lane_steps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,

@@ -66,6 +66,45 @@ class MLP(nn.Module):
     def device(self) -> torch.device:
         return self.weights[0].device
 
+    # The model interface the march kernels, the renderer and ``diff/`` take
+    # a model through (``hash_grid.HashGridSDF`` has the other): a dense
+    # chain is its own chain, reads the point (and frame) as its input, and
+    # gathers from no table.
+
+    #: Table entries one SDF evaluation gathers.
+    gathers_per_eval = 0
+
+    @property
+    def chain(self) -> "MLP":
+        """The dense chain the kernels' chain runs."""
+        return self
+
+    @property
+    def num_inputs(self) -> int:
+        """The model's inputs: the point's 3, or 4 with the frame."""
+        return int(self.weights[0].shape[0])
+
+    def grid(self):
+        """The encoding's table and level words the kernels read: none."""
+        return None
+
+    def plain_inputs(self, x: torch.Tensor) -> torch.Tensor:
+        """The chain's inputs for the model's inputs x [..., n_in]: x."""
+        return x
+
+    def check_render(self, config) -> None:
+        """A dense chain renders every scene."""
+
+    def require_dense(self, what: str) -> None:
+        """A dense chain takes every path."""
+
+    def shade_sdf_fn(self, config, frame):
+        """The SDF of a render's shading normals:
+        ``fused_mlp.neural_sdf_fn_grad_kernel``."""
+        from ..kernels import fused_mlp
+
+        return fused_mlp.neural_sdf_fn_grad_kernel(self, frame, config.num_inputs)
+
 
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises for a CUDA device when no

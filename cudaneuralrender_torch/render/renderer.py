@@ -96,11 +96,13 @@ def _require_fp32_matmul() -> None:
 
 
 def neural_sdf_fn(params: MLP, frame, num_inputs: int = 3):
-    """Wrap MLP params as an SdfFn over (..., 3) points; num_inputs=4
-    appends the frame number as a 4th input (animation mode)."""
+    """Wrap a model as an SdfFn over (..., 3) points: its chain on its
+    ``plain_inputs``; num_inputs=4 appends the frame number as a 4th input
+    (animation mode)."""
 
     def fn(p: torch.Tensor) -> torch.Tensor:
-        return mlp.apply_scalar(params, sdf.with_frame(p, frame, num_inputs))
+        x = params.plain_inputs(sdf.with_frame(p, frame, num_inputs))
+        return mlp.apply_scalar(params.chain, x)
 
     return fn
 
@@ -125,6 +127,8 @@ def scene_fn(params: Optional[MLP], config: RenderConfig, frame, *,
     (or within the window band of) the surface, as shading normals do:
     many_cylinder_cut then composes through ``config.cyl_window``'s grid
     window (exact there) instead of the 300-term chain."""
+    if params is not None:
+        params.check_render(config)
     if params is None:
         neural = None
     elif config.use_pallas and not for_grad:
@@ -145,11 +149,16 @@ def shade_fn(params: Optional[MLP], config: RenderConfig, frame):
     chain under autograd, ``scene_fn(for_grad=True)``'s. Every precision runs
     in FP32 here, so config.shade_precision selects nothing. A
     pre-activation of exactly 0 gets JAX's gradient 1/2 on both paths
-    (``mlp.relu_tie``). Training never shades through here: it
-    differentiates the normals themselves (``scene_fn(for_grad=True)``,
+    (``mlp.relu_tie``). The neural field is the model's ``shade_sdf_fn``
+    (a ``HashGridSDF``'s: the encoding kernel's features and input
+    gradient, its MLP's plain chain under autograd). Training never shades
+    through here: it differentiates the normals themselves (``scene_fn(for_grad=True)``,
     ``shading.shade(differentiable=True)``)."""
-    neural = (None if params is None
-              else fused_mlp.neural_sdf_fn_grad_kernel(params, frame, config.num_inputs))
+    if params is None:
+        neural = None
+    else:
+        params.check_render(config)
+        neural = params.shade_sdf_fn(config, frame)
     return sdf.make_scene(config.scene, neural, frame, cyl_window=config.cyl_window)
 
 
@@ -1162,7 +1171,7 @@ class _ChunkGraph:
     def __init__(self, params, config: RenderConfig, matcap, poses, frames):
         global GRAPH_CAPTURES
         self.params, self.matcap = params, matcap
-        self.stack = fused_mlp.packed_params(params)[0] if params is not None else None
+        self.stack = _graph_reads(params)
         self.poses, self.frames = poses.clone(), frames.clone()
         k = frames.shape[0]
         dev = frames.device
@@ -1188,8 +1197,9 @@ class _ChunkGraph:
         GRAPH_CAPTURES += 1
 
     def matches(self, params, matcap) -> bool:
-        stack = fused_mlp.packed_params(params)[0] if params is not None else None
-        return self.params is params and self.stack is stack and self.matcap is matcap
+        reads = _graph_reads(params)
+        return (self.params is params and len(self.stack) == len(reads)
+                and all(a is b for a, b in zip(self.stack, reads)) and self.matcap is matcap)
 
     def replay(self, poses, frames):
         """Render k frames at ``poses`` [k, 5] and ``frames`` [k] (device
@@ -1200,6 +1210,14 @@ class _ChunkGraph:
         self.graph.replay()
         GRAPH_REPLAYS += 1
         return [r.clone() for r in self.rgba], [st.clone() for st in self.stats]
+
+
+def _graph_reads(params) -> tuple:
+    """The parameters' tensors a captured graph reads by pointer: the
+    chain's packed stack and the encoding's table and level words."""
+    if params is None:
+        return ()
+    return (fused_mlp.packed_params(params.chain)[0],) + tuple(params.grid() or ())
 
 
 def reset_graphs() -> None:

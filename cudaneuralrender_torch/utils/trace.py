@@ -163,6 +163,28 @@ class _Span:
         return False
 
 
+def current():
+    """This thread's innermost open span, or None (always None when off)."""
+    stack = _stack()
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def within(parent):
+    """Spans and counters opened in the block nest under ``parent`` (a span
+    ``current()`` gave, perhaps on another thread): autograd runs a backward
+    on its device thread, outside the spans its forward ran in."""
+    if parent is None:
+        yield
+        return
+    stack = _stack()
+    stack.append(parent)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
 def span(name: str, device=None):
     """A context that times its block as ``name`` under the enclosing span.
     ``device`` (else the enclosing span's) places the device marks: on a
