@@ -11,7 +11,9 @@ Phases; any failure exits non-zero and nothing is caught:
      ``cuobjdump -sass``: every K3 and K2h instantiation and every FP32
      march instantiation a ray per thread (3xTF32 at every width) must
      have some, the ray-per-warp ones at 32 and 64 (march_split_kernel,
-     FFMA) none; so must every X1 and X3 instantiation, and no X2 one);
+     FFMA) and 128 (cluster::march_split_kernel, csrc/hidden128_split.cu)
+     none, one for each FP32 march instantiation at those widths; so must
+     every X1 and X3 instantiation, and no X2 one);
   3. hold the kernel against its plain PyTorch version on the same CUDA
      tensors: csg_demo rays at 256x256 from Camera(rotation_y=30,
      rotation_x=-20), for the FP32 kernel's three kinds of call in the
@@ -57,8 +59,9 @@ Phases; any failure exits non-zero and nothing is caught:
      256x256 golden, the median of 3 warm frames (1 from 128 up), kernel =
      plain version on every march call of one more frame (a ray per
      thread the FP32 chain runs on the tensor cores, held to the TC_ bar;
-     at 64 both modes on each call and the terminal rung's entry, as in
-     phase 5, and launches a ray per warp on the main path), the coarse
+     at 64 and 128 both modes on each call and the terminal rung's entry,
+     as in phase 5, and launches a ray per warp on the main path; at 128
+     also ``drive_split128_frames``, phase 18's frames), the coarse
      pass timed both ways beside its FP32 and 3xTF32 bounds, a profiled
      frame; the kernel's FP32 SDF against the model of its summation order
      (fused_mlp.mlp_chain_3xtf32_mma), the plain chain and float64
@@ -203,7 +206,18 @@ Phases; any failure exits non-zero and nothing is caught:
      (the ray-per-warp rung bit for bit; HG_ bar), timed; the encoding
      kernel's features (bit for bit) and input gradient at the frame's
      shade region against the plain encoding and its autograd, timed.
-     ``python3 chip_smoke.py hash_grid`` runs phases 1, 2 and 17 alone.
+     ``python3 chip_smoke.py hash_grid`` runs phases 1, 2 and 17 alone;
+ 18. the FP32 chain's ray-split mode at 128 (csrc/hidden128_split.cu, a
+     ray per warp in each CTA of a 4-CTA cluster): phase 8 at 128 (csg_demo
+     widened to 128 at 1080p: SPLIT_LAUNCHES[128] in a cold and a warm
+     frame, which must not be 0; every FP32 call of one more frame, the
+     refine rungs 0-3, in both modes timed by CUDA events, a ray per warp
+     equal to the plain version bit for bit; the terminal rung's entry),
+     then ``drive_split128_frames``: warm frames with ``ray_lanes``' choice
+     and a ray per thread throughout, in turns, and a traced frame's rung
+     spans (device ms) and ``march.split_lanes``, which must not be 0 in
+     rungs 2 and 3. ``python3 chip_smoke.py split128`` runs phases 1, 2
+     and 18 alone.
      The script's total wall time follows.
 The line before the last is a JSON object of the kernels' launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
@@ -557,7 +571,7 @@ def sm_clock_mhz() -> float:
 KERNEL_LABELS = (
     (r"march_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E",
      "march_kernel<H={}, scene={}, window={}, three_pass={}>"),
-    (r"march_split_kernelILi(\d+)ELi(\d+)ELi(\d+)EE",
+    (r"march_split_kernelILi(\d+)ELi(\d+)ELi(\d+)E(?:Li0E)?E",
      "march_split_kernel<H={}, scene={}, window={}>"),
     (r"mlp_forward_kernelILi(\d+)E", "mlp_forward_kernel<H={}>"),
     (r"x1_loop_kernelILi(\d+)E", "x1_loop_kernel<H={}>"),
@@ -4331,50 +4345,12 @@ def drive_hash_grid(cnr, card) -> list:
     return entries
 
 
-def hash_grid_only() -> int:
-    """``python3 chip_smoke.py hash_grid``: the card, the build and phase 17
-    alone."""
-    import cudaneuralrender_torch as cnr
-    from cudaneuralrender_torch.kernels import build
+def check_build() -> None:
+    """Phase 2: build the kernels, print ptxas's report, one line per
+    kernel instantiation and the SASS check (HMMA where the tensor cores
+    run, none in the FFMA kernels a ray per warp)."""
+    from cudaneuralrender_torch.kernels import build, megakernel
 
-    if not torch.cuda.is_available():
-        print("error: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
-              file=sys.stderr)
-        return 1
-    torch.cuda.set_device(0)
-    card = card_line()
-    print(card, flush=True)
-    t0 = time.perf_counter()
-    build.load_library()
-    print(f"build: {time.perf_counter() - t0:.2f} s ({build.library_path()})", flush=True)
-    t17 = time.perf_counter()
-    kernels = drive_hash_grid(cnr, card)
-    print(f"phase 17 (hash grid): {time.perf_counter() - t17:.1f} s wall", flush=True)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
-
-
-def main() -> int:
-    global T_START
-    T_START = time.perf_counter()
-    if not torch.cuda.is_available():
-        print("error: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
-              file=sys.stderr)
-        return 1
-    os.environ.setdefault("CNR_SCHEDULE_MEMO", "")  # no learned schedules from disk
-    import cudaneuralrender_torch as cnr
-    from cudaneuralrender_torch.kernels import build, elementwise, fused_mlp, megakernel
-    from cudaneuralrender_torch.ops import camera as camera_lib
-
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    card = card_line()
-    print(card, flush=True)  # name, power limit
-
-    # 2. build
     t0 = time.perf_counter()
     build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s ({build.library_path()})")
@@ -4415,6 +4391,129 @@ def main() -> int:
                            f"warp) with HMMA: {stray}; {len(experiments)} X1-X3 kernels of 14; "
                            f"{len(split)} ray-per-warp kernels for {len(splittable)} FP32 march "
                            f"kernels at {megakernel.SPLIT_WIDTHS}")
+
+
+def drive_split128_frames(cnr, params, card) -> None:
+    """Phase 18's frames, csg_demo widened to 128 at 1080p through the
+    staged path (after phase 8's calls at 128): warm frames with
+    ``ray_lanes``' choice (rungs 2 and 3 a ray per warp) and a ray per
+    thread throughout, in the order choice, thread, thread, choice; then
+    one traced frame (``cnr.trace``): each refine rung's device ms and
+    ``march.split_lanes`` (which must not be 0 in rungs 2 and 3), and
+    SPLIT_LAUNCHES[128] of that frame."""
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.utils import trace
+
+    width, height = SIZES[128].side
+    cfg = cnr.RenderConfig(width=width, height=height, march_impl="staged")
+    cam = cnr.Camera(**CAMERA)
+    renderer = cnr.Renderer(params, cfg)
+    renderer.render(cam)
+    renderer.render(cam)
+    ms = {"choice": [], "thread": []}
+    for tag in ("choice", "thread", "thread", "choice"):
+        with thread_per_ray() if tag == "thread" else contextlib.nullcontext():
+            ms[tag] += time_frames(lambda: renderer.render(cam, 0.0), 2)
+    print(f"width 128 {width}x{height}: staged frame with ray_lanes' choice median "
+          f"{statistics.median(ms['choice']):.3f} ms {[round(x, 3) for x in ms['choice']]}, a ray "
+          f"per thread throughout {statistics.median(ms['thread']):.3f} ms "
+          f"{[round(x, 3) for x in ms['thread']]} [{card}]", flush=True)
+    megakernel.reset_launch_counts()
+    trace.enable()
+    try:
+        trace.reset()
+        renderer.render(cam)
+        torch.cuda.synchronize()
+        snap = trace.snapshot()
+    finally:
+        trace.disable()
+    rungs = {name.split("frame/")[-1]: round(entry["device_ms"], 3)
+             for name, entry in snap["spans"].items()
+             if "/rung" in name and entry["device_ms"] is not None}
+    split_lanes = {name.split("frame/")[-1]: v for name, v in snap["counters"].items()
+                   if name.endswith("march.split_lanes")}
+    launches = megakernel.SPLIT_LAUNCHES[128]
+    print(f"width 128 {width}x{height} traced frame: rung device ms {json.dumps(rungs)}; "
+          f"march.split_lanes {json.dumps(split_lanes)}; SPLIT_LAUNCHES[128] {launches} "
+          f"[{card}]", flush=True)
+    later = [sum(v for k, v in split_lanes.items() if f"/rung{i}/" in k) for i in (2, 3)]
+    if launches == 0 or min(later) == 0:
+        raise RuntimeError(f"width 128: rungs 2 and 3 did not march a ray per warp "
+                           f"(SPLIT_LAUNCHES[128] {launches}, split lanes {split_lanes})")
+
+
+def split128_only() -> int:
+    """``python3 chip_smoke.py split128``: the card, the build (phase 2)
+    and phase 18 alone."""
+    import cudaneuralrender_torch as cnr
+
+    if not torch.cuda.is_available():
+        print("error: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    os.environ.setdefault("CNR_SCHEDULE_MEMO", "")  # no learned schedules from disk
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = card_line()
+    print(card, flush=True)
+    check_build()
+    t18 = time.perf_counter()
+    params = wide_params(cnr, 4, dev)
+    kernels = drive_width(cnr, params, 128, card, SIZES[128])
+    drive_split128_frames(cnr, params, card)
+    print(f"phase 18 (ray-split mode at 128): {time.perf_counter() - t18:.1f} s wall", flush=True)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def hash_grid_only() -> int:
+    """``python3 chip_smoke.py hash_grid``: the card, the build and phase 17
+    alone."""
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import build
+
+    if not torch.cuda.is_available():
+        print("error: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    torch.cuda.set_device(0)
+    card = card_line()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    build.load_library()
+    print(f"build: {time.perf_counter() - t0:.2f} s ({build.library_path()})", flush=True)
+    t17 = time.perf_counter()
+    kernels = drive_hash_grid(cnr, card)
+    print(f"phase 17 (hash grid): {time.perf_counter() - t17:.1f} s wall", flush=True)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main() -> int:
+    global T_START
+    T_START = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("error: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    os.environ.setdefault("CNR_SCHEDULE_MEMO", "")  # no learned schedules from disk
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import elementwise, fused_mlp, megakernel
+    from cudaneuralrender_torch.ops import camera as camera_lib
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = card_line()
+    print(card, flush=True)  # name, power limit
+
+    # 2. build
+    check_build()
 
     params = cnr.load(ASSET, device=dev)
 
@@ -4543,6 +4642,8 @@ def main() -> int:
     for hidden in WIDE:
         nets[hidden] = wide_params(cnr, hidden // 32, dev)
         kernels.extend(drive_width(cnr, nets[hidden], hidden, card, SIZES[hidden]))
+        if hidden == 128:  # phase 18's frames
+            drive_split128_frames(cnr, nets[hidden], card)
     r = drive_scene(cnr, nets[128], "many_sphere", 90.0, 3, card, 512, 512)
     kernels.append(kernel_entry("compose_many_sphere_h128", K1_SOURCE,
                                 "cudaneuralrender_tpu/pallas/scenes.py:57", **r))
@@ -4651,4 +4752,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(hash_grid_only() if sys.argv[1:] == ["hash_grid"] else main())
+    alone = {"hash_grid": hash_grid_only, "split128": split128_only}
+    sys.exit(alone[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in alone else main())

@@ -1,9 +1,10 @@
 // The launchers of the package's kernels, one explicit instantiation per
 // hidden width and chain (csrc/hidden{H}.cu for the FP32 chain and the
 // forward kernel, csrc/hidden{H}_3pass.cu for the three-pass chain, H = 32,
-// 64, 128, 256, 512 and 1024; csrc/hidden64_hash.cu and
-// hidden64_3pass_hash.cu for the hash-grid SDF), called by the C entry
-// points in csrc/march.cu. Each returns a cudaError_t as an int.
+// 64, 128, 256, 512 and 1024; csrc/hidden128_split.cu for the FP32 chain's
+// ray-split mode at 128; csrc/hidden64_hash.cu and hidden64_3pass_hash.cu
+// for the hash-grid SDF), called by the C entry points in csrc/march.cu.
+// Each returns a cudaError_t as an int.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,7 +46,7 @@ struct MarchArgs {
   int window;
   int three_pass;
   int ray_lanes;           // 1: a ray per thread; 32: a ray per warp (the
-                           // FP32 chain at H = 32, 64, continue mode only)
+                           // FP32 chain at H = 32, 64, 128, continue mode only)
   int n;
   int max_steps;
   int num_steps;
@@ -56,6 +57,7 @@ struct MarchArgs {
   uint8_t* active_out;
   uint8_t* conv_out;
   int32_t* steps_out;
+  int32_t* work;           // a ray per warp at H = 128: [1] zero, the next ray to take
 };
 
 // One fused forward (K3): points x [n, n_inputs] -> out [n]; packed is the
@@ -81,5 +83,13 @@ int launch_march_hash(const MarchArgs& a, cudaStream_t stream);
 
 template <int H>
 int launch_mlp_forward(const MlpArgs& a, cudaStream_t stream);
+
+// The FP32 chain's ray-split mode at width 128, a ray per warp in each CTA
+// of a 4-CTA cluster (csrc/hidden128_split.cu), for nets of at most
+// kSplitClusterMaxLayers layers, whose stack fits the cluster's shared
+// memory (split_cluster_smem_bytes a CTA).
+constexpr int kSplitClusterMaxLayers = 13;
+int launch_march_split128(const MarchArgs& a, cudaStream_t stream);
+size_t split_cluster_smem_bytes(int n_layers);
 
 }  // namespace cnr

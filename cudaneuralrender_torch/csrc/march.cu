@@ -13,14 +13,16 @@
 // weights are the stack in tf32 fragment order; 1 for the three-pass chain
 // K2h), to the instantiation in csrc/hidden{H}.cu or
 // csrc/hidden{H}_3pass.cu; cnr_march also on the mode (ray_lanes: 1 for a
-// ray per thread, 32 for a ray per warp, the FP32 chain at widths 32 and 64
-// only, whose weights are then the FP32 stack [L, H, H]: march.cuh
-// march_split_kernel). Given a table and its level words, both march
-// entries run the hash-grid SDF's instantiations (width 64, neural_raw:
-// csrc/hash_grid.cuh). Each returns a cudaError_t: a width,
-// scene, window, input count or mode with no instantiation gives
-// cudaErrorInvalidValue, and a refused launch its own error. Nothing is launched in either case. The
-// experiment kernels X1-X3 have their own entries (csrc/experiments.cu).
+// ray per thread, 32 for a ray per warp, the FP32 chain at widths 32, 64
+// and 128 only, whose weights are then the FP32 stack [L, H, H]: march.cuh
+// march_split_kernel; at 128 csrc/hidden128_split.cu, which takes work, a
+// zeroed int32 in device memory, as its ray counter; NULL elsewhere). Given
+// a table and its level words, both march entries run the hash-grid SDF's
+// instantiations (width 64, neural_raw: csrc/hash_grid.cuh). Each returns
+// a cudaError_t: a width, scene, window, input count or mode with no
+// instantiation gives cudaErrorInvalidValue, and a refused launch its own
+// error. Nothing is launched in either case. The experiment kernels X1-X3
+// have their own entries (csrc/experiments.cu).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,7 +107,7 @@ extern "C" int cnr_march(int device, const float* dirs, const float* origin,
                          float eps,
                          float omega, float* t_out, float* budget_out,
                          uint8_t* active_out, uint8_t* conv_out,
-                         int32_t* steps_out, void* stream) {
+                         int32_t* steps_out, int32_t* work, void* stream) {
   if (frame == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cnr::MarchArgs a{};
   a.dirs = dirs;
@@ -135,6 +137,7 @@ extern "C" int cnr_march(int device, const float* dirs, const float* origin,
   a.active_out = active_out;
   a.conv_out = conv_out;
   a.steps_out = steps_out;
+  a.work = work;
   return dispatch_march(device, hidden, a, stream);
 }
 
@@ -193,8 +196,8 @@ extern "C" int cnr_mlp_forward(int device, const float* x, const float* weights,
 
 // Bytes of dynamic shared memory a launch asks for: kind 0 the march kernel
 // with the FP32 chain, 1 with the three-pass chain, 2 the fused forward, 3
-// the ray-split march kernel (widths 32 and 64); -1 for an unknown kind or
-// width.
+// the ray-split march kernel (widths 32 and 64; at 128 a CTA of its
+// cluster); -1 for an unknown kind or width.
 extern "C" long long cnr_smem_bytes(int kind, int hidden, int n_layers) {
   bool known = false;
   for (int k = 0; k < kNumWidths; ++k) known = known || kWidths[k] == hidden;
@@ -204,6 +207,7 @@ extern "C" long long cnr_smem_bytes(int kind, int hidden, int n_layers) {
     case 1: return static_cast<long long>(cnr::march_smem_bytes(hidden, n_layers));
     case 2: return static_cast<long long>(cnr::forward_smem_bytes(hidden));
     case 3:
+      if (hidden == 128) return static_cast<long long>(cnr::split_cluster_smem_bytes(n_layers));
       return hidden <= 64 ? static_cast<long long>(cnr::split_smem_bytes(hidden, n_layers))
                           : -1;
     default: return -1;

@@ -22,7 +22,9 @@
 //   * one thread per ray, march_block(H) threads per block (chain.cuh), a
 //     warp's 32 rays the rows of one product on the tensor cores; or, for
 //     the FP32 chain at H = 32 and 64 on a launch of few rays, one warp per
-//     ray on FFMA (march_split_kernel below);
+//     ray on FFMA (march_split_kernel below), and at 128 a warp per ray in
+//     each CTA of a 4-CTA cluster that holds the stack
+//     (csrc/hidden128_split.cu);
 //   * the chain at the padded width H, a template parameter (32, 64, 128,
 //     256, 512 or 1024; one instantiation of every scene per width, in
 //     csrc/hidden{H}.cu); see chain.cuh for where weights and activations
@@ -553,20 +555,28 @@ MarchKernel pick_kernel(int scene, int window) {
   }
 }
 
-// A launch of the ray-per-thread kernel, or of the ray-split kernel the
-// args' mode asks for (split: nullptr where the chain has none).
+// A launch of the ray-split mode, or nullptr where the chain has none.
+using SplitLauncher = int (*)(const MarchArgs&, cudaStream_t);
+
 template <int H>
-int launch_march_kernel(MarchKernel kernel, SplitKernel split_kernel, bool splittable,
-                        const MarchArgs& a, cudaStream_t stream) {
+int launch_split(const MarchArgs& a, cudaStream_t stream) {
+  return launch_split_kernel<H>(pick_split_kernel<H>(a.scene, a.window), a, stream);
+}
+
+// A launch of the ray-per-thread kernel, or of the ray-split mode the args
+// ask for (split: nullptr where the chain has none).
+template <int H>
+int launch_march_kernel(MarchKernel kernel, SplitLauncher split_launch, const MarchArgs& a,
+                        cudaStream_t stream) {
   const bool state_given = a.pos != nullptr || a.steps0 != nullptr;
   if (kernel == nullptr || !state_given || a.n_layers < 1 || a.n_inputs < 1 || a.n_inputs > 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  // The ray-split mode: the FP32 chain at 32 and 64, continue mode only.
+  // The ray-split mode: the FP32 chain at 32, 64 and 128, continue mode only.
   const bool split = a.ray_lanes == kSplitLanes;
-  if ((!split && a.ray_lanes != 1) || (split && (!splittable || a.pos != nullptr)))
+  if ((!split && a.ray_lanes != 1) || (split && (split_launch == nullptr || a.pos != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n <= 0) return 0;
-  if (split) return launch_split_kernel<H>(split_kernel, a, stream);
+  if (split) return split_launch(a, stream);
   const size_t smem = march_smem_bytes(H, a.n_layers);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -583,12 +593,13 @@ int launch_march_kernel(MarchKernel kernel, SplitKernel split_kernel, bool split
 
 template <int H, bool kThreePass>
 int launch_march(const MarchArgs& a, cudaStream_t stream) {
-  // The ray-split mode: the FP32 chain at 32 and 64.
-  constexpr bool kSplittable = !kThreePass && H <= 64;
-  SplitKernel split = nullptr;
-  if constexpr (kSplittable) split = pick_split_kernel<H>(a.scene, a.window);
-  return launch_march_kernel<H>(pick_kernel<H, kThreePass>(a.scene, a.window), split,
-                                kSplittable, a, stream);
+  // The ray-split mode: the FP32 chain at 32 and 64 (march_split_kernel),
+  // and at 128 across a cluster (csrc/hidden128_split.cu).
+  SplitLauncher split = nullptr;
+  if constexpr (!kThreePass && H <= 64) split = launch_split<H>;
+  if constexpr (!kThreePass && H == 128) split = launch_march_split128;
+  return launch_march_kernel<H>(pick_kernel<H, kThreePass>(a.scene, a.window), split, a,
+                                stream);
 }
 
 // The hash-grid SDF's instantiations: width 64, neural_raw, the encoding as
@@ -597,10 +608,13 @@ template <bool kThreePass>
 int launch_march_hash(const MarchArgs& a, cudaStream_t stream) {
   if (a.scene != kNeuralRaw || a.table == nullptr || a.levels == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  SplitKernel split = nullptr;
-  if constexpr (!kThreePass) split = march_split_kernel<64, kNeuralRaw, 0, kHashInputs>;
+  SplitLauncher split = nullptr;
+  if constexpr (!kThreePass)
+    split = [](const MarchArgs& b, cudaStream_t s) {
+      return launch_split_kernel<64>(march_split_kernel<64, kNeuralRaw, 0, kHashInputs>, b, s);
+    };
   return launch_march_kernel<64>(march_kernel<64, kNeuralRaw, 0, kThreePass, kHashInputs>,
-                                 split, !kThreePass, a, stream);
+                                 split, a, stream);
 }
 
 }  // namespace cnr

@@ -3,13 +3,13 @@
 The sources under ``cudaneuralrender_torch/csrc/`` compile with ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers). Each ``.cu`` file is one translation unit
-(one per hidden width and chain, FP32 and three-pass, the C entry points of
-the render kernels, the elementwise backward kernels, the shading normals'
-value-and-gradient kernel, the hash-grid encoding kernel and its march
-instantiations, and the step-cost experiment kernels X1-X3 with their
-entries); they compile in parallel processes, one ``nvcc`` each, and
-link into the library. The build runs at
-first CUDA use, never at import, into ``cudaneuralrender_torch/build/``
+(one per hidden width and chain, FP32 and three-pass, the FP32 chain's
+ray-split mode at width 128, the C entry points of the render kernels, the
+elementwise backward kernels, the shading normals' value-and-gradient kernel,
+the hash-grid encoding kernel and its march instantiations, and the
+step-cost experiment kernels X1-X3 with their entries); they compile in
+parallel processes, one ``nvcc`` each, and link into the library. The build
+runs at first CUDA use, never at import, into ``cudaneuralrender_torch/build/``
 (listed in .gitignore) under a name keyed by a hash of the sources, headers
 and flags, so a second run reuses it. A missing ``nvcc`` or a failed build
 raises: there is no fallback.
@@ -130,6 +130,7 @@ def load_library() -> ctypes.CDLL:
             _I, _I, _I, _I,          # scene id, cylinder window, three_pass, ray_lanes
             _I, _I, _I, _F, _F,      # n, max_steps, num_steps, eps, omega
             _P, _P, _P, _P, _P,      # t, budget, active, conv, steps (outputs)
+            _P,                      # work: the 128-wide ray-split mode's ray counter, or NULL
             _P,                      # stream
         ]
         lib.cnr_march.restype = _I

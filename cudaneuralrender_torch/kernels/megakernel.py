@@ -47,15 +47,16 @@ only: ``csrc/hash_grid.cuh``). A model gives the kernels its ``chain``, its
 version's chain inputs); each call counts its table gathers
 (``gathers_per_eval``).
 
-At widths 32 and 64 the FP32 chain marches in one of two modes, chosen
-per launch by ``ray_lanes`` from the call's place in the staged march
-(``split_chain``): a ray per thread on the tensor cores, or a ray per warp
-with the chain of its point split over the warp's lanes on FFMA
-(csrc/march.cuh ``march_split_kernel``), for the refine ladder's later
-rungs, where a few stragglers march for hundreds of steps; a frame's
-coarse call (``coarse=True``) always marches a ray per thread. A ray per
-warp sums each output in input order from zero, the plain version's order,
-and gives its results bit for bit.
+At widths 32, 64 and 128 the FP32 chain marches in one of two modes,
+chosen per launch by ``ray_lanes`` from the call's place in the staged
+march (``split_chain``): a ray per thread on the tensor cores, or a ray per
+warp with the chain of its point split over the warp's lanes on FFMA
+(csrc/march.cuh ``march_split_kernel``; at 128 a warp in each CTA of a
+4-CTA cluster that holds the stack, csrc/hidden128_split.cu), for the
+refine ladder's later rungs, where a few stragglers march for hundreds of
+steps; a frame's coarse call (``coarse=True``) always marches a ray per
+thread. A ray per warp sums each output in input order from zero, the plain
+version's order, and gives its results bit for bit.
 
 Launch counts (plain-version calls do not count): ``KERNEL_LAUNCHES``
 counts ``march_state``'s launches, ``SCENE_LAUNCHES`` the same launches per
@@ -93,8 +94,15 @@ PRECISIONS = ("default", "high", "highest")
 #: cores a ray per thread: every width (csrc/chain.cuh ``chain_sdf_tf32``).
 TENSOR_CORE_FP32_WIDTHS = KERNEL_WIDTHS
 
-#: The padded widths at which the FP32 chain also marches a ray per warp.
-SPLIT_WIDTHS = (32, 64)
+#: The padded widths at which the FP32 chain also marches a ray per warp:
+#: at 32 and 64 on one warp, the stack in its block's shared memory; at 128
+#: on a warp of each CTA of a 4-CTA cluster, the stack split over the
+#: cluster's shared memory (csrc/hidden128_split.cu).
+SPLIT_WIDTHS = (32, 64, 128)
+
+#: The deepest net a width's ray-split mode holds on chip, where it has a
+#: bound: at 128, 13 layers fill a CTA's 227 KB of shared memory.
+SPLIT_MAX_LAYERS = {128: 13}
 
 #: ``ray_lanes``' bound: a bounded refine call of at least this many steps
 #: (the staged renderer's (32, 64) rung) marches a ray per warp.
@@ -145,10 +153,13 @@ def reset_launch_counts() -> None:
             counts[key] = 0
 
 
-def split_chain(hidden: int, precision: str) -> bool:
+def split_chain(hidden: int, precision: str, n_layers: Optional[int] = None) -> bool:
     """Whether the kernel also marches the chain at a padded width and
-    precision a ray per warp: the FP32 chain at ``SPLIT_WIDTHS``."""
-    return precision != "high" and hidden in SPLIT_WIDTHS
+    precision (and depth, where given) a ray per warp: the FP32 chain at
+    ``SPLIT_WIDTHS``, no deeper than ``SPLIT_MAX_LAYERS``."""
+    if precision == "high" or hidden not in SPLIT_WIDTHS:
+        return False
+    return n_layers is None or n_layers <= SPLIT_MAX_LAYERS.get(hidden, n_layers)
 
 
 def tensor_core_chain(hidden: int, precision: str, lanes: int = 1) -> bool:
@@ -161,11 +172,11 @@ def tensor_core_chain(hidden: int, precision: str, lanes: int = 1) -> bool:
 
 
 def ray_lanes(hidden: int, precision: str, num_steps: Optional[int],
-              coarse: bool = False) -> int:
+              coarse: bool = False, n_layers: Optional[int] = None) -> int:
     """The lanes that march one ray in a launch: SPLIT_LANES (the ray-split
     mode, a warp a ray) or 1 (a thread a ray).
 
-    The split mode exists for the FP32 chain at widths 32 and 64
+    The split mode exists for the FP32 chain at widths 32, 64 and 128
     (``split_chain``). A straggler's step runs several times faster in it
     than in its warp's thread, while many rays march slower (each weight
     serves one ray, not a warp's 32, and on FFMA, not the tensor cores). A
@@ -179,19 +190,20 @@ def ray_lanes(hidden: int, precision: str, num_steps: Optional[int],
     their lanes active) a ray per thread. The share follows the rung's
     place in the ladder at every image size, where a lane count does not
     (PERF.md has the per-rung times in both modes)."""
-    if coarse or not split_chain(hidden, precision):
+    if coarse or not split_chain(hidden, precision, n_layers):
         return 1
     return SPLIT_LANES if num_steps is None or num_steps >= SPLIT_MIN_STEPS else 1
 
 
-def _check_ray_lanes(value: int, hidden: int, precision: str) -> None:
+def _check_ray_lanes(value: int, hidden: int, precision: str, n_layers: int) -> None:
     """Raise unless a ``_ray_lanes`` override is 1, or SPLIT_LANES where the
-    chain is the FP32 one at 32 or 64."""
+    chain is the FP32 one at 32, 64 or 128 (``split_chain``)."""
     if value not in (1, SPLIT_LANES):
         raise ValueError(f"_ray_lanes must be 1 or {SPLIT_LANES}, not {value!r}")
-    if value != 1 and not split_chain(hidden, precision):
-        raise ValueError(f"the ray-split mode runs the FP32 chain at widths 32 and 64 only, "
-                         f"not width {hidden} at precision {precision!r}")
+    if value != 1 and not split_chain(hidden, precision, n_layers):
+        raise ValueError(f"the ray-split mode runs the FP32 chain at widths {SPLIT_WIDTHS} "
+                         f"only ({SPLIT_MAX_LAYERS[128]} layers at most at 128), not "
+                         f"{n_layers} layers at width {hidden} at precision {precision!r}")
 
 
 def _check_inputs(params, config: RenderConfig) -> None:
@@ -397,7 +409,8 @@ def _march_state_cuda(
     dev = dirs.device
     n = dirs.shape[0]
     if lanes is None:
-        lanes = ray_lanes(packed_params(params.chain)[3], precision, num_steps, coarse)
+        lanes = ray_lanes(packed_params(params.chain)[3], precision, num_steps, coarse,
+                          len(params.chain))
     weights, biases, n_layers, hidden = _kernel_weights(params, config, precision, dev, lanes)
     check_tensor("dirs", dirs, torch.float32, (n, 3), dev)
     check_tensor("origin", origin, torch.float32, (3,), dev)
@@ -409,6 +422,9 @@ def _march_state_cuda(
     omega = float(relax_omega) if relax_omega and relax_omega > 1.0 else 0.0
 
     t, budget, active, conv, lane_steps = _outputs(n, dev)
+    # The 128-wide ray-split mode's ray counter, zero at launch.
+    work = (torch.zeros((1,), dtype=torch.int32, device=dev)
+            if lanes != 1 and hidden == 128 else None)
     lib = build.load_library()
     frame_t = sdf.frame_tensor(frame, dev)
     check_tensor("frame", frame_t, torch.float32, (), dev)
@@ -422,7 +438,8 @@ def _march_state_cuda(
         n, config.max_steps, -1 if num_steps is None else int(num_steps),
         float(eps), omega,
         t.data_ptr(), budget.data_ptr(), active.data_ptr(), conv.data_ptr(),
-        lane_steps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        lane_steps.data_ptr(), None if work is None else work.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, lib, "march kernel")
     KERNEL_LAUNCHES += 1
@@ -467,7 +484,8 @@ def march_state(
     """
     _check_precision(precision)
     if _ray_lanes is not None:
-        _check_ray_lanes(_ray_lanes, packed_params(params.chain)[3], precision)
+        _check_ray_lanes(_ray_lanes, packed_params(params.chain)[3], precision,
+                         len(params.chain))
     if dirs.device.type == "cpu":
         out, lane_steps = march_state_plain(
             params, origin, dirs, state, config, frame, march_eps=march_eps,
@@ -482,7 +500,7 @@ def march_state(
     if trace.enabled():
         # The kernel's mode, on the CPU too: the count is the launch's.
         lanes = _ray_lanes or ray_lanes(packed_params(params.chain)[3], precision, num_steps,
-                                        coarse)
+                                        coarse, len(params.chain))
         _count_march(state, lane_steps, lanes, params.gathers_per_eval)
     return (out, lane_steps) if return_resolve else out
 
@@ -495,19 +513,22 @@ def _count_march(state: march_lib.MarchState, lane_steps: torch.Tensor, lanes: i
     ``lane_steps - start``) and ``slots`` the lane-steps the launch held:
     a ray per thread, 32 x the steps of each warp's deepest lane (a warp
     marches until its last ray stops); a ray per warp, each ray's steps.
+    A call marched a ray per warp also counts its lanes as ``split_lanes``.
     With ``gathers`` table entries an evaluation, also ``gathers``, useful x
     that (a dense chain reads no table, and counts none)."""
     steps = lane_steps - state.steps
+    split = {}
     if lanes == 1:
         pad = -steps.shape[0] % 32
         warps = (torch.nn.functional.pad(steps, (0, pad)) if pad else steps).view(-1, 32)
         slots = warps.amax(1).sum() * 32
     else:
         slots = steps.sum()
+        split = dict(split_lanes=steps.shape[0])
     useful = steps.sum()
     table = dict(gathers=useful * gathers) if gathers else {}
     trace.count("march", lanes=steps.shape[0], active_in=state.active.sum(), useful=useful,
-                slots=slots, **table)
+                slots=slots, **split, **table)
 
 
 def raygen_state(cam_to_world: torch.Tensor, pos: torch.Tensor, config: RenderConfig):

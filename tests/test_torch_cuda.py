@@ -40,10 +40,13 @@ of each output's own magnitude (chip_smoke.x_scale), every instantiation,
 and at the float64 witness bars; X2's lanes beyond X_RTOL accounted for as
 chip_smoke.x2_check accounts for them, and partial last warps.
 The march kernel's ray-split mode (a ray per warp, the FFMA chain summed
-in input order) at widths 32 and 64 against the plain version, bit for bit
-(chip_smoke.split_equal): every scene and the 4-input anim_demo on the
+in input order) at widths 32, 64 and 128 (at 128 a warp in each CTA of a
+4-CTA cluster, csrc/hidden128_split.cu) against the plain version, bit for
+bit (chip_smoke.split_equal): every scene and the 4-input anim_demo on the
 three kinds of call, a bucket with no active lane, lane counts that are not
-a multiple of a block, and its launches counted. The ReLU tie backward
+a multiple of a block, and its launches counted; at 128 also terminal-rung
+bundles in which lanes stop at max_steps (neural_raw, many_sphere and
+many_cylinder_cut's window 5) and the cluster's shared memory by depth. The ReLU tie backward
 (``relu_tie_backward``, csrc/elementwise.cu) against its plain version bit
 for bit (ties, NaN, ragged tails, unaligned views), inside a CUDA graph,
 and in a render's normals at the zero-bias net's tie pixel.
@@ -182,7 +185,9 @@ def test_fp32_tensor_core_sdf(hidden):
 def test_fp32_tensor_core_four_inputs_matches_plain():
     """The FP32 chain on the tensor cores with the frame as a 4th input:
     anim_demo widened to 128 (chip_smoke.widen) at frame 37 under
-    many_sphere, the staged renderer's three kinds of call at 64x64."""
+    many_sphere, the staged renderer's three kinds of call at 64x64, each
+    a ray per thread (``ray_lanes`` sends the terminal rung at 128 a ray
+    per warp, held bit for bit by test_split_kernel_matches_thread)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import cudaneuralrender_torch as cnr
@@ -195,7 +200,8 @@ def test_fp32_tensor_core_four_inputs_matches_plain():
     cfg = cnr.RenderConfig(width=64, height=64, scene="many_sphere", num_inputs=4)
     c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
     origin, dirs = camera_lib.generate_rays(c2w, 64, 64, cfg.focal)
-    result = chip_smoke.compare_kernel_with_plain(params, cfg, origin, dirs, 37.0)
+    with chip_smoke.thread_per_ray():
+        result = chip_smoke.compare_kernel_with_plain(params, cfg, origin, dirs, 37.0)
     assert all(a["tc_order"] for a in result.values())
     chip_smoke.check_agreement(result)
 
@@ -602,8 +608,11 @@ def test_raygen_fp32_tensor_core_matches_plain():
 # inputs, frame 37) at both widths too. A ray per warp (csrc/march.cuh
 # march_split_kernel) against the plain version bit for bit
 # (chip_smoke.split_equal); a ray per thread (3xTF32 on the tensor cores)
-# against it at the tensor-core bar (chip_smoke.tc_agreement).
+# against it at the tensor-core bar (chip_smoke.tc_agreement). A ray per
+# warp at 128 too (csrc/hidden128_split.cu), on csg_demo and anim_demo
+# widened to 128.
 SPLIT_CASES = [(label, hidden) for label in CASES for hidden in (32, 64)]
+SPLIT_WARP_CASES = SPLIT_CASES + [(label, 128) for label in CASES]
 
 
 def _split_params(asset, hidden, dev):
@@ -615,7 +624,8 @@ def _split_params(asset, hidden, dev):
                                  device=dev)
 
 
-@pytest.fixture(scope="module", params=SPLIT_CASES, ids=[f"{c}_h{h}" for c, h in SPLIT_CASES])
+@pytest.fixture(scope="module", params=SPLIT_WARP_CASES,
+                ids=[f"{c}_h{h}" for c, h in SPLIT_WARP_CASES])
 def split_calls(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -733,7 +743,7 @@ def _terminal_call(hidden):
     return params, call
 
 
-@pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("hidden", [32, 64, 128])
 def test_split_kernel_no_active_lane(hidden):
     """A bucket with no active lane: a ray per warp writes the entry state
     back (resolve step = the entry step), as the plain version does, bit
@@ -763,11 +773,12 @@ def test_thread_kernel_no_active_lane(hidden):
     assert bool((lane_steps == int(idle.steps)).all()) and torch.equal(lane_steps, p_steps)
 
 
-@pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("hidden", [32, 64, 128])
 @pytest.mark.parametrize("n", [1, 17, 1000, 4095])
 def test_split_kernel_ragged_n(hidden, n):
-    """Lane counts that are not a multiple of a block's 16 rays: the
-    terminal call's first n lanes (sorted, the actives first)."""
+    """Lane counts that are not a multiple of a block's 16 rays (at 128 of
+    a cluster's 8): the terminal call's first n lanes (sorted, the actives
+    first)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     params, (origin, dirs, state, cfg, frame, kw) = _terminal_call(hidden)
@@ -801,7 +812,7 @@ def test_thread_kernel_ragged_n(hidden, n):
     assert beyond["replay_equal"] and beyond["chain_max_diff"] <= chip_smoke.K1_MMA_SDF_ATOL
 
 
-@pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("hidden", [32, 64, 128])
 def test_split_kernel_launch_counted(hidden):
     """A launch that ray_lanes sends to the ray-split mode counts once in
     total, under its width and under SPLIT_LAUNCHES; ``_ray_lanes=1`` does
@@ -820,6 +831,59 @@ def test_split_kernel_launch_counted(hidden):
     after = (megakernel.KERNEL_LAUNCHES, megakernel.WIDTH_LAUNCHES[hidden],
              megakernel.SPLIT_LAUNCHES[hidden])
     assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 1)
+
+
+# The 128-wide ray-split mode on terminal-rung bundles in which lanes stop
+# at max_steps: the terminal call of a scene at 64x64, its config's
+# max_steps cut to MAX_STEPS_PAST steps past the call's start, so the
+# deepest lanes end there still active. label -> (scene, frame, cyl_window).
+MAX_STEPS_CASES = {"neural_raw": ("neural_raw", 0.0, 3),
+                   "many_sphere": ("many_sphere", 90.0, 3),
+                   "many_cylinder_cut_w5": ("many_cylinder_cut", 0.0, 5)}
+MAX_STEPS_PAST = 24
+
+
+@pytest.mark.parametrize("label", list(MAX_STEPS_CASES))
+def test_split_cluster_kernel_stops_at_max_steps(label):
+    """A ray per warp at 128 equals the plain version bit for bit (t,
+    budget, the flags, the lane steps, the step counter) on a terminal-rung
+    bundle whose deepest lanes stop at max_steps, and marches none past it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.ops import camera as camera_lib
+
+    scene, frame, window = MAX_STEPS_CASES[label]
+    dev = torch.device("cuda", 0)
+    params = _split_params(NPZ, 128, dev)
+    cfg = cnr.RenderConfig(width=64, height=64, scene=scene, cyl_window=window)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
+    origin, dirs = camera_lib.generate_rays(c2w, 64, 64, cfg.focal)
+    (_, (origin, dirs, state, cfg, frame, kw), _), = chip_smoke.variant_calls(
+        params, cfg, origin, dirs, frame)[-1:]
+    assert kw["num_steps"] is None
+    limit = int(state.steps) + MAX_STEPS_PAST
+    cut = cfg.replace(max_steps=limit)
+    (out, lane_steps), _ = chip_smoke.split_equal(params, (origin, dirs, state, cut, frame, kw))
+    torch.cuda.synchronize()
+    stopped = out.active & (lane_steps == limit)
+    assert bool(stopped.any()) and int(lane_steps.max()) == limit == int(out.steps)
+
+
+def test_split_cluster_smem_by_depth():
+    """The 128-wide split mode's shared memory a CTA: within the card's
+    227 KB up to SPLIT_MAX_LAYERS (13) layers, beyond it at 14, as
+    ``ray_lanes`` assumes; 9 layers under 150 KB."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cudaneuralrender_torch.kernels import build, megakernel
+
+    lib = build.load_library()
+    top = megakernel.SPLIT_MAX_LAYERS[128]
+    limit = 227 * 1024  # a block's shared memory on the H100
+    assert lib.cnr_smem_bytes(3, 128, top) <= limit < lib.cnr_smem_bytes(3, 128, top + 1)
+    assert lib.cnr_smem_bytes(3, 128, 9) < 150 * 1024
+    assert lib.cnr_smem_bytes(3, 256, 9) == -1
 
 
 # Training (cudaneuralrender_torch/diff) on the card: noisy csg_demo at

@@ -3,8 +3,9 @@
 ``megakernel.ray_lanes`` picks, per launch, whether the kernel marches a
 ray per thread (the FP32 chain on the tensor cores over a warp's rays) or
 a ray per warp (at widths 32 and 64 the FFMA chain split over the warp's
-lanes, csrc/march.cuh ``march_split_kernel``), from the call's steps and
-whether it is a frame's coarse call. Both
+lanes, csrc/march.cuh ``march_split_kernel``; at 128 over a warp in each
+CTA of a 4-CTA cluster, csrc/hidden128_split.cu), from the call's steps
+and whether it is a frame's coarse call. Both
 modes compute ``march_state_plain``'s function; on the card a ray per warp
 equals it bit for bit, a ray per thread within the tensor-core bar
 (tests/test_torch_cuda.py). Here, without a card:
@@ -13,9 +14,10 @@ equals it bit for bit, a ray per thread within the tensor-core bar
     rungs and on every call marked ``coarse`` (the
     staged renderer marks its coarse call so, whatever the image's size)
     and wherever the chain has no split mode (``split_chain``: the
-    three-pass chain, widths from 128), and the same answer for the same
-    inputs; the stack each mode's launch reads (``_kernel_weights``): tf32
-    fragment order a ray per thread, the FP32 stack a ray per warp;
+    three-pass chain, widths from 256, nets deeper than SPLIT_MAX_LAYERS),
+    and the same answer for the same inputs; the stack each mode's launch
+    reads (``_kernel_weights``): tf32 fragment order a ray per thread, the
+    FP32 stack a ray per warp;
   * the case the split mode is for, against the JAX package: a sorted
     2048-lane refine bucket in which only a few lanes are active, built
     from JAX's refine entry (csg_demo at 64x64 rays, coarse to eps 0.05,
@@ -29,7 +31,7 @@ equals it bit for bit, a ray per thread within the tensor-core bar
     converged, resolve steps equal on >=99%, equal step counters;
   * the ``_ray_lanes`` override raises on a value other than 1 or 32 and
     on 32 for a chain without a split mode, without loading the library,
-    and the CPU march ignores the mode.
+    and the CPU march ignores the mode (at 128 too).
 """
 import os
 
@@ -60,7 +62,7 @@ PRE_STEPS = 16 + 24 + 64  # the bounded refine rungs before the terminal one
 RUNG_STEPS = tuple(steps or None for _, steps in ct.RenderConfig().refine_schedule)
 
 
-@pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("hidden", [32, 64, 128])
 @pytest.mark.parametrize("precision", ["default", "highest"])
 def test_ray_lanes_splits_small_launches(hidden, precision):
     """The ladder's later rungs, whose buckets are the small launches with
@@ -72,7 +74,7 @@ def test_ray_lanes_splits_small_launches(hidden, precision):
         assert mk_t.ray_lanes(hidden, precision, num_steps) == mk_t.SPLIT_LANES == 32, num_steps
 
 
-@pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("hidden", [32, 64, 128])
 def test_ray_lanes_keeps_a_ray_per_thread_on_the_coarse_call(hidden):
     """The coarse call and the ladder's first rungs (16 and 24 steps, a
     third to three quarters of their lanes active) march a ray per thread."""
@@ -82,7 +84,7 @@ def test_ray_lanes_keeps_a_ray_per_thread_on_the_coarse_call(hidden):
             assert mk_t.ray_lanes(hidden, precision, num_steps) == 1
 
 
-@pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("hidden", [32, 64, 128])
 @pytest.mark.parametrize("precision", ["default", "highest"])
 def test_ray_lanes_never_splits_a_coarse_call(hidden, precision):
     """A call marked ``coarse`` marches a ray per thread whatever it is run
@@ -92,29 +94,44 @@ def test_ray_lanes_never_splits_a_coarse_call(hidden, precision):
         assert mk_t.ray_lanes(hidden, precision, num_steps, coarse=True) == 1
 
 
-@pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("hidden", [32, 64, 128])
 def test_ray_lanes_splits_refine_calls_run_to_dry(hidden):
     """A refine call run to dry (the terminal rung: a few stragglers for
     hundreds of steps) marches a ray per warp, whatever its lane count
     (a bound on the lane count kept many_sphere f90's 720896-lane bucket a
     ray per thread, 7.7x slower); not the three-pass chain, nor a coarse
-    call."""
+    call. At 128 the FP32 chain's split mode holds its stack across a
+    4-CTA cluster."""
     assert mk_t.ray_lanes(hidden, "highest", None) == mk_t.SPLIT_LANES
     assert mk_t.ray_lanes(hidden, "high", None) == 1
     assert mk_t.ray_lanes(hidden, "highest", None, coarse=True) == 1
 
 
-@pytest.mark.parametrize("hidden,precision", [(128, "highest"), (256, "default"),
+@pytest.mark.parametrize("hidden,precision", [(128, "high"), (256, "default"),
                                               (512, "highest"), (1024, "highest"),
-                                              (32, "high"), (64, "high")])
+                                              (32, "high"), (64, "high"), (256, "highest"),
+                                              (512, "default")])
 def test_ray_lanes_keeps_a_ray_per_thread_on_tensor_core_chains(hidden, precision):
     """Chains without a split mode march a ray per thread at every lane
-    count; they sum on the tensor cores in either mode's accounting."""
+    count; they sum on the tensor cores in either mode's accounting: the
+    three-pass chain at every width, the FP32 chain from 256 (its stack,
+    1.8 MB and more, would need clusters beyond the portable size)."""
     assert not mk_t.split_chain(hidden, precision)
     assert mk_t.tensor_core_chain(hidden, precision)
     assert mk_t.tensor_core_chain(hidden, precision, mk_t.SPLIT_LANES)
     for num_steps in RUNG_STEPS:
         assert mk_t.ray_lanes(hidden, precision, num_steps) == 1
+
+
+@pytest.mark.parametrize("n_layers,lanes", [(9, 32), (13, 32), (14, 1), (30, 1)])
+def test_ray_lanes_at_128_by_depth(n_layers, lanes):
+    """The 128-wide split mode holds the stack in the cluster's shared
+    memory: nets of up to SPLIT_MAX_LAYERS (13) layers; deeper ones march a
+    ray per thread."""
+    assert mk_t.SPLIT_MAX_LAYERS[128] == 13
+    assert mk_t.ray_lanes(128, "highest", None, n_layers=n_layers) == lanes
+    assert mk_t.split_chain(128, "highest", n_layers) == (lanes == mk_t.SPLIT_LANES)
+    assert mk_t.ray_lanes(64, "highest", None, n_layers=n_layers) == mk_t.SPLIT_LANES
 
 
 @pytest.mark.parametrize("hidden", [32, 64])
@@ -163,7 +180,7 @@ def test_staged_coarse_call_never_splits():
         assert pick[1:] == [1, 1, mk_t.SPLIT_LANES, mk_t.SPLIT_LANES]
 
 
-@pytest.mark.parametrize("k", [1, 2], ids=["h32", "h64"])
+@pytest.mark.parametrize("k", [1, 2, 4], ids=["h32", "h64", "h128"])
 @pytest.mark.parametrize("lanes", [1, 32], ids=["thread", "warp"])
 def test_kernel_weights_by_mode(k, lanes):
     """The stack ``_kernel_weights`` hands a launch: a ray per thread the
@@ -310,18 +327,57 @@ def test_ray_lanes_override_rejects_bad_values(no_library, value):
         mk_t.march_state(pt, origin, dirs, state, cfg, _ray_lanes=value)
 
 
-@pytest.mark.parametrize("k,precision", [(4, "highest"), (1, "high"), (2, "high")],
-                         ids=["h128_fp32", "h32_high", "h64_high"])
+@pytest.mark.parametrize("k,precision", [(4, "high"), (1, "high"), (2, "high")],
+                         ids=["h128_high", "h32_high", "h64_high"])
 def test_ray_lanes_override_rejects_tensor_core_chains(no_library, k, precision):
     """32 lanes a ray only where the chain has a split mode: not the FP32
-    chain from 128 nor the three-pass chain, which march a ray per thread
+    chain from 256 nor the three-pass chain, which march a ray per thread
     on the tensor cores."""
     assert not mk_t.split_chain(32 * k, precision)
     pt, origin, dirs, state, cfg = _cpu_call(_layers("csg_demo", k))
-    with pytest.raises(ValueError, match="widths 32 and 64 only"):
+    with pytest.raises(ValueError, match=r"widths \(32, 64, 128\) only"):
         mk_t.march_state(pt, origin, dirs, state, cfg, precision=precision, _ray_lanes=32)
     # a ray per thread is every chain's mode
     mk_t.march_state(pt, origin, dirs, state, cfg, precision=precision, _ray_lanes=1)
+
+
+def _deep_layers(n_layers, seed=0):
+    """A 3 -> 128 x (n_layers - 1) -> 1 net of small random weights."""
+    rng = np.random.default_rng(seed)
+    sizes = [3] + [128] * (n_layers - 1) + [1]
+    return [((rng.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32),
+             (0.01 * rng.standard_normal(b)).astype(np.float32))
+            for a, b in zip(sizes[:-1], sizes[1:])]
+
+
+@pytest.mark.parametrize("case", ["h256_fp32", "h512_fp32", "h1024_fp32", "h128_14_layers"])
+def test_ray_lanes_override_rejects_wide_and_deep_nets(no_library, case):
+    """The FP32 chain at 256, 512 and 1024, and a 128-wide net deeper than
+    the cluster's shared memory holds (14 layers), have no split mode: the
+    override raises before anything marches."""
+    hidden = int(case[1:].split("_")[0])
+    layers = _deep_layers(14) if hidden == 128 else _layers("csg_demo", hidden // 32)
+    pt, origin, dirs, state, cfg = _cpu_call(layers)
+    assert not mk_t.split_chain(hidden, "highest", len(pt))
+    with pytest.raises(ValueError, match=r"widths \(32, 64, 128\) only"):
+        mk_t.march_state(pt, origin, dirs, state, cfg, _ray_lanes=32)
+
+
+def test_cpu_march_takes_the_split_override_at_128(no_library):
+    """At 128 the FP32 chain has a split mode: ``_ray_lanes=32`` is
+    accepted, and on CPU tensors the plain version runs, launches nothing
+    and gives its own results."""
+    pt, origin, dirs, state, cfg = _cpu_call(_layers("csg_demo", 4))
+    assert mk_t.split_chain(128, "highest", len(pt))
+    launches = (mk_t.KERNEL_LAUNCHES, dict(mk_t.SPLIT_LAUNCHES))
+    want = mk_t.march_state_plain(pt, origin, dirs, state, cfg, num_steps=64,
+                                  return_resolve=True)
+    got = mk_t.march_state(pt, origin, dirs, state, cfg, num_steps=64, return_resolve=True,
+                           _ray_lanes=mk_t.SPLIT_LANES)
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[1], want[1]) and int(got[1].max()) > 0
+    assert (mk_t.KERNEL_LAUNCHES, mk_t.SPLIT_LAUNCHES) == launches
 
 
 def test_cpu_march_ignores_the_mode(no_library):

@@ -145,8 +145,9 @@ def test_march_counters_of_one_call(params, lanes):
         slots = 32 * sum(max(w) for w in warps)
     else:
         slots = sum(steps)
+    split = {} if lanes == 1 else {"call/march.split_lanes": n}
     assert counters == {"call/march.lanes": n, "call/march.active_in": int(active.sum()),
-                        "call/march.useful": sum(steps), "call/march.slots": slots}
+                        "call/march.useful": sum(steps), "call/march.slots": slots, **split}
     assert counters["call/march.useful"] <= counters["call/march.slots"]
 
 
