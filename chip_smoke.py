@@ -2832,7 +2832,7 @@ def drive_training(cnr, params, card) -> dict:
     from cudaneuralrender_torch.kernels import megakernel
     from cudaneuralrender_torch.models import mlp
     from cudaneuralrender_torch.ops import compaction
-    from cudaneuralrender_torch.render import renderer as renderer_lib
+    from cudaneuralrender_torch.render import schedule
 
     dev = params.device
     cfg = cnr.RenderConfig(width=TRAIN_SIDE[0], height=TRAIN_SIDE[1], march_impl="staged")
@@ -2963,7 +2963,7 @@ def drive_training(cnr, params, card) -> dict:
 
     # The step split: the packed solve and the grad + update, CUDA events.
     hint = rows[-1]["hits"]
-    within = renderer_lib._conv_within(renderer_lib.memo_lookup(trained.params, cfg))
+    within = schedule.conv_within(schedule.memo_lookup(trained.params, cfg))
     bucket = min(compaction.capacity_pow2_of(hint, cfg.num_rays, minimum=cfg.compact_min),
                  within)
     solve_ms = time_cuda(lambda: diff.solve_surface_packed_async(trained.params, cams[0], cfg),
@@ -3163,11 +3163,12 @@ def drive_chunks(cnr, params, card) -> None:
     many_sphere, ``chunk`` in CHUNKS, each chunked sequence equal to
     ``chunk=1`` bit for bit, images and stats; captures one per key."""
     from cudaneuralrender_torch.render import renderer as renderer_lib
+    from cudaneuralrender_torch.render import schedule
 
     cams, frames = _turntable(cnr)
     for scene in CHUNK_SCENES:
         cfg = cnr.RenderConfig(width=1920, height=1080, march_impl="staged", scene=scene)
-        if renderer_lib.frame_reads_host(renderer_lib.memo_lookup(params, cfg)):
+        if renderer_lib.frame_reads_host(schedule.memo_lookup(params, cfg)):
             raise RuntimeError(f"{scene}: the 1080p staged config reads the host")
         _timed_sequence(cnr, params, cams, cfg, frames)  # teaches the memo its caps
         ref, ref_stats, ref_ms = _timed_sequence(cnr, params, cams, cfg, frames)

@@ -36,10 +36,9 @@ from .render.renderer import (
     render_image,
     render_sequence,
     render_staged,
-    reset_schedule_memo,
     scene_fn,
-    tune_caps,
 )
+from .render.schedule import reset_schedule_memo, tune_caps
 from .utils import image_io, trace
 from .utils.config import RenderConfig
 from . import diff

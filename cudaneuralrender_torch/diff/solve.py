@@ -26,23 +26,22 @@ from ..ops import camera as camera_lib
 from ..ops import compaction, march
 from ..ops.camera import Camera
 from ..render import renderer as renderer_lib
+from ..render import schedule
 from ..utils.config import RenderConfig
 
 
 def _make_check(stats: torch.Tensor, config: RenderConfig):
     """The deferred fast-path check of the async solves: fetches (or
     receives already fetched) the stats vector, applies
-    ``renderer.schedule_ok`` and reports into ``stats_out``."""
+    ``schedule.schedule_ok`` and reports into ``stats_out``."""
 
     def check(stats_out: Optional[dict] = None, values=None) -> bool:
         if values is None:
             values = stats.cpu().numpy()
-        active_count, steps_done, hit_count, refine_overflow = (int(v) for v in values[:4])
-        ok = renderer_lib.schedule_ok(active_count, steps_done, refine_overflow, config)
+        st = schedule.decode(values, config)
+        ok = schedule.schedule_ok(st, config)
         if stats_out is not None:
-            stats_out.update(
-                rays=config.num_rays, steps=steps_done, hits=hit_count,
-                unresolved=active_count, refine_overflow=refine_overflow, fast_path=ok)
+            stats_out.update(st.record(config, ok))
         return ok
 
     check.stats = stats  # the device tensor, for fused fetches
@@ -50,18 +49,17 @@ def _make_check(stats: torch.Tensor, config: RenderConfig):
 
 
 def _march_packed(params, camera: Camera, config: RenderConfig, frame):
-    """Ray generation and ``renderer._scheduled_march``, with the stats
-    vector of ``_render_scheduled`` ([:4] the fast-path check's counts,
-    [4:] each refine rung's entry actives); the bundle stays packed."""
+    """Ray generation and ``renderer._scheduled_march``, with the frame's
+    stats vector (``schedule.encode``; the converged count in place of the
+    shaded hits); the bundle stays packed."""
     dev = renderer_lib._device_of(params)
     cam_to_world, _ = camera_lib.view_matrices(camera, dev)
     origin, dirs = camera_lib.generate_rays(
         cam_to_world, config.height, config.width, config.focal)
     pr, steps, refine_overflow, rungs = renderer_lib._scheduled_march(
         params, cam_to_world, origin, dirs, config, frame)
-    head = torch.stack([pr.active.sum(dtype=torch.int32), steps.to(torch.int32),
-                        pr.converged.sum(dtype=torch.int32), refine_overflow.to(torch.int32)])
-    return pr, torch.cat([head, rungs.to(torch.int32)])
+    return pr, schedule.encode(pr.active.sum(dtype=torch.int32), steps,
+                               pr.converged.sum(dtype=torch.int32), refine_overflow, rungs)
 
 
 @torch.no_grad()
@@ -99,7 +97,7 @@ def solve_surface_async(params, camera: Camera, config: RenderConfig, frame: flo
     the work through the synchronous ``solve_surface``."""
     params.require_dense("the training surface solve")
     frame = float(frame)
-    config = renderer_lib.memo_lookup(params, config)
+    config = schedule.memo_lookup(params, config)
     t, hit, stats = _solve_scheduled(params, camera, config, frame)
     return t, hit, _make_check(stats, config)
 
@@ -116,44 +114,32 @@ def solve_surface(params, camera: Camera, config: RenderConfig, frame: float = 0
     params.require_dense("the training surface solve")
     frame = float(frame)
     orig_config = config
-    config = renderer_lib.memo_lookup(params, config)
+    config = schedule.memo_lookup(params, config)
     t, hit, stats = _solve_scheduled(params, camera, config, frame)
-    stats = stats.cpu().numpy()
-    active_count, steps_done, hit_count, refine_overflow = (int(v) for v in stats[:4])
+    st = schedule.decode(stats.cpu().numpy(), config)
+    ok = schedule.schedule_ok(st, config)
     if stats_out is not None:
-        stats_out.update(
-            rays=config.num_rays, steps=steps_done, hits=hit_count,
-            unresolved=active_count, refine_overflow=refine_overflow, fast_path=True)
+        stats_out.update(st.record(config, ok))
+    if ok:
+        return t, hit
 
-    if refine_overflow > 0:
+    if st.refine_overflow > 0:
         # render_staged's retry rule: resize the caps from this solve's own
         # rung stats, or double every bucket; when that no longer changes
         # the config the overflow cannot clear, so finish densely.
-        widened = renderer_lib._widen_or_retune(config, stats)
-        if widened == config:
+        widened = schedule.widen_or_retune(config, st)
+        if widened != config:
+            result = solve_surface(params, camera, widened, frame, stats_out=stats_out)
+            schedule.memo_teach(params, orig_config, widened)
             if stats_out is not None:
-                stats_out.update(fast_path=False, dense_fallback=True)
-            return _solve_dense(params, camera, config, frame)
-        result = solve_surface(params, camera, widened, frame, stats_out=stats_out)
-        renderer_lib.memo_teach(params, orig_config, widened)
-        if stats_out is not None:
-            stats_out.update(fast_path=False)  # the retry's own update said True
-        return result
+                stats_out.update(fast_path=False)  # the retry's own update said True
+            return result
 
-    if active_count > 0 and steps_done < config.max_steps:
-        # The schedule left budgeted rays unresolved: finish on the dense
-        # path rather than porting the staged continuation here.
-        if stats_out is not None:
-            stats_out.update(fast_path=False, dense_fallback=True)
-        return _solve_dense(params, camera, config, frame)
-
-    if config.march_precision != "mixed" and active_count > 0 and steps_done >= config.max_steps:
-        # "full" promises exact truncation semantics (every ray marches up
-        # to max_steps), the corner render_staged re-renders densely.
-        if stats_out is not None:
-            stats_out.update(fast_path=False, dense_fallback=True)
-        return _solve_dense(params, camera, config, frame)
-    return t, hit
+    # Also rays left unresolved (no staged continuation here), and a "full"
+    # march out of steps (exact truncation, as render_staged re-renders).
+    if stats_out is not None:
+        stats_out.update(fast_path=False, dense_fallback=True)
+    return _solve_dense(params, camera, config, frame)
 
 
 @torch.no_grad()
@@ -173,6 +159,6 @@ def solve_surface_packed_async(params, camera: Camera, config: RenderConfig,
     use the image-order path). Same deferred-check contract."""
     params.require_dense("the training surface solve")
     frame = float(frame)
-    config = renderer_lib.memo_lookup(params, config)
+    config = schedule.memo_lookup(params, config)
     pos, t, conv, stats = _solve_scheduled_packed(params, camera, config, frame)
-    return pos, t, conv, renderer_lib._conv_within(config), _make_check(stats, config)
+    return pos, t, conv, schedule.conv_within(config), _make_check(stats, config)

@@ -20,6 +20,7 @@ from ..models.mlp import MLP, DenseParams
 from ..ops import compaction
 from ..ops.camera import Camera
 from ..render import renderer as renderer_lib
+from ..render import schedule
 from ..utils.config import RenderConfig
 from . import losses
 from .solve import solve_surface, solve_surface_async, solve_surface_packed_async
@@ -183,7 +184,7 @@ def pixel_train_step_fast(state: TrainState, camera: Camera, target: torch.Tenso
     hint = stats.get("hits")
     # The packed handoff holds only under the bound of the config the solve
     # will EXECUTE (the memo may redirect to a widened schedule).
-    within = renderer_lib._conv_within(renderer_lib.memo_lookup(state.params, config))
+    within = schedule.conv_within(schedule.memo_lookup(state.params, config))
 
     if hint is not None and within is not None:
         # Packed pipelined path (mixed precision: every hit lives in the
@@ -194,7 +195,7 @@ def pixel_train_step_fast(state: TrainState, camera: Camera, target: torch.Tenso
         assert w_bound == within, (w_bound, within)  # same memo, same bound
         new_state, loss = _pixel_grad_step_packed(state, camera, target, pos, t_p, conv,
                                                   config, lr, cap, w_bound)
-        if check(stats_out=stats, values=_fetch(check, loss)[:4]):
+        if check(stats_out=stats, values=_fetch(check, loss)[:-1]):
             if stats["hits"] <= cap:
                 return new_state, loss
             # The bucket was outgrown but the solve is fine: redo only the
@@ -212,7 +213,7 @@ def pixel_train_step_fast(state: TrainState, camera: Camera, target: torch.Tenso
         t_star, hit, check = solve_surface_async(state.params, camera, config)
         new_state, loss = _pixel_grad_step_from_t(state, camera, target, t_star, hit, config,
                                                   lr, cap if cap < n else None)
-        if check(stats_out=stats, values=_fetch(check, loss)[:4]):
+        if check(stats_out=stats, values=_fetch(check, loss)[:-1]):
             if stats["hits"] <= cap:
                 return new_state, loss
             cap = compaction.capacity_pow2_of(stats["hits"], n, minimum=config.compact_min)
@@ -278,7 +279,7 @@ def train_loop_fast(state: TrainState, cameras, targets, config: RenderConfig,
     while k < n_steps:
         # The packed bound of the config the solves will EXECUTE (a redo may
         # teach the memo mid-loop).
-        within = renderer_lib._conv_within(renderer_lib.memo_lookup(state.params, config))
+        within = schedule.conv_within(schedule.memo_lookup(state.params, config))
         inflight = []  # (index, prev_state, new_state, fused, check, bucket)
         s = state
         j = k
@@ -304,7 +305,7 @@ def train_loop_fast(state: TrainState, cameras, targets, config: RenderConfig,
             jj, prev_s, new_s, fused, check, bucket = inflight.pop(0)
             vals = fused.cpu().numpy()
             st: dict = {}
-            solve_ok = check(stats_out=st, values=vals[:4])
+            solve_ok = check(stats_out=st, values=vals[:-1])
             if not (solve_ok and st["hits"] <= bucket):  # the bucket actually queued
                 # Redo step jj from the last good state; the queued steps
                 # after it are discarded. When only the bucket undershot,

@@ -41,7 +41,7 @@ import torch
 import cudaneuralrender_torch as cnr
 from cudaneuralrender_torch.diff import train
 from cudaneuralrender_torch.parallel import multihost, sharding
-from cudaneuralrender_torch.render import renderer as renderer_lib
+from cudaneuralrender_torch.render import schedule
 
 CAMERA = dict(rotation_y=30.0, rotation_x=10.0)
 # A config whose own refine buckets overflow (tests/_multihost_worker.py's),
@@ -104,7 +104,7 @@ def main(argv=None) -> int:
 
     prone = staged.replace(**PRONE)
     if rank == 0:
-        renderer_lib.memo_teach(params, prone, prone.replace(refine_schedule=TAUGHT_SCHEDULE))
+        schedule.memo_teach(params, prone, prone.replace(refine_schedule=TAUGHT_SCHEDULE))
     stats: dict = {}
     sharding.render_image_sharded_staged(params, cam, prone, mesh, stats_out=stats)
     fast = bool(stats["fast_path"]) and stats["refine_overflow"] == 0

@@ -75,10 +75,8 @@ import numpy as np
 import torch
 
 from ..models.mlp import MLP
-from ..ops import camera as camera_lib
 from ..ops import march as march_lib
-from ..ops import sdf, shading
-from ..ops.camera import Camera
+from ..ops import sdf
 from ..utils import trace
 from ..utils.config import RenderConfig
 from . import build, scenes
@@ -662,31 +660,3 @@ def march(params: MLP, origin: torch.Tensor, dirs: torch.Tensor,
     state = march_lib.init_state(origin, dirs, config.bound_center, config.bound_radius)
     out = march_state(params, origin, dirs, state, config, frame, coarse=True)
     return out.t, out.converged
-
-
-def render_image_kernel(params: MLP, camera: Camera, config: RenderConfig,
-                        matcap: Optional[torch.Tensor] = None,
-                        frame: float = 0.0) -> torch.Tensor:
-    """Full render with the kernel march and plain dense shading
-    (march_impl="megakernel"), the counterpart of ``render_image_pallas``:
-    the march composes with ``config.cyl_window``, the shading normals
-    differentiate the dense scene through the plain chain. Returns
-    [H, W, 4] float rgba, row 0 = bottom."""
-    if not scenes.kernel_supported(config.scene):
-        raise ValueError(
-            f"the march kernel does not support scene {config.scene!r}; use render_image")
-    from ..render.renderer import scene_fn
-
-    dev = params.device
-    cam_to_world, world_to_cam = camera_lib.view_matrices(camera, dev)
-    origin, dirs = camera_lib.generate_rays(
-        cam_to_world, config.height, config.width, config.focal)
-    t, hit = march(params, origin, dirs, config, frame)
-    points = origin + dirs * t[:, None]
-    colors = shading.shade(
-        scene_fn(params, config, frame, for_grad=True), points, dirs,
-        mode=config.shading, normal_mode=config.normal_mode,
-        normal_eps=config.normal_eps, world_to_cam=world_to_cam, matcap=matcap,
-    )
-    rgba = torch.where(hit[:, None], colors, torch.zeros_like(colors))
-    return rgba.reshape(config.height, config.width, 4)

@@ -27,6 +27,7 @@ from ..ops import camera as camera_lib
 from ..ops import march, sdf, shading
 from ..ops.camera import Camera
 from ..render import renderer as renderer_lib
+from ..render import schedule
 from ..render.renderer import scene_fn, shade_fn
 from ..utils.config import RenderConfig
 
@@ -82,9 +83,9 @@ def _render_band_staged(params, camera: Camera, config: RenderConfig, matcap, fr
                         band: int, n_bands: int, device=None):
     """One band through the staged fast path: the shared subset body
     (``sharding.staged_subset``) on the band's global pixel indices in
-    band-local block-major order. Returns ([rows, W, 4], stats): stats =
-    ``staged_subset``'s (active, steps, hits, refine_overflow,
-    shade_excess) then the refine rungs' entry-active counts."""
+    band-local block-major order. Returns ([rows, W, 4], stats): stats of
+    the shard layout (``schedule.encode``), ``staged_subset``'s counts then
+    the refine rungs' entry-active counts."""
     from .sharding import staged_subset
 
     rows = _band_rows(config, n_bands)
@@ -93,10 +94,10 @@ def _render_band_staged(params, camera: Camera, config: RenderConfig, matcap, fr
     bh, bw = config.coarse_block or (rows, config.width)
     perm = renderer_lib._block_order(rows, config.width, bh, bw, dev)
     pos = band * rows * config.width + perm
-    rgba, stats5, rungs = staged_subset(
+    rgba, (active, steps, hits, ovf, excess), rungs = staged_subset(
         params, pos, cam_to_world, world_to_cam, config, matcap, sdf.frame_tensor(frame, dev))
-    return rgba.reshape(rows, config.width, 4), torch.cat([torch.stack(stats5),
-                                                            rungs.to(torch.int32)])
+    return rgba.reshape(rows, config.width, 4), schedule.encode(
+        active, steps, hits, ovf, rungs, shade_excess=excess)
 
 
 def render_band_auto(params, camera: Camera, config: RenderConfig, matcap, frame,
@@ -106,7 +107,7 @@ def render_band_auto(params, camera: Camera, config: RenderConfig, matcap, frame
 
     A staged band whose refine bucket overflows is rendered again with its
     buckets resized from its own rung counts, or doubled
-    (``renderer._widen_or_retune``, as ``render_staged`` retries a frame).
+    (``schedule.widen_or_retune``, as ``render_staged`` retries a frame).
     Contiguous bands hold uneven shares of the object: at 1080p with the
     default schedule the middle bands' near-surface sets outgrow their
     buckets (70% of a band against 41% of the frame), and finishing each
@@ -115,8 +116,6 @@ def render_band_auto(params, camera: Camera, config: RenderConfig, matcap, frame
     retry that no longer changes the buckets, finish the band exactly,
     densely (with the staged path's u32 quantization). ``device`` is
     ``renderer.render_image``'s: where a render without a model runs."""
-    from .sharding import _sharded_fast
-
     renderer_lib._require_fp32_matmul()
     staged = config.march_impl == "staged"
     band_config = config
@@ -125,13 +124,13 @@ def render_band_auto(params, camera: Camera, config: RenderConfig, matcap, frame
     while staged:
         rgba, stats = _render_band_staged(params, camera, band_config, matcap, frame, band,
                                           n_bands, device)
-        stats = stats.cpu().numpy()
-        if _sharded_fast(stats, band_config):
+        st = schedule.decode(stats.cpu().numpy(), band_config, shard=True)
+        if schedule.check_fast(st, band_config):
             return rgba.cpu().numpy()
-        if int(stats[3]) == 0:
+        if st.refine_overflow == 0:
             break
-        retry = renderer_lib._widen_or_retune(
-            band_config, np.concatenate([stats[:4], stats[5:] * scale]))
+        retry = schedule.widen_or_retune(
+            band_config, st._replace(rung_actives=tuple(a * scale for a in st.rung_actives)))
         if retry == band_config:
             break
         band_config = retry

@@ -37,6 +37,7 @@ from ..ops import camera as camera_lib
 from ..ops import compaction, march, sdf, shading
 from ..ops.camera import Camera
 from ..render import renderer as renderer_lib
+from ..render import schedule
 from ..render.renderer import scene_fn, shade_fn
 from ..utils import memo as memo_store
 from ..utils.config import RenderConfig
@@ -344,7 +345,7 @@ def staged_subset(params, pos, cam_to_world, world_to_cam, config: RenderConfig,
         cam_to_world, pos, config.height, config.width, config.focal)
     pr, steps, ovf, rungs = renderer_lib._scheduled_march(
         params, cam_to_world, origin, dirs, config, frame, pos=pos)
-    conv_within = renderer_lib._conv_within(config, n_local)
+    conv_within = schedule.conv_within(config, n_local)
     zero = torch.zeros((), dtype=torch.int32, device=pos.device)
     if solve_only:
         out = tuple(compaction.sort_restore_leaves(pr.pos, (pr.t, pr.converged)))
@@ -354,7 +355,7 @@ def staged_subset(params, pos, cam_to_world, world_to_cam, config: RenderConfig,
         out, pr, hit_count = renderer_lib._shade_packed(
             params, origin, cam_to_world, pr, world_to_cam, config, matcap, frame,
             within=conv_within, flat=True)
-        shade_cap = renderer_lib._shade_capacity(config, n_local, conv_within)
+        shade_cap = schedule.shade_capacity(config, n_local, conv_within)
         shade_excess = zero if shade_cap >= n_local else torch.clamp(
             hit_count - shade_cap, min=0)
     stats5 = (pr.active.sum(dtype=torch.int32), steps.to(torch.int32),
@@ -381,13 +382,12 @@ def _staged_sharded_program(
     * ``out``: the rgba [H, W, 4] on the first shard's device, or across
       processes this rank's rows (``GlobalImage``); with ``solve_only``,
       (t [N], hit [N]) in image order, on every rank.
-    * ``stats``: ONE int64 vector for one host fetch. ``stats[:5]`` is the
-      frame's health vector (active and hit counts summed over the shards;
-      steps, refine overflow and shade excess their maxima: the fast-path
-      check). ``stats[5:]`` is the per-shard matrix [n_shards, 4 + n_rungs]
-      flattened: each shard's (active, hits, shade_excess, steps,
-      rung_entry_actives...), the load picture the sums hide
-      (``shard_load_stats``).
+    * ``stats``: ONE int64 vector for one host fetch, of the shard layout
+      (``schedule.encode``): the health counts (active and hits summed over
+      the shards; steps, overflow and shade excess their maxima), then the
+      per-shard matrix [n_shards, 4 + n_rungs] flattened: each shard's
+      (active, hits, shade_excess, steps, rung_entry_actives...), the load
+      picture the sums hide (``shard_load_stats``).
     """
     n_shards = mesh.shape[data_axis]
     _check_divisible(config, n_shards)
@@ -414,9 +414,9 @@ def _staged_sharded_program(
         dist.all_reduce(mat)
     else:
         mat = local
-    health = torch.stack([mat[:, 0].sum(), mat[:, 3].max(), mat[:, 1].sum(), mat[:, 4].max(),
-                          mat[:, 2].max()])
-    stats = torch.cat([health, torch.cat([mat[:, :4], mat[:, 5:]], dim=1).reshape(-1)])
+    stats = schedule.encode(mat[:, 0].sum(), mat[:, 3].max(), mat[:, 1].sum(), mat[:, 4].max(),
+                            torch.cat([mat[:, :4], mat[:, 5:]], dim=1).reshape(-1),
+                            shade_excess=mat[:, 2].max())
 
     if solve_only:
         t, hit = _whole_solve(outs, n_shards)
@@ -473,24 +473,24 @@ def _decode_sched(cfg: RenderConfig, v: np.ndarray) -> RenderConfig:
 def _memo_lookup_synced(params, config: RenderConfig) -> RenderConfig:
     """The schedule memo's lookup, the same on every rank.
 
-    One process: ``renderer.memo_lookup``. Across processes, rank 0's entry
+    One process: ``schedule.memo_lookup``. Across processes, rank 0's entry
     (its persistent store included) is broadcast, so every rank dispatches
     the same schedule; the result goes into each rank's in-process memo,
     and the broadcast runs once per (geometry, config) per process. Later
     teaching stays in step, because every rank reads the same reduced stats.
     """
     if not multihost.distributed():
-        return renderer_lib.memo_lookup(params, config)
+        return schedule.memo_lookup(params, config)
     key = (memo_store.geom_tag(params), config)
     if key in memo_store.BROADCAST_DONE:
         # Keyed on the broadcast marker, never on a memo hit: an entry only
         # rank 0 holds (its store, an earlier run) would return early on
         # rank 0 alone and leave the others waiting in the collective.
-        return renderer_lib._SCHEDULE_MEMO.get(key, config)
+        return schedule._SCHEDULE_MEMO.get(key, config)
     vec = np.zeros(3 + _ENC_MAX * 5, np.int64)
     if multihost.process_index() == 0:
         try:
-            vec = _encode_sched(renderer_lib.memo_lookup(params, config))
+            vec = _encode_sched(schedule.memo_lookup(params, config))
         except ValueError:
             vec[0] = -1  # no entry the others can decode: all keep the config
     t = torch.as_tensor(vec, device=multihost.comm_device())
@@ -501,14 +501,9 @@ def _memo_lookup_synced(params, config: RenderConfig) -> RenderConfig:
     except ValueError:
         looked = config  # every rank decoded the same vector: all fall back
     if looked != config:
-        renderer_lib._SCHEDULE_MEMO[key] = looked
+        schedule._SCHEDULE_MEMO[key] = looked
     memo_store.BROADCAST_DONE.add(key)
     return looked
-
-
-def _sharded_fast(stats, config: RenderConfig) -> bool:
-    active, steps, _hits, ovf, shade_excess = (int(v) for v in np.asarray(stats)[:5])
-    return renderer_lib.schedule_ok(active, steps, ovf, config) and shade_excess == 0
 
 
 def shard_load_stats(stats, config: RenderConfig) -> dict:
@@ -526,7 +521,7 @@ def shard_load_stats(stats, config: RenderConfig) -> dict:
     """
     st = np.asarray(stats)
     k = len(config.refine_schedule)
-    per = st[5:].reshape(-1, 4 + k).astype(np.float64)
+    per = st[schedule.SHARD_HEAD:].reshape(-1, 4 + k).astype(np.float64)
     n_shards = per.shape[0]
     n_local = config.num_rays // n_shards
     active, hits, steps_done = per[:, 0], per[:, 1], per[:, 3]
@@ -534,7 +529,7 @@ def shard_load_stats(stats, config: RenderConfig) -> dict:
     bounded_total = 0
     work = np.zeros(n_shards)
     for i, (div, steps_i) in enumerate(config.refine_schedule):
-        cap = renderer_lib._cap_for(
+        cap = schedule.cap_for(
             n_local, div, config.refine_caps[i] if config.refine_caps else 0, config)
         occ = np.minimum(rungs[:, i], cap)
         if steps_i:
@@ -582,23 +577,21 @@ def render_image_sharded_staged(
     config = _memo_lookup_synced(params, config)
     rgba, stats = _staged_sharded_program(params, camera, config, mesh, matcap, frame,
                                           data_axis)
-    st = stats.cpu().numpy()  # the one host fetch
-    fast = _sharded_fast(st, config)
+    vec = stats.cpu().numpy()  # the one host fetch
+    st = schedule.decode(vec, config, shard=True)
+    fast = schedule.check_fast(st, config)
     if stats_out is not None:
-        active, steps, hits, ovf, shade_excess = (int(v) for v in st[:5])
-        stats_out.update(
-            rays=config.num_rays, steps=steps, hits=hits, unresolved=active,
-            refine_overflow=ovf, shade_excess=shade_excess, fast_path=fast)
-        stats_out.update(shard_load_stats(st, config))
+        stats_out.update(st.record(config, fast), shade_excess=st.shade_excess,
+                         **shard_load_stats(vec, config))
     if fast:
         return rgba
 
-    if int(st[3]) > 0:
-        widened = renderer_lib._widen(config)
+    if st.refine_overflow > 0:
+        widened = schedule.widen(config)
         if widened != config:
             out = render_image_sharded_staged(params, camera, widened, mesh, matcap, frame,
                                               data_axis, stats_out=stats_out)
-            renderer_lib.memo_teach(params, orig_config, widened)
+            schedule.memo_teach(params, orig_config, widened)
             if stats_out is not None:
                 stats_out.update(fast_path=False)
             return out
@@ -631,22 +624,20 @@ def solve_surface_sharded(
     with torch.no_grad():
         (t, hit), stats = _staged_sharded_program(params, camera, config, mesh, None, frame,
                                                   data_axis, solve_only=True)
-    st = stats.cpu().numpy()  # the one host fetch
-    active, steps, hits, ovf, _ = (int(v) for v in st[:5])
-    fast = renderer_lib.schedule_ok(active, steps, ovf, config)
+    vec = stats.cpu().numpy()  # the one host fetch
+    st = schedule.decode(vec, config, shard=True)
+    fast = schedule.schedule_ok(st, config)
     if stats_out is not None:
-        stats_out.update(rays=config.num_rays, steps=steps, hits=hits, unresolved=active,
-                         refine_overflow=ovf, fast_path=fast)
-        stats_out.update(shard_load_stats(st, config))
+        stats_out.update(st.record(config, fast), **shard_load_stats(vec, config))
     if fast:
         return t, hit
 
-    if ovf > 0:
-        widened = renderer_lib._widen(config)
+    if st.refine_overflow > 0:
+        widened = schedule.widen(config)
         if widened != config:
             out = solve_surface_sharded(params, camera, widened, mesh, frame, data_axis,
                                         stats_out=stats_out)
-            renderer_lib.memo_teach(params, orig_config, widened)
+            schedule.memo_teach(params, orig_config, widened)
             if stats_out is not None:
                 stats_out.update(fast_path=False)
             return out

@@ -23,7 +23,8 @@ from ..models.mlp import MLP
 from ..ops.camera import Camera
 from ..utils import memo as _memo_store
 from ..utils.config import RenderConfig
-from .renderer import render_image
+from . import schedule
+from .renderer import _finish_queued, _render_scheduled, render_image
 
 
 def stack_params(params_list: Sequence[MLP]) -> MLP:
@@ -131,11 +132,6 @@ def render_batch_staged(
 
     Returns a list of [H, W, 4] rgba tensors, each on its geometry's device.
     """
-    from .renderer import (
-        _maybe_tune, _render_scheduled, _widen_or_retune, check_fast,
-        memo_lookup, memo_teach, render_staged,
-    )
-
     params_list = list(params_list)
     matcaps = [matcap] * len(params_list)
     if devices:
@@ -144,7 +140,7 @@ def render_batch_staged(
             matcaps = [matcap.to(p.device) for p in params_list]
     frame = float(frame)
     orig_config = config
-    cfgs = [memo_lookup(p, config) for p in params_list]
+    cfgs = [schedule.memo_lookup(p, config) for p in params_list]
     queued = [_render_scheduled(p, camera, cfg, mc, frame)
               for p, cfg, mc in zip(params_list, cfgs, matcaps)]
     if not queued:
@@ -153,28 +149,15 @@ def render_batch_staged(
     stats = torch.stack([s.to(home) for _, _, s in queued]).cpu().numpy()  # the one sync
 
     out = []
-    for (rgba, _, _), st, p, cfg, mc in zip(queued, stats, params_list, cfgs, matcaps):
-        ovf = int(st[3])
-        fast = check_fast(st, cfg)
+    for (rgba, _, _), vec, p, cfg, mc in zip(queued, stats, params_list, cfgs, matcaps):
+        st = schedule.decode(vec, cfg)
+        fast = schedule.check_fast(st, cfg)
         if stats_out is not None:
-            stats_out.append(dict(
-                rays=cfg.num_rays, steps=int(st[1]), hits=int(st[2]),
-                unresolved=int(st[0]), refine_overflow=ovf, fast_path=fast,
-                rung_actives=[int(v) for v in st[4:]],
-                refine_caps=list(cfg.refine_caps),
-            ))
+            stats_out.append(dict(st.record(cfg, fast), rung_actives=list(st.rung_actives),
+                                  refine_caps=list(cfg.refine_caps)))
+        out.append(_finish_queued(p, camera, cfg, orig_config, mc, frame, rgba, st, fast))
         if fast:
-            out.append(rgba)
-            _maybe_tune(p, orig_config, cfg, st[4:], margin=1.35)
-        elif ovf > 0:
-            # The pipelined attempt already showed this geometry's near set
-            # outgrows the first refine bucket: go straight to the widened
-            # schedule and teach its memo entry.
-            widened = _widen_or_retune(cfg, st)
-            out.append(render_staged(p, camera, widened, mc, frame))
-            memo_teach(p, orig_config, widened)
-        else:
-            out.append(render_staged(p, camera, cfg, mc, frame))
+            schedule.maybe_tune(p, orig_config, cfg, st)
     return out
 
 

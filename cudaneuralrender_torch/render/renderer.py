@@ -65,7 +65,6 @@ from __future__ import annotations
 
 import collections
 import functools
-import hashlib
 import time
 from typing import NamedTuple, Optional
 
@@ -80,8 +79,8 @@ from ..ops import camera as camera_lib
 from ..ops import compaction, grid, march, prepass, sdf, shading
 from ..ops.camera import Camera
 from ..utils import image_io, trace
-from ..utils import memo as _memo_store
 from ..utils.config import RenderConfig
+from . import schedule as schedule_lib
 
 
 def _require_fp32_matmul() -> None:
@@ -197,6 +196,32 @@ def render_image(
         normal_eps=config.normal_eps, world_to_cam=world_to_cam, matcap=matcap,
     )
     rgba = torch.where(result.hit[:, None], colors, 0.0)
+    return rgba.reshape(config.height, config.width, 4)
+
+
+def render_image_kernel(params: MLP, camera: Camera, config: RenderConfig,
+                        matcap: Optional[torch.Tensor] = None,
+                        frame: float = 0.0) -> torch.Tensor:
+    """Full render with the kernel march and plain dense shading
+    (march_impl="megakernel"), the counterpart of ``render_image_pallas``:
+    the march composes with ``config.cyl_window``, the shading normals
+    differentiate the dense scene through the plain chain. Returns
+    [H, W, 4] float rgba, row 0 = bottom."""
+    if not kscenes.kernel_supported(config.scene):
+        raise ValueError(
+            f"the march kernel does not support scene {config.scene!r}; use render_image")
+    dev = params.device
+    cam_to_world, world_to_cam = camera_lib.view_matrices(camera, dev)
+    origin, dirs = camera_lib.generate_rays(
+        cam_to_world, config.height, config.width, config.focal)
+    t, hit = megakernel.march(params, origin, dirs, config, frame)
+    points = origin + dirs * t[:, None]
+    colors = shading.shade(
+        scene_fn(params, config, frame, for_grad=True), points, dirs,
+        mode=config.shading, normal_mode=config.normal_mode,
+        normal_eps=config.normal_eps, world_to_cam=world_to_cam, matcap=matcap,
+    )
+    rgba = torch.where(hit[:, None], colors, torch.zeros_like(colors))
     return rgba.reshape(config.height, config.width, 4)
 
 
@@ -328,16 +353,6 @@ def _pr_merge(pr: PackedRays, sub: march.MarchState) -> PackedRays:
     )
 
 
-def _cap_for(n: int, div: int, cap_abs: int, config: RenderConfig) -> int:
-    """Lane cap of one refine rung: the tuned cap when the config carries
-    one (scaled to this bundle's ``n``), else n//div; floored at
-    compact_min."""
-    if cap_abs:
-        cap = cap_abs if n == config.num_rays else -(-cap_abs * n // config.num_rays)
-        return max(min(cap, n), config.compact_min)
-    return max(n // div, config.compact_min)
-
-
 def _zero_i32(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=device)
 
@@ -366,7 +381,7 @@ def _run_schedule(
     stranded = _zero_i32(pr.t.device)
     for rung_i, (div, rung_steps) in enumerate(schedule):
         with trace.span(f"rung{rung0 + rung_i}"):
-            cap = _cap_for(n, div, caps[rung_i] if caps else 0, config)
+            cap = schedule_lib.cap_for(n, div, caps[rung_i] if caps else 0, config)
             entry_active = None
             if stats_collect is not None or count_stranding:
                 entry_active = pr.active.sum(dtype=torch.int32)
@@ -593,7 +608,7 @@ def _refine_phase(
             stats_collect.append(refine_count)
         overflow = _zero_i32(near.device)
         div0, steps0 = schedule[0]
-        cap = _cap_for(n, div0, caps[0] if caps else 0, config)
+        cap = schedule_lib.cap_for(n, div0, caps[0] if caps else 0, config)
         with trace.span("rung0"):
             if not _dense_rung(cap, n, steps0, entry=True):
                 # Slim entry sort: only (pos, t) ride it; the packed active prefix
@@ -666,27 +681,6 @@ def _shade_final(params, origin, dirs, t, hit, world_to_cam, config: RenderConfi
     return rgba.reshape(config.height, config.width, 4)
 
 
-def _conv_within(config: RenderConfig, n: int | None = None):
-    """Bound on where converged lanes can live after _scheduled_march: in
-    the mixed path every hit lives in the first refine rung's bucket."""
-    if config.march_precision != "mixed":
-        return None
-    if n is None:
-        n = config.num_rays
-    cap0 = _cap_for(
-        n, config.refine_schedule[0][0],
-        config.refine_caps[0] if config.refine_caps else 0, config,
-    )
-    return cap0 if cap0 < n else None
-
-
-def _shade_capacity(config: RenderConfig, n: int, within) -> int:
-    """Lane count _shade_packed shades (and that can hold hits)."""
-    if within is not None and within < n:
-        return n  # in-place prefix shade: every hit is inside `within`
-    return max(n // config.shade_div, config.compact_min)
-
-
 def _u32_words(packed: torch.Tensor) -> torch.Tensor:
     """``shading.pack_rgba_u32``'s words (held in int64) as int32 of the same
     32 bits: a quarter of the float32 frame's bytes to fetch, read on the
@@ -723,7 +717,7 @@ def _shade_hits(params, origin, cam_to_world, pr: PackedRays, world_to_cam,
     """``_shade_packed``'s shading: (region, pos_sh, colours of the region's
     lanes, hit_count), the lanes' pixel indices ``pos_sh``."""
     n = pr.pos.shape[0]
-    cap = _shade_capacity(config, n, within)
+    cap = schedule_lib.shade_capacity(config, n, within)
     hit_count = pr.converged.sum(dtype=torch.int32)
     f = shade_fn(params, config, frame)
 
@@ -806,9 +800,8 @@ def _render_scheduled(params, camera, config: RenderConfig, matcap, frame,
     ``_warm_block_order(config)``, else on the pixel index.
     ``packed_out=True`` returns the u32 [H, W] image (``_shade_packed``).
 
-    Returns (rgba, packed pr, stats[, (t, hit)]) with stats =
-    [active_count, steps_done, hit_count, refine_overflow, per-rung entry
-    actives...] as one int32 tensor, so the caller fetches once."""
+    Returns (rgba, packed pr, stats[, (t, hit)]) with stats the frame's
+    vector (``schedule_lib.encode``), so the caller fetches once."""
     dev = _device_of(params)
     with trace.span("frame", dev):
         frame = sdf.frame_tensor(frame, dev)
@@ -820,12 +813,11 @@ def _render_scheduled(params, camera, config: RenderConfig, matcap, frame,
         with trace.span("shade"):
             region, pos_sh, colors, hit_count = _shade_hits(
                 params, origin, cam_to_world, pr, world_to_cam, config, matcap, frame,
-                _conv_within(config))
+                schedule_lib.conv_within(config))
         with trace.span("restore"):
             rgba = _restore_image(colors, region, pos_sh, config, packed_out, flat=False)
-            head = torch.stack([pr.active.sum(dtype=torch.int32), steps.to(torch.int32),
-                                hit_count, refine_overflow.to(torch.int32)])
-            stats = torch.cat([head, rung_actives.to(torch.int32)])
+            stats = schedule_lib.encode(pr.active.sum(dtype=torch.int32), steps, hit_count,
+                                    refine_overflow, rung_actives)
             if not return_state:
                 return rgba, pr, stats
             if _warm_block_order(config):
@@ -839,165 +831,6 @@ def _render_scheduled(params, camera, config: RenderConfig, matcap, frame,
             else:
                 state = compaction.sort_restore_leaves(pr.pos, (pr.t, pr.converged))
             return rgba, pr, stats, tuple(state)
-
-
-# Adaptive-schedule memo: (geometry tag, config) -> the schedule a previous
-# overflow retry (or a successful frame's per-rung stats) proved right.
-# Purely a performance hint; a stale entry is corrected by the same retry.
-_SCHEDULE_MEMO: dict = {}
-
-
-def reset_schedule_memo(clear_persisted: bool = False) -> None:
-    """Clear the in-process adaptive-schedule memo (and, with
-    ``clear_persisted=True``, the cross-process store file)."""
-    _SCHEDULE_MEMO.clear()
-    _memo_store.reset_store(clear_file=clear_persisted)
-
-
-def _config_fp(config: RenderConfig) -> str:
-    return hashlib.sha1(repr(config).encode()).hexdigest()[:16]
-
-
-def _sched_entry(config: RenderConfig) -> dict:
-    return {
-        "refine_schedule": [list(r) for r in config.refine_schedule],
-        "mid_schedule": [list(r) for r in config.mid_schedule],
-        "refine_caps": list(config.refine_caps),
-    }
-
-
-def memo_lookup(params, config: RenderConfig) -> RenderConfig:
-    """The schedule a previous frame taught for (geometry, config), or
-    ``config`` unchanged. Checks the persistent store for tagged geometries."""
-    tag = _memo_store.geom_tag(params)
-    hit = _SCHEDULE_MEMO.get((tag, config))
-    if hit is not None:
-        return hit
-    if tag is not None:
-        entry = _memo_store.store_get(f"{tag}|{_config_fp(config)}")
-        if entry:
-            try:
-                widened = config.replace(
-                    refine_schedule=tuple((int(d), int(s)) for d, s in entry["refine_schedule"]),
-                    mid_schedule=tuple((int(d), int(s)) for d, s in entry["mid_schedule"]),
-                    refine_caps=tuple(int(c) for c in entry.get("refine_caps", ())),
-                )
-                widened.validate()
-            except (KeyError, TypeError, ValueError):
-                return config  # malformed store entry: ignore it
-            _SCHEDULE_MEMO[(tag, config)] = widened
-            return widened
-    return config
-
-
-def memo_teach(params, orig_config: RenderConfig, widened: RenderConfig) -> None:
-    """Record that ``orig_config`` needs ``widened``'s schedules for this
-    geometry (following any deeper widening already learned for it)."""
-    tag = _memo_store.geom_tag(params)
-    final = _SCHEDULE_MEMO.get((tag, widened), widened)
-    _SCHEDULE_MEMO[(tag, orig_config)] = final
-    if tag is not None:
-        _memo_store.store_put(f"{tag}|{_config_fp(orig_config)}", _sched_entry(final))
-
-
-def _widen(config: RenderConfig) -> RenderConfig:
-    return config.replace(
-        refine_schedule=tuple((max(d // 2, 1), s) for d, s in config.refine_schedule),
-        mid_schedule=tuple((max(d // 2, 1), s) for d, s in config.mid_schedule),
-        # Caps double alongside, clamped at the image (a cap >= n marches
-        # densely and cannot overflow, so widening terminates).
-        refine_caps=tuple(min(c * 2, config.num_rays) for c in config.refine_caps),
-    )
-
-
-def tune_caps(config: RenderConfig, rung_actives, *, margin: float = 1.25,
-              granule: Optional[int] = None,
-              allow_grow: bool = False) -> Optional[RenderConfig]:
-    """Shrink the refine ladder's rungs to the measured near-set decay.
-
-    ``rung_actives`` are the entry-active counts of each refine rung
-    (stats[4:]). Caps are actives*margin rounded up to ``granule``, never
-    larger than the divisor default (unless ``allow_grow``, the overflow
-    recovery mode), floored at compact_min and non-increasing down the
-    ladder. Returns the tuned config, or None when nothing would shrink or
-    the config is ineligible.
-    """
-    if (
-        not config.adaptive_rungs
-        or (config.refine_caps and not allow_grow)
-        or config.march_precision != "mixed"
-        or len(rung_actives) != len(config.refine_schedule)
-    ):
-        return None
-    n = config.num_rays
-    if granule is None:
-        granule = 8192 if n >= 8192 * 32 else max(64, n // 32)
-    caps, prev, changed = [], n, False
-    for (div, _s), a in zip(config.refine_schedule, rung_actives):
-        base = max(n // div, config.compact_min)
-        want = -(-int(int(a) * margin) // granule) * granule
-        cap = max(min(want, prev) if allow_grow else min(want, base, prev),
-                  config.compact_min)
-        if cap < base:
-            changed = True
-        caps.append(cap)
-        prev = cap
-    if not (changed or allow_grow):
-        return None
-    return config.replace(refine_caps=tuple(caps))
-
-
-def _widen_or_retune(config: RenderConfig, stats) -> RenderConfig:
-    """Recovery config after a refine-bucket overflow: resize the caps from
-    the overflowing frame's own per-rung counts when that raises them,
-    else double every bucket (which guarantees termination)."""
-    stats = np.asarray(stats)
-    if len(stats) >= 4 + len(config.refine_schedule):
-        tuned = tune_caps(config.replace(refine_caps=()), stats[4:], margin=1.35,
-                          allow_grow=True)
-        if tuned is not None and tuned != config:
-            old, new = config.refine_caps, tuned.refine_caps
-            if not old or (
-                all(b >= a for a, b in zip(new, old))
-                and any(b > a for a, b in zip(new, old))
-            ):
-                return tuned
-    return _widen(config)
-
-
-def _maybe_tune(params, orig_config: RenderConfig, config: RenderConfig,
-                rung_actives, *, margin: float) -> None:
-    """Teach the memo a cap-tuned schedule from a successful frame's
-    per-rung stats (no-op when the config is ineligible)."""
-    tuned = tune_caps(config, rung_actives, margin=margin)
-    if tuned is not None:
-        memo_teach(params, orig_config, tuned)
-
-
-def schedule_ok(active_count: int, steps_done: int, refine_overflow: int,
-                config: RenderConfig) -> bool:
-    """True iff the staged program's march result is final (no overflow
-    retry, no continuation, no dense fallback needed)."""
-    if refine_overflow > 0:
-        return False
-    if active_count == 0:
-        return True
-    # Active rays with steps exhausted are acceptable in mixed mode
-    # (silhouette tolerance); "full" must re-render densely.
-    return steps_done >= config.max_steps and config.march_precision == "mixed"
-
-
-def check_fast(stats, config: RenderConfig) -> bool:
-    """True iff a staged frame's stats [active, steps, hits,
-    refine_overflow, ...] certify it as final (march final AND the shading
-    bucket held every hit)."""
-    stats = np.asarray(stats)
-    active_count, steps_done, hit_count, refine_overflow = (int(v) for v in stats[:4])
-    if not schedule_ok(active_count, steps_done, refine_overflow, config):
-        return False
-    n = config.num_rays
-    cap = _shade_capacity(config, n, _conv_within(config))
-    return cap >= n or hit_count <= cap
 
 
 def _dense_fallback(params, camera, config, matcap, frame, stats_out):
@@ -1028,7 +861,7 @@ def render_staged(
     _require_fp32_matmul()
     frame = float(frame)
     orig_config = config
-    config = memo_lookup(params, config)
+    config = schedule_lib.memo_lookup(params, config)
 
     with trace.span("sequence/enqueue"):
         rgba, pr, stats = _render_scheduled(params, camera, config, matcap, frame)
@@ -1043,48 +876,40 @@ def _staged_finish(params, camera, config: RenderConfig, orig_config: RenderConf
                    frame: float, rgba, pr: PackedRays, stats, stats_out):
     """render_staged after the fetch: the fast-path check, the overflow
     retry, the slow path's continuation and adaptive tuning."""
-    active_count, steps_done, hit_count, refine_overflow = (int(v) for v in stats[:4])
+    st = schedule_lib.decode(stats, config)
+    fast = schedule_lib.check_fast(st, config)
     if stats_out is not None:
-        stats_out.update(
-            rays=config.num_rays, steps=steps_done, hits=hit_count,
-            unresolved=active_count, refine_overflow=refine_overflow,
-            fast_path=True,
-        )
+        stats_out.update(st.record(config, fast))
+    if fast:
+        schedule_lib.maybe_tune(params, orig_config, config, st)
+        return rgba
 
-    if refine_overflow > 0:
+    if st.refine_overflow > 0:
         # Refinement bucket under-provisioned: retry with buckets resized
         # from this frame's own stats (or doubled). A bucket spanning the
         # image cannot overflow, so this terminates.
-        widened = _widen_or_retune(config, stats)
+        widened = schedule_lib.widen_or_retune(config, st)
         if widened == config:
             return _dense_fallback(params, camera, config, matcap, frame, stats_out)
         result = render_staged(params, camera, widened, matcap, frame, stats_out=stats_out)
-        memo_teach(params, orig_config, widened)
+        schedule_lib.memo_teach(params, orig_config, widened)
         if stats_out is not None:
             stats_out.update(fast_path=False)
         return result
 
-    if (
-        config.march_precision != "mixed"
-        and active_count > 0
-        and steps_done >= config.max_steps
-    ):
+    if config.march_precision != "mixed" and st.active > 0 and st.steps >= config.max_steps:
         # Step-starved truncation in "full" mode: re-render densely for
         # exact truncation semantics.
         return _dense_fallback(params, camera, config, matcap, frame, stats_out)
 
     n_rays = config.num_rays
-    if check_fast(stats, config):
-        _maybe_tune(params, orig_config, config, stats[4:], margin=1.35)
-        return rgba
-
     # Slow path (rare): restore the packed state to image order and
     # continue with host-driven stages + dense shading.
     dev = _device_of(params)
     cam_to_world, world_to_cam = camera_lib.view_matrices(camera, dev)
     origin, dirs = camera_lib.generate_rays(
         cam_to_world, config.height, config.width, config.focal)
-    full = _restore_state(pr, steps_done, origin, dirs, config)
+    full = _restore_state(pr, st.steps, origin, dirs, config)
 
     while True:
         active_count = int(full.active.sum())
@@ -1139,8 +964,8 @@ def frame_reads_host(config: RenderConfig) -> bool:
     if _prepass_on(config) or _grid_on(config):
         return True
     n = config.num_rays
-    return any(_dense_rung(_cap_for(n, div, caps[i] if caps else 0, config), n, rung_steps,
-                           entry=(i == 0))
+    return any(_dense_rung(schedule_lib.cap_for(n, div, caps[i] if caps else 0, config), n,
+                           rung_steps, entry=(i == 0))
                for _, _, schedule, caps in _ladder(config)
                for i, (div, rung_steps) in enumerate(schedule))
 
@@ -1319,7 +1144,7 @@ def render_sequence(
         return []
     orig_config = config
     with trace.span("sequence/enqueue"):
-        config = memo_lookup(params, config)
+        config = schedule_lib.memo_lookup(params, config)
         dev = _device_of(params)
         if (chunk is not None and chunk > 1 and not warm_start and dev.type == "cuda"
                 and not frame_reads_host(config)):
@@ -1357,38 +1182,31 @@ def _sequence_finish(params, cameras, frames, queued, all_stats,
                      matcap, stats_out) -> list:
     """render_sequence after the drain: per-frame fast-path checks,
     slow-path re-renders, stats_out, and batch-max adaptive tuning."""
-    n_rays = config.num_rays
-    out = []
-    all_fast = True
-    for (rgba, _), st, cam, fr in zip(queued, all_stats, cameras, frames):
-        active_count, steps_done, hit_count, refine_overflow = (int(v) for v in st[:4])
-        fast = check_fast(st, config)
-        all_fast = all_fast and fast
-        if stats_out is not None:
-            stats_out.append(dict(
-                rays=n_rays, steps=steps_done, hits=hit_count,
-                unresolved=active_count, refine_overflow=refine_overflow,
-                fast_path=fast))
-        if fast:
-            out.append(rgba)
-        elif refine_overflow > 0:
-            # The pipelined attempt already proved this frame's near set
-            # exceeds the first refine bucket: go straight to the widened
-            # schedule and teach the memo, so the next call (and the
-            # turntable's remaining chunks) dispatch it directly.
-            widened = _widen_or_retune(config, st)
-            out.append(render_staged(params, cam, widened, matcap, fr))
-            memo_teach(params, orig_config, widened)
-        else:
-            out.append(render_staged(params, cam, config, matcap, fr))
-    if all_fast and len(all_stats) and all_stats.shape[1] > 4:
-        # Size the rungs to the per-rung maximum over the whole batch, with
-        # a 1.1 margin: the taught poses are covered by construction, and a
-        # new pose that outgrows the caps re-fits through the overflow
-        # retune at the cost of one doubled frame.
-        _maybe_tune(params, orig_config, config, np.max(all_stats[:, 4:], axis=0),
-                    margin=1.1)
+    batch = [schedule_lib.decode(v, config) for v in all_stats]
+    fast = [schedule_lib.check_fast(st, config) for st in batch]
+    if stats_out is not None:
+        stats_out.extend(st.record(config, f) for st, f in zip(batch, fast))
+    out = [_finish_queued(params, cam, config, orig_config, matcap, fr, rgba, st, f)
+           for (rgba, _), st, f, cam, fr in zip(queued, batch, fast, cameras, frames)]
+    if all(fast):
+        schedule_lib.maybe_tune_batch(params, orig_config, config, batch)
     return out
+
+
+def _finish_queued(params, camera, config: RenderConfig, orig_config: RenderConfig, matcap,
+                   frame, rgba, st: schedule_lib.FrameStats, fast: bool):
+    """A pipelined frame's image after the drain: ``rgba`` when final, else
+    the frame again through ``render_staged``; an overflowed frame goes
+    straight to ``widen_or_retune``'s schedule, taught to the memo so the
+    next frames dispatch it directly."""
+    if fast:
+        return rgba
+    if st.refine_overflow > 0:
+        widened = schedule_lib.widen_or_retune(config, st)
+        out = render_staged(params, camera, widened, matcap, frame)
+        schedule_lib.memo_teach(params, orig_config, widened)
+        return out
+    return render_staged(params, camera, config, matcap, frame)
 
 
 class _HostCopy:
@@ -1438,7 +1256,7 @@ class Renderer:
     def render(self, camera: Camera, frame: float = 0.0) -> torch.Tensor:
         """Render to [H, W, 4] float rgba (a tensor on the model's device)."""
         if self.config.march_impl == "megakernel":
-            return megakernel.render_image_kernel(
+            return render_image_kernel(
                 self.params, camera, self.config, self.matcap, frame)
         if self.config.march_impl == "staged":
             self.last_stats = {}
@@ -1473,20 +1291,19 @@ class Renderer:
         return self._interactive(camera, frame, packed=True)
 
     def _interactive(self, camera: Camera, frame: float, packed: bool):
-        config = memo_lookup(self.params, self.config)
+        config = schedule_lib.memo_lookup(self.params, self.config)
         rgba, _, stats = _render_scheduled(self.params, camera, config, self.matcap,
                                            float(frame), packed_out=packed)
         fetch = _HostCopy(stats)
         if self._pending_check is not None:
             prev, prev_cfg = self._pending_check
-            st = prev.result()  # the previous frame only: this one keeps running
-            fast = check_fast(st, prev_cfg)
-            self.last_stats = dict(steps=int(st[1]), hits=int(st[2]), unresolved=int(st[0]),
-                                   refine_overflow=int(st[3]), fast_path=fast)
-            if int(st[3]) > 0:
-                memo_teach(self.params, self.config, _widen(prev_cfg))
+            st = schedule_lib.decode(prev.result(), prev_cfg)  # this frame keeps running
+            fast = schedule_lib.check_fast(st, prev_cfg)
+            self.last_stats = st.record(prev_cfg, fast)
+            if st.refine_overflow > 0:
+                schedule_lib.memo_teach(self.params, self.config, schedule_lib.widen(prev_cfg))
             elif fast:
-                _maybe_tune(self.params, self.config, prev_cfg, st[4:], margin=1.35)
+                schedule_lib.maybe_tune(self.params, self.config, prev_cfg, st)
         self._pending_check = (fetch, config)
         return rgba
 

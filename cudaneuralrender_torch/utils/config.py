@@ -78,7 +78,7 @@ class RenderConfig:
     coarse_schedule: Tuple[Tuple[int, int], ...] = ((4, 0),)
     refine_schedule: Tuple[Tuple[int, int], ...] = ((4, 16), (8, 24), (32, 64), (256, 0))
     # Explicit per-rung lane caps for the refine ladder (() = divisors),
-    # learned by renderer.tune_caps from per-rung stats.
+    # learned by schedule.tune_caps from per-rung stats.
     refine_caps: Tuple[int, ...] = ()
     adaptive_rungs: bool = True
     # march_precision="full" phase-A schedule.

@@ -1,6 +1,6 @@
 """Geometry tags + the persistent adaptive-schedule store.
 
-The staged renderer's adaptive-schedule memo (render/renderer.py
+The staged renderer's adaptive-schedule memo (render/schedule.py
 ``_SCHEDULE_MEMO``) learns, per (geometry, config), the refine schedule a
 refine-bucket overflow (or a successful frame's per-rung stats) proved
 right. Two pieces live here so the renderer and the checkpoint loader can

@@ -940,9 +940,9 @@ def test_train_steps_on_card():
     cameras equals them (chip_smoke.TRAIN_LOOP_RTOL)."""
     cnr, diff, train, start, cfg, target = _train_setup()
     from cudaneuralrender_torch.kernels import megakernel
-    from cudaneuralrender_torch.render import renderer
+    from cudaneuralrender_torch.render import schedule
 
-    assert renderer._conv_within(cfg) is not None
+    assert schedule.conv_within(cfg) is not None
     cams = [cnr.Camera(rotation_y=20.0 + 2 * i) for i in range(3)]
     s0 = train.init_train_state(start, chip_smoke.TRAIN_LR)
     state, stats, losses, packed = s0, {}, [], []
@@ -1084,13 +1084,13 @@ def test_chunked_sequence_equals_per_frame_on_card():
     replays)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from cudaneuralrender_torch.render import renderer
+    from cudaneuralrender_torch.render import renderer, schedule
 
     cnr, params, cfg, cams, frames = _seq_setup()
     renderer.reset_graphs()
     cnr.reset_schedule_memo()
     cnr.render_sequence(params, cams, cfg, frames=frames)  # teaches the memo its caps
-    assert not renderer.frame_reads_host(renderer.memo_lookup(params, cfg))
+    assert not renderer.frame_reads_host(schedule.memo_lookup(params, cfg))
     ref_stats = []
     ref = cnr.render_sequence(params, cams, cfg, frames=frames, stats_out=ref_stats)
     before = renderer.graph_stats()

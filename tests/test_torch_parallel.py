@@ -311,7 +311,7 @@ def test_staged_sharded_overflow_widens_and_teaches(params, monkeypatch):
     span the shards, whose hits then outgrow the shade bucket, so both
     frames end on the dense fallback, as JAX's do."""
     _, pt = params
-    from cudaneuralrender_torch.render import renderer as r_t
+    from cudaneuralrender_torch.render import schedule
 
     runs = []
     real = t_sh._staged_sharded_program
@@ -327,7 +327,7 @@ def test_staged_sharded_overflow_widens_and_teaches(params, monkeypatch):
     stats = {}
     img = t_sh.render_image_sharded_staged(pt, ct.Camera(), cfg, _tmesh(8), stats_out=stats)
     assert not stats["fast_path"]
-    taught = r_t.memo_lookup(pt, cfg)
+    taught = schedule.memo_lookup(pt, cfg)
     # Doubled until the buckets span the shards: 1024 -> 512 -> ... -> 1.
     assert runs == [((d, 4), (d, 0)) for d in (1024, 512, 256, 128, 64, 32, 16, 8, 4, 2, 1)]
     assert taught.refine_schedule == runs[-1]

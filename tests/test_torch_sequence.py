@@ -23,7 +23,12 @@ csg_demo weights, 48x48, Camera(rotation_x=-20, rotation_y=30+i) (a
     ``chunk=4`` equal to ``chunk=1``;
   * a frame given as a [] tensor and a pose tensor (a CUDA graph's inputs)
     against the float frame and the Camera, bit for bit;
-  * the CLI's ``--spin --warm-start`` at 16x16, resuming.
+  * the CLI's ``--spin --warm-start`` at 16x16, resuming;
+  * ``render/schedule.py``: the frame layout and the shard layout built
+    from the same counts decode to equal ``FrameStats``, with the fast-path
+    verdict of each layout's rule restated here and the same overflow
+    recovery; and a real frame, the same frame as one band and as one
+    shard decode alike.
 """
 import os
 import subprocess
@@ -39,7 +44,11 @@ import cudaneuralrender_torch as ct  # noqa: E402
 import cudaneuralrender_tpu as cj  # noqa: E402
 from cudaneuralrender_torch.ops import camera as camera_t  # noqa: E402
 from cudaneuralrender_torch.ops import march as march_t  # noqa: E402
+from cudaneuralrender_torch.parallel import fault as fault_t  # noqa: E402
+from cudaneuralrender_torch.parallel import mesh as mesh_t  # noqa: E402
+from cudaneuralrender_torch.parallel import sharding as sharding_t  # noqa: E402
 from cudaneuralrender_torch.render import renderer as renderer_t  # noqa: E402
+from cudaneuralrender_torch.render import schedule  # noqa: E402
 from cudaneuralrender_torch.utils import image_io  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -240,6 +249,114 @@ def test_tensor_frame_and_pose_match_float_frame_and_camera(params, case):
     np.testing.assert_array_equal(b.numpy(), a.numpy())
     np.testing.assert_array_equal(sb.numpy(), sa.numpy())
     assert (a[..., 3] > 0).float().mean() > 0.05
+
+
+# name -> the RenderConfig fields of a 64x64 staged frame (4096 rays): the
+# default mixed ladder (the shading bucket spans the image), tuned caps, the
+# "full" march (a 512-lane shading bucket) and buckets of 8 lanes.
+LAYOUT_CONFIGS = {
+    "mixed": {},
+    "tuned_caps": dict(compact_min=64, refine_caps=(1024, 512, 256, 128)),
+    "full": dict(march_precision="full", compact_min=64),
+    "tiny_buckets": dict(refine_schedule=((1024, 4), (1024, 0)), compact_min=8),
+}
+# name -> (active, steps (None: max_steps), hits, refine_overflow, rung actives
+# as fractions of the rays)
+LAYOUT_COUNTS = {
+    "final": (0, 200, 300, 0, (0.2, 0.1, 0.05, 0.01)),
+    "overflow": (5, 90, 300, 40, (0.5, 0.3, 0.2, 0.1)),
+    "unresolved": (12, 120, 300, 0, (0.2, 0.1, 0.05, 0.01)),
+    "starved": (12, None, 300, 0, (0.2, 0.1, 0.05, 0.01)),
+    "shade_full": (0, 200, 900, 0, (0.3, 0.2, 0.1, 0.05)),
+}
+
+
+def _final_march(active, steps, ovf, cfg) -> bool:
+    """A staged march's result is final: no overflow, and no active ray
+    left unless the steps ran out in the mixed precision."""
+    return ovf == 0 and (active == 0 or (steps >= cfg.max_steps
+                                         and cfg.march_precision == "mixed"))
+
+
+@pytest.mark.parametrize("counts", list(LAYOUT_COUNTS))
+@pytest.mark.parametrize("config", list(LAYOUT_CONFIGS))
+def test_frame_and_shard_layouts_decode_alike(config, counts):
+    """One frame's counts in the frame layout and in the shard layout (one
+    shard spanning the image, its shade excess counted as the shard program
+    counts it) decode to equal FrameStats. ``check_fast`` gives each the
+    verdict of its layout's rule (a frame's hits against the shading
+    bucket, a shard's excess against 0), ``widen_or_retune`` the same
+    recovery, and ``record`` the counts."""
+    cfg = ct.RenderConfig(width=64, height=64, march_impl="staged", **LAYOUT_CONFIGS[config])
+    active, steps, hits, ovf, fracs = LAYOUT_COUNTS[counts]
+    steps = cfg.max_steps if steps is None else steps
+    n = cfg.num_rays
+    rungs = [int(f * n) for f in fracs[:len(cfg.refine_schedule)]]
+    cap = schedule.shade_capacity(cfg, n, schedule.conv_within(cfg, n))
+    excess = 0 if cap >= n else max(hits - cap, 0)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    counts_t = (i32(active), i32(steps), i32(hits), i32(ovf))
+    tail = torch.tensor(rungs, dtype=torch.int64)
+    frame_vec = schedule.encode(*counts_t, tail).numpy()
+    shard_vec = schedule.encode(*counts_t, tail, shade_excess=i32(excess)).numpy()
+    assert len(shard_vec) == len(frame_vec) + 1
+
+    frame = schedule.decode(frame_vec, cfg)
+    shard = schedule.decode(shard_vec, cfg, shard=True)
+    assert frame == shard == (active, steps, hits, ovf, excess, tuple(rungs))
+
+    final = _final_march(active, steps, ovf, cfg)
+    assert schedule.schedule_ok(frame, cfg) == schedule.schedule_ok(shard, cfg) == final
+    assert schedule.check_fast(frame, cfg) == (final and (cap >= n or hits <= cap))
+    assert schedule.check_fast(shard, cfg) == (final and excess == 0)
+
+    retry = schedule.widen_or_retune(cfg, frame)
+    assert retry == schedule.widen_or_retune(cfg, shard)
+    assert retry in (schedule.widen(cfg), schedule.tune_caps(
+        cfg.replace(refine_caps=()), rungs, margin=schedule.FRAME_MARGIN, allow_grow=True))
+    assert frame.record(cfg, True) == dict(rays=n, steps=steps, hits=hits, unresolved=active,
+                                          refine_overflow=ovf, fast_path=True)
+
+
+# name -> the RenderConfig fields of a 32x32 staged csg_demo frame, and the
+# FrameStats property the case exists for
+REAL_CASES = {
+    "final": ({}, lambda st, cfg: schedule.check_fast(st, cfg)),
+    "overflow": (dict(refine_schedule=((1024, 4), (1024, 0)), compact_min=8),
+                 lambda st, cfg: st.refine_overflow > 0),
+    "full_shade": (dict(march_precision="full", compact_min=8, shade_div=64),
+                   lambda st, cfg: st.shade_excess > 0),
+    "starved": (dict(max_steps=12), lambda st, cfg: st.active > 0 and st.steps == 12),
+}
+
+
+@pytest.mark.parametrize("case", list(REAL_CASES))
+def test_band_and_shard_stats_decode_as_the_frame(params, case):
+    """A frame's stats vector (``_render_scheduled``), the same frame as one
+    band (``fault._render_band_staged``: the shard layout with the rung
+    counts) and as one shard (``_staged_sharded_program``: the shard layout
+    with the per-shard block) give the same counts, the same fast-path
+    verdict and, for the band, the same overflow recovery."""
+    _, pt = params
+    fields, holds = REAL_CASES[case]
+    cfg = ct.RenderConfig(**dict(dict(width=32, height=32, max_steps=STEPS,
+                                      march_impl="staged", **LADDER), **fields))
+    cam = _cams(ct, 1)[0]
+    ct.reset_schedule_memo()
+    frame = schedule.decode(renderer_t._render_scheduled(pt, cam, cfg, None, 0.0)[2].numpy(),
+                            cfg)
+    band = schedule.decode(fault_t._render_band_staged(pt, cam, cfg, None, 0.0, 0, 1)[1].numpy(),
+                           cfg, shard=True)
+    mesh = mesh_t.make_mesh((1,), ("data",), ["cpu"])
+    sharded = schedule.decode(
+        sharding_t._staged_sharded_program(pt, cam, cfg, mesh, None, 0.0)[1].numpy(), cfg,
+        shard=True)
+    assert holds(frame, cfg), frame
+    assert band == frame
+    assert sharded._replace(rung_actives=()) == frame._replace(rung_actives=())
+    fast = schedule.check_fast(frame, cfg)
+    assert schedule.check_fast(band, cfg) == schedule.check_fast(sharded, cfg) == fast
+    assert schedule.widen_or_retune(cfg, band) == schedule.widen_or_retune(cfg, frame)
 
 
 def _cli(args, cwd):

@@ -188,7 +188,7 @@ def test_pixel_train_step_fast_matches_jax(target, path):
         assert abs(st["hits"] - st_j["hits"]) <= 0.005 * st_j["hits"]
     assert st["fast_path"]  # the pipelined steps (step 1 retries at compact_min=64)
     if path == "packed":
-        assert ct.render.renderer._conv_within(ct.RenderConfig(**fields)) is not None
+        assert ct.render.schedule.conv_within(ct.RenderConfig(**fields)) is not None
     np.testing.assert_allclose(loss_t, loss_j, rtol=1e-4)
     assert int(s.step) == 3 and int(s.opt_state.count) == 3
     _assert_params_close(_leaves_j(sj.params), _leaves_t(s)[:len(layers) * 2], 3)

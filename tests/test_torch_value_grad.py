@@ -32,7 +32,7 @@ import cudaneuralrender_tpu as cj  # noqa: E402
 from cudaneuralrender_torch.kernels import fused_mlp  # noqa: E402
 from cudaneuralrender_torch.models import mlp  # noqa: E402
 from cudaneuralrender_torch.ops import shading  # noqa: E402
-from cudaneuralrender_torch.render import renderer  # noqa: E402
+from cudaneuralrender_torch.render import renderer, schedule  # noqa: E402
 from cudaneuralrender_torch.utils import trace  # noqa: E402
 from cudaneuralrender_tpu.render import renderer as jax_renderer  # noqa: E402
 
@@ -221,7 +221,7 @@ def test_staged_frame_counts_its_shaded_lanes(nets):
     finally:
         trace.reset()
         trace.disable()
-    within = renderer._conv_within(cfg)
+    within = schedule.conv_within(cfg)
     region = within if within is not None and within < cfg.num_rays else cfg.num_rays
     shade = {k.split("frame/shade/")[-1]: v for k, v in counters.items() if "frame/shade/" in k}
     assert shade == {"normals.kernel_lanes": 0, "normals.autograd_lanes": region}

@@ -32,7 +32,7 @@ import torch
 torch.set_num_threads(2)
 
 import cudaneuralrender_torch as ct  # noqa: E402
-from cudaneuralrender_torch.render import renderer as renderer_t  # noqa: E402
+from cudaneuralrender_torch.render import schedule  # noqa: E402
 from cudaneuralrender_torch.render import viewer  # noqa: E402
 from cudaneuralrender_torch.utils import image_io  # noqa: E402
 from cudaneuralrender_tpu.utils import image_io as image_io_j  # noqa: E402
@@ -98,10 +98,10 @@ def test_render_interactive_matches_staged_and_teaches_memo(params):
     tiny = cfg.replace(refine_schedule=((1024, 4), (1024, 0)), compact_min=8)
     r2 = ct.Renderer(params, tiny)
     r2.render_interactive(cams[0])
-    assert renderer_t.memo_lookup(params, tiny) == tiny
+    assert schedule.memo_lookup(params, tiny) == tiny
     r2.render_interactive(cams[1])
     assert r2.last_stats["refine_overflow"] > 0
-    assert renderer_t.memo_lookup(params, tiny) != tiny
+    assert schedule.memo_lookup(params, tiny) != tiny
     ct.reset_schedule_memo()
 
 
