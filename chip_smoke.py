@@ -13,7 +13,10 @@ Phases; any failure exits non-zero and nothing is caught:
      have some, the ray-per-warp ones at 32 and 64 (march_split_kernel,
      FFMA) and 128 (cluster::march_split_kernel, csrc/hidden128_split.cu)
      none, one for each FP32 march instantiation at those widths; so must
-     every X1 and X3 instantiation, and no X2 one);
+     every X1 and X3 instantiation, and no X2 one); and the budget row of
+     the 128-wide march a ray per thread, a block's group of rays at once
+     (csrc/hidden128_group.cuh: registers, shared memory, which must fit a
+     block, blocks an SM, the instantiations that spill);
   3. hold the kernel against its plain PyTorch version on the same CUDA
      tensors: csg_demo rays at 256x256 from Camera(rotation_y=30,
      rotation_x=-20), for the FP32 kernel's three kinds of call in the
@@ -62,7 +65,9 @@ Phases; any failure exits non-zero and nothing is caught:
      at 64 and 128 both modes on each call and the terminal rung's entry,
      as in phase 5, and launches a ray per warp on the main path; at 128
      also ``drive_split128_frames``, phase 18's frames), the coarse
-     pass timed both ways beside its FP32 and 3xTF32 bounds, a profiled
+     pass timed both ways beside its FP32 and 3xTF32 bounds (at 128 with
+     the weight bytes a ray-step fetches from L2, at a warp's 16-ray m-tile
+     and at a block's group of rays), a profiled
      frame; the kernel's FP32 SDF against the model of its summation order
      (fused_mlp.mlp_chain_3xtf32_mma), the plain chain and float64
      (``tc_sdf_errors``); csg_demo widened to 1024 on bounded calls
@@ -378,6 +383,9 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+# An SM's shared memory (228 KB; a block may ask for 227 KB of it, and 1 KB
+# more is reserved for each block).
+SM_SHARED_BYTES = 228 * 1024
 # An FP32-accurate chain on the tensor cores takes three tf32 products per
 # fused multiply-add (3xTF32, the redesigned K3): ``tc_bound_ms`` of a K3 or
 # FP32-chain entry is its work at that rate, 0.406x its FFMA bound.
@@ -1605,6 +1613,15 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> list:
     print(f"{tag}: {'coarse march' if size.bounded else 'refine rung 0'} (FP32) kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms (FP32), "
           f"{bnd['tc_bound_ms']:.3f} ms (3xTF32) [{card}]", flush=True)
+    if hidden == megakernel.SHARED_WIDTH:
+        n_layers = len(params.chain)
+        fetch = {c: stack_fetch_bytes(hidden, n_layers, c == "three-pass")
+                 for c in ("FP32", "three-pass")}
+        group = megakernel.SHARED_GROUP
+        per_step = ", ".join(f"{c} {b / 16:.0f} B at a warp's 16-ray m-tile, {b / group:.0f} B "
+                             f"at a block's {group}-ray group" for c, b in fetch.items())
+        print(f"{tag}: weight bytes fetched from L2 a ray-step (the stack's fragments a chain "
+              f"reads, {json.dumps(fetch)} B): {per_step}", flush=True)
     if not size.bounded:
         print(f"{tag}: breakdown {json.dumps(device_breakdown(renderer, cam))} [{card}]",
               flush=True)
@@ -1614,6 +1631,16 @@ def drive_width(cnr, params, hidden, card, size: Sizes) -> list:
     return [kernel_entry(f"march_kernel_h{hidden}", K1_SOURCE,
                          "cudaneuralrender_tpu/pallas/megakernel.py:45", launches,
                          max(fp32_err), ms, plain_ms, bnd)] + entries
+
+
+def stack_fetch_bytes(hidden: int, n_layers: int, three_pass: bool) -> int:
+    """Bytes of the fragment-ordered stack one chain evaluation reads: the
+    first layer's one k-chunk, the hidden layers whole, the head's n-tile 0
+    (a lane's B fragment 8 bytes a k-chunk of 8 in tf32 order, 16 bytes a
+    k-chunk of 16 in bf16 order: 4 bytes a weight either way)."""
+    nt = hidden // 8
+    kt, frag = (hidden // 16, 32 * 16) if three_pass else (hidden // 8, 32 * 8)
+    return frag * (nt + (n_layers - 2) * kt * nt + kt)
 
 
 def drive_forward(cnr, params, hidden, card, size: Sizes) -> dict:
@@ -4380,6 +4407,7 @@ def check_build() -> None:
     experiments = [k for k in hmma if k.startswith("x")]  # X1-X3: on the tensor cores
     idle = [k for k in tensor_core + experiments if hmma[k] == 0]
     stray = [k for k in split if hmma[k]]
+    group_budget(lib, build.BUILD_LOG)
     print(f"SASS (cuobjdump -sass): {len(tensor_core) - len(idle)} of {len(tensor_core)} K3, "
           f"K2h and FP32 march (widths {megakernel.TENSOR_CORE_FP32_WIDTHS}, a ray per thread) "
           f"instantiations issue HMMA; FP32 march instantiations a ray per warp (widths "
@@ -4392,6 +4420,34 @@ def check_build() -> None:
                            f"warp) with HMMA: {stray}; {len(experiments)} X1-X3 kernels of 14; "
                            f"{len(split)} ray-per-warp kernels for {len(splittable)} FP32 march "
                            f"kernels at {megakernel.SPLIT_WIDTHS}")
+
+
+def group_budget(lib, log: str) -> None:
+    """Phase 2's budget row of the 128-wide march a ray per thread (a
+    block's group of megakernel.SHARED_GROUP rays at once,
+    csrc/hidden128_group.cuh) over its 16 instantiations: registers, the
+    dynamic shared memory a block asks for at 9 layers (which must fit a
+    block's 227 KB), the blocks an SM holds by both, and the instantiations
+    that spill with their bytes (the three-pass chain under scenes 2, 3 and
+    cylinder window 3 spilled 8 B each on the H100, PERF.md)."""
+    from cudaneuralrender_torch.kernels import megakernel
+
+    rows = [r for r in ptxas_table(log) if r[0].startswith("march_kernel<H=128,")]
+    if not rows:
+        return  # the library was built before this process
+    smem = lib.cnr_smem_bytes(0, 128, 9)
+    regs = max(r[1] for r in rows)
+    threads = megakernel.SHARED_BLOCK
+    by_smem = SM_SHARED_BYTES // (smem + 1024)
+    by_regs = 65536 // (-(-regs // 8) * 8 * threads)
+    spills = {r[0]: r[3] for r in rows if r[3]}
+    print(f"budget 128 (a block's group of {megakernel.SHARED_GROUP} rays, {threads} threads): "
+          f"{min(r[1] for r in rows)}-{regs} registers, {smem} bytes shared memory, "
+          f"{min(by_smem, by_regs)} blocks an SM (shared memory {by_smem}, registers {by_regs}); "
+          f"{len(spills)} of {len(rows)} instantiations spill (store bytes) {json.dumps(spills)}",
+          flush=True)
+    if smem > SM_SHARED_BYTES - 1024:
+        raise RuntimeError(f"the 128-wide group march asks for {smem} bytes of shared memory")
 
 
 def drive_split128_frames(cnr, params, card) -> None:

@@ -26,16 +26,21 @@
 //       split over a warp's lanes on FFMA instead (split_sdf below, a ray
 //       per warp), each output summed in input order from zero, the bias
 //       last: the plain version's order bit for bit;
-//     - H = 128 to 1024: the activations in the warp's shared memory, the
-//       stack (590 KB / 2.36 MB / 9.4 MB / 37.7 MB at L=9) read from the
-//       50 MB L2 (chain_tf32_smem).
+//     - H = 128: a block's group of rays at once, the warps splitting each
+//       layer's columns over the group's activations in the block's shared
+//       memory, the stack (590 KB at L=9) read from L2
+//       (csrc/hidden128_group.cuh);
+//     - H = 256 to 1024: the activations in the warp's shared memory, the
+//       stack (2.36 MB / 9.4 MB / 37.7 MB at L=9) read from the 50 MB L2
+//       (chain_tf32_smem).
 //     The step-cost experiment X2 (csrc/experiments.cu) times this chain,
 //     chain_tf32_regs at 32, with a fixed-step march around it.
 //   * the fused forward K3: 3xTF32 on the tensor cores over a tile of points
 //     per block, activations in shared memory (see "K3" below).
 //   * the three-pass chain K2h inside the march kernel: bf16 MMA over the 32
 //     rays of a warp, activations in registers (32, 64) or in the warp's
-//     shared memory (128-1024) (see "K2h on the tensor cores" below); X2
+//     shared memory (256-1024), or over a block's group of rays at 128
+//     (csrc/hidden128_group.cuh) (see "K2h on the tensor cores" below); X2
 //     times chain_3pass_regs at 32 the same way.
 // 1024 is the widest: the JAX package's kernels hold the whole stack in
 // VMEM, and a wider 9-layer stack exceeds this card's L2 too. The first
@@ -463,7 +468,10 @@ int launch_mlp_forward(const MlpArgs& a, cudaStream_t stream) {
 //     bytes as the FP32 stack: 37 KB / 150 KB at 9 layers); the activations
 //     stay in registers, each layer's accumulators handed to the next
 //     layer's A fragments in place (mma.cuh), both m-tiles at once;
-//   * H = 128 to 1024: the stack is read from L2 (fragment-ordered loads,
+//   * H = 128: a block's group of rays at once (csrc/hidden128_group.cuh:
+//     the warps split each layer's columns, so a fragment fetched from L2
+//     serves the group's kGroupRays rays, not a warp's 16);
+//   * H = 256 to 1024: the stack is read from L2 (fragment-ordered loads,
 //     each warp on its own: the warps of a block do not step together, so
 //     no ray waits on another warp's straggler). A warp's activations go
 //     to shared memory, already split, an (hi, lo) pair of bf16x2 per two
@@ -471,12 +479,11 @@ int launch_mlp_forward(const MlpArgs& a, cudaStream_t stream) {
 //     and the epilogue stores are conflict-free). The two m-tiles run one
 //     after the other, each through two buffers [16, H] (input and output),
 //     each layer's output in chunks of 64 columns held in accumulators:
-//     2 * 16 * (H/2 + 4) * 8 bytes a warp, 17 KB at 128, 33 KB at 256,
-//     65 KB at 512, 129 KB at 1024. Warps a block: 4, 2, 1, 1. At 128 and
-//     256 ptxas caps the block's registers at 128 a thread and spills
-//     120-122 B a thread in four of the eight scene instantiations (scenes
-//     2, 3 and 4 at windows 3 and 5); the others spill nothing (chip_smoke.py
-//     phase 2 prints each).
+//     2 * 16 * (H/2 + 4) * 8 bytes a warp, 33 KB at 256, 65 KB at 512,
+//     129 KB at 1024. Warps a block: 2, 1, 1. At 256 ptxas caps the block's
+//     registers at 128 a thread and spills 120-122 B a thread in four of
+//     the eight scene instantiations (scenes 2, 3 and 4 at windows 3 and
+//     5); the others spill nothing (chip_smoke.py phase 2 prints each).
 //   * H = 1024: the tightest budget. 32 rows would need 264 KB for the two
 //     buffers, more than an SM has, and keeping a layer's output in
 //     registers would need 1024 accumulators a lane; so the m-tiles take
@@ -484,16 +491,30 @@ int launch_mlp_forward(const MlpArgs& a, cudaStream_t stream) {
 //     march at once on the card, each reading the whole 37.7 MB stack once
 //     per m-tile and step.
 
+// At H = 128 the march kernel runs the chain for a block's group of
+// kGroupRays consecutive rays at once (csrc/hidden128_group.cuh): a block
+// of kGroupBlock threads, a ray each, whose kGroupBlock / kGroupRays groups
+// take turns through one pair of activation buffers [kGroupRays,
+// act_words(128)]. 64-ray groups in blocks of 4 warps (each warp 32 of a
+// layer's columns, 3 blocks an SM) marched faster than 128-ray groups in
+// one block of 8 warps an SM (PERF.md); kernels/megakernel.py SHARED_GROUP
+// names the group.
+constexpr int kGroupRays = 64;
+constexpr int kGroupBlock = 128;
+// 4-byte words of a ray's state that wait in shared memory while a block's
+// chains run.
+constexpr int kGroupStateWords = 10;
+
 // Threads of a block of the march kernel, whose chains (the FP32 one and
 // the three-pass one) both run for the 32 rays of a warp together on the
 // tensor cores: 128 at 32 and 256 at 64, where the block stages the stack
-// (at 64 its 150 KB leave one block an SM), and at 128-1024 as many warps
-// as their activation buffers allow (4, 2, 1, 1).
+// (at 64 its 150 KB leave one block an SM), at 128 kGroupBlock, and at
+// 256-1024 as many warps as their activation buffers allow (2, 1, 1).
 __host__ __device__ constexpr int march_block(int h) {
-  return h == 32 ? 128 : (h == 64 ? 256 : (h == 128 ? 128 : (h == 256 ? 64 : 32)));
+  return h == 32 ? 128 : (h == 64 ? 256 : (h == 128 ? kGroupBlock : (h == 256 ? 64 : 32)));
 }
 
-// 4-byte words of a row of a warp's activation buffers at H >= 128: H FP32
+// 4-byte words of a row of the activation buffers at H >= 128: H FP32
 // values (K1), or H / 2 (hi, lo) bf16x2 pairs of 8 bytes (K2h), then 8
 // words of padding that make the A loads and epilogue stores
 // conflict-free.
@@ -502,14 +523,24 @@ __host__ __device__ constexpr int act_words(int h) { return h + 8; }
 // An (hi, lo) bf16x2 pair per two activation columns: pairs per row.
 __host__ __device__ constexpr int act_pairs(int h) { return act_words(h) / 2; }
 
+// Dynamic shared memory of a 128-wide march block: the group's two
+// activation buffers, a head value a thread, a ballot a warp, each ray's
+// state, the rays' origin.
+__host__ __device__ constexpr size_t group_smem_bytes() {
+  return sizeof(float) * (2 * static_cast<size_t>(kGroupRays) * act_words(128) + kGroupBlock) +
+         sizeof(uint32_t) * (kGroupBlock / 32) +
+         sizeof(float) * (static_cast<size_t>(kGroupStateWords) * kGroupBlock + 3);
+}
+
 // Dynamic shared memory of a march block: the staged stack and its biases
 // (H = 32, 64: FP32 in tf32 fragment order, or the bf16 hi and lo halves in
-// as many bytes), or each warp's two activation buffers [16, act_words(H)]
-// (H >= 128).
+// as many bytes), the group's buffers (H = 128), or each warp's two
+// activation buffers [16, act_words(H)] (H >= 256).
 __host__ __device__ constexpr size_t march_smem_bytes(int h, int n_layers) {
-  return h <= 64 ? sizeof(float) * static_cast<size_t>(n_layers) * h * (h + 1)
-                 : static_cast<size_t>(march_block(h) / 32) * 2 * 16 * act_words(h) *
-                       sizeof(float);
+  return h <= 64    ? sizeof(float) * static_cast<size_t>(n_layers) * h * (h + 1)
+         : h == 128 ? group_smem_bytes()
+                    : static_cast<size_t>(march_block(h) / 32) * 2 * 16 * act_words(h) *
+                          sizeof(float);
 }
 
 // Output columns of a layer chunk at H >= 128 (8 n-tiles).
@@ -830,15 +861,18 @@ __device__ __forceinline__ float chain_sdf_mma(const uint4* __restrict__ w,
 //     2 * kRegTiles tiles before the next pass (groups of 4 ran as fast
 //     at 32, and at 64 spilled 300 B a thread once the first layer moved
 //     to FFMA);
-//   * H = 128 to 1024 (chain_tf32_smem; K2h's budget, FP32 activations in
+//   * H = 128: a block's group of rays at once (csrc/hidden128_group.cuh),
+//     K2h's budget; each B pair fetched once per group and split once for
+//     all of its m-tiles;
+//   * H = 256 to 1024 (chain_tf32_smem; K2h's budget, FP32 activations in
 //     the bytes of its (hi, lo) pairs): the stack read from L2, each B pair
 //     prefetched a k-chunk ahead; a warp's activations in its own two
 //     shared-memory buffers [16, act_words(H) = H + 8] FP32, the layer's
 //     input and output (the padded stride makes a lane's a0 / a2 pair one
 //     conflict-free 64-bit load, and the epilogue's stores conflict-free),
 //     split into big / small as they are read. The two m-tiles take turns
-//     through them: 2 * 16 * (H + 8) * 4 bytes a warp, 17 / 33 / 65 / 129 KB
-//     at 128 / 256 / 512 / 1024, with 4 / 2 / 1 / 1 warps a block
+//     through them: 2 * 16 * (H + 8) * 4 bytes a warp, 33 / 65 / 129 KB
+//     at 256 / 512 / 1024, with 2 / 1 / 1 warps a block
 //     (march_block), so each warp reads the stack once per m-tile and step;
 //     each layer's output in chunks of kMmaChunkTiles n-tiles (64 columns)
 //     held in accumulators, 32 a lane.
@@ -847,16 +881,18 @@ __device__ __forceinline__ float chain_sdf_mma(const uint4* __restrict__ w,
 //     H     warps  shared memory  blocks an SM  registers  stack    spill st/ld
 //     32    4      37.1 KB        3             142-145    0 (32)   0 / 0 B
 //     64    8      146.3 KB       1             255        120-168  266-322 / 196-260 B
-//     128   4      68.0 KB        3             153-158    0 (32)   0 / 0 B
+//     128   4      73.5 KB        3             157-168    0-32     0 / 0 B  (a block's group)
 //     256   2      66.0 KB        3             153-158    0 (32)   0 / 0 B
 //     512   1      65.0 KB        3             127-158    0 (32)   0 / 0 B
 //     1024  1      129.0 KB       1             127-158    0 (32)   0 / 0 B
-// Only the 64-wide units spill: their 128 activations and accumulators a
+// The 64-wide units spill: their 128 activations and accumulators a
 // lane, the MMA temporaries and the first layer's inputs exceed the
-// 255-register cap; the displacement scene's 32-byte frame is sinf's range
+// 255-register cap; at 128 three of the 16 group kernels spill 8 B (the
+// three-pass chain under scenes 2, 3 and window 3, at 3 blocks' 168); the displacement scene's 32-byte frame is sinf's range
 // reduction. Registers set the warps an SM holds at 32 (12) and shared
 // memory from 64 (8 at 64, where 512 threads a block spilled 600 B a thread
-// under the 128-register cap and ran slower; 12, 6, 3 and 1 at 128-1024),
+// under the 128-register cap and ran slower; 12, 6, 3 and 1 at 128-1024;
+// at 128 both chains' 16 instantiations: csrc/hidden128_group.cuh),
 // so at 512 and 1024 one or three warps' MMAs, loads and splits cannot
 // hide each other's latency; that, not the tensor cores' rate, bounds the
 // wide widths (PERF.md).

@@ -20,7 +20,8 @@
 //
 // Design:
 //   * one thread per ray, march_block(H) threads per block (chain.cuh), a
-//     warp's 32 rays the rows of one product on the tensor cores; or, for
+//     warp's 32 rays the rows of one product on the tensor cores (at 128 a
+//     block's group of rays, csrc/hidden128_group.cuh); or, for
 //     the FP32 chain at H = 32 and 64 on a launch of few rays, one warp per
 //     ray on FFMA (march_split_kernel below), and at 128 a warp per ray in
 //     each CTA of a 4-CTA cluster that holds the stack
@@ -536,22 +537,31 @@ int launch_split_kernel(SplitKernel kernel, const MarchArgs& a, cudaStream_t str
   return static_cast<int>(cudaGetLastError());
 }
 
+// The 128-wide instantiations, a block's group of rays at once
+// (csrc/hidden128_group.cuh, which the 128-wide units include).
+template <bool kThreePass>
+MarchKernel pick_group_kernel(int scene, int window);
+
 // The instantiation for a width, chain, scene id and cylinder window, or
 // nullptr.
 template <int H, bool kThreePass>
 MarchKernel pick_kernel(int scene, int window) {
-  if (window != 1 && window != 3 && window != 5) return nullptr;
-  switch (scene) {
-    case kNeuralRaw: return march_kernel<H, kNeuralRaw, 0, kThreePass>;
-    case kNeuralTanh: return march_kernel<H, kNeuralTanh, 0, kThreePass>;
-    case kManySphere: return march_kernel<H, kManySphere, 0, kThreePass>;
-    case kManySphereCut: return march_kernel<H, kManySphereCut, 0, kThreePass>;
-    case kManyCylinderCut:
-      if (window == 1) return march_kernel<H, kManyCylinderCut, 1, kThreePass>;
-      if (window == 3) return march_kernel<H, kManyCylinderCut, 3, kThreePass>;
-      return march_kernel<H, kManyCylinderCut, 5, kThreePass>;
-    case kDisplacement: return march_kernel<H, kDisplacement, 0, kThreePass>;
-    default: return nullptr;
+  if constexpr (H == 128) {
+    return pick_group_kernel<kThreePass>(scene, window);
+  } else {
+    if (window != 1 && window != 3 && window != 5) return nullptr;
+    switch (scene) {
+      case kNeuralRaw: return march_kernel<H, kNeuralRaw, 0, kThreePass>;
+      case kNeuralTanh: return march_kernel<H, kNeuralTanh, 0, kThreePass>;
+      case kManySphere: return march_kernel<H, kManySphere, 0, kThreePass>;
+      case kManySphereCut: return march_kernel<H, kManySphereCut, 0, kThreePass>;
+      case kManyCylinderCut:
+        if (window == 1) return march_kernel<H, kManyCylinderCut, 1, kThreePass>;
+        if (window == 3) return march_kernel<H, kManyCylinderCut, 3, kThreePass>;
+        return march_kernel<H, kManyCylinderCut, 5, kThreePass>;
+      case kDisplacement: return march_kernel<H, kDisplacement, 0, kThreePass>;
+      default: return nullptr;
+    }
   }
 }
 

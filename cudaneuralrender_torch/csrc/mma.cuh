@@ -140,22 +140,18 @@ __device__ __forceinline__ float round_to_even(float t) {
 }
 
 // acc[j] += a * b_j at FP32-grade precision on the tf32 tensor cores
-// (3xTF32), for N n-tiles j sharing the A fragments of one m-tile (K1's FP32
-// chain from width 128): b[j] is one lane's FP32 B pair {b0, b1}, split
-// into big / small here; a_small * b_big, a_big * b_small, then
-// a_big * b_big over one k-chunk of 8 from zero, then the chunk's sum
-// rounded to even (round_to_even) and added to the FP32 accumulator with a
-// rounded add. The a_small * b_small term (2^-22 relative) is dropped.
+// (3xTF32), for N n-tiles j sharing the A fragments of one m-tile, the B
+// pairs given split (bbig, bsmall: split_tf32 of one lane's {b0, b1}):
+// a_small * b_big, a_big * b_small, then a_big * b_big over one k-chunk of
+// 8 from zero, then the chunk's sum rounded to even (round_to_even) and
+// added to the FP32 accumulator with a rounded add. The a_small * b_small
+// term (2^-22 relative) is dropped. The 128-wide march applies one split
+// B pair to several m-tiles (csrc/hidden128_group.cuh).
 template <int N>
-__device__ __forceinline__ void mma_3xtf32_rows(float (&acc)[N][4], const uint32_t (&abig)[4],
-                                                const uint32_t (&asmall)[4],
-                                                const float2 (&b)[N]) {
-  uint32_t bbig[N][2], bsmall[N][2];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    split_tf32(b[j].x, bbig[j][0], bsmall[j][0]);
-    split_tf32(b[j].y, bbig[j][1], bsmall[j][1]);
-  }
+__device__ __forceinline__ void mma_3xtf32_split(float (&acc)[N][4], const uint32_t (&abig)[4],
+                                                 const uint32_t (&asmall)[4],
+                                                 const uint32_t (&bbig)[N][2],
+                                                 const uint32_t (&bsmall)[N][2]) {
   float d[N][4];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -171,6 +167,22 @@ __device__ __forceinline__ void mma_3xtf32_rows(float (&acc)[N][4], const uint32
   for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = __fadd_rn(acc[j][i], round_to_even(d[j][i]));
+}
+
+// The same from one lane's FP32 B pairs b[j] = {b0, b1}, split into big /
+// small here (K1's FP32 chain from width 256, the value-and-gradient
+// kernel, X1).
+template <int N>
+__device__ __forceinline__ void mma_3xtf32_rows(float (&acc)[N][4], const uint32_t (&abig)[4],
+                                                const uint32_t (&asmall)[4],
+                                                const float2 (&b)[N]) {
+  uint32_t bbig[N][2], bsmall[N][2];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    split_tf32(b[j].x, bbig[j][0], bsmall[j][0]);
+    split_tf32(b[j].y, bbig[j][1], bsmall[j][1]);
+  }
+  mma_3xtf32_split(acc, abig, asmall, bbig, bsmall);
 }
 
 // acc[m][j] += a_m * b_j at FP32-grade precision on the tf32 tensor cores,

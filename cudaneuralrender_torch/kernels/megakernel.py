@@ -130,6 +130,26 @@ RAYGEN_LAUNCHES = 0
 #: The lanes that march one ray in the ray-split mode: a warp.
 SPLIT_LANES = 32
 
+#: The padded width at which a ray per thread marches a block's group of
+#: rays at once, the warps splitting each layer's columns over the group's
+#: activations in shared memory (csrc/hidden128_group.cuh), and the rays of
+#: a group: the lockstep unit there (csrc/chain.cuh ``kGroupRays``). At the
+#: other widths a warp's 32 rays step together.
+SHARED_WIDTH = 128
+SHARED_GROUP = 64
+#: The threads (rays) of a block there (csrc/chain.cuh ``kGroupBlock``),
+#: whose groups take turns.
+SHARED_BLOCK = 128
+
+
+def lockstep_lanes(hidden: int, lanes: int) -> int:
+    """The lanes that step together in a launch of ``lanes`` lanes a ray at
+    a padded width: a ray per warp, its own ray (1); a ray per thread, a
+    block's group at SHARED_WIDTH and a warp elsewhere."""
+    if lanes != 1:
+        return 1
+    return SHARED_GROUP if hidden == SHARED_WIDTH else 32
+
 
 def _new_steps(state: march_lib.MarchState, lane_steps: torch.Tensor,
                num_steps: Optional[int], max_steps: int) -> torch.Tensor:
@@ -497,36 +517,37 @@ def march_state(
         raise ValueError(f"march_state runs on cpu or cuda tensors, not {dirs.device}")
     if trace.enabled():
         # The kernel's mode, on the CPU too: the count is the launch's.
-        lanes = _ray_lanes or ray_lanes(packed_params(params.chain)[3], precision, num_steps,
-                                        coarse, len(params.chain))
-        _count_march(state, lane_steps, lanes, params.gathers_per_eval)
+        hidden = packed_params(params.chain)[3]
+        lanes = _ray_lanes or ray_lanes(hidden, precision, num_steps, coarse, len(params.chain))
+        _count_march(state, lane_steps, hidden, lanes, params.gathers_per_eval)
     return (out, lane_steps) if return_resolve else out
 
 
-def _count_march(state: march_lib.MarchState, lane_steps: torch.Tensor, lanes: int,
-                 gathers: int = 0) -> None:
-    """``trace.count("march", ...)`` for one march call from its entry state
-    and its ``lane_steps``: ``lanes`` the call's lanes, ``active_in`` those
-    active at entry, ``useful`` the steps its rays marched (sum of
+def _count_march(state: march_lib.MarchState, lane_steps: torch.Tensor, hidden: int,
+                 lanes: int, gathers: int = 0) -> None:
+    """``trace.count("march", ...)`` for one march call at padded width
+    ``hidden``, ``lanes`` lanes a ray, from its entry state and its
+    ``lane_steps``: ``lanes`` the call's lanes, ``active_in`` those active
+    at entry, ``useful`` the steps its rays marched (sum of
     ``lane_steps - start``) and ``slots`` the lane-steps the launch held:
-    a ray per thread, 32 x the steps of each warp's deepest lane (a warp
-    marches until its last ray stops); a ray per warp, each ray's steps.
-    A call marched a ray per warp also counts its lanes as ``split_lanes``.
-    With ``gathers`` table entries an evaluation, also ``gathers``, useful x
-    that (a dense chain reads no table, and counts none)."""
+    for each run of consecutive lanes that step together
+    (``lockstep_lanes``: a warp, a block's group at SHARED_WIDTH, a ray
+    alone a ray per warp), the run's lanes x the steps of its deepest lane.
+    A call marched a ray per warp also counts its lanes as ``split_lanes``,
+    and one marched through a block's group as ``shared_lanes``. With
+    ``gathers`` table entries an evaluation, also ``gathers``, useful x that
+    (a dense chain reads no table, and counts none)."""
     steps = lane_steps - state.steps
-    split = {}
-    if lanes == 1:
-        pad = -steps.shape[0] % 32
-        warps = (torch.nn.functional.pad(steps, (0, pad)) if pad else steps).view(-1, 32)
-        slots = warps.amax(1).sum() * 32
-    else:
-        slots = steps.sum()
-        split = dict(split_lanes=steps.shape[0])
+    unit = lockstep_lanes(hidden, lanes)
+    pad = -steps.shape[0] % unit
+    runs = (torch.nn.functional.pad(steps, (0, pad)) if pad else steps).view(-1, unit)
+    slots = runs.amax(1).sum() * unit
+    mode = ({"split_lanes": steps.shape[0]} if lanes != 1 else
+            {"shared_lanes": steps.shape[0]} if hidden == SHARED_WIDTH else {})
     useful = steps.sum()
     table = dict(gathers=useful * gathers) if gathers else {}
     trace.count("march", lanes=steps.shape[0], active_in=state.active.sum(), useful=useful,
-                slots=slots, **split, **table)
+                slots=slots, **mode, **table)
 
 
 def raygen_state(cam_to_world: torch.Tensor, pos: torch.Tensor, config: RenderConfig):

@@ -22,7 +22,12 @@ on every call of every scene and of anim_demo (256x256 rays, where the
 bar's shares are read), on lane counts that end
 inside a warp (the march replayed with the kernel's own chain, bit for
 bit) and on a bucket with no active lane; on the 4-input anim_demo widened
-too, and from a cold start (K5).
+too, and from a cold start (K5). At 128 a ray per thread marches a
+block's group of 64 rays at once (csrc/hidden128_group.cuh): every scene
+and anim_demo on both chains at that bar, ragged lane counts around the
+group (1, 63, 127, 129, 1000, 4095) run to dry and bounded (16 and 24
+steps), K5 on both chains, and a seeded 1080p bundle equal bit for bit to
+the per-warp chains' recorded outputs (tests/fixtures/w128_bundle.npz).
 The fused forward (K3, 3xTF32 on the tensor cores) against its plain
 version at every width, on 65536 seeded points, at chip_smoke.K3_ATOL, and
 on ragged batches and shallow nets. The three-pass chain (K2h, bf16 MMA over
@@ -573,10 +578,13 @@ def test_raygen_kernel_matches_plain(precision):
     assert not k[0].active[pad].any() and not k[0].converged[pad].any()
 
 
-def test_raygen_fp32_tensor_core_matches_plain():
-    """K5 with the FP32 chain on the tensor cores: csg_demo widened to 128
-    at 64x64 in 16x16 block order plus 8 pad lanes (a partial last warp),
-    the coarse call's eps and relaxation, at the tensor-core bar."""
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_raygen_fp32_tensor_core_matches_plain(precision):
+    """K5 at 128 (a block's group of rays at once): csg_demo widened to 128
+    at 64x64 in 16x16 block order plus 8 pad lanes (a partial last warp
+    and group), the coarse call's eps and relaxation, with the FP32 chain
+    on the tensor cores (COARSE_FP32) and the three-pass chain (the default
+    coarse call), at the tensor-core bar."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import cudaneuralrender_torch as cnr
@@ -586,12 +594,13 @@ def test_raygen_fp32_tensor_core_matches_plain():
 
     dev = torch.device("cuda", 0)
     params = chip_smoke.wide_params(cnr, 4, dev)
-    cfg = cnr.RenderConfig(width=64, height=64, **chip_smoke.COARSE_FP32)
+    fields = chip_smoke.COARSE_FP32 if precision == "default" else {}
+    cfg = cnr.RenderConfig(width=64, height=64, **fields)
     c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
     pos = torch.cat([renderer._block_order(64, 64, 16, 16, dev),
                      torch.full((8,), -1, dtype=torch.int32, device=dev)])
-    kw = dict(march_eps=cfg.coarse_eps, relax_omega=cfg.relax_omega, return_resolve=True,
-              cyl_window=cfg.cyl_window_coarse)
+    kw = dict(march_eps=cfg.coarse_eps, precision=cfg.coarse_precision,
+              relax_omega=cfg.relax_omega, return_resolve=True, cyl_window=cfg.cyl_window_coarse)
     k = megakernel.march_raygen(params, c2w, pos, cfg, **kw)
     p = megakernel.march_raygen_plain(params, c2w, pos, cfg, **kw)
     a = chip_smoke.call_agreement(
@@ -673,7 +682,13 @@ def _thread_call(params, call):
 THREAD_SIDE = 256
 
 
-@pytest.fixture(scope="module", params=SPLIT_CASES, ids=[f"{c}_h{h}" for c, h in SPLIT_CASES])
+# A ray per thread at 128 marches a block's group of rays at once
+# (csrc/hidden128_group.cuh): every scene and window instantiation there,
+# and anim_demo widened to 128 (4 inputs), at the same bar.
+THREAD_CASES = SPLIT_WARP_CASES
+
+
+@pytest.fixture(scope="module", params=THREAD_CASES, ids=[f"{c}_h{h}" for c, h in THREAD_CASES])
 def thread_calls(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -704,6 +719,66 @@ def test_thread_kernel_matches_plain(thread_calls, variant):
     k = megakernel.march_state(params, origin, dirs, state, cfg, frame, _ray_lanes=1, **kw)
     a = chip_smoke.tc_agreement(params, call, k, p)
     chip_smoke.check_agreement({variant: a})
+
+
+@pytest.mark.parametrize("label", list(CASES))
+def test_three_pass_group_kernel_matches_plain(label):
+    """The three-pass chain at 128 (a block's group of rays at once) under
+    every scene and window instantiation and on the 4-input anim_demo
+    widened to 128: the HIGH phase's calls at THREAD_SIDE (where the bar's
+    shares are read) against the plain version at the kernel bar
+    (chip_smoke.compare_high_with_plain), each launch counted under the
+    width's three-pass launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    from cudaneuralrender_torch.kernels import megakernel
+    from cudaneuralrender_torch.ops import camera as camera_lib
+
+    scene, _, asset, n_in = CASES[label]
+    dev = torch.device("cuda", 0)
+    params = _split_params(asset, 128, dev)
+    cfg = cnr.RenderConfig(width=THREAD_SIDE, height=THREAD_SIDE, scene=scene, num_inputs=n_in)
+    c2w, _ = camera_lib.view_matrices(cnr.Camera(**chip_smoke.CAMERA), dev)
+    origin, dirs = camera_lib.generate_rays(c2w, THREAD_SIDE, THREAD_SIDE, cfg.focal)
+    before = megakernel.THREE_PASS_LAUNCHES[128]
+    result = chip_smoke.compare_high_with_plain(params, cfg, origin, dirs)
+    torch.cuda.synchronize()
+    assert megakernel.THREE_PASS_LAUNCHES[128] - before == len(HIGH_VARIANTS)
+    chip_smoke.check_agreement(result)
+
+
+W128_BUNDLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                           "w128_bundle.npz")
+
+
+def test_group_kernel_equals_recorded_bundle():
+    """The 128-wide march a ray per thread equals, bit for bit (t, budget,
+    the flags, each lane's steps), the outputs that the per-warp chains
+    (march.cuh march_kernel on chain_tf32_smem / chain_3pass_smem) gave on
+    the card for a seeded bundle of a 1080p pose's rays (tests/w128_bundle.py:
+    the coarse calls of both chains, the refine rungs of 16 and 24 steps,
+    the cold start K5 at both precisions), the later calls starting from
+    the recorded outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import cudaneuralrender_torch as cnr
+    import w128_bundle
+
+    rec = np.load(W128_BUNDLE)
+    dev = torch.device("cuda", 0)
+    params = chip_smoke.wide_params(cnr, 4, dev)
+    assert w128_bundle.fingerprint(params) == float(rec["fingerprint"])
+    cfg = cnr.RenderConfig(width=w128_bundle.WIDTH, height=w128_bundle.HEIGHT,
+                           march_impl="staged")
+    inputs = [torch.as_tensor(rec[k], device=dev) for k in ("c2w", "origin", "dirs", "pos")]
+    out = w128_bundle.run_calls(cnr, params, cfg, *inputs, recorded=rec)
+    torch.cuda.synchronize()
+    assert sorted(out) == sorted(w128_bundle.CALLS)
+    for name, values in out.items():
+        for key, got in zip(w128_bundle.OUTPUTS, values):
+            want = torch.as_tensor(rec[f"{name}.{key}"], device=dev)
+            assert torch.equal(got, want), (name, key, int((got != want).sum()))
 
 
 def _replay_equal(params, call, k):
@@ -758,7 +833,7 @@ def test_split_kernel_no_active_lane(hidden):
     assert bool((lane_steps == int(idle.steps)).all())
 
 
-@pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("hidden", [32, 64, 128])
 def test_thread_kernel_no_active_lane(hidden):
     """A bucket with no active lane a ray per thread: the entry state back,
     the plain version's bit for bit."""
@@ -789,18 +864,21 @@ def test_split_kernel_ragged_n(hidden, n):
     chip_smoke.split_equal(params, (origin, dirs[order].contiguous(), part, cfg, frame, kw))
 
 
-@pytest.mark.parametrize("hidden", [32, 64])
-@pytest.mark.parametrize("n", [1, 17, 1000, 4095])
-def test_thread_kernel_ragged_n(hidden, n):
-    """Lane counts that end inside a warp (and n = 1) a ray per thread: the
-    terminal call's first n lanes (sorted, the actives first), replayed by
-    the plain march with the kernel's own chain bit for bit, that chain
+@pytest.mark.parametrize("hidden", [32, 64, 128])
+@pytest.mark.parametrize("n", [1, 17, 63, 127, 129, 1000, 4095])
+@pytest.mark.parametrize("num_steps", [None, 16, 24])
+def test_thread_kernel_ragged_n(hidden, n, num_steps):
+    """Lane counts that end inside a warp or a 128-wide group (and n = 1) a
+    ray per thread: the terminal call's first n lanes (sorted, the actives
+    first), run to dry and as the bounded rungs of 16 and 24 steps, replayed
+    by the plain march with the kernel's own chain bit for bit, that chain
     within K1_MMA_SDF_ATOL of the plain one on the way, and the replay of
     the lanes beyond the tensor-core bar (chip_smoke.replay_beyond) landing
-    on the kernel's results."""
+    on the kernel's results. The lanes stop at different steps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     params, (origin, dirs, state, cfg, frame, kw) = _terminal_call(hidden)
+    kw = dict(kw, num_steps=num_steps)
     order = torch.argsort((~state.active).to(torch.int8), stable=True)[:n]
     part = state._replace(**{f: getattr(state, f)[order]
                              for f in ("t", "budget", "active", "converged")})

@@ -9,10 +9,13 @@ rungs run on the march kernel's plain version, ``march_state``):
     the fast path;
   * with tracing on, each span of the staged frame appears once a frame,
     nested under its parent, and the device spans are None on the CPU;
-  * one hand-built ``march_state`` call counts its lanes, its active lanes
-    at entry, ``useful`` = sum(lane_steps - start) and ``slots`` = 32 x the
-    sum over warps of the deepest lane (a ray per thread) or the ray-steps
-    (a ray per warp);
+  * one hand-built ``march_state`` call, at 32 and at 128 (csg_demo
+    widened), counts its lanes, its active lanes at entry, ``useful`` =
+    sum(lane_steps - start) and ``slots`` = the lockstep unit x the sum
+    over units of the deepest lane (a ray per thread: a warp of 32, at 128
+    a block's group of ``megakernel.SHARED_GROUP`` rays, the launcher's
+    ``kGroupRays``) or the ray-steps (a ray per warp), and ``split_lanes``
+    (a ray per warp) or ``shared_lanes`` (a ray per thread at 128);
   * with tracing off, a profiled frame issues as many aten ops as with
     ``span`` and ``count`` patched to no-ops.
 On the card (marked ``cuda``; skips elsewhere): a captured CUDA graph
@@ -22,6 +25,7 @@ with ``python -m pytest tests/test_torch_trace.py --noconftest -m cuda``.
 """
 import contextlib
 import os
+import re
 
 import pytest
 import torch
@@ -119,10 +123,34 @@ def test_every_span_once_a_frame_nested(params):
         assert counters[key + "active_in"] <= counters[key + "lanes"], phase
 
 
-@pytest.mark.parametrize("lanes", [1, megakernel.SPLIT_LANES])
-def test_march_counters_of_one_call(params, lanes):
+@pytest.fixture(scope="module")
+def params128(params):
+    """csg_demo widened to 3 -> 128 x 8 -> 1 (chip_smoke.widen)."""
+    import chip_smoke
+
+    return ct.from_numpy_params(chip_smoke.widen(ct.mlp.to_numpy_params(params), 4, seed=4),
+                                device="cpu")
+
+
+def _group_in_source(name: str) -> int:
+    """A constant of the 128-wide group march in the launcher's source
+    (csrc/chain.cuh: ``kGroupRays``, the rays of a group; ``kGroupBlock``,
+    the threads of a block)."""
+    with open(os.path.join(REPO, "cudaneuralrender_torch", "csrc", "chain.cuh")) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);", f.read()).group(1))
+
+
+@pytest.mark.parametrize("hidden,lanes", [(32, 1), (32, megakernel.SPLIT_LANES), (128, 1),
+                                          (128, megakernel.SPLIT_LANES)])
+def test_march_counters_of_one_call(params, params128, hidden, lanes):
+    """One call's counters: ``slots`` at the lockstep unit the launch used
+    (a warp at 32; a block's group, SHARED_GROUP rays as the launcher's
+    source has it, at 128 a ray per thread; each ray alone a ray per warp),
+    ``split_lanes`` a ray per warp, ``shared_lanes`` only at 128 a ray per
+    thread."""
+    net = params128 if hidden == 128 else params
     cfg = ct.RenderConfig(**SMALL).validate()
-    n, start = 70, 5  # the last warp holds 6 lanes
+    n, start = 70, 5  # the last warp holds 6 lanes, the last 64-ray group 6
     g = torch.Generator().manual_seed(3)
     theta = torch.rand(n, generator=g) * 0.6 - 0.3
     dirs = torch.stack([torch.sin(theta), 0.2 * torch.cos(theta), torch.cos(theta)], 1)
@@ -135,19 +163,19 @@ def test_march_counters_of_one_call(params, lanes):
     trace.reset()
     with trace.span("call"):
         _, lane_steps = megakernel.march_state(
-            params, origin, dirs, state, cfg, num_steps=40, return_resolve=True,
+            net, origin, dirs, state, cfg, num_steps=40, return_resolve=True,
             _ray_lanes=lanes)
     counters = trace.snapshot()["counters"]
     steps = (lane_steps - start).tolist()
     assert max(steps) > 0 and min(steps) == 0
-    if lanes == 1:
-        warps = [steps[i:i + 32] for i in range(0, n, 32)]
-        slots = 32 * sum(max(w) for w in warps)
-    else:
-        slots = sum(steps)
-    split = {} if lanes == 1 else {"call/march.split_lanes": n}
+    unit = 1 if lanes != 1 else (_group_in_source("kGroupRays") if hidden == 128 else 32)
+    assert megakernel.SHARED_BLOCK == _group_in_source("kGroupBlock")
+    assert megakernel.lockstep_lanes(hidden, lanes) == unit
+    slots = unit * sum(max(steps[i:i + unit]) for i in range(0, n, unit))
+    mode = ({"call/march.split_lanes": n} if lanes != 1 else
+            {"call/march.shared_lanes": n} if hidden == 128 else {})
     assert counters == {"call/march.lanes": n, "call/march.active_in": int(active.sum()),
-                        "call/march.useful": sum(steps), "call/march.slots": slots, **split}
+                        "call/march.useful": sum(steps), "call/march.slots": slots, **mode}
     assert counters["call/march.useful"] <= counters["call/march.slots"]
 
 
